@@ -1,0 +1,41 @@
+"""omega_tpu_torch — the PyTorch/CUDA port of the omega_tpu ocean dynamical core.
+
+The layered nonlinear shallow-water equations plus tracer
+advection-diffusion, discretized with the TRiSK finite-volume scheme
+(Thuburn 2009 / Ringler 2010) on MPAS-format Voronoi meshes. The package
+mirrors the JAX package's layout (mesh/, ops/, core/, stepping/) so each
+module's counterpart is found by path; it imports torch and numpy only.
+
+Plain tensor code is PyTorch; the two hot kernels (the fused
+forward-backward step and the structured stencil pass) are CUDA C++
+under csrc/, compiled at first use by ops/_build.py.
+
+Devices are explicit: every function that creates tensors takes
+`device=None`, meaning `default_device()`, which is the CUDA device and
+raises when there is none. Nothing carries on on the CPU because it found
+no GPU; callers that want the CPU (the tests) pass device="cpu".
+"""
+
+__version__ = "0.1.0"
+
+import torch
+
+from omega_tpu_torch import constants  # noqa: F401
+
+
+def default_device() -> torch.device:
+    """The device entry points use when the caller names none: CUDA.
+
+    Raises RuntimeError when no CUDA device is present."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "omega_tpu_torch needs a CUDA device; none is available "
+            "(pass device='cpu' explicitly to run the plain versions)")
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device; None means default_device()."""
+    if device is None:
+        return default_device()
+    return torch.device(device)

@@ -1,0 +1,2 @@
+from omega_tpu_torch.mesh.horz_mesh import HorzMesh, finalize_mesh
+from omega_tpu_torch.mesh.planar import planar_hex_mesh

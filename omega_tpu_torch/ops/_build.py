@@ -1,0 +1,133 @@
+"""Builds and loads the CUDA kernels of csrc/.
+
+The sources have a plain C interface and include no PyTorch header, so
+`nvcc` compiles each in seconds. Every `csrc/*.cu` is compiled to an object
+file (one `nvcc` per source, all started together) and the objects are
+linked into ONE shared library under `omega_tpu_torch/build/`, named after a
+hash of the sources, which `ctypes` loads. Nothing is built when the package
+is imported: the first CUDA tensor that needs a kernel triggers `load()`.
+A failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIB = None
+# filled by the build: seconds taken and the compiler's resource report
+# (registers, shared memory, spills per kernel), for chip_smoke.py to print
+BUILD_INFO = {"seconds": None, "cached": None, "ptxas": ""}
+
+
+def _nvcc() -> str:
+    exe = shutil.which("nvcc")
+    if exe:
+        return exe
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(looked on PATH, $CUDA_HOME and /usr/local/cuda)")
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into build/libomega_kernels_<hash>.so (reused when
+    the sources have not changed) and return its path."""
+    lib = BUILD_DIR / f"libomega_kernels_{_digest()}.so"
+    if lib.exists():
+        BUILD_INFO.update(seconds=0.0, cached=True)
+        return lib
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    report, failed = [], []
+    for src, proc in procs:
+        out, _ = proc.communicate()
+        report.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name} "
+                          f"(exit {proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    tmp = BUILD_DIR / f"{tag}.so"
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link {lib.name} "
+                           f"(exit {link.returncode}):\n{link.stdout}")
+    os.replace(tmp, lib)       # atomic: a concurrent build loses nothing
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False,
+                      ptxas="".join(report))
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' shared library, built at first use."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    lib = ctypes.CDLL(str(build()))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for name in ("omega_stencil_f32", "omega_stencil_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, vp]       # in, out, params, stream
+        fn.restype = ci
+    for name in ("omega_fb_step_f32", "omega_fb_step_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp, vp, ci, vp]   # in, out, params, threads, stream
+        fn.restype = ci
+    for name in ("omega_stencil_params_size_f32",
+                 "omega_stencil_params_size_f64",
+                 "omega_fb_params_size_f32", "omega_fb_params_size_f64",
+                 "omega_fb_slots"):
+        fn = getattr(lib, name)
+        fn.argtypes = []
+        fn.restype = ci
+    lib.omega_error_string.argtypes = [ci]
+    lib.omega_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error code."""
+    if code != 0:
+        msg = load().omega_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code}: {msg}")

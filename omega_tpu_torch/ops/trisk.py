@@ -1,0 +1,324 @@
+"""TRiSK horizontal stencil operators.
+
+The reference implements these as per-element Kokkos functors with inner
+neighbor loops (ocn/HorzOperators.h:9-187). Here every operator is a
+whole-array weighted gather: neighbor indices are static (C, M) int32
+arrays (padded entries point at element 0 with weight 0) and the vertical
+dimension K is the trailing axis of every field.
+
+Two execution paths, numerically equivalent:
+  * gather path — general unstructured MPAS meshes; also the oracle the
+    tests hold the structured path against
+  * shift path  — uniform planar hex meshes (ops/structured.py): every
+    neighbor access becomes a lattice shift (the stencil kernel on a CUDA
+    field, rolls on a CPU field)
+
+Besides the five classic operators, this module exposes the gather
+PRIMITIVES the aux-var/tendency layers build on (cell/vertex pairs on
+edges, kite-weighted cell->vertex, signed edge->cell sums), so the whole
+hot path inherits the fast path on structured meshes.
+
+Field shape conventions: cell fields (..., C, K), edge fields (..., E, K),
+vertex fields (..., V, K). Operators are linear maps between classes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from omega_tpu_torch.mesh.horz_mesh import HorzMesh
+from omega_tpu_torch.ops import structured
+
+
+def _take(field, idx):
+    """field[..., idx, :] for an index array of any shape."""
+    flat = field.index_select(-2, idx.reshape(-1))
+    return flat.reshape(field.shape[:-2] + tuple(idx.shape)
+                        + field.shape[-1:])
+
+
+def _gather_sum(weights, idx, field):
+    """sum_j weights[n, j] * field[..., idx[n, j], k] -> (..., n, K)."""
+    g = _take(field, idx)                        # (..., N, M, K)
+    return torch.einsum("nj,...njk->...nk", weights.to(field.dtype), g)
+
+
+def _struct(mesh, name, idx, dst, src, weights=None):
+    """Fast-path stencil table (name-tagged) of a uniform planar mesh, or
+    None."""
+    if structured.enabled(mesh):
+        tab, dstc, srcc = structured.stencil_table(mesh, name, idx, dst,
+                                                   src, weights)
+        return (tab, dstc, srcc, name) if tab is not None else None
+    return None
+
+
+def col(mesh: HorzMesh, attr: str):
+    """Per-element column of a mesh array for broadcasting against
+    (..., N, K) fields: a plain python scalar when the array is uniform on
+    a structured mesh, else the (N, 1) column."""
+    sc = structured.uniform_scalar(mesh, attr)
+    if sc is not None:
+        return sc
+    return getattr(mesh, attr)[:, None]
+
+
+def warm_structured(mesh: HorzMesh) -> bool:
+    """Eagerly build every stencil table for a structured mesh while its
+    arrays are host numpy (called by the planar generator). Returns True
+    when the shift path is fully available."""
+    if not structured.enabled(mesh):
+        return False
+    w_signed = -np.asarray(mesh.edge_sign_on_cell) / np.asarray(
+        mesh.area_cell)[:, None]
+    w_div = np.asarray(mesh.w_div_cell)
+    specs = [
+        ("div_pos", mesh.edges_on_cell, "cell", "edge",
+         np.maximum(w_div, 0.0)),
+        ("div_neg", mesh.edges_on_cell, "cell", "edge",
+         np.maximum(-w_div, 0.0)),
+        ("div", mesh.edges_on_cell, "cell", "edge", mesh.w_div_cell),
+        ("ke", mesh.edges_on_cell, "cell", "edge", mesh.w_ke_cell),
+        ("signed_div", mesh.edges_on_cell, "cell", "edge", w_signed),
+        ("curl", mesh.edges_on_vertex, "vertex", "edge", mesh.w_curl_vertex),
+        ("kite", mesh.cells_on_vertex, "vertex", "cell", mesh.w_kite_frac),
+        ("tang", mesh.edges_on_edge, "edge", "edge", mesh.weights_on_edge),
+        ("c0", mesh.cells_on_edge[:, 0], "edge", "cell", None),
+        ("c1", mesh.cells_on_edge[:, 1], "edge", "cell", None),
+        ("v0", mesh.vertices_on_edge[:, 0], "edge", "vertex", None),
+        ("v1", mesh.vertices_on_edge[:, 1], "edge", "vertex", None),
+        ("cdiff", mesh.cells_on_edge, "edge", "cell",
+         np.tile([-1.0, 1.0], (mesh.nedges, 1))),
+        ("cmean", mesh.cells_on_edge, "edge", "cell",
+         np.full((mesh.nedges, 2), 0.5)),
+        ("vdiff", mesh.vertices_on_edge, "edge", "vertex",
+         np.tile([-1.0, 1.0], (mesh.nedges, 1))),
+        ("vmean", mesh.vertices_on_edge, "edge", "vertex",
+         np.full((mesh.nedges, 2), 0.5)),
+    ] + [(f"coc{j}", np.asarray(mesh.cells_on_cell)[:, j], "cell", "cell",
+          None) for j in range(mesh.cells_on_cell.shape[1])]
+    ok = True
+    for name, idx, dst, src, w in specs:
+        tab, _, _ = structured.stencil_table(mesh, name, idx, dst, src, w)
+        ok = ok and tab is not None
+    return ok
+
+
+# ----------------------------------------------------------------------
+# primitives
+
+def _pair(mesh, f, name0, name1, idx0, idx1, dst, src):
+    t0 = _struct(mesh, name0, idx0, dst, src)
+    if t0 is None:
+        return _take(f, idx0), _take(f, idx1)
+    t1 = _struct(mesh, name1, idx1, dst, src)
+    return (structured.apply_stencil(mesh, t0, f),
+            structured.apply_stencil(mesh, t1, f))
+
+
+def cell_pair_on_edge(mesh: HorzMesh, f):
+    """(f[cellsOnEdge[:,0]], f[cellsOnEdge[:,1]]) for a cell field."""
+    return _pair(mesh, f, "c0", "c1", mesh.cells_on_edge[:, 0],
+                 mesh.cells_on_edge[:, 1], "edge", "cell")
+
+
+def vertex_pair_on_edge(mesh: HorzMesh, f):
+    """(f[verticesOnEdge[:,0]], f[verticesOnEdge[:,1]]) for a vertex field."""
+    return _pair(mesh, f, "v0", "v1", mesh.vertices_on_edge[:, 0],
+                 mesh.vertices_on_edge[:, 1], "edge", "vertex")
+
+
+def _two_slot(mesh, f, name, idx2, w01, combine, dst, src):
+    """Fused 2-slot stencil w0*f[idx2[:,0]] + w1*f[idx2[:,1]] in ONE
+    pass — the separate pair gathers cost a full sweep each, and most
+    consumers only need the difference or mean."""
+    w_np = None
+    if isinstance(idx2, np.ndarray):
+        w_np = np.tile(np.asarray(w01, np.float64), (idx2.shape[0], 1))
+    t = _struct(mesh, name, idx2, dst, src, w_np)
+    if t is not None:
+        return structured.apply_stencil(mesh, t, f)
+    return combine(_take(f, idx2[:, 0]), _take(f, idx2[:, 1]))
+
+
+def cell_diff_on_edge(mesh: HorzMesh, f):
+    """f[coe1] - f[coe0] (the gradient numerator) in one pass."""
+    return _two_slot(mesh, f, "cdiff", mesh.cells_on_edge, (-1.0, 1.0),
+                     lambda a, b: b - a, "edge", "cell")
+
+
+def cell_mean_on_edge(mesh: HorzMesh, f):
+    """0.5*(f[coe0] + f[coe1]) in one pass."""
+    return _two_slot(mesh, f, "cmean", mesh.cells_on_edge, (0.5, 0.5),
+                     lambda a, b: 0.5 * (a + b), "edge", "cell")
+
+
+def vertex_diff_on_edge(mesh: HorzMesh, f):
+    """f[voe1] - f[voe0] in one pass."""
+    return _two_slot(mesh, f, "vdiff", mesh.vertices_on_edge, (-1.0, 1.0),
+                     lambda a, b: b - a, "edge", "vertex")
+
+
+def vertex_mean_on_edge(mesh: HorzMesh, f):
+    """0.5*(f[voe0] + f[voe1]) in one pass."""
+    return _two_slot(mesh, f, "vmean", mesh.vertices_on_edge, (0.5, 0.5),
+                     lambda a, b: 0.5 * (a + b), "edge", "vertex")
+
+
+def cell_to_vertex_kite(mesh: HorzMesh, f):
+    """Kite-area-fraction interpolation of a cell field to vertices
+    (h_vertex of VorticityAuxVars.h:36-48)."""
+    t = _struct(mesh, "kite", mesh.cells_on_vertex, "vertex", "cell",
+                mesh.w_kite_frac)
+    if t is not None:
+        return structured.apply_stencil(mesh, t, f)
+    return _gather_sum(mesh.w_kite_frac, mesh.cells_on_vertex, f)
+
+
+def edge_to_cell_signed(mesh: HorzMesh, g):
+    """sum_e -sign(c,e)/A_c * g[e]: the shared edge->cell accumulation of
+    the tracer laplacian/diffusion terms (TracerAuxVars.h:70-105)."""
+    w_np = None
+    if isinstance(mesh.edge_sign_on_cell, np.ndarray):
+        w_np = -np.asarray(mesh.edge_sign_on_cell) / np.asarray(
+            mesh.area_cell)[:, None]
+    t = _struct(mesh, "signed_div", mesh.edges_on_cell, "cell", "edge",
+                w_np)
+    if t is not None:
+        return structured.apply_stencil(mesh, t, g)
+    w = -mesh.edge_sign_on_cell / mesh.area_cell[:, None]
+    return _gather_sum(w, mesh.edges_on_cell, g)
+
+
+def ke_cell(mesh: HorzMesh, u):
+    """Kinetic energy at cells: sum_e w_ke * u_e^2 (KineticAuxVars.h:12-60)."""
+    u2 = torch.square(u)
+    t = _struct(mesh, "ke", mesh.edges_on_cell, "cell", "edge",
+                mesh.w_ke_cell)
+    if t is not None:
+        return structured.apply_stencil(mesh, t, u2)
+    return _gather_sum(mesh.w_ke_cell, mesh.edges_on_cell, u2)
+
+
+def _signed_div_part(mesh: HorzMesh, g, positive: bool):
+    name = "div_pos" if positive else "div_neg"
+    w_np = None
+    if isinstance(mesh.w_div_cell, np.ndarray):
+        w_np = np.maximum(np.asarray(mesh.w_div_cell)
+                          * (1.0 if positive else -1.0), 0.0)
+    t = _struct(mesh, name, mesh.edges_on_cell, "cell", "edge", w_np)
+    if t is not None:
+        return structured.apply_stencil(mesh, t, g)
+    w = torch.clamp(mesh.w_div_cell * (1.0 if positive else -1.0),
+                    min=0.0)
+    return _gather_sum(w, mesh.edges_on_cell, g)
+
+
+def div_cell_pos(mesh: HorzMesh, g):
+    """sum_j max(w_div, 0) * g[eoc] — the outgoing-flux part of the
+    divergence, used by the FCT limiter budgets."""
+    return _signed_div_part(mesh, g, True)
+
+
+def div_cell_neg(mesh: HorzMesh, g):
+    """sum_j max(-w_div, 0) * g[eoc] — the incoming-flux part."""
+    return _signed_div_part(mesh, g, False)
+
+
+def cell_neighbor_extrema(mesh: HorzMesh, f):
+    """(max, min) of a cell field over each cell and its edge neighbors —
+    the local bounds used by the Zalesak FCT limiter."""
+    if structured.enabled(mesh):
+        coc = mesh.cells_on_cell
+        tabs = [structured.stencil_table(
+            mesh, f"coc{j}",
+            coc[:, j] if isinstance(coc, np.ndarray) else coc,
+            "cell", "cell", None) for j in range(coc.shape[1])]
+        if all(t[0] is not None for t in tabs):
+            fmax = fmin = f
+            for t in tabs:
+                g = structured.apply_stencil(mesh, t, f)
+                fmax = torch.maximum(fmax, g)
+                fmin = torch.minimum(fmin, g)
+            return fmax, fmin
+    coc = mesh.cells_on_cell
+    nbr = _take(f, coc)                              # (..., C, M, K)
+    valid = (torch.arange(coc.shape[1], device=f.device)[None, :]
+             < mesh.n_edges_on_cell[:, None])[..., None]
+    big = torch.finfo(f.dtype).max
+    fmax = torch.maximum(
+        f, torch.amax(torch.where(valid, nbr, -big), dim=-2))
+    fmin = torch.minimum(
+        f, torch.amin(torch.where(valid, nbr, big), dim=-2))
+    return fmax, fmin
+
+
+# ----------------------------------------------------------------------
+# classic TRiSK operators
+
+def div_cell(mesh: HorzMesh, vec_edge):
+    """Divergence of an edge-normal vector field at cell centers.
+
+    div(c) = -(1/A_c) sum_e sign(c,e) dv_e u_e   (HorzOperators.h:9-42)
+    """
+    t = _struct(mesh, "div", mesh.edges_on_cell, "cell", "edge",
+                mesh.w_div_cell)
+    if t is not None:
+        return structured.apply_stencil(mesh, t, vec_edge)
+    return _gather_sum(mesh.w_div_cell, mesh.edges_on_cell, vec_edge)
+
+
+def grad_edge(mesh: HorzMesh, scalar_cell):
+    """Normal gradient of a cell scalar on edges (HorzOperators.h:44-66)."""
+    return cell_diff_on_edge(mesh, scalar_cell) / col(mesh, "dc_edge")
+
+
+def curl_vertex(mesh: HorzMesh, vec_edge):
+    """Relative vorticity (curl) of an edge-normal field at vertices.
+
+    curl(v) = (1/A_v) sum_e sign(v,e) dc_e u_e   (HorzOperators.h:68-102)
+    """
+    t = _struct(mesh, "curl", mesh.edges_on_vertex, "vertex", "edge",
+                mesh.w_curl_vertex)
+    if t is not None:
+        return structured.apply_stencil(mesh, t, vec_edge)
+    return _gather_sum(mesh.w_curl_vertex, mesh.edges_on_vertex, vec_edge)
+
+
+def tangential_edge(mesh: HorzMesh, vec_edge):
+    """Tangential velocity reconstruction on edges via TRiSK weights.
+
+    t(e) = sum_{e'} w(e,e') u(e')   (HorzOperators.h:104-133)
+    """
+    t = _struct(mesh, "tang", mesh.edges_on_edge, "edge", "edge",
+                mesh.weights_on_edge)
+    if t is not None:
+        return structured.apply_stencil(mesh, t, vec_edge)
+    return _gather_sum(mesh.weights_on_edge, mesh.edges_on_edge, vec_edge)
+
+
+def interp_cell_to_edge_aniso(mesh: HorzMesh, scalar_cell):
+    """Two-cell average onto edges (HorzOperators.h:158-164)."""
+    was_1d = scalar_cell.ndim == 1
+    f = scalar_cell[:, None] if was_1d else scalar_cell
+    out = cell_mean_on_edge(mesh, f)
+    return out[:, 0] if was_1d else out
+
+
+def interp_cell_to_edge_iso(mesh: HorzMesh, scalar_cell):
+    """Kite-area-weighted interpolation onto edges (HorzOperators.h:166-183).
+
+    Averages over the cells of both end vertices with kite-area weights.
+    """
+    was_1d = scalar_cell.ndim == 1
+    f = scalar_cell[:, None] if was_1d else scalar_cell
+    # per-vertex kite-weighted numerator: w_kite_frac = kites/areaTri, so
+    # num_v = interp_v * areaTri; denominator is the vertex kite sum
+    # (== areaTri on interior vertices)
+    ksum = torch.sum(mesh.kite_areas_on_vertex, dim=1, keepdim=True)  # (V,1)
+    num_v = cell_to_vertex_kite(mesh, f) * mesh.area_triangle[:, None]
+    num0, num1 = vertex_pair_on_edge(mesh, num_v)
+    den0, den1 = vertex_pair_on_edge(mesh, ksum)
+    out = (num0 + num1) / (den0 + den1)
+    return out[:, 0] if was_1d else out

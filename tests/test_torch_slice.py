@@ -1,0 +1,156 @@
+"""The slice as a whole: run_steps of the port against the JAX package's,
+conservation, a float32 run, the import hygiene of the package, and the
+device rule."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import (flagship_cfg, jax_mesh, jax_state, port_cfg,
+                                port_mesh, port_state, random_fields)
+
+from omega_tpu.stepping import forward_backward_step as jfb
+from omega_tpu.stepping import run_steps as jrun_steps
+
+import omega_tpu_torch
+from omega_tpu_torch import convert
+from omega_tpu_torch.core import ModelState, init_state
+from omega_tpu_torch.mesh import planar_hex_mesh
+from omega_tpu_torch.stepping import (forward_backward_step, make_stepper,
+                                      run_steps)
+
+NX, NY, K, L = 32, 16, 4, 2
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jm = jax_mesh(NX, NY)
+    jcfg = flagship_cfg(K, L)
+    return jm, port_mesh(jm), jcfg, port_cfg(jcfg), random_fields(jm, K, L, 5)
+
+
+@pytest.fixture(scope="module")
+def five_steps(setup):
+    jm, pm, jcfg, cfg, fields = setup
+    ref = jrun_steps(jm, jcfg, jax_state(*fields), 0.0, 30.0, 5, stepper=jfb)
+    out = run_steps(pm, cfg, port_state(*fields), 0.0, 30.0, 5,
+                    stepper=forward_backward_step)
+    return ref, out
+
+
+@pytest.mark.parametrize("name,rtol,atol", [("h", 1e-11, 0.0),
+                                            ("tracers", 1e-11, 0.0),
+                                            ("u", 1e-9, 1e-13)])
+def test_run_steps_matches_jax(five_steps, name, rtol, atol):
+    """Tolerances of the JAX suite's own full-step equivalence test."""
+    ref, out = five_steps
+    h, u, tr = convert.state_to_numpy(out)
+    got = dict(h=h, u=u, tracers=tr)[name]
+    np.testing.assert_allclose(got, np.asarray(getattr(ref, name)),
+                               rtol=rtol, atol=atol)
+
+
+def test_volume_and_tracer_content_conserved(setup, five_steps):
+    jm, pm, _, _, fields = setup
+    _, out = five_steps
+    area = np.asarray(jm.area_cell)[:, None]
+    h0, _, tr0 = fields
+    h1, _, tr1 = convert.state_to_numpy(out)
+    vol0, vol1 = np.sum(area * h0), np.sum(area * h1)
+    assert abs(vol1 - vol0) / vol0 < 1e-13
+    for l in range(L):
+        c0, c1 = np.sum(area * h0 * tr0[l]), np.sum(area * h1 * tr1[l])
+        assert abs(c1 - c0) / abs(c0) < 1e-13
+
+
+def test_generic_loop_and_make_stepper_agree_with_fast_path(setup):
+    _, pm, _, cfg, fields = setup
+    st = port_state(*fields)
+    a = run_steps(pm, cfg, st, 0.0, 30.0, 2)
+    b = run_steps(pm, cfg, st, 0.0, 30.0, 2,
+                  stepper=make_stepper("Forward-Backward"),
+                  halo=lambda s: s)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=1e-12, atol=1e-14)
+    with pytest.raises(ValueError):
+        make_stepper("rungekutta4")
+
+
+def test_float32_run_conserves_and_tracks_float64():
+    """The main path's dtype, in the style of tests/test_f32.py: volume
+    and tracer content to f32 roundoff over 50 steps, finite and active,
+    ssh within f32-roundoff growth of the f64 trajectory."""
+    mesh = planar_hex_mesh(16, 16, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
+    cfg = port_cfg(flagship_cfg(3, 2))
+    kx, ky = 2 * np.pi / mesh.x_period, 2 * np.pi / mesh.y_period
+    ssh = np.sin(kx * mesh.x_cell) * np.sin(ky * mesh.y_cell)
+    h = (1000.0 + ssh[:, None]) / 3 * np.ones((1, 3))
+    tr = np.stack([10.0 + np.cos(kx * mesh.x_cell)[:, None] * np.ones((1, 3)),
+                   20.0 * np.ones((mesh.ncells, 3))])
+    u = np.zeros((mesh.nedges, 3))
+    area = mesh.area_cell[:, None]
+    outs = {}
+    for dtype in (torch.float32, torch.float64):
+        st = convert.state_from_numpy(h, u, tr, device="cpu", dtype=dtype)
+        out = run_steps(mesh.to("cpu", dtype), cfg, st, 0.0, 30.0, 50)
+        assert out.h.dtype == dtype and out.u.dtype == dtype
+        outs[dtype] = [x.astype(np.float64)
+                       for x in convert.state_to_numpy(out)]
+    h32, u32, tr32 = outs[torch.float32]
+    h0 = h.astype(np.float32).astype(np.float64)
+    tr0 = tr.astype(np.float32).astype(np.float64)
+    vol0, vol1 = np.sum(area * h0), np.sum(area * h32)
+    assert abs(vol1 - vol0) / vol0 < 5e-6
+    c0, c1 = np.sum(area * h0 * tr0[0]), np.sum(area * h32 * tr32[0])
+    assert abs(c1 - c0) / c0 < 5e-6
+    assert np.isfinite(h32).all() and 0 < np.abs(u32).max() < 1.0
+    err = np.abs(h32.sum(-1) - outs[torch.float64][0].sum(-1)).max()
+    assert err < 1000.0 * 50 * np.finfo(np.float32).eps, err
+
+
+def test_init_state_is_resting(setup):
+    _, pm, _, _, _ = setup
+    st = init_state(pm, K, L, dtype=torch.float64, device="cpu")
+    assert isinstance(st, ModelState)
+    assert tuple(st.h.shape) == (pm.ncells, K)
+    assert tuple(st.tracers.shape) == (L, pm.ncells, K)
+    assert torch.all(st.h == 1000.0 / K) and torch.all(st.u == 0)
+
+
+def test_default_device_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        assert omega_tpu_torch.default_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError):
+        omega_tpu_torch.default_device()
+    mesh = planar_hex_mesh(16, 8)
+    with pytest.raises(RuntimeError):
+        mesh.to()
+    with pytest.raises(RuntimeError):
+        init_state(mesh, 2, 1)
+    with pytest.raises(RuntimeError):
+        convert.state_from_numpy(np.zeros((4, 2)), np.zeros((12, 2)),
+                                 np.zeros((1, 4, 2)))
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import omega_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    omega_tpu_torch.__path__, 'omega_tpu_torch.')]\n"
+        "assert len(names) >= 15, names\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'omega_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean', len(names))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=str(__import__("pathlib").Path(
+                             omega_tpu_torch.__file__).parent.parent))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("clean")
