@@ -6,9 +6,10 @@ advection-diffusion, discretized with the TRiSK finite-volume scheme
 mirrors the JAX package's layout (mesh/, ops/, core/, stepping/) so each
 module's counterpart is found by path; it imports torch and numpy only.
 
-Plain tensor code is PyTorch; the two hot kernels (the fused
-forward-backward step and the structured stencil pass) are CUDA C++
-under csrc/, compiled at first use by ops/_build.py.
+Plain tensor code is PyTorch; the hot kernels (the fused
+forward-backward step, the vertical-mixing coefficient and column-solve
+kernels, and the structured stencil pass) are CUDA C++ under csrc/,
+compiled at first use by ops/_build.py.
 
 Devices are explicit: every function that creates tensors takes
 `device=None`, meaning `default_device()`, which is the CUDA device and

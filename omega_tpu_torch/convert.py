@@ -10,6 +10,7 @@ JAX side), so this module imports nothing of JAX.
     mesh   = mesh_from_numpy(arrays, meta, device, dtype)
     cfg    = config_from_dict(dataclasses.asdict(jcfg))
     state  = state_from_numpy(h, u, tracers, device, dtype)
+    wind   = wind_from_numpy(zonal, merid, device, dtype)
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from omega_tpu_torch.mesh.horz_mesh import ARRAY_FIELDS, META_FIELDS, HorzMesh
 from omega_tpu_torch.ops import structured, trisk
 
 __all__ = ["ARRAY_FIELDS", "META_FIELDS", "mesh_from_numpy",
-           "config_from_dict", "state_from_numpy", "state_to_numpy"]
+           "config_from_dict", "state_from_numpy", "state_to_numpy",
+           "wind_from_numpy"]
 
 
 def mesh_from_numpy(arrays: dict, meta: dict, device=None,
@@ -69,14 +71,23 @@ def config_from_dict(d: dict) -> ModelConfig:
     return ModelConfig(**d)
 
 
+def _put(a, dev, dtype):
+    t = torch.as_tensor(np.ascontiguousarray(a))
+    return t.to(device=dev, dtype=dtype if dtype is not None else t.dtype)
+
+
 def state_from_numpy(h, u, tracers, device=None, dtype=None) -> ModelState:
     """ModelState tensors from numpy arrays (C, K), (E, K), (L, C, K)."""
     dev = resolve_device(device)
+    return ModelState(h=_put(h, dev, dtype), u=_put(u, dev, dtype),
+                      tracers=_put(tracers, dev, dtype))
 
-    def put(a):
-        t = torch.as_tensor(np.ascontiguousarray(a))
-        return t.to(device=dev, dtype=dtype if dtype is not None else t.dtype)
-    return ModelState(h=put(h), u=put(u), tracers=put(tracers))
+
+def wind_from_numpy(zonal, merid, device=None, dtype=None):
+    """The `wind_stress` argument of the steppers, (zonal, merid) cell
+    stresses [N m^-2], from two numpy arrays (C,)."""
+    dev = resolve_device(device)
+    return _put(zonal, dev, dtype), _put(merid, dev, dtype)
 
 
 def state_to_numpy(state: ModelState):

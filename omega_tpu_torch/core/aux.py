@@ -5,8 +5,7 @@ ocn/auxiliaryVars/. Each reference Kokkos kernel becomes a whole-array
 stencil expression over (element, K) tensors.
 
 `MomentumAux` / `TracerAux` bundles mirror the reference's AuxiliaryState
-members so tendencies can consume one object. The wind-stress group
-arrives with the wind-forcing slice of the port.
+members so tendencies can consume one object.
 """
 
 from __future__ import annotations
@@ -124,19 +123,32 @@ def del2_aux(mesh: HorzMesh, div_cell, rel_vort_vertex) -> Del2Aux:
     return Del2Aux(del2_edge, del2_div, del2_rvort)
 
 
+def wind_normal_stress(mesh: HorzMesh, cfg: ModelConfig,
+                       zonal_stress_cell, merid_stress_cell) -> torch.Tensor:
+    """Rotate cell wind stress onto edge normals
+    (auxiliaryVars/WindForcingAuxVars.h:13-40)."""
+    if cfg.wind_interp_type == "isotropic":
+        zonal = trisk.interp_cell_to_edge_iso(mesh, zonal_stress_cell)
+        merid = trisk.interp_cell_to_edge_iso(mesh, merid_stress_cell)
+    else:
+        zonal = trisk.interp_cell_to_edge_aniso(mesh, zonal_stress_cell)
+        merid = trisk.interp_cell_to_edge_aniso(mesh, merid_stress_cell)
+    return (torch.cos(mesh.angle_edge) * zonal
+            + torch.sin(mesh.angle_edge) * merid)
+
+
 def compute_momentum_aux(mesh: HorzMesh, cfg: ModelConfig, h, u,
                          wind_stress=None) -> MomentumAux:
     """The computeMomAux sweep (ocn/AuxiliaryState.cpp:60-143)."""
-    if cfg.tendencies.wind_forcing:
-        raise NotImplementedError(
-            "wind_forcing: the wind-stress aux group arrives with the "
-            "wind/drag slice of the port")
     vort = vorticity_aux(mesh, h, u)
     kin = kinetic_aux(mesh, u)
     thick = thickness_aux_edge(mesh, cfg, h, u)
     d2 = del2_aux(mesh, kin.div_cell, vort.rel_vort_vertex)
+    stress = None
+    if cfg.tendencies.wind_forcing and wind_stress is not None:
+        stress = wind_normal_stress(mesh, cfg, wind_stress[0], wind_stress[1])
     return MomentumAux(thickness=thick, vorticity=vort, kinetic=kin,
-                       del2=d2, normal_stress_edge=None)
+                       del2=d2, normal_stress_edge=stress)
 
 
 def _weighted_cell_laplacian(mesh: HorzMesh, edge_factor, field):
@@ -155,8 +167,10 @@ def _weighted_cell_laplacian(mesh: HorzMesh, edge_factor, field):
 def tracer_aux(mesh: HorzMesh, cfg: ModelConfig, h, u, tracers,
                mean_h_edge) -> TracerAux:
     """HTracersEdge and Del2TracersCell (auxiliaryVars/TracerAuxVars.h:13-108)."""
-    if cfg.flux_tracer_type == "center":
-        # one fused pass over the stacked (L, C, K) product
+    if cfg.flux_tracer_type in ("center", "fct"):
+        # fct computes its own limited flux (core/fct.py); the centered
+        # value here only feeds the del2 diagnostics — one fused pass
+        # over the stacked (L, C, K) product
         h_tr_edge = trisk.cell_mean_on_edge(mesh, h[None] * tracers)
     elif cfg.flux_tracer_type == "upwind":
         h0, h1 = trisk.cell_pair_on_edge(mesh, h)
@@ -164,10 +178,6 @@ def tracer_aux(mesh: HorzMesh, cfg: ModelConfig, h, u, tracers,
         htr0 = h0 * tr0                                # (L, E, K)
         htr1 = h1 * tr1
         h_tr_edge = _upwind(u, htr0, htr1)
-    elif cfg.flux_tracer_type == "fct":
-        raise NotImplementedError(
-            "flux_tracer_type='fct': the Zalesak limiter arrives with the "
-            "FCT slice of the port")
     else:
         raise ValueError(cfg.flux_tracer_type)
     del2_tr = _weighted_cell_laplacian(mesh, mean_h_edge, tracers)

@@ -11,9 +11,8 @@ wrappers:
   compute_tracer_tendency      <- Tendencies::computeTracerTendencies
   compute_all_tendencies       <- Tendencies::computeAllTendencies
 
-Options whose physics a later slice of the port brings (custom
-tendencies, wind forcing, bottom drag, FCT tracer fluxes, vertical mixing)
-raise NotImplementedError; none is silently ignored.
+The custom (manufactured-solution) tendencies arrive with a later slice of
+the port and raise NotImplementedError; no option is silently ignored.
 """
 
 from __future__ import annotations
@@ -37,25 +36,10 @@ class Tendencies(NamedTuple):
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for every option of `cfg` whose physics
     has not been ported yet, naming the slice that brings it."""
-    tc = cfg.tendencies
-    if tc.use_custom_tendency:
+    if cfg.tendencies.use_custom_tendency:
         raise NotImplementedError(
             "use_custom_tendency: the manufactured-solution tendencies "
             "arrive with the remaining-core slice (core/manufactured.py)")
-    if tc.wind_forcing:
-        raise NotImplementedError(
-            "wind_forcing: arrives with the wind/drag slice of the port")
-    if tc.bottom_drag:
-        raise NotImplementedError(
-            "bottom_drag: arrives with the wind/drag slice of the port")
-    if cfg.flux_tracer_type == "fct":
-        raise NotImplementedError(
-            "flux_tracer_type='fct': arrives with the FCT slice "
-            "(core/fct.py)")
-    if cfg.vert_mix.enabled:
-        raise NotImplementedError(
-            "vert_mix.enabled: implicit vertical mixing arrives with the "
-            "vmix slice (core/vmix.py, ops/tridiag.py)")
 
 
 def thickness_tendency(mesh: HorzMesh, cfg: ModelConfig,
@@ -115,6 +99,20 @@ def velocity_tendency(mesh: HorzMesh, cfg: ModelConfig,
         tend = tend - mask * tc.visc_del4 * \
             trisk.col(mesh, "mesh_scaling_del4") * del2u
 
+    mask0 = mask if isinstance(mask, (int, float)) else mask[:, 0]
+
+    if tc.wind_forcing and mom.normal_stress_edge is not None:
+        top = (mask0 * mom.normal_stress_edge
+               / (tc.density0 * mom.thickness.mean_h_edge[:, 0]))
+        tend[:, 0] += top           # `tend` is this function's own tensor
+
+    if tc.bottom_drag:
+        ke0, ke1 = trisk.cell_pair_on_edge(mesh, mom.kinetic.ke_cell[:, -1:])
+        speed = torch.sqrt(ke0[:, 0] + ke1[:, 0])
+        drag = (mask0 * tc.bottom_drag_coeff * speed * u[:, -1]
+                / mom.thickness.mean_h_edge[:, -1])
+        tend[:, -1] -= drag
+
     return tend
 
 
@@ -136,8 +134,10 @@ def compute_velocity_tendency(mesh, cfg, h_thick, u, t, wind_stress=None):
 def compute_tracer_tendency(mesh, cfg, h, u, tracers, mean_h_edge, t,
                             h_new=None, dt=None, flux_h_edge=None):
     """Wrapper mirroring Tendencies::computeTracerTendencies
-    (Tendencies.cpp:540-580). `h_new`, `dt` and `flux_h_edge` feed the
-    flux-corrected ('fct') advective term, which a later slice ports."""
+    (Tendencies.cpp:540-580). With FluxTracerType 'fct' (an extension
+    beyond the reference's center/upwind options) the advective term is
+    Zalesak flux-corrected and needs the updated thickness h_new and dt
+    (available in the forward-backward stepper)."""
     check_ported(cfg)
     tc = cfg.tendencies
     tr_aux = auxmod.tracer_aux(mesh, cfg, h, u, tracers, mean_h_edge)
@@ -145,8 +145,20 @@ def compute_tracer_tendency(mesh, cfg, h, u, tracers, mean_h_edge, t,
     mask = trisk.col(mesh, "edge_mask")
 
     if tc.tracer_horz_adv:
-        flux = tr_aux.h_tracers_edge * (mask * u)
-        tend = tend - trisk.div_cell(mesh, flux)
+        if cfg.flux_tracer_type == "fct":
+            if h_new is None or dt is None:
+                raise ValueError(
+                    "FluxTracerType 'fct' requires the thickness-first "
+                    "update order of the forward-backward stepper")
+            from omega_tpu_torch.core import fct
+            if flux_h_edge is None:
+                flux_h_edge = auxmod.thickness_aux_edge(
+                    mesh, cfg, h, u).flux_h_edge
+            tend = tend + fct.fct_tracer_tendency(
+                mesh, h, h_new, u, tracers, dt, flux_h_edge)
+        else:
+            flux = tr_aux.h_tracers_edge * (mask * u)
+            tend = tend - trisk.div_cell(mesh, flux)
 
     if tc.tracer_diffusion:
         tend = tend + tc.eddy_diff2 * auxmod._weighted_cell_laplacian(

@@ -1,0 +1,408 @@
+// Implicit vertical mixing on the stacked state: the Richardson-number
+// (PP81) coefficient pass and the column solves.
+//
+// Replaces the vertical-mixing tail of the TPU kernel
+// omega_tpu/ops/megastep.py:_kernel, i.e. _vmix_apply with _pcr_diffusion
+// (vmix_solve_kernel) and _pp81_coeffs (pp81_coeffs_kernel). That kernel keeps
+// all K of a tile on chip and runs the tail in the body of the horizontal
+// chain; here a block of the horizontal kernel (fb_step.cuh) is one layer and
+// cannot see a column, so the tail is two kernels of its own that run after
+// it on the same stacked (4+L, K, ny, nx) array, x fastest.
+//
+// pp81_coeffs_kernel: one interface k (layers k and k+1) x one (by, bx) tile
+// per block, with a ring as wide as the `ke` and `cmean` tables reach (1 on
+// the hex mesh). The block loads dz, N^2 and the three classes of du for its
+// slab into shared memory once, then every owned point evaluates
+// core/vmix.pp81_coefficients expression for expression and writes
+// kappa_cell (K-1, ny, nx) and nu_edge (3, K-1, ny, nx). f ** n_exp is n_exp
+// repeated multiplications (as the plain version does); the two products of
+// the buoyancy difference are kept out of a fused multiply-add, because
+// their difference cancels. Bound: bytes, the 6
+// channels it reads (h, 3 u, T, S) and the 4 planes it writes per interface.
+//
+// vmix_solve_kernel: backward-Euler diffusion of every column, in place.
+// System 0 of a cell column is the L tracers against the cell thickness,
+// systems 1..3 are the edge classes of u against cmean(h) (two reads through
+// the cmean table's shifts, the periodic wrap as index arithmetic). Each is
+// solved by parallel cyclic reduction exactly as ops/tridiag.pcr does it:
+// ceil(log2 K) levels, out-of-range neighbour rows read as identity equations
+// (1 for the diagonal, 0 for the rest), one set of alpha/beta factors per
+// level shared by all right-hand sides of the column.
+//
+// A column is contiguous in neither memory order, so a block takes `cw`
+// ADJACENT columns of one row y (thread x fastest: every load and store of a
+// level k is one coalesced segment) and stages a, b, c and the right-hand
+// sides of the group in shared memory, [k][cw] with k slowest; a PCR level
+// reads rows k-s and k+s of the current buffer and writes the other one, one
+// barrier per level. Shared memory is 2 * (3 + lc) * K * cw elements; the
+// host picks cw and lc (tracers per pass; the matrix is rebuilt per pass when
+// lc < L). Bound: bytes (h, u, tracers and coefficients read once, u and
+// tracers written once); the reduction itself is ~20 operations and two
+// divisions per row and level, far under the card's float rate but, with the
+// shared-memory traffic, what the time actually goes to.
+#include "stencil_common.cuh"
+
+namespace omega {
+
+constexpr int kVmixMaxEntries = 16;
+
+template <typename T>
+struct VmixParams {
+  // `ke` entries (one destination class) at [0, nke), then the `cmean`
+  // entries of edge class t at [cm_start[t], cm_start[t+1])
+  Entry<T> e[kVmixMaxEntries];
+  int nke;
+  int cm_start[4];
+  // dt; then the closure's constants (PP81), kt0 / km0 = background (PP81)
+  // or constant coefficients of tracers / momentum
+  T dt, grav, nu0, alpha, a_t, b_s, kt0, km0;
+  int n_exp, ti, si;         // PP81 exponent, T and S tracer rows (or -1)
+  int L, K, ny, nx;
+  int by, bx, ry, rx;        // coefficient kernel: tile and ring
+  int cw, ty, lc, levels;    // solve: columns x k-lanes per block, tracers
+                             // per pass, ceil(log2 K)
+};
+
+template <typename T>
+__device__ __forceinline__ T pos(T x) { return x > T(0) ? x : T(0); }
+
+// a product rounded on its own, never fused into a following add
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+// nu = nu0 / f^n_exp with f = 1 + alpha * max(ri, 0); returns nu, sets f
+template <typename T>
+__device__ __forceinline__ T pp81_nu(const VmixParams<T>& p, T ri, T& f) {
+  f = T(1) + p.alpha * pos(ri);
+  T pw = T(1);
+  for (int i = 0; i < p.n_exp; ++i) pw *= f;
+  return p.nu0 / pw;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+pp81_coeffs_kernel(const T* __restrict__ s, T* __restrict__ kappa,
+                   T* __restrict__ nu,
+                   const __grid_constant__ VmixParams<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int YY = p.by + 2 * p.ry, XX = p.bx + 2 * p.rx, S = YY * XX;
+  T* const DZ = sm;           // 0.5 * (h_k + h_{k+1})
+  T* const N2 = sm + S;       // max(db / dz, 0)
+  T* const DU = sm + 2 * S;   // u_k - u_{k+1}, 3 edge classes
+  const int y0 = blockIdx.y * p.by, x0 = blockIdx.x * p.bx, k = blockIdx.z;
+  const long long plane = static_cast<long long>(p.ny) * p.nx;
+  const T eps = T(1.0e-16);
+  auto chan = [&](int ch, int kk) {
+    return (static_cast<long long>(ch) * p.K + kk) * plane;
+  };
+  const bool strat = p.ti >= 0 && p.si >= 0;
+
+  for (int q = threadIdx.x; q < S; q += blockDim.x) {
+    const int sy = q / XX, sx = q - sy * XX;
+    const long long g =
+        static_cast<long long>(wrap_any(y0 - p.ry + sy, p.ny)) * p.nx +
+        wrap_any(x0 - p.rx + sx, p.nx);
+    const T dz = T(0.5) * (s[chan(0, k) + g] + s[chan(0, k + 1) + g]);
+    DZ[q] = dz;
+    T n2 = T(0);
+    if (strat) {
+      const T dT = s[chan(4 + p.ti, k) + g] - s[chan(4 + p.ti, k + 1) + g];
+      const T dS = s[chan(4 + p.si, k) + g] - s[chan(4 + p.si, k + 1) + g];
+      // The thermal and haline parts cancel where the column is near
+      // neutral, and a small shear then divides what is left: each product
+      // is rounded on its own, as the plain version rounds it, so that N^2
+      // is the same number in both (a fused multiply-add here moved nu by
+      // 1.6e-4 of its range in float32).
+      const T db = p.grav * (mul_rn(p.a_t, dT) - mul_rn(p.b_s, dS));
+      n2 = pos(db / dz);
+    }
+    N2[q] = n2;
+#pragma unroll
+    for (int t = 0; t < 3; ++t)
+      DU[t * S + q] = s[chan(1 + t, k) + g] - s[chan(1 + t, k + 1) + g];
+  }
+  __syncthreads();
+
+  for (int o = threadIdx.x; o < p.by * p.bx; o += blockDim.x) {
+    const int oy = o / p.bx, ox = o - oy * p.bx;
+    const int gy = y0 + oy, gx = x0 + ox;
+    if (gy >= p.ny || gx >= p.nx) continue;
+    const int sy = oy + p.ry, sx = ox + p.rx, q = sy * XX + sx;
+    const bool odd = (gy & 1) != 0;
+    auto src = [&](const Entry<T>& e) {
+      return e.ts * S + (sy + e.dj) * XX + sx + (odd ? e.di_o : e.di_e);
+    };
+    const long long g = static_cast<long long>(gy) * p.nx + gx;
+
+    // cell: shear^2 from the KE average of du^2
+    T ke = T(0);
+    for (int i = 0; i < p.nke; ++i) {
+      const T d = DU[src(p.e[i])];
+      ke += p.e[i].w * (d * d);
+    }
+    const T dz = DZ[q];
+    const T shear2_cell = T(2) * ke / (dz * dz);
+    const T ri_cell = N2[q] / (shear2_cell > eps ? shear2_cell : eps);
+    T f;
+    const T nu_c = pp81_nu(p, ri_cell, f);
+    kappa[static_cast<long long>(k) * plane + g] = nu_c / f + p.kt0;
+
+    // edges: dz and N^2 averaged from the edge's two cells
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      T dz_e = T(0), n2_e = T(0);
+      for (int i = p.cm_start[t]; i < p.cm_start[t + 1]; ++i) {
+        const int r = src(p.e[i]);
+        dz_e += p.e[i].w * DZ[r];
+        n2_e += p.e[i].w * N2[r];
+      }
+      const T sh = DU[t * S + q] / dz_e;
+      const T shear2_edge = sh * sh;
+      const T ri_edge = n2_e / (shear2_edge > eps ? shear2_edge : eps);
+      const T nu_e = pp81_nu(p, ri_edge, f);
+      nu[(static_cast<long long>(t) * (p.K - 1) + k) * plane + g] =
+          nu_e + p.km0;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+vmix_solve_kernel(T* __restrict__ s, const T* __restrict__ kappa,
+                  const T* __restrict__ nu,
+                  const __grid_constant__ VmixParams<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int CW = p.cw, K = p.K;
+  const int N = K * CW;               // one staged array
+  const int NA = 3 + p.lc;            // arrays per buffer: a, b, c, x[lc]
+  const int tx = threadIdx.x, ty = threadIdx.y, TY = blockDim.y;
+  const int x = blockIdx.x * CW + tx, y = blockIdx.y;
+  const int sys = blockIdx.z;         // 0: tracers on cells, 1..3: u classes
+  const bool live = x < p.nx;         // ragged last group: compute, no store
+  const int xc = live ? x : p.nx - 1;
+  const long long plane = static_cast<long long>(p.ny) * p.nx;
+  const long long g = static_cast<long long>(y) * p.nx + xc;
+  auto chan = [&](int ch, int kk) {
+    return (static_cast<long long>(ch) * K + kk) * plane;
+  };
+
+  const int nrhs = sys == 0 ? p.L : 1;
+  const int ch0 = sys == 0 ? 4 : sys;
+  // thickness of the system: the cell's own, or the edge's cmean of two cells
+  long long hg[2] = {g, g};
+  T hw[2] = {T(1), T(0)};
+  int nh = 1;
+  if (sys > 0) {
+    const bool odd = (y & 1) != 0;
+    nh = 0;
+    for (int i = p.cm_start[sys - 1]; i < p.cm_start[sys] && nh < 2; ++i) {
+      const Entry<T>& e = p.e[i];
+      hg[nh] = static_cast<long long>(wrap_near(y + e.dj, p.ny)) * p.nx +
+               wrap_near(xc + (odd ? e.di_o : e.di_e), p.nx);
+      hw[nh] = e.w;
+      ++nh;
+    }
+  }
+  const T* const coef =
+      sys == 0 ? kappa
+               : (nu ? nu + static_cast<long long>(sys - 1) * (K - 1) * plane
+                     : nullptr);
+  const T coef0 = sys == 0 ? p.kt0 : p.km0;
+
+  for (int l0 = 0; l0 < nrhs; l0 += p.lc) {
+    const int n = p.lc < nrhs - l0 ? p.lc : nrhs - l0;
+    T* cur = sm;
+    T* nxt = sm + static_cast<long long>(NA) * N;
+    T* const HS = nxt;        // thickness and coupling, staged in the buffer
+    T* const G = nxt + N;     // the first level writes last
+
+    for (int k = ty; k < K; k += TY) {
+      T acc = T(0);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (j < nh) acc += hw[j] * s[chan(0, k) + hg[j]];
+      HS[k * CW + tx] = sys == 0 ? s[chan(0, k) + g] : acc;
+    }
+    __syncthreads();
+    for (int k = ty; k < K; k += TY) {
+      const int i = k * CW + tx;
+      T gk = T(0);
+      if (k < K - 1) {
+        const T kap = coef ? coef[static_cast<long long>(k) * plane + g]
+                           : coef0;
+        gk = p.dt * kap / (T(0.5) * (HS[i] + HS[i + CW]));
+      }
+      G[i] = gk;
+    }
+    __syncthreads();
+    for (int k = ty; k < K; k += TY) {
+      const int i = k * CW + tx;
+      const T gk = G[i], gm = k > 0 ? G[i - CW] : T(0), h = HS[i];
+      cur[i] = -gm;                    // a
+      cur[N + i] = h + gk + gm;        // b
+      cur[2 * N + i] = -gk;            // c
+      for (int l = 0; l < n; ++l)
+        cur[(3 + l) * N + i] = h * s[chan(ch0 + l0 + l, k) + g];
+    }
+    __syncthreads();
+
+    for (int lev = 0, sh = 1; lev < p.levels; ++lev, sh <<= 1) {
+      for (int k = ty; k < K; k += TY) {
+        const int i = k * CW + tx;
+        const bool hm = k - sh >= 0, hp = k + sh < K;
+        const int im = i - sh * CW, ip = i + sh * CW;
+        const T a = cur[i], b = cur[N + i], c = cur[2 * N + i];
+        const T alpha = -a / (hm ? cur[N + im] : T(1));
+        const T beta = -c / (hp ? cur[N + ip] : T(1));
+        nxt[i] = alpha * (hm ? cur[im] : T(0));
+        nxt[2 * N + i] = beta * (hp ? cur[2 * N + ip] : T(0));
+        nxt[N + i] = b + alpha * (hm ? cur[2 * N + im] : T(0)) +
+                     beta * (hp ? cur[ip] : T(0));
+        for (int l = 0; l < n; ++l) {
+          const T* const X = cur + (3 + l) * N;
+          nxt[(3 + l) * N + i] = X[i] + alpha * (hm ? X[im] : T(0)) +
+                                 beta * (hp ? X[ip] : T(0));
+        }
+      }
+      __syncthreads();
+      T* const tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+
+    if (live) {
+      for (int k = ty; k < K; k += TY) {
+        const int i = k * CW + tx;
+        for (int l = 0; l < n; ++l)
+          s[chan(ch0 + l0 + l, k) + g] = cur[(3 + l) * N + i] / cur[N + i];
+      }
+    }
+    __syncthreads();   // the next pass restages into both buffers
+  }
+}
+
+template <typename T>
+size_t coeffs_smem_bytes(const VmixParams<T>& p) {
+  return static_cast<size_t>(5) * (p.by + 2 * p.ry) * (p.bx + 2 * p.rx) *
+         sizeof(T);
+}
+
+template <typename T>
+size_t solve_smem_bytes(const VmixParams<T>& p) {
+  return static_cast<size_t>(2) * (3 + p.lc) * p.K * p.cw * sizeof(T);
+}
+
+// the larger of |a| and |b|
+inline int reach(int a, int b) {
+  a = a < 0 ? -a : a;
+  b = b < 0 ? -b : b;
+  return a > b ? a : b;
+}
+
+template <typename T>
+bool tables_ok(const VmixParams<T>& p) {
+  if (p.nke < 1 || p.nke != p.cm_start[0]) return false;
+  for (int t = 0; t < 3; ++t)
+    if (p.cm_start[t + 1] < p.cm_start[t]) return false;
+  if (p.cm_start[3] > kVmixMaxEntries) return false;
+  for (int i = 0; i < p.cm_start[3]; ++i) {
+    const Entry<T>& e = p.e[i];
+    if (reach(e.dj, 0) >= p.ny || reach(e.di_e, e.di_o) >= p.nx) return false;
+  }
+  return true;
+}
+
+template <typename T>
+int launch_pp81_coeffs(const void* s, void* kappa, void* nu,
+                       const VmixParams<T>* hp, cudaStream_t stream) {
+  const VmixParams<T>& p = *hp;
+  if (p.K < 2 || p.by < 1 || p.bx < 1 || !tables_ok(p) || p.n_exp < 0 ||
+      p.ti >= p.L || p.si >= p.L)
+    return cudaErrorInvalidValue;
+  for (int i = 0; i < p.cm_start[3]; ++i) {   // the ring covers every shift
+    const Entry<T>& e = p.e[i];
+    if (reach(e.dj, 0) > p.ry || reach(e.di_e, e.di_o) > p.rx)
+      return cudaErrorInvalidValue;
+  }
+  const size_t smem = coeffs_smem_bytes(p);
+  cudaError_t err = cudaFuncSetAttribute(
+      pp81_coeffs_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((p.nx + p.bx - 1) / p.bx, (p.ny + p.by - 1) / p.by, p.K - 1);
+  pp81_coeffs_kernel<T><<<grid, 256, smem, stream>>>(
+      static_cast<const T*>(s), static_cast<T*>(kappa), static_cast<T*>(nu),
+      p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_vmix_solve(void* s, const void* kappa, const void* nu,
+                      const VmixParams<T>* hp, cudaStream_t stream) {
+  const VmixParams<T>& p = *hp;
+  if (p.K < 2 || p.cw < 1 || p.ty < 1 || p.cw * p.ty > 256 || p.lc < 1 ||
+      !tables_ok(p) || (1 << p.levels) < p.K ||
+      (kappa == nullptr) != (nu == nullptr))
+    return cudaErrorInvalidValue;
+  for (int t = 0; t < 3; ++t)       // an edge thickness is a two-cell mean
+    if (p.cm_start[t + 1] - p.cm_start[t] > 2) return cudaErrorInvalidValue;
+  const size_t smem = solve_smem_bytes(p);
+  cudaError_t err = cudaFuncSetAttribute(
+      vmix_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((p.nx + p.cw - 1) / p.cw, p.ny, 4);
+  dim3 block(p.cw, p.ty);
+  vmix_solve_kernel<T><<<grid, block, smem, stream>>>(
+      static_cast<T*>(s), static_cast<const T*>(kappa),
+      static_cast<const T*>(nu), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace omega
+
+extern "C" {
+
+int omega_vmix_params_size_f32() {
+  return static_cast<int>(sizeof(omega::VmixParams<float>));
+}
+int omega_vmix_params_size_f64() {
+  return static_cast<int>(sizeof(omega::VmixParams<double>));
+}
+
+// `params` points at a host VmixParams<T>; `state` is the stacked
+// (4+L, K, ny, nx) array; kappa is (K-1, ny, nx) and nu (3, K-1, ny, nx).
+// Each returns the launch's error code.
+int omega_pp81_coeffs_f32(const void* state, void* kappa, void* nu,
+                          const void* params, void* stream) {
+  return omega::launch_pp81_coeffs<float>(
+      state, kappa, nu, static_cast<const omega::VmixParams<float>*>(params),
+      static_cast<cudaStream_t>(stream));
+}
+int omega_pp81_coeffs_f64(const void* state, void* kappa, void* nu,
+                          const void* params, void* stream) {
+  return omega::launch_pp81_coeffs<double>(
+      state, kappa, nu, static_cast<const omega::VmixParams<double>*>(params),
+      static_cast<cudaStream_t>(stream));
+}
+// the solve is in place; kappa and nu are both null for constant coefficients
+int omega_vmix_solve_f32(void* state, const void* kappa, const void* nu,
+                         const void* params, void* stream) {
+  return omega::launch_vmix_solve<float>(
+      state, kappa, nu, static_cast<const omega::VmixParams<float>*>(params),
+      static_cast<cudaStream_t>(stream));
+}
+int omega_vmix_solve_f64(void* state, const void* kappa, const void* nu,
+                         const void* params, void* stream) {
+  return omega::launch_vmix_solve<double>(
+      state, kappa, nu, static_cast<const omega::VmixParams<double>*>(params),
+      static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

@@ -109,14 +109,23 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, vp, vp]       # in, out, params, stream
         fn.restype = ci
-    for name in ("omega_fb_step_f32", "omega_fb_step_f64"):
+    for flux in ("cc", "uc", "cu", "uu"):
+        for tails in ("plain", "tails"):
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"omega_fb_step_{flux}_{tails}_{suffix}")
+                # in, out, wind, params, threads, stream
+                fn.argtypes = [vp, vp, vp, vp, ci, vp]
+                fn.restype = ci
+    for name in ("omega_pp81_coeffs_f32", "omega_pp81_coeffs_f64",
+                 "omega_vmix_solve_f32", "omega_vmix_solve_f64"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp, vp, vp, ci, vp]   # in, out, params, threads, stream
+        fn.argtypes = [vp, vp, vp, vp, vp]   # state, kappa, nu, params, stream
         fn.restype = ci
     for name in ("omega_stencil_params_size_f32",
                  "omega_stencil_params_size_f64",
                  "omega_fb_params_size_f32", "omega_fb_params_size_f64",
-                 "omega_fb_slots"):
+                 "omega_fb_slots", "omega_vmix_params_size_f32",
+                 "omega_vmix_params_size_f64"):
         fn = getattr(lib, name)
         fn.argtypes = []
         fn.restype = ci

@@ -207,6 +207,28 @@ def _shift(F, dj: int, di_e: int, di_o: int):
     return torch.where(even_rows, a, b)
 
 
+def roll_grid(s, d, dim):
+    """out[i] = s[i + d] along `dim`, periodic."""
+    return torch.roll(s, -d, dims=dim) if d else s
+
+
+def apply_grid(tab, vals, even, pd):
+    """Apply a shift table to per-class grids (..., Y, X), x fastest (the
+    layout of the fused kernels' plain versions):
+    out[t_dst][y, x] = sum w * val[t_src][y + dj, x + di(parity(y))],
+    shifts wrapping within the array; `even` is the (Y, 1) mask of rows
+    whose GLOBAL index is even."""
+    outs = [None] * pd
+    for (t_dst, t_src, dj, di_e, di_o, w) in tab:
+        s = roll_grid(vals[t_src], dj, -2)
+        a = roll_grid(s, di_e, -1)
+        if di_e != di_o:
+            a = torch.where(even, a, roll_grid(s, di_o, -1))
+        contrib = w * a
+        outs[t_dst] = contrib if outs[t_dst] is None else outs[t_dst] + contrib
+    return outs
+
+
 def apply_stencil(mesh, table, field):
     """Compute out[d] = sum_s w_{t,s} * field[idx[d, s]] as lattice shifts.
 

@@ -16,14 +16,37 @@ from __future__ import annotations
 
 from typing import Callable
 
+import torch
+
 from omega_tpu_torch.core import tendencies as tend_mod
+from omega_tpu_torch.core import vmix
 from omega_tpu_torch.core.config import ModelConfig
 from omega_tpu_torch.core.state import ModelState
 from omega_tpu_torch.mesh.horz_mesh import HorzMesh
-from omega_tpu_torch.ops import megastep
+from omega_tpu_torch.ops import megastep, trisk
 
 Halo = Callable[[ModelState], ModelState]
 _identity: Halo = lambda s: s
+
+
+def _mix(mesh, cfg, state, dt):
+    """Operator-split backward-Euler vertical mixing applied after the
+    horizontal update (the implicit stage the reference's tridiagonal
+    solvers exist for, base/TriDiagSolvers.h:28-35). Unconditionally
+    stable; conserves h-weighted tracer columns exactly."""
+    vm = cfg.vert_mix
+    if not vm.enabled or cfg.nvertlayers < 2:
+        return state
+    h, u, tr = state
+    h_edge = trisk.cell_mean_on_edge(mesh, h)
+    if vm.scheme == "pp81":
+        kt, km = vmix.pp81_coefficients(mesh, vm, cfg.gravity, h, u, tr)
+    else:
+        kt = vm.kappa_tracer * torch.ones_like(h[..., :-1])
+        km = vm.kappa_momentum * torch.ones_like(h_edge[..., :-1])
+    tr_new = vmix.implicit_vmix(h[None], kt[None], dt, tr, method=vm.method)
+    u_new = vmix.implicit_vmix(h_edge, km, dt, u, method=vm.method)
+    return ModelState(h=h, u=u_new, tracers=tr_new)
 
 
 def forward_backward_step(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
@@ -33,9 +56,11 @@ def forward_backward_step(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
     tend_mod.check_ported(cfg)
     if (isinstance(dt, (int, float)) and megastep.enabled(state)
             and megastep.supported(mesh, cfg)):
-        # single fused kernel for the flagship configuration
-        # (ops/megastep.py): reads state once, writes state once
-        return halo(megastep.fb_megastep(mesh, cfg, state, t, dt))
+        # the fused path (ops/megastep.py): one kernel reads the state once
+        # and writes it once, wind and drag included; vertical mixing
+        # follows in the column kernels on the same array
+        return halo(megastep.fb_megastep(mesh, cfg, state, t, dt,
+                                         wind_stress))
     h, u, tr = state
     dh, thick_aux = tend_mod.compute_thickness_tendency(mesh, cfg, h, u, t)
     h_new = h + dt * dh
@@ -49,7 +74,8 @@ def forward_backward_step(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
         mesh, cfg, h_new, u, t + dt, wind_stress)
     u_new = u + dt * du
 
-    return halo(ModelState(h=h_new, u=u_new, tracers=tr_new))
+    out = _mix(mesh, cfg, ModelState(h=h_new, u=u_new, tracers=tr_new), dt)
+    return halo(out)
 
 
 _STEPPERS = {
@@ -77,13 +103,16 @@ def run_steps(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
             and megastep.supported(mesh, cfg)):
         # stacked fast path: the fused kernel's single (4+L, K, ny, nx)
         # array is carried across the segment in two buffers that swap
-        # roles, so each step is exactly one kernel launch with no other
-        # device work in the loop
+        # roles, so each step is the fused path's kernel launches (one, or
+        # up to three with vertical mixing) and no other device work; the
+        # wind plane is packed once per segment
         h, _, tr = state
         cur = megastep.stack_state(mesh, state)
         nxt = cur.new_empty(cur.shape)
+        wind = megastep.stack_wind(mesh, cfg, wind_stress, h.dtype)
         for _ in range(nsteps):
-            megastep.fb_megastep_stacked(mesh, cfg, cur, dt, out=nxt)
+            megastep.fb_megastep_stacked(mesh, cfg, cur, dt, out=nxt,
+                                         wind=wind)
             cur, nxt = nxt, cur
         return megastep.unstack_state(mesh, cur, h.shape[-1], tr.shape[0],
                                       type(state))

@@ -1,6 +1,7 @@
-"""The slice as a whole: run_steps of the port against the JAX package's,
-conservation, a float32 run, the import hygiene of the package, and the
-device rule."""
+"""The slices as a whole: run_steps of the port against the JAX package's
+(the flagship configuration and the science configuration with wind, drag,
+upwind fluxes and PP81 vertical mixing), conservation, a float32 run, the
+import hygiene of the package, and the device rule."""
 
 import subprocess
 import sys
@@ -9,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import (flagship_cfg, jax_mesh, jax_state, port_cfg,
-                                port_mesh, port_state, random_fields)
+from torch_port_helpers import (flagship_cfg, jax_mesh, jax_state, jax_wind,
+                                port_cfg, port_mesh, port_state, port_wind,
+                                random_fields, science_cfg,
+                                stratified_fields, wind_fields)
 
 from omega_tpu.stepping import forward_backward_step as jfb
 from omega_tpu.stepping import run_steps as jrun_steps
@@ -77,6 +80,117 @@ def test_generic_loop_and_make_stepper_agree_with_fast_path(setup):
         torch.testing.assert_close(x, y, rtol=1e-12, atol=1e-14)
     with pytest.raises(ValueError):
         make_stepper("rungekutta4")
+
+
+# ---- the science configuration -----------------------------------------
+
+@pytest.fixture(scope="module")
+def science():
+    jm = jax_mesh(NX, NY)
+    jcfg = science_cfg("all", 5)
+    return (jm, port_mesh(jm), jcfg, port_cfg(jcfg),
+            stratified_fields(jm, 5, seed=9), wind_fields(jm))
+
+
+@pytest.fixture(scope="module")
+def science_3_steps(science):
+    jm, pm, jcfg, cfg, fields, wind = science
+    ref = jrun_steps(jm, jcfg, jax_state(*fields), 0.0, 30.0, 3, stepper=jfb,
+                     wind_stress=jax_wind(wind))
+    out = run_steps(pm, cfg, port_state(*fields), 0.0, 30.0, 3,
+                    stepper=forward_backward_step,
+                    wind_stress=port_wind(wind))
+    return ref, out
+
+
+@pytest.mark.parametrize("name", ["h", "u", "tracers"])
+def test_science_run_steps_matches_jax(science_3_steps, name):
+    """rtol = atol = 1e-10, the JAX suite's figure for its science runs."""
+    ref, out = science_3_steps
+    np.testing.assert_allclose(getattr(out, name).numpy(),
+                               np.asarray(getattr(ref, name)),
+                               rtol=1e-10, atol=1e-10)
+
+
+def test_science_run_conserves_volume_and_tracer_content(science,
+                                                         science_3_steps):
+    """Wind and drag move momentum only, vertical mixing conserves the
+    thickness-weighted columns: volume and content hold to roundoff."""
+    jm, _, _, _, fields, _ = science
+    _, out = science_3_steps
+    area = np.asarray(jm.area_cell)[:, None]
+    h0, _, tr0 = fields
+    h1, _, tr1 = convert.state_to_numpy(out)
+    assert abs(np.sum(area * h1) - np.sum(area * h0)) / np.sum(area * h0) \
+        < 1e-13
+    for l in range(2):
+        c0, c1 = np.sum(area * h0 * tr0[l]), np.sum(area * h1 * tr1[l])
+        assert abs(c1 - c0) / abs(c0) < 1e-13
+
+
+def test_run_steps_with_wind_equals_per_step_calls(science):
+    """The segment loop hands the same stress to every step, through the
+    stepper's own signature and through make_stepper's."""
+    _, pm, _, cfg, fields, wind = science
+    pw = port_wind(wind)
+    seg = run_steps(pm, cfg, port_state(*fields), 0.0, 30.0, 3,
+                    wind_stress=pw)
+    st = port_state(*fields)
+    for i in range(3):
+        st = forward_backward_step(pm, cfg, st, i * 30.0, 30.0,
+                                   wind_stress=pw)
+    for a, b in zip(seg, st):
+        assert torch.equal(a, b)
+    named = run_steps(pm, cfg, port_state(*fields), 0.0, 30.0, 3,
+                      stepper=make_stepper("forward_backward"),
+                      wind_stress=pw)
+    for a, b in zip(named, st):
+        assert torch.equal(a, b)
+    calm = run_steps(pm, cfg, port_state(*fields), 0.0, 30.0, 3)
+    assert float((calm.u[:, 0] - seg.u[:, 0]).abs().max()) > 0
+
+
+def test_stacked_science_path_equals_the_composed_loop(science):
+    """What run_steps does on the card, with the plain versions: the state
+    stacked once, the wind plane packed once, three fused steps in two
+    buffers; against the composed loop at the fused path's 1e-10."""
+    from omega_tpu_torch.ops import megastep
+    _, pm, _, cfg, fields, wind = science
+    st = port_state(*fields)
+    pw = port_wind(wind)
+    ref = run_steps(pm, cfg, st, 0.0, 30.0, 3, wind_stress=pw)
+    cur = megastep.stack_state(pm, st)
+    nxt = cur.new_empty(cur.shape)
+    plane = megastep.stack_wind(pm, cfg, pw, st.h.dtype)
+    for _ in range(3):
+        megastep.fb_megastep_stacked(pm, cfg, cur, 30.0, out=nxt, wind=plane)
+        cur, nxt = nxt, cur
+    out = megastep.unstack_state(pm, cur, 5, 2, ModelState)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)
+
+
+def test_float32_science_run_is_finite_and_conserves():
+    """The science path's dtype: 20 steps in float32 stay finite, keep
+    volume and tracer content to float32 roundoff, spin up the top layer."""
+    mesh = planar_hex_mesh(16, 16, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
+    jm = jax_mesh(16, 16)
+    cfg = port_cfg(science_cfg("all", 6))
+    h, u, tr = stratified_fields(jm, 6, seed=1, u_amp=0.01)
+    st = convert.state_from_numpy(h, u, tr, device="cpu",
+                                  dtype=torch.float32)
+    pw = port_wind(wind_fields(jm), dtype=torch.float32)
+    out = run_steps(mesh.to("cpu", torch.float32), cfg, st, 0.0, 30.0, 20,
+                    wind_stress=pw)
+    assert all(x.dtype == torch.float32 and bool(torch.isfinite(x).all())
+               for x in out)
+    h0, tr0 = st.h.double(), st.tracers.double()
+    h1, tr1 = out.h.double(), out.tracers.double()
+    assert abs(h1.sum() - h0.sum()) / h0.sum() < 5e-6
+    for l in range(2):
+        c0, c1 = (h0 * tr0[l]).sum(), (h1 * tr1[l]).sum()
+        assert abs(c1 - c0) / c0 < 5e-6
+    assert float((out.u[:, 0] - st.u[:, 0]).abs().max()) > 1e-5
 
 
 def test_float32_run_conserves_and_tracks_float64():

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import jax_mesh, port_mesh, tt
+from torch_port_helpers import jax_call, jax_mesh, port_mesh, tt
 
 from omega_tpu.ops import structured as jstructured
 from omega_tpu.ops.pallas_stencil_dma import apply_stencil_dma
@@ -44,8 +44,10 @@ def test_plain_stencil_matches_jax_roll_and_pallas(meshes, name, lead):
     ref = np.asarray(jstructured.apply_stencil(jm, (jtab, dst, src),
                                                jnp.asarray(f)))
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-12)
-    ker = np.asarray(apply_stencil_dma(jm, name, jnp.asarray(f),
-                                       interpret=True))
+    ker = np.asarray(jax_call(
+        ("stencil kernel", name),
+        lambda x: apply_stencil_dma(jm, name, x, interpret=True),
+        jnp.asarray(f)))
     np.testing.assert_allclose(out, ker, rtol=0, atol=1e-12)
 
 
