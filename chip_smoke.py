@@ -8,20 +8,29 @@
 
 It builds the CUDA kernels from omega_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card, drives the port's main paths
-(256 x 256 cells x 100 layers x 2 tracers, float32, forward-backward
-stepper) through the entry points a user calls, and prints one JSON line
-per phase:
+(256 x 256 cells x 100 layers x 2 tracers, float32; forward-backward, RK2
+and RK4 steppers) through the entry points a user calls, and prints one JSON
+line per phase:
 
   device          the card, and nvidia-smi's name / power-limit line
   build           nvcc build of the kernels, seconds
   kernel_stencil  structured-stencil kernel vs plain, every table
   kernel_fb_step  fused FB step vs plain and vs the composed step, for the
-                  flagship chain and its variants (upwind fluxes, wind, drag)
+                  flagship chain and its variants (upwind and FCT fluxes,
+                  wind, drag); FCT's 0/1 tracer stays in [0, 1]
   kernel_vmix     PP81 coefficient kernel and column-solve kernel vs plain
+  kernel_rk       RK stage kernel vs plain, every stage mode; fused RK2 / RK4
+                  steps vs the composed steppers
   main_path       2 x 10 steps of the bench configuration; launch counts
-  composed_path   FCT tracer flux: the composed stepper + stencil kernel
+  composed_path   column ssh: the composed stepper + stencil kernel
   science_path    2 x 10 steps with wind, bottom drag, upwind fluxes and PP81
                   vertical mixing: three kernel launches per step
+  fct_path        2 x 10 FB steps with FCT tracer fluxes: one launch per step
+  rk4_path        2 x 10 RK4 steps of the bench configuration: four launches
+  rk2_path        2 x 10 RK2 steps of the science configuration: two stage
+                  launches and the two vertical-mixing kernels per step
+  rk_order        the manufactured solution in float64: the steppers'
+                  temporal order and the spatial order
   profile         (only with --profile) device time by kernel, every path
   kernels         every kernel: launches, max error, times, bounds
 
@@ -81,7 +90,8 @@ def main(argv=None):
     from omega_tpu_torch.mesh import planar_hex_mesh
     from omega_tpu_torch.ops import (_build, megastep, stencil_kernel,
                                      structured, vmix_kernel)
-    from omega_tpu_torch.stepping import forward_backward_step, run_steps
+    from omega_tpu_torch.stepping import (forward_backward_step, rk2_step,
+                                          rk4_step, run_steps)
 
     dev = omega_tpu_torch.default_device()
     t_start = time.perf_counter()
@@ -214,8 +224,13 @@ def main(argv=None):
                                         {}),
                    "upwind_tracer": (dict(flux_tracer_type="upwind"),
                                      dict(bottom_drag=True,
-                                          bottom_drag_coeff=3.0e-3))}
-    FULL_WIDTH = ("flagship", "upwind", "wind_drag", "upwind_wind_drag")
+                                          bottom_drag_coeff=3.0e-3)),
+                   "fct": (dict(flux_tracer_type="fct"), {}),
+                   "fct_upwind_wind_drag": (
+                       dict(flux_thickness_type="upwind",
+                            flux_tracer_type="fct"), WIND_DRAG)}
+    FULL_WIDTH = ("flagship", "upwind", "wind_drag", "upwind_wind_drag",
+                  "fct", "fct_upwind_wind_drag")
 
     def bench_cfg(K, L, tend=None, **kw):
         return ModelConfig(nvertlayers=K, ntracers=L,
@@ -237,6 +252,19 @@ def main(argv=None):
             tracers=put(10.0 + rng.standard_normal((L, mesh_np.ncells, K)),
                         dtype))
 
+    def step_tracer_state(mesh_np, K, dtype, u_amp):
+        """tracer 0 a 0/1 step in x, tracer 1 near 10, random u"""
+        kx = 2 * np.pi / mesh_np.x_period
+        h = (1000.0 + np.sin(kx * mesh_np.x_cell)[:, None]) / K \
+            * np.ones((1, K))
+        step = (mesh_np.x_cell > mesh_np.x_period / 2).astype(float)
+        tr = np.stack([np.broadcast_to(step[:, None], (mesh_np.ncells, K)),
+                       10.0 + rng.standard_normal((mesh_np.ncells, K))])
+        return ModelState(
+            h=put(h, dtype),
+            u=put(u_amp * rng.standard_normal((mesh_np.nedges, K)), dtype),
+            tracers=put(tr, dtype))
+
     def wind_of(mesh_np, dtype):
         """A zonal stress that varies in y and a uniform meridional one."""
         ky = 2 * np.pi / mesh_np.y_period
@@ -246,10 +274,27 @@ def main(argv=None):
     def nerr(a, b):
         return ((a - b).abs().max() / b.abs().max()).item()
 
-    fb = {"f64": {}, "tolerance": "f64 rtol=atol=1e-10 over 3 steps; f32 "
-          "max|diff|/max|ref| <= 1e-4 after 1 step (FMA contraction and "
-          "another summation order than the plain version), and each "
-          "tracer's error <= 0.05 of the most the step changed it"}
+    def chan_err(got, ref):
+        """max over channels of max|got - ref| / max|ref| in the channel"""
+        return max(((got[c] - ref[c]).abs().max()
+                    / ref[c].abs().max().clamp(min=1e-300)).item()
+                   for c in range(ref.shape[0]))
+
+    def incr_err(got, ref, base):
+        """per channel: the error of what the launch changed, max|(got -
+        in) - (ref - in)|, over the largest change max|ref - in|"""
+        return [((got[c] - ref[c]).abs().max()
+                 / (ref[c] - base[c]).abs().max().clamp(min=1e-300)).item()
+                for c in range(ref.shape[0])]
+
+    fb = {"f64": {}, "tolerance": "f64 rtol=atol=1e-10 over 3 steps, and "
+          "after 1 step per channel max|diff| <= 1e-12 max|ref| against "
+          "plain; f32 max|diff|/max|ref| <= 1e-4 after 1 step (FMA "
+          "contraction and another summation order than the plain "
+          "version), and each tracer's error <= 0.05 of the most the step "
+          "changed it; against plain, per channel the error of the step's "
+          "increment <= FB_INCR of the largest increment"}
+    FB_INCR = 0.01
     for (nx, ny, K) in ((32, 16, 3), (48, 20, 5)):
         mesh_np = planar_hex_mesh(nx, ny, dc=5000.0, f0=1e-4,
                                   bottom_depth=1000.0)
@@ -263,6 +308,13 @@ def main(argv=None):
             st = noisy_state(mesh_np, K, NTRACERS, torch.float64)
             plane = megastep.stack_wind(mesh, cfg, wind, torch.float64)
             ker = pla = megastep.stack_state(mesh, st)
+            one = chan_err(megastep.fb_megastep_stacked(mesh, cfg, ker, DT,
+                                                        wind=plane),
+                           megastep.fb_megastep_plain(mesh, cfg, ker, DT,
+                                                      wind=plane))
+            if one > 1e-12:
+                fail(f"fused FB kernel ({variant}) vs plain at {nx}x{ny}x{K} "
+                     f"f64, one step: {one} of max|ref| in a channel")
             comp = st
             for _ in range(3):
                 ker = megastep.fb_megastep_stacked(mesh, cfg, ker, DT,
@@ -280,6 +332,7 @@ def main(argv=None):
                     fail(f"fused FB kernel ({variant}) vs {what} at "
                          f"{nx}x{ny}x{K} f64: max abs diff {d.max().item()}")
                 worst[what] = d.max().item()
+            worst["one_step_channel_err"] = one
             fb["f64"][f"{variant} {nx}x{ny}x{K}"] = worst
 
     mesh_np = planar_hex_mesh(NX, NY, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
@@ -320,6 +373,11 @@ def main(argv=None):
             if max(errs["h"], errs["u"], errs["tracers"]) > 1e-4:
                 fail(f"fused FB kernel ({variant}) vs {what} at full width "
                      f"f32: {errs}")
+            if what == "plain":
+                errs["increment"] = incr_err(ker, ref, s0)
+                if max(errs["increment"]) > FB_INCR:
+                    fail(f"fused FB kernel ({variant}) vs plain at full "
+                         f"width f32: increments {errs['increment']}")
             f32[what] = errs
         if plane is not None:
             # the tails reached their layers: against the same step without
@@ -354,10 +412,12 @@ def main(argv=None):
             mesh32, cfg_v, buf[0], DT, wind=plane), 3, 1)
         tabs, consts = megastep._mega_args(mesh32, cfg_v, DT)
         plan = megastep.plan_tile(NY, NX, 4,
-                                  megastep._ring(tabs, consts, plane))
+                                  megastep._ring(tabs, consts, plane), None,
+                                  megastep.slots(consts))
         b_ms, b_by = bound(
             (2 * CH * NLAYERS + (3 if plane is not None else 0)) * C * 4,
-            _fb_flops_per_point(tabs, NTRACERS) * NLAYERS * C)
+            _fb_flops_per_point(tabs, NTRACERS, consts["fct"])
+            * NLAYERS * C)
         fbv[variant] = {"f32_256x256x100x2": f32, "max_abs_err": abs_err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "plan": plan}
@@ -371,6 +431,58 @@ def main(argv=None):
                 tile_ms[spec] = cuda_ms(lambda: step_pingpong(tile), 10)
             fbv[variant]["tile_ms"] = tile_ms
         del buf, ker
+    # FCT is monotone: a 0/1 step tracer stays in [0, 1] over 20 fused
+    # steps at full width, with tracer diffusion off, in the reference's
+    # flow, u = 0.5 x noise (tests/test_structured.py:577-620). In float64
+    # kernel and plain version hold it within 1e-12, as the reference does.
+    # In float32 the limiter's bounds come from a field it already rounded,
+    # so where it acts at every step an excursion grows by a few ulps a
+    # step: each end of the kernel's range may pass the plain version's on
+    # the same inputs by at most MONO_ULPS ulps of 1, and the range may pass
+    # [0, 1] by at most MONO_F32[u_amp] (set from the readings in PERF.md).
+    MONO_ULPS = 4
+    MONO_F32 = {0.05: 1e-6, 0.5: 4e-6}
+    cfg_mono = bench_cfg(NLAYERS, NTRACERS, dict(eddy_diff2=0.0,
+                                                 eddy_diff4=0.0),
+                         flux_tracer_type="fct")
+    fb["fct_monotone"] = {
+        "steps": 20, "tolerance": f"f64: 1e-12; f32: {MONO_F32} by u_amp, "
+        f"and at most {MONO_ULPS} ulps of 1 past the plain version's range"}
+    mesh64 = mesh_np.to(dev, torch.float64)
+    for u_amp, dtype, m in ((0.05, torch.float32, mesh32),
+                            (0.5, torch.float32, mesh32),
+                            (0.5, torch.float64, mesh64)):
+        start = megastep.stack_state(m, step_tracer_state(
+            mesh_np, NLAYERS, dtype, u_amp))
+        mono = [start.clone(), torch.empty_like(start)]
+        pla = start
+        for _ in range(20):
+            megastep.fb_megastep_stacked(m, cfg_mono, mono[0], DT,
+                                         out=mono[1])
+            mono.reverse()
+            pla = megastep.fb_megastep_plain(m, cfg_mono, pla, DT)
+        torch.cuda.synchronize()
+        t0 = mono[0][4]
+        rec = {"min": t0.min().item(), "max": t0.max().item(),
+               "plain_min": pla[4].min().item(),
+               "plain_max": pla[4].max().item(),
+               "points_strictly_between":
+                   ((t0 > 1e-3) & (t0 < 1 - 1e-3)).sum().item()}
+        if dtype == torch.float64:
+            tol = ulps = 1e-12
+        else:
+            tol = MONO_F32[u_amp]
+            ulps = MONO_ULPS * torch.finfo(dtype).eps
+        if not (min(rec["min"], rec["plain_min"]) >= -tol
+                and max(rec["max"], rec["plain_max"]) <= 1 + tol
+                and rec["min"] >= rec["plain_min"] - ulps
+                and rec["max"] <= rec["plain_max"] + ulps
+                and rec["points_strictly_between"] > 0):
+            fail(f"fused FCT step is not monotone at u = {u_amp} x noise, "
+                 f"{dtype}: {rec}")
+        fb["fct_monotone"][f"u_amp_{u_amp}_{str(dtype)[6:]}"] = rec
+        del mono, t0, start, pla
+    del mesh64
     cfg = bench_cfg(NLAYERS, NTRACERS)
     fb.update(fbv["flagship"])
     fb["variants"] = {v: fbv[v] for v in FULL_WIDTH[1:]}
@@ -560,6 +672,168 @@ def main(argv=None):
     emit({"phase": "kernel_vmix", **vmx})
     del work, sv, kap_p, nu_p, s0, st
 
+    # ------------------------------------------------------ 4c. kernel_rk
+    # every stage mode of the RK stage kernel against rk_stage_plain on the
+    # same inputs (the initial state, the provisional state and accumulator
+    # the plain first stage makes of it): f64 per channel within 1e-12 of
+    # max|ref|; f32 at full width on the increment of every output channel
+    # over its input (out over base, or over the accumulator in RK_LAST; the
+    # accumulator over its input). Then whole fused RK2 / RK4 steps against
+    # the composed steppers in f64.
+    RK_INCR = 0.02
+    RK_VARIANTS = {"flagship": ({}, {}), "upwind_wind_drag": (UPWIND,
+                                                             WIND_DRAG)}
+    MODES = {"prov": megastep.RK_PROV, "first": megastep.RK_FIRST,
+             "mid": megastep.RK_MID, "last": megastep.RK_LAST}
+    CA, CB = 0.5 * DT, DT / 3.0
+
+    def stage_inputs(mesh, cfg, s, plane):
+        """(prov, acc) of a plain first stage on stacked state s"""
+        acc, prov = megastep.rk_stage_plain(mesh, cfg, megastep.RK_FIRST,
+                                            CA, DT / 6.0, s, s, wind=plane)
+        return prov, acc
+
+    def stage_call(mesh, cfg, mode, s, prov, acc, plane, out, acc_out):
+        """one launch of `mode` on the inputs a step would give it"""
+        ev = s if mode in (megastep.RK_PROV, megastep.RK_FIRST) else prov
+        megastep.rk_stage(
+            mesh, cfg, mode, CA, CB, ev, out,
+            base=None if mode == megastep.RK_LAST else s,
+            acc=acc if mode in (megastep.RK_MID, megastep.RK_LAST) else None,
+            acc_out=acc_out if mode in (megastep.RK_FIRST, megastep.RK_MID)
+            else None, wind=plane)
+
+    def stage_check(mesh, cfg, mode, s, prov, acc, plane):
+        """(kernel outputs, plain outputs, inputs) of one launch"""
+        ev = s if mode in (megastep.RK_PROV, megastep.RK_FIRST) else prov
+        ref_acc, ref = megastep.rk_stage_plain(
+            mesh, cfg, mode, CA, CB, ev,
+            None if mode == megastep.RK_LAST else s,
+            acc if mode in (megastep.RK_MID, megastep.RK_LAST) else None,
+            wind=plane)
+        out = torch.empty_like(s)
+        acc_out = acc.clone() if mode == megastep.RK_MID \
+            else torch.empty_like(s)       # RK_MID updates acc in place
+        stage_call(mesh, cfg, mode, s, prov, acc, plane, out, acc_out)
+        # what out's channels are increments of: the state, or in RK_LAST
+        # the accumulator's h, u and tracers (tr*h over h)
+        pairs = [("out", out, ref, s if mode != megastep.RK_LAST
+                  else torch.cat([acc[:4], acc[4:] / acc[0]]))]
+        if ref_acc is not None:
+            acc_in = acc if mode == megastep.RK_MID else torch.cat(
+                [s[:4], s[4:] * s[0]])
+            pairs.append(("acc", acc_out, ref_acc, acc_in))
+        return pairs
+
+    rk = {"f64": {}, "tolerance": "f64 per channel max|diff| <= 1e-12 "
+          "max|ref| (one launch); fused steps vs composed steppers rtol="
+          "atol=1e-10 over 2 steps; f32 at full width per output channel "
+          "the error of the launch's increment <= RK_INCR of the largest "
+          "increment", "RK_INCR": RK_INCR}
+    for (nx, ny, K) in ((32, 16, 3), (48, 20, 5)):
+        mesh_np = planar_hex_mesh(nx, ny, dc=5000.0, f0=1e-4,
+                                  bottom_depth=1000.0)
+        mesh = mesh_np.to(dev, torch.float64)
+        wind = wind_of(mesh_np, torch.float64)
+        for variant, (kw, tend) in RK_VARIANTS.items():
+            cfg_r = bench_cfg(K, NTRACERS, tend, **kw)
+            for stepper_kind in ("rk2", "rk4"):
+                if not megastep.supported(mesh, cfg_r, stepper_kind):
+                    fail(f"{variant} not supported by the {stepper_kind} "
+                         "stages")
+            st = noisy_state(mesh_np, K, NTRACERS, torch.float64)
+            s = megastep.stack_state(mesh, st)
+            plane = megastep.stack_wind(mesh, cfg_r, wind, torch.float64)
+            prov, acc = stage_inputs(mesh, cfg_r, s, plane)
+            worst = {}
+            for mname, mode in MODES.items():
+                for what, got, ref, _ in stage_check(mesh, cfg_r, mode, s,
+                                                      prov, acc, plane):
+                    e = chan_err(got, ref)
+                    worst[f"{mname}/{what}"] = e
+                    if e > 1e-12 or not bool(torch.isfinite(got).all()):
+                        fail(f"RK stage kernel ({variant}, {mname}) {what} "
+                             f"at {nx}x{ny}x{K} f64: {e} of max|ref|")
+            # whole steps: the fused path against the composed steppers
+            for name, step, fused in (
+                    ("rk2", rk2_step, megastep.rk2_megastep_stacked),
+                    ("rk4", rk4_step, megastep.rk4_megastep_stacked)):
+                comp, ker = st, s
+                for _ in range(2):
+                    comp = composed(step, mesh, cfg_r, comp, 0.0, DT,
+                                    wind_stress=wind)
+                    ker = fused(mesh, cfg_r, ker, DT, wind=plane)
+                torch.cuda.synchronize()
+                ref = megastep.stack_state(mesh, comp)
+                d = (ker - ref).abs()
+                if bool((d > 1e-10 + 1e-10 * ref.abs()).any()) \
+                        or not bool(torch.isfinite(ker).all()):
+                    fail(f"fused {name} ({variant}) vs composed at "
+                         f"{nx}x{ny}x{K} f64: {d.max().item()}")
+                worst[f"{name}_step_vs_composed"] = d.max().item()
+            rk["f64"][f"{variant} {nx}x{ny}x{K}"] = worst
+
+    mesh_np = planar_hex_mesh(NX, NY, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
+    st = noisy_state(mesh_np, NLAYERS, NTRACERS, torch.float32)
+    s0 = megastep.stack_state(mesh32, st)
+    V = CH * NLAYERS * C * 4                  # bytes of one stacked state
+    rkv = {}
+    for variant, (kw, tend) in RK_VARIANTS.items():
+        cfg_r = bench_cfg(NLAYERS, NTRACERS, tend, **kw)
+        plane = megastep.stack_wind(mesh32, cfg_r, wind32, torch.float32)
+        prov, acc = stage_inputs(mesh32, cfg_r, s0, plane)
+        tabs, consts = megastep._mega_args(mesh32, cfg_r, DT)
+        flops = _fb_flops_per_point(tabs, NTRACERS) * NLAYERS * C
+        wbytes = 3 * C * 4 if plane is not None else 0
+        res = {"plan": megastep.plan_tile(
+            NY, NX, 4, megastep._ring(tabs, consts, plane, "rk"), None,
+            megastep.RK_SLOTS), "modes": {}}
+        abs_err = 0.0
+        for mname, mode in MODES.items():
+            errs = {}
+            for what, got, ref, base in stage_check(mesh32, cfg_r, mode, s0,
+                                                    prov, acc, plane):
+                inc = incr_err(got, ref, base)
+                errs[what] = {"increment": inc, "value": chan_err(got, ref)}
+                if max(inc) > RK_INCR or not bool(torch.isfinite(got).all()):
+                    fail(f"RK stage kernel ({variant}, {mname}) {what} at "
+                         f"full width f32: increments {inc}")
+                abs_err = max(abs_err, (got - ref).abs().max().item())
+                del got, ref
+            out, acc_out = torch.empty_like(s0), acc.clone()
+            ms = cuda_ms(lambda: stage_call(mesh32, cfg_r, mode, s0, prov,
+                                            acc, plane, out, acc_out), 20)
+            ev = s0 if mode in (megastep.RK_PROV, megastep.RK_FIRST) \
+                else prov
+            plain_ms = cuda_ms(lambda: megastep.rk_stage_plain(
+                mesh32, cfg_r, mode, CA, CB, ev,
+                None if mode == megastep.RK_LAST else s0,
+                acc if mode in (megastep.RK_MID, megastep.RK_LAST) else None,
+                wind=plane), 2, 1)
+            # arrays read once and written once: the evaluated level, base
+            # and accumulator where the mode reads them (base is the level
+            # itself in prov / first), the outputs
+            reads = {"prov": 1, "first": 1, "mid": 3, "last": 2}[mname]
+            writes = {"prov": 1, "first": 2, "mid": 2, "last": 1}[mname]
+            b_ms, b_by = bound((reads + writes) * V + wbytes, flops)
+            res["modes"][mname] = {**errs, "ms": ms, "plain_ms": plain_ms,
+                                   "bound_ms": b_ms, "bound_by": b_by}
+            del out, acc_out
+        # the RK2 step's second launch reads a midpoint and the base state
+        b2_ms = bound(3 * V + wbytes, flops)[0]
+        res.update(max_abs_err=abs_err,
+                   rk2_launches_ms=res["modes"]["prov"]["ms"] * 2,
+                   rk2_bound_ms=res["modes"]["prov"]["bound_ms"] + b2_ms,
+                   rk4_launches_ms=sum(res["modes"][m]["ms"] * n for m, n in (
+                       ("first", 1), ("mid", 2), ("last", 1))),
+                   rk4_bound_ms=sum(res["modes"][m]["bound_ms"] * n
+                                    for m, n in (("first", 1), ("mid", 2),
+                                                 ("last", 1))))
+        rkv[variant] = res
+        del prov, acc
+    emit({"phase": "kernel_rk", **rk, "f32_256x256x100x2": rkv})
+    del s0, st
+
     # ------------------------------------------------------- 5. main_path
     # the bench configuration, through the entry points a user calls
     mesh_np = planar_hex_mesh(NX, NY, dc=5000.0, f0=1e-4,
@@ -582,9 +856,10 @@ def main(argv=None):
                 [(h64 * s.tracers[l].double()).sum().item()
                  for l in range(NTRACERS)])
 
+    state0 = state
     vol0, trc0 = content(state)
     nseg, seg = 2, 10
-    megastep.launches = 0
+    megastep.launches = megastep.rk_launches = 0
     stencil_kernel.launches = 0
     seg_s = []
     for i in range(nseg):
@@ -595,6 +870,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         seg_s.append(time.perf_counter() - t0)
     main_launches = {"fb_step": megastep.launches,
+                     "rk_stage": megastep.rk_launches,
                      "stencil": stencil_kernel.launches}
     for name, x in zip(("h", "u", "tracers"), state):
         want = {"h": (mesh.ncells, NLAYERS), "u": (mesh.nedges, NLAYERS),
@@ -614,8 +890,9 @@ def main(argv=None):
     if main_launches["fb_step"] != nseg * seg:
         fail(f"main path: fused kernel launched {main_launches['fb_step']} "
              f"times in {nseg * seg} steps")
-    if main_launches["stencil"] != 0:
-        fail("main path: the stencil kernel ran inside the fused path")
+    if main_launches["stencil"] != 0 or main_launches["rk_stage"] != 0:
+        fail(f"main path: other kernels ran inside the fused path: "
+             f"{main_launches}")
     ms_step = seg_s[-1] / seg * 1e3
     emit({"phase": "main_path", "config": f"{NX}x{NY}x{NLAYERS}x{NTRACERS} "
           "float32 dc=5000 f0=1e-4 dt=30 visc_del2=1e3 visc_del4=1e9",
@@ -626,27 +903,30 @@ def main(argv=None):
           "max_abs_u": umax, "launches": main_launches})
 
     # --------------------------------------------------- 6. composed_path
-    # the flux-corrected tracer flux is not taken by the fused kernel: the
+    # the column free surface (ssh = sum_k h - depth) is not taken by the
+    # fused kernels (the split-explicit slice brings its kernels): the
     # composed stepper runs, and every stencil pass goes through the stencil
     # kernel
-    cfg_fct = bench_cfg(NLAYERS, NTRACERS, flux_tracer_type="fct")
-    if megastep.supported(mesh, cfg_fct):
-        fail("FCT configuration unexpectedly taken by the fused kernel")
+    cfg_col = bench_cfg(NLAYERS, NTRACERS, ssh_formulation="column")
+    if any(megastep.supported(mesh, cfg_col, k) for k in ("fb", "rk2", "rk4")):
+        fail("column-ssh configuration unexpectedly taken by a fused kernel")
     nup = 3
-    run_steps(mesh, cfg_fct, state, 0.0, DT, 1)      # untimed first step
-    megastep.launches = 0
+    run_steps(mesh, cfg_col, state, 0.0, DT, 1)      # untimed first step
+    megastep.launches = megastep.rk_launches = 0
     stencil_kernel.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = run_steps(mesh, cfg_fct, state, 0.0, DT, nup,
+    out = run_steps(mesh, cfg_col, state, 0.0, DT, nup,
                     stepper=forward_backward_step)
     torch.cuda.synchronize()
     up_ms = (time.perf_counter() - t0) / nup * 1e3
     comp_launches = {"fb_step": megastep.launches,
+                     "rk_stage": megastep.rk_launches,
                      "stencil": stencil_kernel.launches}
     if not all(bool(torch.isfinite(x).all()) for x in out):
         fail("composed path: non-finite state")
-    if comp_launches["stencil"] <= 0 or comp_launches["fb_step"] != 0:
+    if comp_launches["stencil"] <= 0 or comp_launches["fb_step"] != 0 \
+            or comp_launches["rk_stage"] != 0:
         fail(f"composed path: launches {comp_launches}")
     vol2, trc2 = content(out)
     comp_drift = max([abs(vol2 - vol1) / vol1]
@@ -654,7 +934,7 @@ def main(argv=None):
     if comp_drift > 1e-5:
         fail(f"composed path: volume / tracer drift {comp_drift}")
     emit({"phase": "composed_path", "config": "as main_path with "
-          "flux_tracer_type=fct", "steps": nup, "ms_per_step": up_ms,
+          "ssh_formulation=column", "steps": nup, "ms_per_step": up_ms,
           "stencil_launches_per_step": comp_launches["stencil"] / nup,
           "drift": comp_drift, "launches": comp_launches})
     del out
@@ -670,9 +950,15 @@ def main(argv=None):
 
     def counts():
         return {"fb_step": megastep.launches,
+                "rk_stage": megastep.rk_launches,
                 "pp81_coeffs": vmix_kernel.coeff_launches,
                 "vmix_solve": vmix_kernel.solve_launches,
                 "stencil": stencil_kernel.launches}
+
+    def reset_counts():
+        megastep.launches = megastep.rk_launches = 0
+        vmix_kernel.coeff_launches = vmix_kernel.solve_launches = 0
+        stencil_kernel.launches = 0
 
     vol0, trc0 = content(sci0)
     nseg, seg = 2, 10
@@ -682,8 +968,7 @@ def main(argv=None):
     stencil_kernel.launches = 0
     megastep.stack_wind(mesh, cfg_sci, wind_sci, torch.float32)
     pack_stencils = stencil_kernel.launches
-    megastep.launches = vmix_kernel.coeff_launches = 0
-    vmix_kernel.solve_launches = stencil_kernel.launches = 0
+    reset_counts()
     sci, sci_s = sci0, []
     for i in range(nseg):
         torch.cuda.synchronize()
@@ -703,7 +988,7 @@ def main(argv=None):
         if x.dtype != torch.float32 or not bool(torch.isfinite(x).all()):
             fail(f"science path: {name} is not finite float32")
     for name, n in sci_launches.items():
-        if n != nseg * seg:
+        if n != (0 if name == "rk_stage" else nseg * seg):
             fail(f"science path: {name} launched {n} times in "
                  f"{nseg * seg} steps")
     vol1s, trc1s = content(sci)
@@ -756,6 +1041,213 @@ def main(argv=None):
           "bottom_sum_u2_without_drag": ke_bottom_slip})
     del calm, slip
 
+    def drive(cfg_p, st, stepper, nseg, seg, wind_stress=None):
+        """nseg segments of `seg` steps through run_steps: (state, seconds
+        per segment, launches)"""
+        run_steps(mesh, cfg_p, st, 0.0, DT, 1, stepper=stepper,
+                  wind_stress=wind_stress)                    # untimed
+        reset_counts()
+        secs = []
+        for i in range(nseg):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = run_steps(mesh, cfg_p, st, i * seg * DT, DT, seg,
+                           stepper=stepper, wind_stress=wind_stress)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return st, secs, counts()
+
+    def drifts(a, b):
+        (v0, t0), (v1, t1) = content(a), content(b)
+        return abs(v1 - v0) / v0, max(abs(y - x) / abs(x)
+                                      for x, y in zip(t0, t1))
+
+    def finite(name, st):
+        for f, x in zip(("h", "u", "tracers"), st):
+            if x.dtype != torch.float32 or not bool(torch.isfinite(x).all()):
+                fail(f"{name}: {f} is not finite float32")
+
+    def check_launches(name, got, want):
+        if got != want:
+            fail(f"{name}: launches {got}, expected {want}")
+
+    # -------------------------------------------------------- 8. fct_path
+    # the FB step with FCT tracer fluxes, fused: one launch per step; a 0/1
+    # step tracer stays in [0, 1] (tracer diffusion off, the reference's
+    # form; within 1e-6 at u = 0.05 x noise, MONO_F32 at the reference's
+    # 0.5) and the volume and tracer content are conserved
+    nseg, seg = 2, 10
+    fct0 = step_tracer_state(mesh_np, NLAYERS, torch.float32, 0.05)
+    fct, fct_s, fct_launches = drive(cfg_mono, fct0, forward_backward_step,
+                                     nseg, seg)
+    finite("fct path", fct)
+    check_launches("fct path", fct_launches,
+                   {"fb_step": nseg * seg, "rk_stage": 0, "pp81_coeffs": 0,
+                    "vmix_solve": 0, "stencil": 0})
+    fct_vol, fct_trc = drifts(fct0, fct)
+    lo, hi = fct.tracers[0].min().item(), fct.tracers[0].max().item()
+    if fct_vol > 1e-5 or fct_trc > 1e-5 or lo < -1e-6 or hi > 1 + 1e-6:
+        fail(f"fct path: drift {fct_vol} / {fct_trc}, tracer 0 in "
+             f"[{lo}, {hi}]")
+    fct_ms = fct_s[-1] / seg * 1e3
+    # the same in the reference's ten times stronger flow, held to the
+    # float32 limit kernel_fb_step states for it
+    ref0 = step_tracer_state(mesh_np, NLAYERS, torch.float32, 0.5)
+    ref, _, ref_launches = drive(cfg_mono, ref0, forward_backward_step, 1,
+                                 nseg * seg)
+    finite("fct path, u = 0.5 x noise", ref)
+    check_launches("fct path, u = 0.5 x noise", ref_launches,
+                   {"fb_step": nseg * seg, "rk_stage": 0, "pp81_coeffs": 0,
+                    "vmix_solve": 0, "stencil": 0})
+    ref_lo, ref_hi = ref.tracers[0].min().item(), ref.tracers[0].max().item()
+    if ref_lo < -MONO_F32[0.5] or ref_hi > 1 + MONO_F32[0.5]:
+        fail(f"fct path, u = 0.5 x noise: tracer 0 in [{ref_lo}, {ref_hi}]")
+    emit({"phase": "fct_path", "config": "as main_path with "
+          "flux_tracer_type=fct and eddy_diff2 = eddy_diff4 = 0; tracer 0 a "
+          "0/1 step in x, u = 0.05 x noise", "steps": nseg * seg,
+          "segment_seconds": fct_s, "ms_per_step": fct_ms,
+          "gridpoint_steps_per_s": C * NLAYERS / (fct_ms * 1e-3),
+          "launches": fct_launches, "volume_drift": fct_vol,
+          "tracer_drift": fct_trc, "tracer0_range": [lo, hi],
+          "tracer0_range_u_amp_0.5": [ref_lo, ref_hi]})
+    del fct, fct0, ref, ref0
+
+    # -------------------------------------------------------- 9. rk4_path
+    # the bench configuration and state with the RK4 stepper: four stage
+    # launches per step and nothing else
+    rk4, rk4_s, rk4_launches = drive(cfg, state0, rk4_step, nseg, seg)
+    finite("rk4 path", rk4)
+    check_launches("rk4 path", rk4_launches,
+                   {"fb_step": 0, "rk_stage": 4 * nseg * seg,
+                    "pp81_coeffs": 0, "vmix_solve": 0, "stencil": 0})
+    rk4_vol, rk4_trc = drifts(state0, rk4)
+    rk4_umax = rk4.u.abs().max().item()
+    if rk4_vol > 1e-5 or rk4_trc > 1e-5 or not 0.0 < rk4_umax < 1.0:
+        fail(f"rk4 path: drift {rk4_vol} / {rk4_trc}, max|u| {rk4_umax}")
+    rk4_ms = rk4_s[-1] / seg * 1e3
+    emit({"phase": "rk4_path", "config": "as main_path, stepper=rk4_step",
+          "steps": nseg * seg, "segment_seconds": rk4_s,
+          "ms_per_step": rk4_ms,
+          "gridpoint_steps_per_s": C * NLAYERS / (rk4_ms * 1e-3),
+          "launches": rk4_launches,
+          "launches_per_step": {k: v / (nseg * seg)
+                                for k, v in rk4_launches.items()},
+          "volume_drift": rk4_vol, "tracer_drift": rk4_trc,
+          "max_abs_u": rk4_umax})
+    del rk4
+
+    # -------------------------------------------------------- 10. rk2_path
+    # the science configuration with the RK2 stepper: two stage launches,
+    # then the coefficient and solve kernels, per step; the wind plane is
+    # packed once per segment
+    rk2, rk2_s, rk2_launches = drive(cfg_sci, sci0, rk2_step, nseg, seg,
+                                     wind_sci)
+    finite("rk2 path", rk2)
+    check_launches("rk2 path", rk2_launches,
+                   {"fb_step": 0, "rk_stage": 2 * nseg * seg,
+                    "pp81_coeffs": nseg * seg, "vmix_solve": nseg * seg,
+                    "stencil": nseg * pack_stencils})
+    rk2_vol, rk2_trc = drifts(sci0, rk2)
+    calm = run_steps(mesh, cfg_sci, sci0, 0.0, DT, nseg * seg,
+                     stepper=rk2_step)
+    rk2_top = (rk2.u[:, 0] - calm.u[:, 0]).abs().max().item()
+    rk2_mid = (rk2.u[:, NLAYERS // 2]
+               - calm.u[:, NLAYERS // 2]).abs().max().item()
+    rk2_umax = rk2.u.abs().max().item()
+    if rk2_vol > 1e-5 or rk2_trc > 1e-5 or not 0.0 < rk2_umax < 1.0:
+        fail(f"rk2 path: drift {rk2_vol} / {rk2_trc}, max|u| {rk2_umax}")
+    if not (rk2_top > 0.1 * wind_dv and rk2_mid < 0.01 * rk2_top):
+        fail(f"rk2 path: wind moved the top layer by {rk2_top}, layer "
+             f"{NLAYERS // 2} by {rk2_mid}")
+    rk2_ms = rk2_s[-1] / seg * 1e3
+    emit({"phase": "rk2_path", "config": "as science_path, "
+          "stepper=rk2_step", "steps": nseg * seg, "segment_seconds": rk2_s,
+          "ms_per_step": rk2_ms,
+          "gridpoint_steps_per_s": C * NLAYERS / (rk2_ms * 1e-3),
+          "launches": rk2_launches,
+          "launches_per_step_in_the_loop": {
+              k: (v - (nseg * pack_stencils if k == "stencil" else 0))
+              / (nseg * seg) for k, v in rk2_launches.items()},
+          "volume_drift": rk2_vol, "tracer_drift": rk2_trc,
+          "max_abs_u": rk2_umax, "top_layer_u_moved_by_wind": rk2_top,
+          "mid_layer_u_moved_by_wind": rk2_mid})
+    del rk2, calm
+
+    # ------------------------------------------------------- 11. rk_order
+    # the manufactured solution (tests/test_model.py:79-166) in float64 on
+    # the card; custom tendencies run the composed steppers, every stencil
+    # through the stencil kernel
+    from omega_tpu_torch.core import ManufacturedConfig, manufactured
+
+    def manufactured_setup(n):
+        m_np = planar_hex_mesh(n, n, dc=5.0e6 / n, f0=1e-4,
+                               bottom_depth=1000.0)
+        m = m_np.to(dev, torch.float64)
+        cfg_m = ModelConfig(
+            nvertlayers=1, ntracers=0,
+            manufactured=ManufacturedConfig(wavelength_x=m_np.x_period,
+                                            wavelength_y=m_np.y_period,
+                                            amplitude=2.0),
+            tendencies=TendencyConfig(
+                velocity_diffusion=True, visc_del2=0.0,
+                velocity_hyperdiff=False, visc_del4=0.0,
+                tracer_horz_adv=False, tracer_diffusion=False,
+                tracer_hyperdiff=False, use_custom_tendency=True,
+                manufactured_tendency=True))
+        p = manufactured.make_params(cfg_m, 1000.0)
+        st = ModelState(
+            h=1000.0 + manufactured.exact_ssh(p, m.x_cell, m.y_cell,
+                                              0.0)[:, None],
+            u=manufactured.exact_normal_velocity(p, m, 0.0)[:, None],
+            tracers=torch.zeros((0, m.ncells, 1), dtype=torch.float64,
+                                device=dev))
+        return m, cfg_m, p, st
+
+    t_order = time.perf_counter()
+    reset_counts()
+    m16, cfg_m, _, st16 = manufactured_setup(16)
+    if any(megastep.supported(m16, cfg_m, k) for k in ("fb", "rk2", "rk4")):
+        fail("custom tendencies unexpectedly taken by a fused kernel")
+    horizon = 1600.0
+
+    def time_err(stepper, n):
+        out = run_steps(m16, cfg_m, st16, 0.0, horizon / n, n,
+                        stepper=stepper)
+        ref = run_steps(m16, cfg_m, st16, 0.0, horizon / n / 8, n * 8,
+                        stepper=rk4_step)
+        return torch.sqrt(torch.mean((out.h - ref.h) ** 2)).item()
+
+    orders = {}
+    for name, stp, n1, n2 in (("fb", forward_backward_step, 16, 32),
+                              ("rk2", rk2_step, 4, 8),
+                              ("rk4", rk4_step, 4, 8)):
+        orders[name] = float(np.log2(time_err(stp, n1) / time_err(stp, n2)))
+
+    def space_err(n, nsteps, dt):
+        m, cfg_n, p, st = manufactured_setup(n)
+        out = run_steps(m, cfg_n, st, 0.0, dt, nsteps, stepper=rk4_step)
+        exact = manufactured.exact_ssh(p, m.x_cell, m.y_cell, nsteps * dt)
+        a = m.area_cell
+        return torch.sqrt(torch.sum(a * (out.h[:, 0] - 1000.0 - exact) ** 2)
+                          / torch.sum(a * exact ** 2)).item()
+
+    e16, e32 = space_err(16, 8, 2400.0 / 8), space_err(32, 16, 2400.0 / 16)
+    order_launches = counts()
+    orders["space"] = float(np.log2(e16 / e32))
+    if not (orders["fb"] > 0.85 and orders["rk2"] > 1.6
+            and orders["rk4"] > 3.2 and orders["space"] > 1.5 and e16 < 0.1):
+        fail(f"rk_order: orders {orders}, coarse error {e16}")
+    if order_launches["stencil"] <= 0 or order_launches["rk_stage"] != 0 \
+            or order_launches["fb_step"] != 0:
+        fail(f"rk_order: launches {order_launches}")
+    emit({"phase": "rk_order", "config": "manufactured solution, planar "
+          "16x16 (time) and 16x16 / 32x32 (space), Lx = 5e6 m, 1 layer, "
+          "float64, RK4 reference at dt/8; bounds fb > 0.85, rk2 > 1.6, "
+          "rk4 > 3.2, space > 1.5 with coarse error < 0.1",
+          "orders": orders, "space_errors": [e16, e32],
+          "launches": order_launches,
+          "seconds": time.perf_counter() - t_order})
+
     # ------------------------------------------------- optional: profile
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -783,9 +1275,16 @@ def main(argv=None):
               "fused_5_steps": traced(lambda: run_steps(
                   mesh, cfg, state, 0.0, DT, 5)),
               "composed_2_steps": traced(lambda: run_steps(
-                  mesh, cfg_fct, state, 0.0, DT, 2)),
+                  mesh, cfg_col, state, 0.0, DT, 2)),
               "science_5_steps": traced(lambda: run_steps(
-                  mesh, cfg_sci, sci, 0.0, DT, 5, wind_stress=wind_sci))})
+                  mesh, cfg_sci, sci, 0.0, DT, 5, wind_stress=wind_sci)),
+              "fct_5_steps": traced(lambda: run_steps(
+                  mesh, cfg_mono, state0, 0.0, DT, 5)),
+              "rk4_5_steps": traced(lambda: run_steps(
+                  mesh, cfg, state0, 0.0, DT, 5, stepper=rk4_step)),
+              "rk2_science_5_steps": traced(lambda: run_steps(
+                  mesh, cfg_sci, sci, 0.0, DT, 5, stepper=rk2_step,
+                  wind_stress=wind_sci))})
 
     # ---------------------------------------------------------- 8. kernels
     print(smi_line, flush=True)
@@ -841,6 +1340,57 @@ def main(argv=None):
          "coefficients, float32", "path": "science_path",
          "constant_coefficients": {"ms": solve_ms["constant"],
                                    "bound_ms": solve_b["constant"][0]}},
+        {"name": "fb_step_fct", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/fb_step_cf.cu",
+         "template": "omega_tpu_torch/csrc/fb_step.cuh",
+         "replaces": "omega_tpu/ops/megastep.py:263",
+         "launches": fct_launches["fb_step"],
+         "max_abs_err": fbv["fct"]["max_abs_err"],
+         "ms": fbv["fct"]["ms"], "plain_ms": fbv["fct"]["plain_ms"],
+         "bound_ms": fbv["fct"]["bound_ms"],
+         "bound_by": fbv["fct"]["bound_by"], "library_ms": None,
+         "shape": f"({CH}, {NLAYERS}, {NY}, {NX}) float32",
+         "variant": "center thickness flux, FCT tracer flux, no tails",
+         "path": "fct_path",
+         "variants_ms": {"fct_upwind_wind_drag":
+                         fbv["fct_upwind_wind_drag"]["ms"]}},
+        {"name": "rk_stage", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/rk_stage_cc.cu",
+         "template": "omega_tpu_torch/csrc/rk_stage.cuh",
+         "replaces": "omega_tpu/ops/megastep.py:551",
+         "also_replaces": "omega_tpu/ops/megastep.py:622, :687, :698, :712",
+         "launches": rk4_launches["rk_stage"],
+         "max_abs_err": rkv["flagship"]["max_abs_err"],
+         "ms": rkv["flagship"]["modes"]["mid"]["ms"],
+         "plain_ms": rkv["flagship"]["modes"]["mid"]["plain_ms"],
+         "bound_ms": rkv["flagship"]["modes"]["mid"]["bound_ms"],
+         "bound_by": rkv["flagship"]["modes"]["mid"]["bound_by"],
+         "library_ms": None,
+         "shape": f"mode mid: 3 x ({CH}, {NLAYERS}, {NY}, {NX}) in, 2 out, "
+         "float32", "variant": "center fluxes, no tails", "path": "rk4_path",
+         "modes_ms": {m: v["ms"] for m, v in
+                      rkv["flagship"]["modes"].items()},
+         "rk4_step_launches_ms": rkv["flagship"]["rk4_launches_ms"],
+         "rk4_step_bound_ms": rkv["flagship"]["rk4_bound_ms"]},
+        {"name": "rk_stage_upwind_tails", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/rk_stage_uu.cu",
+         "template": "omega_tpu_torch/csrc/rk_stage.cuh",
+         "replaces": "omega_tpu/ops/megastep.py:622",
+         "launches": rk2_launches["rk_stage"],
+         "max_abs_err": rkv["upwind_wind_drag"]["max_abs_err"],
+         "ms": rkv["upwind_wind_drag"]["modes"]["prov"]["ms"],
+         "plain_ms": rkv["upwind_wind_drag"]["modes"]["prov"]["plain_ms"],
+         "bound_ms": rkv["upwind_wind_drag"]["modes"]["prov"]["bound_ms"],
+         "bound_by": rkv["upwind_wind_drag"]["modes"]["prov"]["bound_by"],
+         "library_ms": None,
+         "shape": f"mode prov: ({CH}, {NLAYERS}, {NY}, {NX}) + wind (3, "
+         f"{NY}, {NX}) in, 1 out, float32",
+         "variant": "upwind thickness and tracer fluxes, wind and drag",
+         "path": "rk2_path",
+         "modes_ms": {m: v["ms"] for m, v in
+                      rkv["upwind_wind_drag"]["modes"].items()},
+         "rk2_step_launches_ms": rkv["upwind_wind_drag"]["rk2_launches_ms"],
+         "rk2_step_bound_ms": rkv["upwind_wind_drag"]["rk2_bound_ms"]},
         {"name": "stencil", "route": "cuda",
          "source": "omega_tpu_torch/csrc/stencil.cu",
          "replaces": "omega_tpu/ops/pallas_stencil_dma.py:55",
@@ -851,11 +1401,24 @@ def main(argv=None):
          "bound_ms": timed["tang"]["bound_ms"],
          "bound_by": timed["tang"]["bound_by"], "library_ms": None,
          "shape": f"tang on (2, {3 * C}, {NLAYERS}) float32",
-         "path": "composed_path", "per_table": timed},
+         "path": "composed_path", "per_table": timed,
+         "rk_order_launches": order_launches["stencil"]},
     ], "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def composed(stepper, *args, **kw):
+    """A stepper's composed path (the stencil-kernel path) on the card:
+    the stepper runs with the fused kernels' dispatch turned away."""
+    from omega_tpu_torch.ops import megastep
+    keep = megastep.enabled
+    megastep.enabled = lambda state: False
+    try:
+        return stepper(*args, **kw)
+    finally:
+        megastep.enabled = keep
 
 
 def _composed_step(mesh, cfg, state, dt, wind_stress=None):
@@ -868,21 +1431,31 @@ def _composed_step(mesh, cfg, state, dt, wind_stress=None):
     dh, thick = tend.compute_thickness_tendency(mesh, cfg, h, u, 0.0)
     h_new = h + dt * dh
     dtr, _ = tend.compute_tracer_tendency(mesh, cfg, h, u, tr,
-                                          thick.mean_h_edge, 0.0)
+                                          thick.mean_h_edge, 0.0,
+                                          h_new=h_new, dt=dt,
+                                          flux_h_edge=thick.flux_h_edge)
     tr_new = (tr * h[None] + dt * dtr) / h_new[None]
     du, _ = tend.compute_velocity_tendency(mesh, cfg, h_new, u, dt,
                                            wind_stress)
     return ModelState(h=h_new, u=u + dt * du, tracers=tr_new)
 
 
-def _fb_flops_per_point(tabs, ntracers):
+def _fb_flops_per_point(tabs, ntracers, fct=False):
     """Floating-point operations of the FB chain per (cell, layer): two per
-    table entry applied, plus the pointwise arithmetic between levels."""
+    table entry applied, plus the pointwise arithmetic between levels. (The
+    RK stage's chain, every aux at one level, is within a few operations of
+    it.)"""
     n = lambda *names: sum(len(tabs[k]) for k in names)
     thick = 2 * n("cmean", "div") + 5
     # (the upwind and tail variants cost within a few operations of this)
     tracer = 2 * n("cmean", "div", "cdiff", "signed_div", "cdiff",
                    "signed_div") + 24
+    if fct:
+        # the low-order flux's divergence, four budget walks, the
+        # corrected flux's divergence, 24 min / max of the bounds and the
+        # pointwise limiter, in place of the centered flux
+        tracer += 2 * (n("div", "div_pos", "div_neg", "div_pos", "div_neg")
+                       - n("cmean")) + 24 + 60
     vel = 2 * (n("ke", "div", "curl", "kite", "vmean", "vmean", "cdiff",
                  "vdiff", "div", "curl", "cmean", "tang", "tang", "cdiff",
                  "cdiff", "cdiff", "vdiff")) + 90

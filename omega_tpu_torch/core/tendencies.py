@@ -11,8 +11,8 @@ wrappers:
   compute_tracer_tendency      <- Tendencies::computeTracerTendencies
   compute_all_tendencies       <- Tendencies::computeAllTendencies
 
-The custom (manufactured-solution) tendencies arrive with a later slice of
-the port and raise NotImplementedError; no option is silently ignored.
+With `use_custom_tendency` and `manufactured_tendency` the manufactured-
+solution forcing (core/manufactured.py) is added to the h and u tendencies.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from omega_tpu_torch.core import aux as auxmod
+from omega_tpu_torch.core import manufactured
 from omega_tpu_torch.core.config import ModelConfig
 from omega_tpu_torch.mesh.horz_mesh import HorzMesh
 from omega_tpu_torch.ops import trisk
@@ -33,31 +34,34 @@ class Tendencies(NamedTuple):
     dtr: Optional[torch.Tensor] = None  # (L, C, K)
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for every option of `cfg` whose physics
-    has not been ported yet, naming the slice that brings it."""
-    if cfg.tendencies.use_custom_tendency:
-        raise NotImplementedError(
-            "use_custom_tendency: the manufactured-solution tendencies "
-            "arrive with the remaining-core slice (core/manufactured.py)")
+def _custom_hooks(mesh: HorzMesh, cfg: ModelConfig):
+    """Resolve custom tendency hooks (ocn/Tendencies.cpp:40-66)."""
+    if cfg.tendencies.use_custom_tendency and cfg.tendencies.manufactured_tendency:
+        # resting thickness assumed horizontally uniform (CustomTendencyTerms.cpp:80-84)
+        h0 = float(mesh.bottom_depth[0])
+        p = manufactured.make_params(cfg, h0)
+        return (lambda t: manufactured.thickness_tendency(p, mesh, t),
+                lambda t: manufactured.velocity_tendency(p, mesh, cfg, t))
+    return None, None
 
 
 def thickness_tendency(mesh: HorzMesh, cfg: ModelConfig,
                        thick_aux: auxmod.ThicknessAux, u, t) -> torch.Tensor:
     """tend_h = -div(flux_h u)  (TendencyTerms.h:26-66)."""
-    check_ported(cfg)
     tc = cfg.tendencies
     K = u.shape[-1]
     tend = torch.zeros((mesh.ncells, K), dtype=u.dtype, device=u.device)
     if tc.thickness_flux_div:
         tend = tend - trisk.div_cell(mesh, thick_aux.flux_h_edge * u)
+    custom_h, _ = _custom_hooks(mesh, cfg)
+    if custom_h is not None:
+        tend = tend + custom_h(t)
     return tend
 
 
 def velocity_tendency(mesh: HorzMesh, cfg: ModelConfig,
                       mom: auxmod.MomentumAux, u, t) -> torch.Tensor:
     """Momentum RHS (TendencyTerms.h:70-340, Tendencies.cpp:301-425)."""
-    check_ported(cfg)
     tc = cfg.tendencies
     K = u.shape[-1]
     mask = trisk.col(mesh, "edge_mask")
@@ -113,6 +117,9 @@ def velocity_tendency(mesh: HorzMesh, cfg: ModelConfig,
                 / mom.thickness.mean_h_edge[:, -1])
         tend[:, -1] -= drag
 
+    _, custom_u = _custom_hooks(mesh, cfg)
+    if custom_u is not None:
+        tend = tend + custom_u(t)
     return tend
 
 
@@ -138,7 +145,6 @@ def compute_tracer_tendency(mesh, cfg, h, u, tracers, mean_h_edge, t,
     beyond the reference's center/upwind options) the advective term is
     Zalesak flux-corrected and needs the updated thickness h_new and dt
     (available in the forward-backward stepper)."""
-    check_ported(cfg)
     tc = cfg.tendencies
     tr_aux = auxmod.tracer_aux(mesh, cfg, h, u, tracers, mean_h_edge)
     tend = torch.zeros_like(tracers)

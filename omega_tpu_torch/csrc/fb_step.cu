@@ -2,8 +2,9 @@
 // flagship chain), without and with the wind / drag tails; the kernel is the
 // template of fb_step.cuh.
 #include "fb_step.cuh"
+#include "rk_stage.cuh"
 
-OMEGA_FB_VARIANTS(cc, false, false)
+OMEGA_FB_VARIANTS(cc, false, omega::TR_CENTER)
 
 extern "C" {
 
@@ -13,6 +14,13 @@ int omega_fb_params_size_f32() {
 int omega_fb_params_size_f64() {
   return static_cast<int>(sizeof(omega::FbParams<double>));
 }
-int omega_fb_slots() { return omega::kFbSlots; }
+// slab arrays of a chain: kind 0 = the FB step (flux variant uph, fct),
+// 1 = the RK stage
+int omega_chain_slots(int kind, int uph, int fct) {
+  if (kind == 1) return omega::kRkSlots;
+  if (fct) return uph ? omega::fb_slots<true, omega::TR_FCT>()
+                      : omega::fb_slots<false, omega::TR_FCT>();
+  return omega::fb_slots<false, omega::TR_CENTER>();
+}
 
 }  // extern "C"

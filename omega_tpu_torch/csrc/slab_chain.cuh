@@ -1,0 +1,423 @@
+// What the fused FB step (fb_step.cuh) and the RK stage kernel
+// (rk_stage.cuh) share: the shift tables as compile-time entry layouts with
+// their offsets and weights in the kernel's parameter space, the one-layer x
+// (by, bx) slab with the periodic wrap as index arithmetic, and the levels of
+// the chain both evaluate (the thickness fluxes, the center / upwind tracer
+// tendency, the momentum aux and du).
+//
+// A block is one layer k x one (by, bx) horizontal tile of the stacked state
+// (4+L, K, ny, nx), x fastest; it holds a (by+2ry) x (bx+2rx) slab of every
+// value it needs in shared memory ("slots" of S = YY * XX elements), walks a
+// chain level by level with a block-wide barrier between levels, and writes
+// only the owned centre. Every level is evaluated on the whole slab, and a
+// shifted read that leaves the slab returns some other in-bounds value, so
+// wrong values creep in from the slab edge by one stencil radius per level;
+// the host derives the ring that keeps the centre exact from each chain
+// itself (ops/megastep.py:chain_radius).
+#pragma once
+
+#include "stencil_common.cuh"
+
+namespace omega {
+
+enum FbTable {
+  T_DIV = 0, T_KE, T_CURL, T_KITE, T_TANG, T_CDIFF, T_CMEAN, T_VDIFF,
+  T_VMEAN, T_SDIV, T_C0, T_C1, T_DIVP, T_DIVN, T_COC0, T_COUNT = T_COC0 + 6
+};
+
+constexpr int kFbMaxEntries = 96;
+
+// Entries per destination class of each table on the planar hex mesh (a
+// cell has 6 edges, a vertex 3 edges and 3 cells, an edge 2 cells, 2 vertices
+// and 8 non-zero tangential weights; c0 and c1 name an edge's first and
+// second cell, coc0..coc5 a cell's six neighbours; div_pos and div_neg keep
+// the three edges of a cell whose divergence weight has that sign), and the
+// classes per table. The layout of the entry arrays is fixed at compile
+// time, so every stencil loop unrolls and each offset and weight is an
+// immediate operand from the kernel's parameter space; the launchers refuse
+// tables that do not have these counts (the host then runs the composed
+// step).
+__host__ __device__ constexpr int tab_count(int b) {
+  return (b == T_C0 || b == T_C1 || b >= T_COC0) ? 1
+         : (b == T_CURL || b == T_KITE || b == T_DIVP || b == T_DIVN) ? 3
+         : b == T_TANG                                                ? 8
+         : (b == T_DIV || b == T_KE || b == T_SDIV)                   ? 6
+                                                                      : 2;
+}
+__host__ __device__ constexpr int tab_classes(int b) {
+  return (b == T_DIV || b == T_KE || b == T_SDIV || b == T_DIVP ||
+          b == T_DIVN || b >= T_COC0)
+             ? 1
+         : (b == T_CURL || b == T_KITE) ? 2
+                                        : 3;
+}
+// first entry of table b: tables in enum order, classes in order within
+__host__ __device__ constexpr int tab_base(int b) {
+  int n = 0;
+  for (int i = 0; i < b; ++i) n += tab_count(i) * tab_classes(i);
+  return n;
+}
+static_assert(tab_base(T_COUNT) <= kFbMaxEntries, "entry arrays too small");
+
+template <typename T>
+struct FbParams {
+  // entry i reads slab element q + off[parity of q's row][i] (a flat offset
+  // class * S + dj * XX + di, computed on the host for this tile) times w[i]
+  int off[2][kFbMaxEntries];
+  T w[kFbMaxEntries];
+  // entries of table b, destination class t, as the host packed them:
+  // [start[b][t], start[b][t+1]) — checked against the layout above
+  short start[T_COUNT][4];
+  // constants folded in float64 on the host and rounded to T once:
+  // nu2s = nu2*scal2, nu4s = nu4*scal4, ed2s = ed2*scal2, geo4 = geo*scal4;
+  // rho0 and cd (0 = no drag) are read by the TAILS variants only
+  T dt, grav, nu2s, nu4s, div_factor, ed2s, ed4, inv_dc, inv_dv, inv_dv_floor,
+      geo, geo4, f0v, rho0, cd;
+  // guard: elements of slack before the first and after the last slab array,
+  // at least max|dj| * (bx + 2 rx) + max|di| over all entries
+  int L, K, ny, nx, by, bx, ry, rx, guard;
+};
+
+// the host's packing matches the compile-time layout
+template <typename T>
+bool layout_ok(const FbParams<T>& p) {
+  for (int b = 0; b < T_COUNT; ++b)
+    for (int t = 0; t <= tab_classes(b); ++t)
+      if (p.start[b][t] != tab_base(b) + t * tab_count(b)) return false;
+  return p.guard >= 2 * (p.bx + 2 * p.rx) + 2;
+}
+
+// sum_i w[i] * read(q + off[i]) over the entries of (table B, class t) for a
+// point q on a row of the given parity. With t a compile-time value (the
+// callers' loops over t are unrolled) every index below is a constant.
+template <int B, typename T, typename Read>
+__device__ __forceinline__ T apply(const FbParams<T>& p, int t, bool odd,
+                                   int q, Read read) {
+  T acc = T(0);
+#pragma unroll
+  for (int i = 0; i < tab_count(B); ++i) {
+    const int e = tab_base(B) + t * tab_count(B) + i;
+    acc += p.w[e] * read(q + (odd ? p.off[1][e] : p.off[0][e]));
+  }
+  return acc;
+}
+
+// apply table B (destination class t) at point q of row parity `odd`
+#define AP(B, t, read) apply<B>(p, t, odd, q, read)
+
+// flat offset of entry e for a point on a row of the given parity
+template <typename T>
+__device__ __forceinline__ int entry_ofs(const FbParams<T>& p, int e,
+                                         bool odd) {
+  return odd ? p.off[1][e] : p.off[0][e];
+}
+
+// flat offset of the one entry of pair table B (T_C0 or T_C1), class t
+template <int B, typename T>
+__device__ __forceinline__ int pair_ofs(const FbParams<T>& p, int t,
+                                        bool odd) {
+  return entry_ofs(p, tab_base(B) + t * tab_count(B), odd);
+}
+
+// the reference's upwind selection: a where u > 0, b where u < 0, the larger
+// of the two at rest
+template <typename T>
+__device__ __forceinline__ T upwind_sel(T u, T a, T b) {
+  return u > T(0) ? a : (u < T(0) ? b : (a > b ? a : b));
+}
+
+// a[r] as a read for AP
+template <typename T>
+struct At {
+  const T* a;
+  __device__ __forceinline__ T operator()(int r) const { return a[r]; }
+};
+template <typename T>
+__device__ __forceinline__ At<T> at(const T* a) {
+  return At<T>{a};
+}
+
+// The block's slab: layer k, tile origin (y0, x0), slab origin (gy0, gx0)
+// with the ring, S points in rows of XX; each thread walks the slab from
+// (sy0, sx0) in strides of (dy, dx).
+struct Slab {
+  int YY, XX, S, y0, x0, k, gy0, gx0, par0, nown, sy0, sx0, dy, dx;
+  long long plane;
+
+  template <typename T>
+  __device__ explicit Slab(const FbParams<T>& p) {
+    YY = p.by + 2 * p.ry;
+    XX = p.bx + 2 * p.rx;
+    S = YY * XX;
+    y0 = blockIdx.y * p.by;
+    x0 = blockIdx.x * p.bx;
+    k = blockIdx.z;
+    gy0 = y0 - p.ry;
+    gx0 = x0 - p.rx;
+    par0 = gy0 & 1;  // ny is even, so parity survives the wrap
+    plane = static_cast<long long>(p.ny) * p.nx;
+    nown = p.by * p.bx;
+    sy0 = threadIdx.x / XX;
+    sx0 = threadIdx.x - sy0 * XX;
+    dy = blockDim.x / XX;
+    dx = blockDim.x - dy * XX;
+  }
+  // device-memory offset of channel ch, layer k
+  template <typename T>
+  __device__ long long chan(const FbParams<T>& p, int ch) const {
+    return (static_cast<long long>(ch) * p.K + k) * plane;
+  }
+  // device-memory offset (within a channel plane) of slab point q
+  template <typename T>
+  __device__ long long gofs(const FbParams<T>& p, int q) const {
+    const int sy = q / XX, sx = q - sy * XX;
+    return static_cast<long long>(wrap_any(gy0 + sy, p.ny)) * p.nx +
+           wrap_any(gx0 + sx, p.nx);
+  }
+  // parity of slab row sy's global row
+  __device__ bool is_odd(int sy) const { return ((par0 + sy) & 1) != 0; }
+  // owned point o of the tile: its slab point q, plane offset g and row
+  // parity; false where a ragged tile leaves the domain
+  template <typename T>
+  __device__ bool owned(const FbParams<T>& p, int o, int& q, long long& g,
+                        bool& odd) const {
+    const int oy = o / p.bx, ox = o - oy * p.bx;
+    const int gy = y0 + oy, gx = x0 + ox;
+    if (gy >= p.ny || gx >= p.nx) return false;
+    q = (oy + p.ry) * XX + ox + p.rx;
+    g = static_cast<long long>(gy) * p.nx + gx;
+    odd = is_odd(oy + p.ry);
+    return true;
+  }
+};
+
+// every slab point q of this thread, with its row sy kept by increments
+#define FOR_SLAB(q, sy)                                                     \
+  for (int q = threadIdx.x, sy = sl.sy0, sx_ = sl.sx0; q < sl.S;            \
+       q += blockDim.x, sy += sl.dy, sx_ += sl.dx,                          \
+           (sx_ >= sl.XX ? (sx_ -= sl.XX, ++sy) : 0))
+
+// h and the three classes of u of stacked array `in` into slots H and U,
+// with the periodic wrap
+template <typename T>
+__device__ __forceinline__ void load_hu(const Slab& sl, const FbParams<T>& p,
+                                        const T* __restrict__ in, T* H,
+                                        T* U) {
+  for (int q = threadIdx.x; q < sl.S; q += blockDim.x) {
+    const long long g = sl.gofs(p, q);
+    H[q] = in[sl.chan(p, 0) + g];
+    U[q] = in[sl.chan(p, 1) + g];
+    U[sl.S + q] = in[sl.chan(p, 2) + g];
+    U[2 * sl.S + q] = in[sl.chan(p, 3) + g];
+  }
+}
+
+// mean_h = cmean(h); upwind: mean_h = 0.5*(h0+h1), flux_h = the pick (FH)
+template <bool UPH, typename T>
+__device__ __forceinline__ void thickness_level(const Slab& sl,
+                                                const FbParams<T>& p,
+                                                const T* H, const T* U, T* MH,
+                                                T* FH) {
+  const int S = sl.S;
+  FOR_SLAB(q, sy) {
+    const bool odd = sl.is_odd(sy);
+    _Pragma("unroll") for (int t = 0; t < 3; ++t) {
+      if constexpr (UPH) {
+        const T h0 = H[q + pair_ofs<T_C0>(p, t, odd)];
+        const T h1 = H[q + pair_ofs<T_C1>(p, t, odd)];
+        MH[t * S + q] = T(0.5) * (h0 + h1);
+        FH[t * S + q] = upwind_sel(U[t * S + q], h0, h1);
+      } else {
+        MH[t * S + q] = AP(T_CMEAN, t, at(H));
+      }
+    }
+  }
+}
+
+// The center / upwind tracer tendency's slab levels for the tracer in TR
+// (fluxes on h, H): HTR = h*tr on edges, G = geo*mean_h*cdiff(tr); then
+// ADV = -div(HTR*u), D2 = signed_div(G); then CD2 = geo4*cdiff(D2). Ends on
+// a barrier; `tracer_dtr` finishes at an owned point.
+template <bool UPT, typename T>
+__device__ __forceinline__ void tracer_levels(const Slab& sl,
+                                              const FbParams<T>& p,
+                                              const T* H, const T* U,
+                                              const T* MH, const T* TR,
+                                              T* HTR, T* G, T* ADV, T* D2,
+                                              T* CD2) {
+  const int S = sl.S;
+  FOR_SLAB(q, sy) {
+    const bool odd = sl.is_odd(sy);
+    _Pragma("unroll") for (int t = 0; t < 3; ++t) {
+      if constexpr (UPT) {
+        const int o0 = pair_ofs<T_C0>(p, t, odd);
+        const int o1 = pair_ofs<T_C1>(p, t, odd);
+        HTR[t * S + q] = upwind_sel(U[t * S + q], H[q + o0] * TR[q + o0],
+                                    H[q + o1] * TR[q + o1]);
+      } else {
+        HTR[t * S + q] = AP(T_CMEAN, t, [&](int r) { return H[r] * TR[r]; });
+      }
+      const T ctr = AP(T_CDIFF, t, at(TR));
+      G[t * S + q] = p.geo * MH[t * S + q] * ctr;
+    }
+  }
+  __syncthreads();
+
+  FOR_SLAB(q, sy) {
+    const bool odd = sl.is_odd(sy);
+    ADV[q] = -AP(T_DIV, 0, [&](int r) { return HTR[r] * U[r]; });
+    D2[q] = AP(T_SDIV, 0, at(G));
+  }
+  __syncthreads();
+
+  FOR_SLAB(q, sy) {
+    const bool odd = sl.is_odd(sy);
+    _Pragma("unroll") for (int t = 0; t < 3; ++t)
+      CD2[t * S + q] = p.geo4 * AP(T_CDIFF, t, at(D2));
+  }
+  __syncthreads();
+}
+
+// d(h tr)/dt at owned point q: adv + del2 - del4, del4 = signed_div(CD2)
+template <typename T>
+__device__ __forceinline__ T tracer_dtr(const FbParams<T>& p, int q, bool odd,
+                                        const T* ADV, const T* D2,
+                                        const T* CD2) {
+  const T hyp = AP(T_SDIV, 0, at(CD2));
+  return ADV[q] + p.ed2s * D2[q] - p.ed4 * hyp;
+}
+
+// The slots of the momentum levels. HL is the thickness level the momentum
+// aux is evaluated on (h_new in the FB step, the evaluated level in an RK
+// stage); FL holds its flux thickness (cmean or the upwind pick).
+template <typename T>
+struct MomSlots {
+  const T* HL;
+  T *FL, *KE, *DIVU, *RV, *NRV, *NPV, *Q, *D2E, *D2DIV, *D2RV;
+};
+
+// The momentum aux's slab levels: ke, div, curl, h_v, the normalized
+// vorticities and FL; then edge PV and del2 of u on edges; then div and curl
+// of that. Ends on a barrier; `momentum_du` finishes at an owned point.
+template <bool UPH, typename T>
+__device__ __forceinline__ void momentum_levels(const Slab& sl,
+                                                const FbParams<T>& p,
+                                                const T* U,
+                                                const MomSlots<T>& m) {
+  const int S = sl.S;
+  FOR_SLAB(q, sy) {
+    const bool odd = sl.is_odd(sy);
+    m.KE[q] = AP(T_KE, 0, [&](int r) { return U[r] * U[r]; });
+    m.DIVU[q] = AP(T_DIV, 0, at(U));
+    _Pragma("unroll") for (int t = 0; t < 3; ++t) {
+      if constexpr (UPH) {
+        m.FL[t * S + q] = upwind_sel(U[t * S + q],
+                                     m.HL[q + pair_ofs<T_C0>(p, t, odd)],
+                                     m.HL[q + pair_ofs<T_C1>(p, t, odd)]);
+      } else {
+        m.FL[t * S + q] = AP(T_CMEAN, t, at(m.HL));
+      }
+    }
+    _Pragma("unroll") for (int t = 0; t < 2; ++t) {
+      const T rv = AP(T_CURL, t, at(U));
+      const T hv = AP(T_KITE, t, at(m.HL));
+      m.RV[t * S + q] = rv;
+      m.NRV[t * S + q] = rv / hv;
+      m.NPV[t * S + q] = p.f0v / hv;
+    }
+  }
+  __syncthreads();
+
+  FOR_SLAB(q, sy) {
+    const bool odd = sl.is_odd(sy);
+    _Pragma("unroll") for (int t = 0; t < 3; ++t) {
+      const T nrv_e = AP(T_VMEAN, t, at(m.NRV));
+      const T npv_e = AP(T_VMEAN, t, at(m.NPV));
+      m.Q[t * S + q] = nrv_e + npv_e;
+      const T cdd = AP(T_CDIFF, t, at(m.DIVU));
+      const T vdr = AP(T_VDIFF, t, at(m.RV));
+      m.D2E[t * S + q] = cdd * p.inv_dc - vdr * p.inv_dv_floor;
+    }
+  }
+  __syncthreads();
+
+  FOR_SLAB(q, sy) {
+    const bool odd = sl.is_odd(sy);
+    m.D2DIV[q] = AP(T_DIV, 0, at(m.D2E));
+    _Pragma("unroll") for (int t = 0; t < 2; ++t)
+      m.D2RV[t * S + q] = AP(T_CURL, t, at(m.D2E));
+  }
+  __syncthreads();
+}
+
+// du of edge class t at owned point q (plane offset g): PV flux, KE and ssh
+// gradients, del2 and del4 diffusion, and with TAILS the wind stress on the
+// top layer and quadratic drag on the bottom one (both with mean_h of HL)
+template <bool UPH, bool TAILS, typename T>
+__device__ __forceinline__ T momentum_du(const Slab& sl, const FbParams<T>& p,
+                                         int q, bool odd, int t, long long g,
+                                         const T* U, const MomSlots<T>& m,
+                                         const T* __restrict__ wind, bool top,
+                                         bool bottom) {
+  const int S = sl.S;
+  // tang(F) and tang(F*q) share the walk; F = flux thickness * u on the fly
+  T tf = T(0), tfq = T(0);
+#pragma unroll
+  for (int i = 0; i < tab_count(T_TANG); ++i) {
+    const int e = tab_base(T_TANG) + t * tab_count(T_TANG) + i;
+    const int r = q + (odd ? p.off[1][e] : p.off[0][e]);
+    const T F = m.FL[r] * U[r];
+    tf += p.w[e] * F;
+    tfq += p.w[e] * (F * m.Q[r]);
+  }
+  const T qe = m.Q[t * S + q];
+  const T pv = T(0.5) * (qe * tf + tfq);
+
+  const T gke = AP(T_CDIFF, t, at(m.KE));
+  const T gssh = AP(T_CDIFF, t, at(m.HL));
+  const T cd4 = AP(T_CDIFF, t, at(m.D2DIV));
+  const T vd4 = AP(T_VDIFF, t, at(m.D2RV));
+  const T cdd = AP(T_CDIFF, t, at(m.DIVU));
+  const T vdr = AP(T_VDIFF, t, at(m.RV));
+
+  // the du diffusion terms use plain 1/dv, del2_e the floored one
+  T du = pv - gke * p.inv_dc - p.grav * gssh * p.inv_dc +
+         p.nu2s * (cdd * p.inv_dc - vdr * p.inv_dv) -
+         p.nu4s * (p.div_factor * cd4 * p.inv_dc - vd4 * p.inv_dv);
+  if constexpr (TAILS) {
+    if (top || bottom) {
+      T mh;
+      if constexpr (UPH) {
+        mh = T(0.5) * (m.HL[q + pair_ofs<T_C0>(p, t, odd)] +
+                       m.HL[q + pair_ofs<T_C1>(p, t, odd)]);
+      } else {
+        mh = m.FL[t * S + q];
+      }
+      if (top) du = du + wind[t * sl.plane + g] / (p.rho0 * mh);
+      if (bottom) {
+        // 2*cmean(ke) == ke0 + ke1 bit for bit (halving and doubling are
+        // exact), the composed step's sqrt(ke0 + ke1)
+        const T kee = AP(T_CMEAN, t, at(m.KE));
+        const T twice = T(2) * kee;
+        const T speed = sqrt(twice > T(0) ? twice : T(0));
+        du = du + (-(p.cd * speed * U[t * S + q] / mh));
+      }
+    }
+  }
+  return du;
+}
+
+// bytes of dynamic shared memory for `slots` slab arrays and the guards
+template <typename T>
+size_t slab_smem_bytes(const FbParams<T>& p, int slots) {
+  const size_t S = static_cast<size_t>(p.by + 2 * p.ry) * (p.bx + 2 * p.rx);
+  return (slots * S + 2 * static_cast<size_t>(p.guard)) * sizeof(T);
+}
+
+// the grid of a chain kernel: tiles x layers
+template <typename T>
+dim3 slab_grid(const FbParams<T>& p) {
+  return dim3((p.nx + p.bx - 1) / p.bx, (p.ny + p.by - 1) / p.by, p.K);
+}
+
+}  // namespace omega

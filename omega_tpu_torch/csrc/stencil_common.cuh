@@ -1,6 +1,7 @@
-// Shared by the structured-stencil kernel (stencil.cu) and the fused
-// forward-backward step (fb_step.cu): the shift-table entry both kernels
-// take, and the index helpers of the doubly periodic hex lattice.
+// Shared by the structured-stencil kernel (stencil.cu), the fused chains
+// (slab_chain.cuh) and the vertical-mixing kernels (vmix.cu): the shift-table
+// entry, the index helpers of the doubly periodic hex lattice, and a product
+// kept out of a fused multiply-add.
 //
 // A table entry says: destination class t_dst at (y, x) reads source class
 // `ts` at (y + dj, x + di), where di = di_e on even destination rows and
@@ -31,6 +32,14 @@ __device__ __forceinline__ int wrap_near(int i, int n) {
   i += (i < 0) ? n : 0;
   i -= (i >= n) ? n : 0;
   return i;
+}
+
+// a product rounded on its own, never fused into a following add
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
 }
 
 }  // namespace omega

@@ -66,14 +66,6 @@ struct VmixParams {
 template <typename T>
 __device__ __forceinline__ T pos(T x) { return x > T(0) ? x : T(0); }
 
-// a product rounded on its own, never fused into a following add
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-
 // nu = nu0 / f^n_exp with f = 1 + alpha * max(ri, 0); returns nu, sets f
 template <typename T>
 __device__ __forceinline__ T pp81_nu(const VmixParams<T>& p, T ri, T& f) {

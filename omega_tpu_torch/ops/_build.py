@@ -109,12 +109,19 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, vp, vp]       # in, out, params, stream
         fn.restype = ci
-    for flux in ("cc", "uc", "cu", "uu"):
-        for tails in ("plain", "tails"):
-            for suffix in ("f32", "f64"):
+    cd = ctypes.c_double
+    for tails in ("plain", "tails"):
+        for suffix in ("f32", "f64"):
+            for flux in ("cc", "uc", "cu", "uu", "cf", "uf"):
                 fn = getattr(lib, f"omega_fb_step_{flux}_{tails}_{suffix}")
                 # in, out, wind, params, threads, stream
                 fn.argtypes = [vp, vp, vp, vp, ci, vp]
+                fn.restype = ci
+            for flux in ("cc", "uc", "cu", "uu"):
+                fn = getattr(lib, f"omega_rk_stage_{flux}_{tails}_{suffix}")
+                # ev, base, acc, acc_out, out, wind, params, ca, cb, mode,
+                # threads, stream
+                fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, cd, cd, ci, ci, vp]
                 fn.restype = ci
     for name in ("omega_pp81_coeffs_f32", "omega_pp81_coeffs_f64",
                  "omega_vmix_solve_f32", "omega_vmix_solve_f64"):
@@ -124,11 +131,13 @@ def load() -> ctypes.CDLL:
     for name in ("omega_stencil_params_size_f32",
                  "omega_stencil_params_size_f64",
                  "omega_fb_params_size_f32", "omega_fb_params_size_f64",
-                 "omega_fb_slots", "omega_vmix_params_size_f32",
+                 "omega_vmix_params_size_f32",
                  "omega_vmix_params_size_f64"):
         fn = getattr(lib, name)
         fn.argtypes = []
         fn.restype = ci
+    lib.omega_chain_slots.argtypes = [ci, ci, ci]
+    lib.omega_chain_slots.restype = ci
     lib.omega_error_string.argtypes = [ci]
     lib.omega_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -1,46 +1,58 @@
-"""The whole forward-backward step as ONE kernel (mega-step).
+"""The whole time step as few kernels as it takes (mega-step): the FB step
+as ONE kernel, an RK stage as one kernel.
 
 The composed step makes ~27 stencil passes, each reading and writing whole
-fields in device memory. The fused kernel (csrc/fb_step.cuh) reads h, u and
-the tracers once per tile (with a halo ring), computes every auxiliary
-variable and tendency term in shared memory, and writes h_new, u_new and
-tr_new once — the minimal-traffic formulation of the step. It is the
-counterpart of the JAX package's `megastep._kernel` with `_fb_compute`.
+fields in device memory. The fused kernels read h, u and the tracers once
+per tile (with a halo ring), compute every auxiliary variable and tendency
+term in shared memory, and write their outputs once — the minimal-traffic
+formulation of a step. They are the counterparts of the JAX package's
+`megastep._kernel` with `_fb_compute` (csrc/fb_step.cuh) and with
+`_tend_compute` in the stage kinds `rk2` and `rk4s1`-`rk4s4`
+(csrc/rk_stage.cuh).
 
 Mechanics:
   * state lives in ONE stacked (4+L, K, ny, nx) array, x fastest (channel
     0 = h, 1..3 = the edge classes of u, 4.. = tracers); `run_steps` keeps
-    that layout across a whole segment in two buffers that swap roles, so
-    a step is exactly one kernel launch
-  * the chain couples no two layers (stacked ssh), so a block of the
-    kernel is one layer x one (by, bx) tile with a (ry, rx) ring; the
-    periodic wrap is index arithmetic
+    that layout across a whole segment, so an FB step is exactly one kernel
+    launch, an RK2 step two and an RK4 step four
+  * the chains couple no two layers (stacked ssh), so a block of a kernel
+    is one layer x one (by, bx) tile with a (ry, rx) ring; the periodic
+    wrap is index arithmetic
   * inside the slab every structured-table stencil is a shifted read; a
     read that leaves the slab returns a wrong value, so wrong values creep
     in from the slab edge by one stencil radius per level, and the owned
     centre stays exact because the ring is at least the chain radius
-    (`chain_radius`, derived from the chain itself)
-  * supported configuration = the FB step on a structured f-plane mesh
-    with uniform geometry, stacked ssh and every tendency term on, with
-    center or upwind thickness and tracer fluxes, wind forcing, quadratic
-    bottom drag and implicit vertical mixing (constant or PP81
-    coefficients, PCR); anything else (FCT, column ssh, the Thomas
-    method) runs the composed stepper (steppers.py)
+    (`chain_radius`, derived from each chain itself)
+  * supported configuration = a structured f-plane mesh with uniform
+    geometry, stacked ssh and every tendency term on, with center or upwind
+    thickness and tracer fluxes, wind forcing, quadratic bottom drag and
+    implicit vertical mixing (constant or PP81 coefficients, PCR); the FB
+    step also takes the flux-corrected (FCT) tracer flux, which needs the
+    thickness-first order of that step. Anything else (column ssh, the
+    Thomas method, custom tendencies, FCT with an RK stepper) runs the
+    composed stepper (steppers.py)
   * the flux types and the wind / drag tails are compile-time variants of
-    the kernel (csrc/fb_step.cuh), so the flagship chain stays as it was;
-    vertical mixing couples the layers, which a one-layer block cannot
-    see, so it runs as column kernels AFTER the horizontal one on the same
-    stacked array (ops/vmix_kernel.py): a step is one launch, or three
-    with PP81 mixing
+    the kernels, so the flagship chain stays as it was; vertical mixing
+    couples the layers, which a one-layer block cannot see, so it runs as
+    column kernels AFTER the horizontal ones on the same stacked array
+    (ops/vmix_kernel.py)
+  * an RK stage kernel evaluates the tendency chain on one level and
+    writes, at the owned centre, what the stage makes of it (`RK_PROV`,
+    `RK_FIRST`, `RK_MID`, `RK_LAST`): the provisional state, the
+    thickness-weighted accumulator, the new state. RK2 is two launches of
+    it, RK4 four; the (acc, prov) channels pass through device memory.
 
-Beside the kernel stands its plain PyTorch version, `fb_megastep_plain`:
-the same chain from the same tables and constants with `torch.roll` on the
-whole periodic grid, or tile by tile (`tile=(by, bx)`) exactly as the
-kernel cuts and evaluates its slabs. The CPU tests use it; a state on the
-card never does.
+Beside the kernels stand their plain PyTorch versions,
+`fb_megastep_plain`, `tend_plain` with `rk_stage_plain`, and
+`rk2_megastep_plain` / `rk4_megastep_plain`: the same chains from the same
+tables and constants with `torch.roll` on the whole periodic grid, or tile
+by tile (`tile=(by, bx)`) exactly as the kernels cut and evaluate their
+slabs. The CPU tests use them; a state on the card never does.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,36 +62,64 @@ from omega_tpu_torch.ops import _build, structured, vmix_kernel
 from omega_tpu_torch.ops.stencil_kernel import pack_entries
 from omega_tpu_torch.ops.structured import apply_grid
 
-# launches of the CUDA kernel since the last reset (a plain integer)
+# launches of the CUDA kernels since the last reset (plain integers):
+# the fused FB step, the RK stage kernel
 launches = 0
+rk_launches = 0
 
-# table order of `enum FbTable` in csrc/fb_step.cuh
+# table order of `enum FbTable` in csrc/slab_chain.cuh
 TABLE_NAMES = ("div", "ke", "curl", "kite", "tang", "cdiff", "cmean",
-               "vdiff", "vmean", "signed_div", "c0", "c1")
+               "vdiff", "vmean", "signed_div", "c0", "c1", "div_pos",
+               "div_neg") + tuple(f"coc{j}" for j in range(6))
 _PD = {"div": 1, "ke": 1, "curl": 2, "kite": 2, "tang": 3, "cdiff": 3,
-       "cmean": 3, "vdiff": 3, "vmean": 3, "signed_div": 1, "c0": 3, "c1": 3}
-# entries per destination class the kernel is compiled for (kCount there)
+       "cmean": 3, "vdiff": 3, "vmean": 3, "signed_div": 1, "c0": 3, "c1": 3,
+       "div_pos": 1, "div_neg": 1, **{f"coc{j}": 1 for j in range(6)}}
+# entries per destination class the kernels are compiled for (tab_count
+# there); div_pos / div_neg keep the three edges of a cell whose divergence
+# weight has that sign
 _ENTRY_COUNTS = {"div": 6, "ke": 6, "curl": 3, "kite": 3, "tang": 8,
                  "cdiff": 2, "cmean": 2, "vdiff": 2, "vmean": 2,
-                 "signed_div": 6, "c0": 1, "c1": 1}
+                 "signed_div": 6, "c0": 1, "c1": 1, "div_pos": 3,
+                 "div_neg": 3, **{f"coc{j}": 1 for j in range(6)}}
 # scalar constants of `omega::FbParams<T>`, in the struct's order
 CONST_FIELDS = ("dt", "grav", "nu2s", "nu4s", "div_factor", "ed2s", "ed4",
                 "inv_dc", "inv_dv", "inv_dv_floor", "geo", "geo4", "f0v",
                 "rho0", "cd")
 MAX_ENTRIES = 96      # kFbMaxEntries
-SLOTS = 21            # kFbSlots: slab arrays live in shared memory
+# slab arrays in shared memory, per chain: the FB step (fb_slots in
+# csrc/fb_step.cuh: FCT keeps its fluxes, bounds and ratios on the slab, and
+# with the upwind thickness flux also that flux), the RK stage (kRkSlots)
+SLOTS = 21
+FCT_SLOTS = 22
+FCT_UPWIND_SLOTS = 25
+RK_SLOTS = 21
 SMEM_LIMIT = 232448   # dynamic shared memory one block may use on sm_90
 _FLOAT = {torch.float32: (np.float32, "f32"), torch.float64: (np.float64, "f64")}
 
+# what an RK stage launch writes at the owned centre (enum RkMode in
+# csrc/rk_stage.cuh), with k = the tendencies of the evaluated level:
+#   RK_PROV   out = base + ca k                  (RK2's two launches)
+#   RK_FIRST  acc = (h, u, tr h)(base) + cb k ;  out = base + ca k
+#   RK_MID    acc = acc + cb k ;                 out = base + ca k
+#   RK_LAST   out = acc + cb k                    (tracers / the new h)
+# where a state's tracers are tr, the accumulator's tr h, and
+# out's tracers are (tr h of base + ca dtr) / out's h
+RK_PROV, RK_FIRST, RK_MID, RK_LAST = 0, 1, 2, 3
+RK4_A = (0.0, 0.5, 0.5, 1.0)
+RK4_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+
+
 def enabled(state) -> bool:
-    """The fused kernel serves states that live on a CUDA device."""
+    """The fused kernels serve states that live on a CUDA device."""
     return state.h.is_cuda
 
 
-def supported(mesh, cfg) -> bool:
-    """The configurations the fused path implements: stacked ssh, every
-    tendency term on, center or upwind fluxes, wind, drag, and vertical
-    mixing as far as the column kernels take it (vmix_kernel.vmix_on)."""
+def supported(mesh, cfg, kind="fb") -> bool:
+    """The configurations the fused path of a stepper implements (`kind`
+    "fb", "rk2" or "rk4"): stacked ssh, every tendency term on, center or
+    upwind fluxes (and FCT tracer fluxes for "fb"), wind, drag, and
+    vertical mixing as far as the column kernels take it
+    (vmix_kernel.vmix_on)."""
     tc = cfg.tendencies
     if not structured.enabled(mesh):
         return False
@@ -96,12 +136,16 @@ def supported(mesh, cfg) -> bool:
         tab = structured.cached_table(mesh, n)
         if tab is None:
             return False
-        # the kernel's stencil loops are unrolled for the hex mesh's counts
+        # the kernels' stencil loops are unrolled for the hex mesh's counts
         if any(sum(1 for e in tab if e[0] == t) != _ENTRY_COUNTS[n]
                for t in range(_PD[n])):
             return False
+    # FCT (Zalesak) tracer fluxes need the thickness-first update order of
+    # the FB step (core/tendencies.compute_tracer_tendency), as in the JAX
+    # package's kernel
+    tracer_types = ("center", "upwind") + (("fct",) if kind == "fb" else ())
     return (cfg.flux_thickness_type in ("center", "upwind")
-            and cfg.flux_tracer_type in ("center", "upwind")
+            and cfg.flux_tracer_type in tracer_types
             and cfg.ssh_formulation == "stacked"
             and tc.thickness_flux_div and tc.pv_advection and tc.ke_gradient
             and tc.ssh_gradient and tc.velocity_diffusion
@@ -114,8 +158,9 @@ def _mega_args(mesh, cfg, dt):
     """(tabs, consts): the shift tables and the constants of the chain.
     Products of constants are folded in float64 here and rounded to the
     working type once, as a float32 array times python floats does.
-    `uph` / `upt` (upwind thickness / tracer flux) pick the variant; `cd`
-    is the drag coefficient, 0 without bottom drag."""
+    `uph` / `upt` / `fct` (upwind thickness flux, upwind or FCT tracer
+    flux) pick the variant; `cd` is the drag coefficient, 0 without
+    bottom drag."""
     tc = cfg.tendencies
     us = lambda a: structured.uniform_scalar(mesh, a)
     dc, dv = us("dc_edge"), us("dv_edge")
@@ -132,9 +177,208 @@ def _mega_args(mesh, cfg, dt):
         rho0=tc.density0,
         cd=tc.bottom_drag_coeff if tc.bottom_drag else 0.0,
         uph=cfg.flux_thickness_type == "upwind",
-        upt=cfg.flux_tracer_type == "upwind")
+        upt=cfg.flux_tracer_type == "upwind",
+        fct=cfg.flux_tracer_type == "fct")
     tabs = {n: structured.cached_table(mesh, n) for n in TABLE_NAMES}
     return tabs, consts
+
+
+# ----------------------------------------------------------------------
+# the plain chains
+
+class Picks(NamedTuple):
+    """The data-dependent picks of the chains: the upwind selection of a
+    flux (aux._upwind), FCT's low-order pick of an edge tracer (upwind, the
+    mean at rest) and its limiter's pick by the sign of the antidiffusive
+    flux."""
+    upwind: object
+    low: object
+    sign: object
+
+
+PICKS = Picks(
+    upwind=auxmod._upwind,
+    low=lambda u, a, b: torch.where(u > 0, a, torch.where(u < 0, b,
+                                                          0.5 * (a + b))),
+    sign=lambda a, x, y: torch.where(a >= 0, x, y))
+# for the radius probe: a pick depends on all its operands, whichever the
+# data would choose (a NaN operand stays visible)
+PROBE_PICKS = Picks(upwind=lambda u, a, b: u + a + b,
+                    low=lambda u, a, b: u + a + b,
+                    sign=lambda a, x, y: a + x + y)
+
+
+def _h_fluxes(h, u, c, ap, pk):
+    """(mean_h, flux_h) per edge class: center (flux == mean) or upwind."""
+    if c["uph"]:
+        h0, h1 = ap("c0", [h], 3), ap("c1", [h], 3)
+        return ([0.5 * (h0[i] + h1[i]) for i in range(3)],
+                [pk.upwind(u[i], h0[i], h1[i]) for i in range(3)])
+    mean_h = ap("cmean", [h], 3)
+    return mean_h, mean_h
+
+
+def _fct_adv(h, h_new, trl, u, mass_flux, c, ap, pk):
+    """The Zalesak-limited advective tendency of one tracer, the JAX
+    kernel's `_fct_adv` (core/fct.fct_tracer_tendency on the slab;
+    edge_mask is 1). mass_flux = flux_h * u per edge class, the thickness
+    equation's own flux."""
+    dt = c["dt"]
+    tr0, tr1 = ap("c0", [trl], 3), ap("c1", [trl], 3)
+    f_hi = [0.5 * (tr0[i] + tr1[i]) * mass_flux[i] for i in range(3)]
+    f_lo = [pk.low(u[i], tr0[i], tr1[i]) * mass_flux[i] for i in range(3)]
+    div_lo = ap("div", f_lo, 1)[0]
+    tr_td = (trl * h - dt * div_lo) / h_new
+
+    # admissible bounds: extrema of the old and transported fields over
+    # the cell and its 6 neighbours (Zalesak eq. 17-18)
+    tr_max = tr_min = trl
+    td_max = td_min = tr_td
+    for j in range(6):
+        nb_o = ap(f"coc{j}", [trl], 1)[0]
+        nb_t = ap(f"coc{j}", [tr_td], 1)[0]
+        tr_max, tr_min = torch.maximum(tr_max, nb_o), torch.minimum(tr_min, nb_o)
+        td_max, td_min = torch.maximum(td_max, nb_t), torch.minimum(td_min, nb_t)
+    tr_max = torch.maximum(tr_max, td_max)
+    tr_min = torch.minimum(tr_min, td_min)
+
+    # antidiffusive fluxes, split so the budgets use the nonnegative
+    # div_pos / div_neg stencils (Zalesak eq. 7-10)
+    a = [f_hi[i] - f_lo[i] for i in range(3)]
+    b_pos = [torch.clamp(a[i], min=0.0) for i in range(3)]
+    b_neg = [torch.clamp(-a[i], min=0.0) for i in range(3)]
+    p_in = dt * (ap("div_neg", b_pos, 1)[0] + ap("div_pos", b_neg, 1)[0])
+    p_out = dt * (ap("div_pos", b_pos, 1)[0] + ap("div_neg", b_neg, 1)[0])
+    q_in = (tr_max - tr_td) * h_new
+    q_out = (tr_td - tr_min) * h_new
+    r_in = torch.clamp(q_in / torch.clamp(p_in, min=1e-30), 0.0, 1.0)
+    r_out = torch.clamp(q_out / torch.clamp(p_out, min=1e-30), 0.0, 1.0)
+
+    r_in0, r_in1 = ap("c0", [r_in], 3), ap("c1", [r_in], 3)
+    r_out0, r_out1 = ap("c0", [r_out], 3), ap("c1", [r_out], 3)
+    f_corr = [f_lo[i] + pk.sign(a[i], torch.minimum(r_in1[i], r_out0[i]),
+                                torch.minimum(r_in0[i], r_out1[i])) * a[i]
+              for i in range(3)]
+    return -ap("div", f_corr, 1)[0]
+
+
+def _tracer_tend(h, u, trl, mean_h, c, ap, pk, fct=None):
+    """d(h tr)/dt of one tracer on level h: center or upwind advection (or
+    FCT, with fct = (h_new, mass_flux)), del2 and del4 diffusion."""
+    if fct is not None:
+        adv = _fct_adv(h, fct[0], trl, u, fct[1], c, ap, pk)
+    else:
+        if c["upt"]:
+            h0, h1 = ap("c0", [h], 3), ap("c1", [h], 3)
+            t0, t1 = ap("c0", [trl], 3), ap("c1", [trl], 3)
+            htr = [pk.upwind(u[i], h0[i] * t0[i], h1[i] * t1[i])
+                   for i in range(3)]
+        else:
+            htr = ap("cmean", [h * trl], 3)
+        adv = -ap("div", [htr[i] * u[i] for i in range(3)], 1)[0]
+    ctr = ap("cdiff", [trl], 3)
+    d2tr = ap("signed_div",
+              [c["geo"] * mean_h[i] * ctr[i] for i in range(3)], 1)[0]
+    cd2 = ap("cdiff", [d2tr], 3)
+    hyp = ap("signed_div", [c["geo4"] * cd2[i] for i in range(3)], 1)[0]
+    return adv + c["ed2s"] * d2tr - c["ed4"] * hyp
+
+
+def _momentum_tend(hl, u, c, ap, pk, wind):
+    """du (three edge classes) with the momentum aux on thickness level
+    hl: h_new in the FB step, the evaluated level in an RK stage."""
+    inv_dc, inv_dv = c["inv_dc"], c["inv_dv"]
+    ke = ap("ke", [ui * ui for ui in u], 1)[0]
+    div_u = ap("div", u, 1)[0]
+    rvort = ap("curl", u, 2)
+    h_v = ap("kite", [hl], 2)
+    nrv = [rvort[i] / h_v[i] for i in range(2)]
+    npv = [c["f0v"] / h_v[i] for i in range(2)]
+    nrv_e = ap("vmean", nrv, 3)
+    npv_e = ap("vmean", npv, 3)
+    q_e = [nrv_e[i] + npv_e[i] for i in range(3)]
+
+    cdd = ap("cdiff", [div_u], 3)
+    vdr = ap("vdiff", rvort, 3)
+    del2_e = [cdd[i] * inv_dc - vdr[i] * c["inv_dv_floor"] for i in range(3)]
+    del2_div = ap("div", del2_e, 1)[0]
+    del2_rv = ap("curl", del2_e, 2)
+
+    mean_hl, flux_hl = _h_fluxes(hl, u, c, ap, pk)
+    F = [flux_hl[i] * u[i] for i in range(3)]
+    tf = ap("tang", F, 3)
+    tfq = ap("tang", [F[i] * q_e[i] for i in range(3)], 3)
+    pv = [0.5 * (q_e[i] * tf[i] + tfq[i]) for i in range(3)]
+
+    gke = ap("cdiff", [ke], 3)
+    gssh = ap("cdiff", [hl], 3)          # stacked ssh, uniform depth
+    cd4 = ap("cdiff", [del2_div], 3)
+    vd4 = ap("vdiff", del2_rv, 3)
+
+    # wind on the top layer, drag on the bottom one, both with mean_h of
+    # level hl; 2*cmean(ke) == ke0 + ke1 of the composed step bit for bit
+    kee = ap("cmean", [ke], 3) if c["cd"] else None
+
+    # the du diff terms use plain 1/dv (TendencyTerms), while
+    # del2_e above used the dv >= 0.25 dc floor (Del2AuxVars)
+    dus = []
+    for i in range(3):
+        du = (pv[i]
+              - gke[i] * inv_dc
+              - c["grav"] * gssh[i] * inv_dc
+              + c["nu2s"] * (cdd[i] * inv_dc - vdr[i] * inv_dv)
+              - c["nu4s"] * (c["div_factor"] * cd4[i] * inv_dc
+                             - vd4[i] * inv_dv))
+        if wind is not None:
+            du[0] += wind[i] / (c["rho0"] * mean_hl[i][0])
+        if c["cd"]:
+            speed = torch.sqrt(torch.clamp(2.0 * kee[i][-1], min=0.0))
+            du[-1] += -(c["cd"] * speed * u[i][-1] / mean_hl[i][-1])
+        dus.append(du)
+    return dus
+
+
+def _fb_chain(h, u, tr, even, tabs, c, wind=None, pk=PICKS):
+    """The FB step chain on grids (K, Y, X). h: tensor; u, tr: lists;
+    wind: None or the (3, Y, X) edge-normal stress. Returns (h_new, un,
+    trn). Mirrors the kernel level for level."""
+    ap = lambda name, vals, pd: apply_grid(tabs[name], vals, even, pd)
+    dt = c["dt"]
+
+    # --- thickness (center or upwind flux)
+    mean_h, flux_h = _h_fluxes(h, u, c, ap, pk)
+    flux = [flux_h[i] * u[i] for i in range(3)]
+    h_new = h + dt * (-ap("div", flux, 1)[0])
+
+    # --- tracers (fluxes on the OLD h; FCT on the thickness flux)
+    fct = (h_new, flux) if c["fct"] else None
+    trn = [(trl * h + dt * _tracer_tend(h, u, trl, mean_h, c, ap, pk, fct))
+           / h_new for trl in tr]
+
+    # --- velocity (momentum aux on h_new, FB order)
+    du = _momentum_tend(h_new, u, c, ap, pk, wind)
+    return h_new, [u[i] + dt * du[i] for i in range(3)], trn
+
+
+def _tend_chain(h, u, tr, even, tabs, c, wind=None, pk=PICKS):
+    """compute_all_tendencies on grids (K, Y, X): every aux variable at
+    the SAME level (h, u, tr), the JAX kernel's `_tend_compute`. Returns
+    (dh, du, dtr) with du and dtr lists."""
+    ap = lambda name, vals, pd: apply_grid(tabs[name], vals, even, pd)
+    mean_h, flux_h = _h_fluxes(h, u, c, ap, pk)
+    dh = -ap("div", [flux_h[i] * u[i] for i in range(3)], 1)[0]
+    dtr = [_tracer_tend(h, u, trl, mean_h, c, ap, pk) for trl in tr]
+    return dh, _momentum_tend(h, u, c, ap, pk, wind), dtr
+
+
+def _chain_on(s, even, tabs, consts, wind=None, pk=PICKS, kind="fb"):
+    """Run a chain on a stacked (4+L, K, Y, X) array; returns the same
+    layout: the new state ("fb") or the tendencies (dh, du, dtr) ("rk")."""
+    fn = _fb_chain if kind == "fb" else _tend_chain
+    h, u, tr = fn(s[0], [s[1], s[2], s[3]],
+                  [s[c] for c in range(4, s.shape[0])],
+                  even, tabs, consts, wind, pk)
+    return torch.stack([h] + list(u) + list(tr))
 
 
 # ----------------------------------------------------------------------
@@ -143,27 +387,24 @@ def _mega_args(mesh, cfg, dt):
 _RADIUS_CACHE: dict = {}
 
 
-def _probe_sel(u, a, b):
-    """`aux._upwind` for the radius probe: a pick depends on all three
-    operands, whichever the sign of u chooses on this data."""
-    return u + a + b
-
-
-def chain_radius(tabs, uph=False, upt=False, tails=False):
-    """(rows, columns) of ring the FB chain needs: the least margin that
-    keeps a slab's centre exact when a shifted read that leaves the slab
-    returns a wrong value. One answer per variant of the chain (upwind
-    thickness flux, upwind tracer flux, wind and drag tails).
+def chain_radius(tabs, uph=False, upt=False, tails=False, fct=False,
+                 kind="fb"):
+    """(rows, columns) of ring a chain needs: the least margin that keeps
+    a slab's centre exact when a shifted read that leaves the slab returns
+    a wrong value. One answer per chain (`kind` "fb": the FB step, "rk":
+    the tendency chain of an RK stage) and variant (upwind thickness flux,
+    upwind or FCT tracer flux, wind and drag tails).
 
     Derived from the chain itself: the plain chain runs once on a small
     slab of ones framed by NaNs, so every value that such a read could
     reach turns NaN level by level, exactly as wrong values creep into the
-    kernel's slab. (An upwind pick and the drag's clamp would let a NaN
-    operand pass on some data, so the probe replaces the pick by the sum
-    of its operands and the chain clamps with a NaN-keeping function.)
-    The distance from the frame to the finite region of the outputs, over
-    both row parities of the slab origin, is the ring."""
-    key = (tuple((n, tuple(tabs[n])) for n in TABLE_NAMES), uph, upt, tails)
+    kernel's slab. (A pick would let a NaN operand pass on some data, so
+    the probe replaces every pick by the sum of its operands, and the
+    chains clamp with NaN-keeping functions.) The distance from the frame
+    to the finite region of the outputs, over both row parities of the
+    slab origin, is the ring."""
+    key = (tuple((n, tuple(tabs[n])) for n in TABLE_NAMES), uph, upt, tails,
+           fct, kind)
     if key in _RADIUS_CACHE:
         return _RADIUS_CACHE[key]
     pad = max(max(abs(v) for v in e[2:5]) for n in TABLE_NAMES
@@ -171,7 +412,7 @@ def chain_radius(tabs, uph=False, upt=False, tails=False):
     n = 32
     size = n + 2 * pad
     consts = dict.fromkeys(CONST_FIELDS, 1.0)
-    consts.update(uph=uph, upt=upt, cd=1.0 if tails else 0.0)
+    consts.update(uph=uph, upt=upt, fct=fct, cd=1.0 if tails else 0.0)
     wind = torch.ones((3, size, size), dtype=torch.float64) if tails else None
     ry = rx = 0
     oks = []
@@ -181,7 +422,7 @@ def chain_radius(tabs, uph=False, upt=False, tails=False):
         slab[:, :, pad:pad + n, pad:pad + n] = 1.0
         even = ((torch.arange(size) + parity) % 2 == 0)[:, None]
         ok = torch.isfinite(_chain_on(slab, even, tabs, consts, wind,
-                                      sel=_probe_sel)).all(0)[0]
+                                      PROBE_PICKS, kind)).all(0)[0]
         oks.append(ok)
         # the stagger makes the finite region's edge jagged: take each
         # side's deepest reach along the slab's middle band
@@ -190,7 +431,7 @@ def chain_radius(tabs, uph=False, upt=False, tails=False):
         bad_cols = (~ok[mid, :]).any(0)[pad:pad + n]
         for bad in (bad_rows, bad_cols):
             if bool(bad[n // 3:2 * n // 3].any()):
-                raise ValueError("the FB chain's radius exceeds the probe")
+                raise ValueError("the chain's radius exceeds the probe")
         top = int(torch.nonzero(~bad_rows)[0])
         bottom = n - 1 - int(torch.nonzero(~bad_rows)[-1])
         left = int(torch.nonzero(~bad_cols)[0])
@@ -199,10 +440,27 @@ def chain_radius(tabs, uph=False, upt=False, tails=False):
     for parity_ok in oks:
         if not bool(parity_ok[pad + ry:pad + n - ry,
                               pad + rx:pad + n - rx].all()):
-            raise ValueError("the FB chain's finite region is not the "
-                             "slab minus a ring")
+            raise ValueError("the chain's finite region is not the slab "
+                             "minus a ring")
     _RADIUS_CACHE[key] = (ry, rx)
     return ry, rx
+
+
+def _ring(tabs, consts, wind, kind="fb"):
+    """chain_radius of the chain and variant these constants and this wind
+    select."""
+    return chain_radius(tabs, consts["uph"], consts["upt"],
+                        wind is not None or consts["cd"] != 0.0,
+                        consts["fct"], kind)
+
+
+def slots(consts, kind="fb") -> int:
+    """Slab arrays of the chain and variant these constants select."""
+    if kind == "rk":
+        return RK_SLOTS
+    if consts["fct"]:
+        return FCT_UPWIND_SLOTS if consts["uph"] else FCT_SLOTS
+    return SLOTS
 
 
 def guard_elems(slab_width):
@@ -212,10 +470,10 @@ def guard_elems(slab_width):
     return 2 * slab_width + 2
 
 
-def plan_tile(ny, nx, itemsize, ring, tile=None):
-    """Pick the kernel's tile: dict(by, bx, ry, rx, threads, guard, smem).
+def plan_tile(ny, nx, itemsize, ring, tile=None, nslots=SLOTS):
+    """Pick a kernel's tile: dict(by, bx, ry, rx, threads, guard, smem).
 
-    The slab (by+2ry) x (bx+2rx) times SLOTS arrays must fit one block's
+    The slab (by+2ry) x (bx+2rx) times `nslots` arrays must fit one block's
     shared memory; the tile need not divide the domain (ragged tiles are
     masked) and is never larger than it. The default is 16 rows x 32
     columns (the fastest of the tiles timed on an H100 at 256 x 256 x 100,
@@ -226,7 +484,7 @@ def plan_tile(ny, nx, itemsize, ring, tile=None):
     def smem(by, bx):
         # slab arrays + a guard either side
         slab = (by + 2 * ry) * (bx + 2 * rx)
-        return (SLOTS * slab + 2 * guard_elems(bx + 2 * rx)) * itemsize
+        return (nslots * slab + 2 * guard_elems(bx + 2 * rx)) * itemsize
 
     threads = None
     if tile is not None:
@@ -277,152 +535,8 @@ def unstack_state(mesh, stacked, K, L, state_type):
         tracers=s[4:].reshape(L, ny * nx, K))
 
 
-# ----------------------------------------------------------------------
-# the plain version
-
-def _h_fluxes(h, u, c, ap, sel):
-    """(mean_h, flux_h) per edge class: center (flux == mean) or upwind."""
-    if c["uph"]:
-        h0, h1 = ap("c0", [h], 3), ap("c1", [h], 3)
-        return ([0.5 * (h0[i] + h1[i]) for i in range(3)],
-                [sel(u[i], h0[i], h1[i]) for i in range(3)])
-    mean_h = ap("cmean", [h], 3)
-    return mean_h, mean_h
-
-
-def _fb_chain(h, u, tr, even, tabs, c, wind=None, sel=auxmod._upwind):
-    """The FB step chain on grids (K, Y, X). h: tensor; u, tr: lists;
-    wind: None or the (3, Y, X) edge-normal stress. Returns (h_new, un,
-    trn). Mirrors the kernel level for level."""
-    ap = lambda name, vals, pd: apply_grid(tabs[name], vals, even, pd)
-    dt, inv_dc, inv_dv = c["dt"], c["inv_dc"], c["inv_dv"]
-
-    # --- thickness (center or upwind flux)
-    mean_h, flux_h = _h_fluxes(h, u, c, ap, sel)
-    dh = ap("div", [flux_h[i] * u[i] for i in range(3)], 1)[0]
-    h_new = h + dt * (-dh)
-
-    # --- tracers (center or upwind flux + del2 + del4)
-    trn = []
-    for trl in tr:
-        if c["upt"]:
-            h0, h1 = ap("c0", [h], 3), ap("c1", [h], 3)
-            t0, t1 = ap("c0", [trl], 3), ap("c1", [trl], 3)
-            htr = [sel(u[i], h0[i] * t0[i], h1[i] * t1[i]) for i in range(3)]
-        else:
-            htr = ap("cmean", [h * trl], 3)
-        adv = -ap("div", [htr[i] * u[i] for i in range(3)], 1)[0]
-        ctr = ap("cdiff", [trl], 3)
-        d2tr = ap("signed_div",
-                  [c["geo"] * mean_h[i] * ctr[i] for i in range(3)], 1)[0]
-        cd2 = ap("cdiff", [d2tr], 3)
-        hyp = ap("signed_div", [c["geo4"] * cd2[i] for i in range(3)], 1)[0]
-        dtr = adv + c["ed2s"] * d2tr - c["ed4"] * hyp
-        trn.append((trl * h + dt * dtr) / h_new)
-
-    # --- velocity aux (momentum aux on h_new, FB order)
-    ke = ap("ke", [ui * ui for ui in u], 1)[0]
-    div_u = ap("div", u, 1)[0]
-    rvort = ap("curl", u, 2)
-    h_v = ap("kite", [h_new], 2)
-    nrv = [rvort[i] / h_v[i] for i in range(2)]
-    npv = [c["f0v"] / h_v[i] for i in range(2)]
-    nrv_e = ap("vmean", nrv, 3)
-    npv_e = ap("vmean", npv, 3)
-    q_e = [nrv_e[i] + npv_e[i] for i in range(3)]
-
-    cdd = ap("cdiff", [div_u], 3)
-    vdr = ap("vdiff", rvort, 3)
-    del2_e = [cdd[i] * inv_dc - vdr[i] * c["inv_dv_floor"] for i in range(3)]
-    del2_div = ap("div", del2_e, 1)[0]
-    del2_rv = ap("curl", del2_e, 2)
-
-    mean_hn, flux_hn = _h_fluxes(h_new, u, c, ap, sel)
-    F = [flux_hn[i] * u[i] for i in range(3)]
-    tf = ap("tang", F, 3)
-    tfq = ap("tang", [F[i] * q_e[i] for i in range(3)], 3)
-    pv = [0.5 * (q_e[i] * tf[i] + tfq[i]) for i in range(3)]
-
-    gke = ap("cdiff", [ke], 3)
-    gssh = ap("cdiff", [h_new], 3)       # stacked ssh, uniform depth
-    cd4 = ap("cdiff", [del2_div], 3)
-    vd4 = ap("vdiff", del2_rv, 3)
-
-    # wind on the top layer, drag on the bottom one, both with mean_h of
-    # h_new; 2*cmean(ke) == ke0 + ke1 of the composed step bit for bit
-    kee = ap("cmean", [ke], 3) if c["cd"] else None
-
-    # the du diff terms use plain 1/dv (TendencyTerms), while
-    # del2_e above used the dv >= 0.25 dc floor (Del2AuxVars)
-    un = []
-    for i in range(3):
-        du = (pv[i]
-              - gke[i] * inv_dc
-              - c["grav"] * gssh[i] * inv_dc
-              + c["nu2s"] * (cdd[i] * inv_dc - vdr[i] * inv_dv)
-              - c["nu4s"] * (c["div_factor"] * cd4[i] * inv_dc
-                             - vd4[i] * inv_dv))
-        if wind is not None:
-            du[0] += wind[i] / (c["rho0"] * mean_hn[i][0])
-        if c["cd"]:
-            speed = torch.sqrt(torch.clamp(2.0 * kee[i][-1], min=0.0))
-            du[-1] += -(c["cd"] * speed * u[i][-1] / mean_hn[i][-1])
-        un.append(u[i] + dt * du)
-    return h_new, un, trn
-
-
-def _chain_on(s, even, tabs, consts, wind=None, sel=auxmod._upwind):
-    """Run the chain on a stacked (4+L, K, Y, X) array; returns the same."""
-    h_new, un, trn = _fb_chain(s[0], [s[1], s[2], s[3]],
-                               [s[c] for c in range(4, s.shape[0])],
-                               even, tabs, consts, wind, sel)
-    return torch.stack([h_new] + un + trn)
-
-
-def fb_megastep_plain(mesh, cfg, stacked, dt, tile=None, ring=None,
-                      wind=None):
-    """The plain PyTorch version of the fused kernel: the horizontal chain
-    of one FB step on the stacked (4+L, K, ny, nx) layout (vertical mixing
-    is vmix_kernel.vmix_plain). `wind` is None or the (3, ny, nx) stress
-    plane of `stack_wind`.
-
-    tile=None evaluates the chain with periodic rolls on the whole grid.
-    tile=(by, bx) evaluates it as the kernel does: for every tile the
-    slab with its (ry, rx) ring is cut with wrapped indices, the chain
-    runs on the slab with shifts that wrap inside it, and the owned
-    centre is pasted. `ring` defaults to `chain_radius`."""
-    tabs, consts = _mega_args(mesh, cfg, dt)
-    nx, ny = mesh.structured_nx, mesh.structured_ny
-    dev = stacked.device
-    if tile is None:
-        even = (torch.arange(ny, device=dev) % 2 == 0)[:, None]
-        return _chain_on(stacked, even, tabs, consts, wind)
-    by, bx = tile
-    ry, rx = _ring(tabs, consts, wind) if ring is None else ring
-    out = torch.empty_like(stacked)
-    for y0 in range(0, ny, by):
-        for x0 in range(0, nx, bx):
-            rows = torch.arange(y0 - ry, y0 + by + ry, device=dev)
-            cols = torch.arange(x0 - rx, x0 + bx + rx, device=dev)
-            slab = stacked[:, :, rows % ny][:, :, :, cols % nx]
-            wslab = None if wind is None else \
-                wind[:, rows % ny][:, :, cols % nx]
-            even = (rows % 2 == 0)[:, None]
-            res = _chain_on(slab, even, tabs, consts, wslab)
-            oy, ox = min(by, ny - y0), min(bx, nx - x0)   # ragged edge
-            out[:, :, y0:y0 + oy, x0:x0 + ox] = \
-                res[:, :, ry:ry + oy, rx:rx + ox]
-    return out
-
-
-def _ring(tabs, consts, wind):
-    """chain_radius of the variant these constants and this wind select."""
-    return chain_radius(tabs, consts["uph"], consts["upt"],
-                        wind is not None or consts["cd"] != 0.0)
-
-
 def stack_wind(mesh, cfg, wind_stress, dtype):
-    """The wind plane the fused step reads: (zonal, merid) cell stresses
+    """The wind plane the fused kernels read: (zonal, merid) cell stresses
     rotated onto the edge normals (aux.wind_normal_stress) and laid out
     like u's classes, (3, ny, nx). None without wind forcing or without a
     stress. `run_steps` packs it once per segment; a caller that steps one
@@ -435,11 +549,121 @@ def stack_wind(mesh, cfg, wind_stress, dtype):
         3, mesh.structured_ny, mesh.structured_nx).contiguous()
 
 
+def rk_work(stacked, n):
+    """n work arrays shaped like a stacked state, for the RK steps' stage
+    outputs (RK2 takes 1: the midpoint state; RK4 takes 3: the accumulator
+    and two provisional states that swap roles)."""
+    return tuple(torch.empty_like(stacked) for _ in range(n))
+
+
 # ----------------------------------------------------------------------
-# the kernel's wrapper
+# the plain versions
+
+def _tiled(mesh, stacked, tabs, consts, wind, kind, tile, ring):
+    """A chain over the stacked state: with periodic rolls on the whole
+    grid (tile=None), or as the kernel does it: for every tile the slab
+    with its (ry, rx) ring is cut with wrapped indices, the chain runs on
+    the slab with shifts that wrap inside it, and the owned centre is
+    pasted. `ring` defaults to `chain_radius`."""
+    nx, ny = mesh.structured_nx, mesh.structured_ny
+    dev = stacked.device
+    if tile is None:
+        even = (torch.arange(ny, device=dev) % 2 == 0)[:, None]
+        return _chain_on(stacked, even, tabs, consts, wind, kind=kind)
+    by, bx = tile
+    ry, rx = _ring(tabs, consts, wind, kind) if ring is None else ring
+    out = torch.empty_like(stacked)
+    for y0 in range(0, ny, by):
+        for x0 in range(0, nx, bx):
+            rows = torch.arange(y0 - ry, y0 + by + ry, device=dev)
+            cols = torch.arange(x0 - rx, x0 + bx + rx, device=dev)
+            slab = stacked[:, :, rows % ny][:, :, :, cols % nx]
+            wslab = None if wind is None else \
+                wind[:, rows % ny][:, :, cols % nx]
+            even = (rows % 2 == 0)[:, None]
+            res = _chain_on(slab, even, tabs, consts, wslab, kind=kind)
+            oy, ox = min(by, ny - y0), min(bx, nx - x0)   # ragged edge
+            out[:, :, y0:y0 + oy, x0:x0 + ox] = \
+                res[:, :, ry:ry + oy, rx:rx + ox]
+    return out
+
+
+def fb_megastep_plain(mesh, cfg, stacked, dt, tile=None, ring=None,
+                      wind=None):
+    """The plain PyTorch version of the fused FB kernel: the horizontal
+    chain of one FB step on the stacked (4+L, K, ny, nx) layout (vertical
+    mixing is vmix_kernel.vmix_plain). `wind` is None or the (3, ny, nx)
+    stress plane of `stack_wind`; `tile` and `ring` as in `_tiled`."""
+    tabs, consts = _mega_args(mesh, cfg, dt)
+    return _tiled(mesh, stacked, tabs, consts, wind, "fb", tile, ring)
+
+
+def tend_plain(mesh, cfg, stacked, tile=None, ring=None, wind=None):
+    """The tendencies (dh, du x3, dtr x L) of a stacked level as a stacked
+    array: the chain of the RK stage kernel, whole grid or tiled."""
+    tabs, consts = _mega_args(mesh, cfg, 0.0)
+    return _tiled(mesh, stacked, tabs, consts, wind, "rk", tile, ring)
+
+
+def _stage_epilogue(k, mode, ca, cb, base, acc):
+    """(acc_out or None, out) of an RK stage from its tendencies k (see
+    RK_PROV ... RK_LAST): the JAX kernel's `_stage_out` and `_rk4_s4`, the
+    composed rk2_step / rk4_step expression for expression. ca, cb are the
+    stage's a*dt and b*dt, folded in python floats."""
+    if mode == RK_LAST:
+        h = acc[0] + cb * k[0]
+        return None, torch.cat([h[None], acc[1:4] + cb * k[1:4],
+                                (acc[4:] + cb * k[4:]) / h])
+    tr_h = base[4:] * base[0]
+    acc_out = None
+    if mode == RK_FIRST:
+        acc_out = torch.cat([base[:4] + cb * k[:4], tr_h + cb * k[4:]])
+    elif mode == RK_MID:
+        acc_out = acc + cb * k
+    h = base[0] + ca * k[0]
+    return acc_out, torch.cat([h[None], base[1:4] + ca * k[1:4],
+                               (tr_h + ca * k[4:]) / h])
+
+
+def rk_stage_plain(mesh, cfg, mode, ca, cb, ev, base=None, acc=None,
+                   tile=None, ring=None, wind=None):
+    """The plain PyTorch version of one RK stage launch: the tendency chain
+    on the stacked level `ev` (whole grid or tiled), then the stage's
+    epilogue against `base` (the step's initial state) and `acc`. Returns
+    (acc_out or None, out)."""
+    k = tend_plain(mesh, cfg, ev, tile, ring, wind)
+    return _stage_epilogue(k, mode, ca, cb, base, acc)
+
+
+def rk2_megastep_plain(mesh, cfg, stacked, dt, tile=None, wind=None):
+    """The horizontal part of one midpoint-RK2 step on the stacked layout,
+    as the kernel path does it: two stage launches (vertical mixing
+    follows in vmix_kernel.vmix_plain)."""
+    _, mid = rk_stage_plain(mesh, cfg, RK_PROV, 0.5 * dt, 0.0, stacked,
+                            stacked, tile=tile, wind=wind)
+    return rk_stage_plain(mesh, cfg, RK_PROV, dt, 0.0, mid, stacked,
+                          tile=tile, wind=wind)[1]
+
+
+def rk4_megastep_plain(mesh, cfg, stacked, dt, tile=None, wind=None):
+    """The horizontal part of one classic-RK4 step on the stacked layout,
+    as the kernel path does it: four stage launches."""
+    acc, prov = rk_stage_plain(mesh, cfg, RK_FIRST, RK4_A[1] * dt,
+                               RK4_B[0] * dt, stacked, stacked, tile=tile,
+                               wind=wind)
+    for s in (1, 2):
+        acc, prov = rk_stage_plain(mesh, cfg, RK_MID, RK4_A[s + 1] * dt,
+                                   RK4_B[s] * dt, prov, stacked, acc,
+                                   tile=tile, wind=wind)
+    return rk_stage_plain(mesh, cfg, RK_LAST, 0.0, RK4_B[3] * dt, prov,
+                          acc=acc, tile=tile, wind=wind)[1]
+
+
+# ----------------------------------------------------------------------
+# the kernels' wrappers
 
 def _params_dtype(ft) -> np.dtype:
-    """numpy mirror of `omega::FbParams<T>` (csrc/fb_step.cuh)."""
+    """numpy mirror of `omega::FbParams<T>` (csrc/slab_chain.cuh)."""
     ints = ["L", "K", "ny", "nx", "by", "bx", "ry", "rx", "guard"]
     return np.dtype([("off", "i4", (2, MAX_ENTRIES)),
                      ("w", ft, (MAX_ENTRIES,)),
@@ -452,7 +676,7 @@ def pack_params(tabs, consts, ft, plan):
     """The tables, constants and tile plan as one FbParams record.
 
     Entries are laid out table by table (TABLE_NAMES order), class by
-    class, in table order within a class — the layout the kernel has at
+    class, in table order within a class — the layout the kernels have at
     compile time. Each entry becomes a flat offset into the slab arrays
     per row parity, class * S + dj * XX + di, for the plan's slab."""
     rec = np.zeros((), _params_dtype(ft))
@@ -463,7 +687,7 @@ def pack_params(tabs, consts, ft, plan):
         pd = _PD[name]
         ent, start = pack_entries(tabs[name], pd, ft)
         if n + len(ent) > MAX_ENTRIES:
-            raise ValueError("the FB chain's tables exceed the kernel's "
+            raise ValueError("the chains' tables exceed the kernels' "
                              f"{MAX_ENTRIES} entries")
         sl = slice(n, n + len(ent))
         base = ent["ts"].astype(np.int64) * S + ent["dj"].astype(np.int64) * XX
@@ -485,6 +709,79 @@ def pack_params(tabs, consts, ft, plan):
 _PARAM_CACHE: dict = {}
 
 
+def _check_stacked(mesh, stacked, what):
+    if stacked.dtype not in _FLOAT:
+        raise TypeError(f"{what} takes float32/float64, got {stacked.dtype}")
+    nx, ny = mesh.structured_nx, mesh.structured_ny
+    if stacked.ndim != 4 or stacked.shape[0] < 4 \
+            or tuple(stacked.shape[2:]) != (ny, nx):
+        raise ValueError(f"stacked state must be (4+L, K, {ny}, {nx}), "
+                         f"got {tuple(stacked.shape)}")
+    if not stacked.is_contiguous():
+        raise ValueError("stacked state must be contiguous")
+
+
+def _check_like(a, stacked, name):
+    if (a.shape != stacked.shape or a.dtype != stacked.dtype
+            or a.device != stacked.device or not a.is_contiguous()):
+        raise ValueError(f"`{name}` must match the stacked state and be "
+                         "contiguous")
+
+
+def _check_wind(wind, stacked, ny, nx):
+    if wind is not None and (
+            tuple(wind.shape) != (3, ny, nx) or wind.dtype != stacked.dtype
+            or wind.device != stacked.device or not wind.is_contiguous()):
+        raise ValueError(f"the wind plane must be a contiguous (3, {ny}, "
+                         f"{nx}) array of the state's type and device")
+
+
+def _launch_args(mesh, cfg, dt, stacked, tile, wind, kind):
+    """(lib, rec, threads, C function name) of a kernel launch on a CUDA
+    stacked state, the record packed once per configuration and shape."""
+    ft, suffix = _FLOAT[stacked.dtype]
+    nx, ny = mesh.structured_nx, mesh.structured_ny
+    L, K = stacked.shape[0] - 4, stacked.shape[1]
+    key = (kind, nx, ny, mesh.structured_dc, mesh.structured_scalars, cfg,
+           float(dt), suffix, L, K, tile, wind is not None)
+    hit = _PARAM_CACHE.get(key)
+    if hit is None:
+        tabs, consts = _mega_args(mesh, cfg, dt)
+        nslots = slots(consts, kind)
+        plan = plan_tile(ny, nx, np.dtype(ft).itemsize,
+                         _ring(tabs, consts, wind, kind), tile, nslots)
+        rec = pack_params(tabs, consts, ft, plan)
+        rec["L"], rec["K"], rec["ny"], rec["nx"] = L, K, ny, nx
+        # the compiled variant: flux types, and the tails only when wanted
+        name = "omega_{}_{}{}_{}_{}".format(
+            "fb_step" if kind == "fb" else "rk_stage",
+            "u" if consts["uph"] else "c",
+            "f" if consts["fct"] else "u" if consts["upt"] else "c",
+            "tails" if wind is not None or consts["cd"] != 0.0 else "plain",
+            suffix)
+        variant = (int(kind == "rk"), int(consts["uph"]), int(consts["fct"]))
+        hit = _PARAM_CACHE[key] = (rec, plan["threads"], name, nslots,
+                                   variant)
+    rec, threads, name, nslots, variant = hit
+    lib = _build.load()
+    size = getattr(lib, f"omega_fb_params_size_{suffix}")()
+    if size != rec.dtype.itemsize or lib.omega_chain_slots(*variant) != nslots:
+        raise RuntimeError(f"FbParams layout mismatch: kernel {size} bytes "
+                           f"and {lib.omega_chain_slots(*variant)} slab "
+                           f"arrays, host {rec.dtype.itemsize} and {nslots}")
+    return lib, rec, threads, name
+
+
+def _finish(mesh, cfg, res, dt, out):
+    """A CPU step's result with vertical mixing (plain), into `out`."""
+    if vmix_kernel.vmix_on(cfg):
+        res = vmix_kernel.vmix_plain(mesh, cfg, res, dt)
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
+
+
 def fb_megastep_stacked(mesh, cfg, stacked, dt, out=None, tile=None,
                         wind=None):
     """One FB step on the stacked layout (stacked -> stacked), out of
@@ -495,64 +792,20 @@ def fb_megastep_stacked(mesh, cfg, stacked, dt, out=None, tile=None,
     shape that receives the result; `wind` is None or the (3, ny, nx)
     plane of `stack_wind`."""
     global launches
-    mix = vmix_kernel.vmix_on(cfg)
     if not stacked.is_cuda:
-        res = fb_megastep_plain(mesh, cfg, stacked, dt, wind=wind)
-        if mix:
-            res = vmix_kernel.vmix_plain(mesh, cfg, res, dt)
-        if out is None:
-            return res
-        out.copy_(res)
-        return out
-    if stacked.dtype not in _FLOAT:
-        raise TypeError(f"fused FB kernel takes float32/float64, "
-                        f"got {stacked.dtype}")
-    nx, ny = mesh.structured_nx, mesh.structured_ny
-    if stacked.ndim != 4 or stacked.shape[0] < 4 \
-            or tuple(stacked.shape[2:]) != (ny, nx):
-        raise ValueError(f"stacked state must be (4+L, K, {ny}, {nx}), "
-                         f"got {tuple(stacked.shape)}")
-    if not stacked.is_contiguous():
-        raise ValueError("stacked state must be contiguous")
+        return _finish(mesh, cfg,
+                       fb_megastep_plain(mesh, cfg, stacked, dt, wind=wind),
+                       dt, out)
+    _check_stacked(mesh, stacked, "fused FB kernel")
     if out is None:
         out = torch.empty_like(stacked)
-    elif (out.shape != stacked.shape or out.dtype != stacked.dtype
-          or out.device != stacked.device or not out.is_contiguous()):
-        raise ValueError("`out` must match the stacked state and be "
-                         "contiguous")
-    elif out.data_ptr() == stacked.data_ptr():
+    _check_like(out, stacked, "out")
+    if out.data_ptr() == stacked.data_ptr():
         raise ValueError("the fused FB step is out of place: `out` must "
                          "not alias the input")
-    if wind is not None and (
-            tuple(wind.shape) != (3, ny, nx) or wind.dtype != stacked.dtype
-            or wind.device != stacked.device or not wind.is_contiguous()):
-        raise ValueError(f"the wind plane must be a contiguous (3, {ny}, "
-                         f"{nx}) array of the state's type and device")
-    ft, suffix = _FLOAT[stacked.dtype]
-    L, K = stacked.shape[0] - 4, stacked.shape[1]
-
-    key = (nx, ny, mesh.structured_dc, mesh.structured_scalars, cfg,
-           float(dt), suffix, L, K, tile, wind is not None)
-    hit = _PARAM_CACHE.get(key)
-    if hit is None:
-        tabs, consts = _mega_args(mesh, cfg, dt)
-        plan = plan_tile(ny, nx, np.dtype(ft).itemsize,
-                         _ring(tabs, consts, wind), tile)
-        rec = pack_params(tabs, consts, ft, plan)
-        rec["L"], rec["K"], rec["ny"], rec["nx"] = L, K, ny, nx
-        # the compiled variant: flux types, and the tails only when wanted
-        name = "omega_fb_step_{}{}_{}_{}".format(
-            "u" if consts["uph"] else "c", "u" if consts["upt"] else "c",
-            "tails" if wind is not None or consts["cd"] != 0.0 else "plain",
-            suffix)
-        hit = _PARAM_CACHE[key] = (rec, plan["threads"], name)
-    rec, threads, name = hit
-
-    lib = _build.load()
-    size = getattr(lib, f"omega_fb_params_size_{suffix}")()
-    if size != rec.dtype.itemsize or lib.omega_fb_slots() != SLOTS:
-        raise RuntimeError(f"FbParams layout mismatch: kernel {size} bytes, "
-                           f"host {rec.dtype.itemsize}")
+    _check_wind(wind, stacked, mesh.structured_ny, mesh.structured_nx)
+    lib, rec, threads, name = _launch_args(mesh, cfg, dt, stacked, tile,
+                                           wind, "fb")
     with torch.cuda.device(stacked.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, name)(
@@ -561,16 +814,126 @@ def fb_megastep_stacked(mesh, cfg, stacked, dt, out=None, tile=None,
             threads, stream)
     _build.check(code, "fused FB step launch")
     launches += 1
-    if mix:
+    if vmix_kernel.vmix_on(cfg):
         vmix_kernel.vmix_stacked(mesh, cfg, out, dt)
     return out
+
+
+def rk_stage(mesh, cfg, mode, ca, cb, ev, out, base=None, acc=None,
+             acc_out=None, wind=None):
+    """One launch of the RK stage kernel on CUDA stacked arrays, on
+    PyTorch's current stream: the tendency chain on the level `ev`, then
+    the epilogue of `mode` (RK_PROV ... RK_LAST) with ca = a*dt and
+    cb = b*dt. `out` must not alias `ev` (neighbours read it through the
+    ring); `acc_out` may be `acc` (a point reads and writes only itself),
+    and `out` may be `base` in RK_LAST, which reads no base."""
+    global rk_launches
+    for a in (ev, out, base, acc, acc_out):
+        if a is not None and not a.is_cuda:
+            raise ValueError("the RK stage kernel takes CUDA arrays; the "
+                             "plain version is rk_stage_plain")
+    _check_stacked(mesh, ev, "RK stage kernel")
+    need = {RK_PROV: ("base",), RK_FIRST: ("base", "acc_out"),
+            RK_MID: ("base", "acc", "acc_out"), RK_LAST: ("acc",)}[mode]
+    arrays = dict(out=out, base=base, acc=acc, acc_out=acc_out)
+    for name in ("out",) + need:
+        if arrays[name] is None:
+            raise ValueError(f"RK stage mode {mode} needs `{name}`")
+        _check_like(arrays[name], ev, name)
+    if out.data_ptr() == ev.data_ptr():
+        raise ValueError("an RK stage is out of place: `out` must not alias "
+                         "the evaluated level")
+    _check_wind(wind, ev, mesh.structured_ny, mesh.structured_nx)
+    # (the stage reads no dt of its own: ca and cb carry it)
+    lib, rec, threads, name = _launch_args(mesh, cfg, 0.0, ev, None, wind,
+                                           "rk")
+    ptr = lambda a: None if a is None else a.data_ptr()
+    with torch.cuda.device(ev.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, name)(
+            ev.data_ptr(), ptr(base), ptr(acc), ptr(acc_out), out.data_ptr(),
+            ptr(wind), rec.ctypes.data, float(ca), float(cb), mode, threads,
+            stream)
+    _build.check(code, "RK stage launch")
+    rk_launches += 1
+    return out
+
+
+def rk2_megastep_stacked(mesh, cfg, stacked, dt, out=None, wind=None,
+                         work=None):
+    """One midpoint-RK2 step on the stacked layout, out of place: for a
+    CUDA array two launches of the RK stage kernel (midpoint into
+    work[0], the new state into `out`), then the column kernels of
+    vertical mixing in place on `out`; the plain versions for a CPU array.
+    `work` is a tuple of one array like `stacked` (`rk_work`)."""
+    if not stacked.is_cuda:
+        return _finish(mesh, cfg,
+                       rk2_megastep_plain(mesh, cfg, stacked, dt, wind=wind),
+                       dt, out)
+    mid = (work or rk_work(stacked, 1))[0]
+    out = torch.empty_like(stacked) if out is None else out
+    if out.data_ptr() == stacked.data_ptr():
+        raise ValueError("the fused RK2 step is out of place: `out` must "
+                         "not alias the input")
+    rk_stage(mesh, cfg, RK_PROV, 0.5 * dt, 0.0, stacked, mid, base=stacked,
+             wind=wind)
+    rk_stage(mesh, cfg, RK_PROV, dt, 0.0, mid, out, base=stacked, wind=wind)
+    if vmix_kernel.vmix_on(cfg):
+        vmix_kernel.vmix_stacked(mesh, cfg, out, dt)
+    return out
+
+
+def rk4_megastep_stacked(mesh, cfg, stacked, dt, out=None, wind=None,
+                         work=None):
+    """One classic-RK4 step on the stacked layout: for a CUDA array four
+    launches of the RK stage kernel threading the accumulator (updated in
+    place) and two provisional states through `work` (three arrays like
+    `stacked`, `rk_work`), then the column kernels of vertical mixing in
+    place on `out`; the plain versions for a CPU array. `out` may be
+    `stacked` itself: the last stage reads only the accumulator and the
+    provisional state."""
+    if not stacked.is_cuda:
+        return _finish(mesh, cfg,
+                       rk4_megastep_plain(mesh, cfg, stacked, dt, wind=wind),
+                       dt, out)
+    acc, p0, p1 = work or rk_work(stacked, 3)
+    out = torch.empty_like(stacked) if out is None else out
+    kw = dict(wind=wind)
+    rk_stage(mesh, cfg, RK_FIRST, RK4_A[1] * dt, RK4_B[0] * dt, stacked, p0,
+             base=stacked, acc_out=acc, **kw)
+    rk_stage(mesh, cfg, RK_MID, RK4_A[2] * dt, RK4_B[1] * dt, p0, p1,
+             base=stacked, acc=acc, acc_out=acc, **kw)
+    rk_stage(mesh, cfg, RK_MID, RK4_A[3] * dt, RK4_B[2] * dt, p1, p0,
+             base=stacked, acc=acc, acc_out=acc, **kw)
+    rk_stage(mesh, cfg, RK_LAST, 0.0, RK4_B[3] * dt, p0, out, acc=acc, **kw)
+    if vmix_kernel.vmix_on(cfg):
+        vmix_kernel.vmix_stacked(mesh, cfg, out, dt)
+    return out
+
+
+def _state_step(step, mesh, cfg, state, dt, wind_stress):
+    h, _, tr = state
+    out = step(mesh, cfg, stack_state(mesh, state), dt,
+               wind=stack_wind(mesh, cfg, wind_stress, h.dtype))
+    return unstack_state(mesh, out, h.shape[-1], tr.shape[0], type(state))
 
 
 def fb_megastep(mesh, cfg, state, t, dt, wind_stress=None):
     """One forward-backward step (== stepping.forward_backward_step) for
     a supported configuration."""
-    h, _, tr = state
-    out = fb_megastep_stacked(
-        mesh, cfg, stack_state(mesh, state), dt,
-        wind=stack_wind(mesh, cfg, wind_stress, h.dtype))
-    return unstack_state(mesh, out, h.shape[-1], tr.shape[0], type(state))
+    return _state_step(fb_megastep_stacked, mesh, cfg, state, dt,
+                       wind_stress)
+
+
+def rk2_megastep(mesh, cfg, state, t, dt, wind_stress=None):
+    """One midpoint-RK2 step (== stepping.rk2_step) for a supported
+    configuration."""
+    return _state_step(rk2_megastep_stacked, mesh, cfg, state, dt,
+                       wind_stress)
+
+
+def rk4_megastep(mesh, cfg, state, t, dt, wind_stress=None):
+    """One classic-RK4 step (== stepping.rk4_step) for a supported
+    configuration."""
+    return _state_step(rk4_megastep_stacked, mesh, cfg, state, dt,
+                       wind_stress)

@@ -1,15 +1,21 @@
 """Time steppers — state -> state maps.
 
-Counterpart of src/timeStepping/ForwardBackwardStepper.cpp:27-82. The
-reference mutates circular time-level buffers and triggers MPI halo
-exchanges inside updateTimeLevels; here each stepper returns a new state
-and the halo exchange is an injectable `halo` callback (identity on a
-single device; the distributed exchanges arrive with parallel/).
+Counterpart of src/timeStepping/: ForwardBackwardStepper.cpp:27-82,
+RungeKutta2Stepper.cpp:25-75, RungeKutta4Stepper.cpp:68-137. The reference
+mutates circular time-level buffers and triggers MPI halo exchanges inside
+updateTimeLevels; here each stepper returns a new state and the halo
+exchange is an injectable `halo` callback (identity on a single device; the
+distributed exchanges arrive with parallel/). RK4 applies `halo` to the
+provisional state at stage 2, matching the reference's width-3-halo
+amortization (RungeKutta4Stepper.cpp:107-114).
 
 Tracer updates are thickness-weighted exactly as TimeStepper.h:205-237:
     tr^{n+1} = (tr^n h^n + sum_s b_s dt R_s) / h^{n+1}
 
-RK2, RK4 and the split-explicit stepper arrive with later slices.
+For a state on a CUDA device and a configuration the fused kernels take
+(`megastep.supported`), each stepper runs them: one launch per FB step, two
+per RK2 step, four per RK4 step (ops/megastep.py), plus the column kernels
+of vertical mixing. The split-explicit stepper arrives with a later slice.
 """
 
 from __future__ import annotations
@@ -53,9 +59,7 @@ def forward_backward_step(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
                           t, dt, halo: Halo = _identity,
                           wind_stress=None) -> ModelState:
     """Forward h/tracer update, backward u update (uses new h)."""
-    tend_mod.check_ported(cfg)
-    if (isinstance(dt, (int, float)) and megastep.enabled(state)
-            and megastep.supported(mesh, cfg)):
+    if _fused(mesh, cfg, state, dt, "fb"):
         # the fused path (ops/megastep.py): one kernel reads the state once
         # and writes it once, wind and drag included; vertical mixing
         # follows in the column kernels on the same array
@@ -78,9 +82,86 @@ def forward_backward_step(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
     return halo(out)
 
 
+def rk2_step(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
+             t, dt, halo: Halo = _identity, wind_stress=None) -> ModelState:
+    """Midpoint method (RungeKutta2Stepper.cpp:25-75)."""
+    if _fused(mesh, cfg, state, dt, "rk2"):
+        # two launches of the RK stage kernel (ops/megastep.py), then the
+        # column kernels of vertical mixing
+        return halo(megastep.rk2_megastep(mesh, cfg, state, t, dt,
+                                          wind_stress))
+    h, u, tr = state
+
+    k1 = tend_mod.compute_all_tendencies(mesh, cfg, h, u, tr, t, wind_stress)
+    h_mid = h + 0.5 * dt * k1.dh
+    u_mid = u + 0.5 * dt * k1.du
+    tr_mid = (tr * h[None] + 0.5 * dt * k1.dtr) / h_mid[None]
+
+    k2 = tend_mod.compute_all_tendencies(mesh, cfg, h_mid, u_mid, tr_mid,
+                                         t + 0.5 * dt, wind_stress)
+    h_new = h + dt * k2.dh
+    u_new = u + dt * k2.du
+    tr_new = (tr * h[None] + dt * k2.dtr) / h_new[None]
+
+    out = _mix(mesh, cfg, ModelState(h=h_new, u=u_new, tracers=tr_new), dt)
+    return halo(out)
+
+
+# the fused path's tables: stage weights a (also the stage times) and b
+_RKA, _RKB = megastep.RK4_A, megastep.RK4_B
+
+
+def rk4_step(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
+             t, dt, halo: Halo = _identity, wind_stress=None) -> ModelState:
+    """Classic RK4 with thickness-weighted tracer accumulation
+    (RungeKutta4Stepper.cpp:68-137), including the stage-2 halo refresh of
+    the provisional state."""
+    if halo is _identity and _fused(mesh, cfg, state, dt, "rk4"):
+        # four launches of the RK stage kernel (ops/megastep.py); they make
+        # no stage-2 exchange, so a real `halo` takes the composed path
+        return halo(megastep.rk4_megastep(mesh, cfg, state, t, dt,
+                                          wind_stress))
+    h, u, tr = state
+
+    k = tend_mod.compute_all_tendencies(mesh, cfg, h, u, tr, t, wind_stress)
+    h_acc = h + _RKB[0] * dt * k.dh
+    u_acc = u + _RKB[0] * dt * k.du
+    tr_acc = tr * h[None] + _RKB[0] * dt * k.dtr
+
+    for stage in range(1, 4):
+        h_prov = h + _RKA[stage] * dt * k.dh
+        u_prov = u + _RKA[stage] * dt * k.du
+        tr_prov = (tr * h[None] + _RKA[stage] * dt * k.dtr) / h_prov[None]
+        if stage == 2:
+            # width-3 halo supports 2 stages between exchanges
+            prov = halo(ModelState(h=h_prov, u=u_prov, tracers=tr_prov))
+            h_prov, u_prov, tr_prov = prov
+        k = tend_mod.compute_all_tendencies(
+            mesh, cfg, h_prov, u_prov, tr_prov, t + _RKA[stage] * dt,
+            wind_stress)
+        h_acc = h_acc + _RKB[stage] * dt * k.dh
+        u_acc = u_acc + _RKB[stage] * dt * k.du
+        tr_acc = tr_acc + _RKB[stage] * dt * k.dtr
+
+    tr_new = tr_acc / h_acc[None]
+    out = _mix(mesh, cfg, ModelState(h=h_acc, u=u_acc, tracers=tr_new), dt)
+    return halo(out)
+
+
+def _fused(mesh, cfg, state, dt, kind) -> bool:
+    """Whether a step of `kind` ("fb", "rk2", "rk4") takes the fused
+    kernels: a state on a CUDA device, a Python-number dt and a
+    configuration they implement."""
+    return (isinstance(dt, (int, float)) and megastep.enabled(state)
+            and megastep.supported(mesh, cfg, kind))
+
+
 _STEPPERS = {
     "forward-backward": forward_backward_step,
+    "rungekutta2": rk2_step,
+    "rungekutta4": rk4_step,
 }
+_KIND = {forward_backward_step: "fb", rk2_step: "rk2", rk4_step: "rk4"}
 
 
 def make_stepper(name: str):
@@ -97,23 +178,34 @@ def run_steps(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
               halo: Halo = _identity, wind_stress=None) -> ModelState:
     """Advance `nsteps` (the ocnRun loop, ocn/OceanRun.cpp:16-70, minus
     host-side IO, which the model's run loop does between segments)."""
-    tend_mod.check_ported(cfg)
-    if (stepper is forward_backward_step and halo is _identity
-            and isinstance(dt, (int, float)) and megastep.enabled(state)
-            and megastep.supported(mesh, cfg)):
-        # stacked fast path: the fused kernel's single (4+L, K, ny, nx)
-        # array is carried across the segment in two buffers that swap
-        # roles, so each step is the fused path's kernel launches (one, or
-        # up to three with vertical mixing) and no other device work; the
-        # wind plane is packed once per segment
+    kind = _KIND.get(stepper)
+    if (kind is not None and halo is _identity
+            and _fused(mesh, cfg, state, dt, kind)):
+        # stacked fast path: the fused kernels' single (4+L, K, ny, nx)
+        # array is carried across the segment, so a step is the fused
+        # path's kernel launches (FB: one; RK2: two; RK4: four; plus the
+        # column kernels with vertical mixing) and no other device work.
+        # FB and RK2 write the next state into a second buffer and the two
+        # swap roles; RK4's last stage writes the state in place. The
+        # stages' work arrays and the wind plane are made once per segment.
         h, _, tr = state
         cur = megastep.stack_state(mesh, state)
-        nxt = cur.new_empty(cur.shape)
         wind = megastep.stack_wind(mesh, cfg, wind_stress, h.dtype)
-        for _ in range(nsteps):
-            megastep.fb_megastep_stacked(mesh, cfg, cur, dt, out=nxt,
-                                         wind=wind)
-            cur, nxt = nxt, cur
+        if kind == "rk4":
+            work = megastep.rk_work(cur, 3)
+            for _ in range(nsteps):
+                megastep.rk4_megastep_stacked(mesh, cfg, cur, dt, out=cur,
+                                              wind=wind, work=work)
+        else:
+            nxt = cur.new_empty(cur.shape)
+            step = megastep.fb_megastep_stacked
+            kw = {}
+            if kind == "rk2":
+                step = megastep.rk2_megastep_stacked
+                kw = dict(work=megastep.rk_work(cur, 1))
+            for _ in range(nsteps):
+                step(mesh, cfg, cur, dt, out=nxt, wind=wind, **kw)
+                cur, nxt = nxt, cur
         return megastep.unstack_state(mesh, cur, h.shape[-1], tr.shape[0],
                                       type(state))
 

@@ -1,8 +1,10 @@
-"""Flux-corrected (Zalesak) tracer transport of the port (core/fct.py,
-composed) against the JAX package in float64: edge fluxes, the provisional
-field, the limited tendency at rtol 1e-12; the monotone bounds; the
+"""Flux-corrected (Zalesak) tracer transport of the port against the JAX
+package in float64: the composed edge fluxes, provisional field and limited
+tendency (core/fct.py) at rtol 1e-12; the monotone bounds; the
 forward-backward step with flux_tracer_type="fct" over two steps at 1e-10
-(the JAX suite's figure, tests/test_structured.py)."""
+(the JAX suite's figure, tests/test_structured.py:577), composed and through
+the fused kernel's plain version (whole grid and tiled), and the latter
+against the JAX fused kernel in interpret mode."""
 
 import functools
 
@@ -17,9 +19,10 @@ import jax.numpy as jnp
 from omega_tpu.core import aux as jaux
 from omega_tpu.core import fct as jfct
 from omega_tpu.core import tendencies as jtend
+from omega_tpu.ops import megastep as jmegastep
 from omega_tpu.stepping import forward_backward_step as jfb
 
-from omega_tpu_torch.core import aux, fct, tendencies
+from omega_tpu_torch.core import ModelState, aux, fct, tendencies
 from omega_tpu_torch.ops import megastep
 from omega_tpu_torch.stepping import forward_backward_step, run_steps
 
@@ -123,14 +126,23 @@ def test_fct_tendency_wrapper_and_its_errors():
                                            pmean, 0.0)
 
 
-@pytest.mark.parametrize("mesh", MESHES)
-def test_fct_step_matches_jax_over_2_steps_and_stays_in_bounds(mesh):
-    jm, pm, jcfg, cfg, js, ps = _setup(mesh)[:6]
-    assert not megastep.supported(pm, cfg)      # FCT runs the composed step
-    ref, out = js, ps
-    for _ in range(2):
+def _jax_fct_steps(mesh, n=2):
+    jm, _, jcfg, _, js = _setup(mesh)[:5]
+    ref = js
+    for _ in range(n):
         ref = jax_call(("fct step", mesh),
                        lambda st: jfb(jm, jcfg, st, 0.0, DT), ref)
+    return ref
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_fct_step_matches_jax_over_2_steps_and_stays_in_bounds(mesh):
+    """The composed step (a CPU state; on the card the fused kernel takes
+    this configuration)."""
+    jm, pm, jcfg, cfg, js, ps = _setup(mesh)[:6]
+    assert megastep.supported(pm, cfg)
+    ref, out = _jax_fct_steps(mesh), ps
+    for _ in range(2):
         out = forward_backward_step(pm, cfg, out, 0.0, DT)
     for n in ("h", "u", "tracers"):
         _close(getattr(out, n), getattr(ref, n), n, rtol=1e-10, atol=1e-10)
@@ -139,3 +151,34 @@ def test_fct_step_matches_jax_over_2_steps_and_stays_in_bounds(mesh):
     again = run_steps(pm, cfg, ps, 0.0, DT, 2)
     for a, b in zip(again, out):
         assert np.array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("tile", [None, (8, 8), (7, 5)],
+                         ids=["whole", "tile8x8", "ragged7x5"])
+@pytest.mark.parametrize("mesh", ["32x16", "24x12"])
+def test_fused_fct_plain_matches_jax_and_is_monotone(mesh, tile):
+    """The fused kernel's plain version (the FB chain with the limiter in
+    place of the advective term) against the JAX package's composed FCT
+    step over two steps, 1e-10; the 0/1 tracer stays in [0, 1]."""
+    _, pm, _, cfg, _, ps = _setup(mesh)[:6]
+    s = megastep.stack_state(pm, ps)
+    for _ in range(2):
+        s = megastep.fb_megastep_plain(pm, cfg, s, DT, tile=tile)
+    out = megastep.unstack_state(pm, s, K, L, ModelState)
+    ref = _jax_fct_steps(mesh)
+    for n in ("h", "u", "tracers"):
+        _close(getattr(out, n), getattr(ref, n), n, rtol=1e-10, atol=1e-10)
+    t0 = out.tracers[0].numpy()
+    assert t0.min() >= -1e-12 and t0.max() <= 1.0 + 1e-12
+    assert t0.min() < 0.5 < t0.max()
+
+
+def test_fused_fct_plain_matches_jax_pallas_kernel():
+    """Against the JAX fused FB kernel with its FCT tail (`_fct_adv`) in
+    interpret mode, one step, 1e-10."""
+    jm, pm, jcfg, cfg, js, ps = _setup("32x16")[:6]
+    assert jmegastep.supported(jm, jcfg)
+    jout = jmegastep.fb_megastep(jm, jcfg, js, 0.0, DT, interpret=True)
+    out = megastep.fb_megastep(pm, cfg, ps, 0.0, DT)
+    for n in ("h", "u", "tracers"):
+        _close(getattr(out, n), getattr(jout, n), n, rtol=1e-10, atol=1e-10)

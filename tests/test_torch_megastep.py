@@ -102,12 +102,11 @@ def test_stack_unstack_round_trip():
 
 
 # option -> (config, whether the fused path takes it, as the JAX package's
-# megastep.supported does for kind "fb", FCT apart: its fused tail is not
-# ported, so it runs composed)
+# megastep.supported does for kind "fb")
 OFF_FLAGSHIP = {
     "upwind_thickness": (dict(flux_thickness_type="upwind"), True),
     "upwind_tracer": (dict(flux_tracer_type="upwind"), True),
-    "fct": (dict(flux_tracer_type="fct"), False),
+    "fct": (dict(flux_tracer_type="fct"), True),
     "column_ssh": (dict(ssh_formulation="column"), False),
     "vmix": (dict(vert_mix=VertMixConfig(enabled=True)), True),
     "vmix_pp81": (dict(vert_mix=VertMixConfig(enabled=True, scheme="pp81")),
@@ -126,8 +125,8 @@ OFF_FLAGSHIP = {
 
 @pytest.mark.parametrize("what", OFF_FLAGSHIP)
 def test_supported_is_false_off_the_flagship(what):
-    """...and off the variants the fused path has: upwind fluxes, wind,
-    drag and PCR vertical mixing are taken, the rest runs composed."""
+    """...and off the variants the fused path has: upwind and FCT fluxes,
+    wind, drag and PCR vertical mixing are taken, the rest runs composed."""
     pm = port_mesh(jax_mesh(16, 8))
     kw, taken = OFF_FLAGSHIP[what]
     assert megastep.supported(pm, ModelConfig(nvertlayers=3, ntracers=2))
@@ -215,9 +214,9 @@ def test_param_record_mirrors_the_kernel_struct(ft):
                               megastep.chain_radius(tabs))
     rec = megastep.pack_params(tabs, consts, ft, plan)
     size = np.dtype(ft).itemsize
-    # int[2][96], T[96], short[12][4], 15 T, 9 int, padded to T's alignment:
+    # int[2][96], T[96], short[20][4], 15 T, 9 int, padded to T's alignment:
     # the C++ struct's layout
-    raw = 2 * 96 * 4 + 96 * size + 96 + 15 * size + 36
+    raw = 2 * 96 * 4 + 96 * size + 20 * 4 * 2 + 15 * size + 36
     assert rec.dtype.itemsize == -(-raw // size) * size
     # the compile-time layout: tables in order, classes in order, fixed counts
     XX = plan["bx"] + 2 * plan["rx"]
@@ -234,7 +233,7 @@ def test_param_record_mirrors_the_kernel_struct(ft):
                 assert rec["w"][n + i] == ft(w)
             n += len(want)
         assert rec["start"][b, 3] == n
-    assert n == 84 <= megastep.MAX_ENTRIES
+    assert n == 96 == megastep.MAX_ENTRIES
     # constants folded in float64, rounded once
     assert rec["nu4s"] == ft(1e9 * 1.0) and rec["dt"] == ft(30.0)
     assert rec["geo4"] == ft(consts["geo"] * 1.0)
@@ -321,7 +320,8 @@ def test_wind_and_drag_act_on_one_layer_each():
 
 VARIANTS = {"center": (False, False, False), "upwind_h": (True, False, False),
             "upwind_tr": (False, True, False), "upwind": (True, True, False),
-            "tails": (False, False, True), "upwind_tails": (True, True, True)}
+            "tails": (False, False, True), "upwind_tails": (True, True, True),
+            "fct": (False, "fct", False), "fct_upwind_tails": (True, "fct", True)}
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -329,6 +329,8 @@ def test_chain_radius_per_variant_is_tight(variant):
     """Each variant's ring is derived by its own probe run; it keeps tiles
     exact, and one row or one column fewer does not."""
     uph, upt, tails = VARIANTS[variant]
+    fct = upt == "fct"
+    upt = upt is True
     name = {(False, False): "wind_drag", (True, False): "upwind_thickness",
             (False, True): "upwind_tracer", (True, True): "upwind"}[uph, upt]
     jm, pm, jcfg, cfg, _, wind, K = _science(name, "32x16x3")
@@ -338,10 +340,12 @@ def test_chain_radius_per_variant_is_tight(variant):
                              bottom_drag=tails, bottom_drag_coeff=3e-3,
                              eddy_diff4=1e6)
     cfg = dataclasses.replace(cfg, tendencies=tc)
+    if fct:
+        cfg = dataclasses.replace(cfg, flux_tracer_type="fct")
     tabs, consts = megastep._mega_args(pm, cfg, 30.0)
-    assert (consts["uph"], consts["upt"], consts["cd"] != 0) == \
-        (uph, upt, tails)
-    ry, rx = megastep.chain_radius(tabs, uph, upt, tails)
+    assert (consts["uph"], consts["upt"], consts["cd"] != 0,
+            consts["fct"]) == (uph, upt, tails, fct)
+    ry, rx = megastep.chain_radius(tabs, uph, upt, tails, fct)
     assert 1 <= ry <= 5 and 1 <= rx <= 6
     s = megastep.stack_state(pm, port_state(*fields))
     plane = megastep.stack_wind(pm, cfg, port_wind(wind), s.dtype)
@@ -357,18 +361,24 @@ def test_chain_radius_per_variant_is_tight(variant):
 
 
 def test_radius_probe_sees_through_the_upwind_pick():
-    """With the data-dependent pick left in, a slab of ones (u > 0 picks
-    one side only) would hide the other side's reach; the probe's pick
-    depends on both."""
+    """With the data-dependent picks left in, a slab of ones (u > 0 picks
+    one side only, a >= 0 one limiter pair) would hide the other side's
+    reach; every pick of the probe depends on all its operands."""
     pm = port_mesh(jax_mesh(16, 8))
     tabs = megastep._mega_args(pm, ModelConfig(nvertlayers=3, ntracers=2),
                                30.0)[0]
     nan = torch.tensor(float("nan"), dtype=torch.float64)
     one = torch.tensor(1.0, dtype=torch.float64)
     assert torch.isfinite(aux._upwind(one, one, nan))
-    assert torch.isnan(megastep._probe_sel(one, one, nan))
-    assert torch.isnan(megastep._probe_sel(one, nan, one))
+    for name in megastep.Picks._fields:
+        real = getattr(megastep.PICKS, name)
+        probe = getattr(megastep.PROBE_PICKS, name)
+        assert torch.isfinite(real(one, one, nan)), name
+        assert torch.isnan(probe(one, one, nan)), name
+        assert torch.isnan(probe(one, nan, one)), name
     assert megastep.chain_radius(tabs, True, True, True) >= \
+        megastep.chain_radius(tabs)
+    assert megastep.chain_radius(tabs, True, False, True, fct=True) >= \
         megastep.chain_radius(tabs)
 
 

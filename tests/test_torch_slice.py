@@ -23,7 +23,7 @@ from omega_tpu_torch import convert
 from omega_tpu_torch.core import ModelState, init_state
 from omega_tpu_torch.mesh import planar_hex_mesh
 from omega_tpu_torch.stepping import (forward_backward_step, make_stepper,
-                                      run_steps)
+                                      rk4_step, run_steps)
 
 NX, NY, K, L = 32, 16, 4, 2
 
@@ -78,8 +78,9 @@ def test_generic_loop_and_make_stepper_agree_with_fast_path(setup):
                   halo=lambda s: s)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=1e-12, atol=1e-14)
+    assert make_stepper("rungekutta4") is rk4_step
     with pytest.raises(ValueError):
-        make_stepper("rungekutta4")
+        make_stepper("leapfrog")
 
 
 # ---- the science configuration -----------------------------------------

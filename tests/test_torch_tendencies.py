@@ -95,10 +95,12 @@ def test_compute_all_tendencies_matches_jax(setup):
     _close(pt.dtr, jt.dtr, "dtr", atol=1e-18)
 
 
-# option -> (config, whether it still raises NotImplementedError)
+# option -> (config, whether it still raises NotImplementedError): every
+# option is ported now (custom tendencies since the RK slice)
 UNPORTED = {
-    "custom": (dict(tendencies=TendencyConfig(use_custom_tendency=True)),
-               True),
+    "custom": (dict(tendencies=TendencyConfig(use_custom_tendency=True,
+                                              manufactured_tendency=True)),
+               False),
     "wind": (dict(tendencies=TendencyConfig(wind_forcing=True)), False),
     "drag": (dict(tendencies=TendencyConfig(bottom_drag=True,
                                             bottom_drag_coeff=1e-3)), False),
@@ -109,8 +111,8 @@ UNPORTED = {
 
 @pytest.mark.parametrize("what", UNPORTED)
 def test_unported_options_raise(setup, what):
-    """...and the ported ones run: every entry point either raises
-    NotImplementedError (custom tendencies) or returns finite fields."""
+    """...and the ported ones run: every entry point returns finite fields
+    (none raises NotImplementedError any more)."""
     _, pm, _, ps = setup
     kw, raises = UNPORTED[what]
     cfg = ModelConfig(nvertlayers=K, ntracers=L, **kw)
