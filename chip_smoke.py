@@ -8,9 +8,9 @@
 
 It builds the CUDA kernels from omega_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card, drives the port's main paths
-(256 x 256 cells x 100 layers x 2 tracers, float32; forward-backward, RK2
-and RK4 steppers) through the entry points a user calls, and prints one JSON
-line per phase:
+(256 x 256 cells x 100 layers x 2 tracers, float32; forward-backward, RK2,
+RK4 and split-explicit steppers) through the entry points a user calls, and
+prints one JSON line per phase:
 
   device          the card, and nvidia-smi's name / power-limit line
   build           nvcc build of the kernels, seconds
@@ -21,6 +21,8 @@ line per phase:
   kernel_vmix     PP81 coefficient kernel and column-solve kernel vs plain
   kernel_rk       RK stage kernel vs plain, every stage mode; fused RK2 / RK4
                   steps vs the composed steppers
+  kernel_split    splitpre's passes, the barotropic subcycles and splitpost
+                  vs plain; fused split steps vs the composed split stepper
   main_path       2 x 10 steps of the bench configuration; launch counts
   composed_path   column ssh: the composed stepper + stencil kernel
   science_path    2 x 10 steps with wind, bottom drag, upwind fluxes and PP81
@@ -29,6 +31,8 @@ line per phase:
   rk4_path        2 x 10 RK4 steps of the bench configuration: four launches
   rk2_path        2 x 10 RK2 steps of the science configuration: two stage
                   launches and the two vertical-mixing kernels per step
+  split_path      2 x 10 split-explicit steps (column ssh, dt = 120 s, ten
+                  barotropic subcycles): 3 + 10 + 1 launches per step
   rk_order        the manufactured solution in float64: the steppers'
                   temporal order and the spatial order
   profile         (only with --profile) device time by kernel, every path
@@ -834,6 +838,189 @@ def main(argv=None):
     emit({"phase": "kernel_rk", **rk, "f32_256x256x100x2": rkv})
     del s0, st
 
+    # --------------------------------------------------- 4d. kernel_split
+    # the split-explicit kernels (splitpre's three passes, the barotropic
+    # subcycles, splitpost) against their plain versions on the same inputs:
+    # f64 per channel within 1e-12 of max|ref|, the barotropic kernel at
+    # (M, bt_drag) = (10, 0), (7, 1e-4) and (30, 0); the fused split step
+    # against the composed split stepper on the card, f64, 3 steps, rtol=
+    # atol=1e-10 (tests/test_split.py:237-240). f32 at full width: splitpre's
+    # outputs (new fields: du_full, the planes) per channel max|diff| over
+    # max|ref|; the barotropic kernel's and splitpost's per channel the error
+    # of the increment over the largest increment (ub_final and <ubar> over
+    # ubar, ssh over sshc, the state over the state). The limits are about
+    # ten times the first run's readings (PERF.md): g_slow 5.1e-6 (a
+    # difference of near-equal terms), ssh's increment 3.9e-6, a tracer's
+    # increment 5.1e-4 (as in the FB step).
+    from omega_tpu_torch.ops import barotropic_kernel as btk
+    from omega_tpu_torch.stepping import (make_stepper,
+                                          split_forward_backward_step)
+    DT_SPLIT, M_SPLIT = 120.0, 10
+    SPLIT_PRE_ERR, BT_INCR, POST_INCR = 5e-5, 5e-5, 5e-3
+    BT_CASES = ((10, 0.0), (7, 1e-4), (30, 0.0))
+    PRE_NAMES = (["du0", "du1", "du2"]
+                 + [f"ubar{t}" for t in range(3)] + ["sshc"]
+                 + [f"g_slow{t}" for t in range(3)]
+                 + [f"het{t}" for t in range(3)]
+                 + [f"du_bar{t}" for t in range(3)])
+    BT_NAMES = ["ub0", "ub1", "ub2", "ssh", "uavg0", "uavg1", "uavg2"]
+
+    def pre_pairs(mesh, cfg_s, s, r):
+        """(name, kernel, plain) per splitpre output channel, and the plain
+        version's du_full and planes"""
+        du, planes = megastep.split_work(s)
+        megastep.split_pre(mesh, cfg_s, s, du, planes, r)
+        du_p, pl_p = megastep.split_pre_plain(mesh, cfg_s, s, r)
+        got = list(du) + list(planes[:megastep.P_DUBAR + 3])
+        ref = list(du_p) + list(pl_p)
+        return list(zip(PRE_NAMES, got, ref)), du_p, pl_p
+
+    def bt_call(mesh, stack, M, r):
+        kw = dict(gravity=cfg_s.gravity, dt_bt=DT_SPLIT / M, n_subcycles=M,
+                  bt_drag=r)
+        return btk.bt_planes(mesh, stack, **kw), btk.bt_plain(mesh, stack,
+                                                              **kw)
+
+    def post_inputs(pl_p, bt_ref):
+        planes = pl_p.new_zeros((megastep.NPLANES,) + tuple(pl_p.shape[1:]))
+        planes[:pl_p.shape[0]] = pl_p
+        planes[megastep.P_UBF:megastep.P_UAVG + 3] = bt_ref
+        return planes
+
+    spl = {"f64": {}, "tolerance": "f64 per channel max|diff| <= 1e-12 "
+           "max|ref|; fused split step vs composed split step rtol=atol="
+           "1e-10 over 3 steps; f32 at full width: splitpre per channel "
+           "max|diff| <= SPLIT_PRE_ERR max|ref|, barotropic and splitpost "
+           "per channel the error of the increment <= BT_INCR / POST_INCR "
+           "of the largest increment", "SPLIT_PRE_ERR": SPLIT_PRE_ERR,
+           "BT_INCR": BT_INCR, "POST_INCR": POST_INCR}
+    for (nx, ny, K) in ((32, 16, 3), (48, 20, 5)):
+        mesh_np = planar_hex_mesh(nx, ny, dc=5000.0, f0=1e-4,
+                                  bottom_depth=1000.0)
+        mesh = mesh_np.to(dev, torch.float64)
+        # (tracer hyperdiffusion on, so that every level of splitpost acts)
+        cfg_s = bench_cfg(K, NTRACERS, dict(eddy_diff4=1e6),
+                          ssh_formulation="column")
+        if not megastep.split_supported(mesh, cfg_s):
+            fail("split configuration not supported by the split kernels")
+        st = noisy_state(mesh_np, K, NTRACERS, torch.float64)
+        s = megastep.stack_state(mesh, st)
+        worst = {}
+        pairs, du_p, pl_p = pre_pairs(mesh, cfg_s, s, 1e-4)
+        for name, got, ref in pairs:
+            worst[f"pre/{name}"] = chan_err(got[None], ref[None])
+        bt_ref10 = None
+        for M, r in BT_CASES:
+            got, ref = bt_call(mesh, pl_p[:10].contiguous(), M, r)
+            worst[f"barotropic M={M} r={r}"] = chan_err(got, ref)
+            if M == M_SPLIT:
+                bt_ref10 = ref
+        out = torch.empty_like(s)
+        planes = post_inputs(pl_p, bt_ref10)
+        megastep.split_post(mesh, cfg_s, s, du_p, planes, DT_SPLIT, out)
+        worst["post"] = chan_err(out, megastep.split_post_plain(
+            mesh, cfg_s, s, du_p, planes, DT_SPLIT))
+        torch.cuda.synchronize()
+        bad = {k: v for k, v in worst.items() if not v <= 1e-12}
+        if bad:
+            fail(f"split kernels vs plain at {nx}x{ny}x{K} f64: {bad}")
+        # whole steps: the fused path against the composed split stepper
+        for M, r in ((M_SPLIT, 0.0), (8, 1e-4)):
+            comp, ker = st, s
+            for i in range(3):
+                comp = composed(split_forward_backward_step, mesh, cfg_s,
+                                comp, i * DT_SPLIT, DT_SPLIT, n_subcycles=M,
+                                bt_drag=r)
+                ker = megastep.split_megastep_stacked(mesh, cfg_s, ker,
+                                                      DT_SPLIT, M, r)
+            torch.cuda.synchronize()
+            ref = megastep.stack_state(mesh, comp)
+            d = (ker - ref).abs()
+            if bool((d > 1e-10 + 1e-10 * ref.abs()).any()) \
+                    or not bool(torch.isfinite(ker).all()):
+                fail(f"fused split step (M={M}, r={r}) vs composed at "
+                     f"{nx}x{ny}x{K} f64: {d.max().item()}")
+            worst[f"step_vs_composed M={M} r={r}"] = d.max().item()
+        spl["f64"][f"{nx}x{ny}x{K}"] = worst
+
+    cfg_s = bench_cfg(NLAYERS, NTRACERS, ssh_formulation="column")
+    mesh_np = planar_hex_mesh(NX, NY, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
+    st = noisy_state(mesh_np, NLAYERS, NTRACERS, torch.float32)
+    s0 = megastep.stack_state(mesh32, st)
+    f32 = {"pre": {}, "barotropic": {}, "post": {}}
+    pairs, du_p, pl_p = pre_pairs(mesh32, cfg_s, s0, 0.0)
+    pre_abs = 0.0
+    for name, got, ref in pairs:
+        e = nerr(got, ref)
+        f32["pre"][name] = e
+        pre_abs = max(pre_abs, (got - ref).abs().max().item())
+        if not e <= SPLIT_PRE_ERR or not bool(torch.isfinite(got).all()):
+            fail(f"splitpre {name} at full width f32: {e} of max|ref|")
+    stack = pl_p[:10].contiguous()
+    got, bt_ref = bt_call(mesh32, stack, M_SPLIT, 0.0)
+    base = torch.cat([stack[:4], stack[:3]])
+    inc = incr_err(got, bt_ref, base)
+    f32["barotropic"] = dict(zip(BT_NAMES, inc))
+    bt_abs = (got - bt_ref).abs().max().item()
+    if max(inc) > BT_INCR or not bool(torch.isfinite(got).all()):
+        fail(f"barotropic kernel at full width f32: increments {inc}")
+    planes = post_inputs(pl_p, bt_ref)
+    out = torch.empty_like(s0)
+    megastep.split_post(mesh32, cfg_s, s0, du_p, planes, DT_SPLIT, out)
+    ref = megastep.split_post_plain(mesh32, cfg_s, s0, du_p, planes,
+                                    DT_SPLIT)
+    torch.cuda.synchronize()
+    inc = incr_err(out, ref, s0)
+    f32["post"] = dict(zip(["h", "u0", "u1", "u2"]
+                           + [f"tracer{l}" for l in range(NTRACERS)], inc))
+    post_abs = (out - ref).abs().max().item()
+    if max(inc) > POST_INCR or not bool(torch.isfinite(out).all()):
+        fail(f"splitpost at full width f32: increments {inc}")
+    del ref
+    # times at the bench shapes, and the least time of each function
+    du, wplanes = megastep.split_work(s0)
+    pre_ms = cuda_ms(lambda: megastep.split_pre(mesh32, cfg_s, s0, du,
+                                                wplanes), 20)
+    pre_plain_ms = cuda_ms(lambda: megastep.split_pre_plain(mesh32, cfg_s,
+                                                            s0), 2, 1)
+    bt_out = torch.empty((7, NY, NX), dtype=torch.float32, device=dev)
+    bt_work = torch.empty((4, NY, NX), dtype=torch.float32, device=dev)
+    bt_kw = dict(gravity=cfg_s.gravity, dt_bt=DT_SPLIT / M_SPLIT,
+                 n_subcycles=M_SPLIT)
+    bt_ms = cuda_ms(lambda: btk.bt_planes(mesh32, stack, out=bt_out,
+                                          work=bt_work, **bt_kw), 20)
+    bt_plain_ms = cuda_ms(lambda: btk.bt_plain(mesh32, stack, **bt_kw), 3, 1)
+    post_ms = cuda_ms(lambda: megastep.split_post(
+        mesh32, cfg_s, s0, du_p, planes, DT_SPLIT, out), 20)
+    post_plain_ms = cuda_ms(lambda: megastep.split_post_plain(
+        mesh32, cfg_s, s0, du_p, planes, DT_SPLIT), 2, 1)
+    tabs, _ = megastep._mega_args(mesh32, cfg_s, DT_SPLIT)
+    pre_f, bt_f, post_f = _split_flops_per_point(tabs, NTRACERS)
+    PL = C * 4                                  # bytes of one plane
+    VOL = NLAYERS * PL                          # bytes of one volume
+    # splitpre reads h and u, writes du_full and 13 planes; the barotropic
+    # subcycles read 10 planes and write 7; splitpost reads the state,
+    # du_full and 12 planes and writes the state
+    pre_b = bound(7 * VOL + 13 * PL, pre_f * NLAYERS * C)
+    bt_b = bound(17 * PL, M_SPLIT * bt_f * C)
+    post_b = bound((2 * CH + 3) * VOL + 12 * PL, post_f * NLAYERS * C)
+    rings = {k: megastep.split_ring(tabs, k) for k in megastep.SPLIT_SLOTS}
+    rings["barotropic"] = btk.ring(tabs)
+    spl["f32_256x256x100x2"] = {
+        "errors": f32, "rings": rings,
+        "split_pre": {"max_abs_err": pre_abs, "ms": pre_ms,
+                      "plain_ms": pre_plain_ms, "bound_ms": pre_b[0],
+                      "bound_by": pre_b[1]},
+        "barotropic": {"M": M_SPLIT, "max_abs_err": bt_abs, "ms": bt_ms,
+                       "plain_ms": bt_plain_ms, "bound_ms": bt_b[0],
+                       "bound_by": bt_b[1]},
+        "split_post": {"max_abs_err": post_abs, "ms": post_ms,
+                       "plain_ms": post_plain_ms, "bound_ms": post_b[0],
+                       "bound_by": post_b[1]}}
+    emit({"phase": "kernel_split", **spl})
+    splv = spl["f32_256x256x100x2"]
+    del s0, st, du, wplanes, du_p, pl_p, planes, out, bt_out, bt_work
+
     # ------------------------------------------------------- 5. main_path
     # the bench configuration, through the entry points a user calls
     mesh_np = planar_hex_mesh(NX, NY, dc=5000.0, f0=1e-4,
@@ -953,12 +1140,20 @@ def main(argv=None):
                 "rk_stage": megastep.rk_launches,
                 "pp81_coeffs": vmix_kernel.coeff_launches,
                 "vmix_solve": vmix_kernel.solve_launches,
-                "stencil": stencil_kernel.launches}
+                "stencil": stencil_kernel.launches,
+                "split_pre": megastep.split_pre_launches,
+                "barotropic": btk.launches,
+                "split_post": megastep.split_post_launches}
 
     def reset_counts():
         megastep.launches = megastep.rk_launches = 0
         vmix_kernel.coeff_launches = vmix_kernel.solve_launches = 0
         stencil_kernel.launches = 0
+        megastep.split_pre_launches = megastep.split_post_launches = 0
+        btk.launches = 0
+
+    # the split kernels launch on no path but split_path
+    NO_SPLIT = {"split_pre": 0, "barotropic": 0, "split_post": 0}
 
     vol0, trc0 = content(sci0)
     nseg, seg = 2, 10
@@ -988,7 +1183,8 @@ def main(argv=None):
         if x.dtype != torch.float32 or not bool(torch.isfinite(x).all()):
             fail(f"science path: {name} is not finite float32")
     for name, n in sci_launches.items():
-        if n != (0 if name == "rk_stage" else nseg * seg):
+        if n != (0 if name == "rk_stage" or name in NO_SPLIT
+                 else nseg * seg):
             fail(f"science path: {name} launched {n} times in "
                  f"{nseg * seg} steps")
     vol1s, trc1s = content(sci)
@@ -1041,17 +1237,17 @@ def main(argv=None):
           "bottom_sum_u2_without_drag": ke_bottom_slip})
     del calm, slip
 
-    def drive(cfg_p, st, stepper, nseg, seg, wind_stress=None):
-        """nseg segments of `seg` steps through run_steps: (state, seconds
-        per segment, launches)"""
-        run_steps(mesh, cfg_p, st, 0.0, DT, 1, stepper=stepper,
+    def drive(cfg_p, st, stepper, nseg, seg, wind_stress=None, dt=DT):
+        """nseg segments of `seg` steps of `dt` through run_steps: (state,
+        seconds per segment, launches)"""
+        run_steps(mesh, cfg_p, st, 0.0, dt, 1, stepper=stepper,
                   wind_stress=wind_stress)                    # untimed
         reset_counts()
         secs = []
         for i in range(nseg):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            st = run_steps(mesh, cfg_p, st, i * seg * DT, DT, seg,
+            st = run_steps(mesh, cfg_p, st, i * seg * dt, dt, seg,
                            stepper=stepper, wind_stress=wind_stress)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
@@ -1083,7 +1279,7 @@ def main(argv=None):
     finite("fct path", fct)
     check_launches("fct path", fct_launches,
                    {"fb_step": nseg * seg, "rk_stage": 0, "pp81_coeffs": 0,
-                    "vmix_solve": 0, "stencil": 0})
+                    "vmix_solve": 0, "stencil": 0, **NO_SPLIT})
     fct_vol, fct_trc = drifts(fct0, fct)
     lo, hi = fct.tracers[0].min().item(), fct.tracers[0].max().item()
     if fct_vol > 1e-5 or fct_trc > 1e-5 or lo < -1e-6 or hi > 1 + 1e-6:
@@ -1098,7 +1294,7 @@ def main(argv=None):
     finite("fct path, u = 0.5 x noise", ref)
     check_launches("fct path, u = 0.5 x noise", ref_launches,
                    {"fb_step": nseg * seg, "rk_stage": 0, "pp81_coeffs": 0,
-                    "vmix_solve": 0, "stencil": 0})
+                    "vmix_solve": 0, "stencil": 0, **NO_SPLIT})
     ref_lo, ref_hi = ref.tracers[0].min().item(), ref.tracers[0].max().item()
     if ref_lo < -MONO_F32[0.5] or ref_hi > 1 + MONO_F32[0.5]:
         fail(f"fct path, u = 0.5 x noise: tracer 0 in [{ref_lo}, {ref_hi}]")
@@ -1119,7 +1315,8 @@ def main(argv=None):
     finite("rk4 path", rk4)
     check_launches("rk4 path", rk4_launches,
                    {"fb_step": 0, "rk_stage": 4 * nseg * seg,
-                    "pp81_coeffs": 0, "vmix_solve": 0, "stencil": 0})
+                    "pp81_coeffs": 0, "vmix_solve": 0, "stencil": 0,
+                    **NO_SPLIT})
     rk4_vol, rk4_trc = drifts(state0, rk4)
     rk4_umax = rk4.u.abs().max().item()
     if rk4_vol > 1e-5 or rk4_trc > 1e-5 or not 0.0 < rk4_umax < 1.0:
@@ -1146,7 +1343,7 @@ def main(argv=None):
     check_launches("rk2 path", rk2_launches,
                    {"fb_step": 0, "rk_stage": 2 * nseg * seg,
                     "pp81_coeffs": nseg * seg, "vmix_solve": nseg * seg,
-                    "stencil": nseg * pack_stencils})
+                    "stencil": nseg * pack_stencils, **NO_SPLIT})
     rk2_vol, rk2_trc = drifts(sci0, rk2)
     calm = run_steps(mesh, cfg_sci, sci0, 0.0, DT, nseg * seg,
                      stepper=rk2_step)
@@ -1172,6 +1369,43 @@ def main(argv=None):
           "max_abs_u": rk2_umax, "top_layer_u_moved_by_wind": rk2_top,
           "mid_layer_u_moved_by_wind": rk2_mid})
     del rk2, calm
+
+    # ----------------------------------------------------- 10b. split_path
+    # the split-explicit stepper on the bench configuration with the column
+    # free surface, at four times main_path's dt with M = 10 barotropic
+    # subcycles, through make_stepper("SplitExplicit"): splitpre (three
+    # launches), ten subcycle launches and splitpost per step, nothing else
+    cfg_split = bench_cfg(NLAYERS, NTRACERS, ssh_formulation="column")
+    split_stepper = make_stepper("SplitExplicit")
+    if split_stepper.split_explicit_params != (M_SPLIT, 0.0):
+        fail(f"SplitExplicit runs {split_stepper.split_explicit_params}")
+    spl_st, spl_s, spl_launches = drive(cfg_split, state0, split_stepper,
+                                        nseg, seg, dt=DT_SPLIT)
+    finite("split path", spl_st)
+    check_launches("split path", spl_launches,
+                   {"fb_step": 0, "rk_stage": 0, "pp81_coeffs": 0,
+                    "vmix_solve": 0, "stencil": 0,
+                    "split_pre": 3 * nseg * seg,
+                    "barotropic": M_SPLIT * nseg * seg,
+                    "split_post": nseg * seg})
+    spl_vol, spl_trc = drifts(state0, spl_st)
+    spl_umax = spl_st.u.abs().max().item()
+    if spl_vol > 1e-5 or spl_trc > 1e-5 or not 0.0 < spl_umax < 1.0:
+        fail(f"split path: drift {spl_vol} / {spl_trc}, max|u| {spl_umax}")
+    spl_ms = spl_s[-1] / seg * 1e3
+    emit({"phase": "split_path", "config": "as main_path with "
+          f"ssh_formulation=column, stepper SplitExplicit (M = {M_SPLIT}, "
+          f"bt_drag = 0), dt = {DT_SPLIT}", "steps": nseg * seg,
+          "segment_seconds": spl_s, "ms_per_step": spl_ms,
+          "gridpoint_steps_per_s": C * NLAYERS / (spl_ms * 1e-3),
+          "simulated_s_per_wall_s": DT_SPLIT / (spl_ms * 1e-3),
+          "main_path_simulated_s_per_wall_s": DT / (ms_step * 1e-3),
+          "launches": spl_launches,
+          "launches_per_step": {k: v / (nseg * seg)
+                                for k, v in spl_launches.items()},
+          "volume_drift": spl_vol, "tracer_drift": spl_trc,
+          "max_abs_u": spl_umax})
+    del spl_st
 
     # ------------------------------------------------------- 11. rk_order
     # the manufactured solution (tests/test_model.py:79-166) in float64 on
@@ -1284,7 +1518,10 @@ def main(argv=None):
                   mesh, cfg, state0, 0.0, DT, 5, stepper=rk4_step)),
               "rk2_science_5_steps": traced(lambda: run_steps(
                   mesh, cfg_sci, sci, 0.0, DT, 5, stepper=rk2_step,
-                  wind_stress=wind_sci))})
+                  wind_stress=wind_sci)),
+              "split_5_steps": traced(lambda: run_steps(
+                  mesh, cfg_split, state0, 0.0, DT_SPLIT, 5,
+                  stepper=split_stepper))})
 
     # ---------------------------------------------------------- 8. kernels
     print(smi_line, flush=True)
@@ -1403,6 +1640,43 @@ def main(argv=None):
          "shape": f"tang on (2, {3 * C}, {NLAYERS}) float32",
          "path": "composed_path", "per_table": timed,
          "rk_order_launches": order_launches["stencil"]},
+        {"name": "split_pre", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/split.cu",
+         "replaces": "omega_tpu/ops/megastep.py:791",
+         "also_replaces": "omega_tpu/ops/megastep.py:744",
+         "launches": spl_launches["split_pre"],
+         "max_abs_err": splv["split_pre"]["max_abs_err"],
+         "ms": splv["split_pre"]["ms"],
+         "plain_ms": splv["split_pre"]["plain_ms"],
+         "bound_ms": splv["split_pre"]["bound_ms"],
+         "bound_by": splv["split_pre"]["bound_by"], "library_ms": None,
+         "shape": f"({CH}, {NLAYERS}, {NY}, {NX}) in; (3, {NLAYERS}, {NY}, "
+         f"{NX}) + 13 x ({NY}, {NX}) out, float32",
+         "passes": "split_columns, split_chain, split_slow (three launches "
+         "per call)", "path": "split_path"},
+        {"name": "barotropic", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/barotropic.cu",
+         "replaces": "omega_tpu/ops/barotropic_kernel.py:62",
+         "launches": spl_launches["barotropic"],
+         "max_abs_err": splv["barotropic"]["max_abs_err"],
+         "ms": splv["barotropic"]["ms"],
+         "plain_ms": splv["barotropic"]["plain_ms"],
+         "bound_ms": splv["barotropic"]["bound_ms"],
+         "bound_by": splv["barotropic"]["bound_by"], "library_ms": None,
+         "shape": f"10 x ({NY}, {NX}) in, 7 out, float32, M = {M_SPLIT} "
+         "(one launch per subcycle)", "path": "split_path"},
+        {"name": "split_post", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/split.cu",
+         "replaces": "omega_tpu/ops/megastep.py:831",
+         "launches": spl_launches["split_post"],
+         "max_abs_err": splv["split_post"]["max_abs_err"],
+         "ms": splv["split_post"]["ms"],
+         "plain_ms": splv["split_post"]["plain_ms"],
+         "bound_ms": splv["split_post"]["bound_ms"],
+         "bound_by": splv["split_post"]["bound_by"], "library_ms": None,
+         "shape": f"({CH}, {NLAYERS}, {NY}, {NX}) + (3, {NLAYERS}, {NY}, "
+         f"{NX}) + 12 x ({NY}, {NX}) in, ({CH}, {NLAYERS}, {NY}, {NX}) out, "
+         "float32", "path": "split_path"},
     ], "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -1411,14 +1685,16 @@ def main(argv=None):
 
 def composed(stepper, *args, **kw):
     """A stepper's composed path (the stencil-kernel path) on the card:
-    the stepper runs with the fused kernels' dispatch turned away."""
+    the stepper runs with the fused kernels' and the barotropic kernel's
+    dispatch turned away."""
+    from omega_tpu_torch.ops import barotropic_kernel as btk
     from omega_tpu_torch.ops import megastep
-    keep = megastep.enabled
-    megastep.enabled = lambda state: False
+    keep = megastep.enabled, btk.enabled
+    megastep.enabled = btk.enabled = lambda x: False
     try:
         return stepper(*args, **kw)
     finally:
-        megastep.enabled = keep
+        megastep.enabled, btk.enabled = keep
 
 
 def _composed_step(mesh, cfg, state, dt, wind_stress=None):
@@ -1460,6 +1736,26 @@ def _fb_flops_per_point(tabs, ntracers, fct=False):
                  "vdiff", "div", "curl", "cmean", "tang", "tang", "cdiff",
                  "cdiff", "cdiff", "vdiff")) + 90
     return thick + ntracers * tracer + vel
+
+
+def _split_flops_per_point(tabs, ntracers):
+    """Floating-point operations per (cell, layer) of splitpre and
+    splitpost, and per cell of one barotropic subcycle: two per table entry
+    applied, plus the pointwise arithmetic. splitpre: the column sums (three
+    cmean, three products, seven adds), the momentum chain (the FB chain's
+    velocity part and its cmean of h), the depth average of du_full (three
+    cmean, three products and adds). splitpost: the FB chain's thickness and
+    tracer parts and u_new (twelve operations)."""
+    n = lambda *names: sum(len(tabs[k]) for k in names)
+    columns = 2 * n("cmean") + 3 + 7
+    chain = _fb_flops_per_point(tabs, 0) - 2 * n("div") - 5
+    average = 2 * n("cmean") + 6
+    post = _fb_flops_per_point(tabs, ntracers) \
+        - (_fb_flops_per_point(tabs, 0) - 2 * n("cmean", "div") - 5) + 12
+    # ub_new: cdiff, tang and 7 operations per class; het * ub, div, the
+    # ssh update and the average's add
+    bt = 2 * n("cdiff", "tang") + 21 + 3 + 2 * n("div") + 2 + 3
+    return columns + chain + average, bt, post
 
 
 if __name__ == "__main__":

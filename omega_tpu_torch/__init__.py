@@ -7,9 +7,10 @@ mirrors the JAX package's layout (mesh/, ops/, core/, stepping/) so each
 module's counterpart is found by path; it imports torch and numpy only.
 
 Plain tensor code is PyTorch; the hot kernels (the fused
-forward-backward step, the vertical-mixing coefficient and column-solve
-kernels, and the structured stencil pass) are CUDA C++ under csrc/,
-compiled at first use by ops/_build.py.
+forward-backward step, the Runge-Kutta stage, the split-explicit step's
+splitpre / splitpost and barotropic subcycles, the vertical-mixing
+coefficient and column-solve kernels, and the structured stencil pass) are
+CUDA C++ under csrc/, compiled at first use by ops/_build.py.
 
 Devices are explicit: every function that creates tensors takes
 `device=None`, meaning `default_device()`, which is the CUDA device and

@@ -352,13 +352,18 @@ __device__ __forceinline__ void momentum_levels(const Slab& sl,
 
 // du of edge class t at owned point q (plane offset g): PV flux, KE and ssh
 // gradients, del2 and del4 diffusion, and with TAILS the wind stress on the
-// top layer and quadratic drag on the bottom one (both with mean_h of HL)
-template <bool UPH, bool TAILS, typename T>
+// top layer and quadratic drag on the bottom one (both with mean_h of HL).
+// The ssh gradient is that of HL (stacked ssh, uniform depth), or with
+// COLSSH that of the column free surface, the (ny, nx) plane `sshc` read
+// straight from device memory (du is wanted at owned points only, whose
+// cdiff neighbours lie inside the slab).
+template <bool UPH, bool TAILS, bool COLSSH = false, typename T>
 __device__ __forceinline__ T momentum_du(const Slab& sl, const FbParams<T>& p,
                                          int q, bool odd, int t, long long g,
                                          const T* U, const MomSlots<T>& m,
                                          const T* __restrict__ wind, bool top,
-                                         bool bottom) {
+                                         bool bottom,
+                                         const T* __restrict__ sshc = nullptr) {
   const int S = sl.S;
   // tang(F) and tang(F*q) share the walk; F = flux thickness * u on the fly
   T tf = T(0), tfq = T(0);
@@ -374,7 +379,12 @@ __device__ __forceinline__ T momentum_du(const Slab& sl, const FbParams<T>& p,
   const T pv = T(0.5) * (qe * tf + tfq);
 
   const T gke = AP(T_CDIFF, t, at(m.KE));
-  const T gssh = AP(T_CDIFF, t, at(m.HL));
+  T gssh;
+  if constexpr (COLSSH) {
+    gssh = AP(T_CDIFF, t, [&](int r) { return sshc[sl.gofs(p, r)]; });
+  } else {
+    gssh = AP(T_CDIFF, t, at(m.HL));
+  }
   const T cd4 = AP(T_CDIFF, t, at(m.D2DIV));
   const T vd4 = AP(T_VDIFF, t, at(m.D2RV));
   const T cdd = AP(T_CDIFF, t, at(m.DIVU));

@@ -123,6 +123,24 @@ def load() -> ctypes.CDLL:
                 # threads, stream
                 fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, cd, cd, ci, ci, vp]
                 fn.restype = ci
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"omega_split_pre_{suffix}")
+        # state, du, planes, params x3, depth, ggrad, f_e, r, threads x3,
+        # stream
+        fn.argtypes = [vp] * 6 + [cd] * 4 + [ci] * 3 + [vp]
+        fn.restype = ci
+        fn = getattr(lib, f"omega_split_post_{suffix}")
+        # state, du, planes, out, params, threads, stream
+        fn.argtypes = [vp] * 5 + [ci, vp]
+        fn.restype = ci
+        fn = getattr(lib, f"omega_barotropic_{suffix}")
+        # in, out, work, params, dt_bt, ggrad, f_e, r, M, threads, stream
+        fn.argtypes = [vp] * 4 + [cd] * 4 + [ci, ci, vp]
+        fn.restype = ci
+    lib.omega_split_slots.argtypes = [ci]
+    lib.omega_split_slots.restype = ci
+    lib.omega_bt_slots.argtypes = []
+    lib.omega_bt_slots.restype = ci
     for name in ("omega_pp81_coeffs_f32", "omega_pp81_coeffs_f64",
                  "omega_vmix_solve_f32", "omega_vmix_solve_f64"):
         fn = getattr(lib, name)

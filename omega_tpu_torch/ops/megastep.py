@@ -1,5 +1,7 @@
 """The whole time step as few kernels as it takes (mega-step): the FB step
-as ONE kernel, an RK stage as one kernel.
+as ONE kernel, an RK stage as one kernel, the split-explicit step as
+splitpre, the barotropic subcycles (ops/barotropic_kernel.py) and
+splitpost.
 
 The composed step makes ~27 stencil passes, each reading and writing whole
 fields in device memory. The fused kernels read h, u and the tracers once
@@ -8,7 +10,8 @@ term in shared memory, and write their outputs once — the minimal-traffic
 formulation of a step. They are the counterparts of the JAX package's
 `megastep._kernel` with `_fb_compute` (csrc/fb_step.cuh) and with
 `_tend_compute` in the stage kinds `rk2` and `rk4s1`-`rk4s4`
-(csrc/rk_stage.cuh).
+(csrc/rk_stage.cuh), and with `_split_pre` / `_split_post` in the kinds
+`splitpre` and `splitpost` (csrc/split.cu).
 
 Mechanics:
   * state lives in ONE stacked (4+L, K, ny, nx) array, x fastest (channel
@@ -30,7 +33,9 @@ Mechanics:
     step also takes the flux-corrected (FCT) tracer flux, which needs the
     thickness-first order of that step. Anything else (column ssh, the
     Thomas method, custom tendencies, FCT with an RK stepper) runs the
-    composed stepper (steppers.py)
+    composed stepper (steppers.py); the split-explicit step needs the
+    column ssh and center fluxes, without wind, drag or mixing
+    (`split_supported`)
   * the flux types and the wind / drag tails are compile-time variants of
     the kernels, so the flagship chain stays as it was; vertical mixing
     couples the layers, which a one-layer block cannot see, so it runs as
@@ -41,10 +46,17 @@ Mechanics:
     `RK_FIRST`, `RK_MID`, `RK_LAST`): the provisional state, the
     thickness-weighted accumulator, the new state. RK2 is two launches of
     it, RK4 four; the (acc, prov) channels pass through device memory.
+  * no block sees a column, so splitpre is three launches: the column sums
+    (layers walked in order inside a thread), the momentum chain with the
+    ssh gradient of the column free surface, the depth average of du and
+    the slow forcing; splitpost is the FB step's thickness and tracer
+    levels with the transport velocity formed as the slab loads. The 2-D
+    fields between them live in one (NPLANES, ny, nx) array.
 
 Beside the kernels stand their plain PyTorch versions,
-`fb_megastep_plain`, `tend_plain` with `rk_stage_plain`, and
-`rk2_megastep_plain` / `rk4_megastep_plain`: the same chains from the same
+`fb_megastep_plain`, `tend_plain` with `rk_stage_plain`,
+`rk2_megastep_plain` / `rk4_megastep_plain`, and `split_pre_plain` /
+`split_post_plain` / `split_megastep_plain`: the same chains from the same
 tables and constants with `torch.roll` on the whole periodic grid, or tile
 by tile (`tile=(by, bx)`) exactly as the kernels cut and evaluate their
 slabs. The CPU tests use them; a state on the card never does.
@@ -52,6 +64,7 @@ slabs. The CPU tests use them; a state on the card never does.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -63,9 +76,12 @@ from omega_tpu_torch.ops.stencil_kernel import pack_entries
 from omega_tpu_torch.ops.structured import apply_grid
 
 # launches of the CUDA kernels since the last reset (plain integers):
-# the fused FB step, the RK stage kernel
+# the fused FB step, the RK stage kernel, splitpre's passes (three per
+# split step) and splitpost
 launches = 0
 rk_launches = 0
+split_pre_launches = 0
+split_post_launches = 0
 
 # table order of `enum FbTable` in csrc/slab_chain.cuh
 TABLE_NAMES = ("div", "ke", "curl", "kite", "tang", "cdiff", "cmean",
@@ -132,14 +148,8 @@ def supported(mesh, cfg, kind="fb") -> bool:
         return False
     if structured.uniform_scalar(mesh, "edge_mask") != 1.0:
         return False
-    for n in TABLE_NAMES:
-        tab = structured.cached_table(mesh, n)
-        if tab is None:
-            return False
-        # the kernels' stencil loops are unrolled for the hex mesh's counts
-        if any(sum(1 for e in tab if e[0] == t) != _ENTRY_COUNTS[n]
-               for t in range(_PD[n])):
-            return False
+    if not tables_fit(mesh):
+        return False
     # FCT (Zalesak) tracer fluxes need the thickness-first update order of
     # the FB step (core/tendencies.compute_tracer_tendency), as in the JAX
     # package's kernel
@@ -152,6 +162,19 @@ def supported(mesh, cfg, kind="fb") -> bool:
             and tc.velocity_hyperdiff and tc.tracer_horz_adv
             and tc.tracer_diffusion and tc.tracer_hyperdiff
             and not tc.use_custom_tendency)
+
+
+def tables_fit(mesh) -> bool:
+    """Every table of TABLE_NAMES is cached for this mesh with the entry
+    counts the kernels' stencil loops are unrolled for (the hex mesh's)."""
+    for n in TABLE_NAMES:
+        tab = structured.cached_table(mesh, n)
+        if tab is None:
+            return False
+        if any(sum(1 for e in tab if e[0] == t) != _ENTRY_COUNTS[n]
+               for t in range(_PD[n])):
+            return False
+    return True
 
 
 def _mega_args(mesh, cfg, dt):
@@ -284,9 +307,11 @@ def _tracer_tend(h, u, trl, mean_h, c, ap, pk, fct=None):
     return adv + c["ed2s"] * d2tr - c["ed4"] * hyp
 
 
-def _momentum_tend(hl, u, c, ap, pk, wind):
+def _momentum_tend(hl, u, c, ap, pk, wind, ssh=None):
     """du (three edge classes) with the momentum aux on thickness level
-    hl: h_new in the FB step, the evaluated level in an RK stage."""
+    hl: h_new in the FB step, the evaluated level in an RK stage. The ssh
+    gradient reads `ssh` where given (the column free surface of the
+    split step, (1, Y, X)), else hl (stacked ssh, uniform depth)."""
     inv_dc, inv_dv = c["inv_dc"], c["inv_dv"]
     ke = ap("ke", [ui * ui for ui in u], 1)[0]
     div_u = ap("div", u, 1)[0]
@@ -311,7 +336,7 @@ def _momentum_tend(hl, u, c, ap, pk, wind):
     pv = [0.5 * (q_e[i] * tf[i] + tfq[i]) for i in range(3)]
 
     gke = ap("cdiff", [ke], 3)
-    gssh = ap("cdiff", [hl], 3)          # stacked ssh, uniform depth
+    gssh = ap("cdiff", [hl if ssh is None else ssh], 3)
     cd4 = ap("cdiff", [del2_div], 3)
     vd4 = ap("vdiff", del2_rv, 3)
 
@@ -387,42 +412,41 @@ def _chain_on(s, even, tabs, consts, wind=None, pk=PICKS, kind="fb"):
 _RADIUS_CACHE: dict = {}
 
 
-def chain_radius(tabs, uph=False, upt=False, tails=False, fct=False,
-                 kind="fb"):
-    """(rows, columns) of ring a chain needs: the least margin that keeps
-    a slab's centre exact when a shifted read that leaves the slab returns
-    a wrong value. One answer per chain (`kind` "fb": the FB step, "rk":
-    the tendency chain of an RK stage) and variant (upwind thickness flux,
-    upwind or FCT tracer flux, wind and drag tails).
+def probe_ring(fn, tabs, consts, vols=(5,), nplanes=0, frame_planes=True):
+    """(rows, columns) of ring the chain `fn` needs: the least margin that
+    keeps a slab's centre exact when a shifted read that leaves the slab
+    returns a wrong value.
 
-    Derived from the chain itself: the plain chain runs once on a small
-    slab of ones framed by NaNs, so every value that such a read could
-    reach turns NaN level by level, exactly as wrong values creep into the
-    kernel's slab. (A pick would let a NaN operand pass on some data, so
-    the probe replaces every pick by the sum of its operands, and the
-    chains clamp with NaN-keeping functions.) The distance from the frame
-    to the finite region of the outputs, over both row parities of the
-    slab origin, is the ring."""
-    key = (tuple((n, tuple(tabs[n])) for n in TABLE_NAMES), uph, upt, tails,
-           fct, kind)
-    if key in _RADIUS_CACHE:
-        return _RADIUS_CACHE[key]
+    Derived from the chain itself: fn(vols, planes, even, tabs, consts,
+    PROBE_PICKS) runs once on a small slab of ones framed by NaNs (one
+    (c, 1, Y, X) array per entry of `vols`, and `nplanes` (Y, X) planes,
+    framed too unless `frame_planes` is False), so every value that such a
+    read could reach turns NaN level by level, exactly as wrong values
+    creep into a kernel's slab. (A pick would let a NaN operand pass on
+    some data, so the probe replaces every pick by the sum of its operands,
+    and the chains clamp with NaN-keeping functions.) The distance from the
+    frame to the finite region of the outputs, over both row parities of
+    the slab origin, is the ring."""
     pad = max(max(abs(v) for v in e[2:5]) for n in TABLE_NAMES
               for e in tabs[n])
     n = 32
     size = n + 2 * pad
-    consts = dict.fromkeys(CONST_FIELDS, 1.0)
-    consts.update(uph=uph, upt=upt, fct=fct, cd=1.0 if tails else 0.0)
-    wind = torch.ones((3, size, size), dtype=torch.float64) if tails else None
+
+    def framed(shape, frame=True):
+        a = torch.full(shape, float("nan") if frame else 1.0,
+                       dtype=torch.float64)
+        a[..., pad:pad + n, pad:pad + n] = 1.0
+        return a
+
     ry = rx = 0
     oks = []
     for parity in (0, 1):
-        slab = torch.full((5, 1, size, size), float("nan"),
-                          dtype=torch.float64)
-        slab[:, :, pad:pad + n, pad:pad + n] = 1.0
+        vs = [framed((c, 1, size, size)) for c in vols]
+        planes = framed((nplanes, size, size), frame_planes) \
+            if nplanes else None
         even = ((torch.arange(size) + parity) % 2 == 0)[:, None]
-        ok = torch.isfinite(_chain_on(slab, even, tabs, consts, wind,
-                                      PROBE_PICKS, kind)).all(0)[0]
+        res = fn(vs, planes, even, tabs, consts, PROBE_PICKS)
+        ok = torch.isfinite(res).reshape(-1, size, size).all(0)
         oks.append(ok)
         # the stagger makes the finite region's edge jagged: take each
         # side's deepest reach along the slab's middle band
@@ -442,8 +466,32 @@ def chain_radius(tabs, uph=False, upt=False, tails=False, fct=False,
                               pad + rx:pad + n - rx].all()):
             raise ValueError("the chain's finite region is not the slab "
                              "minus a ring")
-    _RADIUS_CACHE[key] = (ry, rx)
     return ry, rx
+
+
+def _state_chain(kind):
+    """A chain of the stacked state ("fb" or "rk") in probe_ring's and
+    _run_tiled's form: the one volume is the state, the planes the wind."""
+    def fn(vols, planes, even, tabs, c, pk):
+        return _chain_on(vols[0], even, tabs, c, planes, pk, kind)
+    return fn
+
+
+def chain_radius(tabs, uph=False, upt=False, tails=False, fct=False,
+                 kind="fb"):
+    """The ring (probe_ring) of the FB step's chain (`kind` "fb") or an RK
+    stage's tendency chain ("rk"), per variant: upwind thickness flux,
+    upwind or FCT tracer flux, wind and drag tails (the wind plane is read
+    at the owned centre only, so it is not framed)."""
+    key = (tuple((n, tuple(tabs[n])) for n in TABLE_NAMES), uph, upt, tails,
+           fct, kind)
+    if key not in _RADIUS_CACHE:
+        consts = dict.fromkeys(CONST_FIELDS, 1.0)
+        consts.update(uph=uph, upt=upt, fct=fct, cd=1.0 if tails else 0.0)
+        _RADIUS_CACHE[key] = probe_ring(_state_chain(kind), tabs, consts,
+                                        (5,), 3 if tails else 0,
+                                        frame_planes=False)
+    return _RADIUS_CACHE[key]
 
 
 def _ring(tabs, consts, wind, kind="fb"):
@@ -559,33 +607,44 @@ def rk_work(stacked, n):
 # ----------------------------------------------------------------------
 # the plain versions
 
-def _tiled(mesh, stacked, tabs, consts, wind, kind, tile, ring):
-    """A chain over the stacked state: with periodic rolls on the whole
-    grid (tile=None), or as the kernel does it: for every tile the slab
-    with its (ry, rx) ring is cut with wrapped indices, the chain runs on
-    the slab with shifts that wrap inside it, and the owned centre is
-    pasted. `ring` defaults to `chain_radius`."""
+def _run_tiled(mesh, fn, vols, planes, tabs, consts, tile, ring):
+    """fn(vols, planes, even, tabs, consts, PICKS) over the periodic grid:
+    on the whole grid with periodic rolls (tile=None), or as a kernel does
+    it: for every tile the slab with its (ry, rx) ring is cut from every
+    volume (C, K, ny, nx) and from the planes (P, ny, nx) with wrapped
+    indices, the chain runs on the slab with shifts that wrap inside it,
+    and the owned centre of its output (..., Y, X) is pasted."""
     nx, ny = mesh.structured_nx, mesh.structured_ny
-    dev = stacked.device
+    dev = (vols[0] if vols else planes).device
     if tile is None:
         even = (torch.arange(ny, device=dev) % 2 == 0)[:, None]
-        return _chain_on(stacked, even, tabs, consts, wind, kind=kind)
+        return fn(vols, planes, even, tabs, consts, PICKS)
     by, bx = tile
-    ry, rx = _ring(tabs, consts, wind, kind) if ring is None else ring
-    out = torch.empty_like(stacked)
+    ry, rx = ring
+    out = None
     for y0 in range(0, ny, by):
         for x0 in range(0, nx, bx):
-            rows = torch.arange(y0 - ry, y0 + by + ry, device=dev)
-            cols = torch.arange(x0 - rx, x0 + bx + rx, device=dev)
-            slab = stacked[:, :, rows % ny][:, :, :, cols % nx]
-            wslab = None if wind is None else \
-                wind[:, rows % ny][:, :, cols % nx]
-            even = (rows % 2 == 0)[:, None]
-            res = _chain_on(slab, even, tabs, consts, wslab, kind=kind)
+            rows = torch.arange(y0 - ry, y0 + by + ry, device=dev) % ny
+            cols = torch.arange(x0 - rx, x0 + bx + rx, device=dev) % nx
+            cut = lambda a: a.index_select(-2, rows).index_select(-1, cols)
+            res = fn([cut(v) for v in vols],
+                     None if planes is None else cut(planes),
+                     (rows % 2 == 0)[:, None], tabs, consts, PICKS)
+            if out is None:
+                out = res.new_empty(res.shape[:-2] + (ny, nx))
             oy, ox = min(by, ny - y0), min(bx, nx - x0)   # ragged edge
-            out[:, :, y0:y0 + oy, x0:x0 + ox] = \
-                res[:, :, ry:ry + oy, rx:rx + ox]
+            out[..., y0:y0 + oy, x0:x0 + ox] = \
+                res[..., ry:ry + oy, rx:rx + ox]
     return out
+
+
+def _tiled(mesh, stacked, tabs, consts, wind, kind, tile, ring):
+    """The FB or RK chain over the stacked state, whole grid or tiled
+    (_run_tiled); `ring` defaults to `chain_radius`."""
+    if tile is not None and ring is None:
+        ring = _ring(tabs, consts, wind, kind)
+    return _run_tiled(mesh, _state_chain(kind), [stacked], wind, tabs,
+                      consts, tile, ring)
 
 
 def fb_megastep_plain(mesh, cfg, stacked, dt, tile=None, ring=None,
@@ -657,6 +716,204 @@ def rk4_megastep_plain(mesh, cfg, stacked, dt, tile=None, wind=None):
                                    tile=tile, wind=wind)
     return rk_stage_plain(mesh, cfg, RK_LAST, 0.0, RK4_B[3] * dt, prov,
                           acc=acc, tile=tile, wind=wind)[1]
+
+
+# ----------------------------------------------------------------------
+# the split-explicit step: splitpre, the barotropic subcycles, splitpost
+#
+# The 2-D fields of a step live in one (NPLANES, ny, nx) array, edge fields
+# as three class planes, at these indices: the barotropic kernel's inputs
+# in the JAX kernel's order (ubar, sshc, g_slow, het = sum_k mean_h), the
+# depth average of du_full, the barotropic kernel's outputs (ub_final,
+# ssh_final, <ubar>) and its ping-pong buffer.
+P_UBAR, P_SSH, P_GSLOW, P_HET, P_DUBAR = 0, 3, 4, 7, 10
+P_UBF, P_SSHF, P_UAVG, P_WORK, NPLANES = 13, 16, 17, 20, 24
+# slab arrays of the split kernels (kSplit*Slots in csrc/split.cu): the
+# column passes keep KB layers of h, and their per-column sums in slab-sized
+# arrays indexed by owned point; the chain is the momentum levels of
+# slab_chain.cuh; splitpost the FB step's thickness and tracer levels
+SPLIT_KB = 4
+SPLIT_SLOTS = {"splitcol": SPLIT_KB + 7, "splitpre": 21,
+               "splitslow": SPLIT_KB + 7, "splitpost": 20}
+# the column passes walk 100 layers in one block per tile: narrow tiles give
+# four times the blocks of the chains' 16 x 32, so that the SMs have enough
+# of them in flight (PERF.md)
+SPLIT_TILES = {"splitcol": (4, 32), "splitslow": (4, 32)}
+_SPLIT_PASS = {"splitcol": 0, "splitpre": 1, "splitslow": 2, "splitpost": 3}
+
+
+def split_supported(mesh, cfg) -> bool:
+    """The fused split-explicit path: the flagship tendency configuration
+    with the COLUMN free surface, center fluxes, no wind, drag or vertical
+    mixing (those run the composed split stepper, as in the JAX package),
+    and a uniform f_edge for the barotropic Coriolis term (`supported`
+    covers what the barotropic kernel needs besides)."""
+    tc = cfg.tendencies
+    return (cfg.ssh_formulation == "column"
+            and supported(mesh, dataclasses.replace(
+                cfg, ssh_formulation="stacked"))
+            and cfg.flux_thickness_type == "center"
+            and cfg.flux_tracer_type == "center"
+            and not cfg.vert_mix.enabled
+            and not tc.wind_forcing and not tc.bottom_drag
+            and structured.uniform_scalar(mesh, "f_edge") is not None)
+
+
+def _split_args(mesh, cfg, dt, bt_drag=0.0):
+    """(tabs, consts) of the split chains: the FB chain's, plus the uniform
+    depth, ggrad = -g / dc (folded in float64, as the JAX kernels fold
+    -g * inv_dc), f_edge and the linear drag r."""
+    tabs, c = _mega_args(mesh, cfg, dt)
+    c.update(depth=structured.uniform_scalar(mesh, "bottom_depth"),
+             ggrad=-cfg.gravity * c["inv_dc"],
+             f_e=structured.uniform_scalar(mesh, "f_edge"),
+             r=float(bt_drag))
+    return tabs, c
+
+
+def _ksum(x):
+    """Sum over the leading (layer) axis in layer order, one add at a time,
+    as a thread of the column kernels sums its column."""
+    acc = x[0]
+    for k in range(1, x.shape[0]):
+        acc = acc + x[k]
+    return acc
+
+
+def _split_columns(vols, planes, even, tabs, c, pk):
+    """splitpre's first pass (the JAX kernel's _split_pre up to uprime):
+    per column ubar = sum_k mean_h u / het, sshc = sum_k h - depth and
+    het = sum_k mean_h. Returns (7, Y, X): ubar x3, sshc, het x3."""
+    ap = lambda name, vals, pd: apply_grid(tabs[name], vals, even, pd)
+    s = vols[0]
+    h, u = s[0], s[1:4]
+    mean_h = ap("cmean", [h], 3)
+    het = [_ksum(m) for m in mean_h]
+    ubar = [_ksum(mean_h[i] * u[i]) / het[i] for i in range(3)]
+    return torch.stack(ubar + [_ksum(h) - c["depth"]] + het)
+
+
+def _split_chain(vols, planes, even, tabs, c, pk):
+    """splitpre's second pass, the JAX kernel's _vel_tend_column: the
+    velocity tendency du_full (3, K, Y, X) at (h, u) with the ssh gradient
+    of the column free surface sshc."""
+    ap = lambda name, vals, pd: apply_grid(tabs[name], vals, even, pd)
+    s = vols[0]
+    return torch.stack(_momentum_tend(s[0], [s[1], s[2], s[3]], c, ap, pk,
+                                      None, ssh=planes[P_SSH][None]))
+
+
+def _split_slow(vols, planes, even, tabs, c, pk):
+    """splitpre's third pass: du_bar = sum_k mean_h du_full / het and the
+    slow forcing g_slow = du_bar - (ggrad cdiff(sshc) + f_e tang(ubar)
+    - r ubar). Returns (6, Y, X): g_slow x3, du_bar x3."""
+    ap = lambda name, vals, pd: apply_grid(tabs[name], vals, even, pd)
+    s, du = vols
+    mean_h = ap("cmean", [s[0]], 3)
+    ubar = [planes[P_UBAR + i] for i in range(3)]
+    du_bar = [_ksum(mean_h[i] * du[i]) / planes[P_HET + i]
+              for i in range(3)]
+    gssh = ap("cdiff", [planes[P_SSH]], 3)
+    tg = ap("tang", ubar, 3)
+    fast0 = [c["ggrad"] * gssh[i] + c["f_e"] * tg[i] - c["r"] * ubar[i]
+             for i in range(3)]
+    return torch.stack([du_bar[i] - fast0[i] for i in range(3)] + du_bar)
+
+
+def _split_post(vols, planes, even, tabs, c, pk):
+    """splitpost, the JAX kernel's _split_post: u_new = u' + dt (du_full -
+    du_bar) + ub_final with u' = u - ubar; h and the tracers advance with
+    the transport velocity u' + <ubar> (center fluxes, tracer diffusion at
+    the old h). Returns the new stacked state (4+L, K, Y, X)."""
+    ap = lambda name, vals, pd: apply_grid(tabs[name], vals, even, pd)
+    s, du = vols
+    h, u, tr = s[0], s[1:4], s[4:]
+    dt = c["dt"]
+    uprime = [u[i] - planes[P_UBAR + i] for i in range(3)]
+    ut = [uprime[i] + planes[P_UAVG + i] for i in range(3)]
+    un = [uprime[i] + dt * (du[i] - planes[P_DUBAR + i]) + planes[P_UBF + i]
+          for i in range(3)]
+    mean_h = ap("cmean", [h], 3)
+    h_new = h + dt * (-ap("div", [mean_h[i] * ut[i] for i in range(3)],
+                          1)[0])
+    trn = [(trl * h + dt * _tracer_tend(h, ut, trl, mean_h, c, ap, pk))
+           / h_new for trl in tr]
+    return torch.stack([h_new] + un + trn)
+
+
+# each split pass: its chain and what it reads through its slab (the
+# channels of each volume, the number of planes) for probe_ring
+_SPLIT_CHAINS = {"splitcol": (_split_columns, (5,), 0),
+                 "splitpre": (_split_chain, (5,), NPLANES),
+                 "splitslow": (_split_slow, (5, 3), NPLANES),
+                 "splitpost": (_split_post, (5, 3), NPLANES)}
+
+
+def split_ring(tabs, kind):
+    """probe_ring of a split pass (`kind` as in SPLIT_SLOTS)."""
+    key = (tuple((n, tuple(tabs[n])) for n in TABLE_NAMES), kind)
+    if key not in _RADIUS_CACHE:
+        fn, vols, nplanes = _SPLIT_CHAINS[kind]
+        consts = dict.fromkeys(CONST_FIELDS + ("depth", "ggrad", "f_e", "r"),
+                               1.0)
+        consts.update(uph=False, upt=False, fct=False)
+        _RADIUS_CACHE[key] = probe_ring(fn, tabs, consts, vols, nplanes)
+    return _RADIUS_CACHE[key]
+
+
+def _split_pass(mesh, kind, vols, planes, tabs, c, tile):
+    fn = _SPLIT_CHAINS[kind][0]
+    ring = None if tile is None else split_ring(tabs, kind)
+    return _run_tiled(mesh, fn, vols, planes, tabs, c, tile, ring)
+
+
+def split_work(stacked):
+    """The work arrays of a split step on a stacked state: du_full
+    (3, K, ny, nx) and the 2-D planes (NPLANES, ny, nx). `run_steps` makes
+    them once per segment."""
+    return (stacked.new_empty((3,) + tuple(stacked.shape[1:])),
+            stacked.new_zeros((NPLANES,) + tuple(stacked.shape[2:])))
+
+
+def split_pre_plain(mesh, cfg, stacked, bt_drag=0.0, tile=None):
+    """The plain PyTorch version of splitpre's three passes on the stacked
+    state: (du_full (3, K, ny, nx), planes (P_DUBAR + 3, ny, nx) holding
+    ubar, sshc, g_slow, het and du_bar at their P_* indices); whole grid or
+    tiled with each pass's probed ring."""
+    tabs, c = _split_args(mesh, cfg, 0.0, bt_drag)
+    cols = _split_pass(mesh, "splitcol", [stacked], None, tabs, c, tile)
+    planes = stacked.new_zeros((P_DUBAR + 3,) + tuple(stacked.shape[2:]))
+    planes[P_UBAR:P_UBAR + 3] = cols[0:3]
+    planes[P_SSH] = cols[3]
+    planes[P_HET:P_HET + 3] = cols[4:7]
+    du = _split_pass(mesh, "splitpre", [stacked], planes, tabs, c, tile)
+    slow = _split_pass(mesh, "splitslow", [stacked, du], planes, tabs, c,
+                       tile)
+    planes[P_GSLOW:P_GSLOW + 3] = slow[0:3]
+    planes[P_DUBAR:P_DUBAR + 3] = slow[3:6]
+    return du, planes
+
+
+def split_post_plain(mesh, cfg, stacked, du, planes, dt, tile=None):
+    """The plain PyTorch version of splitpost: the new stacked state from
+    the state, du_full and the planes up to P_UAVG + 3."""
+    tabs, c = _split_args(mesh, cfg, dt)
+    return _split_pass(mesh, "splitpost", [stacked, du], planes, tabs, c,
+                       tile)
+
+
+def split_megastep_plain(mesh, cfg, stacked, dt, n_subcycles=10,
+                         bt_drag=0.0, tile=None):
+    """One split-explicit step on the stacked layout as the kernel path
+    does it, with the plain versions: splitpre, the barotropic subcycles
+    (barotropic_kernel.bt_plain), splitpost."""
+    from omega_tpu_torch.ops import barotropic_kernel as btk
+    du, pre = split_pre_plain(mesh, cfg, stacked, bt_drag, tile)
+    bt = btk.bt_plain(mesh, pre[:P_DUBAR], gravity=cfg.gravity,
+                      dt_bt=float(dt) / n_subcycles,
+                      n_subcycles=n_subcycles, bt_drag=bt_drag, tile=tile)
+    return split_post_plain(mesh, cfg, stacked, du, torch.cat([pre, bt]),
+                            dt, tile)
 
 
 # ----------------------------------------------------------------------
@@ -937,3 +1194,131 @@ def rk4_megastep(mesh, cfg, state, t, dt, wind_stress=None):
     configuration."""
     return _state_step(rk4_megastep_stacked, mesh, cfg, state, dt,
                        wind_stress)
+
+
+# ----------------------------------------------------------------------
+# the split-explicit kernels' wrappers
+
+def _split_rec(mesh, cfg, dt, stacked, kind):
+    """(rec, threads, (depth, ggrad, f_e)) of a split pass on a CUDA
+    stacked state, packed once per configuration and shape."""
+    ft, suffix = _FLOAT[stacked.dtype]
+    nx, ny = mesh.structured_nx, mesh.structured_ny
+    L, K = stacked.shape[0] - 4, stacked.shape[1]
+    key = (kind, nx, ny, mesh.structured_dc, mesh.structured_scalars, cfg,
+           float(dt), suffix, L, K)
+    hit = _PARAM_CACHE.get(key)
+    if hit is None:
+        tabs, c = _split_args(mesh, cfg, dt)
+        plan = plan_tile(ny, nx, np.dtype(ft).itemsize,
+                         split_ring(tabs, kind), SPLIT_TILES.get(kind),
+                         SPLIT_SLOTS[kind])
+        rec = pack_params(tabs, c, ft, plan)
+        rec["L"], rec["K"], rec["ny"], rec["nx"] = L, K, ny, nx
+        hit = _PARAM_CACHE[key] = (rec, plan["threads"],
+                                   (c["depth"], c["ggrad"], c["f_e"]))
+    lib = _build.load()
+    size = getattr(lib, f"omega_fb_params_size_{suffix}")()
+    nslots = lib.omega_split_slots(_SPLIT_PASS[kind])
+    if size != hit[0].dtype.itemsize or nslots != SPLIT_SLOTS[kind]:
+        raise RuntimeError(f"{kind}: kernel takes {size}-byte FbParams and "
+                           f"{nslots} slab arrays, host packs "
+                           f"{hit[0].dtype.itemsize} and {SPLIT_SLOTS[kind]}")
+    return hit
+
+
+def _check_split_work(mesh, stacked, du, planes):
+    shape = (3,) + tuple(stacked.shape[1:])
+    pshape = (NPLANES, mesh.structured_ny, mesh.structured_nx)
+    for a, want, name in ((du, shape, "du"), (planes, pshape, "planes")):
+        if (tuple(a.shape) != want or a.dtype != stacked.dtype
+                or a.device != stacked.device or not a.is_contiguous()):
+            raise ValueError(f"`{name}` must be a contiguous {want} array of "
+                             "the state's type and device (split_work)")
+
+
+def split_pre(mesh, cfg, stacked, du, planes, bt_drag=0.0):
+    """splitpre on the stacked state into the work arrays of `split_work`:
+    du_full into `du`, ubar, sshc, g_slow, het and du_bar into `planes`.
+    For a CUDA array one C call launches the three passes (the column sums,
+    the column-ssh momentum chain, the slow forcing) on PyTorch's current
+    stream; for a CPU array the plain version runs."""
+    global split_pre_launches
+    if not stacked.is_cuda:
+        d, p = split_pre_plain(mesh, cfg, stacked, bt_drag)
+        du.copy_(d)
+        planes[:p.shape[0]].copy_(p)
+        return du, planes
+    _check_stacked(mesh, stacked, "splitpre")
+    _check_split_work(mesh, stacked, du, planes)
+    recs = [_split_rec(mesh, cfg, 0.0, stacked, k)
+            for k in ("splitcol", "splitpre", "splitslow")]
+    depth, ggrad, f_e = recs[0][2]
+    suffix = _FLOAT[stacked.dtype][1]
+    lib = _build.load()
+    with torch.cuda.device(stacked.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, f"omega_split_pre_{suffix}")(
+            stacked.data_ptr(), du.data_ptr(), planes.data_ptr(),
+            *(r[0].ctypes.data for r in recs), depth, ggrad, f_e,
+            float(bt_drag), *(r[1] for r in recs), stream)
+    _build.check(code, "splitpre launch")
+    split_pre_launches += 3
+    return du, planes
+
+
+def split_post(mesh, cfg, stacked, du, planes, dt, out):
+    """splitpost into `out` (a distinct array like `stacked`): for a CUDA
+    array one launch on PyTorch's current stream, for a CPU array the plain
+    version."""
+    global split_post_launches
+    if not stacked.is_cuda:
+        out.copy_(split_post_plain(mesh, cfg, stacked, du, planes, dt))
+        return out
+    _check_stacked(mesh, stacked, "splitpost")
+    _check_split_work(mesh, stacked, du, planes)
+    _check_like(out, stacked, "out")
+    if out.data_ptr() == stacked.data_ptr():
+        raise ValueError("splitpost is out of place: `out` must not alias "
+                         "the input")
+    rec, threads, _ = _split_rec(mesh, cfg, dt, stacked, "splitpost")
+    lib = _build.load()
+    with torch.cuda.device(stacked.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, f"omega_split_post_{_FLOAT[stacked.dtype][1]}")(
+            stacked.data_ptr(), du.data_ptr(), planes.data_ptr(),
+            out.data_ptr(), rec.ctypes.data, threads, stream)
+    _build.check(code, "splitpost launch")
+    split_post_launches += 1
+    return out
+
+
+def split_megastep_stacked(mesh, cfg, stacked, dt, n_subcycles=10,
+                           bt_drag=0.0, out=None, work=None):
+    """One split-explicit step on the stacked layout, out of place:
+    splitpre, the barotropic subcycles (barotropic_kernel.bt_planes: one C
+    call, one launch per subcycle) and splitpost, on the card for a CUDA
+    array (3 + M + 1 launches), with the plain versions for a CPU array.
+    `work` is `split_work(stacked)` (made here when None). dt_bt = dt / M
+    is folded in float64 and rounded once, as the JAX code does."""
+    from omega_tpu_torch.ops import barotropic_kernel as btk
+    out = torch.empty_like(stacked) if out is None else out
+    if out.data_ptr() == stacked.data_ptr():
+        raise ValueError("the split step is out of place: `out` must not "
+                         "alias the input")
+    du, planes = work or split_work(stacked)
+    split_pre(mesh, cfg, stacked, du, planes, bt_drag)
+    btk.bt_planes(mesh, planes[:P_DUBAR], gravity=cfg.gravity,
+                  dt_bt=float(dt) / n_subcycles, n_subcycles=n_subcycles,
+                  bt_drag=bt_drag, out=planes[P_UBF:P_UAVG + 3],
+                  work=planes[P_WORK:])
+    return split_post(mesh, cfg, stacked, du, planes, dt, out)
+
+
+def split_megastep(mesh, cfg, state, t, dt, n_subcycles=10, bt_drag=0.0):
+    """One split-explicit step (== stepping.split.split_forward_backward_
+    step) for the configuration of `split_supported`."""
+    h, _, tr = state
+    out = split_megastep_stacked(mesh, cfg, stack_state(mesh, state), dt,
+                                 n_subcycles, bt_drag)
+    return unstack_state(mesh, out, h.shape[-1], tr.shape[0], type(state))

@@ -5,3 +5,7 @@ from omega_tpu_torch.stepping.steppers import (
     rk4_step,
     run_steps,
 )
+from omega_tpu_torch.stepping.split import (
+    make_split_stepper,
+    split_forward_backward_step,
+)

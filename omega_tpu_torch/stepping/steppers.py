@@ -15,7 +15,10 @@ Tracer updates are thickness-weighted exactly as TimeStepper.h:205-237:
 For a state on a CUDA device and a configuration the fused kernels take
 (`megastep.supported`), each stepper runs them: one launch per FB step, two
 per RK2 step, four per RK4 step (ops/megastep.py), plus the column kernels
-of vertical mixing. The split-explicit stepper arrives with a later slice.
+of vertical mixing. The split-explicit stepper is stepping/split.py
+(`make_stepper("SplitExplicit")`); for a CUDA state of the configuration
+its kernels take (`megastep.split_supported`) a step is splitpre, the
+barotropic subcycles and splitpost.
 """
 
 from __future__ import annotations
@@ -164,6 +167,15 @@ _STEPPERS = {
 _KIND = {forward_backward_step: "fb", rk2_step: "rk2", rk4_step: "rk4"}
 
 
+def _split_stepper(*args, **kw):
+    from omega_tpu_torch.stepping.split import split_forward_backward_step
+    return split_forward_backward_step(*args, **kw)
+
+
+_split_stepper.split_explicit_params = (10, 0.0)
+_STEPPERS["splitexplicit"] = _split_stepper
+
+
 def make_stepper(name: str):
     key = name.lower().replace(" ", "").replace("_", "").replace("-", "")
     for k, fn in _STEPPERS.items():
@@ -206,6 +218,27 @@ def run_steps(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
             for _ in range(nsteps):
                 step(mesh, cfg, cur, dt, out=nxt, wind=wind, **kw)
                 cur, nxt = nxt, cur
+        return megastep.unstack_state(mesh, cur, h.shape[-1], tr.shape[0],
+                                      type(state))
+
+    split_params = getattr(stepper, "split_explicit_params", None)
+    if (split_params is not None and halo is _identity
+            and wind_stress is None and isinstance(dt, (int, float))
+            and megastep.enabled(state)
+            and megastep.split_supported(mesh, cfg)):
+        # split-explicit stacked fast path: splitpre, the barotropic
+        # subcycles and splitpost per step on the stacked layout; the next
+        # state goes into a second buffer and the two swap roles, and the
+        # work arrays (du_full and the 2-D planes) are made once per segment
+        n_sub, r_drag = split_params
+        h, _, tr = state
+        cur = megastep.stack_state(mesh, state)
+        nxt = cur.new_empty(cur.shape)
+        work = megastep.split_work(cur)
+        for _ in range(nsteps):
+            megastep.split_megastep_stacked(mesh, cfg, cur, dt, n_sub, r_drag,
+                                            out=nxt, work=work)
+            cur, nxt = nxt, cur
         return megastep.unstack_state(mesh, cur, h.shape[-1], tr.shape[0],
                                       type(state))
 

@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Least times of the TPU kernels' work on one NVIDIA H100, from shapes.
+
+    python3 port_bounds.py
+
+Prints one JSON line per TPU kernel (`pl.pallas_call` site) whose bound
+PERF.md states without a chip run: the bytes the function must move (each
+input read once, each output written once) at 3.35 TB/s and its operations
+at 67 TFLOP/s (float32 outside the tensor cores), the larger of the two
+being the bound. Float32 throughout, K = 100 layers, 2 tracers.
+
+  patch   omega_tpu/ops/patch_megastep.py:1425, one FB step of the flagship
+          chain on the icosahedral sphere at bench.py's icos96 mode
+          (subdivision 96): the state read and written once, plus the
+          mesh's per-element weights of the chain's stencils read once
+  gather  omega_tpu/ops/pallas_gather.py:160, one gather pass
+          out[n] = sum_j w[n, j] field[idx[n, j]] at icos48 x 100 (the shape
+          named at pallas_gather.py:94-96), for the tangential
+          reconstruction (edges from edges, the widest table) and the
+          divergence (cells from edges)
+  split   the TPU split kernels' own I/O (megastep.py:1136 kinds splitpre /
+          splitpost; barotropic_kernel.py:97) at 256 x 256, for comparison
+          with the port's (chip_smoke.py computes the port's bounds)
+
+Element counts of the icosahedral mesh of subdivision n: 10 n^2 + 2 cells
+(12 pentagons), 30 n^2 edges, 20 n^2 vertices; a cell has as many edges as
+sides, a vertex 3 edges, an edge's tangential stencil the other edges of its
+two cells. Operations: two per stencil entry applied, plus the pointwise
+arithmetic, counted per (cell, layer) as for the planar hex chain
+(chip_smoke.py:_fb_flops_per_point with the hex mesh's entry counts).
+"""
+
+import json
+
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS_F32 = 67e12
+F32 = 4
+IDX = 4
+K, L = 100, 2
+
+
+def bound(nbytes, flops):
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    to = flops / PEAK_FLOPS_F32 * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": tb, "ops_ms": to,
+            "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def icos(n):
+    C, E, V = 10 * n * n + 2, 30 * n * n, 20 * n * n
+    # entries: cell-edge pairs (2 per edge), vertex-edge pairs (3 per
+    # vertex), tangential pairs (per cell, sides * (sides - 1))
+    cell_edge = 2 * E
+    vert_edge = 3 * V
+    tang = 30 * (C - 12) + 20 * 12
+    return C, E, V, cell_edge, vert_edge, tang
+
+
+def hex_flops_per_cell_layer(ntracers):
+    """_fb_flops_per_point of chip_smoke.py with the hex mesh's entries per
+    table and destination class (per cell: 3 edges, 2 vertices)."""
+    n = {"div": 6, "ke": 6, "curl": 6, "kite": 6, "tang": 24, "cdiff": 6,
+         "cmean": 6, "vdiff": 6, "vmean": 6, "signed_div": 6}
+    s = lambda *names: sum(n[k] for k in names)
+    thick = 2 * s("cmean", "div") + 5
+    tracer = 2 * s("cmean", "div", "cdiff", "signed_div", "cdiff",
+                   "signed_div") + 24
+    vel = 2 * s("ke", "div", "curl", "kite", "vmean", "vmean", "cdiff",
+                "vdiff", "div", "curl", "cmean", "tang", "tang", "cdiff",
+                "cdiff", "cdiff", "vdiff") + 90
+    return thick + ntracers * tracer + vel
+
+
+def patch_fb(n=96):
+    C, E, V, ce, ve, tang = icos(n)
+    state = (C * (1 + L) + E) * K * F32          # h, tracers, u
+    # per-element weights the chain's stencils need (a uniform weight is a
+    # scalar): div, ke and the signed (diffusion) divergence on cell-edge
+    # pairs; curl and kite areas on vertex-edge pairs; the tangential
+    # weights; 1/dc and 1/dv per edge; f per vertex
+    weights = (3 * ce + 2 * ve + tang + 2 * E + V) * F32
+    flops = hex_flops_per_cell_layer(L) * C * K
+    return {"kernel": "omega_tpu/ops/patch_megastep.py:1425",
+            "function": f"one FB step, icos{n} x {K} layers x {L} tracers",
+            "cells": C, "edges": E, "vertices": V,
+            "state_bytes_in_out": 2 * state, "weight_bytes": weights,
+            **bound(2 * state + weights, flops)}
+
+
+def gather(n=48):
+    C, E, V, ce, ve, tang = icos(n)
+    out = {}
+    for name, nsrc, ndst, entries in (("tang", E, E, tang),
+                                      ("div", E, C, ce)):
+        nbytes = (nsrc + ndst) * K * F32 + entries * (IDX + F32)
+        out[name] = {"rows": ndst, "source_rows": nsrc, "entries": entries,
+                     **bound(nbytes, 2 * entries * K)}
+    return {"kernel": "omega_tpu/ops/pallas_gather.py:160",
+            "function": f"one gather pass, icos{n} x {K} layers", **out}
+
+
+def tpu_split_io(ny=256, nx=256):
+    plane = ny * nx * F32
+    vol = K * plane
+    return {"splitpre_tpu_io": {
+                "reads": "6 state volumes", "writes": "6 volumes + 10 planes",
+                **bound(12 * vol + 10 * plane, 0)},
+            "splitpost_tpu_io": {
+                "reads": "12 volumes + 6 planes", "writes": "6 volumes",
+                **bound(18 * vol + 6 * plane, 0)},
+            "barotropic_tpu_io": {
+                "reads": "10 planes", "writes": "7 planes",
+                **bound(17 * plane, 0)}}
+
+
+if __name__ == "__main__":
+    print(json.dumps({"patch": patch_fb()}))
+    print(json.dumps({"gather": gather()}))
+    print(json.dumps({"split": tpu_split_io()}))
