@@ -5,12 +5,14 @@
     python3 chip_smoke.py --tiles 16x16,32x32@256     # also time those tiles
     python3 chip_smoke.py --solve-columns 4,16,32     # also time the column
                                     # solve with those many columns per block
+    python3 chip_smoke.py --patch-layers 4,16x256     # also time the sphere's
+                                    # patch step with other layer groups
 
 It builds the CUDA kernels from omega_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card, drives the port's main paths
 (256 x 256 cells x 100 layers x 2 tracers, float32; forward-backward, RK2,
-RK4 and split-explicit steppers) through the entry points a user calls, and
-prints one JSON line per phase:
+RK4 and split-explicit steppers; the icosahedral sphere icos48 x 100 x 2)
+through the entry points a user calls, and prints one JSON line per phase:
 
   device          the card, and nvidia-smi's name / power-limit line
   build           nvcc build of the kernels, seconds
@@ -23,6 +25,9 @@ prints one JSON line per phase:
                   steps vs the composed steppers
   kernel_split    splitpre's passes, the barotropic subcycles and splitpost
                   vs plain; fused split steps vs the composed split stepper
+  kernel_patch    the sphere's FB step (five launches) vs plain at icos16
+                  float64 and icos48 x 100 x 2 float32; fused framed steps
+                  vs the composed stepper; the host parts of a framed step
   main_path       2 x 10 steps of the bench configuration; launch counts
   composed_path   column ssh: the composed stepper + stencil kernel
   science_path    2 x 10 steps with wind, bottom drag, upwind fluxes and PP81
@@ -33,6 +38,8 @@ prints one JSON line per phase:
                   launches and the two vertical-mixing kernels per step
   split_path      2 x 10 split-explicit steps (column ssh, dt = 120 s, ten
                   barotropic subcycles): 3 + 10 + 1 launches per step
+  sphere_path     2 x 10 FB steps of bench.py's sphere (icos48 x 100 x 2):
+                  five patch-step launches per step, nothing else
   rk_order        the manufactured solution in float64: the steppers'
                   temporal order and the spatial order
   profile         (only with --profile) device time by kernel, every path
@@ -75,6 +82,12 @@ def main(argv=None):
                     help="extra column-group widths of the vertical-mixing "
                     "solve kernel to time (the module has one, "
                     "vmix_kernel.SOLVE_COLUMNS), e.g. 4,16,32")
+    ap.add_argument("--patch-layers", default="",
+                    help="extra layer groups of the sphere's patch step to "
+                    "time, as LAYERS or LAYERSxTHREADS (layers one thread "
+                    "walks, threads per block; the module has one, "
+                    "patch_megastep.LAYERS_PER_THREAD x THREADS), e.g. "
+                    "4,16x256")
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few steps of both paths with "
                     "torch.profiler and print device time by kernel")
@@ -1021,6 +1034,146 @@ def main(argv=None):
     splv = spl["f32_256x256x100x2"]
     del s0, st, du, wplanes, du_p, pl_p, planes, out, bt_out, bt_work
 
+    # ---------------------------------------------------- 4e. kernel_patch
+    # the sphere's FB step (csrc/patch_step.cu, five launches per call)
+    # against its plain version on the same frames: float64 at icos16 x 8 x
+    # 2, per channel max|diff| <= 1e-12 max|ref| (the passes sum the
+    # momentum terms in another order than the chain); float32 at bench.py's
+    # sphere width (icos48 x 100 x 2) by the increment per channel, limit
+    # PATCH_INCR; the fused step against the composed one in float64 over
+    # three steps, 1e-10
+    import port_bounds
+    from omega_tpu_torch.mesh import patch_icos_mesh, spherical_icos_mesh
+    from omega_tpu_torch.ops import patch_megastep
+
+    PATCH_INCR = 5e-4
+    N_SPHERE = 48
+
+    def sphere_state(mesh_np, K, L, dtype, u_amp, tr_amp):
+        """bench.py's sphere state (h = (depth + sin 2 lat cos lon) / K,
+        tracers 10) with u = u_amp x noise x edge_mask and tracer noise"""
+        ssh = np.sin(2 * np.asarray(mesh_np.lat_cell)) \
+            * np.cos(np.asarray(mesh_np.lon_cell))
+        depth = float(np.asarray(mesh_np.bottom_depth)[0])
+        h = (depth + ssh[:, None]) / K * np.ones((1, K))
+        u = u_amp * rng.standard_normal((mesh_np.nedges, K)) \
+            * np.asarray(mesh_np.edge_mask)[:, None]
+        tr = 10.0 + tr_amp * rng.standard_normal((L, mesh_np.ncells, K))
+        return ModelState(h=put(h, dtype), u=put(u, dtype),
+                          tracers=put(tr, dtype))
+
+    pat = {"tolerance": "f64 per channel max|diff| <= 1e-12 max|ref| "
+           "against plain; fused framed steps vs composed steps rtol=atol="
+           "1e-10 over 3 steps; f32 per channel the error of the increment "
+           "<= PATCH_INCR of the largest increment", "PATCH_INCR": PATCH_INCR,
+           "passes_per_step": patch_megastep.PASSES,
+           "layers_per_thread": patch_megastep.LAYERS_PER_THREAD,
+           "threads": patch_megastep.THREADS}
+    t_m = time.perf_counter()
+    m16_np = patch_icos_mesh(spherical_icos_mesh(16), 16)
+    m16 = m16_np.to(dev, torch.float64)
+    cfg16 = bench_cfg(8, NTRACERS, dict(eddy_diff4=1e9))
+    if not patch_megastep.supported(m16, cfg16):
+        fail("flagship sphere configuration not supported by the patch step")
+    st16 = sphere_state(m16_np, 8, NTRACERS, torch.float64, 0.1, 1.0)
+    p16 = patch_megastep.prep(m16, torch.float64, dev)
+    pat["icos16_host_build_s"] = time.perf_counter() - t_m
+    fr16, _ = patch_megastep.stack_frames(m16, cfg16, st16)
+    got = patch_megastep.chain(p16, cfg16, fr16, DT)
+    ref = patch_megastep.chain_plain(p16, cfg16, fr16, DT)
+    torch.cuda.synchronize()
+    names = ["h", "u0", "u1", "u2"] + [f"tracer{l}" for l in range(NTRACERS)]
+    errs = {n_: chan_err(got[:, c][None], ref[:, c][None])
+            for c, n_ in enumerate(names)}
+    if not all(e <= 1e-12 for e in errs.values()) \
+            or not bool(torch.isfinite(got).all()):
+        fail(f"patch step vs plain at icos16 f64: {errs}")
+    pat["f64_icos16x8x2"] = errs
+    # whole steps: the framed fused path against the composed stepper
+    patch_megastep.launches = 0
+    ker = run_steps(m16, cfg16, st16, 0.0, DT, 3)
+    if patch_megastep.launches != 3 * patch_megastep.PASSES:
+        fail(f"fused sphere steps: {patch_megastep.launches} launches in 3")
+    comp = st16
+    for i in range(3):
+        comp = composed(forward_backward_step, m16, cfg16, comp, i * DT, DT)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for a_, b_ in zip(ker, comp):
+        d = (a_ - b_).abs()
+        if bool((d > 1e-10 + 1e-10 * b_.abs()).any()) \
+                or not bool(torch.isfinite(a_).all()):
+            fail(f"fused sphere steps vs composed at icos16 f64: "
+                 f"{d.max().item()}")
+        worst = max(worst, d.max().item())
+    pat["f64_icos16_steps_vs_composed"] = worst
+    del fr16, got, ref, ker, comp
+
+    # float32 at full width: bench.py's sphere mesh, built on the host
+    t_m = time.perf_counter()
+    m48_np = patch_icos_mesh(spherical_icos_mesh(N_SPHERE), N_SPHERE)
+    m48 = m48_np.to(dev, torch.float32)
+    p48 = patch_megastep.prep(m48, torch.float32, dev)
+    sphere_build_s = time.perf_counter() - t_m
+    cfg48 = bench_cfg(NLAYERS, NTRACERS)
+    st48 = sphere_state(m48_np, NLAYERS, NTRACERS, torch.float32, 0.01, 1.0)
+    fr48, fix48 = patch_megastep.stack_frames(m48, cfg48, st48)
+    out48 = torch.empty_like(fr48)
+    work48 = patch_megastep.new_work(fr48)
+    patch_megastep.chain(p48, cfg48, fr48, DT, out48, work48)
+    ref = patch_megastep.chain_plain(p48, cfg48, fr48, DT)
+    torch.cuda.synchronize()
+    inc = incr_err(out48.transpose(0, 1), ref.transpose(0, 1),
+                   fr48.transpose(0, 1))
+    patch_abs = (out48 - ref).abs().max().item()
+    if max(inc) > PATCH_INCR or not bool(torch.isfinite(out48).all()):
+        fail(f"patch step at icos{N_SPHERE} f32: increments "
+             f"{dict(zip(names, inc))}")
+    del ref
+    patch_ms = cuda_ms(lambda: patch_megastep.chain(
+        p48, cfg48, fr48, DT, out48, work48), 20)
+    patch_plain_ms = cuda_ms(lambda: patch_megastep.chain_plain(
+        p48, cfg48, fr48, DT), 2, 1)
+    groups_ms = {}
+    for spec in filter(None, args.patch_layers.split(",")):
+        kg, _, nt = spec.partition("x")
+        keep = patch_megastep.LAYERS_PER_THREAD, patch_megastep.THREADS
+        patch_megastep.LAYERS_PER_THREAD = int(kg)
+        patch_megastep.THREADS = int(nt or keep[1])
+        try:
+            groups_ms[spec] = cuda_ms(lambda: patch_megastep.chain(
+                p48, cfg48, fr48, DT, out48, work48), 20)
+        finally:
+            patch_megastep.LAYERS_PER_THREAD, patch_megastep.THREADS = keep
+    # the host parts of a framed step: the pole submesh's composed step and
+    # the in-frame refresh (on a copy of the chain's output)
+    sub48 = patch_megastep._sub_state(p48, fr48, fix48)
+    sub_ms = cuda_ms(lambda: forward_backward_step(p48.sub_mesh, cfg48,
+                                                   sub48, 0.0, DT), 20)
+    nfix48 = dict(h=sub48.h[p48.fix_cells_local],
+                  u=sub48.u[p48.fix_edges_local],
+                  tr=sub48.tracers[:, p48.fix_cells_local])
+    scratch48 = out48.clone()
+    refresh_ms = cuda_ms(lambda: patch_megastep._refresh_frames(
+        p48, scratch48, nfix48), 20)
+    del scratch48
+    if port_bounds.K != NLAYERS or port_bounds.L != NTRACERS:
+        fail("port_bounds counts another width than this run")
+    pb = port_bounds.patch_fb(N_SPHERE)
+    pat[f"f32_icos{N_SPHERE}x{NLAYERS}x{NTRACERS}"] = {
+        "increments": dict(zip(names, inc)), "max_abs_err": patch_abs,
+        "ms": patch_ms, "plain_ms": patch_plain_ms,
+        "bound_ms": pb["bound_ms"], "bound_by": pb["bound_by"],
+        "bound_bytes": pb["bytes"], "frames": list(fr48.shape),
+        "positions": p48.P, "submesh_cells": int(p48.sub_cells.numel()),
+        "fix_cells": int(p48.fix_cells_global.numel()),
+        "fix_edges": int(p48.fix_edges_global.numel()),
+        "submesh_step_ms": sub_ms, "refresh_ms": refresh_ms,
+        "host_build_s": sphere_build_s, "layer_groups_ms": groups_ms}
+    emit({"phase": "kernel_patch", **pat})
+    patv = pat[f"f32_icos{N_SPHERE}x{NLAYERS}x{NTRACERS}"]
+    del fr48, out48, work48, sub48
+
     # ------------------------------------------------------- 5. main_path
     # the bench configuration, through the entry points a user calls
     mesh_np = planar_hex_mesh(NX, NY, dc=5000.0, f0=1e-4,
@@ -1143,7 +1296,8 @@ def main(argv=None):
                 "stencil": stencil_kernel.launches,
                 "split_pre": megastep.split_pre_launches,
                 "barotropic": btk.launches,
-                "split_post": megastep.split_post_launches}
+                "split_post": megastep.split_post_launches,
+                "patch_step": patch_megastep.launches}
 
     def reset_counts():
         megastep.launches = megastep.rk_launches = 0
@@ -1151,9 +1305,12 @@ def main(argv=None):
         stencil_kernel.launches = 0
         megastep.split_pre_launches = megastep.split_post_launches = 0
         btk.launches = 0
+        patch_megastep.launches = 0
 
-    # the split kernels launch on no path but split_path
-    NO_SPLIT = {"split_pre": 0, "barotropic": 0, "split_post": 0}
+    # the split kernels launch on no path but split_path, the patch step on
+    # no path but sphere_path
+    NO_SPLIT = {"split_pre": 0, "barotropic": 0, "split_post": 0,
+                "patch_step": 0}
 
     vol0, trc0 = content(sci0)
     nseg, seg = 2, 10
@@ -1387,7 +1544,7 @@ def main(argv=None):
                     "vmix_solve": 0, "stencil": 0,
                     "split_pre": 3 * nseg * seg,
                     "barotropic": M_SPLIT * nseg * seg,
-                    "split_post": nseg * seg})
+                    "split_post": nseg * seg, "patch_step": 0})
     spl_vol, spl_trc = drifts(state0, spl_st)
     spl_umax = spl_st.u.abs().max().item()
     if spl_vol > 1e-5 or spl_trc > 1e-5 or not 0.0 < spl_umax < 1.0:
@@ -1406,6 +1563,66 @@ def main(argv=None):
           "volume_drift": spl_vol, "tracer_drift": spl_trc,
           "max_abs_u": spl_umax})
     del spl_st
+
+    # ---------------------------------------------------- 10c. sphere_path
+    # bench.py's sphere configuration (icos48 x 100 layers x 2 tracers,
+    # float32, dt = 30 s) through run_steps with u = 0.01 x noise x
+    # edge_mask: the frames are the loop's carry, a step is one call of the
+    # patch step (five launches), the pole submesh's composed step and the
+    # in-frame refresh; no other kernel launches
+    def sphere_content(st):
+        a = torch.as_tensor(np.asarray(m48_np.area_cell), device=dev)[:, None]
+        h64 = st.h.double()
+        return ((a * h64).sum().item(),
+                [(a * h64 * st.tracers[l].double()).sum().item()
+                 for l in range(NTRACERS)])
+
+    sph0 = sphere_state(m48_np, NLAYERS, NTRACERS, torch.float32, 0.01, 0.0)
+    run_steps(m48, cfg48, sph0, 0.0, DT, 1)                   # untimed
+    reset_counts()
+    sph, sph_s = sph0, []
+    for i in range(nseg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sph = run_steps(m48, cfg48, sph, i * seg * DT, DT, seg,
+                        stepper=forward_backward_step)
+        torch.cuda.synchronize()
+        sph_s.append(time.perf_counter() - t0)
+    sph_launches = counts()
+    finite("sphere path", sph)
+    check_launches("sphere path", sph_launches,
+                   {"fb_step": 0, "rk_stage": 0, "pp81_coeffs": 0,
+                    "vmix_solve": 0, "stencil": 0, "split_pre": 0,
+                    "barotropic": 0, "split_post": 0,
+                    "patch_step": patch_megastep.PASSES * nseg * seg})
+    (v0, t0_), (v1, t1_) = sphere_content(sph0), sphere_content(sph)
+    sph_vol = abs(v1 - v0) / v0
+    sph_trc = max(abs(b - a) / abs(a) for a, b in zip(t0_, t1_))
+    sph_umax = sph.u.abs().max().item()
+    dead = torch.as_tensor(np.asarray(m48_np.edge_mask) == 0, device=dev)
+    sph_dead = sph.u[dead].abs().max().item() if bool(dead.any()) else 0.0
+    if sph_vol > 1e-5 or sph_trc > 1e-5 or not 0.0 < sph_umax < 1.0:
+        fail(f"sphere path: drift {sph_vol} / {sph_trc}, max|u| {sph_umax}")
+    if sph_dead != 0.0:
+        fail(f"sphere path: u on dead edges reaches {sph_dead}")
+    sph_ms = sph_s[-1] / seg * 1e3
+    real_cells = m48_np.ncells
+    emit({"phase": "sphere_path", "config": f"icos{N_SPHERE} "
+          f"({real_cells} cells) x {NLAYERS} x {NTRACERS} float32, "
+          "bottom_depth 4000, h = (depth + sin 2 lat cos lon) / K, tracers "
+          "10, u = 0.01 x noise x edge_mask, dt=30 visc_del2=1e3 "
+          "visc_del4=1e9; margin 8, worst-case validity masks",
+          "host_mesh_build_s": sphere_build_s, "steps": nseg * seg,
+          "segment_seconds": sph_s, "ms_per_step": sph_ms,
+          "gridpoint_steps_per_s": real_cells * NLAYERS / (sph_ms * 1e-3),
+          "launches": sph_launches,
+          "launches_per_step": {k: v / (nseg * seg)
+                                for k, v in sph_launches.items()},
+          "volume_drift": sph_vol, "tracer_drift": sph_trc,
+          "max_abs_u": sph_umax, "max_abs_u_dead_edges": sph_dead,
+          "breakdown_ms": {"patch_step": patv["ms"],
+                           "submesh_step": patv["submesh_step_ms"],
+                           "refresh": patv["refresh_ms"]}})
 
     # ------------------------------------------------------- 11. rk_order
     # the manufactured solution (tests/test_model.py:79-166) in float64 on
@@ -1521,7 +1738,9 @@ def main(argv=None):
                   wind_stress=wind_sci)),
               "split_5_steps": traced(lambda: run_steps(
                   mesh, cfg_split, state0, 0.0, DT_SPLIT, 5,
-                  stepper=split_stepper))})
+                  stepper=split_stepper)),
+              "sphere_5_steps": traced(lambda: run_steps(
+                  m48, cfg48, sph0, 0.0, DT, 5))})
 
     # ---------------------------------------------------------- 8. kernels
     print(smi_line, flush=True)
@@ -1677,6 +1896,17 @@ def main(argv=None):
          "shape": f"({CH}, {NLAYERS}, {NY}, {NX}) + (3, {NLAYERS}, {NY}, "
          f"{NX}) + 12 x ({NY}, {NX}) in, ({CH}, {NLAYERS}, {NY}, {NX}) out, "
          "float32", "path": "split_path"},
+        {"name": "patch_step", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/patch_step.cu",
+         "replaces": "omega_tpu/ops/patch_megastep.py:1218",
+         "call_site": "omega_tpu/ops/patch_megastep.py:1425",
+         "launches": sph_launches["patch_step"],
+         "max_abs_err": patv["max_abs_err"], "ms": patv["ms"],
+         "plain_ms": patv["plain_ms"], "bound_ms": patv["bound_ms"],
+         "bound_by": patv["bound_by"], "library_ms": None,
+         "shape": f"frames {tuple(patv['frames'])} float32 (icos"
+         f"{N_SPHERE}, S = {p48.S}), kind fb, flagship",
+         "passes_per_call": patch_megastep.PASSES, "path": "sphere_path"},
     ], "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -1684,17 +1914,19 @@ def main(argv=None):
 
 
 def composed(stepper, *args, **kw):
-    """A stepper's composed path (the stencil-kernel path) on the card:
-    the stepper runs with the fused kernels' and the barotropic kernel's
-    dispatch turned away."""
+    """A stepper's composed path (the stencil-kernel path; on a patch mesh
+    the patch operators) on the card: the stepper runs with the fused
+    kernels', the barotropic kernel's and the patch step's dispatch turned
+    away."""
     from omega_tpu_torch.ops import barotropic_kernel as btk
-    from omega_tpu_torch.ops import megastep
-    keep = megastep.enabled, btk.enabled
-    megastep.enabled = btk.enabled = lambda x: False
+    from omega_tpu_torch.ops import megastep, patch_megastep
+    keep = megastep.enabled, btk.enabled, patch_megastep.enabled
+    megastep.enabled = btk.enabled = patch_megastep.enabled = \
+        lambda x: False
     try:
         return stepper(*args, **kw)
     finally:
-        megastep.enabled, btk.enabled = keep
+        megastep.enabled, btk.enabled, patch_megastep.enabled = keep
 
 
 def _composed_step(mesh, cfg, state, dt, wind_stress=None):

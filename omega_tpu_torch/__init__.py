@@ -9,8 +9,9 @@ module's counterpart is found by path; it imports torch and numpy only.
 Plain tensor code is PyTorch; the hot kernels (the fused
 forward-backward step, the Runge-Kutta stage, the split-explicit step's
 splitpre / splitpost and barotropic subcycles, the vertical-mixing
-coefficient and column-solve kernels, and the structured stencil pass) are
-CUDA C++ under csrc/, compiled at first use by ops/_build.py.
+coefficient and column-solve kernels, the structured stencil pass, and the
+icosahedral sphere's forward-backward step) are CUDA C++ under csrc/,
+compiled at first use by ops/_build.py.
 
 Devices are explicit: every function that creates tensors takes
 `device=None`, meaning `default_device()`, which is the CUDA device and

@@ -1,0 +1,483 @@
+// The forward-backward step on the icosahedral sphere: the flagship FB
+// chain of mesh/icos_mega.fb_chain on the persistent halo frames, in five
+// launches made by one C call.
+//
+// Replaces the TPU kernel omega_tpu/ops/patch_megastep.py:_kernel (kind
+// `fb`, the chain of _eval_chain), called at patch_megastep.py:1425. State
+// and outputs are the frames of ops/patch_megastep.py, (K, 4+L, P) with
+// P = 10 S S positions (10 rhombi, S = n + 2 MH): channel 0 = h, 1..3 =
+// the edge classes of u, 4.. = tracers; a layer's channels are contiguous.
+//
+// Weights. The TPU kernel reads a lane-major plane stack (10, SS, SS, npl),
+// 164 MB at icos48 in float32 and ~85% zeros, once per tile, and applies a
+// plane to all 128 lanes of K. Here a position's stencil rows come from a
+// compact table built on the host (ops/patch_megastep.py:compact_table):
+// per group of tables sharing a support and per destination channel, a
+// fixed number of slots, each an offset (flat within one layer of the
+// source field) and one weight per table of the group; unused slots hold
+// offset 0 and weight 0, so no read leaves the frame and no uninitialised
+// value enters a sum. Slots run in the reference's entry order. Every layer
+// uses the same weights, so a thread loads the slots of its position once
+// into registers and walks LAYERS_PER_THREAD layers with them: the table
+// (60 offset and 108 weight rows of P, 27.5 MB at icos48 in float32) is
+// read once per pass, not once per layer. Neighbouring threads are
+// neighbouring positions, so field reads are coalesced along x.
+//
+// Levels. The chain has six stencil levels; a launch evaluates a group of
+// them at every frame position, the intermediates of one launch going
+// through device memory to the next (the fields a level reads at
+// neighbours must be complete before it runs). The whole frame is
+// evaluated, so the reference's tiled validity masks are sufficient (an
+// untiled evaluation is exact wherever the tiled one is); the refresh that
+// follows (ops/patch_megastep.py) rewrites every position they do not
+// trust.
+//   A: mean_h, flux = mean_h u, per tracer hflux = cmean(h tr) u_m and
+//      mc = mean_h cdiff(tr); ke(u^2); div(u); curl(u)
+//   B: h_new = h - dt div(flux); per tracer trp = -div(hflux) +
+//      ed2 sdiv_geo2(mc) and d2aux = sdiv_geo(mc); at edges
+//      dup = nu2 s2 (cgrad(div u) - vgrad(curl u)) - cgrad(ke) and
+//      del2e = mask cgrad(div u) - vgrad_floor(curl u)
+//   C: per tracer cd2 = cdiff(d2aux); F = cmean(h_new) u;
+//      dup -= g (cgrad(h_new) - gdepth); qv = (curl u + f) / kite(h_new);
+//      dr2 = curl(del2e); dd2 = div(del2e)
+//   D: trn = (tr h + dt (trp - ed4 sdiv_geo4(cd2))) / h_new;
+//      Fq = F vmean(qv); dup += 0.5 vmean(qv) tang(F)
+//      - nu4 s4 (df cgrad(dd2) - vgrad(dr2))
+//   E: u_new = u + dt mask (dup + 0.5 tang(Fq))
+// The momentum tendency's terms are summed in this order, not the chain's;
+// every product is rounded on its own (mul_rn), as the plain version
+// rounds it, and stencil sums run in the same order as its.
+//
+// Holes and NaN: lattice holes hold zeros in the frames; the divisions by
+// h_v and h_new are guarded (a zero divisor gives 0), as _safe_div does.
+//
+// Bound on this card: device memory. One step must read the state and
+// write it once and read the weights (port_bounds.patch_fb: 117 MB at
+// icos48 x 100 x 2 in float32, 0.035 ms); the five launches also write and
+// read the intermediates (about 55 state-field volumes at L = 2), which
+// this first version does not keep on chip.
+#include "stencil_common.cuh"
+
+namespace omega {
+namespace patch {
+
+// rows of the compact offset table (GROUPS of ops/patch_megastep.py)
+constexpr int kOffDiv = 0;    // div group, 6 slots
+constexpr int kOffCurl = 6;   // 2 vertex channels x 3
+constexpr int kOffKite = 12;  // 2 x 3
+constexpr int kOffTang = 18;  // 3 edge channels x 10
+constexpr int kOffCm = 48;    // cmean group, 3 x 2
+constexpr int kOffVm = 54;    // vmean group, 3 x 2
+constexpr int kOffRows = 60;
+// rows of the weight table
+constexpr int kWDiv = 0, kWKe = 6, kWSg = 12, kWSg2 = 18, kWSg4 = 24;
+constexpr int kWCurl = 30, kWKite = 36, kWTang = 42;
+constexpr int kWCmean = 72, kWCdiff = 78, kWCgrad = 84;
+constexpr int kWVmean = 90, kWVgrad = 96, kWVgf = 102;
+constexpr int kWRows = 108;
+// const planes: f_vertex (2), gdepth (3), scal2 (3), scal4 (3), mask (3)
+constexpr int kCFv = 0, kCGd = 2, kCS2 = 5, kCS4 = 8, kCEm = 11;
+constexpr int kCRows = 14;
+enum { kFv = 0, kGd, kS2, kS4, kEm, kNConst };
+
+template <typename T>
+struct Args {
+  const T* in;     // frames (K, CH, P)
+  T* out;          // next frames (K, CH, P)
+  const int* off;  // (kOffRows, P)
+  const T* w;      // (kWRows, P)
+  const T* cpl;    // (kCRows, P)
+  // work fields, each (K, T, P)
+  T *flux, *ke, *divu, *rvort, *hflux, *mc, *trp, *d2aux, *dup, *del2e,
+      *qv, *dr2;
+  T dt, grav, nu2, nu4, dfac, ed2, ed4;
+  T cs[kNConst];   // a const plane's value where it is uniform
+  int cf[kNConst];  // 1: the const is a plane of cpl
+  int P, K, L, CH, kg;
+};
+
+// the thread's position and layer range; false past the frame
+template <typename T>
+__device__ __forceinline__ bool where(const Args<T>& a, int& p, int& k0,
+                                      int& k1) {
+  p = blockIdx.x * blockDim.x + threadIdx.x;
+  k0 = blockIdx.y * a.kg;
+  k1 = min(a.K, k0 + a.kg);
+  return p < a.P;
+}
+
+template <int N>
+__device__ __forceinline__ void load_off(const int* off, int row, int P,
+                                         int p, int (&o)[N]) {
+  _Pragma("unroll") for (int s = 0; s < N; ++s)
+    o[s] = off[static_cast<long long>(row + s) * P + p];
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void load_w(const T* w, int row, int P, int p,
+                                       T (&v)[N]) {
+  _Pragma("unroll") for (int s = 0; s < N; ++s)
+    v[s] = w[static_cast<long long>(row + s) * P + p];
+}
+
+// sum_s w[s] x[p + o[s]] in slot order, each product rounded on its own
+template <int N, typename T>
+__device__ __forceinline__ T sten(const T (&w)[N], const int (&o)[N],
+                                  const T* __restrict__ x, int p) {
+  T acc = T(0);
+  _Pragma("unroll") for (int s = 0; s < N; ++s)
+    acc = acc + mul_rn(w[s], x[p + o[s]]);
+  return acc;
+}
+
+template <typename T>
+__device__ __forceinline__ T cval(const Args<T>& a, int which, int row,
+                                  int p) {
+  return a.cf[which] ? a.cpl[static_cast<long long>(row) * a.P + p]
+                     : a.cs[which];
+}
+
+// x * mask, where a uniform mask of 1 is the identity (the chain's alias)
+template <typename T>
+__device__ __forceinline__ T masked(const Args<T>& a, T m, T x) {
+  return (!a.cf[kEm] && a.cs[kEm] == T(1)) ? x : mul_rn(m, x);
+}
+
+template <typename T>
+__device__ __forceinline__ T safe_div(T n, T d) {
+  return d != T(0) ? n / d : T(0);
+}
+
+// ------------------------------------------------------------- pass A
+template <typename T>
+__global__ void __launch_bounds__(256) pass_a(const Args<T> a) {
+  int p, k0, k1;
+  if (!where(a, p, k0, k1)) return;
+  const long long P = a.P, lay = static_cast<long long>(a.CH) * P;
+  const int L = a.L;
+  // edges: mean_h, flux, and per tracer hflux, mc
+  for (int t = 0; t < 3; ++t) {
+    int o[2];
+    T wm[2], wd[2];
+    load_off(a.off, kOffCm + 2 * t, a.P, p, o);
+    load_w(a.w, kWCmean + 2 * t, a.P, p, wm);
+    load_w(a.w, kWCdiff + 2 * t, a.P, p, wd);
+    const T em = cval(a, kEm, kCEm + t, p);
+    for (int k = k0; k < k1; ++k) {
+      const T* h = a.in + k * lay;
+      const T mean_h = sten(wm, o, h, p);
+      const T u = h[(1 + t) * P + p];
+      a.flux[(k * 3LL + t) * P + p] = mul_rn(mean_h, u);
+      const T um = masked(a, em, u);
+      for (int l = 0; l < L; ++l) {
+        const T* tr = h + (4 + l) * P;
+        T htre = T(0);
+        _Pragma("unroll") for (int s = 0; s < 2; ++s)
+          htre = htre + mul_rn(wm[s], mul_rn(h[p + o[s]], tr[p + o[s]]));
+        const long long q = (k * 3LL * L + 3 * l + t) * P + p;
+        a.hflux[q] = mul_rn(htre, um);
+        a.mc[q] = mul_rn(mean_h, sten(wd, o, tr, p));
+      }
+    }
+  }
+  // cells: ke(u^2), div(u)
+  {
+    int o[6];
+    T wk[6], wv[6];
+    load_off(a.off, kOffDiv, a.P, p, o);
+    load_w(a.w, kWKe, a.P, p, wk);
+    load_w(a.w, kWDiv, a.P, p, wv);
+    for (int k = k0; k < k1; ++k) {
+      const T* u = a.in + k * lay + P;
+      T ke = T(0);
+      _Pragma("unroll") for (int s = 0; s < 6; ++s) {
+        const T x = u[p + o[s]];
+        ke = ke + mul_rn(wk[s], mul_rn(x, x));
+      }
+      a.ke[k * P + p] = ke;
+      a.divu[k * P + p] = sten(wv, o, u, p);
+    }
+  }
+  // vertices: curl(u)
+  for (int t = 0; t < 2; ++t) {
+    int o[3];
+    T wc[3];
+    load_off(a.off, kOffCurl + 3 * t, a.P, p, o);
+    load_w(a.w, kWCurl + 3 * t, a.P, p, wc);
+    for (int k = k0; k < k1; ++k)
+      a.rvort[(k * 2LL + t) * P + p] = sten(wc, o, a.in + k * lay + P, p);
+  }
+}
+
+// ------------------------------------------------------------- pass B
+template <typename T>
+__global__ void __launch_bounds__(256) pass_b(const Args<T> a) {
+  int p, k0, k1;
+  if (!where(a, p, k0, k1)) return;
+  const long long P = a.P, lay = static_cast<long long>(a.CH) * P;
+  const int L = a.L;
+  // cells: h_new, and per tracer trp, d2aux
+  {
+    int o[6];
+    T wv[6], wg[6], wg2[6];
+    load_off(a.off, kOffDiv, a.P, p, o);
+    load_w(a.w, kWDiv, a.P, p, wv);
+    load_w(a.w, kWSg, a.P, p, wg);
+    load_w(a.w, kWSg2, a.P, p, wg2);
+    for (int k = k0; k < k1; ++k) {
+      const T dh = sten(wv, o, a.flux + k * 3LL * P, p);
+      a.out[k * lay + p] = a.in[k * lay + p] + mul_rn(-a.dt, dh);
+      for (int l = 0; l < L; ++l) {
+        const long long b = (k * 3LL * L + 3 * l) * P;
+        const T adv = sten(wv, o, a.hflux + b, p);
+        const T* mc = a.mc + b;
+        const long long q = (k * static_cast<long long>(L) + l) * P + p;
+        a.trp[q] = -adv + mul_rn(a.ed2, sten(wg2, o, mc, p));
+        a.d2aux[q] = sten(wg, o, mc, p);
+      }
+    }
+  }
+  // edges: dup, del2e
+  for (int t = 0; t < 3; ++t) {
+    int oc[2], ov[2];
+    T wg[2], wvg[2], wvf[2];
+    load_off(a.off, kOffCm + 2 * t, a.P, p, oc);
+    load_w(a.w, kWCgrad + 2 * t, a.P, p, wg);
+    load_off(a.off, kOffVm + 2 * t, a.P, p, ov);
+    load_w(a.w, kWVgrad + 2 * t, a.P, p, wvg);
+    load_w(a.w, kWVgf + 2 * t, a.P, p, wvf);
+    const T nu2s = mul_rn(a.nu2, cval(a, kS2, kCS2 + t, p));
+    const T em = cval(a, kEm, kCEm + t, p);
+    for (int k = k0; k < k1; ++k) {
+      const T gke = sten(wg, oc, a.ke + k * P, p);
+      const T cdd = sten(wg, oc, a.divu + k * P, p);
+      const T* rv = a.rvort + k * 2LL * P;
+      const T vdr = sten(wvg, ov, rv, p);
+      const T vdrf = sten(wvf, ov, rv, p);
+      const long long q = (k * 3LL + t) * P + p;
+      a.dup[q] = mul_rn(nu2s, cdd - vdr) - gke;
+      a.del2e[q] = masked(a, em, cdd) - vdrf;
+    }
+  }
+}
+
+// ------------------------------------------------------------- pass C
+template <typename T>
+__global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
+  int p, k0, k1;
+  if (!where(a, p, k0, k1)) return;
+  const long long P = a.P, lay = static_cast<long long>(a.CH) * P;
+  const int L = a.L;
+  // edges: cd2 (into mc's field), F (into flux's), the ssh gradient
+  for (int t = 0; t < 3; ++t) {
+    int o[2];
+    T wd[2], wm[2], wg[2];
+    load_off(a.off, kOffCm + 2 * t, a.P, p, o);
+    load_w(a.w, kWCdiff + 2 * t, a.P, p, wd);
+    load_w(a.w, kWCmean + 2 * t, a.P, p, wm);
+    load_w(a.w, kWCgrad + 2 * t, a.P, p, wg);
+    const T gd = cval(a, kGd, kCGd + t, p);
+    for (int k = k0; k < k1; ++k) {
+      for (int l = 0; l < L; ++l)
+        a.mc[(k * 3LL * L + 3 * l + t) * P + p] =
+            sten(wd, o, a.d2aux + (k * static_cast<long long>(L) + l) * P,
+                 p);
+      const T* hn = a.out + k * lay;
+      const long long q = (k * 3LL + t) * P + p;
+      a.flux[q] = mul_rn(sten(wm, o, hn, p), a.in[k * lay + (1 + t) * P + p]);
+      a.dup[q] = a.dup[q] - mul_rn(a.grav, sten(wg, o, hn, p) - gd);
+    }
+  }
+  // vertices: qv, dr2
+  for (int t = 0; t < 2; ++t) {
+    int ok[3], oc[3];
+    T wk[3], wc[3];
+    load_off(a.off, kOffKite + 3 * t, a.P, p, ok);
+    load_w(a.w, kWKite + 3 * t, a.P, p, wk);
+    load_off(a.off, kOffCurl + 3 * t, a.P, p, oc);
+    load_w(a.w, kWCurl + 3 * t, a.P, p, wc);
+    const T fv = cval(a, kFv, kCFv + t, p);
+    for (int k = k0; k < k1; ++k) {
+      const long long q = (k * 2LL + t) * P + p;
+      const T hv = sten(wk, ok, a.out + k * lay, p);
+      a.qv[q] = safe_div(a.rvort[q] + fv, hv);
+      a.dr2[q] = sten(wc, oc, a.del2e + k * 3LL * P, p);
+    }
+  }
+  // cells: dd2 (into div_u's field)
+  {
+    int o[6];
+    T wv[6];
+    load_off(a.off, kOffDiv, a.P, p, o);
+    load_w(a.w, kWDiv, a.P, p, wv);
+    for (int k = k0; k < k1; ++k)
+      a.divu[k * P + p] = sten(wv, o, a.del2e + k * 3LL * P, p);
+  }
+}
+
+// ------------------------------------------------------------- pass D
+template <typename T>
+__global__ void __launch_bounds__(256) pass_d(const Args<T> a) {
+  int p, k0, k1;
+  if (!where(a, p, k0, k1)) return;
+  const long long P = a.P, lay = static_cast<long long>(a.CH) * P;
+  const int L = a.L;
+  // cells: the new tracers
+  {
+    int o[6];
+    T w4[6];
+    load_off(a.off, kOffDiv, a.P, p, o);
+    load_w(a.w, kWSg4, a.P, p, w4);
+    for (int k = k0; k < k1; ++k) {
+      const T h = a.in[k * lay + p];
+      const T hn = a.out[k * lay + p];
+      for (int l = 0; l < L; ++l) {
+        const T hyp = sten(w4, o, a.mc + (k * 3LL * L + 3 * l) * P, p);
+        const T dtr =
+            a.trp[(k * static_cast<long long>(L) + l) * P + p] -
+            mul_rn(a.ed4, hyp);
+        const T tr = a.in[k * lay + (4 + l) * P + p];
+        a.out[k * lay + (4 + l) * P + p] =
+            safe_div(mul_rn(tr, h) + mul_rn(a.dt, dtr), hn);
+      }
+    }
+  }
+  // edges: Fq (into del2e's field), PV and del4 terms into dup
+  for (int t = 0; t < 3; ++t) {
+    int ov[2], oc[2], ot[10];
+    T wvm[2], wvg[2], wg[2], wt[10];
+    load_off(a.off, kOffVm + 2 * t, a.P, p, ov);
+    load_w(a.w, kWVmean + 2 * t, a.P, p, wvm);
+    load_w(a.w, kWVgrad + 2 * t, a.P, p, wvg);
+    load_off(a.off, kOffCm + 2 * t, a.P, p, oc);
+    load_w(a.w, kWCgrad + 2 * t, a.P, p, wg);
+    load_off(a.off, kOffTang + 10 * t, a.P, p, ot);
+    load_w(a.w, kWTang + 10 * t, a.P, p, wt);
+    const T nu4s = mul_rn(a.nu4, cval(a, kS4, kCS4 + t, p));
+    for (int k = k0; k < k1; ++k) {
+      const long long q = (k * 3LL + t) * P + p;
+      const T qe = sten(wvm, ov, a.qv + k * 2LL * P, p);
+      a.del2e[q] = mul_rn(a.flux[q], qe);
+      const T tf = sten(wt, ot, a.flux + k * 3LL * P, p);
+      const T cd4 = sten(wg, oc, a.divu + k * P, p);
+      const T vd4 = sten(wvg, ov, a.dr2 + k * 2LL * P, p);
+      a.dup[q] = (a.dup[q] - mul_rn(nu4s, mul_rn(a.dfac, cd4) - vd4)) +
+                 mul_rn(T(0.5), mul_rn(qe, tf));
+    }
+  }
+}
+
+// ------------------------------------------------------------- pass E
+template <typename T>
+__global__ void __launch_bounds__(256) pass_e(const Args<T> a) {
+  int p, k0, k1;
+  if (!where(a, p, k0, k1)) return;
+  const long long P = a.P, lay = static_cast<long long>(a.CH) * P;
+  for (int t = 0; t < 3; ++t) {
+    int ot[10];
+    T wt[10];
+    load_off(a.off, kOffTang + 10 * t, a.P, p, ot);
+    load_w(a.w, kWTang + 10 * t, a.P, p, wt);
+    const T em = cval(a, kEm, kCEm + t, p);
+    for (int k = k0; k < k1; ++k) {
+      const long long q = (k * 3LL + t) * P + p;
+      const T tfq = sten(wt, ot, a.del2e + k * 3LL * P, p);
+      const T du = a.dup[q] + mul_rn(T(0.5), tfq);
+      const long long c = k * lay + (1 + t) * P + p;
+      a.out[c] = a.in[c] + mul_rn(a.dt, masked(a, em, du));
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* in, void* out, const void* off, const void* w,
+           const void* cpl, void* work, const double* c, const int* n,
+           cudaStream_t stream) {
+  Args<T> a;
+  a.P = n[0];
+  a.K = n[2];
+  a.L = n[3];
+  a.CH = 4 + a.L;
+  a.kg = n[4];
+  const int threads = n[5];
+  if (a.P < 1 || a.K < 1 || a.L < 0 || a.kg < 1 || threads < 32 ||
+      threads > 256 || threads % 32) {
+    return cudaErrorInvalidValue;
+  }
+  if (in == nullptr || out == nullptr || off == nullptr || w == nullptr ||
+      cpl == nullptr || work == nullptr || in == out) {
+    return cudaErrorInvalidValue;
+  }
+  a.in = static_cast<const T*>(in);
+  a.out = static_cast<T*>(out);
+  a.off = static_cast<const int*>(off);
+  a.w = static_cast<const T*>(w);
+  a.cpl = static_cast<const T*>(cpl);
+  // work fields in the order of ops/patch_megastep.py:work_fields
+  const long long f = static_cast<long long>(a.K) * a.P;
+  T* wp = static_cast<T*>(work);
+  T** fields[] = {&a.flux, &a.ke,  &a.divu, &a.rvort, &a.hflux, &a.mc,
+                  &a.trp,  &a.d2aux, &a.dup, &a.del2e, &a.qv,   &a.dr2};
+  const int width[] = {3, 1, 1, 2, 3 * a.L, 3 * a.L, a.L, a.L, 3, 3, 2, 2};
+  for (int i = 0; i < 12; ++i) {
+    *fields[i] = wp;
+    wp += width[i] * f;
+  }
+  a.dt = static_cast<T>(c[0]);
+  a.grav = static_cast<T>(c[1]);
+  a.nu2 = static_cast<T>(c[2]);
+  a.nu4 = static_cast<T>(c[3]);
+  a.dfac = static_cast<T>(c[4]);
+  a.ed2 = static_cast<T>(c[5]);
+  a.ed4 = static_cast<T>(c[6]);
+  for (int i = 0; i < kNConst; ++i) {
+    a.cs[i] = static_cast<T>(c[7 + i]);
+    a.cf[i] = n[6 + i];
+  }
+  const dim3 grid((a.P + threads - 1) / threads, (a.K + a.kg - 1) / a.kg);
+  cudaError_t err;
+#define OMEGA_PASS(KERN)                            \
+  KERN<T><<<grid, threads, 0, stream>>>(a);         \
+  err = cudaGetLastError();                         \
+  if (err != cudaSuccess) return static_cast<int>(err);
+  OMEGA_PASS(pass_a)
+  OMEGA_PASS(pass_b)
+  OMEGA_PASS(pass_c)
+  OMEGA_PASS(pass_d)
+  OMEGA_PASS(pass_e)
+#undef OMEGA_PASS
+  return 0;
+}
+
+}  // namespace patch
+}  // namespace omega
+
+// The C interface, in both precisions: omega_patch_fb_<f32|f64>. `in` and
+// `out` are (K, 4+L, P) frames, `off` / `w` / `cpl` the compact table and
+// the const planes, `work` the scratch of work_fields(L) (K, 1, P) fields;
+// `consts` = dt, g, nu2, nu4, div_factor, eddy_diff2, eddy_diff4, then the
+// uniform values of f_vertex, gdepth, scal2, scal4, edge_mask; `ints` = P,
+// S, K, L, layers per thread, threads per block, then one flag per const
+// (1: a plane of `cpl`). Returns the first refused launch's error code, or
+// 0. omega_patch_rows(0 | 1 | 2) gives the row counts of `off`, `w`, `cpl`.
+#define OMEGA_PATCH_ENTRY(SUF, T)                                            \
+  int omega_patch_fb_##SUF(const void* in, void* out, const void* off,       \
+                           const void* w, const void* cpl, void* work,       \
+                           const double* consts, const int* ints,            \
+                           void* stream) {                                   \
+    return omega::patch::launch<T>(in, out, off, w, cpl, work, consts, ints, \
+                                   static_cast<cudaStream_t>(stream));       \
+  }
+
+extern "C" {
+
+OMEGA_PATCH_ENTRY(f32, float)
+OMEGA_PATCH_ENTRY(f64, double)
+
+int omega_patch_rows(int which) {
+  return which == 0   ? omega::patch::kOffRows
+         : which == 1 ? omega::patch::kWRows
+                      : omega::patch::kCRows;
+}
+
+}  // extern "C"

@@ -146,6 +146,14 @@ class HorzMesh:
     # kite fractions: h(v)   = sum_j w_kite_frac[v,j] * h[cells_on_vertex]
     w_kite_frac: Any = None      # (V, D) = kiteArea / areaTriangle
 
+    # host-side layout metadata of a patch-renumbered icosahedral mesh
+    # (mesh/icos_patches.PatchInfo: frame content maps, per-patch stencil
+    # tables and the cache of the mega-step build); None on other meshes.
+    # It rides along unchanged through `.to()`, so every copy of the mesh
+    # shares one set of tables.
+    patch_info: Any = dataclasses.field(default=None, compare=False,
+                                        repr=False)
+
     # ------------------------------------------------------------------
     def to(self, device=None, dtype=None) -> "HorzMesh":
         """Every array leaf as a torch tensor on `device` (None: the CUDA
@@ -167,6 +175,73 @@ class HorzMesh:
     @property
     def float_dtype(self):
         return self.area_cell.dtype
+
+
+def unclamped_connectivity(mesh: HorzMesh) -> dict:
+    """Recover -1-padded connectivity from a finalized mesh's clamped
+    arrays (padding was clamped to element 0, which collides with the
+    real element 0 on boundary meshes).
+
+    Validity comes from the derived arrays finalize_mesh zeroes exactly
+    on padding (edge signs, kite areas, weights) plus edge<->cell /
+    edge<->vertex incidence for the 2-slot edge arrays. On periodic or
+    sphere meshes every slot is valid and the output equals the stored
+    arrays. Host numpy in, host numpy (int64) out; consumers: the patch
+    renumbering (mesh/icos_patches.py) and the mega-step build
+    (mesh/icos_mega.py)."""
+    a = lambda n: np.asarray(getattr(mesh, n))
+    M = mesh.max_edges
+
+    eoc = a("edges_on_cell").astype(np.int64)
+    eov = a("edges_on_vertex").astype(np.int64)
+    coe = a("cells_on_edge").astype(np.int64)
+    voe = a("vertices_on_edge").astype(np.int64)
+    cov = a("cells_on_vertex").astype(np.int64)
+    n_eoc = a("n_edges_on_cell").astype(np.int64)
+
+    pad_c = np.arange(M)[None, :] >= n_eoc[:, None]
+    valid_eoc = (a("edge_sign_on_cell") != 0.0) & ~pad_c
+    valid_eov = a("edge_sign_on_vertex") != 0.0
+    valid_cov = a("kite_areas_on_vertex") != 0.0
+
+    def _incidence(two_slot, src_ids, src_valid):
+        """two_slot[e, i] valid iff (e, target) appears in the transposed
+        connectivity with a valid slot."""
+        valid = np.zeros(two_slot.shape, bool)
+        e_f = src_ids[src_valid]
+        t_f = np.broadcast_to(np.arange(src_ids.shape[0])[:, None],
+                              src_ids.shape)[src_valid]
+        for i in range(two_slot.shape[1]):
+            hit = two_slot[e_f, i] == t_f
+            valid[e_f[hit], i] = True
+        return valid
+
+    valid_coe = _incidence(coe, eoc, valid_eoc)
+    valid_voe = _incidence(voe, eov, valid_eov)
+
+    interior = a("edge_mask") > 0.0
+    valid_coc = valid_eoc & interior[np.where(valid_eoc, eoc, 0)]
+
+    n_eoe = a("n_edges_on_edge").astype(np.int64)
+    eoe = a("edges_on_edge").astype(np.int64)
+    pad_e = np.arange(eoe.shape[1])[None, :] >= n_eoe[:, None]
+    # zero-weight slots carry nothing: dropping a legitimately-zero
+    # Thuburn weight's target is numerically identical and also catches
+    # clamped padding (whose weight finalize zeroed)
+    valid_eoe = ~pad_e & (a("weights_on_edge") != 0.0)
+
+    unc = lambda idx, valid: np.where(valid, idx, -1)
+    return dict(
+        edges_on_cell=unc(eoc, valid_eoc),
+        cells_on_cell=unc(a("cells_on_cell").astype(np.int64), valid_coc),
+        vertices_on_cell=unc(a("vertices_on_cell").astype(np.int64),
+                             valid_eoc),
+        cells_on_edge=unc(coe, valid_coe),
+        vertices_on_edge=unc(voe, valid_voe),
+        edges_on_edge=unc(eoe, valid_eoe),
+        cells_on_vertex=unc(cov, valid_cov),
+        edges_on_vertex=unc(eov, valid_eov),
+    )
 
 
 def finalize_mesh(raw: dict, *, ncells: int, nedges: int, nvertices: int,

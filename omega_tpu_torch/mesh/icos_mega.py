@@ -1,0 +1,857 @@
+"""Mega-step build artifacts for patch-structured icosahedral meshes.
+
+The composed patch path (ops/patch_stencil.py) rebuilds a halo-2 frame
+per stencil pass and patches seams with gather fix-ups BETWEEN passes.
+A whole-step kernel cannot fix up mid-chain, so this module builds the
+static data that lets the FULL forward-backward chain run on halo-MH
+frames with NO mid-chain fix-ups:
+
+  * wide content maps — element ids at every frame position out to a
+    MH+2 ring, grown from the patch builder's halo-2 maps by pure
+    connectivity walking (no orientation bookkeeping; stops at the 12
+    pentagon defects and the 2 poles)
+  * GEOMETRIC stencil tables on the padded domain: for every position p
+    holding element X, X's stencil is re-expressed as offsets into THIS
+    patch frame with per-position weight planes (10, S, S).  Rotated
+    seam offsets become extra low-support entries instead of fix-ups,
+    so chained applications stay valid under the usual creep rule.
+    Geometry factors are folded in (1/dc, 1/dv, the del2 dv-floor,
+    dv/dc and the del2/del4 mesh scalings on the tracer laplacians).
+  * positions that cannot resolve (the pole wedges) and the closure of
+    outputs their garbage can reach; elements with no clean frame
+    position anywhere form the FIX SET, recomputed each step on a tiny
+    extracted submesh (a few hundred cells around the poles) by the
+    ordinary composed stepper and scattered over the kernel result
+  * paste/scatter maps: one reshape paste covers the grid ids; rim
+    positions recover seam orphans and tail elements; dead rows zero
+
+Host numpy, the counterpart of omega_tpu/mesh/icos_mega.py for the
+forward-backward chain (center fluxes, stacked ssh). The frame margin MH,
+the tile whose slab creep the validity masks model, and the choice of
+worst-case (every physics option on) or tight masks are arguments with the
+reference's defaults; a build is kept on the mesh's PatchInfo, keyed by
+them. The wind, drag and vertical-mixing ops below only shape the
+worst-case masks: the port evaluates the flagship chain alone.
+
+Reference: operators unchanged (ocn/HorzOperators.h:9-187); this is
+layout work the reference does not need (its gathers are cheap on CPU,
+base/Decomp.cpp:968 buys locality from METIS instead).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from omega_tpu_torch.mesh import icos_patches as ip
+from omega_tpu_torch.mesh.horz_mesh import HorzMesh, finalize_mesh, \
+    unclamped_connectivity
+from omega_tpu_torch.mesh.icos_patches import EDGE_DIRS, HALO, VERTEX_TRIS
+
+# frame halo (>= the FB chain radius 6) and kernel tile of the reference
+MH = 8
+TILE = 16
+OH = 2        # output rim written around each owned patch region
+SUB_GROW = 10  # BFS closure width of the fix submesh (chain + halo)
+
+
+@dataclasses.dataclass
+class MegaTable:
+    """One stencil as padded-domain entries with weight planes."""
+    name: str
+    dst_class: str
+    src_class: str
+    # [(t_dst, t_src, da, db, wplane (10, S, S) float64)], S = n + 2*MH
+    entries: List[Tuple[int, int, int, int, np.ndarray]]
+
+
+@dataclasses.dataclass
+class MegaInfo:
+    n: int
+    mh: int                              # frame halo
+    by: tuple                # the reference kernel's tile (rows, cols), | S
+    content: Dict[str, np.ndarray]       # (T, 10, S, S) element ids, S wide
+    fills: Dict[str, Tuple[np.ndarray, np.ndarray]]  # frame pos <- flat id
+    tables: Dict[str, MegaTable]
+    const_planes: Dict[str, np.ndarray]  # name -> (T, 10, S, S) float64
+    # paste-back per output field ("h"/"u"/"tr"): (rim_rows, rim_pos,
+    # dead_rows, fix_rows) from _pasteback_one
+    outputs: Dict[str, tuple]
+    # exactness mask of every chain value (diagnostic + tests)
+    masks: Dict[str, np.ndarray]
+    # pole/defect fix: extracted submesh + row maps
+    sub_mesh: HorzMesh
+    sub_cells: np.ndarray      # global cell ids of submesh rows
+    sub_edges: np.ndarray      # global edge ids of submesh rows
+    fix_cells_local: np.ndarray   # submesh-local rows to harvest
+    fix_cells_global: np.ndarray
+    fix_edges_local: np.ndarray
+    fix_edges_global: np.ndarray
+    # per-table resolution masks
+    resolved: Dict[str, np.ndarray] = None
+
+    @property
+    def S(self) -> int:
+        return self.n + 2 * self.mh
+
+
+def ensure_mega(mesh, mh: int = MH, tile=TILE,
+                phys_masks: bool = True) -> MegaInfo:
+    """Build (once per argument set) and return the mega artifacts of a
+    patch mesh. `tile` (an int or (rows, cols)) is the kernel tile whose
+    slab creep the validity masks model; `phys_masks` selects the
+    worst-case masks (every physics option on, the reference's default)
+    over the tight masks of the flagship chain."""
+    info = getattr(mesh, "patch_info", None)
+    if info is None:
+        raise ValueError("mesh is not patch-structured")
+    key = ("mega", int(mh), tile if isinstance(tile, int) else tuple(tile),
+           bool(phys_masks))
+    if key not in info.cache:
+        # built from the host float64 arrays the mesh was made with
+        info.cache[key] = _build(info.host_mesh, info, int(mh), tile,
+                                 bool(phys_masks))
+    return info.cache[key]
+
+
+# ----------------------------------------------------------------------
+# wide content maps
+
+def _widen_cells(mesh, info: ip.PatchInfo, mh: int) -> np.ndarray:
+    """Grow the cell content map from HALO to MH+2 rings by connectivity
+    walking on the renumbered mesh (same rule as icos_patches'
+    _resolve_slot, id-agnostic)."""
+    n = info.n
+    reach = mh + 2
+    S = n + 2 * reach
+    Sold = n + 2 * HALO
+    grow = reach - HALO
+    fr_all = np.full((10, S, S), -1, np.int64)
+    fr_all[:, grow:grow + Sold, grow:grow + Sold] = info.content["cell"][0]
+    adj = ip._adjacency_sets(mesh)
+    for r in range(10):
+        fr = fr_all[r]
+        for _ in range(grow + 2):
+            progress = False
+            for bi in range(S):
+                for ai in range(S):
+                    if fr[bi, ai] >= 0:
+                        continue
+                    placed = ip._resolve_slot(fr, adj, bi, ai, S)
+                    if placed >= 0:
+                        fr[bi, ai] = placed
+                        progress = True
+            if not progress:
+                break
+    return fr_all
+
+
+def _wide_content(mesh, info: ip.PatchInfo, mh: int):
+    """(cell, edge, vertex) content maps out to the MH+2 ring."""
+    n = info.n
+    reach = mh + 2
+    S = n + 2 * reach
+    cells = _widen_cells(mesh, info, mh)
+    epair, vtri = ip._elem_dicts(mesh)
+    cont_e = np.full((3, 10, S, S), -1, np.int64)
+    cont_v = np.full((2, 10, S, S), -1, np.int64)
+    for r in range(10):
+        fr = cells[r]
+        for b in range(S):
+            for a in range(S):
+                c0 = int(fr[b, a])
+                if c0 < 0:
+                    continue
+                for t, (da, db) in enumerate(EDGE_DIRS):
+                    bb, aa = b + db, a + da
+                    if 0 <= bb < S and 0 <= aa < S:
+                        e = ip._edge_at(epair, c0, int(fr[bb, aa]))
+                        if e >= 0:
+                            cont_e[t, r, b, a] = e
+                for t, tri in enumerate(VERTEX_TRIS):
+                    cs = []
+                    ok = True
+                    for (da, db) in tri:
+                        bb, aa = b + db, a + da
+                        if not (0 <= bb < S and 0 <= aa < S) or fr[bb, aa] < 0:
+                            ok = False
+                            break
+                        cs.append(int(fr[bb, aa]))
+                    if ok:
+                        v = vtri.get(frozenset(cs), -1)
+                        if v >= 0:
+                            cont_v[t, r, b, a] = v
+    # clip the MH+2 build ring to the MH frame the kernel uses
+    sl = slice(2, 2 + n + 2 * mh)
+    return {"cell": cells[None, :, sl, sl],
+            "edge": cont_e[:, :, sl, sl],
+            "vertex": cont_v[:, :, sl, sl]}
+
+
+def _fills_from_content(content: Dict[str, np.ndarray], n: int, mh: int):
+    out = {}
+    for cls, cont in content.items():
+        T = cont.shape[0]
+        S = n + 2 * mh
+        NG = 10 * n * n
+        natural = np.full((T, 10, S, S), -1, np.int64)
+        grid_ids = np.arange(T * NG, dtype=np.int64).reshape(T, 10, n, n)
+        natural[:, :, mh:mh + n, mh:mh + n] = grid_ids
+        need = (cont >= 0) & (cont != natural)
+        pos = np.flatnonzero(need)
+        src = cont.reshape(-1)[pos]
+        out[cls] = (pos.astype(np.int32), src.astype(np.int32))
+    return out
+
+
+# ----------------------------------------------------------------------
+# geometric padded-domain tables
+
+def _positions_of(content: Dict[str, np.ndarray]):
+    """Per class, per patch: element id -> [(t, y, x)] frame positions
+    (padded coords)."""
+    out = {}
+    for cls, cont in content.items():
+        T, _, S, _ = cont.shape
+        per_r: List[Dict[int, list]] = [dict() for _ in range(10)]
+        for t in range(T):
+            for r in range(10):
+                ids = cont[t, r].reshape(-1)
+                for flat in np.flatnonzero(ids >= 0):
+                    y, x = divmod(int(flat), S)
+                    per_r[r].setdefault(int(ids[flat]), []).append((t, y, x))
+        out[cls] = per_r
+    return out
+
+
+def _build_mega_table(n, content, pos_of, name, idx, weights, dst_class,
+                      src_class, max_off, mh):
+    """Geometric padded-domain factorization of one stencil.
+
+    For every padded-frame position p with live destination element D,
+    express D's row (idx[D], weights[D]) as offsets p -> source position
+    within the SAME patch frame; accumulate per-position planes.  Also
+    returns the bool mask of positions that fully resolved with offsets
+    <= max_off (offsets contribute to the chain creep radius, so each
+    table caps them: tang 4, everything else 2)."""
+    S = n + 2 * mh
+    idx = np.asarray(idx, np.int64)
+    if idx.ndim == 1:
+        idx = idx[:, None]
+    w = None if weights is None else np.asarray(weights, np.float64)
+    dst_cont = content[dst_class]
+    pos_src = pos_of[src_class]
+    Td = dst_cont.shape[0]
+    planes: Dict[tuple, np.ndarray] = {}
+    support: Dict[tuple, int] = {}
+    resolved = np.zeros((Td, 10, S, S), bool)
+    # destinations ordered by ring (owned first): interior positions
+    # establish the dominant entry slots, and seam/halo positions then
+    # consolidate onto already-used slots instead of minting near-
+    # duplicate offsets — this cuts tang from ~240 entries to ~60
+    order = []
+    for td in range(Td):
+        for r in range(10):
+            sl = dst_cont[td, r]
+            for flat in np.flatnonzero(sl.reshape(-1) >= 0):
+                yd, xd = divmod(int(flat), S)
+                ring = max(mh - yd, yd - (mh + n - 1), mh - xd,
+                           xd - (mh + n - 1), 0)
+                order.append((ring, td, r, yd, xd))
+    order.sort()
+    for (_, td, r, yd, xd) in order:
+        D = int(dst_cont[td, r, yd, xd])
+        terms = []
+        ok = True
+        for s in range(idx.shape[1]):
+            ws = 1.0 if w is None else float(w[D, s])
+            if ws == 0.0:
+                continue
+            X = int(idx[D, s])
+            best = None
+            for (ts, ys, xs) in pos_src[r].get(X, ()):
+                da, db = xs - xd, ys - yd
+                dist = max(abs(da), abs(db))
+                if dist > max_off:
+                    continue
+                slot = (td, ts, da, db)
+                key = (-support.get(slot, 0), dist)
+                if best is None or key < best[0]:
+                    best = (key, slot)
+            if best is None:
+                ok = False
+                break
+            terms.append((best[1], ws))
+        if not ok:
+            continue
+        resolved[td, r, yd, xd] = True
+        for (slot, ws) in terms:
+            if slot not in planes:
+                planes[slot] = np.zeros((10, S, S), np.float64)
+            planes[slot][r, yd, xd] += ws
+            support[slot] = support.get(slot, 0) + 1
+    entries = [(td, ts, da, db, pl)
+               for (td, ts, da, db), pl in sorted(planes.items())]
+    return MegaTable(name=name, dst_class=dst_class, src_class=src_class,
+                     entries=entries), resolved
+
+
+def _table_specs(mesh):
+    """The 14 stencils of the sphere FB chain, with geometry factors folded
+    in (cites per core/tendencies.py + core/aux.py)."""
+    a = lambda nm: np.asarray(getattr(mesh, nm))
+    E = mesh.nedges
+    coe, voe = a("cells_on_edge"), a("vertices_on_edge")
+    dc, dv = a("dc_edge"), a("dv_edge")
+    mask = a("edge_mask")
+    w_signed = -a("edge_sign_on_cell") / a("area_cell")[:, None]
+    geo = mask * dv / dc                          # aux._weighted_cell_laplacian
+    s2, s4 = a("mesh_scaling_del2"), a("mesh_scaling_del4")
+    eoc = a("edges_on_cell")
+
+    def src_fold(idx, w, fac):
+        """w[D, s] *= fac[idx[D, s]] (source-side geometry factor)."""
+        return w * fac[np.maximum(np.asarray(idx, np.int64), 0)]
+
+    diff = np.tile([-1.0, 1.0], (E, 1))
+    inv_dvf = 1.0 / np.maximum(dv, 0.25 * dc)     # del2 dv-floor (aux.del2_aux)
+    return [
+        ("div", eoc, "cell", "edge", a("w_div_cell")),
+        ("ke", eoc, "cell", "edge", a("w_ke_cell")),
+        # tracer laplacians: geo / geo*scal2 / geo*scal4 on the source edge
+        ("sdiv_geo", eoc, "cell", "edge", src_fold(eoc, w_signed, geo)),
+        ("sdiv_geo2", eoc, "cell", "edge",
+         src_fold(eoc, w_signed, geo * s2)),
+        ("sdiv_geo4", eoc, "cell", "edge",
+         src_fold(eoc, w_signed, geo * s4)),
+        ("curl", a("edges_on_vertex"), "vertex", "edge", a("w_curl_vertex")),
+        ("kite", a("cells_on_vertex"), "vertex", "cell", a("w_kite_frac")),
+        ("tang", a("edges_on_edge"), "edge", "edge", a("weights_on_edge")),
+        ("cmean", coe, "edge", "cell", np.full((E, 2), 0.5)),
+        ("cdiff", coe, "edge", "cell", diff),
+        ("cgrad", coe, "edge", "cell", diff / dc[:, None]),
+        ("vgrad", voe, "edge", "vertex", diff / dv[:, None]),
+        ("vgrad_floor", voe, "edge", "vertex", diff * inv_dvf[:, None]),
+        ("vmean", voe, "edge", "vertex", np.full((E, 2), 0.5)),
+    ]
+
+
+def _const_planes(mesh, content):
+    """Per-position geometry fields the chain multiplies by directly."""
+    S = content["cell"].shape[-1]
+    f_v = np.asarray(mesh.f_vertex, np.float64)
+    cv = content["vertex"]
+    fv_pl = np.where(cv >= 0, f_v[np.maximum(cv, 0)], 0.0)
+    # grad of bottom depth on edges ((ssh = h - depth).grad, stacked form)
+    depth = np.asarray(mesh.bottom_depth, np.float64)
+    dc = np.asarray(mesh.dc_edge, np.float64)
+    coe = np.asarray(unclamped_connectivity(mesh)["cells_on_edge"], np.int64)
+    gd = np.where((coe[:, 0] >= 0) & (coe[:, 1] >= 0),
+                  (depth[np.maximum(coe[:, 1], 0)]
+                   - depth[np.maximum(coe[:, 0], 0)]) / dc, 0.0)
+    ce = content["edge"]
+    gd_pl = np.where(ce >= 0, gd[np.maximum(ce, 0)], 0.0)
+    # del2/del4 mesh scalings multiply the velocity diffusion terms
+    # directly (TendencyTerms.h velocityDiffusion/HyperDiff); the tracer
+    # variants are folded into the sdiv_geo2/4 tables instead
+    pls = {"f_vertex": fv_pl, "gdepth": gd_pl}
+    for nm in ("mesh_scaling_del2", "mesh_scaling_del4"):
+        arr = np.asarray(getattr(mesh, nm), np.float64)
+        pls["scal2" if nm.endswith("del2") else "scal4"] = np.where(
+            ce >= 0, arr[np.maximum(ce, 0)], 0.0)
+    em = np.asarray(mesh.edge_mask, np.float64)
+    pls["edge_mask"] = np.where(ce >= 0, em[np.maximum(ce, 0)], 0.0)
+    return pls
+
+
+# ----------------------------------------------------------------------
+# the FB chain, declaratively — shared by the build-time validity pass
+# (numpy bool masks) and the plain evaluation of the chain on frames
+# (ops/patch_megastep.py).
+#
+# ("name", "st", table, src)            stencil application
+# ("name", "ew", fn, args...)           elementwise combine (same class)
+# args starting with "$" are const planes; numeric literals allowed.
+# Mirrors stepping.forward_backward_step -> core/tendencies.py exactly
+# (flagship config: center fluxes, stacked ssh, all standard terms, no
+# wind/drag/vmix).
+
+def _pre_ops():
+    return [
+        ("mean_h", "st", "cmean", "h"),
+        ("flux_h", "ew", "copy", "mean_h"),
+        ("flux", "ew", "mul", "flux_h", "u"),
+        ("dh", "st", "div", "flux"),
+        # masked velocity for the tracer advective flux (tendencies.py
+        # `h_tracers_edge * (mask * u)`); on land-free meshes the mask
+        # collapses to the scalar 1.0 and this op is a free alias
+        ("u_m", "ew", "mulc", "u", "$edge_mask"),
+    ]
+
+
+def _tracer_tend_ops(l: int):
+    t = f"tr{l}"
+    return [
+        (f"htr{l}", "ew", "mul", "h", t),
+        (f"htre{l}", "st", "cmean", f"htr{l}"),
+        (f"hflux{l}", "ew", "mul", f"htre{l}", "u_m"),
+        (f"adv{l}", "st", "div", f"hflux{l}"),
+        (f"ctr{l}", "st", "cdiff", t),
+        (f"mc{l}", "ew", "mul", "mean_h", f"ctr{l}"),
+        (f"d2aux{l}", "st", "sdiv_geo", f"mc{l}"),
+        (f"diff2{l}", "st", "sdiv_geo2", f"mc{l}"),
+        (f"cd2{l}", "st", "cdiff", f"d2aux{l}"),
+        (f"hyp{l}", "st", "sdiv_geo4", f"cd2{l}"),
+        (f"dtr{l}", "ew", "tracer_rhs", f"adv{l}", f"diff2{l}",
+         f"hyp{l}"),
+    ]
+
+
+def _vel_tend_ops(hv: str):
+    # du accumulates term by term; `hv` is the thickness feeding the
+    # momentum terms: "h_new" for the forward-backward stepper
+    return [
+        ("h_v", "st", "kite", hv),
+        ("rvort", "st", "curl", "u"),
+        ("qv", "ew", "q_vertex", "rvort", "$f_vertex", "h_v"),
+        ("q_e", "st", "vmean", "qv"),
+        ("mean_hn", "st", "cmean", hv),
+        ("flux_hn", "ew", "copy", "mean_hn"),
+        ("F", "ew", "mul", "flux_hn", "u"),
+        ("Fq", "ew", "mul", "F", "q_e"),
+        ("tf", "st", "tang", "F"),
+        ("tfq", "st", "tang", "Fq"),
+        ("du", "ew", "pv", "q_e", "tf", "tfq"),       # 0.5*(q_e*tf + tfq)
+        ("u2", "ew", "mul", "u", "u"),
+        ("ke", "st", "ke", "u2"),
+        ("gke", "st", "cgrad", "ke"),
+        ("du", "ew", "sub", "du", "gke"),
+        ("gh", "st", "cgrad", hv),                    # du - g*grad(ssh)
+        ("du", "ew", "gssh", "du", "gh", "$gdepth"),
+        ("div_u", "st", "div", "u"),
+        ("cdd", "st", "cgrad", "div_u"),
+        ("vdr", "st", "vgrad", "rvort"),
+        ("du", "ew", "visc2", "du", "cdd", "vdr", "$scal2"),
+        ("vdr_f", "st", "vgrad_floor", "rvort"),
+        # EdgeMask applies to the grad-div part of Del2Edge only
+        # (VelocityDel2AuxVars.h:40-45, aux.del2_aux)
+        ("del2_e", "ew", "sub_mc", "cdd", "vdr_f", "$edge_mask"),
+        ("dd2", "st", "div", "del2_e"),
+        ("dr2", "st", "curl", "del2_e"),
+        ("cd4", "st", "cgrad", "dd2"),
+        ("vd4", "st", "vgrad", "dr2"),
+        ("du", "ew", "visc4", "du", "cd4", "vd4", "$scal4"),
+    ]
+
+
+def _phys_ops(wind: bool, drag: bool):
+    """Wind forcing (top layer) and quadratic bottom drag (bottom layer)
+    appended to the du accumulation (TendencyTerms.h:281-340); their
+    structure shapes the worst-case validity masks."""
+    ops = []
+    if wind:
+        ops.append(("du", "ew", "wind", "du", "mean_hn", "$wind_stress"))
+    if drag:
+        ops += [("kee", "st", "cmean", "ke"),
+                ("du", "ew", "drag", "du", "kee", "mean_hn", "u")]
+    return ops
+
+
+def _vmix_ops(L: int, pp81=None):
+    """Operator-split implicit vertical mixing on the updated state
+    (steppers._mix), constant or PP81 coefficients (pp81 = (ti, si)); their
+    structure shapes the worst-case validity masks: he_new = cmean(h_new)
+    adds one chain radius at the end, the PP81 coefficient sweeps two
+    cmean and one ke."""
+    ops = [("he_new", "st", "cmean", "h_new")]
+    if pp81 is not None:
+        ti, si = pp81
+        ops += [
+            ("duv", "ew", "lanediff", "u_new"),
+            ("dze", "ew", "dzhalf", "h_new"),
+        ]
+        if ti >= 0 and si >= 0:
+            ops += [("n2c", "ew", "pp_n2", f"trn{ti}", f"trn{si}",
+                     "dze")]
+        else:
+            ops += [("n2c", "ew", "zero_like", "dze")]
+        ops += [
+            ("dzee", "st", "cmean", "dze"),
+            ("du2", "ew", "mul", "duv", "duv"),
+            ("keduv", "st", "ke", "du2"),
+            ("kapc", "ew", "pp_kc", "n2c", "keduv", "dze"),
+            ("n2e", "st", "cmean", "n2c"),
+            ("nue", "ew", "pp_ne", "n2e", "duv", "dzee"),
+            ("u_new", "ew", "vmix_u_arr", "u_new", "he_new", "nue"),
+        ]
+        for l in range(L):
+            ops += [(f"trn{l}", "ew", "vmix_c_arr", f"trn{l}", "h_new",
+                     "kapc")]
+        return ops
+    ops += [("u_new", "ew", "vmix_u", "u_new", "he_new")]
+    for l in range(L):
+        ops += [(f"trn{l}", "ew", "vmix_c", f"trn{l}", "h_new")]
+    return ops
+
+
+def fb_chain(L: int, wind=False, drag=False, vmix=False, pp=None):
+    """The forward-backward step as a chain: h_new, trn{l}, u_new."""
+    pre = _pre_ops()
+    nsplit = len(pre) - 1                 # ops through "dh" (u_m after)
+    ops = pre[:nsplit] + [
+        ("h_new", "ew", "axpy", "h", -1.0, "dh"),     # h - dt*dh (dt folded)
+    ] + pre[nsplit:]
+    for l in range(L):
+        ops += _tracer_tend_ops(l) + [
+            (f"trn{l}", "ew", "tracer_update", f"tr{l}", "h", f"dtr{l}",
+             "h_new"),
+        ]
+    ops += _vel_tend_ops("h_new") + _phys_ops(wind, drag) + [
+        # every momentum term carries the edge mask in the composed
+        # chain (tendencies.py velocity_tendency); with mask in {0, 1}
+        # gating the accumulated du once is bit-identical
+        ("u_new", "ew", "axpy_m", "u", 1.0, "du", "$edge_mask"),
+    ]
+    if vmix:
+        ops += _vmix_ops(L, pp)
+    return ops
+
+
+def validity_chain(mh: int, phys_masks: bool):
+    """The chain the validity masks are built for: the worst case (wind,
+    drag and PP81 mixing on: the vmix edge-thickness cmean erodes u_new by
+    one extra ring and the PP81 sweeps erode the tracers likewise), so the
+    masks are conservative-correct for every chain variant — a physics-off
+    chain is exact at strictly more positions than the masks claim, and
+    refreshing an exact position from another exact copy of the same
+    element is the identity. A margin below 7 cannot hold the radius-7
+    vmix chain, and `phys_masks=False` asks for the tight radius-6 masks
+    of the flagship chain; both leave the physics out."""
+    vm_ok = mh >= 7 and phys_masks
+    return fb_chain(1, wind=True, drag=True, vmix=vm_ok,
+                    pp=(0, 0) if vm_ok else None)
+
+
+def chain_validity(tables: Dict[str, MegaTable], content, resolved,
+                   L: int, ops, state_masks=None) -> Dict[str, np.ndarray]:
+    """Propagate exactness masks through a chain.
+
+    `resolved[name]` is the per-dst-position bool mask of positions whose
+    stencil fully resolved.  State values are exact wherever content
+    exists (override with `state_masks` (cell, edge) to emulate a tile
+    slab boundary).  Returns the mask of every chain value."""
+    if state_masks is None:
+        state_masks = {"cell": content["cell"] >= 0,
+                       "edge": content["edge"] >= 0}
+    masks: Dict[str, np.ndarray] = {
+        "h": state_masks["cell"],
+        "u": state_masks["edge"],
+    }
+    for l in range(L):
+        masks[f"tr{l}"] = masks["h"]
+    plane_mask = {"$f_vertex": content["vertex"] >= 0,
+                  "$gdepth": content["edge"] >= 0,
+                  "$scal2": content["edge"] >= 0,
+                  "$scal4": content["edge"] >= 0,
+                  "$edge_mask": content["edge"] >= 0,
+                  "$wind_stress": content["edge"] >= 0}
+    for op in ops:
+        name, kind = op[0], op[1]
+        if kind == "st":
+            tab = tables[op[2]]
+            src = masks[op[3]]
+            # exact: a destination is valid iff its stencil resolved and
+            # every source position an entry actually reads (nonzero
+            # weight at this destination) holds a valid value — zero
+            # weights make lattice holes harmless, so they don't poison
+            out = resolved[op[2]].copy()
+            S = src.shape[-1]
+            for (td, ts, da, db, wpl) in tab.entries:
+                used = wpl != 0.0                    # (10, S, S)
+                sh = np.zeros((10, S, S), bool)      # src valid at p+off
+                ys = slice(max(0, db), min(S, S + db))
+                yd = slice(max(0, -db), min(S, S - db))
+                xs = slice(max(0, da), min(S, S + da))
+                xd = slice(max(0, -da), min(S, S - da))
+                sh[:, yd, xd] = src[ts][:, ys, xs]
+                out[td] &= ~used | sh
+            masks[name] = out
+        else:
+            m = None
+            for a in op[3:]:
+                if isinstance(a, str):
+                    am = plane_mask[a] if a.startswith("$") else masks[a]
+                    m = am if m is None else (m & am)
+            masks[name] = m
+    return masks
+
+
+def kernel_validity(tables, content, resolved, n, by, R, ops, mh):
+    """Exactness of the TILED kernel's outputs (h_new, u_new, trn0) at
+    every frame position.
+
+    The reference kernel partitions the S x S frame into (byy, byx) tiles,
+    each computed on a radius-R slab; values creep garbage inward from the
+    slab edge exactly as a frame boundary would.  Emulated by running
+    the chain-validity pass with state masks clipped to each tile's
+    slab box; a frame position's kernel validity is its validity in the
+    ONE tile that writes it.  (Identical slab boxes across the 10
+    patches let each (ty, tx) run cover all patches at once.)  A kernel
+    that evaluates whole frames is exact wherever the tiled one is."""
+    S = n + 2 * mh
+    byy, byx = (by, by) if isinstance(by, int) else by
+    if S % byy or S % byx:
+        raise ValueError(f"tile {by} does not divide the frame ({S})")
+    base = {"cell": content["cell"] >= 0, "edge": content["edge"] >= 0}
+    outs = {k: np.zeros_like(base[cls]) for k, cls in
+            (("h_new", "cell"), ("u_new", "edge"), ("trn0", "cell"))}
+    for ty in range(S // byy):
+        for tx in range(S // byx):
+            box = np.zeros((1, 1, S, S), bool)
+            box[:, :, max(0, ty * byy - R):ty * byy + byy + R,
+                max(0, tx * byx - R):tx * byx + byx + R] = True
+            sm = {k: v & box for k, v in base.items()}
+            m = chain_validity(tables, content, resolved, 1, ops,
+                               state_masks=sm)
+            ys = slice(ty * byy, ty * byy + byy)
+            xs = slice(tx * byx, tx * byx + byx)
+            for k in outs:
+                outs[k][:, :, ys, xs] = m[k][:, :, ys, xs]
+    return outs
+
+
+def _pasteback_one(cont, clean, n, N, mh):
+    """Paste-back maps for ONE output field of one element class.
+
+    Natural grid slots with clean content==natural are covered by the
+    pure reshape paste of the kernel's rim output; all other live rows
+    (tail elements, dead-slot occupants pushed elsewhere, seam orphans)
+    are recovered from ANY clean rim position.  Rows with no clean
+    position anywhere form the fix set.  `N` is the TRUE flat row count.
+
+    Returns (rim_rows, rim_pos, dead_rows, fix_rows)."""
+    S = cont.shape[-1]
+    no = n + 2 * OH
+    NG = 10 * n * n
+    T = cont.shape[0]
+    nat = np.full((T, 10, S, S), -1, np.int64)
+    nat[:, :, mh:mh + n, mh:mh + n] = np.arange(
+        T * NG, dtype=np.int64).reshape(T, 10, n, n)
+    ok_nat = (cont == nat) & clean & (nat >= 0)
+    covered = np.zeros(N, bool)
+    covered_ids = np.unique(cont[ok_nat]) if ok_nat.any() else \
+        np.zeros(0, np.int64)
+    covered[covered_ids] = True
+    # candidates: clean rim positions [MH-OH, MH+n+OH)
+    rim = np.zeros((T, 10, S, S), bool)
+    rim[:, :, mh - OH:mh + n + OH, mh - OH:mh + n + OH] = True
+    cand = rim & clean & (cont >= 0)
+    rows, poss = [], []
+    seen = set()
+    ids = cont.reshape(-1)
+    for flat in np.flatnonzero(cand):
+        D = int(ids[flat])
+        if covered[D] or D in seen:
+            continue
+        seen.add(D)
+        # frame flat pos -> rim-output flat pos
+        t, rem = divmod(int(flat), 10 * S * S)
+        r, rem = divmod(rem, S * S)
+        y, x = divmod(rem, S)
+        yo, xo = y - (mh - OH), x - (mh - OH)
+        rows.append(D)
+        poss.append(((t * 10 + r) * no + yo) * no + xo)
+    rows_a = np.asarray(rows, np.int64)
+    alive = np.zeros(N, bool)
+    alive[covered_ids] = True
+    alive[rows_a] = True
+    # rows that are not real elements at all (dead grid slots):
+    # ids < T*NG never appearing as content anywhere
+    is_elem = np.zeros(N, bool)
+    is_elem[np.unique(cont[cont >= 0])] = True
+    dead_grid = np.zeros(N, bool)
+    dead_grid[:T * NG] = ~is_elem[:T * NG]
+    # tail ids (>= T*NG) are real elements by construction
+    is_elem[T * NG:] = True
+    fix = np.flatnonzero(is_elem & ~alive & ~dead_grid)
+    return (rows_a.astype(np.int32), np.asarray(poss, np.int32),
+            np.flatnonzero(dead_grid).astype(np.int32),
+            fix.astype(np.int32))
+
+
+# ----------------------------------------------------------------------
+# fix submesh (poles + anything else unresolved)
+
+def _extract_submesh(mesh, cell_ids: np.ndarray):
+    """Standalone HorzMesh over `cell_ids` (+nothing else): local ids in
+    the given order; edges/vertices = those fully inside, others padded
+    out.  Used only for the tiny pole-fix patch, where every fix row is
+    far from the cut."""
+    g = unclamped_connectivity(mesh)
+    a = lambda nm: np.asarray(getattr(mesh, nm))
+    C = mesh.ncells
+    c_o2n = np.full(C, -1, np.int64)
+    c_o2n[cell_ids] = np.arange(len(cell_ids))
+    # local edges/vertices: incident to any local cell
+    eoc = g["edges_on_cell"][cell_ids]
+    voc = g["vertices_on_cell"][cell_ids]
+    loc_e = np.unique(eoc[eoc >= 0])
+    loc_v = np.unique(voc[voc >= 0])
+    e_o2n = np.full(mesh.nedges, -1, np.int64)
+    e_o2n[loc_e] = np.arange(len(loc_e))
+    v_o2n = np.full(mesh.nvertices, -1, np.int64)
+    v_o2n[loc_v] = np.arange(len(loc_v))
+
+    def remap(idx, o2n):
+        idx = np.asarray(idx, np.int64)
+        out = o2n[np.maximum(idx, 0)]
+        return np.where(idx >= 0, out, -1)
+
+    raw = dict(
+        x_cell=a("x_cell")[cell_ids], y_cell=a("y_cell")[cell_ids],
+        lon_cell=a("lon_cell")[cell_ids], lat_cell=a("lat_cell")[cell_ids],
+        area_cell=a("area_cell")[cell_ids], f_cell=a("f_cell")[cell_ids],
+        bottom_depth=a("bottom_depth")[cell_ids],
+        n_edges_on_cell=a("n_edges_on_cell")[cell_ids],
+        edges_on_cell=remap(g["edges_on_cell"][cell_ids], e_o2n),
+        cells_on_cell=remap(g["cells_on_cell"][cell_ids], c_o2n),
+        vertices_on_cell=remap(g["vertices_on_cell"][cell_ids], v_o2n),
+        x_edge=a("x_edge")[loc_e], y_edge=a("y_edge")[loc_e],
+        lon_edge=a("lon_edge")[loc_e], lat_edge=a("lat_edge")[loc_e],
+        dc_edge=a("dc_edge")[loc_e], dv_edge=a("dv_edge")[loc_e],
+        angle_edge=a("angle_edge")[loc_e], f_edge=a("f_edge")[loc_e],
+        cells_on_edge=remap(g["cells_on_edge"][loc_e], c_o2n),
+        vertices_on_edge=remap(g["vertices_on_edge"][loc_e], v_o2n),
+        n_edges_on_edge=a("n_edges_on_edge")[loc_e],
+        edges_on_edge=remap(g["edges_on_edge"][loc_e], e_o2n),
+        weights_on_edge=a("weights_on_edge")[loc_e],
+        mesh_scaling_del2=a("mesh_scaling_del2")[loc_e],
+        mesh_scaling_del4=a("mesh_scaling_del4")[loc_e],
+        x_vertex=a("x_vertex")[loc_v], y_vertex=a("y_vertex")[loc_v],
+        lon_vertex=a("lon_vertex")[loc_v], lat_vertex=a("lat_vertex")[loc_v],
+        area_triangle=a("area_triangle")[loc_v],
+        f_vertex=a("f_vertex")[loc_v],
+        cells_on_vertex=remap(g["cells_on_vertex"][loc_v], c_o2n),
+        edges_on_vertex=remap(g["edges_on_vertex"][loc_v], e_o2n),
+        kite_areas_on_vertex=a("kite_areas_on_vertex")[loc_v],
+    )
+    sub = finalize_mesh(raw, ncells=len(cell_ids), nedges=len(loc_e),
+                        nvertices=len(loc_v), max_edges=mesh.max_edges,
+                        vertex_degree=mesh.vertex_degree,
+                        on_sphere=mesh.on_sphere,
+                        sphere_radius=mesh.sphere_radius)
+    # finalize re-derives edge_mask / kite weights from geometry alone,
+    # which loses any LAND masking applied to the parent (mesh/
+    # icos_patches.apply_land_mask).  Fold the parent's zeros back in
+    # multiplicatively so finalize's own zeros (submesh-boundary edges,
+    # out-of-submesh kite slots) survive.
+    p_em = a("edge_mask")[loc_e]
+    p_kite = a("w_kite_frac")[loc_v]
+    sub = dataclasses.replace(
+        sub,
+        edge_mask=np.asarray(sub.edge_mask) * (p_em != 0.0),
+        w_kite_frac=np.asarray(sub.w_kite_frac) * (p_kite != 0.0))
+    return sub, loc_e, loc_v
+
+
+def _grow(mesh, cells: set, width: int) -> np.ndarray:
+    coc = np.asarray(unclamped_connectivity(mesh)["cells_on_cell"], np.int64)
+    cur = set(cells)
+    frontier = set(cells)
+    for _ in range(width):
+        nxt = set()
+        for c in frontier:
+            for nb in coc[c]:
+                if nb >= 0 and nb not in cur:
+                    nxt.add(int(nb))
+        cur |= nxt
+        frontier = nxt
+    return np.array(sorted(cur), np.int64)
+
+
+# ----------------------------------------------------------------------
+
+def _build(mesh, info: ip.PatchInfo, mh: int, tile, phys_masks: bool):
+    n = info.n
+    content = _wide_content(mesh, info, mh)
+    fills = _fills_from_content(content, n, mh)
+    pos_of = _positions_of(content)
+
+    tables, resolved = {}, {}
+    for name, idx, dst, src, w in _table_specs(mesh):
+        max_off = 4 if name == "tang" else 2
+        tables[name], resolved[name] = _build_mega_table(
+            n, content, pos_of, name, idx, w, dst, src, max_off, mh)
+
+    # exactness of every chain value at every frame position, INCLUDING
+    # the tiled reference kernel's slab-creep (validity erodes from lattice
+    # holes, unresolved stencils, and tile-slab edges by the real chain
+    # structure, not a conservative ball)
+    S = n + 2 * mh
+    ty_, tx_ = (tile, tile) if isinstance(tile, int) else tile
+
+    # the reference's tile choice: the largest divisor of S up to the
+    # requested size that is a multiple of 8, else the largest divisor
+    def pick(t):
+        cand = [b for b in range(1, max(t, 1) + 1) if S % b == 0]
+        oct_ = [b for b in cand if b % 8 == 0]
+        return max(oct_) if oct_ else max(cand)
+    by = (pick(ty_), pick(tx_))
+    masks = kernel_validity(tables, content, resolved, n, by, mh,
+                            validity_chain(mh, phys_masks), mh)
+
+    outputs, fix = _fix_closure(mesh, content, n, (
+        ("h", masks["h_new"], "cell", mesh.ncells),
+        ("u", masks["u_new"], "edge", mesh.nedges),
+        ("tr", masks["trn0"], "cell", mesh.ncells)), mh)
+
+    return MegaInfo(
+        n=n, mh=mh, by=by, content=content, fills=fills, tables=tables,
+        const_planes=_const_planes(mesh, content),
+        outputs=outputs, masks=masks, resolved=resolved, **fix)
+
+
+def _fix_closure(mesh, content, n, outspec, mh):
+    """Paste maps + fix sets + fix submesh for a set of kernel outputs.
+
+    outspec: (out_name, validity_mask, class, flat_count) per output.
+    Returns (outputs dict, dict of MegaInfo fix/submesh fields)."""
+    outputs = {}
+    for out_name, mask, cls, N in outspec:
+        outputs[out_name] = _pasteback_one(content[cls], mask, n, N, mh)
+
+    # fix set -> cells to recompute on the submesh: fix cells (cell-
+    # class output rows) + both cells of every fix edge
+    coe = np.asarray(unclamped_connectivity(mesh)["cells_on_edge"], np.int64)
+    fix_c = set()
+    fix_e = set()
+    for out_name, mask, cls, N in outspec:
+        rows = outputs[out_name][3]
+        if cls == "cell":
+            fix_c.update(int(c) for c in rows)
+        else:
+            fix_e.update(int(e) for e in rows)
+    fix_edges_global = np.asarray(sorted(fix_e), np.int64)
+    for e in fix_edges_global:
+        for c in coe[int(e)]:
+            if c >= 0:
+                fix_c.add(int(c))
+    fix_cells_global = np.asarray(sorted(fix_c), np.int64)
+    sub_cells = _grow(mesh, fix_c, SUB_GROW)
+    sub, loc_e, loc_v = _extract_submesh(mesh, sub_cells)
+    c_o2n = np.full(mesh.ncells, -1, np.int64)
+    c_o2n[sub_cells] = np.arange(len(sub_cells))
+    fix_cells_local = c_o2n[fix_cells_global]
+    e_o2n = np.full(mesh.nedges, -1, np.int64)
+    e_o2n[loc_e] = np.arange(len(loc_e))
+    fix_edges_local = e_o2n[fix_edges_global]
+    if (fix_cells_local < 0).any() or (fix_edges_local < 0).any():
+        raise RuntimeError("a fix row lies outside its submesh")
+    return outputs, dict(
+        sub_mesh=sub, sub_cells=sub_cells, sub_edges=loc_e,
+        fix_cells_local=fix_cells_local.astype(np.int32),
+        fix_cells_global=fix_cells_global.astype(np.int32),
+        fix_edges_local=fix_edges_local.astype(np.int32),
+        fix_edges_global=fix_edges_global.astype(np.int32))

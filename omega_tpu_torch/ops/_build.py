@@ -154,6 +154,13 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = []
         fn.restype = ci
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"omega_patch_fb_{suffix}")
+        # in, out, offs, wts, cpl, work, consts, ints, stream
+        fn.argtypes = [vp] * 9
+        fn.restype = ci
+    lib.omega_patch_rows.argtypes = [ci]
+    lib.omega_patch_rows.restype = ci
     lib.omega_chain_slots.argtypes = [ci, ci, ci]
     lib.omega_chain_slots.restype = ci
     lib.omega_error_string.argtypes = [ci]

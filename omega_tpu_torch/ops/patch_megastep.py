@@ -1,0 +1,623 @@
+"""The forward-backward step on the icosahedral sphere, fused.
+
+Counterpart of omega_tpu/ops/patch_megastep.py for kind `fb` on the
+flagship configuration. Icosahedral meshes renumbered by
+mesh/icos_patches.py run the whole FB chain (mesh/icos_mega.fb_chain) on
+halo-MH frames of the 10 rhombi, with the padded-domain tables of
+mesh/icos_mega.py: per-position weights instead of the planar path's
+uniform scalars, plain 2-D offsets instead of parity shifts (the rhombus
+lattice is unstaggered), and no mid-chain fix-ups: rotated seam stencils
+are extra entries, and the only rows the lattice cannot serve (the pole
+wedges: a constant count at any resolution) are recomputed on an
+extracted submesh by the composed stepper and scattered over the result.
+
+Execution model per step, frames as the loop carry:
+  1. the chain evaluates every frame position of the (K, 4+L, 10, S, S)
+     frames (channel 0 = h, 1..3 = the edge classes of u, 4.. = tracers;
+     S = n + 2 MH) — the CUDA kernel of csrc/patch_step.cu on the card,
+     `chain_plain` (the same chain with torch.roll) on the CPU
+  2. the composed forward-backward step advances the pole submesh
+  3. the in-frame refresh: positions the validity masks of
+     mesh/icos_mega.py do not call exact are refilled from an exact copy
+     of the same element, the pole rows come from the submesh step, and
+     lattice holes are set to zero again
+
+The TPU kernel tiles each frame into (16, 16) blocks with an 8-wide ring
+and reads its weights from a lane-major plane stack (10, SS, SS, npl),
+164 MB at icos48 in float32 and mostly zeros. Here the weights are a
+compact per-position table: for each group of tables that share a support
+(div / ke / sdiv_geo*; cmean / cdiff / cgrad; vmean / vgrad / vgrad_floor;
+curl; kite; tang) and each destination channel, a fixed number of slots of
+(offset, one weight per table), zero weights in unused slots; offsets are
+flat within a layer of the source field. Every layer uses the same weights.
+The kernel evaluates whole frames (so the reference's tiled validity masks
+are sufficient: an untiled evaluation is exact wherever the tiled one is)
+in five launches, one per group of chain levels, with the intermediate
+fields in device memory.
+
+Divisions guard against lattice-hole zeros (safe_div) because 0/0 NaN at a
+hole would otherwise poison valid sums through 0 * NaN entries.
+
+Semantics == stepping.forward_backward_step on the flagship sphere
+configuration (center fluxes, stacked ssh, every standard term, no wind,
+drag or vertical mixing, no custom tendency); reference chain per
+core/tendencies.py / core/aux.py (TendencyTerms.h:70-340,
+AuxiliaryState.cpp:60-143).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from omega_tpu_torch.core.state import ModelState
+from omega_tpu_torch.mesh import icos_mega as imx
+from omega_tpu_torch.mesh.icos_patches import NPER
+from omega_tpu_torch.ops import _build
+
+# launches of the patch-step kernel since the last reset (PASSES per step)
+launches = 0
+PASSES = 5
+# layers one thread walks with the weights of its position in registers
+LAYERS_PER_THREAD = 8
+THREADS = 128
+
+# the compact table: groups of tables that share their offsets, with the
+# slots per destination channel (the widest row of the group's stencils)
+GROUPS = (("div", ("div", "ke", "sdiv_geo", "sdiv_geo2", "sdiv_geo4"), 6),
+          ("curl", ("curl",), 3),
+          ("kite", ("kite",), 3),
+          ("tang", ("tang",), 10),
+          ("cmean", ("cmean", "cdiff", "cgrad"), 2),
+          ("vmean", ("vmean", "vgrad", "vgrad_floor"), 2))
+# const planes in the order of the kernel's plane rows
+CONSTS = (("f_vertex", "vertex"), ("gdepth", "edge"), ("scal2", "edge"),
+          ("scal4", "edge"), ("edge_mask", "edge"))
+
+
+def work_fields(L: int) -> int:
+    """The kernel's scratch in units of one (K, 1, P) field: flux / F (3),
+    ke, div_u / dd2, rvort (2), hflux (3L), mc / cd2 (3L), trp (L), d2aux
+    (L), dup (3), del2e / Fq (3), qv (2), dr2 (2); csrc/patch_step.cu
+    carves it in this order."""
+    return 3 + 1 + 1 + 2 + 3 * L + 3 * L + L + L + 3 + 3 + 2 + 2
+
+
+def enabled(x) -> bool:
+    """The kernel serves tensors that live on a CUDA device."""
+    return x.is_cuda
+
+
+def supported(mesh, cfg) -> bool:
+    """The flagship sphere configuration on a patch mesh: center fluxes,
+    stacked ssh, every standard term, no wind, drag or vertical mixing,
+    no custom tendency."""
+    if getattr(mesh, "patch_info", None) is None:
+        return False
+    tc = cfg.tendencies
+    return (cfg.flux_thickness_type == "center"
+            and cfg.flux_tracer_type == "center"
+            and cfg.ssh_formulation == "stacked"
+            and not cfg.vert_mix.enabled
+            and not tc.wind_forcing and not tc.bottom_drag
+            and tc.thickness_flux_div and tc.pv_advection and tc.ke_gradient
+            and tc.ssh_gradient and tc.velocity_diffusion
+            and tc.velocity_hyperdiff and tc.tracer_horz_adv
+            and tc.tracer_diffusion and tc.tracer_hyperdiff
+            and not tc.use_custom_tendency)
+
+
+# ----------------------------------------------------------------------
+# prep (host side, kept on the mesh's PatchInfo per type and device)
+
+class Prep:
+    """What one (mesh, type, device) needs at run time: the mega build,
+    the compact table, the const planes, the refresh maps, the pole
+    submesh and its row maps."""
+
+
+def _persist_map(mg, grp, keep, fixg, nel):
+    """In-frame refresh map for one element class given a validity keep
+    mask (T, 10, S, S) and a fix set: (persist dict, src_of). Positions are
+    flat in the class's (T, 10, S, S) frame block of one layer."""
+    n, S, mh = mg.n, mg.S, mg.mh
+    NG = 10 * n * n
+    cont = mg.content[grp]
+    T = cont.shape[0]
+    ids = cont.reshape(-1)
+    keep_f = keep.reshape(-1)
+    natural_id = np.full(cont.shape, -1, np.int64)
+    natural_id[:, :, mh:mh + n, mh:mh + n] = \
+        np.arange(T * NG, dtype=np.int64).reshape(T, 10, n, n)
+    is_nat = ((cont == natural_id) & (natural_id >= 0)).reshape(-1)
+    src_of = np.full(nel, -1, np.int64)
+    sel = np.flatnonzero(keep_f)
+    src_of[ids[sel]] = sel               # any valid position...
+    sel2 = np.flatnonzero(keep_f & is_nat)
+    src_of[ids[sel2]] = sel2             # ...natural one preferred
+    isfix = np.zeros(nel, bool)
+    isfix[fixg] = True
+    refp = np.flatnonzero((ids >= 0) & ~keep_f)
+    gref = ids[refp]
+    from_fix = isfix[gref]
+    # every non-fix refreshed element must be exact SOMEWHERE in the
+    # frame — otherwise it belongs in the fix set by construction
+    if (src_of[gref[~from_fix]] < 0).any():
+        raise RuntimeError(f"{grp}: a refreshed element is exact nowhere")
+    persist = dict(
+        refill_pos=refp[~from_fix], refill_src=src_of[gref[~from_fix]],
+        fix_pos=refp[from_fix],
+        fix_row=np.searchsorted(fixg, gref[from_fix]),
+        zero_pos=np.flatnonzero(ids < 0))
+    return persist, src_of
+
+
+def compact_table(mg):
+    """The per-position compact table of a mega build: (offs (R_off, P)
+    int32, wts (R_w, P) float64). Rows: per group, per destination channel
+    td, `slots` rows of offsets, and per table of the group the same rows
+    of weights; an offset is ts * P + db * S + da within one layer of the
+    source field; unused slots hold offset 0 and weight 0. Slots of a
+    position follow the sorted (ts, da, db) order of the reference's
+    entries, so a kernel sum runs in the reference's order."""
+    S = mg.S
+    P = 10 * S * S
+    offs, wts = [], []
+    for gname, names, ns in GROUPS:
+        tabs = [mg.tables[nm] for nm in names]
+        Td = NPER[tabs[0].dst_class]
+        off = np.zeros((Td * ns, P), np.int32)
+        w = np.zeros((len(tabs), Td * ns, P), np.float64)
+        for td in range(Td):
+            planes = {}
+            for i, tab in enumerate(tabs):
+                for (t_d, ts, da, db, wpl) in tab.entries:
+                    if t_d == td:
+                        planes.setdefault((ts, da, db), {})[i] = \
+                            wpl.reshape(-1)
+            count = np.zeros(P, np.int64)
+            for (ts, da, db) in sorted(planes):
+                per = planes[(ts, da, db)]
+                used = np.zeros(P, bool)
+                for pl in per.values():
+                    used |= pl != 0.0
+                pos = np.flatnonzero(used)
+                slot = count[pos]
+                if pos.size and slot.max() >= ns:
+                    raise RuntimeError(
+                        f"table group {gname}: a position needs more than "
+                        f"{ns} slots for channel {td}")
+                row = td * ns + slot
+                off[row, pos] = ts * P + db * S + da
+                for i, pl in per.items():
+                    w[i, row, pos] = pl[pos]
+                count[pos] += 1
+        offs.append(off)
+        wts.extend(w)
+    return np.concatenate(offs), np.concatenate(wts)
+
+
+def _const_values(mg):
+    """name -> python float where the const plane is uniform over live
+    content (0.0 where it is identically zero), else the (T, 10, S, S)
+    float64 plane — the reference's decision (_prep_build)."""
+    out = {}
+    for cname, cls in CONSTS:
+        cpl = mg.const_planes[cname]
+        T = cpl.shape[0]
+        live = (mg.content[cls] >= 0).reshape(T, -1)
+        vals = cpl.reshape(T, -1)[live]
+        if not live.any() or not vals.any():
+            out[cname] = 0.0
+        elif np.allclose(vals, vals[0]):
+            out[cname] = float(vals[0])
+        else:
+            out[cname] = cpl
+    return out
+
+
+def prep(mesh, dtype, device) -> Prep:
+    """The run-time data of the patch step for `mesh` in `dtype` on
+    `device` (built once, kept on mesh.patch_info)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = ("prep", dtype, device)
+    info = mesh.patch_info
+    if key in info.cache:
+        return info.cache[key]
+    mg = imx.ensure_mega(mesh)
+    p = Prep()
+    p.mg = mg
+    p.n, p.S, p.mh = mg.n, mg.S, mg.mh
+    p.P = 10 * p.S * p.S
+    p.dtype, p.device = dtype, device
+    put = lambda a, dt=dtype: torch.as_tensor(np.ascontiguousarray(a)).to(
+        device=p.device, dtype=dt)
+    idx = lambda a: put(a, torch.long)
+
+    # the chain's tables as per-entry weight planes (the plain version)
+    p.entries = {name: [(td, ts, da, db, put(wpl))
+                        for (td, ts, da, db, wpl) in tab.entries]
+                 for name, tab in mg.tables.items()}
+    p.consts = {k: (v if isinstance(v, float) else put(v))
+                for k, v in _const_values(mg).items()}
+
+    # the kernel's compact table and const plane rows
+    offs, wts = compact_table(mg)
+    p.offs, p.wts = put(offs, torch.int32), put(wts)
+    rows, flags, scalars = [], [], []
+    for cname, cls in CONSTS:
+        v = p.consts[cname]
+        flags.append(0 if isinstance(v, float) else 1)
+        scalars.append(v if isinstance(v, float) else 0.0)
+        rows.append(v.reshape(NPER[cls], p.P) if flags[-1]
+                    else torch.zeros((NPER[cls], p.P), dtype=dtype,
+                                     device=p.device))
+    p.cpl = torch.cat(rows).contiguous()
+    p.const_flags, p.const_scalars = flags, scalars
+
+    # fills of the frames from flat state (frame positions of one layer)
+    p.fills = {cls: (idx(mg.fills[cls][0]), idx(mg.fills[cls][1]))
+               for cls in ("cell", "edge")}
+
+    # paste-back of the per-step API: rim positions in full-frame coords
+    no = p.n + 2 * imx.OH
+    p.outputs = {}
+    for oname, (rim, rpos, dead, fix) in mg.outputs.items():
+        t, rem = np.divmod(rpos.astype(np.int64), 10 * no * no)
+        r, rem = np.divmod(rem, no * no)
+        yo, xo = np.divmod(rem, no)
+        full = ((t * 10 + r) * p.S + yo + p.mh - imx.OH) * p.S \
+            + xo + p.mh - imx.OH
+        p.outputs[oname] = (idx(rim), idx(full), idx(dead), idx(fix))
+
+    # the pole submesh (an ordinary mesh: the composed stepper's gather
+    # path) and its row maps
+    p.sub_mesh = mg.sub_mesh.to(p.device, dtype)
+    p.sub_cells, p.sub_edges = idx(mg.sub_cells), idx(mg.sub_edges)
+    p.fix_cells_local = idx(mg.fix_cells_local)
+    p.fix_cells_global = idx(mg.fix_cells_global)
+    p.fix_edges_local = idx(mg.fix_edges_local)
+    p.fix_edges_global = idx(mg.fix_edges_global)
+
+    # refresh maps (frames as the carry): after the chain, mg.masks say
+    # which positions are exact; the rest refill from a valid position of
+    # the same element, pole rows come from the submesh, holes re-zero
+    p.persist, src_of = {}, {}
+    for grp, mask_keys, fixg, nel in (
+            ("cell", ("h_new", "trn0"), mg.fix_cells_global, mesh.ncells),
+            ("edge", ("u_new",), mg.fix_edges_global, mesh.nedges)):
+        keep = mg.content[grp] >= 0
+        for k_ in mask_keys:
+            keep = keep & mg.masks[k_]
+        persist, src_of[grp] = _persist_map(mg, grp, keep, fixg, nel)
+        p.persist[grp] = {k: idx(v) for k, v in persist.items()}
+    # sub-state gathers (fix rows overwritten from the carried fix rows)
+    p.sub_cell_src = idx(np.maximum(src_of["cell"][mg.sub_cells], 0))
+    p.sub_edge_src = idx(np.maximum(src_of["edge"][mg.sub_edges], 0))
+    # final read-out maps (refreshed frames hold every element somewhere)
+    p.cell_src = idx(np.maximum(src_of["cell"], 0))
+    p.cell_src_ok = put(src_of["cell"] >= 0, torch.bool)
+    p.edge_src = idx(np.maximum(src_of["edge"], 0))
+    p.edge_src_ok = put(src_of["edge"] >= 0, torch.bool)
+    info.cache[key] = p
+    return p
+
+
+# ----------------------------------------------------------------------
+# the chain on frames, plain PyTorch (the counterpart of _eval_chain)
+
+def _safe_div(a, b):
+    nz = b != 0
+    return torch.where(nz, a / torch.where(nz, b, torch.ones_like(b)),
+                       torch.zeros_like(a))
+
+
+def chain_plain(p, cfg, frames, dt, out=None):
+    """The plain PyTorch version of the kernel: the flagship fb_chain
+    evaluated at every position of the (K, 4+L, P) frames, each stencil a
+    sum of roll-shifted sources times weight planes in the reference's
+    entry order. Returns (K, 4+L, P): h_new, u_new x3, trn x L."""
+    tc = cfg.tendencies
+    K, CH, P = frames.shape
+    L = CH - 4
+    S = p.S
+    dt, grav = float(dt), float(cfg.gravity)
+    nu2, nu4, dfac = tc.visc_del2, tc.visc_del4, tc.div_factor
+    ed2, ed4 = tc.eddy_diff2, tc.eddy_diff4
+    fr = frames.reshape(K, CH, 10, S, S)
+    vals = {"h": fr[:, 0:1], "u": fr[:, 1:4]}
+    for l in range(L):
+        vals[f"tr{l}"] = fr[:, 4 + l:5 + l]
+
+    def ap(tname, src):
+        Td = NPER[p.mg.tables[tname].dst_class]
+        outs = [None] * Td
+        for (td, ts, da, db, w) in p.entries[tname]:
+            term = w * torch.roll(src[:, ts], shifts=(-db, -da),
+                                  dims=(-2, -1))
+            outs[td] = term if outs[td] is None else outs[td] + term
+        zero = src.new_zeros((K, 10, S, S))
+        return torch.stack([o if o is not None else zero for o in outs], 1)
+
+    def c(name):
+        v = p.consts[name]
+        return v if isinstance(v, float) else v[None]
+
+    def mask_or_one(name):
+        v = p.consts[name]
+        return None if isinstance(v, float) and v == 1.0 else c(name)
+
+    for op in imx.fb_chain(L):
+        name, kind = op[0], op[1]
+        if kind == "st":
+            vals[name] = ap(op[2], vals[op[3]])
+            continue
+        fn, a = op[2], op[3:]
+        v = lambda i: vals[a[i]]
+        if fn == "mul":
+            r = v(0) * v(1)
+        elif fn == "sub":
+            r = v(0) - v(1)
+        elif fn == "copy":
+            r = v(0)
+        elif fn == "mulc":                   # x * const; alias when 1.0
+            m = mask_or_one(a[1][1:])
+            r = v(0) if m is None else v(0) * m
+        elif fn == "sub_mc":                 # mask*x - y
+            m = mask_or_one(a[2][1:])
+            r = v(0) - v(1) if m is None else m * v(0) - v(1)
+        elif fn == "axpy":                   # x + dt * coef * y
+            r = v(0) + dt * a[1] * v(2)
+        elif fn == "axpy_m":                 # x + dt*coef*(mask*y)
+            m = mask_or_one(a[3][1:])
+            y = v(2) if m is None else m * v(2)
+            r = v(0) + dt * a[1] * y
+        elif fn == "tracer_rhs":             # -adv + ed2*diff2 - ed4*hyp
+            r = -v(0) + ed2 * v(1) - ed4 * v(2)
+        elif fn == "tracer_update":          # (tr*h + dt*dtr) / h_new
+            r = _safe_div(v(0) * v(1) + dt * v(2), v(3))
+        elif fn == "q_vertex":               # (rvort + f) / h_v
+            r = _safe_div(v(0) + c(a[1][1:]), v(2))
+        elif fn == "pv":                     # 0.5 * (q_e*tf + tfq)
+            r = 0.5 * (v(0) * v(1) + v(2))
+        elif fn == "gssh":                   # du - g*(gh - gdepth)
+            r = v(0) - grav * (v(1) - c(a[2][1:]))
+        elif fn == "visc2":                  # du + nu2*s2*(cdd - vdr)
+            r = v(0) + nu2 * c(a[3][1:]) * (v(1) - v(2))
+        elif fn == "visc4":                  # du - nu4*s4*(df*cd4 - vd4)
+            r = v(0) - nu4 * c(a[3][1:]) * (dfac * v(1) - v(2))
+        else:
+            raise ValueError(fn)
+        vals[name] = r
+    res = torch.cat([vals["h_new"], vals["u_new"]]
+                    + [vals[f"trn{l}"] for l in range(L)], 1)
+    res = res.reshape(K, CH, P)
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
+
+
+# ----------------------------------------------------------------------
+# the kernel
+
+def _check(p, frames, out, work):
+    K, CH, P = frames.shape
+    if frames.dtype != p.dtype or frames.device != p.device:
+        raise TypeError("frames must match the prep's type and device")
+    for a, shape, name in ((frames, (K, CH, p.P), "frames"),
+                           (out, (K, CH, p.P), "out"),
+                           (work, (work_fields(CH - 4) * K * p.P,), "work")):
+        if (tuple(a.shape) != shape or a.dtype != frames.dtype
+                or a.device != frames.device or not a.is_contiguous()):
+            raise ValueError(f"`{name}` must be a contiguous {shape} array "
+                             "of the frames' type and device")
+    if out.data_ptr() == frames.data_ptr():
+        raise ValueError("the patch step cannot write its input frames")
+
+
+def chain(p, cfg, frames, dt, out=None, work=None):
+    """The fb chain on the (K, 4+L, P) frames into `out`. For a CUDA array
+    one C call launches the PASSES kernels of csrc/patch_step.cu on
+    PyTorch's current stream (`work`: scratch of work_fields(L) fields,
+    made here when not given); for a CPU array the plain version runs."""
+    global launches
+    if not frames.is_cuda:
+        return chain_plain(p, cfg, frames, dt, out)
+    K, CH, P = frames.shape
+    out = torch.empty_like(frames) if out is None else out
+    if work is None:
+        work = frames.new_empty(work_fields(CH - 4) * K * P)
+    _check(p, frames, out, work)
+    suffix = {torch.float32: "f32", torch.float64: "f64"}.get(frames.dtype)
+    if suffix is None:
+        raise TypeError(f"patch step takes float32/float64, not "
+                        f"{frames.dtype}")
+    lib = _build.load()
+    if lib.omega_patch_rows(0) != p.offs.shape[0] \
+            or lib.omega_patch_rows(1) != p.wts.shape[0] \
+            or lib.omega_patch_rows(2) != p.cpl.shape[0]:
+        raise RuntimeError("patch step: table layout differs between "
+                           "kernel and host")
+    tc = cfg.tendencies
+    consts = np.array([float(dt), cfg.gravity, tc.visc_del2, tc.visc_del4,
+                       tc.div_factor, tc.eddy_diff2, tc.eddy_diff4]
+                      + list(p.const_scalars), np.float64)
+    ints = np.array([P, p.S, K, CH - 4, LAYERS_PER_THREAD, THREADS]
+                    + list(p.const_flags), np.int32)
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, f"omega_patch_fb_{suffix}")(
+            frames.data_ptr(), out.data_ptr(), p.offs.data_ptr(),
+            p.wts.data_ptr(), p.cpl.data_ptr(), work.data_ptr(),
+            consts.ctypes.data, ints.ctypes.data, stream)
+    _build.check(code, "patch step launch")
+    launches += PASSES
+    return out
+
+
+def new_work(frames):
+    """Scratch of the kernel for frames like `frames` (None on the CPU)."""
+    if not frames.is_cuda:
+        return None
+    K, CH, P = frames.shape
+    return frames.new_empty(work_fields(CH - 4) * K * P)
+
+
+# ----------------------------------------------------------------------
+# frames
+
+def _frames_of(p, cls, flat, T, out):
+    """Flat (N, K) rows -> out (K, T, P): the grid ids pasted, the halo
+    and seam positions filled from their elements, holes zero."""
+    n, S, mh = p.n, p.S, p.mh
+    K = flat.shape[-1]
+    NG = 10 * n * n
+    out.zero_()
+    fr = out.view(K, T, 10, S, S)
+    fr[..., mh:mh + n, mh:mh + n] = \
+        flat[:T * NG].reshape(T, 10, n, n, K).permute(4, 0, 1, 2, 3)
+    pos, src = p.fills[cls]
+    out.view(K, T * p.P)[:, pos] = flat[src].T
+
+
+def _assemble(p, state):
+    h, u, tr = state
+    K, L = h.shape[-1], tr.shape[0]
+    frames = h.new_empty((K, 4 + L, p.P))
+    buf = h.new_empty((K, 3, p.P))
+    _frames_of(p, "cell", h, 1, buf[:, :1])
+    frames[:, 0:1] = buf[:, :1]
+    _frames_of(p, "edge", u, 3, buf)
+    frames[:, 1:4] = buf
+    for l in range(L):
+        _frames_of(p, "cell", tr[l], 1, buf[:, :1])
+        frames[:, 4 + l:5 + l] = buf[:, :1]
+    return frames
+
+
+def stack_frames(mesh, cfg, state):
+    """Flat state -> the (frames, fix rows) carry."""
+    h, u, tr = state
+    p = prep(mesh, h.dtype, h.device)
+    frames = _assemble(p, state)
+    fc, fe = p.fix_cells_global, p.fix_edges_global
+    return frames, dict(h=h[fc], u=u[fe], tr=tr[:, fc])
+
+
+def _cls_view(frames, c0, T):
+    """Channels [c0, c0+T) of the (K, CH, P) frames as a (K, T*P) view."""
+    K, _, P = frames.shape
+    return frames[:, c0:c0 + T].reshape(K, T * P)
+
+
+def _refresh_frames(p, nf, nfix):
+    """In-frame halo refresh, in place: refill invalid positions from exact
+    ones, scatter the fix rows, re-zero the lattice holes."""
+    def refresh(flat, m, fix_rows):
+        flat[:, m["refill_pos"]] = flat[:, m["refill_src"]]
+        if m["fix_pos"].numel():
+            flat[:, m["fix_pos"]] = fix_rows[m["fix_row"]].T
+        if m["zero_pos"].numel():
+            flat[:, m["zero_pos"]] = 0.0
+
+    L = nf.shape[1] - 4
+    refresh(_cls_view(nf, 0, 1), p.persist["cell"], nfix["h"])
+    refresh(_cls_view(nf, 1, 3), p.persist["edge"], nfix["u"])
+    for l in range(L):
+        refresh(_cls_view(nf, 4 + l, 1), p.persist["cell"], nfix["tr"][l])
+    return nf
+
+
+def _sub_state(p, frames, fix):
+    """The pole submesh's state: its rows read from exact frame positions,
+    the fix rows from the carry."""
+    L = frames.shape[1] - 4
+    h = _cls_view(frames, 0, 1)[:, p.sub_cell_src].T.contiguous()
+    h[p.fix_cells_local] = fix["h"]
+    u = _cls_view(frames, 1, 3)[:, p.sub_edge_src].T.contiguous()
+    u[p.fix_edges_local] = fix["u"]
+    tr = torch.stack([_cls_view(frames, 4 + l, 1)[:, p.sub_cell_src].T
+                      for l in range(L)])
+    tr[:, p.fix_cells_local] = fix["tr"]
+    return ModelState(h=h, u=u, tracers=tr)
+
+
+def fb_patch_megastep_framed(mesh, cfg, carry, t, dt, out=None, work=None):
+    """One FB step on the (frames, fix rows) carry: the chain (the kernel
+    on the card), the submesh step, the in-frame refresh. `out` receives
+    the next frames (a new array when None; never the carry's own)."""
+    from omega_tpu_torch.stepping.steppers import forward_backward_step
+    frames, fix = carry
+    p = prep(mesh, frames.dtype, frames.device)
+    nf = chain(p, cfg, frames, dt, out=out, work=work)
+    sub = forward_backward_step(p.sub_mesh, cfg, _sub_state(p, frames, fix),
+                                t, dt)
+    nfix = dict(h=sub.h[p.fix_cells_local], u=sub.u[p.fix_edges_local],
+                tr=sub.tracers[:, p.fix_cells_local])
+    return _refresh_frames(p, nf, nfix), nfix
+
+
+def unstack_frames(mesh, carry, state_cls=ModelState):
+    """(frames, fix rows) -> flat state."""
+    frames, fix = carry
+    p = prep(mesh, frames.dtype, frames.device)
+    L = frames.shape[1] - 4
+
+    def read(flat, src, ok, fixg, fix_rows):
+        v = flat[:, src].T
+        v = torch.where(ok[:, None], v, torch.zeros_like(v))
+        v[fixg] = fix_rows
+        return v
+
+    h = read(_cls_view(frames, 0, 1), p.cell_src, p.cell_src_ok,
+             p.fix_cells_global, fix["h"])
+    u = read(_cls_view(frames, 1, 3), p.edge_src, p.edge_src_ok,
+             p.fix_edges_global, fix["u"])
+    tr = torch.stack([
+        read(_cls_view(frames, 4 + l, 1), p.cell_src, p.cell_src_ok,
+             p.fix_cells_global, fix["tr"][l]) for l in range(L)])
+    return state_cls(h=h, u=u, tracers=tr)
+
+
+def fb_patch_megastep(mesh, cfg, state, t, dt):
+    """One forward-backward step of a flat state (the per-step API): frames
+    assembled from the state, the chain, the submesh step on the state's
+    own rows, and the paste-back of the outputs (grid rows by reshape, seam
+    and tail rows from exact rim positions, dead rows zero, fix rows from
+    the submesh)."""
+    from omega_tpu_torch.stepping.steppers import forward_backward_step
+    h, u, tr = state
+    K, L = h.shape[-1], tr.shape[0]
+    p = prep(mesh, h.dtype, h.device)
+    n, S, mh = p.n, p.S, p.mh
+    NG = 10 * n * n
+    out = chain(p, cfg, _assemble(p, state), dt)
+    sub = forward_backward_step(
+        p.sub_mesh, cfg, ModelState(h=h[p.sub_cells], u=u[p.sub_edges],
+                                    tracers=tr[:, p.sub_cells]), t, dt)
+
+    def paste(oname, ch0, T, N, fix_src, fix_local, fix_global):
+        grid = out[:, ch0:ch0 + T].reshape(K, T, 10, S, S)[
+            ..., mh:mh + n, mh:mh + n]
+        flat = h.new_zeros((N, K))
+        flat[:T * NG] = grid.reshape(K, T * NG).T
+        rim, rpos, dead, fix = p.outputs[oname]
+        if dead.numel():
+            flat[dead] = 0.0
+        if rim.numel():
+            flat[rim] = _cls_view(out, ch0, T)[:, rpos].T
+        if fix.numel():
+            flat[fix] = fix_src[fix_local[torch.searchsorted(fix_global,
+                                                             fix)]]
+        return flat
+
+    cells = (p.fix_cells_local, p.fix_cells_global)
+    h_new = paste("h", 0, 1, mesh.ncells, sub.h, *cells)
+    u_new = paste("u", 1, 3, mesh.nedges, sub.u, p.fix_edges_local,
+                  p.fix_edges_global)
+    trn = torch.stack([paste("tr", 4 + l, 1, mesh.ncells, sub.tracers[l],
+                             *cells) for l in range(L)])
+    return ModelState(h=h_new, u=u_new, tracers=trn)

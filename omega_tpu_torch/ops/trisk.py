@@ -6,12 +6,15 @@ whole-array weighted gather: neighbor indices are static (C, M) int32
 arrays (padded entries point at element 0 with weight 0) and the vertical
 dimension K is the trailing axis of every field.
 
-Two execution paths, numerically equivalent:
+Three execution paths, numerically equivalent:
   * gather path — general unstructured MPAS meshes; also the oracle the
     tests hold the structured path against
   * shift path  — uniform planar hex meshes (ops/structured.py): every
     neighbor access becomes a lattice shift (the stencil kernel on a CUDA
     field, rolls on a CPU field)
+  * patch path  — patch-renumbered icosahedral meshes
+    (ops/patch_stencil.py): per-patch slices with per-position weights and
+    an exact gather fix-up
 
 Besides the five classic operators, this module exposes the gather
 PRIMITIVES the aux-var/tendency layers build on (cell/vertex pairs on
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from omega_tpu_torch.mesh.horz_mesh import HorzMesh
-from omega_tpu_torch.ops import structured
+from omega_tpu_torch.ops import patch_stencil, structured
 
 
 def _take(field, idx):
@@ -45,13 +48,24 @@ def _gather_sum(weights, idx, field):
 
 
 def _struct(mesh, name, idx, dst, src, weights=None):
-    """Fast-path stencil table (name-tagged) of a uniform planar mesh, or
-    None."""
+    """Fast-path stencil table — uniform planar shifts (name-tagged) or
+    icosahedral patch slices ("patch", table) — or None."""
     if structured.enabled(mesh):
         tab, dstc, srcc = structured.stencil_table(mesh, name, idx, dst,
                                                    src, weights)
         return (tab, dstc, srcc, name) if tab is not None else None
+    if patch_stencil.enabled(mesh):
+        t = patch_stencil.table(mesh, name)
+        if t is not None:
+            return ("patch", t)
     return None
+
+
+def _apply(mesh, t, f):
+    """Apply a table from `_struct` to a field."""
+    if t[0] == "patch":
+        return patch_stencil.apply_patch_stencil(mesh, t[1], f)
+    return structured.apply_stencil(mesh, t, f)
 
 
 def col(mesh: HorzMesh, attr: str):
@@ -113,8 +127,7 @@ def _pair(mesh, f, name0, name1, idx0, idx1, dst, src):
     if t0 is None:
         return _take(f, idx0), _take(f, idx1)
     t1 = _struct(mesh, name1, idx1, dst, src)
-    return (structured.apply_stencil(mesh, t0, f),
-            structured.apply_stencil(mesh, t1, f))
+    return _apply(mesh, t0, f), _apply(mesh, t1, f)
 
 
 def cell_pair_on_edge(mesh: HorzMesh, f):
@@ -138,7 +151,7 @@ def _two_slot(mesh, f, name, idx2, w01, combine, dst, src):
         w_np = np.tile(np.asarray(w01, np.float64), (idx2.shape[0], 1))
     t = _struct(mesh, name, idx2, dst, src, w_np)
     if t is not None:
-        return structured.apply_stencil(mesh, t, f)
+        return _apply(mesh, t, f)
     return combine(_take(f, idx2[:, 0]), _take(f, idx2[:, 1]))
 
 
@@ -172,7 +185,7 @@ def cell_to_vertex_kite(mesh: HorzMesh, f):
     t = _struct(mesh, "kite", mesh.cells_on_vertex, "vertex", "cell",
                 mesh.w_kite_frac)
     if t is not None:
-        return structured.apply_stencil(mesh, t, f)
+        return _apply(mesh, t, f)
     return _gather_sum(mesh.w_kite_frac, mesh.cells_on_vertex, f)
 
 
@@ -186,7 +199,7 @@ def edge_to_cell_signed(mesh: HorzMesh, g):
     t = _struct(mesh, "signed_div", mesh.edges_on_cell, "cell", "edge",
                 w_np)
     if t is not None:
-        return structured.apply_stencil(mesh, t, g)
+        return _apply(mesh, t, g)
     w = -mesh.edge_sign_on_cell / mesh.area_cell[:, None]
     return _gather_sum(w, mesh.edges_on_cell, g)
 
@@ -197,7 +210,7 @@ def ke_cell(mesh: HorzMesh, u):
     t = _struct(mesh, "ke", mesh.edges_on_cell, "cell", "edge",
                 mesh.w_ke_cell)
     if t is not None:
-        return structured.apply_stencil(mesh, t, u2)
+        return _apply(mesh, t, u2)
     return _gather_sum(mesh.w_ke_cell, mesh.edges_on_cell, u2)
 
 
@@ -209,7 +222,7 @@ def _signed_div_part(mesh: HorzMesh, g, positive: bool):
                           * (1.0 if positive else -1.0), 0.0)
     t = _struct(mesh, name, mesh.edges_on_cell, "cell", "edge", w_np)
     if t is not None:
-        return structured.apply_stencil(mesh, t, g)
+        return _apply(mesh, t, g)
     w = torch.clamp(mesh.w_div_cell * (1.0 if positive else -1.0),
                     min=0.0)
     return _gather_sum(w, mesh.edges_on_cell, g)
@@ -265,7 +278,7 @@ def div_cell(mesh: HorzMesh, vec_edge):
     t = _struct(mesh, "div", mesh.edges_on_cell, "cell", "edge",
                 mesh.w_div_cell)
     if t is not None:
-        return structured.apply_stencil(mesh, t, vec_edge)
+        return _apply(mesh, t, vec_edge)
     return _gather_sum(mesh.w_div_cell, mesh.edges_on_cell, vec_edge)
 
 
@@ -282,7 +295,7 @@ def curl_vertex(mesh: HorzMesh, vec_edge):
     t = _struct(mesh, "curl", mesh.edges_on_vertex, "vertex", "edge",
                 mesh.w_curl_vertex)
     if t is not None:
-        return structured.apply_stencil(mesh, t, vec_edge)
+        return _apply(mesh, t, vec_edge)
     return _gather_sum(mesh.w_curl_vertex, mesh.edges_on_vertex, vec_edge)
 
 
@@ -294,7 +307,7 @@ def tangential_edge(mesh: HorzMesh, vec_edge):
     t = _struct(mesh, "tang", mesh.edges_on_edge, "edge", "edge",
                 mesh.weights_on_edge)
     if t is not None:
-        return structured.apply_stencil(mesh, t, vec_edge)
+        return _apply(mesh, t, vec_edge)
     return _gather_sum(mesh.weights_on_edge, mesh.edges_on_edge, vec_edge)
 
 

@@ -19,6 +19,14 @@ of vertical mixing. The split-explicit stepper is stepping/split.py
 (`make_stepper("SplitExplicit")`); for a CUDA state of the configuration
 its kernels take (`megastep.split_supported`) a step is splitpre, the
 barotropic subcycles and splitpost.
+
+On a patch-renumbered icosahedral mesh (mesh/icos_patches.py) the flagship
+configuration's FB step is fused (ops/patch_megastep.py): one call of the
+patch kernel (five launches) per step, the pole rows from the composed step
+on a small submesh. `run_steps` keeps the halo frames as its carry on any
+device (the kernel's plain version on the CPU); `forward_backward_step`
+takes the per-step API for a CUDA state. Every other configuration and
+stepper runs composed through the patch operators (ops/patch_stencil.py).
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from omega_tpu_torch.core import vmix
 from omega_tpu_torch.core.config import ModelConfig
 from omega_tpu_torch.core.state import ModelState
 from omega_tpu_torch.mesh.horz_mesh import HorzMesh
-from omega_tpu_torch.ops import megastep, trisk
+from omega_tpu_torch.ops import megastep, patch_megastep, trisk
 
 Halo = Callable[[ModelState], ModelState]
 _identity: Halo = lambda s: s
@@ -68,6 +76,11 @@ def forward_backward_step(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
         # follows in the column kernels on the same array
         return halo(megastep.fb_megastep(mesh, cfg, state, t, dt,
                                          wind_stress))
+    if (isinstance(dt, (int, float)) and patch_megastep.enabled(state.h)
+            and patch_megastep.supported(mesh, cfg)):
+        # the sphere's fused step (ops/patch_megastep.py), per-step API
+        return halo(patch_megastep.fb_patch_megastep(mesh, cfg, state, t,
+                                                     dt))
     h, u, tr = state
     dh, thick_aux = tend_mod.compute_thickness_tendency(mesh, cfg, h, u, t)
     h_new = h + dt * dh
@@ -220,6 +233,26 @@ def run_steps(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
                 cur, nxt = nxt, cur
         return megastep.unstack_state(mesh, cur, h.shape[-1], tr.shape[0],
                                       type(state))
+
+    if (stepper is forward_backward_step and halo is _identity
+            and isinstance(dt, (int, float))
+            and patch_megastep.supported(mesh, cfg)):
+        # the sphere's framed path: the (frames, pole rows) carry of
+        # ops/patch_megastep.py lives across the segment, so a step is the
+        # patch kernel (its plain version on the CPU), the pole submesh step
+        # and the in-frame refresh; the next frames go into a second buffer
+        # and the two swap roles, and the kernel's scratch is made once
+        carry = patch_megastep.stack_frames(mesh, cfg, state)
+        nxt = torch.empty_like(carry[0])
+        work = patch_megastep.new_work(carry[0])
+        t = t0
+        for _ in range(nsteps):
+            cur = carry[0]
+            carry = patch_megastep.fb_patch_megastep_framed(
+                mesh, cfg, carry, t, dt, out=nxt, work=work)
+            nxt = cur
+            t = t + dt
+        return patch_megastep.unstack_frames(mesh, carry, type(state))
 
     split_params = getattr(stepper, "split_explicit_params", None)
     if (split_params is not None and halo is _identity
