@@ -28,6 +28,10 @@ through the entry points a user calls, and prints one JSON line per phase:
   kernel_patch    the sphere's FB step (five launches) vs plain at icos16
                   float64 and icos48 x 100 x 2 float32; fused framed steps
                   vs the composed stepper; the host parts of a framed step
+  kernel_patch_science  the sphere's science variants (upwind fluxes, wind,
+                  drag), PP81 coefficient and column-solve kernels vs plain
+                  at icos16 float64 and icos48 x 100 x 2 float32; fused
+                  science steps vs the composed stepper
   main_path       2 x 10 steps of the bench configuration; launch counts
   composed_path   column ssh: the composed stepper + stencil kernel
   science_path    2 x 10 steps with wind, bottom drag, upwind fluxes and PP81
@@ -40,6 +44,10 @@ through the entry points a user calls, and prints one JSON line per phase:
                   barotropic subcycles): 3 + 10 + 1 launches per step
   sphere_path     2 x 10 FB steps of bench.py's sphere (icos48 x 100 x 2):
                   five patch-step launches per step, nothing else
+  sphere_science_path  2 x 10 FB steps of the science configuration on the
+                  same sphere (upwind fluxes, wind, drag, PP81 mixing): five
+                  patch-step launches, one coefficient and one solve launch
+                  per step
   rk_order        the manufactured solution in float64: the steppers'
                   temporal order and the spatial order
   profile         (only with --profile) device time by kernel, every path
@@ -1035,7 +1043,7 @@ def main(argv=None):
     del s0, st, du, wplanes, du_p, pl_p, planes, out, bt_out, bt_work
 
     # ---------------------------------------------------- 4e. kernel_patch
-    # the sphere's FB step (csrc/patch_step.cu, five launches per call)
+    # the sphere's FB step (csrc/patch_step.cuh, five launches per call)
     # against its plain version on the same frames: float64 at icos16 x 8 x
     # 2, per channel max|diff| <= 1e-12 max|ref| (the passes sum the
     # momentum terms in another order than the chain); float32 at bench.py's
@@ -1174,6 +1182,259 @@ def main(argv=None):
     patv = pat[f"f32_icos{N_SPHERE}x{NLAYERS}x{NTRACERS}"]
     del fr48, out48, work48, sub48
 
+    # ------------------------------------------- 4f. kernel_patch_science
+    # the sphere's science variants against their plain versions on the
+    # same inputs: the patch step with upwind fluxes and the wind / drag
+    # tails (csrc/patch_step.cuh), the PP81 coefficient kernel and the
+    # column solve (csrc/patch_vmix.cu), PP81 and constant coefficients,
+    # upwind and center fluxes. Float64 at icos16 x 8 x 2: per channel
+    # max|diff| <= 1e-12 max|ref| (coefficients over the interfaces, NaN
+    # where the plain version has NaN: lattice holes); three fused framed
+    # steps against the composed stepper, 1e-10. Float32 at icos48 x 100 x
+    # 2: the patch step by the increment per channel (SCI_INCR), the
+    # coefficients by max|diff| / max|ref| (SCI_COEF); the solve at the
+    # science coefficients by max|diff| / max|ref| per channel (SCI_SOLVE:
+    # with 40 m layers a step changes T and S by about 1e-5, of the order
+    # of their float32 roundoff, so its increments are recorded, not held),
+    # and at coefficients of 1 m2/s, whose increments stand clear of the
+    # roundoff, by what it changes per channel (SCI_SOLVE_STRONG). The
+    # limits are ten times the first readings on the card (PERF.md)
+    SCI_INCR, SCI_COEF, SCI_SOLVE, SCI_SOLVE_STRONG = 2.6e-4, 9.4e-7, \
+        1.1e-6, 5.3e-3
+    SCI_WIND_DRAG = dict(wind_forcing=True, bottom_drag=True,
+                         bottom_drag_coeff=3.0e-3)
+    # variant -> (configuration keywords, tendency keywords)
+    SCI_VARIANTS = {
+        "upwind_wind_drag_pp81": (dict(vert_mix=PP81, **UPWIND),
+                                  SCI_WIND_DRAG),
+        "center_wind_drag_constant": (dict(vert_mix=CONST), SCI_WIND_DRAG),
+        "upwind_thickness_drag_pp81": (
+            dict(vert_mix=PP81, flux_thickness_type="upwind"),
+            dict(bottom_drag=True, bottom_drag_coeff=3.0e-3)),
+        "upwind_tracer_wind_constant": (
+            dict(vert_mix=CONST, flux_tracer_type="upwind"),
+            dict(wind_forcing=True))}
+    SCI_CHANNELS = names
+
+    def sphere_strat(mesh_np, K, dtype, u_amp):
+        """The sphere's h of sphere_state, u = u_amp x noise x edge_mask,
+        stratified T (decreasing downward, plus noise) and S near 35"""
+        st = sphere_state(mesh_np, K, NTRACERS, dtype, u_amp, 0.0)
+        T = 10.0 + 2.0 * np.arange(K)[::-1] / K \
+            + 0.1 * rng.standard_normal((mesh_np.ncells, K))
+        S = 35.0 + 0.1 * rng.standard_normal((mesh_np.ncells, K))
+        return ModelState(h=st.h, u=st.u,
+                          tracers=put(np.stack([T, S]), dtype))
+
+    def sphere_wind(mesh_np, dtype):
+        """zonal and meridional stress varying with latitude
+        (tests/test_patches.py:295-296)"""
+        lat = np.asarray(mesh_np.lat_cell)
+        return (put(0.1 * np.cos(lat), dtype), put(0.05 * np.sin(lat), dtype))
+
+    def nan_err(got, ref):
+        """per channel max|diff| / max|ref| over the finite values of ref;
+        inf when the two have NaN in other places"""
+        out = []
+        for c in range(ref.shape[1]):
+            a, b = got[:, c], ref[:, c]
+            if not bool(torch.equal(torch.isnan(a), torch.isnan(b))):
+                out.append(float("inf"))
+                continue
+            fin = torch.isfinite(b)
+            out.append(((a - b).abs()[fin].max()
+                        / b.abs()[fin].max().clamp(min=1e-300)).item())
+        return out
+
+    sci = {"tolerance": "f64 per channel max|diff| <= 1e-12 max|ref| "
+           "against plain (coefficients over the finite values, NaN in the "
+           "same places), fused framed steps vs composed steps rtol=atol="
+           "1e-10 over 3 steps; f32 per channel: the patch step's increment "
+           "<= SCI_INCR of the largest increment, the coefficients' error "
+           "<= SCI_COEF of max|ref|, the solve's error <= SCI_SOLVE of "
+           "max|ref| at the science coefficients and its increment <= "
+           "SCI_SOLVE_STRONG of the largest increment at 1 m2/s",
+           "SCI_INCR": SCI_INCR, "SCI_COEF": SCI_COEF,
+           "SCI_SOLVE": SCI_SOLVE, "SCI_SOLVE_STRONG": SCI_SOLVE_STRONG,
+           "f64_icos16x8x2": {}}
+    w16 = sphere_wind(m16_np, torch.float64)
+    st16s = sphere_strat(m16_np, 8, torch.float64, 0.1)
+    for variant, (kw, tend) in SCI_VARIANTS.items():
+        cfg_v = bench_cfg(8, NTRACERS, tend, **kw)
+        if not patch_megastep.supported(m16, cfg_v):
+            fail(f"sphere {variant} not supported by the fused path")
+        fr16, _ = patch_megastep.stack_frames(m16, cfg_v, st16s)
+        pw16 = patch_megastep.make_wind(m16, cfg_v, w16, torch.float64)
+        got = patch_megastep.chain(p16, cfg_v, fr16, DT, wind=pw16)
+        hz = patch_megastep.chain_plain(p16, cfg_v, fr16, DT, wind=pw16)
+        torch.cuda.synchronize()
+        errs = {"step": dict(zip(SCI_CHANNELS, [
+            chan_err(got[:, c][None], hz[:, c][None])
+            for c in range(len(SCI_CHANNELS))]))}
+        coef = None
+        if cfg_v.vert_mix.scheme == "pp81":
+            coef = patch_megastep.vmix_coeffs_plain(p16, cfg_v, hz)
+            kc = patch_megastep.vmix_coeffs(p16, cfg_v, hz)
+            torch.cuda.synchronize()
+            errs["coeffs"] = dict(zip(["kappa", "nu0", "nu1", "nu2"],
+                                      nan_err(kc[:-1], coef[:-1])))
+        sv = patch_megastep.vmix_solve(p16, cfg_v, hz.clone(), DT, coef)
+        sp = patch_megastep.vmix_solve_plain(p16, cfg_v, hz, DT, coef)
+        torch.cuda.synchronize()
+        errs["solve"] = dict(zip(SCI_CHANNELS, [
+            chan_err(sv[:, c][None], sp[:, c][None])
+            for c in range(len(SCI_CHANNELS))]))
+        worst = max(v for e in errs.values() for v in e.values())
+        if not worst <= 1e-12 or not bool(torch.isfinite(got).all()) \
+                or not bool(torch.isfinite(sv).all()) \
+                or (sv - hz).abs().max().item() == 0.0:
+            fail(f"sphere {variant} kernels vs plain at icos16 f64: {errs}")
+        sci["f64_icos16x8x2"][variant] = errs
+    # whole steps: the framed fused path against the composed stepper
+    cfg16s = bench_cfg(8, NTRACERS, SCI_WIND_DRAG, vert_mix=PP81, **UPWIND)
+    patch_megastep.launches = patch_megastep.coeff_launches = 0
+    patch_megastep.solve_launches = 0
+    ker = run_steps(m16, cfg16s, st16s, 0.0, DT, 3, wind_stress=w16)
+    got_l = (patch_megastep.launches, patch_megastep.coeff_launches,
+             patch_megastep.solve_launches)
+    if got_l != (3 * patch_megastep.PASSES, 3, 3):
+        fail(f"fused science sphere steps: launches {got_l} in 3")
+    comp = st16s
+    for i in range(3):
+        comp = composed(forward_backward_step, m16, cfg16s, comp, i * DT, DT,
+                        wind_stress=w16)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for a_, b_ in zip(ker, comp):
+        d = (a_ - b_).abs()
+        if bool((d > 1e-10 + 1e-10 * b_.abs()).any()) \
+                or not bool(torch.isfinite(a_).all()):
+            fail(f"fused science sphere steps vs composed at icos16 f64: "
+                 f"{d.max().item()}")
+        worst = max(worst, d.max().item())
+    sci["f64_icos16_steps_vs_composed"] = worst
+    del fr16, got, hz, sv, sp, ker, comp
+
+    # float32 at bench.py's sphere width, on the science state
+    cfg48s = bench_cfg(NLAYERS, NTRACERS, SCI_WIND_DRAG, vert_mix=PP81,
+                       **UPWIND)
+    cfg48c = bench_cfg(NLAYERS, NTRACERS, SCI_WIND_DRAG, vert_mix=CONST)
+    w48 = sphere_wind(m48_np, torch.float32)
+    st48s = sphere_strat(m48_np, NLAYERS, torch.float32, 0.01)
+    fr48, _ = patch_megastep.stack_frames(m48, cfg48s, st48s)
+    out48 = torch.empty_like(fr48)
+    work48 = patch_megastep.new_work(fr48)
+    coef48 = patch_megastep.new_coef(fr48, cfg48s)
+    f32 = {}
+    for variant, cfg_v in (("upwind_wind_drag_pp81", cfg48s),
+                           ("center_wind_drag_constant", cfg48c)):
+        pw48 = patch_megastep.make_wind(m48, cfg_v, w48, torch.float32)
+        patch_megastep.chain(p48, cfg_v, fr48, DT, out48, work48, pw48)
+        hz = patch_megastep.chain_plain(p48, cfg_v, fr48, DT, wind=pw48)
+        torch.cuda.synchronize()
+        inc = incr_err(out48.transpose(0, 1), hz.transpose(0, 1),
+                       fr48.transpose(0, 1))
+        res = {"step_increments": dict(zip(SCI_CHANNELS, inc)),
+               "step_max_abs_err": (out48 - hz).abs().max().item()}
+        coef = None
+        if cfg_v.vert_mix.scheme == "pp81":
+            coef = patch_megastep.vmix_coeffs_plain(p48, cfg_v, hz)
+            coef48 = patch_megastep.vmix_coeffs(p48, cfg_v, hz, coef48)
+            torch.cuda.synchronize()
+            ce = nan_err(coef48[:-1], coef[:-1])
+            fin = torch.isfinite(coef[:-1])
+            res["coeffs"] = dict(zip(["kappa", "nu0", "nu1", "nu2"], ce))
+            res["coeffs_max_abs_err"] = \
+                (coef48[:-1] - coef[:-1]).abs()[fin].max().item()
+            spread = (coef[:-1, 1:][fin[:, 1:]].min().item(),
+                      coef[:-1, 1:][fin[:, 1:]].max().item())
+            res["nu_range"] = spread
+            if max(ce) > SCI_COEF or not spread[0] < 0.5 * spread[1]:
+                fail(f"sphere PP81 coefficients at icos{N_SPHERE} f32: "
+                     f"{res}")
+        if max(inc) > SCI_INCR or not bool(torch.isfinite(out48).all()):
+            fail(f"sphere {variant} patch step at icos{N_SPHERE} f32: {res}")
+        solves = [(variant, cfg_v, coef, None)]
+        if cfg_v.vert_mix.scheme == "pp81":
+            cfg_sp = bench_cfg(NLAYERS, NTRACERS, SCI_WIND_DRAG,
+                               vert_mix=STRONG_PP, **UPWIND)
+            solves += [
+                ("strong_constant", bench_cfg(NLAYERS, NTRACERS,
+                                              vert_mix=STRONG), None,
+                 SCI_SOLVE_STRONG),
+                ("strong_pp81", cfg_sp, patch_megastep.vmix_coeffs_plain(
+                    p48, cfg_sp, hz), SCI_SOLVE_STRONG)]
+        for name_s, cfg_s, coef_s, inc_limit in solves:
+            sv = patch_megastep.vmix_solve(p48, cfg_s, hz.clone(), DT, coef_s)
+            sp = patch_megastep.vmix_solve_plain(p48, cfg_s, hz, DT, coef_s)
+            torch.cuda.synchronize()
+            sinc = incr_err(sv[:, 1:].transpose(0, 1),
+                            sp[:, 1:].transpose(0, 1),
+                            hz[:, 1:].transpose(0, 1))
+            moved = [(sp[:, c] - hz[:, c]).abs().max().item()
+                     for c in range(1, len(SCI_CHANNELS))]
+            rel = [chan_err(sv[:, c][None], sp[:, c][None])
+                   for c in range(1, len(SCI_CHANNELS))]
+            sres = {"increments": dict(zip(SCI_CHANNELS[1:], sinc)),
+                    "moved_by": dict(zip(SCI_CHANNELS[1:], moved)),
+                    "increment_limit": inc_limit,
+                    "errors": dict(zip(SCI_CHANNELS[1:], rel)),
+                    "max_abs_err": (sv - sp).abs().max().item()}
+            if (max(sinc) > inc_limit if inc_limit else max(rel) > SCI_SOLVE) \
+                    or min(moved) == 0.0 \
+                    or not bool(torch.equal(sv[:, 0], hz[:, 0])) \
+                    or not bool(torch.isfinite(sv).all()):
+                fail(f"sphere solve ({name_s}) at icos{N_SPHERE} f32: "
+                     f"{sres}")
+            res[f"solve_{name_s}"] = sres
+            del sv, sp
+        f32[variant] = res
+        del hz
+    # times at the path's shapes (the science variant on the frames the
+    # path carries; the solve in place on the step's output)
+    pw48 = patch_megastep.make_wind(m48, cfg48s, w48, torch.float32)
+    sci_step_ms = cuda_ms(lambda: patch_megastep.chain(
+        p48, cfg48s, fr48, DT, out48, work48, pw48), 20)
+    sci_step_plain_ms = cuda_ms(lambda: patch_megastep.chain_plain(
+        p48, cfg48s, fr48, DT, wind=pw48), 2, 1)
+    sci_coef_ms = cuda_ms(lambda: patch_megastep.vmix_coeffs(
+        p48, cfg48s, out48, coef48), 20)
+    sci_coef_plain_ms = cuda_ms(lambda: patch_megastep.vmix_coeffs_plain(
+        p48, cfg48s, out48), 2, 1)
+    scratch48 = out48.clone()
+    sci_solve_ms = {
+        "pp81": cuda_ms(lambda: patch_megastep.vmix_solve(
+            p48, cfg48s, scratch48, DT, coef48), 20),
+        "constant": cuda_ms(lambda: patch_megastep.vmix_solve(
+            p48, cfg48c, scratch48, DT), 20)}
+    sci_solve_plain_ms = cuda_ms(lambda: patch_megastep.vmix_solve_plain(
+        p48, cfg48s, out48, DT, coef48), 2, 1)
+    # the host parts of a science step: the pole submesh's composed step
+    # with wind, drag and PP81, and the refresh
+    sub48 = patch_megastep._sub_state(p48, fr48, patch_megastep.stack_frames(
+        m48, cfg48s, st48s)[1])
+    sci_sub_ms = cuda_ms(lambda: forward_backward_step(
+        p48.sub_mesh, cfg48s, sub48, 0.0, DT, wind_stress=pw48[1]), 20)
+    nfix48 = dict(h=sub48.h[p48.fix_cells_local],
+                  u=sub48.u[p48.fix_edges_local],
+                  tr=sub48.tracers[:, p48.fix_cells_local])
+    sci_refresh_ms = cuda_ms(lambda: patch_megastep._refresh_frames(
+        p48, scratch48, nfix48), 20)
+    psb = port_bounds.patch_science(N_SPHERE)
+    f32.update({
+        "step_ms": sci_step_ms, "step_plain_ms": sci_step_plain_ms,
+        "coeffs_ms": sci_coef_ms, "coeffs_plain_ms": sci_coef_plain_ms,
+        "solve_ms": sci_solve_ms, "solve_plain_ms_pp81": sci_solve_plain_ms,
+        "submesh_step_ms": sci_sub_ms, "refresh_ms": sci_refresh_ms,
+        "bound_ms": {k: v["bound_ms"] for k, v in psb["parts"].items()},
+        "bound_by": {k: v["bound_by"] for k, v in psb["parts"].items()},
+        "step_bound_ms": psb["bound_ms"],
+        "solve_plan": vmix_kernel.plan_solve(NLAYERS, NTRACERS, 4)})
+    sci[f"f32_icos{N_SPHERE}x{NLAYERS}x{NTRACERS}"] = f32
+    emit({"phase": "kernel_patch_science", **sci})
+    sciv = f32
+    del fr48, out48, work48, coef48, scratch48, sub48
+
     # ------------------------------------------------------- 5. main_path
     # the bench configuration, through the entry points a user calls
     mesh_np = planar_hex_mesh(NX, NY, dc=5000.0, f0=1e-4,
@@ -1297,7 +1558,9 @@ def main(argv=None):
                 "split_pre": megastep.split_pre_launches,
                 "barotropic": btk.launches,
                 "split_post": megastep.split_post_launches,
-                "patch_step": patch_megastep.launches}
+                "patch_step": patch_megastep.launches,
+                "patch_coeffs": patch_megastep.coeff_launches,
+                "patch_solve": patch_megastep.solve_launches}
 
     def reset_counts():
         megastep.launches = megastep.rk_launches = 0
@@ -1306,11 +1569,12 @@ def main(argv=None):
         megastep.split_pre_launches = megastep.split_post_launches = 0
         btk.launches = 0
         patch_megastep.launches = 0
+        patch_megastep.coeff_launches = patch_megastep.solve_launches = 0
 
-    # the split kernels launch on no path but split_path, the patch step on
-    # no path but sphere_path
+    # the split kernels launch on no path but split_path, the patch kernels
+    # on no path but sphere_path and sphere_science_path
     NO_SPLIT = {"split_pre": 0, "barotropic": 0, "split_post": 0,
-                "patch_step": 0}
+                "patch_step": 0, "patch_coeffs": 0, "patch_solve": 0}
 
     vol0, trc0 = content(sci0)
     nseg, seg = 2, 10
@@ -1544,7 +1808,8 @@ def main(argv=None):
                     "vmix_solve": 0, "stencil": 0,
                     "split_pre": 3 * nseg * seg,
                     "barotropic": M_SPLIT * nseg * seg,
-                    "split_post": nseg * seg, "patch_step": 0})
+                    "split_post": nseg * seg, "patch_step": 0,
+                    "patch_coeffs": 0, "patch_solve": 0})
     spl_vol, spl_trc = drifts(state0, spl_st)
     spl_umax = spl_st.u.abs().max().item()
     if spl_vol > 1e-5 or spl_trc > 1e-5 or not 0.0 < spl_umax < 1.0:
@@ -1594,7 +1859,8 @@ def main(argv=None):
                    {"fb_step": 0, "rk_stage": 0, "pp81_coeffs": 0,
                     "vmix_solve": 0, "stencil": 0, "split_pre": 0,
                     "barotropic": 0, "split_post": 0,
-                    "patch_step": patch_megastep.PASSES * nseg * seg})
+                    "patch_step": patch_megastep.PASSES * nseg * seg,
+                    "patch_coeffs": 0, "patch_solve": 0})
     (v0, t0_), (v1, t1_) = sphere_content(sph0), sphere_content(sph)
     sph_vol = abs(v1 - v0) / v0
     sph_trc = max(abs(b - a) / abs(a) for a, b in zip(t0_, t1_))
@@ -1623,6 +1889,91 @@ def main(argv=None):
           "breakdown_ms": {"patch_step": patv["ms"],
                            "submesh_step": patv["submesh_step_ms"],
                            "refresh": patv["refresh_ms"]}})
+
+    # -------------------------------------------- 10d. sphere_science_path
+    # the Omega-1 science configuration on bench.py's sphere (icos48 x 100
+    # x 2, float32, dt = 30 s): upwind thickness and tracer fluxes, a wind
+    # stress varying with latitude, bottom drag 3e-3, PP81 mixing on a
+    # stratified T / S, through run_steps with the stress. A step is one
+    # call of the patch step's science variant (five launches), the PP81
+    # coefficient kernel, the column solve, the pole submesh's composed
+    # step and the refresh; no other kernel launches
+    cfg_ss = cfg48s
+    ss0 = sphere_strat(m48_np, NLAYERS, torch.float32, 0.01)
+    run_steps(m48, cfg_ss, ss0, 0.0, DT, 1, wind_stress=w48)     # untimed
+    reset_counts()
+    ss, ss_s = ss0, []
+    for i in range(nseg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ss = run_steps(m48, cfg_ss, ss, i * seg * DT, DT, seg,
+                       stepper=forward_backward_step, wind_stress=w48)
+        torch.cuda.synchronize()
+        ss_s.append(time.perf_counter() - t0)
+    ss_launches = counts()
+    finite("sphere science path", ss)
+    check_launches("sphere science path", ss_launches,
+                   {"fb_step": 0, "rk_stage": 0, "pp81_coeffs": 0,
+                    "vmix_solve": 0, "stencil": 0, "split_pre": 0,
+                    "barotropic": 0, "split_post": 0,
+                    "patch_step": patch_megastep.PASSES * nseg * seg,
+                    "patch_coeffs": nseg * seg, "patch_solve": nseg * seg})
+    (v0, t0_), (v1, t1_) = sphere_content(ss0), sphere_content(ss)
+    ss_vol = abs(v1 - v0) / v0
+    ss_trc = max(abs(b - a) / abs(a) for a, b in zip(t0_, t1_))
+    ss_umax = ss.u.abs().max().item()
+    ss_dead = ss.u[dead].abs().max().item() if bool(dead.any()) else 0.0
+    if ss_vol > 1e-5 or ss_trc > 1e-5 or not 0.0 < ss_umax < 1.0:
+        fail(f"sphere science path: drift {ss_vol} / {ss_trc}, max|u| "
+             f"{ss_umax}")
+    if ss_dead != 0.0:
+        fail(f"sphere science path: u on dead edges reaches {ss_dead}")
+    # the same steps without a stress, and without drag: the wind moved the
+    # top layer, the drag took energy out of the bottom layer
+    calm = run_steps(m48, cfg_ss, ss0, 0.0, DT, nseg * seg)
+    slip = run_steps(m48, bench_cfg(NLAYERS, NTRACERS,
+                                    dict(wind_forcing=True), vert_mix=PP81,
+                                    **UPWIND),
+                     ss0, 0.0, DT, nseg * seg, wind_stress=w48)
+    ss_top = (ss.u[:, 0] - calm.u[:, 0]).abs().max().item()
+    ss_mid = (ss.u[:, NLAYERS // 2]
+              - calm.u[:, NLAYERS // 2]).abs().max().item()
+    ss_ke = ss.u[:, -1].double().square().sum().item()
+    ss_ke_slip = slip.u[:, -1].double().square().sum().item()
+    # (about steps * dt * stress / (rho0 * layer thickness) = 1.5e-3 m/s)
+    ss_dv = nseg * seg * DT * 0.1 / (1026.0 * 4000.0 / NLAYERS)
+    if not (ss_top > 0.1 * ss_dv and ss_mid < 0.01 * ss_top):
+        fail(f"sphere science path: wind moved the top layer by {ss_top}, "
+             f"layer {NLAYERS // 2} by {ss_mid}")
+    if not ss_ke < ss_ke_slip * (1.0 - 1e-5):
+        fail(f"sphere science path: bottom-layer sum u^2 {ss_ke} with drag, "
+             f"{ss_ke_slip} without")
+    del calm, slip
+    ss_ms = ss_s[-1] / seg * 1e3
+    emit({"phase": "sphere_science_path", "config": f"icos{N_SPHERE} "
+          f"({real_cells} cells) x {NLAYERS} x {NTRACERS} float32, "
+          "bottom_depth 4000, h = (depth + sin 2 lat cos lon) / K, T "
+          "decreasing downward + 0.1 noise, S 35 + 0.1 noise, u = 0.01 x "
+          "noise x edge_mask, dt=30 visc_del2=1e3 visc_del4=1e9, upwind "
+          "thickness and tracer fluxes, wind (0.1 cos lat, 0.05 sin lat), "
+          "bottom_drag 3e-3, PP81 vmix (T, S = tracers 0, 1); margin 8, "
+          "worst-case validity masks",
+          "steps": nseg * seg, "segment_seconds": ss_s, "ms_per_step": ss_ms,
+          "gridpoint_steps_per_s": real_cells * NLAYERS / (ss_ms * 1e-3),
+          "launches": ss_launches,
+          "launches_per_step": {k: v / (nseg * seg)
+                                for k, v in ss_launches.items()},
+          "volume_drift": ss_vol, "tracer_drift": ss_trc,
+          "max_abs_u": ss_umax, "max_abs_u_dead_edges": ss_dead,
+          "top_layer_u_moved_by_wind": ss_top,
+          "mid_layer_u_moved_by_wind": ss_mid,
+          "bottom_sum_u2_with_drag": ss_ke,
+          "bottom_sum_u2_without_drag": ss_ke_slip,
+          "breakdown_ms": {"patch_step": sciv["step_ms"],
+                           "pp81_coeffs": sciv["coeffs_ms"],
+                           "column_solve": sciv["solve_ms"]["pp81"],
+                           "submesh_step": sciv["submesh_step_ms"],
+                           "refresh": sciv["refresh_ms"]}})
 
     # ------------------------------------------------------- 11. rk_order
     # the manufactured solution (tests/test_model.py:79-166) in float64 on
@@ -1740,7 +2091,9 @@ def main(argv=None):
                   mesh, cfg_split, state0, 0.0, DT_SPLIT, 5,
                   stepper=split_stepper)),
               "sphere_5_steps": traced(lambda: run_steps(
-                  m48, cfg48, sph0, 0.0, DT, 5))})
+                  m48, cfg48, sph0, 0.0, DT, 5)),
+              "sphere_science_5_steps": traced(lambda: run_steps(
+                  m48, cfg_ss, ss0, 0.0, DT, 5, wind_stress=w48))})
 
     # ---------------------------------------------------------- 8. kernels
     print(smi_line, flush=True)
@@ -1897,7 +2250,8 @@ def main(argv=None):
          f"{NX}) + 12 x ({NY}, {NX}) in, ({CH}, {NLAYERS}, {NY}, {NX}) out, "
          "float32", "path": "split_path"},
         {"name": "patch_step", "route": "cuda",
-         "source": "omega_tpu_torch/csrc/patch_step.cu",
+         "source": "omega_tpu_torch/csrc/patch_step_cc.cu",
+         "template": "omega_tpu_torch/csrc/patch_step.cuh",
          "replaces": "omega_tpu/ops/patch_megastep.py:1218",
          "call_site": "omega_tpu/ops/patch_megastep.py:1425",
          "launches": sph_launches["patch_step"],
@@ -1907,6 +2261,51 @@ def main(argv=None):
          "shape": f"frames {tuple(patv['frames'])} float32 (icos"
          f"{N_SPHERE}, S = {p48.S}), kind fb, flagship",
          "passes_per_call": patch_megastep.PASSES, "path": "sphere_path"},
+        {"name": "patch_step_science", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/patch_step_uu.cu",
+         "template": "omega_tpu_torch/csrc/patch_step.cuh",
+         "replaces": "omega_tpu/ops/patch_megastep.py:1218",
+         "call_site": "omega_tpu/ops/patch_megastep.py:1425",
+         "chain": "omega_tpu/mesh/icos_mega.py:457 _pre_ops (upwind), :568 "
+         "_phys_ops (wind, drag)",
+         "launches": ss_launches["patch_step"],
+         "max_abs_err": sciv["upwind_wind_drag_pp81"]["step_max_abs_err"],
+         "ms": sciv["step_ms"], "plain_ms": sciv["step_plain_ms"],
+         "bound_ms": sciv["bound_ms"]["horizontal"],
+         "bound_by": sciv["bound_by"]["horizontal"], "library_ms": None,
+         "shape": f"frames {tuple(patv['frames'])} + wind (3, {p48.P}) "
+         f"float32 (icos{N_SPHERE}), upwind fluxes, wind and drag",
+         "passes_per_call": patch_megastep.PASSES,
+         "path": "sphere_science_path"},
+        {"name": "patch_pp81_coeffs", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/patch_vmix.cu",
+         "replaces": "omega_tpu/ops/patch_megastep.py:1218",
+         "chain": "omega_tpu/mesh/icos_mega.py:582 _vmix_ops (pp81), "
+         "omega_tpu/ops/patch_megastep.py:950-990",
+         "launches": ss_launches["patch_coeffs"],
+         "max_abs_err": sciv["upwind_wind_drag_pp81"]["coeffs_max_abs_err"],
+         "ms": sciv["coeffs_ms"], "plain_ms": sciv["coeffs_plain_ms"],
+         "bound_ms": sciv["bound_ms"]["coeffs"],
+         "bound_by": sciv["bound_by"]["coeffs"], "library_ms": None,
+         "shape": f"frames {tuple(patv['frames'])} -> ({NLAYERS}, 4, "
+         f"{p48.P}) float32", "path": "sphere_science_path"},
+        {"name": "patch_vmix_solve", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/patch_vmix.cu",
+         "shared": "omega_tpu_torch/csrc/pcr_columns.cuh",
+         "replaces": "omega_tpu/ops/patch_megastep.py:1218",
+         "chain": "omega_tpu/ops/patch_megastep.py:932-948 (vmix_u, vmix_c, "
+         "vmix_u_arr, vmix_c_arr), omega_tpu/ops/megastep.py:360 "
+         "_pcr_diffusion",
+         "launches": ss_launches["patch_solve"],
+         "max_abs_err": sciv["upwind_wind_drag_pp81"][
+             "solve_upwind_wind_drag_pp81"]["max_abs_err"],
+         "ms": sciv["solve_ms"]["pp81"],
+         "plain_ms": sciv["solve_plain_ms_pp81"],
+         "bound_ms": sciv["bound_ms"]["solve"],
+         "bound_by": sciv["bound_by"]["solve"], "library_ms": None,
+         "shape": f"frames {tuple(patv['frames'])} in place, PP81 "
+         "coefficients, float32", "path": "sphere_science_path",
+         "constant_coefficients_ms": sciv["solve_ms"]["constant"]},
     ], "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

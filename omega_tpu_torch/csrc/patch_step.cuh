@@ -1,27 +1,27 @@
-// The forward-backward step on the icosahedral sphere: the flagship FB
-// chain of mesh/icos_mega.fb_chain on the persistent halo frames, in five
-// launches made by one C call.
+// The forward-backward step on the icosahedral sphere: the horizontal part
+// of the FB chain of mesh/icos_mega.fb_chain on the persistent halo frames,
+// in five launches made by one C call. One source per pair of flux types
+// instantiates this template (patch_step_cc.cu, _uc, _cu, _uu), each with
+// and without the wind / drag tails, in both precisions.
 //
 // Replaces the TPU kernel omega_tpu/ops/patch_megastep.py:_kernel (kind
-// `fb`, the chain of _eval_chain), called at patch_megastep.py:1425. State
-// and outputs are the frames of ops/patch_megastep.py, (K, 4+L, P) with
-// P = 10 S S positions (10 rhombi, S = n + 2 MH): channel 0 = h, 1..3 =
-// the edge classes of u, 4.. = tracers; a layer's channels are contiguous.
+// `fb`, the chain of _eval_chain, with the upwind options of _pre_ops and
+// the wind / drag ops of _phys_ops; its staged kinds fb2a / fb2b exist to
+// fit that chip's memory and are the same chain), called at
+// patch_megastep.py:1425. The vertical-mixing tail of that chain is
+// csrc/patch_vmix.cu. State and outputs are the frames of
+// ops/patch_megastep.py, (K, 4+L, P) with P = 10 S S positions (10 rhombi,
+// S = n + 2 MH); the table layout is patch_common.cuh's.
 //
 // Weights. The TPU kernel reads a lane-major plane stack (10, SS, SS, npl),
 // 164 MB at icos48 in float32 and ~85% zeros, once per tile, and applies a
-// plane to all 128 lanes of K. Here a position's stencil rows come from a
-// compact table built on the host (ops/patch_megastep.py:compact_table):
-// per group of tables sharing a support and per destination channel, a
-// fixed number of slots, each an offset (flat within one layer of the
-// source field) and one weight per table of the group; unused slots hold
-// offset 0 and weight 0, so no read leaves the frame and no uninitialised
-// value enters a sum. Slots run in the reference's entry order. Every layer
-// uses the same weights, so a thread loads the slots of its position once
-// into registers and walks LAYERS_PER_THREAD layers with them: the table
-// (60 offset and 108 weight rows of P, 27.5 MB at icos48 in float32) is
-// read once per pass, not once per layer. Neighbouring threads are
-// neighbouring positions, so field reads are coalesced along x.
+// plane to all 128 lanes of K. Here a position's stencil rows come from the
+// compact table built on the host (ops/patch_megastep.py:compact_table).
+// Every layer uses the same weights, so a thread loads the slots of its
+// position once into registers and walks LAYERS_PER_THREAD layers with
+// them: the table (60 offset and 120 weight rows of P, 29.5 MB at icos48 in
+// float32) is read once per pass, not once per layer. Neighbouring threads
+// are neighbouring positions, so field reads are coalesced along x.
 //
 // Levels. The chain has six stencil levels; a launch evaluates a group of
 // them at every frame position, the intermediates of one launch going
@@ -31,53 +31,50 @@
 // untiled evaluation is exact wherever the tiled one is); the refresh that
 // follows (ops/patch_megastep.py) rewrites every position they do not
 // trust.
-//   A: mean_h, flux = mean_h u, per tracer hflux = cmean(h tr) u_m and
+//   A: mean_h, flux = flux_h u, per tracer hflux = htre u_m and
 //      mc = mean_h cdiff(tr); ke(u^2); div(u); curl(u)
 //   B: h_new = h - dt div(flux); per tracer trp = -div(hflux) +
 //      ed2 sdiv_geo2(mc) and d2aux = sdiv_geo(mc); at edges
 //      dup = nu2 s2 (cgrad(div u) - vgrad(curl u)) - cgrad(ke) and
 //      del2e = mask cgrad(div u) - vgrad_floor(curl u)
-//   C: per tracer cd2 = cdiff(d2aux); F = cmean(h_new) u;
+//   C: per tracer cd2 = cdiff(d2aux); F = flux_hn u;
 //      dup -= g (cgrad(h_new) - gdepth); qv = (curl u + f) / kite(h_new);
 //      dr2 = curl(del2e); dd2 = div(del2e)
 //   D: trn = (tr h + dt (trp - ed4 sdiv_geo4(cd2))) / h_new;
 //      Fq = F vmean(qv); dup += 0.5 vmean(qv) tang(F)
-//      - nu4 s4 (df cgrad(dd2) - vgrad(dr2))
+//      - nu4 s4 (df cgrad(dd2) - vgrad(dr2)); the tails: on layer 0
+//      dup += stress / (rho0 mean_hn), on layer K-1
+//      dup -= cd sqrt(2 cmean(ke)) u / mean_hn
 //   E: u_new = u + dt mask (dup + 0.5 tang(Fq))
-// The momentum tendency's terms are summed in this order, not the chain's;
-// every product is rounded on its own (mul_rn), as the plain version
-// rounds it, and stencil sums run in the same order as its.
+// Center fluxes: mean_h = flux_h = cmean(h), htre = cmean(h tr), mean_hn =
+// flux_hn = cmean(h_new). Upwind (either flux): the pair tables c0 / c1
+// give the edge's two cells, hp0 / hp1, and mean_h = 0.5 (hp0 + hp1); an
+// upwind thickness flux picks flux_h = sel(u, hp0, hp1) (hp0 where u > 0,
+// hp1 where u < 0, the larger at rest) and likewise flux_hn from h_new, an
+// upwind tracer flux htre = sel(u, hp0 c0(tr), hp1 c1(tr)). Wind and drag
+// touch one layer each; which of the two a tails instantiation applies is
+// a run-time matter (the wind rows of the const planes, cd != 0), uniform
+// over the launch. The momentum tendency's terms are summed in this order,
+// not the chain's; every product is rounded on its own (mul_rn), as the
+// plain version rounds it, and stencil sums run in the same order as its.
 //
 // Holes and NaN: lattice holes hold zeros in the frames; the divisions by
-// h_v and h_new are guarded (a zero divisor gives 0), as _safe_div does.
+// h_v, h_new and mean_hn are guarded (a zero divisor gives 0), as
+// _safe_div does.
 //
 // Bound on this card: device memory. One step must read the state and
-// write it once and read the weights (port_bounds.patch_fb: 117 MB at
-// icos48 x 100 x 2 in float32, 0.035 ms); the five launches also write and
-// read the intermediates (about 55 state-field volumes at L = 2), which
-// this first version does not keep on chip.
-#include "stencil_common.cuh"
+// write it once and read the weights, plus the wind rows with wind
+// (port_bounds.patch_fb / patch_science: 117 MB at icos48 x 100 x 2 in
+// float32, 0.035 ms); the five launches also write and read the
+// intermediates (about 55 state-field volumes at L = 2), which this first
+// version does not keep on chip.
+#pragma once
+
+#include "patch_common.cuh"
 
 namespace omega {
 namespace patch {
 
-// rows of the compact offset table (GROUPS of ops/patch_megastep.py)
-constexpr int kOffDiv = 0;    // div group, 6 slots
-constexpr int kOffCurl = 6;   // 2 vertex channels x 3
-constexpr int kOffKite = 12;  // 2 x 3
-constexpr int kOffTang = 18;  // 3 edge channels x 10
-constexpr int kOffCm = 48;    // cmean group, 3 x 2
-constexpr int kOffVm = 54;    // vmean group, 3 x 2
-constexpr int kOffRows = 60;
-// rows of the weight table
-constexpr int kWDiv = 0, kWKe = 6, kWSg = 12, kWSg2 = 18, kWSg4 = 24;
-constexpr int kWCurl = 30, kWKite = 36, kWTang = 42;
-constexpr int kWCmean = 72, kWCdiff = 78, kWCgrad = 84;
-constexpr int kWVmean = 90, kWVgrad = 96, kWVgf = 102;
-constexpr int kWRows = 108;
-// const planes: f_vertex (2), gdepth (3), scal2 (3), scal4 (3), mask (3)
-constexpr int kCFv = 0, kCGd = 2, kCS2 = 5, kCS4 = 8, kCEm = 11;
-constexpr int kCRows = 14;
 enum { kFv = 0, kGd, kS2, kS4, kEm, kNConst };
 
 template <typename T>
@@ -93,6 +90,8 @@ struct Args {
   T dt, grav, nu2, nu4, dfac, ed2, ed4;
   T cs[kNConst];   // a const plane's value where it is uniform
   int cf[kNConst];  // 1: the const is a plane of cpl
+  T rho0, cd;       // the tails: reference density, bottom drag coefficient
+  int wind, drag;   // 1: the tails instantiation applies wind / drag
   int P, K, L, CH, kg;
 };
 
@@ -104,30 +103,6 @@ __device__ __forceinline__ bool where(const Args<T>& a, int& p, int& k0,
   k0 = blockIdx.y * a.kg;
   k1 = min(a.K, k0 + a.kg);
   return p < a.P;
-}
-
-template <int N>
-__device__ __forceinline__ void load_off(const int* off, int row, int P,
-                                         int p, int (&o)[N]) {
-  _Pragma("unroll") for (int s = 0; s < N; ++s)
-    o[s] = off[static_cast<long long>(row + s) * P + p];
-}
-
-template <int N, typename T>
-__device__ __forceinline__ void load_w(const T* w, int row, int P, int p,
-                                       T (&v)[N]) {
-  _Pragma("unroll") for (int s = 0; s < N; ++s)
-    v[s] = w[static_cast<long long>(row + s) * P + p];
-}
-
-// sum_s w[s] x[p + o[s]] in slot order, each product rounded on its own
-template <int N, typename T>
-__device__ __forceinline__ T sten(const T (&w)[N], const int (&o)[N],
-                                  const T* __restrict__ x, int p) {
-  T acc = T(0);
-  _Pragma("unroll") for (int s = 0; s < N; ++s)
-    acc = acc + mul_rn(w[s], x[p + o[s]]);
-  return acc;
 }
 
 template <typename T>
@@ -143,14 +118,17 @@ __device__ __forceinline__ T masked(const Args<T>& a, T m, T x) {
   return (!a.cf[kEm] && a.cs[kEm] == T(1)) ? x : mul_rn(m, x);
 }
 
+// the reference's upwind pick (aux upwind flux): a where u > 0, b where
+// u < 0, the larger at rest
 template <typename T>
-__device__ __forceinline__ T safe_div(T n, T d) {
-  return d != T(0) ? n / d : T(0);
+__device__ __forceinline__ T upwind(T u, T a, T b) {
+  return u > T(0) ? a : (u < T(0) ? b : (a < b ? b : a));
 }
 
 // ------------------------------------------------------------- pass A
-template <typename T>
+template <typename T, bool UH, bool UT>
 __global__ void __launch_bounds__(256) pass_a(const Args<T> a) {
+  constexpr bool kPair = UH || UT;
   int p, k0, k1;
   if (!where(a, p, k0, k1)) return;
   const long long P = a.P, lay = static_cast<long long>(a.CH) * P;
@@ -158,22 +136,43 @@ __global__ void __launch_bounds__(256) pass_a(const Args<T> a) {
   // edges: mean_h, flux, and per tracer hflux, mc
   for (int t = 0; t < 3; ++t) {
     int o[2];
-    T wm[2], wd[2];
+    T wm[2], wd[2], w0[2], w1[2];
     load_off(a.off, kOffCm + 2 * t, a.P, p, o);
     load_w(a.w, kWCmean + 2 * t, a.P, p, wm);
     load_w(a.w, kWCdiff + 2 * t, a.P, p, wd);
+    if constexpr (kPair) {
+      load_w(a.w, kWC0 + 2 * t, a.P, p, w0);
+      load_w(a.w, kWC1 + 2 * t, a.P, p, w1);
+    }
     const T em = cval(a, kEm, kCEm + t, p);
     for (int k = k0; k < k1; ++k) {
       const T* h = a.in + k * lay;
-      const T mean_h = sten(wm, o, h, p);
       const T u = h[(1 + t) * P + p];
-      a.flux[(k * 3LL + t) * P + p] = mul_rn(mean_h, u);
+      T mean_h, flux_h, hp0 = T(0), hp1 = T(0);
+      if constexpr (kPair) {
+        hp0 = sten(w0, o, h, p);
+        hp1 = sten(w1, o, h, p);
+        mean_h = mul_rn(T(0.5), hp0 + hp1);
+      } else {
+        mean_h = sten(wm, o, h, p);
+      }
+      if constexpr (UH) {
+        flux_h = upwind(u, hp0, hp1);
+      } else {
+        flux_h = mean_h;
+      }
+      a.flux[(k * 3LL + t) * P + p] = mul_rn(flux_h, u);
       const T um = masked(a, em, u);
       for (int l = 0; l < L; ++l) {
         const T* tr = h + (4 + l) * P;
         T htre = T(0);
-        _Pragma("unroll") for (int s = 0; s < 2; ++s)
-          htre = htre + mul_rn(wm[s], mul_rn(h[p + o[s]], tr[p + o[s]]));
+        if constexpr (UT) {
+          htre = upwind(u, mul_rn(hp0, sten(w0, o, tr, p)),
+                        mul_rn(hp1, sten(w1, o, tr, p)));
+        } else {
+          _Pragma("unroll") for (int s = 0; s < 2; ++s)
+            htre = htre + mul_rn(wm[s], mul_rn(h[p + o[s]], tr[p + o[s]]));
+        }
         const long long q = (k * 3LL * L + 3 * l + t) * P + p;
         a.hflux[q] = mul_rn(htre, um);
         a.mc[q] = mul_rn(mean_h, sten(wd, o, tr, p));
@@ -262,7 +261,7 @@ __global__ void __launch_bounds__(256) pass_b(const Args<T> a) {
 }
 
 // ------------------------------------------------------------- pass C
-template <typename T>
+template <typename T, bool UH>
 __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
   int p, k0, k1;
   if (!where(a, p, k0, k1)) return;
@@ -271,11 +270,15 @@ __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
   // edges: cd2 (into mc's field), F (into flux's), the ssh gradient
   for (int t = 0; t < 3; ++t) {
     int o[2];
-    T wd[2], wm[2], wg[2];
+    T wd[2], wm[2], wg[2], w0[2], w1[2];
     load_off(a.off, kOffCm + 2 * t, a.P, p, o);
     load_w(a.w, kWCdiff + 2 * t, a.P, p, wd);
     load_w(a.w, kWCmean + 2 * t, a.P, p, wm);
     load_w(a.w, kWCgrad + 2 * t, a.P, p, wg);
+    if constexpr (UH) {
+      load_w(a.w, kWC0 + 2 * t, a.P, p, w0);
+      load_w(a.w, kWC1 + 2 * t, a.P, p, w1);
+    }
     const T gd = cval(a, kGd, kCGd + t, p);
     for (int k = k0; k < k1; ++k) {
       for (int l = 0; l < L; ++l)
@@ -284,7 +287,14 @@ __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
                  p);
       const T* hn = a.out + k * lay;
       const long long q = (k * 3LL + t) * P + p;
-      a.flux[q] = mul_rn(sten(wm, o, hn, p), a.in[k * lay + (1 + t) * P + p]);
+      const T u = a.in[k * lay + (1 + t) * P + p];
+      T flux_hn;
+      if constexpr (UH) {
+        flux_hn = upwind(u, sten(w0, o, hn, p), sten(w1, o, hn, p));
+      } else {
+        flux_hn = sten(wm, o, hn, p);
+      }
+      a.flux[q] = mul_rn(flux_hn, u);
       a.dup[q] = a.dup[q] - mul_rn(a.grav, sten(wg, o, hn, p) - gd);
     }
   }
@@ -316,7 +326,7 @@ __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
 }
 
 // ------------------------------------------------------------- pass D
-template <typename T>
+template <typename T, bool UH, bool TAILS>
 __global__ void __launch_bounds__(256) pass_d(const Args<T> a) {
   int p, k0, k1;
   if (!where(a, p, k0, k1)) return;
@@ -345,7 +355,7 @@ __global__ void __launch_bounds__(256) pass_d(const Args<T> a) {
   // edges: Fq (into del2e's field), PV and del4 terms into dup
   for (int t = 0; t < 3; ++t) {
     int ov[2], oc[2], ot[10];
-    T wvm[2], wvg[2], wg[2], wt[10];
+    T wvm[2], wvg[2], wg[2], wt[10], wm[2], w0[2], w1[2];
     load_off(a.off, kOffVm + 2 * t, a.P, p, ov);
     load_w(a.w, kWVmean + 2 * t, a.P, p, wvm);
     load_w(a.w, kWVgrad + 2 * t, a.P, p, wvg);
@@ -353,6 +363,13 @@ __global__ void __launch_bounds__(256) pass_d(const Args<T> a) {
     load_w(a.w, kWCgrad + 2 * t, a.P, p, wg);
     load_off(a.off, kOffTang + 10 * t, a.P, p, ot);
     load_w(a.w, kWTang + 10 * t, a.P, p, wt);
+    if constexpr (TAILS) {
+      load_w(a.w, kWCmean + 2 * t, a.P, p, wm);
+      if constexpr (UH) {
+        load_w(a.w, kWC0 + 2 * t, a.P, p, w0);
+        load_w(a.w, kWC1 + 2 * t, a.P, p, w1);
+      }
+    }
     const T nu4s = mul_rn(a.nu4, cval(a, kS4, kCS4 + t, p));
     for (int k = k0; k < k1; ++k) {
       const long long q = (k * 3LL + t) * P + p;
@@ -361,8 +378,33 @@ __global__ void __launch_bounds__(256) pass_d(const Args<T> a) {
       const T tf = sten(wt, ot, a.flux + k * 3LL * P, p);
       const T cd4 = sten(wg, oc, a.divu + k * P, p);
       const T vd4 = sten(wvg, ov, a.dr2 + k * 2LL * P, p);
-      a.dup[q] = (a.dup[q] - mul_rn(nu4s, mul_rn(a.dfac, cd4) - vd4)) +
-                 mul_rn(T(0.5), mul_rn(qe, tf));
+      T du = (a.dup[q] - mul_rn(nu4s, mul_rn(a.dfac, cd4) - vd4)) +
+             mul_rn(T(0.5), mul_rn(qe, tf));
+      if constexpr (TAILS) {
+        const bool top = a.wind && k == 0, bottom = a.drag && k == a.K - 1;
+        if (top || bottom) {
+          const T* hn = a.out + k * lay;
+          T mean_hn;
+          if constexpr (UH) {
+            mean_hn = mul_rn(T(0.5), sten(w0, oc, hn, p) +
+                                         sten(w1, oc, hn, p));
+          } else {
+            mean_hn = sten(wm, oc, hn, p);
+          }
+          if (top)
+            du = du + safe_div(a.cpl[(kCWind + t) * P + p],
+                               mul_rn(a.rho0, mean_hn));
+          if (bottom) {
+            const T kee = sten(wm, oc, a.ke + k * P, p);
+            const T two = T(2) * kee;
+            const T speed = sqrt(two > T(0) ? two : T(0));
+            du = du - safe_div(mul_rn(mul_rn(a.cd, speed),
+                                      a.in[k * lay + (1 + t) * P + p]),
+                               mean_hn);
+          }
+        }
+      }
+      a.dup[q] = du;
     }
   }
 }
@@ -389,7 +431,7 @@ __global__ void __launch_bounds__(256) pass_e(const Args<T> a) {
   }
 }
 
-template <typename T>
+template <typename T, bool UH, bool UT, bool TAILS>
 int launch(const void* in, void* out, const void* off, const void* w,
            const void* cpl, void* work, const double* c, const int* n,
            cudaStream_t stream) {
@@ -434,17 +476,22 @@ int launch(const void* in, void* out, const void* off, const void* w,
     a.cs[i] = static_cast<T>(c[7 + i]);
     a.cf[i] = n[6 + i];
   }
+  a.rho0 = static_cast<T>(c[7 + kNConst]);
+  a.cd = static_cast<T>(c[8 + kNConst]);
+  a.wind = n[6 + kNConst];
+  a.drag = n[7 + kNConst];
+  if (!TAILS && (a.wind || a.drag)) return cudaErrorInvalidValue;
   const dim3 grid((a.P + threads - 1) / threads, (a.K + a.kg - 1) / a.kg);
   cudaError_t err;
-#define OMEGA_PASS(KERN)                            \
-  KERN<T><<<grid, threads, 0, stream>>>(a);         \
-  err = cudaGetLastError();                         \
+#define OMEGA_PASS(...)                                 \
+  __VA_ARGS__<<<grid, threads, 0, stream>>>(a);         \
+  err = cudaGetLastError();                             \
   if (err != cudaSuccess) return static_cast<int>(err);
-  OMEGA_PASS(pass_a)
-  OMEGA_PASS(pass_b)
-  OMEGA_PASS(pass_c)
-  OMEGA_PASS(pass_d)
-  OMEGA_PASS(pass_e)
+  OMEGA_PASS(pass_a<T, UH, UT>)
+  OMEGA_PASS(pass_b<T>)
+  OMEGA_PASS(pass_c<T, UH>)
+  OMEGA_PASS(pass_d<T, UH, TAILS>)
+  OMEGA_PASS(pass_e<T>)
 #undef OMEGA_PASS
   return 0;
 }
@@ -452,32 +499,30 @@ int launch(const void* in, void* out, const void* off, const void* w,
 }  // namespace patch
 }  // namespace omega
 
-// The C interface, in both precisions: omega_patch_fb_<f32|f64>. `in` and
-// `out` are (K, 4+L, P) frames, `off` / `w` / `cpl` the compact table and
-// the const planes, `work` the scratch of work_fields(L) (K, 1, P) fields;
-// `consts` = dt, g, nu2, nu4, div_factor, eddy_diff2, eddy_diff4, then the
-// uniform values of f_vertex, gdepth, scal2, scal4, edge_mask; `ints` = P,
-// S, K, L, layers per thread, threads per block, then one flag per const
-// (1: a plane of `cpl`). Returns the first refused launch's error code, or
-// 0. omega_patch_rows(0 | 1 | 2) gives the row counts of `off`, `w`, `cpl`.
-#define OMEGA_PATCH_ENTRY(SUF, T)                                            \
-  int omega_patch_fb_##SUF(const void* in, void* out, const void* off,       \
-                           const void* w, const void* cpl, void* work,       \
-                           const double* consts, const int* ints,            \
-                           void* stream) {                                   \
-    return omega::patch::launch<T>(in, out, off, w, cpl, work, consts, ints, \
-                                   static_cast<cudaStream_t>(stream));       \
+// The C interface of one pair of flux types (FL: cc, uc, cu, uu = thickness
+// then tracer flux, center or upwind), without and with the tails, in both
+// precisions: omega_patch_fb_<FL>_<plain|tails>_<f32|f64>. `in` and `out`
+// are (K, 4+L, P) frames, `off` / `w` / `cpl` the compact table and the
+// const planes, `work` the scratch of work_fields(L) (K, 1, P) fields;
+// `consts` = dt, g, nu2, nu4, div_factor, eddy_diff2, eddy_diff4, the
+// uniform values of f_vertex, gdepth, scal2, scal4, edge_mask, then rho0 and
+// the drag coefficient; `ints` = P, S, K, L, layers per thread, threads per
+// block, one flag per const (1: a plane of `cpl`), then wind and drag on
+// (1) or off (0). Returns the first refused launch's error code, or 0.
+#define OMEGA_PATCH_ENTRY(FL, TL, SUF, T, UH, UT, TAILS)                    \
+  int omega_patch_fb_##FL##_##TL##_##SUF(                                    \
+      const void* in, void* out, const void* off, const void* w,             \
+      const void* cpl, void* work, const double* consts, const int* ints,    \
+      void* stream) {                                                        \
+    return omega::patch::launch<T, UH, UT, TAILS>(                           \
+        in, out, off, w, cpl, work, consts, ints,                            \
+        static_cast<cudaStream_t>(stream));                                  \
   }
 
-extern "C" {
-
-OMEGA_PATCH_ENTRY(f32, float)
-OMEGA_PATCH_ENTRY(f64, double)
-
-int omega_patch_rows(int which) {
-  return which == 0   ? omega::patch::kOffRows
-         : which == 1 ? omega::patch::kWRows
-                      : omega::patch::kCRows;
-}
-
-}  // extern "C"
+#define OMEGA_PATCH_VARIANTS(FL, UH, UT)                                    \
+  extern "C" {                                                               \
+  OMEGA_PATCH_ENTRY(FL, plain, f32, float, UH, UT, false)                    \
+  OMEGA_PATCH_ENTRY(FL, tails, f32, float, UH, UT, true)                     \
+  OMEGA_PATCH_ENTRY(FL, plain, f64, double, UH, UT, false)                   \
+  OMEGA_PATCH_ENTRY(FL, tails, f64, double, UH, UT, true)                    \
+  }

@@ -24,7 +24,8 @@
 // System 0 of a cell column is the L tracers against the cell thickness,
 // systems 1..3 are the edge classes of u against cmean(h) (two reads through
 // the cmean table's shifts, the periodic wrap as index arithmetic). Each is
-// solved by parallel cyclic reduction exactly as ops/tridiag.pcr does it:
+// solved by parallel cyclic reduction exactly as ops/tridiag.pcr does it
+// (pcr_columns.cuh, shared with the sphere's solve in patch_vmix.cu):
 // ceil(log2 K) levels, out-of-range neighbour rows read as identity equations
 // (1 for the diagonal, 0 for the rest), one set of alpha/beta factors per
 // level shared by all right-hand sides of the column.
@@ -40,6 +41,7 @@
 // tracers written once); the reduction itself is ~20 operations and two
 // divisions per row and level, far under the card's float rate but, with the
 // shared-memory traffic, what the time actually goes to.
+#include "pcr_columns.cuh"
 #include "stencil_common.cuh"
 
 namespace omega {
@@ -233,40 +235,14 @@ vmix_solve_kernel(T* __restrict__ s, const T* __restrict__ kappa,
       G[i] = gk;
     }
     __syncthreads();
+    pcr_matrix(cur, HS, G, K, CW);
     for (int k = ty; k < K; k += TY) {
       const int i = k * CW + tx;
-      const T gk = G[i], gm = k > 0 ? G[i - CW] : T(0), h = HS[i];
-      cur[i] = -gm;                    // a
-      cur[N + i] = h + gk + gm;        // b
-      cur[2 * N + i] = -gk;            // c
       for (int l = 0; l < n; ++l)
-        cur[(3 + l) * N + i] = h * s[chan(ch0 + l0 + l, k) + g];
+        cur[(3 + l) * N + i] = HS[i] * s[chan(ch0 + l0 + l, k) + g];
     }
     __syncthreads();
-
-    for (int lev = 0, sh = 1; lev < p.levels; ++lev, sh <<= 1) {
-      for (int k = ty; k < K; k += TY) {
-        const int i = k * CW + tx;
-        const bool hm = k - sh >= 0, hp = k + sh < K;
-        const int im = i - sh * CW, ip = i + sh * CW;
-        const T a = cur[i], b = cur[N + i], c = cur[2 * N + i];
-        const T alpha = -a / (hm ? cur[N + im] : T(1));
-        const T beta = -c / (hp ? cur[N + ip] : T(1));
-        nxt[i] = alpha * (hm ? cur[im] : T(0));
-        nxt[2 * N + i] = beta * (hp ? cur[2 * N + ip] : T(0));
-        nxt[N + i] = b + alpha * (hm ? cur[2 * N + im] : T(0)) +
-                     beta * (hp ? cur[ip] : T(0));
-        for (int l = 0; l < n; ++l) {
-          const T* const X = cur + (3 + l) * N;
-          nxt[(3 + l) * N + i] = X[i] + alpha * (hm ? X[im] : T(0)) +
-                                 beta * (hp ? X[ip] : T(0));
-        }
-      }
-      __syncthreads();
-      T* const tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-    }
+    cur = pcr_levels(cur, nxt, K, CW, n, p.levels);
 
     if (live) {
       for (int k = ty; k < K; k += TY) {

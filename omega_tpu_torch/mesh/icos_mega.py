@@ -26,12 +26,12 @@ frames with NO mid-chain fix-ups:
     positions recover seam orphans and tail elements; dead rows zero
 
 Host numpy, the counterpart of omega_tpu/mesh/icos_mega.py for the
-forward-backward chain (center fluxes, stacked ssh). The frame margin MH,
-the tile whose slab creep the validity masks model, and the choice of
-worst-case (every physics option on) or tight masks are arguments with the
-reference's defaults; a build is kept on the mesh's PatchInfo, keyed by
-them. The wind, drag and vertical-mixing ops below only shape the
-worst-case masks: the port evaluates the flagship chain alone.
+forward-backward chain (center or upwind fluxes, stacked ssh, wind, bottom
+drag, implicit vertical mixing with constant or PP81 coefficients). The
+frame margin MH, the tile whose slab creep the validity masks model, and
+the choice of worst-case (every physics option on) or tight masks are
+arguments with the reference's defaults; a build is kept on the mesh's
+PatchInfo, keyed by them.
 
 Reference: operators unchanged (ocn/HorzOperators.h:9-187); this is
 layout work the reference does not need (its gathers are cheap on CPU,
@@ -299,7 +299,7 @@ def _build_mega_table(n, content, pos_of, name, idx, weights, dst_class,
 
 
 def _table_specs(mesh):
-    """The 14 stencils of the sphere FB chain, with geometry factors folded
+    """The 16 stencils of the sphere FB chain, with geometry factors folded
     in (cites per core/tendencies.py + core/aux.py)."""
     a = lambda nm: np.asarray(getattr(mesh, nm))
     E = mesh.nedges
@@ -330,6 +330,10 @@ def _table_specs(mesh):
         ("kite", a("cells_on_vertex"), "vertex", "cell", a("w_kite_frac")),
         ("tang", a("edges_on_edge"), "edge", "edge", a("weights_on_edge")),
         ("cmean", coe, "edge", "cell", np.full((E, 2), 0.5)),
+        # upwind pair slots (same source availability as cmean, so the
+        # center chain's validity masks cover the upwind variants exactly)
+        ("c0", coe[:, :1], "edge", "cell", np.ones((E, 1))),
+        ("c1", coe[:, 1:2], "edge", "cell", np.ones((E, 1))),
         ("cdiff", coe, "edge", "cell", diff),
         ("cgrad", coe, "edge", "cell", diff / dc[:, None]),
         ("vgrad", voe, "edge", "vertex", diff / dv[:, None]),
@@ -375,13 +379,22 @@ def _const_planes(mesh, content):
 # ("name", "ew", fn, args...)           elementwise combine (same class)
 # args starting with "$" are const planes; numeric literals allowed.
 # Mirrors stepping.forward_backward_step -> core/tendencies.py exactly
-# (flagship config: center fluxes, stacked ssh, all standard terms, no
-# wind/drag/vmix).
+# (stacked ssh, all standard terms; the flux types, wind, drag and vmix as
+# fb_chain's arguments select).
 
-def _pre_ops():
-    return [
-        ("mean_h", "st", "cmean", "h"),
-        ("flux_h", "ew", "copy", "mean_h"),
+def _pre_ops(uw_h=False, uw_tr=False):
+    if uw_h or uw_tr:
+        # named hp0/hp1, as the reference names them: "h0" names the
+        # original-state input of its RK stage chains
+        ops = [("hp0", "st", "c0", "h"), ("hp1", "st", "c1", "h"),
+               ("mean_h", "ew", "mean2", "hp0", "hp1")]
+    else:
+        ops = [("mean_h", "st", "cmean", "h")]
+    if uw_h:
+        ops += [("flux_h", "ew", "upwind", "u", "hp0", "hp1")]
+    else:
+        ops += [("flux_h", "ew", "copy", "mean_h")]
+    return ops + [
         ("flux", "ew", "mul", "flux_h", "u"),
         ("dh", "st", "div", "flux"),
         # masked velocity for the tracer advective flux (tendencies.py
@@ -391,11 +404,21 @@ def _pre_ops():
     ]
 
 
-def _tracer_tend_ops(l: int):
+def _tracer_tend_ops(l: int, uw_tr=False):
     t = f"tr{l}"
-    return [
-        (f"htr{l}", "ew", "mul", "h", t),
-        (f"htre{l}", "st", "cmean", f"htr{l}"),
+    if uw_tr:
+        adv_ops = [
+            (f"t0{l}", "st", "c0", t),
+            (f"t1{l}", "st", "c1", t),
+            (f"htre{l}", "ew", "upwind_prod", "u", "hp0", f"t0{l}",
+             "hp1", f"t1{l}"),
+        ]
+    else:
+        adv_ops = [
+            (f"htr{l}", "ew", "mul", "h", t),
+            (f"htre{l}", "st", "cmean", f"htr{l}"),
+        ]
+    return adv_ops + [
         (f"hflux{l}", "ew", "mul", f"htre{l}", "u_m"),
         (f"adv{l}", "st", "div", f"hflux{l}"),
         (f"ctr{l}", "st", "cdiff", t),
@@ -409,16 +432,24 @@ def _tracer_tend_ops(l: int):
     ]
 
 
-def _vel_tend_ops(hv: str):
+def _vel_tend_ops(hv: str, uw_h=False):
     # du accumulates term by term; `hv` is the thickness feeding the
-    # momentum terms: "h_new" for the forward-backward stepper
+    # momentum terms: "h_new" for the forward-backward stepper. (The
+    # reference's `ssh="column"` form serves its split-explicit chain,
+    # which the port does not evaluate on the sphere yet.)
+    if uw_h:
+        pre_hn = [("hn0", "st", "c0", hv), ("hn1", "st", "c1", hv),
+                  ("mean_hn", "ew", "mean2", "hn0", "hn1"),
+                  ("flux_hn", "ew", "upwind", "u", "hn0", "hn1")]
+    else:
+        pre_hn = [("mean_hn", "st", "cmean", hv),
+                  ("flux_hn", "ew", "copy", "mean_hn")]
     return [
         ("h_v", "st", "kite", hv),
         ("rvort", "st", "curl", "u"),
         ("qv", "ew", "q_vertex", "rvort", "$f_vertex", "h_v"),
         ("q_e", "st", "vmean", "qv"),
-        ("mean_hn", "st", "cmean", hv),
-        ("flux_hn", "ew", "copy", "mean_hn"),
+        *pre_hn,
         ("F", "ew", "mul", "flux_hn", "u"),
         ("Fq", "ew", "mul", "F", "q_e"),
         ("tf", "st", "tang", "F"),
@@ -496,22 +527,28 @@ def _vmix_ops(L: int, pp81=None):
     return ops
 
 
-def fb_chain(L: int, wind=False, drag=False, vmix=False, pp=None):
-    """The forward-backward step as a chain: h_new, trn{l}, u_new."""
-    pre = _pre_ops()
+def fb_chain(L: int, wind=False, drag=False, vmix=False, uw_h=False,
+             uw_tr=False, pp=None):
+    """The forward-backward step as a chain: h_new, trn{l}, u_new. `uw_h`
+    / `uw_tr` select upwind thickness / tracer fluxes, `wind` / `drag`
+    the top-layer stress and the bottom drag, `vmix` the implicit
+    vertical mixing (PP81 coefficients with `pp` = (T, S) tracer rows,
+    else constant ones)."""
+    pre = _pre_ops(uw_h, uw_tr)
     nsplit = len(pre) - 1                 # ops through "dh" (u_m after)
     ops = pre[:nsplit] + [
         ("h_new", "ew", "axpy", "h", -1.0, "dh"),     # h - dt*dh (dt folded)
     ] + pre[nsplit:]
     for l in range(L):
-        ops += _tracer_tend_ops(l) + [
+        ops += _tracer_tend_ops(l, uw_tr) + [
             (f"trn{l}", "ew", "tracer_update", f"tr{l}", "h", f"dtr{l}",
              "h_new"),
         ]
-    ops += _vel_tend_ops("h_new") + _phys_ops(wind, drag) + [
+    ops += _vel_tend_ops("h_new", uw_h) + _phys_ops(wind, drag) + [
         # every momentum term carries the edge mask in the composed
         # chain (tendencies.py velocity_tendency); with mask in {0, 1}
-        # gating the accumulated du once is bit-identical
+        # gating the accumulated du once is bit-identical (and covers
+        # the wind and drag terms' per-term masks)
         ("u_new", "ew", "axpy_m", "u", 1.0, "du", "$edge_mask"),
     ]
     if vmix:

@@ -155,10 +155,17 @@ def load() -> ctypes.CDLL:
         fn.argtypes = []
         fn.restype = ci
     for suffix in ("f32", "f64"):
-        fn = getattr(lib, f"omega_patch_fb_{suffix}")
-        # in, out, offs, wts, cpl, work, consts, ints, stream
-        fn.argtypes = [vp] * 9
-        fn.restype = ci
+        for flux in ("cc", "uc", "cu", "uu"):
+            for tails in ("plain", "tails"):
+                fn = getattr(lib, f"omega_patch_fb_{flux}_{tails}_{suffix}")
+                # in, out, offs, wts, cpl, work, consts, ints, stream
+                fn.argtypes = [vp] * 9
+                fn.restype = ci
+        for name in ("pp81", "vmix_solve"):
+            fn = getattr(lib, f"omega_patch_{name}_{suffix}")
+            # frames, offs, wts, coef, consts, ints, stream
+            fn.argtypes = [vp] * 7
+            fn.restype = ci
     lib.omega_patch_rows.argtypes = [ci]
     lib.omega_patch_rows.restype = ci
     lib.omega_chain_slots.argtypes = [ci, ci, ci]

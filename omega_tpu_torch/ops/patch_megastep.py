@@ -1,9 +1,10 @@
 """The forward-backward step on the icosahedral sphere, fused.
 
-Counterpart of omega_tpu/ops/patch_megastep.py for kind `fb` on the
-flagship configuration. Icosahedral meshes renumbered by
-mesh/icos_patches.py run the whole FB chain (mesh/icos_mega.fb_chain) on
-halo-MH frames of the 10 rhombi, with the padded-domain tables of
+Counterpart of omega_tpu/ops/patch_megastep.py for kind `fb`. Icosahedral
+meshes renumbered by mesh/icos_patches.py run the whole FB chain
+(mesh/icos_mega.fb_chain: center or upwind fluxes, wind, bottom drag,
+implicit vertical mixing with constant or PP81 coefficients) on halo-MH
+frames of the 10 rhombi, with the padded-domain tables of
 mesh/icos_mega.py: per-position weights instead of the planar path's
 uniform scalars, plain 2-D offsets instead of parity shifts (the rhombus
 lattice is unstaggered), and no mid-chain fix-ups: rotated seam stencils
@@ -14,8 +15,12 @@ extracted submesh by the composed stepper and scattered over the result.
 Execution model per step, frames as the loop carry:
   1. the chain evaluates every frame position of the (K, 4+L, 10, S, S)
      frames (channel 0 = h, 1..3 = the edge classes of u, 4.. = tracers;
-     S = n + 2 MH) — the CUDA kernel of csrc/patch_step.cu on the card,
-     `chain_plain` (the same chain with torch.roll) on the CPU
+     S = n + 2 MH). On the card: the horizontal part in the five passes
+     of the patch kernel (csrc/patch_step.cuh, one source per pair of
+     flux types), then with vertical mixing the PP81 coefficient kernel
+     and the column-solve kernel (csrc/patch_vmix.cu); on the CPU their
+     plain versions, `chain_plain`, `vmix_coeffs_plain`,
+     `vmix_solve_plain` (the chain's ops with torch.roll)
   2. the composed forward-backward step advances the pole submesh
   3. the in-frame refresh: positions the validity masks of
      mesh/icos_mega.py do not call exact are refilled from an exact copy
@@ -26,23 +31,27 @@ The TPU kernel tiles each frame into (16, 16) blocks with an 8-wide ring
 and reads its weights from a lane-major plane stack (10, SS, SS, npl),
 164 MB at icos48 in float32 and mostly zeros. Here the weights are a
 compact per-position table: for each group of tables that share a support
-(div / ke / sdiv_geo*; cmean / cdiff / cgrad; vmean / vgrad / vgrad_floor;
-curl; kite; tang) and each destination channel, a fixed number of slots of
-(offset, one weight per table), zero weights in unused slots; offsets are
-flat within a layer of the source field. Every layer uses the same weights.
-The kernel evaluates whole frames (so the reference's tiled validity masks
-are sufficient: an untiled evaluation is exact wherever the tiled one is)
-in five launches, one per group of chain levels, with the intermediate
-fields in device memory.
+(div / ke / sdiv_geo*; cmean / cdiff / cgrad / c0 / c1; vmean / vgrad /
+vgrad_floor; curl; kite; tang) and each destination channel, a fixed
+number of slots of (offset, one weight per table), zero weights in unused
+slots; offsets are flat within a layer of the source field. Every layer
+uses the same weights. The kernel evaluates whole frames (so the
+reference's tiled validity masks are sufficient: an untiled evaluation is
+exact wherever the tiled one is) in five launches, one per group of chain
+levels, with the intermediate fields in device memory. The reference runs
+PP81 and upwind fluxes as two staged kernels (its kinds fb2a / fb2b) to
+fit its on-chip memory; that staging is not semantics, and the port
+evaluates the one chain.
 
 Divisions guard against lattice-hole zeros (safe_div) because 0/0 NaN at a
-hole would otherwise poison valid sums through 0 * NaN entries.
+hole would otherwise poison valid sums through 0 * NaN entries; the column
+solve leaves a column whose thickness is not positive at every layer (a
+hole, or a frame position no exact value depends on) as it found it.
 
-Semantics == stepping.forward_backward_step on the flagship sphere
-configuration (center fluxes, stacked ssh, every standard term, no wind,
-drag or vertical mixing, no custom tendency); reference chain per
-core/tendencies.py / core/aux.py (TendencyTerms.h:70-340,
-AuxiliaryState.cpp:60-143).
+Semantics == stepping.forward_backward_step on the sphere configurations
+`supported` names; reference chain per core/tendencies.py / core/aux.py /
+core/vmix.py (TendencyTerms.h:70-340, AuxiliaryState.cpp:60-143,
+TriDiagSolvers.h PCRDiffusionSolver).
 """
 
 from __future__ import annotations
@@ -50,13 +59,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from omega_tpu_torch.core import aux as auxmod
 from omega_tpu_torch.core.state import ModelState
 from omega_tpu_torch.mesh import icos_mega as imx
 from omega_tpu_torch.mesh.icos_patches import NPER
-from omega_tpu_torch.ops import _build
+from omega_tpu_torch.ops import _build, tridiag, vmix_kernel
 
-# launches of the patch-step kernel since the last reset (PASSES per step)
+# launches since the last reset: the patch step (PASSES per call), the
+# PP81 coefficient kernel and the column-solve kernel (one per call each)
 launches = 0
+coeff_launches = 0
+solve_launches = 0
 PASSES = 5
 # layers one thread walks with the weights of its position in registers
 LAYERS_PER_THREAD = 8
@@ -68,17 +81,19 @@ GROUPS = (("div", ("div", "ke", "sdiv_geo", "sdiv_geo2", "sdiv_geo4"), 6),
           ("curl", ("curl",), 3),
           ("kite", ("kite",), 3),
           ("tang", ("tang",), 10),
-          ("cmean", ("cmean", "cdiff", "cgrad"), 2),
+          ("cmean", ("cmean", "cdiff", "cgrad", "c0", "c1"), 2),
           ("vmean", ("vmean", "vgrad", "vgrad_floor"), 2))
-# const planes in the order of the kernel's plane rows
+# const planes in the order of the kernel's plane rows; the three rows of
+# the wind stress on the edge classes follow them (zero without wind)
 CONSTS = (("f_vertex", "vertex"), ("gdepth", "edge"), ("scal2", "edge"),
           ("scal4", "edge"), ("edge_mask", "edge"))
+WIND_ROW = sum(NPER[cls] for _, cls in CONSTS)
 
 
 def work_fields(L: int) -> int:
     """The kernel's scratch in units of one (K, 1, P) field: flux / F (3),
     ke, div_u / dd2, rvort (2), hflux (3L), mc / cd2 (3L), trp (L), d2aux
-    (L), dup (3), del2e / Fq (3), qv (2), dr2 (2); csrc/patch_step.cu
+    (L), dup (3), del2e / Fq (3), qv (2), dr2 (2); csrc/patch_step.cuh
     carves it in this order."""
     return 3 + 1 + 1 + 2 + 3 * L + 3 * L + L + L + 3 + 3 + 2 + 2
 
@@ -88,23 +103,58 @@ def enabled(x) -> bool:
     return x.is_cuda
 
 
-def supported(mesh, cfg) -> bool:
-    """The flagship sphere configuration on a patch mesh: center fluxes,
-    stacked ssh, every standard term, no wind, drag or vertical mixing,
-    no custom tendency."""
+vmix_on = vmix_kernel.vmix_on
+
+
+def supported(mesh, cfg, mh: int = imx.MH, phys_masks: bool = True) -> bool:
+    """The sphere configurations of the fused step on a patch mesh (the
+    reference's `supported(kind="fb", framed=True)` without FCT): center
+    or upwind thickness and tracer fluxes, stacked ssh, every standard
+    term, wind and bottom drag, implicit vertical mixing by PCR (constant
+    or PP81 coefficients, at least two layers), no custom tendency. The
+    radius-7 vmix chain needs a margin `mh` of at least 7 and the
+    worst-case validity masks (`phys_masks`), with which `prep` builds;
+    the Thomas method stays composed."""
     if getattr(mesh, "patch_info", None) is None:
         return False
+    if cfg.vert_mix.enabled and not vmix_on(cfg):
+        return False
+    if vmix_on(cfg) and (mh < 7 or not phys_masks):
+        return False
     tc = cfg.tendencies
-    return (cfg.flux_thickness_type == "center"
-            and cfg.flux_tracer_type == "center"
+    return (cfg.flux_thickness_type in ("center", "upwind")
+            and cfg.flux_tracer_type in ("center", "upwind")
             and cfg.ssh_formulation == "stacked"
-            and not cfg.vert_mix.enabled
-            and not tc.wind_forcing and not tc.bottom_drag
             and tc.thickness_flux_div and tc.pv_advection and tc.ke_gradient
             and tc.ssh_gradient and tc.velocity_diffusion
             and tc.velocity_hyperdiff and tc.tracer_horz_adv
             and tc.tracer_diffusion and tc.tracer_hyperdiff
             and not tc.use_custom_tendency)
+
+
+def _drag_on(cfg) -> bool:
+    tc = cfg.tendencies
+    return bool(tc.bottom_drag and tc.bottom_drag_coeff != 0.0)
+
+
+def chain_ops(cfg, L: int, wind: bool):
+    """The chain of `cfg` (icos_mega.fb_chain with its options), split
+    into (horizontal, coefficients, solve): the patch kernel's ops
+    through u_new, the PP81 coefficient fields (empty for constant
+    coefficients or without mixing), and the column solves."""
+    vm = cfg.vert_mix
+    mix = vmix_on(cfg)
+    pp = (vm.temp_index, vm.salt_index) if mix and vm.scheme == "pp81" \
+        else None
+    ops = imx.fb_chain(L, wind=wind, drag=_drag_on(cfg), vmix=mix,
+                       uw_h=cfg.flux_thickness_type == "upwind",
+                       uw_tr=cfg.flux_tracer_type == "upwind", pp=pp)
+    cut = next(i for i, op in enumerate(ops) if op[0] == "u_new") + 1
+    tail = ops[cut:]
+    solve = [op for op in tail
+             if op[0] == "he_new" or op[2].startswith("vmix_")]
+    coeffs = [op for op in tail if op not in solve]
+    return ops[:cut], coeffs, solve
 
 
 # ----------------------------------------------------------------------
@@ -243,7 +293,8 @@ def prep(mesh, dtype, device) -> Prep:
     p.consts = {k: (v if isinstance(v, float) else put(v))
                 for k, v in _const_values(mg).items()}
 
-    # the kernel's compact table and const plane rows
+    # the kernel's compact table and const plane rows (the wind rows zero:
+    # make_wind fills a copy)
     offs, wts = compact_table(mg)
     p.offs, p.wts = put(offs, torch.int32), put(wts)
     rows, flags, scalars = [], [], []
@@ -254,6 +305,7 @@ def prep(mesh, dtype, device) -> Prep:
         rows.append(v.reshape(NPER[cls], p.P) if flags[-1]
                     else torch.zeros((NPER[cls], p.P), dtype=dtype,
                                      device=p.device))
+    rows.append(torch.zeros((3, p.P), dtype=dtype, device=p.device))
     p.cpl = torch.cat(rows).contiguous()
     p.const_flags, p.const_scalars = flags, scalars
 
@@ -306,6 +358,29 @@ def prep(mesh, dtype, device) -> Prep:
 
 
 # ----------------------------------------------------------------------
+# wind
+
+def make_wind(mesh, cfg, wind_stress, dtype):
+    """The per-segment wind of the fused step: (cpl, (zonal_sub,
+    merid_sub)), or None without wind forcing or without a stress. The
+    cell stress is rotated onto the edge normals once
+    (aux.wind_normal_stress, WindForcingAuxVars.h:13-40) and laid into the
+    edge frames (grid ids and fills) as the three wind rows of a copy of
+    the prep's const planes `cpl`; the pole submesh's composed step gets
+    the stress of its own cells, whose rotation reproduces the global one
+    on its fix rows."""
+    if wind_stress is None or not cfg.tendencies.wind_forcing:
+        return None
+    zonal, merid = wind_stress
+    p = prep(mesh, dtype, zonal.device)
+    stress = auxmod.wind_normal_stress(mesh, cfg, zonal, merid).to(dtype)
+    cpl = p.cpl.clone()
+    _frames_of(p, "edge", stress[:, None], 3,
+               cpl[WIND_ROW:WIND_ROW + 3].view(1, 3, p.P))
+    return cpl, (zonal[p.sub_cells], merid[p.sub_cells])
+
+
+# ----------------------------------------------------------------------
 # the chain on frames, plain PyTorch (the counterpart of _eval_chain)
 
 def _safe_div(a, b):
@@ -314,22 +389,52 @@ def _safe_div(a, b):
                        torch.zeros_like(a))
 
 
-def chain_plain(p, cfg, frames, dt, out=None):
-    """The plain PyTorch version of the kernel: the flagship fb_chain
-    evaluated at every position of the (K, 4+L, P) frames, each stencil a
-    sum of roll-shifted sources times weight planes in the reference's
-    entry order. Returns (K, 4+L, P): h_new, u_new x3, trn x L."""
-    tc = cfg.tendencies
-    K, CH, P = frames.shape
-    L = CH - 4
-    S = p.S
+def _next_layer(x, fill):
+    """x at layer k + 1 (layers on dim 0), `fill` past the last layer (the
+    reference's lane shift, ops/tridiag._shift)."""
+    return torch.cat([x[1:], torch.full_like(x[:1], fill)])
+
+
+def _upwind(u, a, b):
+    """The reference's upwind selection (LayerThicknessAuxVars.h /
+    TracerAuxVars.h): a where u > 0, b where u < 0, max(a, b) at rest."""
+    return torch.where(u > 0, a, torch.where(u < 0, b, torch.maximum(a, b)))
+
+
+def _pp81(vm, ri):
+    """(nu0 / f^n_exp, f), f = 1 + alpha max(ri, 0); the power by repeated
+    multiplication, as the kernel takes it."""
+    f = 1.0 + vm.alpha * torch.clamp(ri, min=0.0)
+    return vm.nu0 / vmix_kernel._ipow(f, vm.n_exp), f
+
+
+def _column_mix(h, phi, kappa, dt):
+    """Backward-Euler vertical diffusion of phi against the thickness h
+    (layers on dim 0) by PCR (ops/tridiag.pcr, the reference's
+    _pcr_diffusion level for level): G = dt kappa / dz above the bottom
+    interface, 0 at it. A column whose thickness is not positive at every
+    layer keeps phi."""
+    dz = 0.5 * (h + _next_layer(h, 1.0))
+    K = h.shape[0]
+    last = (torch.arange(K, device=h.device) == K - 1).view(
+        (K,) + (1,) * (h.dim() - 1))
+    g = torch.where(last, torch.zeros_like(h), dt * kappa / dz)
+    mixed = tridiag.diffusion_solve(g.movedim(0, -1), h.movedim(0, -1),
+                                    (h * phi).movedim(0, -1),
+                                    "pcr").movedim(-1, 0)
+    return torch.where((h > 0).all(0, keepdim=True), mixed, phi)
+
+
+def _eval(p, cfg, ops, vals, dt, wind_planes=None):
+    """Run the chain ops on `vals` (name -> (K, T, 10, S, S)), each stencil
+    a sum of roll-shifted sources times weight planes in the reference's
+    entry order; returns `vals`."""
+    tc, vm = cfg.tendencies, cfg.vert_mix
+    K = next(iter(vals.values())).shape[0]
     dt, grav = float(dt), float(cfg.gravity)
     nu2, nu4, dfac = tc.visc_del2, tc.visc_del4, tc.div_factor
     ed2, ed4 = tc.eddy_diff2, tc.eddy_diff4
-    fr = frames.reshape(K, CH, 10, S, S)
-    vals = {"h": fr[:, 0:1], "u": fr[:, 1:4]}
-    for l in range(L):
-        vals[f"tr{l}"] = fr[:, 4 + l:5 + l]
+    S = p.S
 
     def ap(tname, src):
         Td = NPER[p.mg.tables[tname].dst_class]
@@ -342,6 +447,8 @@ def chain_plain(p, cfg, frames, dt, out=None):
         return torch.stack([o if o is not None else zero for o in outs], 1)
 
     def c(name):
+        if name == "wind_stress":
+            return wind_planes[None]
         v = p.consts[name]
         return v if isinstance(v, float) else v[None]
 
@@ -349,7 +456,7 @@ def chain_plain(p, cfg, frames, dt, out=None):
         v = p.consts[name]
         return None if isinstance(v, float) and v == 1.0 else c(name)
 
-    for op in imx.fb_chain(L):
+    for op in ops:
         name, kind = op[0], op[1]
         if kind == "st":
             vals[name] = ap(op[2], vals[op[3]])
@@ -362,6 +469,12 @@ def chain_plain(p, cfg, frames, dt, out=None):
             r = v(0) - v(1)
         elif fn == "copy":
             r = v(0)
+        elif fn == "mean2":                  # 0.5 * (a + b)
+            r = 0.5 * (v(0) + v(1))
+        elif fn == "upwind":                 # sel(u, a, b)
+            r = _upwind(v(0), v(1), v(2))
+        elif fn == "upwind_prod":            # sel(u, a*b, c*d)
+            r = _upwind(v(0), v(1) * v(2), v(3) * v(4))
         elif fn == "mulc":                   # x * const; alias when 1.0
             m = mask_or_one(a[1][1:])
             r = v(0) if m is None else v(0) * m
@@ -388,11 +501,58 @@ def chain_plain(p, cfg, frames, dt, out=None):
             r = v(0) + nu2 * c(a[3][1:]) * (v(1) - v(2))
         elif fn == "visc4":                  # du - nu4*s4*(df*cd4 - vd4)
             r = v(0) - nu4 * c(a[3][1:]) * (dfac * v(1) - v(2))
+        elif fn == "wind":                   # du[0] += stress/(rho0 mean_hn)
+            r = v(0).clone()
+            r[0] += _safe_div(c(a[2][1:])[0], tc.density0 * v(1)[0])
+        elif fn == "drag":       # du[K-1] -= cd sqrt(2 kee) u / mean_hn
+            r = v(0).clone()
+            kee, mh, u = v(1)[-1], v(2)[-1], v(3)[-1]
+            r[-1] += -_safe_div(tc.bottom_drag_coeff * torch.sqrt(
+                torch.clamp(2.0 * kee, min=0.0)) * u, mh)
+        elif fn == "lanediff":               # u_k - u_{k+1}
+            r = v(0) - _next_layer(v(0), 0.0)
+        elif fn == "dzhalf":                 # 0.5 * (h_k + h_{k+1})
+            r = 0.5 * (v(0) + _next_layer(v(0), 1.0))
+        elif fn == "zero_like":
+            r = torch.zeros_like(v(0))
+        elif fn == "pp_n2":      # max(g (aT dT - bS dS) / dz, 0), hole-safe
+            T, S_, dz = v(0), v(1), v(2)
+            db = grav * (vm.eos_alpha_t * (T - _next_layer(T, 0.0))
+                         - vm.eos_beta_s * (S_ - _next_layer(S_, 0.0)))
+            r = torch.clamp(_safe_div(db, dz), min=0.0)
+        elif fn == "pp_kc":      # kappa at cells from (n2, ke(du^2), dz)
+            shear2 = 2.0 * v(1) / (v(2) * v(2))
+            nu, f = _pp81(vm, v(0) / torch.clamp(shear2, min=vmix_kernel.EPS))
+            r = nu / f + vm.kappa_tracer
+        elif fn == "pp_ne":      # nu at edges from (n2_e, du, dz_e)
+            shear2 = (v(1) / v(2)) ** 2
+            nu, _ = _pp81(vm, v(0) / torch.clamp(shear2, min=vmix_kernel.EPS))
+            r = nu + vm.kappa_momentum
+        elif fn in ("vmix_u", "vmix_c", "vmix_u_arr", "vmix_c_arr"):
+            kappa = v(2) if fn.endswith("_arr") else (
+                vm.kappa_momentum if fn == "vmix_u" else vm.kappa_tracer)
+            r = _column_mix(v(1), v(0), kappa, dt)
         else:
             raise ValueError(fn)
         vals[name] = r
+    return vals
+
+
+def _vals(p, frames, prefix=""):
+    """The frames' channels as chain values: h, u (the three edge classes)
+    and tr{l}, with `prefix` ("" or "_new": h_new, u_new, trn{l})."""
+    K, CH, P = frames.shape
+    fr = frames.reshape(K, CH, 10, p.S, p.S)
+    t = "trn" if prefix else "tr"
+    vals = {"h" + prefix: fr[:, 0:1], "u" + prefix: fr[:, 1:4]}
+    for l in range(CH - 4):
+        vals[f"{t}{l}"] = fr[:, 4 + l:5 + l]
+    return vals
+
+
+def _frames_out(vals, K, CH, P, out):
     res = torch.cat([vals["h_new"], vals["u_new"]]
-                    + [vals[f"trn{l}"] for l in range(L)], 1)
+                    + [vals[f"trn{l}"] for l in range(CH - 4)], 1)
     res = res.reshape(K, CH, P)
     if out is None:
         return res
@@ -400,8 +560,68 @@ def chain_plain(p, cfg, frames, dt, out=None):
     return out
 
 
+def _wind_planes(p, wind):
+    return None if wind is None else \
+        wind[0][WIND_ROW:WIND_ROW + 3].view(3, 10, p.S, p.S)
+
+
+def chain_plain(p, cfg, frames, dt, out=None, wind=None):
+    """The plain PyTorch version of the patch kernel: the horizontal part
+    of the chain (through u_new; `chain_ops`) at every position of the
+    (K, 4+L, P) frames. `wind` is a `make_wind` bundle or None. Returns
+    (K, 4+L, P): h_new, u_new x3, trn x L."""
+    K, CH, P = frames.shape
+    ops = chain_ops(cfg, CH - 4, wind is not None)[0]
+    vals = _eval(p, cfg, ops, _vals(p, frames), dt, _wind_planes(p, wind))
+    return _frames_out(vals, K, CH, P, out)
+
+
+def vmix_coeffs_plain(p, cfg, frames):
+    """The plain version of the PP81 coefficient kernel on the frames the
+    horizontal chain made (h_new, u_new, trn): (K, 4, P), channel 0 kappa
+    at the cells, 1..3 nu at the edge classes; layer K-1 is not used."""
+    K, CH, P = frames.shape
+    vals = _eval(p, cfg, chain_ops(cfg, CH - 4, False)[1],
+                 _vals(p, frames, "_new"), dt=0.0)
+    return torch.cat([vals["kapc"], vals["nue"]], 1).reshape(K, 4, P)
+
+
+def vmix_solve_plain(p, cfg, frames, dt, coef=None, out=None):
+    """The plain version of the column-solve kernel, out of place: the
+    tracers against h_new and the edge classes of u against cmean(h_new),
+    with the constant coefficients of cfg.vert_mix, or with `coef` from
+    `vmix_coeffs_plain` / `vmix_coeffs` for PP81."""
+    K, CH, P = frames.shape
+    vals = _vals(p, frames, "_new")
+    if coef is not None:
+        cf = coef.reshape(K, 4, 10, p.S, p.S)
+        vals.update(kapc=cf[:, 0:1], nue=cf[:, 1:4])
+    vals = _eval(p, cfg, chain_ops(cfg, CH - 4, False)[2], vals, dt)
+    return _frames_out(vals, K, CH, P, out)
+
+
+def step_plain(p, cfg, frames, dt, wind=None):
+    """The whole chain of `cfg` on the frames in one evaluation (the
+    three kernels' plain versions in a row)."""
+    K, CH, P = frames.shape
+    ops = sum(chain_ops(cfg, CH - 4, wind is not None), [])
+    vals = _eval(p, cfg, ops, _vals(p, frames), dt, _wind_planes(p, wind))
+    return _frames_out(vals, K, CH, P, None)
+
+
 # ----------------------------------------------------------------------
-# the kernel
+# the kernels
+
+_FLUX = {"center": "c", "upwind": "u"}
+
+
+def _suffix(frames):
+    suffix = {torch.float32: "f32", torch.float64: "f64"}.get(frames.dtype)
+    if suffix is None:
+        raise TypeError(f"patch kernels take float32/float64, not "
+                        f"{frames.dtype}")
+    return suffix
+
 
 def _check(p, frames, out, work):
     K, CH, P = frames.shape
@@ -418,52 +638,173 @@ def _check(p, frames, out, work):
         raise ValueError("the patch step cannot write its input frames")
 
 
-def chain(p, cfg, frames, dt, out=None, work=None):
-    """The fb chain on the (K, 4+L, P) frames into `out`. For a CUDA array
-    one C call launches the PASSES kernels of csrc/patch_step.cu on
+def _rows_ok(lib, p):
+    if lib.omega_patch_rows(0) != p.offs.shape[0] \
+            or lib.omega_patch_rows(1) != p.wts.shape[0] \
+            or lib.omega_patch_rows(2) != p.cpl.shape[0]:
+        raise RuntimeError("patch kernels: table layout differs between "
+                           "kernel and host")
+
+
+def _fb_args(p, cfg, frames, dt, wind):
+    """(entry point, const planes, consts, ints) of the patch step's call
+    for the flux types and tails of `cfg`."""
+    K, CH, P = frames.shape
+    cpl = p.cpl if wind is None else wind[0]
+    if cpl.shape != p.cpl.shape or cpl.dtype != p.dtype \
+            or cpl.device != p.device:
+        raise ValueError("the wind's const planes must match the prep's")
+    tc = cfg.tendencies
+    drag = _drag_on(cfg)
+    consts = np.array([float(dt), cfg.gravity, tc.visc_del2, tc.visc_del4,
+                       tc.div_factor, tc.eddy_diff2, tc.eddy_diff4]
+                      + list(p.const_scalars)
+                      + [tc.density0, tc.bottom_drag_coeff if drag else 0.0],
+                      np.float64)
+    ints = np.array([P, p.S, K, CH - 4, LAYERS_PER_THREAD, THREADS]
+                    + list(p.const_flags) + [int(wind is not None),
+                                             int(drag)], np.int32)
+    name = (f"omega_patch_fb_{_FLUX[cfg.flux_thickness_type]}"
+            f"{_FLUX[cfg.flux_tracer_type]}_"
+            f"{'tails' if wind is not None or drag else 'plain'}_"
+            f"{_suffix(frames)}")
+    return name, cpl, consts, ints
+
+
+def chain(p, cfg, frames, dt, out=None, work=None, wind=None):
+    """The horizontal part of the chain on the (K, 4+L, P) frames into
+    `out`. For a CUDA array one C call launches the PASSES kernels of the
+    patch step's variant for the flux types and tails of `cfg` on
     PyTorch's current stream (`work`: scratch of work_fields(L) fields,
-    made here when not given); for a CPU array the plain version runs."""
+    made here when not given; `wind`: a `make_wind` bundle); for a CPU
+    array the plain version runs."""
     global launches
     if not frames.is_cuda:
-        return chain_plain(p, cfg, frames, dt, out)
+        return chain_plain(p, cfg, frames, dt, out, wind)
     K, CH, P = frames.shape
     out = torch.empty_like(frames) if out is None else out
     if work is None:
         work = frames.new_empty(work_fields(CH - 4) * K * P)
     _check(p, frames, out, work)
-    suffix = {torch.float32: "f32", torch.float64: "f64"}.get(frames.dtype)
-    if suffix is None:
-        raise TypeError(f"patch step takes float32/float64, not "
-                        f"{frames.dtype}")
     lib = _build.load()
-    if lib.omega_patch_rows(0) != p.offs.shape[0] \
-            or lib.omega_patch_rows(1) != p.wts.shape[0] \
-            or lib.omega_patch_rows(2) != p.cpl.shape[0]:
-        raise RuntimeError("patch step: table layout differs between "
-                           "kernel and host")
-    tc = cfg.tendencies
-    consts = np.array([float(dt), cfg.gravity, tc.visc_del2, tc.visc_del4,
-                       tc.div_factor, tc.eddy_diff2, tc.eddy_diff4]
-                      + list(p.const_scalars), np.float64)
-    ints = np.array([P, p.S, K, CH - 4, LAYERS_PER_THREAD, THREADS]
-                    + list(p.const_flags), np.int32)
+    _rows_ok(lib, p)
+    name, cpl, consts, ints = _fb_args(p, cfg, frames, dt, wind)
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(lib, f"omega_patch_fb_{suffix}")(
+        code = getattr(lib, name)(
             frames.data_ptr(), out.data_ptr(), p.offs.data_ptr(),
-            p.wts.data_ptr(), p.cpl.data_ptr(), work.data_ptr(),
+            p.wts.data_ptr(), cpl.data_ptr(), work.data_ptr(),
             consts.ctypes.data, ints.ctypes.data, stream)
     _build.check(code, "patch step launch")
     launches += PASSES
     return out
 
 
+def _vmix_args(p, cfg, frames, dt):
+    vm = cfg.vert_mix
+    K, CH, P = frames.shape
+    L = CH - 4
+    if vm.temp_index >= L or vm.salt_index >= L:
+        raise ValueError("temp_index / salt_index exceed the tracer count")
+    plan = vmix_kernel.plan_solve(K, L, frames.element_size())
+    consts = np.array([float(dt), cfg.gravity, vm.nu0, vm.alpha,
+                       vm.eos_alpha_t, vm.eos_beta_s, vm.kappa_tracer,
+                       vm.kappa_momentum], np.float64)
+    ints = np.array([P, K, L, vm.temp_index, vm.salt_index, vm.n_exp,
+                     LAYERS_PER_THREAD, THREADS, plan["cw"], plan["ty"],
+                     plan["lc"], plan["levels"]], np.int32)
+    return consts, ints
+
+
+def vmix_coeffs(p, cfg, frames, coef=None):
+    """The PP81 coefficients of the frames the horizontal chain made, into
+    `coef` (K, 4, P) (made here when None): one launch on PyTorch's
+    current stream for a CUDA array, the plain version for a CPU one."""
+    global coeff_launches
+    if not frames.is_cuda:
+        return vmix_coeffs_plain(p, cfg, frames)
+    K, CH, P = frames.shape
+    coef = frames.new_empty((K, 4, P)) if coef is None else coef
+    _check_coef(p, frames, coef)
+    lib = _build.load()
+    _rows_ok(lib, p)
+    consts, ints = _vmix_args(p, cfg, frames, 0.0)
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, f"omega_patch_pp81_{_suffix(frames)}")(
+            frames.data_ptr(), p.offs.data_ptr(), p.wts.data_ptr(),
+            coef.data_ptr(), consts.ctypes.data, ints.ctypes.data, stream)
+    _build.check(code, "patch PP81 coefficient launch")
+    coeff_launches += 1
+    return coef
+
+
+def _check_coef(p, frames, coef):
+    K, CH, P = frames.shape
+    if frames.dtype != p.dtype or frames.device != p.device \
+            or not frames.is_contiguous() or P != p.P:
+        raise ValueError("frames must be contiguous and match the prep")
+    if coef is not None and (
+            tuple(coef.shape) != (K, 4, P) or coef.dtype != frames.dtype
+            or coef.device != frames.device or not coef.is_contiguous()):
+        raise ValueError(f"`coef` must be a contiguous {(K, 4, P)} array "
+                         "of the frames' type and device")
+
+
+def vmix_solve(p, cfg, frames, dt, coef=None):
+    """The column solves IN PLACE on the u and tracer channels of the
+    frames the horizontal chain made (h_new is read only); returns
+    `frames`. One launch on PyTorch's current stream for a CUDA array, the
+    plain version for a CPU array. `coef` as in `vmix_solve_plain`."""
+    global solve_launches
+    if not frames.is_cuda:
+        frames.copy_(vmix_solve_plain(p, cfg, frames, dt, coef))
+        return frames
+    _check_coef(p, frames, coef)
+    lib = _build.load()
+    _rows_ok(lib, p)
+    consts, ints = _vmix_args(p, cfg, frames, dt)
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, f"omega_patch_vmix_solve_{_suffix(frames)}")(
+            frames.data_ptr(), p.offs.data_ptr(), p.wts.data_ptr(),
+            None if coef is None else coef.data_ptr(),
+            consts.ctypes.data, ints.ctypes.data, stream)
+    _build.check(code, "patch column-solve launch")
+    solve_launches += 1
+    return frames
+
+
 def new_work(frames):
-    """Scratch of the kernel for frames like `frames` (None on the CPU)."""
+    """Scratch of the patch step for frames like `frames` (None on the
+    CPU)."""
     if not frames.is_cuda:
         return None
     K, CH, P = frames.shape
     return frames.new_empty(work_fields(CH - 4) * K * P)
+
+
+def new_coef(frames, cfg):
+    """The PP81 coefficient array for frames like `frames` (None on the
+    CPU or without PP81)."""
+    if not frames.is_cuda or not vmix_on(cfg) \
+            or cfg.vert_mix.scheme != "pp81":
+        return None
+    K, CH, P = frames.shape
+    return frames.new_empty((K, 4, P))
+
+
+def step(p, cfg, frames, dt, out=None, work=None, wind=None, coef=None):
+    """The whole chain of `cfg` on the frames into `out`: the patch step,
+    then with vertical mixing the coefficient kernel (PP81) and the column
+    solve on `out`."""
+    nf = chain(p, cfg, frames, dt, out=out, work=work, wind=wind)
+    if vmix_on(cfg):
+        if cfg.vert_mix.scheme == "pp81":
+            coef = vmix_coeffs(p, cfg, nf, coef)
+        vmix_solve(p, cfg, nf, dt, coef if cfg.vert_mix.scheme == "pp81"
+                   else None)
+    return nf
 
 
 # ----------------------------------------------------------------------
@@ -545,19 +886,26 @@ def _sub_state(p, frames, fix):
     return ModelState(h=h, u=u, tracers=tr)
 
 
-def fb_patch_megastep_framed(mesh, cfg, carry, t, dt, out=None, work=None):
-    """One FB step on the (frames, fix rows) carry: the chain (the kernel
+def fb_patch_megastep_framed(mesh, cfg, carry, t, dt, out=None, work=None,
+                             wind=None, coef=None):
+    """One FB step on the (frames, fix rows) carry: the chain (the kernels
     on the card), the submesh step, the in-frame refresh. `out` receives
-    the next frames (a new array when None; never the carry's own)."""
+    the next frames (a new array when None; never the carry's own);
+    `wind` is a `make_wind` bundle (None without wind); `work` and `coef`
+    are the kernels' scratch (`new_work`, `new_coef`)."""
     from omega_tpu_torch.stepping.steppers import forward_backward_step
     frames, fix = carry
     p = prep(mesh, frames.dtype, frames.device)
-    nf = chain(p, cfg, frames, dt, out=out, work=work)
+    nf = step(p, cfg, frames, dt, out=out, work=work, wind=wind, coef=coef)
     sub = forward_backward_step(p.sub_mesh, cfg, _sub_state(p, frames, fix),
-                                t, dt)
+                                t, dt, wind_stress=_sub_wind(wind))
     nfix = dict(h=sub.h[p.fix_cells_local], u=sub.u[p.fix_edges_local],
                 tr=sub.tracers[:, p.fix_cells_local])
     return _refresh_frames(p, nf, nfix), nfix
+
+
+def _sub_wind(wind):
+    return None if wind is None else wind[1]
 
 
 def unstack_frames(mesh, carry, state_cls=ModelState):
@@ -582,7 +930,7 @@ def unstack_frames(mesh, carry, state_cls=ModelState):
     return state_cls(h=h, u=u, tracers=tr)
 
 
-def fb_patch_megastep(mesh, cfg, state, t, dt):
+def fb_patch_megastep(mesh, cfg, state, t, dt, wind_stress=None):
     """One forward-backward step of a flat state (the per-step API): frames
     assembled from the state, the chain, the submesh step on the state's
     own rows, and the paste-back of the outputs (grid rows by reshape, seam
@@ -594,10 +942,12 @@ def fb_patch_megastep(mesh, cfg, state, t, dt):
     p = prep(mesh, h.dtype, h.device)
     n, S, mh = p.n, p.S, p.mh
     NG = 10 * n * n
-    out = chain(p, cfg, _assemble(p, state), dt)
+    wind = make_wind(mesh, cfg, wind_stress, h.dtype)
+    out = step(p, cfg, _assemble(p, state), dt, wind=wind)
     sub = forward_backward_step(
         p.sub_mesh, cfg, ModelState(h=h[p.sub_cells], u=u[p.sub_edges],
-                                    tracers=tr[:, p.sub_cells]), t, dt)
+                                    tracers=tr[:, p.sub_cells]), t, dt,
+        wind_stress=_sub_wind(wind))
 
     def paste(oname, ch0, T, N, fix_src, fix_local, fix_global):
         grid = out[:, ch0:ch0 + T].reshape(K, T, 10, S, S)[

@@ -20,13 +20,18 @@ of vertical mixing. The split-explicit stepper is stepping/split.py
 its kernels take (`megastep.split_supported`) a step is splitpre, the
 barotropic subcycles and splitpost.
 
-On a patch-renumbered icosahedral mesh (mesh/icos_patches.py) the flagship
-configuration's FB step is fused (ops/patch_megastep.py): one call of the
-patch kernel (five launches) per step, the pole rows from the composed step
-on a small submesh. `run_steps` keeps the halo frames as its carry on any
-device (the kernel's plain version on the CPU); `forward_backward_step`
-takes the per-step API for a CUDA state. Every other configuration and
-stepper runs composed through the patch operators (ops/patch_stencil.py).
+On a patch-renumbered icosahedral mesh (mesh/icos_patches.py) the FB step
+of the configurations `patch_megastep.supported` names (center or upwind
+fluxes, wind, bottom drag, PCR vertical mixing with constant or PP81
+coefficients) is fused (ops/patch_megastep.py): one call of the patch
+kernel (five launches) per step, then with vertical mixing the PP81
+coefficient kernel and the column-solve kernel (one launch each), the pole
+rows from the composed step on a small submesh. `run_steps` keeps the halo
+frames as its carry on any device (the kernels' plain versions on the CPU)
+and lays the wind into the frames once per segment; `forward_backward_step`
+takes the per-step API for a CUDA state. The Thomas method, column ssh,
+FCT, custom tendencies and the other steppers run composed through the
+patch operators (ops/patch_stencil.py).
 """
 
 from __future__ import annotations
@@ -80,7 +85,7 @@ def forward_backward_step(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
             and patch_megastep.supported(mesh, cfg)):
         # the sphere's fused step (ops/patch_megastep.py), per-step API
         return halo(patch_megastep.fb_patch_megastep(mesh, cfg, state, t,
-                                                     dt))
+                                                     dt, wind_stress))
     h, u, tr = state
     dh, thick_aux = tend_mod.compute_thickness_tendency(mesh, cfg, h, u, t)
     h_new = h + dt * dh
@@ -239,17 +244,22 @@ def run_steps(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
             and patch_megastep.supported(mesh, cfg)):
         # the sphere's framed path: the (frames, pole rows) carry of
         # ops/patch_megastep.py lives across the segment, so a step is the
-        # patch kernel (its plain version on the CPU), the pole submesh step
-        # and the in-frame refresh; the next frames go into a second buffer
-        # and the two swap roles, and the kernel's scratch is made once
+        # patch kernels (their plain versions on the CPU), the pole submesh
+        # step and the in-frame refresh; the next frames go into a second
+        # buffer and the two swap roles, and the wind frames and the
+        # kernels' scratch are made once
         carry = patch_megastep.stack_frames(mesh, cfg, state)
         nxt = torch.empty_like(carry[0])
         work = patch_megastep.new_work(carry[0])
+        coef = patch_megastep.new_coef(carry[0], cfg)
+        wind = patch_megastep.make_wind(mesh, cfg, wind_stress,
+                                        state.h.dtype)
         t = t0
         for _ in range(nsteps):
             cur = carry[0]
             carry = patch_megastep.fb_patch_megastep_framed(
-                mesh, cfg, carry, t, dt, out=nxt, work=work)
+                mesh, cfg, carry, t, dt, out=nxt, work=work, wind=wind,
+                coef=coef)
             nxt = cur
             t = t + dt
         return patch_megastep.unstack_frames(mesh, carry, type(state))

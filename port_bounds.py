@@ -13,6 +13,15 @@ being the bound. Float32 throughout, K = 100 layers, 2 tracers.
           chain on the icosahedral sphere at bench.py's icos96 mode
           (subdivision 96): the state read and written once, plus the
           mesh's per-element weights of the chain's stencils read once
+  patch_science  the same site at icos48, one FB step of the Omega-1
+          science configuration (upwind fluxes, wind, bottom drag, PP81
+          vertical mixing): the flagship's bytes plus the wind stress on the
+          edges read once and the PP81 coefficient fields (kappa at the
+          cells, nu at the edges, K-1 interfaces) counted once; and its
+          three kernels of the port one by one ("horizontal": the patch
+          step's science variant; "coeffs": the PP81 coefficient pass;
+          "solve": the column solves), each input read once and each output
+          written once
   gather  omega_tpu/ops/pallas_gather.py:160, one gather pass
           out[n] = sum_j w[n, j] field[idx[n, j]] at icos48 x 100 (the shape
           named at pallas_gather.py:94-96), for the tangential
@@ -88,6 +97,35 @@ def patch_fb(n=96):
             **bound(2 * state + weights, flops)}
 
 
+def patch_science(n=48):
+    C, E, V, ce, ve, tang = icos(n)
+    fb = patch_fb(n)
+    KI = K - 1
+    wind = E * F32
+    coef = (C + E) * KI * F32
+    levels = (K - 1).bit_length()                 # ceil(log2 K)
+    # the horizontal step: the flagship's work and the wind rows; the
+    # coefficients: h_new, u_new, T, S read, kappa and nu written, ~90
+    # operations per cell and interface (chip_smoke.py's planar count);
+    # the solve: h_new, u, the tracers and the coefficients read, u and
+    # the tracers written, per level and row 16 operations for a matrix
+    # and 4 per right-hand side (one system per cell with L, one per edge)
+    parts = {
+        "horizontal": bound(fb["bytes"] + wind, fb["flops"]),
+        "coeffs": bound(((3 * C + E) * K + coef // F32) * F32,
+                        90 * KI * C),
+        "solve": bound((C * (1 + 2 * L) + 2 * E) * K * F32 + coef,
+                       levels * K * (C * (16 + 4 * L) + E * (16 + 4)))}
+    return {"kernel": "omega_tpu/ops/patch_megastep.py:1425",
+            "function": f"one FB step of the science configuration, icos{n}"
+            f" x {K} layers x {L} tracers",
+            "wind_bytes": wind, "coefficient_bytes": coef,
+            **bound(fb["bytes"] + wind + coef,
+                    fb["flops"] + parts["coeffs"]["flops"]
+                    + parts["solve"]["flops"]),
+            "parts": parts}
+
+
 def gather(n=48):
     C, E, V, ce, ve, tang = icos(n)
     out = {}
@@ -116,5 +154,6 @@ def tpu_split_io(ny=256, nx=256):
 
 if __name__ == "__main__":
     print(json.dumps({"patch": patch_fb()}))
+    print(json.dumps({"patch_science": patch_science()}))
     print(json.dumps({"gather": gather()}))
     print(json.dumps({"split": tpu_split_io()}))

@@ -62,13 +62,18 @@ def _close(out, ref, tol):
 
 
 def test_supported(setup):
+    """The flagship and its science options (upwind fluxes, wind, drag;
+    tests/test_torch_sphere_science.py holds them) are fused; column ssh
+    and a missing standard term are not."""
     _, pp, _, cfg, _ = setup
     assert patch_megastep.supported(pp, cfg)
     for kw in (dict(flux_thickness_type="upwind"),
                dict(flux_tracer_type="upwind"),
-               dict(ssh_formulation="column"),
                dict(tendencies=dict(wind_forcing=True)),
-               dict(tendencies=dict(bottom_drag=True)),
+               dict(tendencies=dict(bottom_drag=True))):
+        assert patch_megastep.supported(pp, port_cfg(
+            flagship_cfg(K, L, **kw))), kw
+    for kw in (dict(ssh_formulation="column"),
                dict(tendencies=dict(tracer_hyperdiff=False))):
         assert not patch_megastep.supported(pp, port_cfg(
             flagship_cfg(K, L, **kw))), kw
@@ -196,8 +201,8 @@ def test_compact_table_matches_reference_tables(setup):
     _, pp, _, _, _ = setup
     p = patch_megastep.prep(pp, torch.float64, "cpu")
     mg, S, P = p.mg, p.S, p.P
-    assert p.offs.shape == (60, P) and p.wts.shape == (108, P)
-    assert p.cpl.shape == (14, P)
+    assert p.offs.shape == (60, P) and p.wts.shape == (120, P)
+    assert p.cpl.shape == (17, P)
     rng = np.random.default_rng(3)
     for name, tab in mg.tables.items():
         ts_n = NPER[tab.src_class]

@@ -185,9 +185,10 @@ def _sphere_fields(jm, seed):
 
 @pytest.mark.parametrize("name", ["upwind", "rk4"])
 def test_composed_steps_decline_fused(meshes, name):
-    """Configurations the fused sphere path declines (upwind fluxes, the
-    RK4 stepper) run composed through the patch operators and agree with
-    the JAX package's composed steps (1e-12 of each field's max)."""
+    """Steps the fused sphere path declines (the per-step FB API on a CPU
+    state, here with upwind fluxes; the RK4 stepper) run composed through
+    the patch operators and agree with the JAX package's composed steps
+    (1e-12 of each field's max)."""
     _, jp, _, pp = meshes
     pm = pp.to("cpu", torch.float64)
     kw = (dict(flux_thickness_type="upwind", flux_tracer_type="upwind")
@@ -196,8 +197,10 @@ def test_composed_steps_decline_fused(meshes, name):
     cfg = port_cfg(jcfg)
     jstep, step = (jfb, forward_backward_step) if name == "upwind" \
         else (jrk4, rk4_step)
-    # (the flagship configuration is fused for the FB stepper only)
-    assert patch_megastep.supported(pm, cfg) == (name == "rk4")
+    # (both configurations are fused for the FB stepper's framed path and
+    # the per-step API on a CUDA state; neither for RK4 or a CPU state)
+    assert patch_megastep.supported(pm, cfg)
+    assert not patch_megastep.enabled(pm.area_cell)
     fields = _sphere_fields(jp, 5)
 
     def jax_steps(h, u, tr):
