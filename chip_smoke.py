@@ -32,6 +32,13 @@ through the entry points a user calls, and prints one JSON line per phase:
                   drag), PP81 coefficient and column-solve kernels vs plain
                   at icos16 float64 and icos48 x 100 x 2 float32; fused
                   science steps vs the composed stepper
+  kernel_patch_fct  FCT on the sphere: stage A (the patch step's FCT
+                  variant) and stage B (the limiter) vs plain at icos16
+                  float64 and icos48 x 100 x 2 float32, center and upwind
+                  thickness flux, with and without wind and drag; fused
+                  framed FCT steps vs the composed stepper; the kernels'
+                  range vs the plain versions' over 10 steps; the FCT fix
+                  submesh, its host build and the parts of a step
   main_path       2 x 10 steps of the bench configuration; launch counts
   composed_path   column ssh: the composed stepper + stencil kernel
   science_path    2 x 10 steps with wind, bottom drag, upwind fluxes and PP81
@@ -48,6 +55,10 @@ through the entry points a user calls, and prints one JSON line per phase:
                   same sphere (upwind fluxes, wind, drag, PP81 mixing): five
                   patch-step launches, one coefficient and one solve launch
                   per step
+  sphere_fct_path 2 x 10 FB steps with FCT tracer fluxes on the same sphere
+                  (a 0/1 cap, tracer diffusion off): five stage-A and four
+                  stage-B launches per step; the cap stays in [0, 1] at the
+                  planar FCT limits at u = 0.05 and 0.5 x noise
   rk_order        the manufactured solution in float64: the steppers'
                   temporal order and the spatial order
   profile         (only with --profile) device time by kernel, every path
@@ -1163,7 +1174,7 @@ def main(argv=None):
                   tr=sub48.tracers[:, p48.fix_cells_local])
     scratch48 = out48.clone()
     refresh_ms = cuda_ms(lambda: patch_megastep._refresh_frames(
-        p48, scratch48, nfix48), 20)
+        p48, scratch48, nfix48, p48.persist), 20)
     del scratch48
     if port_bounds.K != NLAYERS or port_bounds.L != NTRACERS:
         fail("port_bounds counts another width than this run")
@@ -1419,7 +1430,7 @@ def main(argv=None):
                   u=sub48.u[p48.fix_edges_local],
                   tr=sub48.tracers[:, p48.fix_cells_local])
     sci_refresh_ms = cuda_ms(lambda: patch_megastep._refresh_frames(
-        p48, scratch48, nfix48), 20)
+        p48, scratch48, nfix48, p48.persist), 20)
     psb = port_bounds.patch_science(N_SPHERE)
     f32.update({
         "step_ms": sci_step_ms, "step_plain_ms": sci_step_plain_ms,
@@ -1434,6 +1445,247 @@ def main(argv=None):
     emit({"phase": "kernel_patch_science", **sci})
     sciv = f32
     del fr48, out48, work48, coef48, scratch48, sub48
+
+    # ----------------------------------------------- 4g. kernel_patch_fct
+    # Zalesak FCT on the sphere: stage A (the patch step's FCT variant,
+    # csrc/patch_step_cf.cu / _uf.cu, five launches per call) and stage B
+    # (the limiter, csrc/patch_fct.cu, four launches per call) against their
+    # plain versions on the same inputs (stage B on stage A's output after
+    # the refresh the driver makes), center and upwind thickness flux, with
+    # and without wind and drag. Float64 at icos16 x 8 x 2: per channel
+    # max|diff| <= 1e-14 max|ref|; three fused framed steps against the
+    # composed stepper, rtol = atol = 1e-10. Float32 at icos48 x 100 x 2:
+    # per channel max|diff| / max|ref| <= FCT_F32 for both stages, ten times
+    # the worst first reading on the card (stage A's u, which sums the
+    # momentum terms in another order than the plain version: 6.0e-8;
+    # stage A's other channels and stage B read 0, PERF.md); over ten
+    # framed steps at u = 0.5 x noise the kernels' range of the 0/1 tracer
+    # passes the plain versions' by at most MONO_ULPS ulps of 1 at either
+    # end. Also the FCT fix submesh's size, the host build of the FCT
+    # extension (icos_mega.ensure_fct) and of the FCT prep, and the parts of
+    # a step: the submesh's composed stages, the refresh between the stages
+    # and the final one
+    FCT_F32 = 6.0e-7
+    FCT_VARIANTS = {
+        "center": ({}, {}),
+        "center_wind_drag": ({}, SCI_WIND_DRAG),
+        "upwind_thickness": (dict(flux_thickness_type="upwind"), {}),
+        "upwind_thickness_wind_drag": (dict(flux_thickness_type="upwind"),
+                                       SCI_WIND_DRAG)}
+    FCT_NAMES = names[:4] + [f"{nm}{l}" for l in range(NTRACERS)
+                             for nm in ("trtd", "facc")]
+
+    def sphere_fct_state(mesh_np, K, dtype, u_amp):
+        """the sphere's h of sphere_state, u = u_amp x noise x edge_mask,
+        tracer 0 a 0/1 spherical cap (cos lat cos lon > 0.7), tracer 1
+        10"""
+        st = sphere_state(mesh_np, K, NTRACERS, dtype, u_amp, 0.0)
+        lat = np.asarray(mesh_np.lat_cell)
+        lon = np.asarray(mesh_np.lon_cell)
+        cap = (np.cos(lat) * np.cos(lon) > 0.7).astype(np.float64)
+        tr = st.tracers.clone()
+        tr[0] = put(cap[:, None] * np.ones((1, K)), dtype)
+        return ModelState(h=st.h, u=st.u, tracers=tr)
+
+    def fct_stages(p, cfg_v, fr, fix, wind=None):
+        """both stages, kernel and plain, on the same inputs: (stage A
+        kernel, plain; stage B kernel into a copy of the frames, plain; the
+        refreshed plain stage-A output stage B read)"""
+        got_a = patch_megastep.fct_a(p, cfg_v, fr, DT, wind=wind)
+        ref_a = patch_megastep.fct_a_plain(p, cfg_v, fr, DT, wind=wind)
+        mid_fix, _ = patch_megastep.fct_sub_a(p, cfg_v, fr, fix, 0.0, DT,
+                                              wind)
+        mid = patch_megastep.fct_refresh_mid(p, ref_a.clone(), mid_fix)
+        got_b = patch_megastep.fct_b(p, cfg_v, mid, fr, DT, fr.clone())
+        ref_b = patch_megastep.fct_b_plain(p, cfg_v, mid, fr, DT)
+        torch.cuda.synchronize()
+        return got_a, ref_a, got_b, ref_b, mid
+
+    def fct_errs(got_a, ref_a, got_b, ref_b):
+        return {"stage_a": {n_: chan_err(got_a[:, c][None], ref_a[:, c][None])
+                            for c, n_ in enumerate(FCT_NAMES)},
+                "stage_b": {f"tracer{l}": chan_err(got_b[:, 4 + l][None],
+                                                   ref_b[:, l][None])
+                            for l in range(NTRACERS)}}
+
+    fcr = {"tolerance": "f64 per channel max|diff| <= 1e-14 max|ref| "
+           "against plain, fused framed steps vs composed steps rtol=atol="
+           "1e-10 over 3 steps; f32 per channel max|diff| <= FCT_F32 of "
+           "max|ref|; the 0/1 tracer's range over 10 framed steps at u = 0.5"
+           f" x noise within {MONO_ULPS} ulps of 1 of the plain versions'",
+           "FCT_F32": FCT_F32, "passes_per_step": {
+               "stage_a": patch_megastep.PASSES,
+               "stage_b": patch_megastep.FCT_B_PASSES},
+           "f64_icos16x8x2": {}}
+    st16f = sphere_fct_state(m16_np, 8, torch.float64, 0.1)
+    p16f = patch_megastep.prep(m16, torch.float64, dev, fct=True)
+    for variant, (kw, tend) in FCT_VARIANTS.items():
+        cfg_v = bench_cfg(8, NTRACERS, dict(eddy_diff4=1e9, **tend),
+                          flux_tracer_type="fct", **kw)
+        if not patch_megastep.supported(m16, cfg_v, framed=True) \
+                or patch_megastep.supported(m16, cfg_v):
+            fail(f"sphere FCT {variant}: not fused on the framed path alone")
+        fr16, fix16 = patch_megastep.stack_frames(m16, cfg_v, st16f)
+        pw16 = patch_megastep.make_wind(m16, cfg_v, w16, torch.float64)
+        got_a, ref_a, got_b, ref_b, _ = fct_stages(p16f, cfg_v, fr16,
+                                                   fix16, pw16)
+        errs = fct_errs(got_a, ref_a, got_b, ref_b)
+        worst = max(v for e in errs.values() for v in e.values())
+        if not worst <= 1e-14 or not bool(torch.isfinite(got_a).all()) \
+                or not bool(torch.isfinite(got_b).all()) \
+                or not bool(torch.equal(got_b[:, :4], fr16[:, :4])):
+            fail(f"sphere FCT {variant} kernels vs plain at icos16 f64: "
+                 f"{errs}")
+        fcr["f64_icos16x8x2"][variant] = errs
+    # whole steps: the framed fused path against the composed stepper
+    fcr["f64_icos16_steps_vs_composed"] = {}
+    for variant in ("center", "upwind_thickness_wind_drag"):
+        kw, tend = FCT_VARIANTS[variant]
+        cfg_v = bench_cfg(8, NTRACERS, dict(eddy_diff4=1e9, **tend),
+                          flux_tracer_type="fct", **kw)
+        reset_fct = (patch_megastep.fct_a_launches,
+                     patch_megastep.fct_b_launches)
+        ker = run_steps(m16, cfg_v, st16f, 0.0, DT, 3, wind_stress=w16)
+        got_l = (patch_megastep.fct_a_launches - reset_fct[0],
+                 patch_megastep.fct_b_launches - reset_fct[1])
+        if got_l != (3 * patch_megastep.PASSES,
+                     3 * patch_megastep.FCT_B_PASSES):
+            fail(f"fused sphere FCT steps ({variant}): launches {got_l} in 3")
+        comp = st16f
+        for i in range(3):
+            comp = composed(forward_backward_step, m16, cfg_v, comp, i * DT,
+                            DT, wind_stress=w16)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for a_, b_ in zip(ker, comp):
+            d = (a_ - b_).abs()
+            if bool((d > 1e-10 + 1e-10 * b_.abs()).any()) \
+                    or not bool(torch.isfinite(a_).all()):
+                fail(f"fused sphere FCT steps ({variant}) vs composed at "
+                     f"icos16 f64: {d.max().item()}")
+            worst = max(worst, d.max().item())
+        fcr["f64_icos16_steps_vs_composed"][variant] = worst
+    del fr16, got_a, ref_a, got_b, ref_b, ker, comp
+
+    # float32 at bench.py's sphere width: the host build of the FCT
+    # extension (the FCT tables, masks and fix closure) and of the FCT
+    # prep, both stages against plain in every variant, their times and the
+    # parts of a framed step (center thickness flux, no tails)
+    from omega_tpu_torch.mesh import icos_mega
+    t_m = time.perf_counter()
+    icos_mega.ensure_fct(m48)
+    fct_mega_s = time.perf_counter() - t_m
+    p48f = patch_megastep.prep(m48, torch.float32, dev, fct=True)
+    fct_build_s = time.perf_counter() - t_m
+    st48f = sphere_fct_state(m48_np, NLAYERS, torch.float32, 0.05)
+    f32_errs = {}
+    for variant, (kw, tend) in FCT_VARIANTS.items():
+        cfg_v = bench_cfg(NLAYERS, NTRACERS, tend, flux_tracer_type="fct",
+                          **kw)
+        fr48, fix48 = patch_megastep.stack_frames(m48, cfg_v, st48f)
+        pw48 = patch_megastep.make_wind(m48, cfg_v, w48, torch.float32)
+        got_a, ref_a, got_b, ref_b, mid = fct_stages(p48f, cfg_v, fr48,
+                                                     fix48, pw48)
+        errs = fct_errs(got_a, ref_a, got_b, ref_b)
+        if max(max(e.values()) for e in errs.values()) > FCT_F32 \
+                or not bool(torch.isfinite(got_a).all()) \
+                or not bool(torch.isfinite(got_b).all()):
+            fail(f"sphere FCT {variant} kernels at icos{N_SPHERE} f32: "
+                 f"{errs}")
+        f32_errs[variant] = errs
+        if variant != "center":
+            del got_a, ref_a, got_b, ref_b, mid
+    cfg48f = bench_cfg(NLAYERS, NTRACERS, flux_tracer_type="fct")
+    fr48, fix48 = patch_megastep.stack_frames(m48, cfg48f, st48f)
+    got_a, ref_a, got_b, ref_b, mid = fct_stages(p48f, cfg48f, fr48, fix48)
+    a_abs = (got_a - ref_a).abs().max().item()
+    b_abs = (got_b[:, 4:] - ref_b).abs().max().item()
+    mid48 = patch_megastep.new_mid(fr48)
+    work48 = patch_megastep.new_work(fr48)
+    out48 = torch.empty_like(fr48)
+    fa_ms = cuda_ms(lambda: patch_megastep.fct_a(
+        p48f, cfg48f, fr48, DT, mid48, work48), 20)
+    fa_plain_ms = cuda_ms(lambda: patch_megastep.fct_a_plain(
+        p48f, cfg48f, fr48, DT), 2, 1)
+    fb_ms = cuda_ms(lambda: patch_megastep.fct_b(
+        p48f, cfg48f, mid, fr48, DT, out48, work48), 20)
+    fb_plain_ms = cuda_ms(lambda: patch_megastep.fct_b_plain(
+        p48f, cfg48f, mid, fr48, DT), 2, 1)
+    mid_fix48, sub_a48 = patch_megastep.fct_sub_a(p48f, cfg48f, fr48, fix48,
+                                                  0.0, DT)
+    fsub_ms = cuda_ms(lambda: patch_megastep.fct_sub_b(
+        p48f, mid, mid_fix48, patch_megastep.fct_sub_a(
+            p48f, cfg48f, fr48, fix48, 0.0, DT)[1], DT), 20)
+    scratch48 = ref_a.clone()
+    fmid_ms = cuda_ms(lambda: patch_megastep.fct_refresh_mid(
+        p48f, scratch48, mid_fix48), 20)
+    nfix48 = patch_megastep.fct_sub_b(p48f, mid, mid_fix48, sub_a48, DT)
+    scratch48 = got_b.clone()
+    ffin_ms = cuda_ms(lambda: patch_megastep._refresh_frames(
+        p48f, scratch48, nfix48, p48f.persist), 20)
+    fstep_ms = cuda_ms(lambda: patch_megastep.fct_patch_megastep_framed(
+        m48, cfg48f, (fr48, fix48), 0.0, DT, out48, work48, None, mid48), 10)
+    del scratch48, got_a, ref_a, got_b, ref_b, mid
+
+    # the kernels' range against the plain versions' over ten framed steps
+    # in the reference's flow, tracer diffusion off (sphere_fct_path's
+    # configuration)
+    cfg_sf = bench_cfg(NLAYERS, NTRACERS, dict(eddy_diff2=0.0,
+                                               eddy_diff4=0.0),
+                       flux_tracer_type="fct")
+
+    def plain_fct_a(p, cfg_v, fr, dt, out=None, work=None, wind=None):
+        return patch_megastep.fct_a_plain(p, cfg_v, fr, dt, out, wind)
+
+    def plain_fct_b(p, cfg_v, mid, fr, dt, out, work=None):
+        out[:, 4:] = patch_megastep.fct_b_plain(p, cfg_v, mid, fr, dt)
+        return out
+
+    def fct_range(plain):
+        carry = patch_megastep.stack_frames(
+            m48, cfg_sf, sphere_fct_state(m48_np, NLAYERS, torch.float32,
+                                          0.5))
+        keep = patch_megastep.fct_a, patch_megastep.fct_b
+        if plain:
+            patch_megastep.fct_a, patch_megastep.fct_b = plain_fct_a, \
+                plain_fct_b
+        try:
+            for i in range(10):
+                carry = patch_megastep.fct_patch_megastep_framed(
+                    m48, cfg_sf, carry, i * DT, DT)
+        finally:
+            patch_megastep.fct_a, patch_megastep.fct_b = keep
+        t0 = patch_megastep.unstack_frames(m48, cfg_sf, carry,
+                                           ModelState).tracers[0]
+        return t0.min().item(), t0.max().item()
+
+    (k_lo, k_hi), (p_lo, p_hi) = fct_range(False), fct_range(True)
+    ulps = MONO_ULPS * torch.finfo(torch.float32).eps
+    rng_rec = {"min": k_lo, "max": k_hi, "plain_min": p_lo, "plain_max": p_hi}
+    if k_lo < p_lo - ulps or k_hi > p_hi + ulps:
+        fail(f"sphere FCT kernels' range past the plain versions': {rng_rec}")
+    pfb = port_bounds.patch_fct(N_SPHERE)
+    fcr[f"f32_icos{N_SPHERE}x{NLAYERS}x{NTRACERS}"] = {
+        "errors": f32_errs, "stage_a_max_abs_err": a_abs,
+        "stage_b_max_abs_err": b_abs,
+        "stage_a_ms": fa_ms, "stage_a_plain_ms": fa_plain_ms,
+        "stage_b_ms": fb_ms, "stage_b_plain_ms": fb_plain_ms,
+        "stage_a_bound_ms": pfb["stage_a"]["bound_ms"],
+        "stage_a_bound_by": pfb["stage_a"]["bound_by"],
+        "stage_b_bound_ms": pfb["stage_b"]["bound_ms"],
+        "stage_b_bound_by": pfb["stage_b"]["bound_by"],
+        "step_bound_ms": pfb["bound_ms"], "step_ms": fstep_ms,
+        "submesh_step_ms": fsub_ms, "mid_refresh_ms": fmid_ms,
+        "final_refresh_ms": ffin_ms, "host_build_s": fct_build_s,
+        "ensure_fct_s": fct_mega_s,
+        "submesh_cells": int(p48f.sub_cells.numel()),
+        "fix_cells": int(p48f.fix_cells_global.numel()),
+        "fix_edges": int(p48f.fix_edges_global.numel()),
+        "fb_submesh_cells": int(p48.sub_cells.numel()),
+        "range_10_steps_u_amp_0.5": rng_rec}
+    emit({"phase": "kernel_patch_fct", **fcr})
+    fcv = fcr[f"f32_icos{N_SPHERE}x{NLAYERS}x{NTRACERS}"]
+    del fr48, mid48, work48, out48
 
     # ------------------------------------------------------- 5. main_path
     # the bench configuration, through the entry points a user calls
@@ -1560,7 +1812,9 @@ def main(argv=None):
                 "split_post": megastep.split_post_launches,
                 "patch_step": patch_megastep.launches,
                 "patch_coeffs": patch_megastep.coeff_launches,
-                "patch_solve": patch_megastep.solve_launches}
+                "patch_solve": patch_megastep.solve_launches,
+                "patch_fct_a": patch_megastep.fct_a_launches,
+                "patch_fct_b": patch_megastep.fct_b_launches}
 
     def reset_counts():
         megastep.launches = megastep.rk_launches = 0
@@ -1570,11 +1824,14 @@ def main(argv=None):
         btk.launches = 0
         patch_megastep.launches = 0
         patch_megastep.coeff_launches = patch_megastep.solve_launches = 0
+        patch_megastep.fct_a_launches = patch_megastep.fct_b_launches = 0
 
     # the split kernels launch on no path but split_path, the patch kernels
-    # on no path but sphere_path and sphere_science_path
+    # on no path but sphere_path, sphere_science_path and sphere_fct_path
+    NO_PATCH = {"patch_step": 0, "patch_coeffs": 0, "patch_solve": 0,
+                "patch_fct_a": 0, "patch_fct_b": 0}
     NO_SPLIT = {"split_pre": 0, "barotropic": 0, "split_post": 0,
-                "patch_step": 0, "patch_coeffs": 0, "patch_solve": 0}
+                **NO_PATCH}
 
     vol0, trc0 = content(sci0)
     nseg, seg = 2, 10
@@ -1808,8 +2065,7 @@ def main(argv=None):
                     "vmix_solve": 0, "stencil": 0,
                     "split_pre": 3 * nseg * seg,
                     "barotropic": M_SPLIT * nseg * seg,
-                    "split_post": nseg * seg, "patch_step": 0,
-                    "patch_coeffs": 0, "patch_solve": 0})
+                    "split_post": nseg * seg, **NO_PATCH})
     spl_vol, spl_trc = drifts(state0, spl_st)
     spl_umax = spl_st.u.abs().max().item()
     if spl_vol > 1e-5 or spl_trc > 1e-5 or not 0.0 < spl_umax < 1.0:
@@ -1859,8 +2115,8 @@ def main(argv=None):
                    {"fb_step": 0, "rk_stage": 0, "pp81_coeffs": 0,
                     "vmix_solve": 0, "stencil": 0, "split_pre": 0,
                     "barotropic": 0, "split_post": 0,
-                    "patch_step": patch_megastep.PASSES * nseg * seg,
-                    "patch_coeffs": 0, "patch_solve": 0})
+                    **NO_PATCH,
+                    "patch_step": patch_megastep.PASSES * nseg * seg})
     (v0, t0_), (v1, t1_) = sphere_content(sph0), sphere_content(sph)
     sph_vol = abs(v1 - v0) / v0
     sph_trc = max(abs(b - a) / abs(a) for a, b in zip(t0_, t1_))
@@ -1916,6 +2172,7 @@ def main(argv=None):
                    {"fb_step": 0, "rk_stage": 0, "pp81_coeffs": 0,
                     "vmix_solve": 0, "stencil": 0, "split_pre": 0,
                     "barotropic": 0, "split_post": 0,
+                    **NO_PATCH,
                     "patch_step": patch_megastep.PASSES * nseg * seg,
                     "patch_coeffs": nseg * seg, "patch_solve": nseg * seg})
     (v0, t0_), (v1, t1_) = sphere_content(ss0), sphere_content(ss)
@@ -1974,6 +2231,79 @@ def main(argv=None):
                            "column_solve": sciv["solve_ms"]["pp81"],
                            "submesh_step": sciv["submesh_step_ms"],
                            "refresh": sciv["refresh_ms"]}})
+
+    # ----------------------------------------------- 10e. sphere_fct_path
+    # Zalesak FCT on bench.py's sphere (icos48 x 100 x 2, float32, dt =
+    # 30 s, flagship terms, center thickness flux), tracer diffusion off
+    # (eddy_diff2 = eddy_diff4 = 0, its flags on): a 0/1 spherical cap in
+    # tracer 0, u = 0.05 x noise x edge_mask, through run_steps. A step is
+    # stage A (five launches), the refresh of its fields, stage B (four
+    # launches), the FCT fix submesh's composed stages and the final
+    # refresh; no other kernel launches. The cap stays in [0, 1] within
+    # MONO_F32 (the planar limits), at u = 0.05 and at the reference's 0.5
+    sf0 = sphere_fct_state(m48_np, NLAYERS, torch.float32, 0.05)
+    run_steps(m48, cfg_sf, sf0, 0.0, DT, 1)                     # untimed
+    want_sf = {"fb_step": 0, "rk_stage": 0, "pp81_coeffs": 0,
+               "vmix_solve": 0, "stencil": 0, "split_pre": 0,
+               "barotropic": 0, "split_post": 0, **NO_PATCH,
+               "patch_fct_a": patch_megastep.PASSES * nseg * seg,
+               "patch_fct_b": patch_megastep.FCT_B_PASSES * nseg * seg}
+    reset_counts()
+    sf, sf_s = sf0, []
+    for i in range(nseg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sf = run_steps(m48, cfg_sf, sf, i * seg * DT, DT, seg,
+                       stepper=forward_backward_step)
+        torch.cuda.synchronize()
+        sf_s.append(time.perf_counter() - t0)
+    sf_launches = counts()
+    finite("sphere fct path", sf)
+    check_launches("sphere fct path", sf_launches, want_sf)
+    (v0, t0_), (v1, t1_) = sphere_content(sf0), sphere_content(sf)
+    sf_vol = abs(v1 - v0) / v0
+    sf_trc = max(abs(b - a) / abs(a) for a, b in zip(t0_, t1_))
+    sf_lo, sf_hi = sf.tracers[0].min().item(), sf.tracers[0].max().item()
+    # (a cap edge moves by about u dt / dc, 1e-4 of a cell here)
+    sf_between = ((sf.tracers[0] > 1e-6) & (sf.tracers[0] < 1 - 1e-6)).sum()
+    if sf_vol > 1e-5 or sf_trc > 1e-5 or sf_lo < -MONO_F32[0.05] \
+            or sf_hi > 1 + MONO_F32[0.05] or int(sf_between) == 0:
+        fail(f"sphere fct path: drift {sf_vol} / {sf_trc}, tracer 0 in "
+             f"[{sf_lo}, {sf_hi}], {int(sf_between)} points inside")
+    sf05 = sphere_fct_state(m48_np, NLAYERS, torch.float32, 0.5)
+    reset_counts()
+    sf05 = run_steps(m48, cfg_sf, sf05, 0.0, DT, nseg * seg)
+    finite("sphere fct path, u = 0.5 x noise", sf05)
+    check_launches("sphere fct path, u = 0.5 x noise", counts(), want_sf)
+    sf05_lo = sf05.tracers[0].min().item()
+    sf05_hi = sf05.tracers[0].max().item()
+    if sf05_lo < -MONO_F32[0.5] or sf05_hi > 1 + MONO_F32[0.5]:
+        fail(f"sphere fct path, u = 0.5 x noise: tracer 0 in [{sf05_lo}, "
+             f"{sf05_hi}]")
+    sf_ms = sf_s[-1] / seg * 1e3
+    emit({"phase": "sphere_fct_path", "config": f"icos{N_SPHERE} "
+          f"({real_cells} cells) x {NLAYERS} x {NTRACERS} float32, "
+          "bottom_depth 4000, h = (depth + sin 2 lat cos lon) / K, tracer 0 "
+          "a 0/1 cap (cos lat cos lon > 0.7), tracer 1 10, u = 0.05 x noise "
+          "x edge_mask, dt=30 visc_del2=1e3 visc_del4=1e9, flux_tracer_type="
+          "fct, eddy_diff2 = eddy_diff4 = 0; margin 8",
+          "steps": nseg * seg, "segment_seconds": sf_s, "ms_per_step": sf_ms,
+          "gridpoint_steps_per_s": real_cells * NLAYERS / (sf_ms * 1e-3),
+          "launches": sf_launches,
+          "launches_per_step": {k: v / (nseg * seg)
+                                for k, v in sf_launches.items()},
+          "volume_drift": sf_vol, "tracer_drift": sf_trc,
+          "tracer0_range": [sf_lo, sf_hi],
+          "tracer0_points_strictly_between": int(sf_between),
+          "tracer0_range_u_amp_0.5": [sf05_lo, sf05_hi],
+          "range_limits": MONO_F32,
+          "breakdown_ms": {"stage_a": fcv["stage_a_ms"],
+                           "stage_b": fcv["stage_b_ms"],
+                           "submesh_step": fcv["submesh_step_ms"],
+                           "mid_refresh": fcv["mid_refresh_ms"],
+                           "final_refresh": fcv["final_refresh_ms"],
+                           "framed_step": fcv["step_ms"]}})
+    del sf, sf05
 
     # ------------------------------------------------------- 11. rk_order
     # the manufactured solution (tests/test_model.py:79-166) in float64 on
@@ -2093,7 +2423,9 @@ def main(argv=None):
               "sphere_5_steps": traced(lambda: run_steps(
                   m48, cfg48, sph0, 0.0, DT, 5)),
               "sphere_science_5_steps": traced(lambda: run_steps(
-                  m48, cfg_ss, ss0, 0.0, DT, 5, wind_stress=w48))})
+                  m48, cfg_ss, ss0, 0.0, DT, 5, wind_stress=w48)),
+              "sphere_fct_5_steps": traced(lambda: run_steps(
+                  m48, cfg_sf, sf0, 0.0, DT, 5))})
 
     # ---------------------------------------------------------- 8. kernels
     print(smi_line, flush=True)
@@ -2306,6 +2638,37 @@ def main(argv=None):
          "shape": f"frames {tuple(patv['frames'])} in place, PP81 "
          "coefficients, float32", "path": "sphere_science_path",
          "constant_coefficients_ms": sciv["solve_ms"]["constant"]},
+        {"name": "patch_fct_a", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/patch_step_cf.cu",
+         "template": "omega_tpu_torch/csrc/patch_step.cuh",
+         "replaces": "omega_tpu/ops/patch_megastep.py:1218",
+         "call_site": "omega_tpu/ops/patch_megastep.py:1425",
+         "chain": "omega_tpu/mesh/icos_mega.py:714 fct_stage_a_chain "
+         "(kind fcta)",
+         "launches": sf_launches["patch_fct_a"],
+         "max_abs_err": fcv["stage_a_max_abs_err"], "ms": fcv["stage_a_ms"],
+         "plain_ms": fcv["stage_a_plain_ms"],
+         "bound_ms": fcv["stage_a_bound_ms"],
+         "bound_by": fcv["stage_a_bound_by"], "library_ms": None,
+         "shape": f"frames {tuple(patv['frames'])} -> ({NLAYERS}, "
+         f"{4 + 2 * NTRACERS}, {p48.P}) float32, center thickness flux",
+         "passes_per_call": patch_megastep.PASSES,
+         "path": "sphere_fct_path"},
+        {"name": "patch_fct_b", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/patch_fct.cu",
+         "replaces": "omega_tpu/ops/patch_megastep.py:1218",
+         "call_site": "omega_tpu/ops/patch_megastep.py:1425",
+         "chain": "omega_tpu/mesh/icos_mega.py:757 fct_stage_b_chain "
+         "(kind fctb)",
+         "launches": sf_launches["patch_fct_b"],
+         "max_abs_err": fcv["stage_b_max_abs_err"], "ms": fcv["stage_b_ms"],
+         "plain_ms": fcv["stage_b_plain_ms"],
+         "bound_ms": fcv["stage_b_bound_ms"],
+         "bound_by": fcv["stage_b_bound_by"], "library_ms": None,
+         "shape": f"({NLAYERS}, {4 + 2 * NTRACERS}, {p48.P}) + frames "
+         f"{tuple(patv['frames'])} -> tracers, float32, center thickness "
+         "flux", "passes_per_call": patch_megastep.FCT_B_PASSES,
+         "path": "sphere_fct_path"},
     ], "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

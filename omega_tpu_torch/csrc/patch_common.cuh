@@ -37,6 +37,13 @@ constexpr int kWRows = 120;
 constexpr int kCFv = 0, kCGd = 2, kCS2 = 5, kCS4 = 8, kCEm = 11,
               kCWind = 14;
 constexpr int kCRows = 17;
+// the rows an FCT prep appends (FCT_GROUPS of ops/patch_megastep.py): the
+// relu'd divergence halves on their own 6 offset slots, then one single-slot
+// group per neighbour pick j (offset row kOffCoc + j, weight row kWCoc + j)
+constexpr int kOffFdiv = kOffRows, kOffCoc = kOffRows + 6;
+constexpr int kOffFctRows = kOffRows + 12;
+constexpr int kWDpos = kWRows, kWDneg = kWRows + 6, kWCoc = kWRows + 12;
+constexpr int kWFctRows = kWRows + 18;
 
 template <int N>
 __device__ __forceinline__ void load_off(const int* off, int row, int P,

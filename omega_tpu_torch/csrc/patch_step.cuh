@@ -1,17 +1,27 @@
 // The forward-backward step on the icosahedral sphere: the horizontal part
 // of the FB chain of mesh/icos_mega.fb_chain on the persistent halo frames,
 // in five launches made by one C call. One source per pair of flux types
-// instantiates this template (patch_step_cc.cu, _uc, _cu, _uu), each with
-// and without the wind / drag tails, in both precisions.
+// instantiates this template (patch_step_cc.cu, _uc, _cu, _uu; with FCT
+// tracer fluxes _cf, _uf), each with and without the wind / drag tails, in
+// both precisions.
 //
 // Replaces the TPU kernel omega_tpu/ops/patch_megastep.py:_kernel (kind
 // `fb`, the chain of _eval_chain, with the upwind options of _pre_ops and
 // the wind / drag ops of _phys_ops; its staged kinds fb2a / fb2b exist to
-// fit that chip's memory and are the same chain), called at
-// patch_megastep.py:1425. The vertical-mixing tail of that chain is
-// csrc/patch_vmix.cu. State and outputs are the frames of
+// fit that chip's memory and are the same chain; and kind `fcta`, stage A
+// of FCT, icos_mega.fct_stage_a_chain), called at patch_megastep.py:1425.
+// The vertical-mixing tail of that chain is csrc/patch_vmix.cu, FCT's stage
+// B csrc/patch_fct.cu. State and outputs are the frames of
 // ops/patch_megastep.py, (K, 4+L, P) with P = 10 S S positions (10 rhombi,
 // S = n + 2 MH); the table layout is patch_common.cuh's.
+//
+// FCT (TR = kTrFct, stage A): the thickness and velocity sections are the
+// FB passes as they are; the tracer section emits, in place of trn{l}, the
+// low-order provisional field trtd{l} = (tr h - dt div(flo)) / h_new (pass
+// B) with flo = upwind_mean(u, c0(tr), c1(tr)) mask flux (pass A, into
+// hflux's field), and the numerator facc{l} = tr h + dt (ed2 diff2 - ed4
+// hyp) (pass D). The output is the reference's (K, 4+2L, P) layout:
+// h_new, u_new x3, then trtd{l} at 4+2l and facc{l} at 5+2l.
 //
 // Weights. The TPU kernel reads a lane-major plane stack (10, SS, SS, npl),
 // 164 MB at icos48 in float32 and ~85% zeros, once per tile, and applies a
@@ -76,6 +86,8 @@ namespace omega {
 namespace patch {
 
 enum { kFv = 0, kGd, kS2, kS4, kEm, kNConst };
+// the tracer flux of an instantiation
+enum { kTrCenter = 0, kTrUpwind = 1, kTrFct = 2 };
 
 template <typename T>
 struct Args {
@@ -94,6 +106,13 @@ struct Args {
   int wind, drag;   // 1: the tails instantiation applies wind / drag
   int P, K, L, CH, kg;
 };
+
+// the output's layer stride: the frames' own, or stage A's 4 + 2L channels
+// with FCT (a compile-time choice, so an FB pass keeps no second stride)
+template <int TR, typename T>
+__device__ __forceinline__ long long out_layer(const Args<T>& a) {
+  return (TR == kTrFct ? 4LL + 2 * a.L : static_cast<long long>(a.CH)) * a.P;
+}
 
 // the thread's position and layer range; false past the frame
 template <typename T>
@@ -126,9 +145,13 @@ __device__ __forceinline__ T upwind(T u, T a, T b) {
 }
 
 // ------------------------------------------------------------- pass A
-template <typename T, bool UH, bool UT>
+template <typename T, bool UH, int TR>
 __global__ void __launch_bounds__(256) pass_a(const Args<T> a) {
-  constexpr bool kPair = UH || UT;
+  // mean_h from the pair picks hp0 / hp1 where the chain forms them (an
+  // upwind flux), else cmean; FCT reads the pair weights for its tracer
+  // picks either way
+  constexpr bool kPair = UH || TR == kTrUpwind;
+  constexpr bool kPick = kPair || TR == kTrFct;
   int p, k0, k1;
   if (!where(a, p, k0, k1)) return;
   const long long P = a.P, lay = static_cast<long long>(a.CH) * P;
@@ -140,7 +163,7 @@ __global__ void __launch_bounds__(256) pass_a(const Args<T> a) {
     load_off(a.off, kOffCm + 2 * t, a.P, p, o);
     load_w(a.w, kWCmean + 2 * t, a.P, p, wm);
     load_w(a.w, kWCdiff + 2 * t, a.P, p, wd);
-    if constexpr (kPair) {
+    if constexpr (kPick) {
       load_w(a.w, kWC0 + 2 * t, a.P, p, w0);
       load_w(a.w, kWC1 + 2 * t, a.P, p, w1);
     }
@@ -161,20 +184,30 @@ __global__ void __launch_bounds__(256) pass_a(const Args<T> a) {
       } else {
         flux_h = mean_h;
       }
-      a.flux[(k * 3LL + t) * P + p] = mul_rn(flux_h, u);
+      const T flux = mul_rn(flux_h, u);
+      a.flux[(k * 3LL + t) * P + p] = flux;
       const T um = masked(a, em, u);
       for (int l = 0; l < L; ++l) {
         const T* tr = h + (4 + l) * P;
-        T htre = T(0);
-        if constexpr (UT) {
-          htre = upwind(u, mul_rn(hp0, sten(w0, o, tr, p)),
-                        mul_rn(hp1, sten(w1, o, tr, p)));
-        } else {
-          _Pragma("unroll") for (int s = 0; s < 2; ++s)
-            htre = htre + mul_rn(wm[s], mul_rn(h[p + o[s]], tr[p + o[s]]));
-        }
         const long long q = (k * 3LL * L + 3 * l + t) * P + p;
-        a.hflux[q] = mul_rn(htre, um);
+        if constexpr (TR == kTrFct) {
+          // flo: the low-order pick (the mean at rest) times the masked
+          // mass flux
+          const T t0 = sten(w0, o, tr, p), t1 = sten(w1, o, tr, p);
+          const T lo = u > T(0) ? t0
+                                : (u < T(0) ? t1 : mul_rn(T(0.5), t0 + t1));
+          a.hflux[q] = mul_rn(lo, masked(a, em, flux));
+        } else {
+          T htre = T(0);
+          if constexpr (TR == kTrUpwind) {
+            htre = upwind(u, mul_rn(hp0, sten(w0, o, tr, p)),
+                          mul_rn(hp1, sten(w1, o, tr, p)));
+          } else {
+            _Pragma("unroll") for (int s = 0; s < 2; ++s)
+              htre = htre + mul_rn(wm[s], mul_rn(h[p + o[s]], tr[p + o[s]]));
+          }
+          a.hflux[q] = mul_rn(htre, um);
+        }
         a.mc[q] = mul_rn(mean_h, sten(wd, o, tr, p));
       }
     }
@@ -209,13 +242,14 @@ __global__ void __launch_bounds__(256) pass_a(const Args<T> a) {
 }
 
 // ------------------------------------------------------------- pass B
-template <typename T>
+template <typename T, int TR>
 __global__ void __launch_bounds__(256) pass_b(const Args<T> a) {
   int p, k0, k1;
   if (!where(a, p, k0, k1)) return;
-  const long long P = a.P, lay = static_cast<long long>(a.CH) * P;
+  const long long P = a.P, lay = static_cast<long long>(a.CH) * P,
+                  layo = out_layer<TR>(a);
   const int L = a.L;
-  // cells: h_new, and per tracer trp, d2aux
+  // cells: h_new, and per tracer trp, d2aux (FCT: trtd, and trp = ed2 diff2)
   {
     int o[6];
     T wv[6], wg[6], wg2[6];
@@ -225,13 +259,24 @@ __global__ void __launch_bounds__(256) pass_b(const Args<T> a) {
     load_w(a.w, kWSg2, a.P, p, wg2);
     for (int k = k0; k < k1; ++k) {
       const T dh = sten(wv, o, a.flux + k * 3LL * P, p);
-      a.out[k * lay + p] = a.in[k * lay + p] + mul_rn(-a.dt, dh);
+      const T h = a.in[k * lay + p];
+      const T hn = h + mul_rn(-a.dt, dh);
+      a.out[k * layo + p] = hn;
       for (int l = 0; l < L; ++l) {
         const long long b = (k * 3LL * L + 3 * l) * P;
         const T adv = sten(wv, o, a.hflux + b, p);
         const T* mc = a.mc + b;
         const long long q = (k * static_cast<long long>(L) + l) * P + p;
-        a.trp[q] = -adv + mul_rn(a.ed2, sten(wg2, o, mc, p));
+        const T diff2 = mul_rn(a.ed2, sten(wg2, o, mc, p));
+        if constexpr (TR == kTrFct) {
+          // adv is the low-order flux's divergence
+          const T tr = a.in[k * lay + (4 + l) * P + p];
+          a.out[k * layo + (4 + 2 * l) * P + p] =
+              safe_div(mul_rn(tr, h) + mul_rn(-a.dt, adv), hn);
+          a.trp[q] = diff2;
+        } else {
+          a.trp[q] = -adv + diff2;
+        }
         a.d2aux[q] = sten(wg, o, mc, p);
       }
     }
@@ -261,11 +306,12 @@ __global__ void __launch_bounds__(256) pass_b(const Args<T> a) {
 }
 
 // ------------------------------------------------------------- pass C
-template <typename T, bool UH>
+template <typename T, bool UH, int TR>
 __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
   int p, k0, k1;
   if (!where(a, p, k0, k1)) return;
-  const long long P = a.P, lay = static_cast<long long>(a.CH) * P;
+  const long long P = a.P, lay = static_cast<long long>(a.CH) * P,
+                  layo = out_layer<TR>(a);
   const int L = a.L;
   // edges: cd2 (into mc's field), F (into flux's), the ssh gradient
   for (int t = 0; t < 3; ++t) {
@@ -285,7 +331,7 @@ __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
         a.mc[(k * 3LL * L + 3 * l + t) * P + p] =
             sten(wd, o, a.d2aux + (k * static_cast<long long>(L) + l) * P,
                  p);
-      const T* hn = a.out + k * lay;
+      const T* hn = a.out + k * layo;
       const long long q = (k * 3LL + t) * P + p;
       const T u = a.in[k * lay + (1 + t) * P + p];
       T flux_hn;
@@ -309,7 +355,7 @@ __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
     const T fv = cval(a, kFv, kCFv + t, p);
     for (int k = k0; k < k1; ++k) {
       const long long q = (k * 2LL + t) * P + p;
-      const T hv = sten(wk, ok, a.out + k * lay, p);
+      const T hv = sten(wk, ok, a.out + k * layo, p);
       a.qv[q] = safe_div(a.rvort[q] + fv, hv);
       a.dr2[q] = sten(wc, oc, a.del2e + k * 3LL * P, p);
     }
@@ -326,13 +372,14 @@ __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
 }
 
 // ------------------------------------------------------------- pass D
-template <typename T, bool UH, bool TAILS>
+template <typename T, bool UH, int TR, bool TAILS>
 __global__ void __launch_bounds__(256) pass_d(const Args<T> a) {
   int p, k0, k1;
   if (!where(a, p, k0, k1)) return;
-  const long long P = a.P, lay = static_cast<long long>(a.CH) * P;
+  const long long P = a.P, lay = static_cast<long long>(a.CH) * P,
+                  layo = out_layer<TR>(a);
   const int L = a.L;
-  // cells: the new tracers
+  // cells: the new tracers (FCT: the numerators facc)
   {
     int o[6];
     T w4[6];
@@ -340,15 +387,19 @@ __global__ void __launch_bounds__(256) pass_d(const Args<T> a) {
     load_w(a.w, kWSg4, a.P, p, w4);
     for (int k = k0; k < k1; ++k) {
       const T h = a.in[k * lay + p];
-      const T hn = a.out[k * lay + p];
+      const T hn = a.out[k * layo + p];
       for (int l = 0; l < L; ++l) {
         const T hyp = sten(w4, o, a.mc + (k * 3LL * L + 3 * l) * P, p);
         const T dtr =
             a.trp[(k * static_cast<long long>(L) + l) * P + p] -
             mul_rn(a.ed4, hyp);
         const T tr = a.in[k * lay + (4 + l) * P + p];
-        a.out[k * lay + (4 + l) * P + p] =
-            safe_div(mul_rn(tr, h) + mul_rn(a.dt, dtr), hn);
+        const T acc = mul_rn(tr, h) + mul_rn(a.dt, dtr);
+        if constexpr (TR == kTrFct) {
+          a.out[k * layo + (5 + 2 * l) * P + p] = acc;
+        } else {
+          a.out[k * layo + (4 + l) * P + p] = safe_div(acc, hn);
+        }
       }
     }
   }
@@ -383,7 +434,7 @@ __global__ void __launch_bounds__(256) pass_d(const Args<T> a) {
       if constexpr (TAILS) {
         const bool top = a.wind && k == 0, bottom = a.drag && k == a.K - 1;
         if (top || bottom) {
-          const T* hn = a.out + k * lay;
+          const T* hn = a.out + k * layo;
           T mean_hn;
           if constexpr (UH) {
             mean_hn = mul_rn(T(0.5), sten(w0, oc, hn, p) +
@@ -410,11 +461,12 @@ __global__ void __launch_bounds__(256) pass_d(const Args<T> a) {
 }
 
 // ------------------------------------------------------------- pass E
-template <typename T>
+template <typename T, int TR>
 __global__ void __launch_bounds__(256) pass_e(const Args<T> a) {
   int p, k0, k1;
   if (!where(a, p, k0, k1)) return;
-  const long long P = a.P, lay = static_cast<long long>(a.CH) * P;
+  const long long P = a.P, lay = static_cast<long long>(a.CH) * P,
+                  layo = out_layer<TR>(a);
   for (int t = 0; t < 3; ++t) {
     int ot[10];
     T wt[10];
@@ -425,13 +477,13 @@ __global__ void __launch_bounds__(256) pass_e(const Args<T> a) {
       const long long q = (k * 3LL + t) * P + p;
       const T tfq = sten(wt, ot, a.del2e + k * 3LL * P, p);
       const T du = a.dup[q] + mul_rn(T(0.5), tfq);
-      const long long c = k * lay + (1 + t) * P + p;
-      a.out[c] = a.in[c] + mul_rn(a.dt, masked(a, em, du));
+      a.out[k * layo + (1 + t) * P + p] =
+          a.in[k * lay + (1 + t) * P + p] + mul_rn(a.dt, masked(a, em, du));
     }
   }
 }
 
-template <typename T, bool UH, bool UT, bool TAILS>
+template <typename T, bool UH, int TR, bool TAILS>
 int launch(const void* in, void* out, const void* off, const void* w,
            const void* cpl, void* work, const double* c, const int* n,
            cudaStream_t stream) {
@@ -487,11 +539,11 @@ int launch(const void* in, void* out, const void* off, const void* w,
   __VA_ARGS__<<<grid, threads, 0, stream>>>(a);         \
   err = cudaGetLastError();                             \
   if (err != cudaSuccess) return static_cast<int>(err);
-  OMEGA_PASS(pass_a<T, UH, UT>)
-  OMEGA_PASS(pass_b<T>)
-  OMEGA_PASS(pass_c<T, UH>)
-  OMEGA_PASS(pass_d<T, UH, TAILS>)
-  OMEGA_PASS(pass_e<T>)
+  OMEGA_PASS(pass_a<T, UH, TR>)
+  OMEGA_PASS(pass_b<T, TR>)
+  OMEGA_PASS(pass_c<T, UH, TR>)
+  OMEGA_PASS(pass_d<T, UH, TR, TAILS>)
+  OMEGA_PASS(pass_e<T, TR>)
 #undef OMEGA_PASS
   return 0;
 }
@@ -499,30 +551,31 @@ int launch(const void* in, void* out, const void* off, const void* w,
 }  // namespace patch
 }  // namespace omega
 
-// The C interface of one pair of flux types (FL: cc, uc, cu, uu = thickness
-// then tracer flux, center or upwind), without and with the tails, in both
-// precisions: omega_patch_fb_<FL>_<plain|tails>_<f32|f64>. `in` and `out`
-// are (K, 4+L, P) frames, `off` / `w` / `cpl` the compact table and the
+// The C interface of one pair of flux types (FL: cc, uc, cu, uu, cf, uf =
+// thickness then tracer flux, center, upwind or FCT), without and with the
+// tails, in both precisions: omega_patch_fb_<FL>_<plain|tails>_<f32|f64>.
+// `in` is (K, 4+L, P) frames, `out` the same (FCT: (K, 4+2L, P), stage A's
+// layout), `off` / `w` / `cpl` the compact table and the
 // const planes, `work` the scratch of work_fields(L) (K, 1, P) fields;
 // `consts` = dt, g, nu2, nu4, div_factor, eddy_diff2, eddy_diff4, the
 // uniform values of f_vertex, gdepth, scal2, scal4, edge_mask, then rho0 and
 // the drag coefficient; `ints` = P, S, K, L, layers per thread, threads per
 // block, one flag per const (1: a plane of `cpl`), then wind and drag on
 // (1) or off (0). Returns the first refused launch's error code, or 0.
-#define OMEGA_PATCH_ENTRY(FL, TL, SUF, T, UH, UT, TAILS)                    \
+#define OMEGA_PATCH_ENTRY(FL, TL, SUF, T, UH, TR, TAILS)                    \
   int omega_patch_fb_##FL##_##TL##_##SUF(                                    \
       const void* in, void* out, const void* off, const void* w,             \
       const void* cpl, void* work, const double* consts, const int* ints,    \
       void* stream) {                                                        \
-    return omega::patch::launch<T, UH, UT, TAILS>(                           \
+    return omega::patch::launch<T, UH, TR, TAILS>(                           \
         in, out, off, w, cpl, work, consts, ints,                            \
         static_cast<cudaStream_t>(stream));                                  \
   }
 
-#define OMEGA_PATCH_VARIANTS(FL, UH, UT)                                    \
+#define OMEGA_PATCH_VARIANTS(FL, UH, TR)                                    \
   extern "C" {                                                               \
-  OMEGA_PATCH_ENTRY(FL, plain, f32, float, UH, UT, false)                    \
-  OMEGA_PATCH_ENTRY(FL, tails, f32, float, UH, UT, true)                     \
-  OMEGA_PATCH_ENTRY(FL, plain, f64, double, UH, UT, false)                   \
-  OMEGA_PATCH_ENTRY(FL, tails, f64, double, UH, UT, true)                    \
+  OMEGA_PATCH_ENTRY(FL, plain, f32, float, UH, TR, false)                    \
+  OMEGA_PATCH_ENTRY(FL, tails, f32, float, UH, TR, true)                     \
+  OMEGA_PATCH_ENTRY(FL, plain, f64, double, UH, TR, false)                   \
+  OMEGA_PATCH_ENTRY(FL, tails, f64, double, UH, TR, true)                    \
   }

@@ -2,4 +2,4 @@
 // tracer fluxes (the flagship chain).
 #include "patch_step.cuh"
 
-OMEGA_PATCH_VARIANTS(cc, false, false)
+OMEGA_PATCH_VARIANTS(cc, false, omega::patch::kTrCenter)

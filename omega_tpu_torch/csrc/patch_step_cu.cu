@@ -2,4 +2,4 @@
 // upwind tracer flux.
 #include "patch_step.cuh"
 
-OMEGA_PATCH_VARIANTS(cu, false, true)
+OMEGA_PATCH_VARIANTS(cu, false, omega::patch::kTrUpwind)

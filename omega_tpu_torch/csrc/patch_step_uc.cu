@@ -2,4 +2,4 @@
 // center tracer flux.
 #include "patch_step.cuh"
 
-OMEGA_PATCH_VARIANTS(uc, true, false)
+OMEGA_PATCH_VARIANTS(uc, true, omega::patch::kTrCenter)

@@ -2,4 +2,4 @@
 // tracer fluxes.
 #include "patch_step.cuh"
 
-OMEGA_PATCH_VARIANTS(uu, true, true)
+OMEGA_PATCH_VARIANTS(uu, true, omega::patch::kTrUpwind)

@@ -27,7 +27,9 @@ frames with NO mid-chain fix-ups:
 
 Host numpy, the counterpart of omega_tpu/mesh/icos_mega.py for the
 forward-backward chain (center or upwind fluxes, stacked ssh, wind, bottom
-drag, implicit vertical mixing with constant or PP81 coefficients). The
+drag, implicit vertical mixing with constant or PP81 coefficients) and its
+Zalesak FCT form in two stages (`ensure_fct`: the FCT tables, the stages'
+validity masks and their own fix submesh, built only for FCT). The
 frame margin MH, the tile whose slab creep the validity masks model, and
 the choice of worst-case (every physics option on) or tight masks are
 arguments with the reference's defaults; a build is kept on the mesh's
@@ -55,6 +57,10 @@ MH = 8
 TILE = 16
 OH = 2        # output rim written around each owned patch region
 SUB_GROW = 10  # BFS closure width of the fix submesh (chain + halo)
+
+# tables only the FCT chains read, built by ensure_fct alone, so the
+# flagship and science builds (and their compact tables) stay as they are
+FCT_TABLES = ("div_pos", "div_neg") + tuple(f"coc{j}" for j in range(6))
 
 
 @dataclasses.dataclass
@@ -114,6 +120,51 @@ def ensure_mega(mesh, mh: int = MH, tile=TILE,
         info.cache[key] = _build(info.host_mesh, info, int(mh), tile,
                                  bool(phys_masks))
     return info.cache[key]
+
+
+def ensure_fct(mesh, mh: int = MH, tile=TILE, phys_masks: bool = True):
+    """Build (once per argument set, kept on the mesh's PatchInfo) and
+    return the FCT extension of a mega build: the FCT tables and their
+    resolution masks, the tiled validity masks of the two stages, the
+    cell / edge keeps of the refreshes between and after them, and the FCT
+    fix closure with its own submesh (the limiter's creep differs from the
+    FB chain's, so its fix set comes from its own masks). Arguments as
+    `ensure_mega`."""
+    mg = ensure_mega(mesh, mh, tile, phys_masks)
+    info = mesh.patch_info
+    key = ("fct", int(mh), tile if isinstance(tile, int) else tuple(tile),
+           bool(phys_masks))
+    if key not in info.cache:
+        info.cache[key] = _build_fct(info.host_mesh, mg)
+    return info.cache[key]
+
+
+def _build_fct(mesh, mg: MegaInfo) -> dict:
+    n, mh = mg.n, mg.mh
+    pos_of = _positions_of(mg.content)
+    tables, resolved = dict(mg.tables), dict(mg.resolved)
+    for name, idx, dst, src, w in _fct_table_specs(mesh):
+        tables[name], resolved[name] = _build_mega_table(
+            n, mg.content, pos_of, name, idx, w, dst, src, 2, mh)
+    masks_a = kernel_validity(
+        tables, mg.content, resolved, n, mg.by, mh,
+        fct_stage_a_chain(1, wind=True, drag=True), mh,
+        out_keys=("h_new", "u_new", "trtd0", "facc0"))
+    masks_b = kernel_validity(
+        tables, mg.content, resolved, n, mg.by, mh, fct_stage_b_chain(1), mh,
+        out_keys=("trn0",),
+        extra_inputs=(("h_new", "cell"), ("trtd0", "cell"),
+                      ("facc0", "cell")))
+    cell_keep = (masks_a["h_new"] & masks_a["trtd0"] & masks_a["facc0"]
+                 & masks_b["trn0"])
+    edge_keep = masks_a["u_new"]
+    outputs, fix = _fix_closure(mesh, mg.content, n, (
+        ("c", cell_keep, "cell", mesh.ncells),
+        ("u", edge_keep, "edge", mesh.nedges)), mh)
+    return dict(tables={k: tables[k] for k in FCT_TABLES},
+                resolved={k: resolved[k] for k in FCT_TABLES},
+                masks_a=masks_a, masks_b=masks_b, cell_keep=cell_keep,
+                edge_keep=edge_keep, outputs=outputs, **fix)
 
 
 # ----------------------------------------------------------------------
@@ -342,6 +393,25 @@ def _table_specs(mesh):
     ]
 
 
+def _fct_table_specs(mesh):
+    """The FCT (Zalesak) tables: the relu'd halves of the divergence
+    (trisk.div_cell_pos / _neg) and the cell-neighbour picks behind
+    trisk.cell_neighbor_extrema. A pentagon's padded slot points at the
+    cell itself: a self-pick is the neutral element of the max / min folds
+    the chain builds from the picks."""
+    eoc = np.asarray(mesh.edges_on_cell)
+    w_div = np.asarray(mesh.w_div_cell, np.float64)
+    coc = np.asarray(unclamped_connectivity(mesh)["cells_on_cell"], np.int64)
+    coc_s = np.where(coc >= 0, coc,
+                     np.arange(coc.shape[0], dtype=np.int64)[:, None])
+    specs = [("div_pos", eoc, "cell", "edge", np.maximum(w_div, 0.0)),
+             ("div_neg", eoc, "cell", "edge", np.maximum(-w_div, 0.0))]
+    for j in range(coc_s.shape[1]):
+        specs.append((f"coc{j}", coc_s[:, j:j + 1], "cell", "cell",
+                      np.ones((coc_s.shape[0], 1))))
+    return specs
+
+
 def _const_planes(mesh, content):
     """Per-position geometry fields the chain multiplies by directly."""
     S = content["cell"].shape[-1]
@@ -556,6 +626,109 @@ def fb_chain(L: int, wind=False, drag=False, vmix=False, uw_h=False,
     return ops
 
 
+def fct_stage_a_chain(L: int, wind=False, drag=False, uw_h=False):
+    """FCT stage A (of two; ops/patch_megastep.fct_patch_megastep_framed):
+    the FB thickness and velocity sections, and per tracer the low-order
+    (upwind) provisional field trtd{l} (core/fct.fct_provisional, radius 4)
+    and the diffusion-only numerator facc{l} = tr h + dt (ed2 diff2 - ed4
+    hyp) (radius 8). The limiter, radius 10 from the original state, runs
+    in stage B from these fields after a refresh."""
+    pre = _pre_ops(uw_h, False)
+    nsplit = len(pre) - 1                 # ops through "dh" (u_m unused)
+    ops = pre[:nsplit] + [
+        ("h_new", "ew", "axpy", "h", -1.0, "dh"),
+        # the thickness equation's own edge flux, masked (core/fct.py)
+        ("mflux", "ew", "mulc", "flux", "$edge_mask"),
+    ]
+    for l in range(L):
+        t = f"tr{l}"
+        ops += [
+            (f"t0{l}", "st", "c0", t),
+            (f"t1{l}", "st", "c1", t),
+            (f"flo{l}", "ew", "upwind_mean", "u", f"t0{l}", f"t1{l}"),
+            (f"flo{l}", "ew", "mul", f"flo{l}", "mflux"),
+            (f"dlo{l}", "st", "div", f"flo{l}"),
+            (f"trtd{l}", "ew", "tracer_updc", t, "h", f"dlo{l}", "h_new",
+             -1.0),
+            # the diffusion terms as _tracer_tend_ops
+            (f"ctr{l}", "st", "cdiff", t),
+            (f"mc{l}", "ew", "mul", "mean_h", f"ctr{l}"),
+            (f"d2aux{l}", "st", "sdiv_geo", f"mc{l}"),
+            (f"diff2{l}", "st", "sdiv_geo2", f"mc{l}"),
+            (f"cd2{l}", "st", "cdiff", f"d2aux{l}"),
+            (f"hyp{l}", "st", "sdiv_geo4", f"cd2{l}"),
+            (f"dtrd{l}", "ew", "diff_rhs", f"diff2{l}", f"hyp{l}"),
+            (f"facc{l}", "ew", "tracer_acc0", t, "h", f"dtrd{l}", 1.0),
+        ]
+    return ops + _vel_tend_ops("h_new", uw_h) + _phys_ops(wind, drag) + [
+        ("u_new", "ew", "axpy_m", "u", 1.0, "du", "$edge_mask"),
+    ]
+
+
+def fct_stage_b_chain(L: int, uw_h=False):
+    """FCT stage B: the Zalesak limiter (core/fct.py steps 4-5) from the
+    refreshed stage-A fields h_new, trtd{l}, facc{l} and the original
+    state. Deepest path: flux picks (2), budget divergences (4), limiter
+    factors (4), their edge picks (6), the corrected flux's divergence (8):
+    the MH = 8 margin exactly."""
+    if uw_h:
+        ops = [("hp0", "st", "c0", "h"), ("hp1", "st", "c1", "h"),
+               ("flux_h", "ew", "upwind", "u", "hp0", "hp1")]
+    else:
+        ops = [("mean_h", "st", "cmean", "h"),
+               ("flux_h", "ew", "copy", "mean_h")]
+    ops += [("flux", "ew", "mul", "flux_h", "u"),
+            ("mflux", "ew", "mulc", "flux", "$edge_mask")]
+    for l in range(L):
+        t = f"tr{l}"
+        ops += [
+            (f"t0{l}", "st", "c0", t),
+            (f"t1{l}", "st", "c1", t),
+            (f"fhi{l}", "ew", "mean2", f"t0{l}", f"t1{l}"),
+            (f"fhi{l}", "ew", "mul", f"fhi{l}", "mflux"),
+            (f"flo{l}", "ew", "upwind_mean", "u", f"t0{l}", f"t1{l}"),
+            (f"flo{l}", "ew", "mul", f"flo{l}", "mflux"),
+            (f"fa{l}", "ew", "sub", f"fhi{l}", f"flo{l}"),
+            (f"fbp{l}", "ew", "relu", f"fa{l}"),
+            (f"fbn{l}", "ew", "relu_neg", f"fa{l}"),
+            (f"pi1{l}", "st", "div_neg", f"fbp{l}"),
+            (f"pi2{l}", "st", "div_pos", f"fbn{l}"),
+            (f"pin{l}", "ew", "fct_p", f"pi1{l}", f"pi2{l}"),
+            (f"po1{l}", "st", "div_pos", f"fbp{l}"),
+            (f"po2{l}", "st", "div_neg", f"fbn{l}"),
+            (f"pout{l}", "ew", "fct_p", f"po1{l}", f"po2{l}"),
+            # bounds: extrema over the cell and its 6 picks of the old and
+            # the transported field (max / min fold in any order exactly)
+            (f"tmax{l}", "ew", "max2", t, f"trtd{l}"),
+            (f"tmin{l}", "ew", "min2", t, f"trtd{l}"),
+        ]
+        for j in range(6):
+            ops += [
+                (f"nb{l}", "st", f"coc{j}", t),
+                (f"tmax{l}", "ew", "max2", f"tmax{l}", f"nb{l}"),
+                (f"tmin{l}", "ew", "min2", f"tmin{l}", f"nb{l}"),
+                (f"nb{l}", "st", f"coc{j}", f"trtd{l}"),
+                (f"tmax{l}", "ew", "max2", f"tmax{l}", f"nb{l}"),
+                (f"tmin{l}", "ew", "min2", f"tmin{l}", f"nb{l}"),
+            ]
+        ops += [
+            (f"qin{l}", "ew", "fct_q", f"tmax{l}", f"trtd{l}", "h_new"),
+            (f"rin{l}", "ew", "fct_r", f"qin{l}", f"pin{l}"),
+            (f"qout{l}", "ew", "fct_q", f"trtd{l}", f"tmin{l}", "h_new"),
+            (f"rout{l}", "ew", "fct_r", f"qout{l}", f"pout{l}"),
+            (f"ri0{l}", "st", "c0", f"rin{l}"),
+            (f"ri1{l}", "st", "c1", f"rin{l}"),
+            (f"ro0{l}", "st", "c0", f"rout{l}"),
+            (f"ro1{l}", "st", "c1", f"rout{l}"),
+            (f"fc{l}", "ew", "fct_corr", f"fa{l}", f"flo{l}", f"ri0{l}",
+             f"ri1{l}", f"ro0{l}", f"ro1{l}"),
+            (f"adv{l}", "st", "div", f"fc{l}"),
+            (f"trn{l}", "ew", "tracer_fin", f"facc{l}", f"adv{l}", "h_new",
+             -1.0),
+        ]
+    return ops
+
+
 def validity_chain(mh: int, phys_masks: bool):
     """The chain the validity masks are built for: the worst case (wind,
     drag and PP81 mixing on: the vmix edge-thickness cmean erodes u_new by
@@ -572,13 +745,16 @@ def validity_chain(mh: int, phys_masks: bool):
 
 
 def chain_validity(tables: Dict[str, MegaTable], content, resolved,
-                   L: int, ops, state_masks=None) -> Dict[str, np.ndarray]:
+                   L: int, ops, state_masks=None,
+                   extra_inputs=()) -> Dict[str, np.ndarray]:
     """Propagate exactness masks through a chain.
 
     `resolved[name]` is the per-dst-position bool mask of positions whose
     stencil fully resolved.  State values are exact wherever content
     exists (override with `state_masks` (cell, edge) to emulate a tile
-    slab boundary).  Returns the mask of every chain value."""
+    slab boundary).  `extra_inputs` lists (name, class) pairs of further
+    chain inputs (FCT stage B's refreshed fields), exact where the state
+    of their class is.  Returns the mask of every chain value."""
     if state_masks is None:
         state_masks = {"cell": content["cell"] >= 0,
                        "edge": content["edge"] >= 0}
@@ -588,6 +764,8 @@ def chain_validity(tables: Dict[str, MegaTable], content, resolved,
     }
     for l in range(L):
         masks[f"tr{l}"] = masks["h"]
+    for nm, cls in extra_inputs:
+        masks[nm] = state_masks[cls]
     plane_mask = {"$f_vertex": content["vertex"] >= 0,
                   "$gdepth": content["edge"] >= 0,
                   "$scal2": content["edge"] >= 0,
@@ -625,9 +803,10 @@ def chain_validity(tables: Dict[str, MegaTable], content, resolved,
     return masks
 
 
-def kernel_validity(tables, content, resolved, n, by, R, ops, mh):
-    """Exactness of the TILED kernel's outputs (h_new, u_new, trn0) at
-    every frame position.
+def kernel_validity(tables, content, resolved, n, by, R, ops, mh,
+                    out_keys=("h_new", "u_new", "trn0"), extra_inputs=()):
+    """Exactness of the TILED kernel's outputs (`out_keys`) at every frame
+    position; `extra_inputs` as in chain_validity.
 
     The reference kernel partitions the S x S frame into (byy, byx) tiles,
     each computed on a radius-R slab; values creep garbage inward from the
@@ -642,8 +821,7 @@ def kernel_validity(tables, content, resolved, n, by, R, ops, mh):
     if S % byy or S % byx:
         raise ValueError(f"tile {by} does not divide the frame ({S})")
     base = {"cell": content["cell"] >= 0, "edge": content["edge"] >= 0}
-    outs = {k: np.zeros_like(base[cls]) for k, cls in
-            (("h_new", "cell"), ("u_new", "edge"), ("trn0", "cell"))}
+    outs = {}
     for ty in range(S // byy):
         for tx in range(S // byx):
             box = np.zeros((1, 1, S, S), bool)
@@ -651,10 +829,12 @@ def kernel_validity(tables, content, resolved, n, by, R, ops, mh):
                 max(0, tx * byx - R):tx * byx + byx + R] = True
             sm = {k: v & box for k, v in base.items()}
             m = chain_validity(tables, content, resolved, 1, ops,
-                               state_masks=sm)
+                               state_masks=sm, extra_inputs=extra_inputs)
             ys = slice(ty * byy, ty * byy + byy)
             xs = slice(tx * byx, tx * byx + byx)
-            for k in outs:
+            for k in out_keys:
+                if k not in outs:
+                    outs[k] = np.zeros(m[k].shape, bool)
                 outs[k][:, :, ys, xs] = m[k][:, :, ys, xs]
     return outs
 

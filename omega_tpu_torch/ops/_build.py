@@ -155,19 +155,25 @@ def load() -> ctypes.CDLL:
         fn.argtypes = []
         fn.restype = ci
     for suffix in ("f32", "f64"):
-        for flux in ("cc", "uc", "cu", "uu"):
+        for flux in ("cc", "uc", "cu", "uu", "cf", "uf"):
             for tails in ("plain", "tails"):
                 fn = getattr(lib, f"omega_patch_fb_{flux}_{tails}_{suffix}")
                 # in, out, offs, wts, cpl, work, consts, ints, stream
                 fn.argtypes = [vp] * 9
                 fn.restype = ci
+        for flux in ("c", "u"):
+            fn = getattr(lib, f"omega_patch_fct_b_{flux}_{suffix}")
+            # mid, in, out, offs, wts, cpl, work, consts, ints, stream
+            fn.argtypes = [vp] * 10
+            fn.restype = ci
         for name in ("pp81", "vmix_solve"):
             fn = getattr(lib, f"omega_patch_{name}_{suffix}")
             # frames, offs, wts, coef, consts, ints, stream
             fn.argtypes = [vp] * 7
             fn.restype = ci
-    lib.omega_patch_rows.argtypes = [ci]
-    lib.omega_patch_rows.restype = ci
+    for name in ("omega_patch_rows", "omega_patch_fct_rows"):
+        getattr(lib, name).argtypes = [ci]
+        getattr(lib, name).restype = ci
     lib.omega_chain_slots.argtypes = [ci, ci, ci]
     lib.omega_chain_slots.restype = ci
     lib.omega_error_string.argtypes = [ci]

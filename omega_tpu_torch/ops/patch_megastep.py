@@ -1,6 +1,7 @@
 """The forward-backward step on the icosahedral sphere, fused.
 
-Counterpart of omega_tpu/ops/patch_megastep.py for kind `fb`. Icosahedral
+Counterpart of omega_tpu/ops/patch_megastep.py for kinds `fb`, `fcta` and
+`fctb`. Icosahedral
 meshes renumbered by mesh/icos_patches.py run the whole FB chain
 (mesh/icos_mega.fb_chain: center or upwind fluxes, wind, bottom drag,
 implicit vertical mixing with constant or PP81 coefficients) on halo-MH
@@ -26,6 +27,15 @@ Execution model per step, frames as the loop carry:
      mesh/icos_mega.py do not call exact are refilled from an exact copy
      of the same element, the pole rows come from the submesh step, and
      lattice holes are set to zero again
+
+With Zalesak FCT tracer fluxes (`fct_patch_megastep_framed`, run_steps
+only, no vertical mixing) the step has two stages, as the reference's
+(the limiter's chain is deeper than the MH margin): stage A is the patch
+kernel's FCT variant (h_new, u_new, the provisional tracers and the
+diffusion numerators), then the refresh of its fields, stage B the
+limiter (csrc/patch_fct.cu; plain versions `fct_a_plain`, `fct_b_plain`),
+with the FCT closure's own fix submesh and maps (mesh/icos_mega.ensure_fct,
+an FCT prep).
 
 The TPU kernel tiles each frame into (16, 16) blocks with an 8-wide ring
 and reads its weights from a lane-major plane stack (10, SS, SS, npl),
@@ -56,6 +66,8 @@ TriDiagSolvers.h PCRDiffusionSolver).
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -63,14 +75,19 @@ from omega_tpu_torch.core import aux as auxmod
 from omega_tpu_torch.core.state import ModelState
 from omega_tpu_torch.mesh import icos_mega as imx
 from omega_tpu_torch.mesh.icos_patches import NPER
-from omega_tpu_torch.ops import _build, tridiag, vmix_kernel
+from omega_tpu_torch.ops import _build, tridiag, trisk, vmix_kernel
 
 # launches since the last reset: the patch step (PASSES per call), the
-# PP81 coefficient kernel and the column-solve kernel (one per call each)
+# PP81 coefficient kernel and the column-solve kernel (one per call each),
+# FCT's stage A (the patch step's FCT variant, PASSES per call) and stage B
+# (FCT_B_PASSES per call)
 launches = 0
 coeff_launches = 0
 solve_launches = 0
+fct_a_launches = 0
+fct_b_launches = 0
 PASSES = 5
+FCT_B_PASSES = 4
 # layers one thread walks with the weights of its position in registers
 LAYERS_PER_THREAD = 8
 THREADS = 128
@@ -83,11 +100,21 @@ GROUPS = (("div", ("div", "ke", "sdiv_geo", "sdiv_geo2", "sdiv_geo4"), 6),
           ("tang", ("tang",), 10),
           ("cmean", ("cmean", "cdiff", "cgrad", "c0", "c1"), 2),
           ("vmean", ("vmean", "vgrad", "vgrad_floor"), 2))
+# the rows an FCT prep appends: the relu'd divergence halves (the div
+# support) and one single-slot group per neighbour pick
+FCT_GROUPS = (("fdiv", ("div_pos", "div_neg"), 6),) + tuple(
+    (f"coc{j}", (f"coc{j}",), 1) for j in range(6))
 # const planes in the order of the kernel's plane rows; the three rows of
 # the wind stress on the edge classes follow them (zero without wind)
 CONSTS = (("f_vertex", "vertex"), ("gdepth", "edge"), ("scal2", "edge"),
           ("scal4", "edge"), ("edge_mask", "edge"))
 WIND_ROW = sum(NPER[cls] for _, cls in CONSTS)
+
+
+def fct_b_work_fields(L: int) -> int:
+    """Stage B's scratch in (K, 1, P) fields: the antidiffusive flux (3L),
+    the low-order then corrected flux (3L), r_in (L), r_out (L)."""
+    return 8 * L
 
 
 def work_fields(L: int) -> int:
@@ -106,15 +133,18 @@ def enabled(x) -> bool:
 vmix_on = vmix_kernel.vmix_on
 
 
-def supported(mesh, cfg, mh: int = imx.MH, phys_masks: bool = True) -> bool:
+def supported(mesh, cfg, mh: int = imx.MH, phys_masks: bool = True,
+              framed: bool = False) -> bool:
     """The sphere configurations of the fused step on a patch mesh (the
-    reference's `supported(kind="fb", framed=True)` without FCT): center
-    or upwind thickness and tracer fluxes, stacked ssh, every standard
-    term, wind and bottom drag, implicit vertical mixing by PCR (constant
-    or PP81 coefficients, at least two layers), no custom tendency. The
-    radius-7 vmix chain needs a margin `mh` of at least 7 and the
-    worst-case validity masks (`phys_masks`), with which `prep` builds;
-    the Thomas method stays composed."""
+    reference's `supported(kind="fb", framed=...)`): center or upwind
+    thickness and tracer fluxes, stacked ssh, every standard term, wind
+    and bottom drag, implicit vertical mixing by PCR (constant or PP81
+    coefficients, at least two layers), no custom tendency. The radius-7
+    vmix chain needs a margin `mh` of at least 7 and the worst-case
+    validity masks (`phys_masks`), with which `prep` builds; the Thomas
+    method stays composed. FCT tracer fluxes are fused only on the framed
+    path (`framed`: run_steps' carry, the two-stage driver
+    `fct_patch_megastep_framed`) and only without vertical mixing."""
     if getattr(mesh, "patch_info", None) is None:
         return False
     if cfg.vert_mix.enabled and not vmix_on(cfg):
@@ -122,8 +152,11 @@ def supported(mesh, cfg, mh: int = imx.MH, phys_masks: bool = True) -> bool:
     if vmix_on(cfg) and (mh < 7 or not phys_masks):
         return False
     tc = cfg.tendencies
+    tracer_types = ("center", "upwind")
+    if framed and not cfg.vert_mix.enabled:
+        tracer_types += ("fct",)
     return (cfg.flux_thickness_type in ("center", "upwind")
-            and cfg.flux_tracer_type in ("center", "upwind")
+            and cfg.flux_tracer_type in tracer_types
             and cfg.ssh_formulation == "stacked"
             and tc.thickness_flux_div and tc.pv_advection and tc.ke_gradient
             and tc.ssh_gradient and tc.velocity_diffusion
@@ -135,6 +168,15 @@ def supported(mesh, cfg, mh: int = imx.MH, phys_masks: bool = True) -> bool:
 def _drag_on(cfg) -> bool:
     tc = cfg.tendencies
     return bool(tc.bottom_drag and tc.bottom_drag_coeff != 0.0)
+
+
+def fct_ops(cfg, L: int, wind: bool):
+    """The two FCT stages of `cfg` (icos_mega.fct_stage_a_chain /
+    fct_stage_b_chain): (stage A, stage B)."""
+    uw_h = cfg.flux_thickness_type == "upwind"
+    return (imx.fct_stage_a_chain(L, wind=wind, drag=_drag_on(cfg),
+                                  uw_h=uw_h),
+            imx.fct_stage_b_chain(L, uw_h=uw_h))
 
 
 def chain_ops(cfg, L: int, wind: bool):
@@ -163,7 +205,9 @@ def chain_ops(cfg, L: int, wind: bool):
 class Prep:
     """What one (mesh, type, device) needs at run time: the mega build,
     the compact table, the const planes, the refresh maps, the pole
-    submesh and its row maps."""
+    submesh and its row maps. An FCT prep (`prep(..., fct=True)`) holds the
+    FCT closure's refresh maps, submesh, row maps and read-out maps in the
+    same fields, and its compact table carries the FCT rows."""
 
 
 def _persist_map(mg, grp, keep, fixg, nel):
@@ -202,9 +246,10 @@ def _persist_map(mg, grp, keep, fixg, nel):
     return persist, src_of
 
 
-def compact_table(mg):
-    """The per-position compact table of a mega build: (offs (R_off, P)
-    int32, wts (R_w, P) float64). Rows: per group, per destination channel
+def compact_table(mg, groups=GROUPS, tables=None):
+    """The per-position compact table of a mega build (`tables`: the
+    build's own, or those of `groups`): (offs (R_off, P) int32, wts (R_w,
+    P) float64). Rows: per group, per destination channel
     td, `slots` rows of offsets, and per table of the group the same rows
     of weights; an offset is ts * P + db * S + da within one layer of the
     source field; unused slots hold offset 0 and weight 0. Slots of a
@@ -212,9 +257,10 @@ def compact_table(mg):
     entries, so a kernel sum runs in the reference's order."""
     S = mg.S
     P = 10 * S * S
+    tables = mg.tables if tables is None else tables
     offs, wts = [], []
-    for gname, names, ns in GROUPS:
-        tabs = [mg.tables[nm] for nm in names]
+    for gname, names, ns in groups:
+        tabs = [tables[nm] for nm in names]
         Td = NPER[tabs[0].dst_class]
         off = np.zeros((Td * ns, P), np.int32)
         w = np.zeros((len(tabs), Td * ns, P), np.float64)
@@ -266,19 +312,25 @@ def _const_values(mg):
     return out
 
 
-def prep(mesh, dtype, device) -> Prep:
+def prep(mesh, dtype, device, fct: bool = False) -> Prep:
     """The run-time data of the patch step for `mesh` in `dtype` on
-    `device` (built once, kept on mesh.patch_info)."""
+    `device` (built once, kept on mesh.patch_info); with `fct` the FCT
+    prep (`_fct_prep`)."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    key = ("prep", dtype, device)
+    key = ("prep", dtype, device, bool(fct))
     info = mesh.patch_info
     if key in info.cache:
+        return info.cache[key]
+    if fct:
+        info.cache[key] = _fct_prep(mesh, prep(mesh, dtype, device))
         return info.cache[key]
     mg = imx.ensure_mega(mesh)
     p = Prep()
     p.mg = mg
+    p.fct = False
+    p.tables = mg.tables
     p.n, p.S, p.mh = mg.n, mg.S, mg.mh
     p.P = 10 * p.S * p.S
     p.dtype, p.device = dtype, device
@@ -357,6 +409,56 @@ def prep(mesh, dtype, device) -> Prep:
     return p
 
 
+def _prep_for(mesh, cfg, dtype, device) -> Prep:
+    """The prep whose fix sets a carry of `cfg` lives on: the FCT prep for
+    an FCT configuration, else the FB one."""
+    return prep(mesh, dtype, device, fct=cfg.flux_tracer_type == "fct")
+
+
+def _fct_prep(mesh, base: Prep) -> Prep:
+    """The FCT prep: `base` (the FB prep of the same mesh, type and device)
+    with the FCT tables (plain entries, and the compact rows of FCT_GROUPS
+    appended to the table), and the refresh maps, submesh, row maps and
+    read-out maps of the FCT closure (icos_mega.ensure_fct) in place of the
+    FB chain's (the reference's _prep_build FCT extension)."""
+    fi = imx.ensure_fct(mesh)
+    mg = base.mg
+    p = copy.copy(base)
+    p.fct = True
+    put = lambda a, dt=base.dtype: torch.as_tensor(
+        np.ascontiguousarray(a)).to(device=base.device, dtype=dt)
+    idx = lambda a: put(a, torch.long)
+    p.tables = {**mg.tables, **fi["tables"]}
+    p.entries = {**base.entries, **{
+        name: [(td, ts, da, db, put(wpl))
+               for (td, ts, da, db, wpl) in tab.entries]
+        for name, tab in fi["tables"].items()}}
+    offs, wts = compact_table(mg, FCT_GROUPS, fi["tables"])
+    p.offs = torch.cat([base.offs, put(offs, torch.int32)])
+    p.wts = torch.cat([base.wts, put(wts)])
+    # the per-step API's paste-back is the FB chain's: FCT runs framed only
+    p.outputs = None
+    p.sub_mesh = fi["sub_mesh"].to(base.device, base.dtype)
+    p.sub_cells, p.sub_edges = idx(fi["sub_cells"]), idx(fi["sub_edges"])
+    for f in ("fix_cells_local", "fix_cells_global", "fix_edges_local",
+              "fix_edges_global"):
+        setattr(p, f, idx(fi[f]))
+    p.persist, src_of = {}, {}
+    for grp, keep, fixg, nel in (
+            ("cell", fi["cell_keep"], fi["fix_cells_global"], mesh.ncells),
+            ("edge", fi["edge_keep"], fi["fix_edges_global"], mesh.nedges)):
+        persist, src_of[grp] = _persist_map(
+            mg, grp, (mg.content[grp] >= 0) & keep, fixg, nel)
+        p.persist[grp] = {k: idx(v) for k, v in persist.items()}
+    p.sub_cell_src = idx(np.maximum(src_of["cell"][fi["sub_cells"]], 0))
+    p.sub_edge_src = idx(np.maximum(src_of["edge"][fi["sub_edges"]], 0))
+    p.cell_src = idx(np.maximum(src_of["cell"], 0))
+    p.cell_src_ok = put(src_of["cell"] >= 0, torch.bool)
+    p.edge_src = idx(np.maximum(src_of["edge"], 0))
+    p.edge_src_ok = put(src_of["edge"] >= 0, torch.bool)
+    return p
+
+
 # ----------------------------------------------------------------------
 # wind
 
@@ -366,13 +468,13 @@ def make_wind(mesh, cfg, wind_stress, dtype):
     cell stress is rotated onto the edge normals once
     (aux.wind_normal_stress, WindForcingAuxVars.h:13-40) and laid into the
     edge frames (grid ids and fills) as the three wind rows of a copy of
-    the prep's const planes `cpl`; the pole submesh's composed step gets
-    the stress of its own cells, whose rotation reproduces the global one
-    on its fix rows."""
+    the prep's const planes `cpl`; the pole submesh's composed step (FCT:
+    the FCT fix submesh's) gets the stress of its own cells, whose
+    rotation reproduces the global one on its fix rows."""
     if wind_stress is None or not cfg.tendencies.wind_forcing:
         return None
     zonal, merid = wind_stress
-    p = prep(mesh, dtype, zonal.device)
+    p = _prep_for(mesh, cfg, dtype, zonal.device)
     stress = auxmod.wind_normal_stress(mesh, cfg, zonal, merid).to(dtype)
     cpl = p.cpl.clone()
     _frames_of(p, "edge", stress[:, None], 3,
@@ -437,7 +539,7 @@ def _eval(p, cfg, ops, vals, dt, wind_planes=None):
     S = p.S
 
     def ap(tname, src):
-        Td = NPER[p.mg.tables[tname].dst_class]
+        Td = NPER[p.tables[tname].dst_class]
         outs = [None] * Td
         for (td, ts, da, db, w) in p.entries[tname]:
             term = w * torch.roll(src[:, ts], shifts=(-db, -da),
@@ -491,6 +593,34 @@ def _eval(p, cfg, ops, vals, dt, wind_planes=None):
             r = -v(0) + ed2 * v(1) - ed4 * v(2)
         elif fn == "tracer_update":          # (tr*h + dt*dtr) / h_new
             r = _safe_div(v(0) * v(1) + dt * v(2), v(3))
+        elif fn == "tracer_updc":            # (tr*h + coef*dt*dtr) / h_new
+            r = _safe_div(v(0) * v(1) + a[4] * dt * v(2), v(3))
+        elif fn == "tracer_acc0":            # tr*h + coef*dt*dtr
+            r = v(0) * v(1) + a[3] * dt * v(2)
+        elif fn == "tracer_fin":             # (acc + coef*dt*dtr) / h_new
+            r = _safe_div(v(0) + a[3] * dt * v(1), v(2))
+        elif fn == "upwind_mean":            # core/fct's upwind pick, the
+            r = torch.where(v(0) > 0, v(1),  # mean at rest
+                            torch.where(v(0) < 0, v(2), 0.5 * (v(1) + v(2))))
+        elif fn == "max2":
+            r = torch.maximum(v(0), v(1))
+        elif fn == "min2":
+            r = torch.minimum(v(0), v(1))
+        elif fn == "relu":                   # the positive part B+
+            r = torch.clamp(v(0), min=0.0)
+        elif fn == "relu_neg":               # the negative part B-
+            r = torch.clamp(-v(0), min=0.0)
+        elif fn == "diff_rhs":               # ed2*diff2 - ed4*hyp
+            r = ed2 * v(0) - ed4 * v(1)
+        elif fn == "fct_p":                  # dt * (x + y): flux budgets
+            r = dt * (v(0) + v(1))
+        elif fn == "fct_q":                  # (x - y) * h_new: room to bounds
+            r = (v(0) - v(1)) * v(2)
+        elif fn == "fct_r":                  # clip(q / max(p, eps), 0, 1)
+            r = torch.clamp(v(0) / torch.clamp(v(1), min=1e-30), 0.0, 1.0)
+        elif fn == "fct_corr":               # f_lo + C_e * a: limited flux
+            r = v(1) + torch.where(v(0) >= 0, torch.minimum(v(3), v(4)),
+                                   torch.minimum(v(2), v(5))) * v(0)
         elif fn == "q_vertex":               # (rvort + f) / h_v
             r = _safe_div(v(0) + c(a[1][1:]), v(2))
         elif fn == "pv":                     # 0.5 * (q_e*tf + tfq)
@@ -609,6 +739,47 @@ def step_plain(p, cfg, frames, dt, wind=None):
     return _frames_out(vals, K, CH, P, None)
 
 
+def fct_a_plain(p, cfg, frames, dt, out=None, wind=None):
+    """The plain PyTorch version of FCT's stage A kernel on the (K, 4+L, P)
+    frames of an FCT prep `p`: returns (K, 4+2L, P) in the reference's
+    layout, h_new, u_new x3, then trtd{l} at 4+2l and facc{l} at 5+2l."""
+    K, CH, P = frames.shape
+    L = CH - 4
+    vals = _eval(p, cfg, fct_ops(cfg, L, wind is not None)[0],
+                 _vals(p, frames), dt, _wind_planes(p, wind))
+    res = torch.cat([vals["h_new"], vals["u_new"]]
+                    + [vals[f"{nm}{l}"] for l in range(L)
+                       for nm in ("trtd", "facc")], 1).reshape(K, 4 + 2 * L, P)
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
+
+
+def _mid_vals(p, mid, frames):
+    """The chain values of stage B: the original frames' h, u, tr{l} and
+    the refreshed stage-A fields h_new, trtd{l}, facc{l} of `mid`."""
+    K, CH, P = frames.shape
+    vals = _vals(p, frames)
+    m = mid.reshape(K, mid.shape[1], 10, p.S, p.S)
+    vals["h_new"] = m[:, 0:1]
+    for l in range(CH - 4):
+        vals[f"trtd{l}"] = m[:, 4 + 2 * l:5 + 2 * l]
+        vals[f"facc{l}"] = m[:, 5 + 2 * l:6 + 2 * l]
+    return vals
+
+
+def fct_b_plain(p, cfg, mid, frames, dt):
+    """The plain version of FCT's stage B kernel (the Zalesak limiter) from
+    the refreshed stage-A output `mid` (K, 4+2L, P) and the original
+    frames (K, 4+L, P): the new tracers trn{l}, (K, L, P)."""
+    K, CH, P = frames.shape
+    L = CH - 4
+    vals = _eval(p, cfg, fct_ops(cfg, L, False)[1],
+                 _mid_vals(p, mid, frames), dt)
+    return torch.cat([vals[f"trn{l}"] for l in range(L)], 1).reshape(K, L, P)
+
+
 # ----------------------------------------------------------------------
 # the kernels
 
@@ -623,13 +794,15 @@ def _suffix(frames):
     return suffix
 
 
-def _check(p, frames, out, work):
+def _check(p, frames, out, work, out_ch=None, work_n=None):
     K, CH, P = frames.shape
     if frames.dtype != p.dtype or frames.device != p.device:
         raise TypeError("frames must match the prep's type and device")
+    out_ch = CH if out_ch is None else out_ch
+    work_n = work_fields(CH - 4) if work_n is None else work_n
     for a, shape, name in ((frames, (K, CH, p.P), "frames"),
-                           (out, (K, CH, p.P), "out"),
-                           (work, (work_fields(CH - 4) * K * p.P,), "work")):
+                           (out, (K, out_ch, p.P), "out"),
+                           (work, (work_n * K * p.P,), "work")):
         if (tuple(a.shape) != shape or a.dtype != frames.dtype
                 or a.device != frames.device or not a.is_contiguous()):
             raise ValueError(f"`{name}` must be a contiguous {shape} array "
@@ -639,16 +812,17 @@ def _check(p, frames, out, work):
 
 
 def _rows_ok(lib, p):
-    if lib.omega_patch_rows(0) != p.offs.shape[0] \
-            or lib.omega_patch_rows(1) != p.wts.shape[0] \
+    rows = lib.omega_patch_fct_rows if p.fct else lib.omega_patch_rows
+    if rows(0) != p.offs.shape[0] or rows(1) != p.wts.shape[0] \
             or lib.omega_patch_rows(2) != p.cpl.shape[0]:
         raise RuntimeError("patch kernels: table layout differs between "
                            "kernel and host")
 
 
-def _fb_args(p, cfg, frames, dt, wind):
+def _fb_args(p, cfg, frames, dt, wind, tracer):
     """(entry point, const planes, consts, ints) of the patch step's call
-    for the flux types and tails of `cfg`."""
+    for the thickness flux and tails of `cfg` and the tracer-flux variant
+    `tracer` ("c", "u", or "f" for FCT's stage A)."""
     K, CH, P = frames.shape
     cpl = p.cpl if wind is None else wind[0]
     if cpl.shape != p.cpl.shape or cpl.dtype != p.dtype \
@@ -665,7 +839,7 @@ def _fb_args(p, cfg, frames, dt, wind):
                     + list(p.const_flags) + [int(wind is not None),
                                              int(drag)], np.int32)
     name = (f"omega_patch_fb_{_FLUX[cfg.flux_thickness_type]}"
-            f"{_FLUX[cfg.flux_tracer_type]}_"
+            f"{tracer}_"
             f"{'tails' if wind is not None or drag else 'plain'}_"
             f"{_suffix(frames)}")
     return name, cpl, consts, ints
@@ -679,6 +853,10 @@ def chain(p, cfg, frames, dt, out=None, work=None, wind=None):
     made here when not given; `wind`: a `make_wind` bundle); for a CPU
     array the plain version runs."""
     global launches
+    if cfg.flux_tracer_type not in _FLUX:
+        raise ValueError(f"the patch step's chain takes center or upwind "
+                         f"tracer fluxes, not {cfg.flux_tracer_type!r} "
+                         "(FCT: fct_a / fct_b)")
     if not frames.is_cuda:
         return chain_plain(p, cfg, frames, dt, out, wind)
     K, CH, P = frames.shape
@@ -688,7 +866,8 @@ def chain(p, cfg, frames, dt, out=None, work=None, wind=None):
     _check(p, frames, out, work)
     lib = _build.load()
     _rows_ok(lib, p)
-    name, cpl, consts, ints = _fb_args(p, cfg, frames, dt, wind)
+    name, cpl, consts, ints = _fb_args(p, cfg, frames, dt, wind,
+                                       _FLUX[cfg.flux_tracer_type])
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, name)(
@@ -697,6 +876,86 @@ def chain(p, cfg, frames, dt, out=None, work=None, wind=None):
             consts.ctypes.data, ints.ctypes.data, stream)
     _build.check(code, "patch step launch")
     launches += PASSES
+    return out
+
+
+def _check_fct(p, cfg):
+    if cfg.flux_tracer_type != "fct" or not p.fct:
+        raise ValueError("FCT's stages take an FCT configuration and an FCT "
+                         "prep (`prep(..., fct=True)`)")
+
+
+def fct_a(p, cfg, frames, dt, out=None, work=None, wind=None):
+    """FCT's stage A on the (K, 4+L, P) frames of an FCT prep `p` into
+    `out` (K, 4+2L, P), laid out as `fct_a_plain`'s. For a CUDA array one C
+    call launches the PASSES kernels of the patch step's FCT variant
+    (csrc/patch_step_cf.cu / _uf.cu by the thickness flux, with the tails
+    when `wind` is given or drag is on) on PyTorch's current stream (`work`
+    as for `chain`); for a CPU array the plain version runs."""
+    global fct_a_launches
+    _check_fct(p, cfg)
+    if not frames.is_cuda:
+        return fct_a_plain(p, cfg, frames, dt, out, wind)
+    K, CH, P = frames.shape
+    if out is None:
+        out = frames.new_empty((K, 2 * CH - 4, P))
+    if work is None:
+        work = frames.new_empty(work_fields(CH - 4) * K * P)
+    _check(p, frames, out, work, out_ch=2 * CH - 4)
+    lib = _build.load()
+    _rows_ok(lib, p)
+    name, cpl, consts, ints = _fb_args(p, cfg, frames, dt, wind, "f")
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, name)(
+            frames.data_ptr(), out.data_ptr(), p.offs.data_ptr(),
+            p.wts.data_ptr(), cpl.data_ptr(), work.data_ptr(),
+            consts.ctypes.data, ints.ctypes.data, stream)
+    _build.check(code, "FCT stage A launch")
+    fct_a_launches += PASSES
+    return out
+
+
+def fct_b(p, cfg, mid, frames, dt, out, work=None):
+    """FCT's stage B: the new tracers from the refreshed stage-A output
+    `mid` (K, 4+2L, P) and the original frames (K, 4+L, P), written into
+    channels 4.. of `out` (K, 4+L, P; the other channels are left as they
+    are). For a CUDA array one C call launches the FCT_B_PASSES kernels of
+    csrc/patch_fct.cu on PyTorch's current stream (`work`: scratch of
+    fct_b_work_fields(L) fields, made here when not given); for a CPU
+    array the plain version runs."""
+    global fct_b_launches
+    _check_fct(p, cfg)
+    K, CH, P = frames.shape
+    L = CH - 4
+    if not frames.is_cuda:
+        out[:, 4:] = fct_b_plain(p, cfg, mid, frames, dt)
+        return out
+    if work is None or work.numel() < fct_b_work_fields(L) * K * P:
+        work = frames.new_empty(fct_b_work_fields(L) * K * P)
+    work = work[:fct_b_work_fields(L) * K * P]
+    _check(p, frames, out, work, work_n=fct_b_work_fields(L))
+    _check(p, frames, mid, work, out_ch=2 * CH - 4,
+           work_n=fct_b_work_fields(L))
+    if out.data_ptr() == mid.data_ptr():
+        raise ValueError("stage B cannot write its input")
+    lib = _build.load()
+    _rows_ok(lib, p)
+    em = p.consts["edge_mask"]
+    consts = np.array([float(dt), em if isinstance(em, float) else 0.0],
+                      np.float64)
+    ints = np.array([P, p.S, K, L, LAYERS_PER_THREAD, THREADS,
+                     0 if isinstance(em, float) else 1], np.int32)
+    name = (f"omega_patch_fct_b_{_FLUX[cfg.flux_thickness_type]}_"
+            f"{_suffix(frames)}")
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, name)(
+            mid.data_ptr(), frames.data_ptr(), out.data_ptr(),
+            p.offs.data_ptr(), p.wts.data_ptr(), p.cpl.data_ptr(),
+            work.data_ptr(), consts.ctypes.data, ints.ctypes.data, stream)
+    _build.check(code, "FCT stage B launch")
+    fct_b_launches += FCT_B_PASSES
     return out
 
 
@@ -840,9 +1099,10 @@ def _assemble(p, state):
 
 
 def stack_frames(mesh, cfg, state):
-    """Flat state -> the (frames, fix rows) carry."""
+    """Flat state -> the (frames, fix rows) carry; an FCT configuration
+    carries the fix rows of the FCT fix sets."""
     h, u, tr = state
-    p = prep(mesh, h.dtype, h.device)
+    p = _prep_for(mesh, cfg, h.dtype, h.device)
     frames = _assemble(p, state)
     fc, fe = p.fix_cells_global, p.fix_edges_global
     return frames, dict(h=h[fc], u=u[fe], tr=tr[:, fc])
@@ -854,21 +1114,26 @@ def _cls_view(frames, c0, T):
     return frames[:, c0:c0 + T].reshape(K, T * P)
 
 
-def _refresh_frames(p, nf, nfix):
-    """In-frame halo refresh, in place: refill invalid positions from exact
-    ones, scatter the fix rows, re-zero the lattice holes."""
-    def refresh(flat, m, fix_rows):
-        flat[:, m["refill_pos"]] = flat[:, m["refill_src"]]
-        if m["fix_pos"].numel():
-            flat[:, m["fix_pos"]] = fix_rows[m["fix_row"]].T
-        if m["zero_pos"].numel():
-            flat[:, m["zero_pos"]] = 0.0
+def _refresh(flat, m, fix_rows):
+    """Refresh one class's (K, T*P) view with the persist map `m`, in
+    place: refill invalid positions from exact ones, scatter the fix rows,
+    re-zero the lattice holes."""
+    flat[:, m["refill_pos"]] = flat[:, m["refill_src"]]
+    if m["fix_pos"].numel():
+        flat[:, m["fix_pos"]] = fix_rows[m["fix_row"]].T
+    if m["zero_pos"].numel():
+        flat[:, m["zero_pos"]] = 0.0
 
+
+def _refresh_frames(p, nf, nfix, persist):
+    """In-frame halo refresh of the next frames `nf`, in place, with the
+    persist maps `persist` (the prep's `persist`: the FB chain's, or an FCT
+    prep's) and the fix rows `nfix`."""
     L = nf.shape[1] - 4
-    refresh(_cls_view(nf, 0, 1), p.persist["cell"], nfix["h"])
-    refresh(_cls_view(nf, 1, 3), p.persist["edge"], nfix["u"])
+    _refresh(_cls_view(nf, 0, 1), persist["cell"], nfix["h"])
+    _refresh(_cls_view(nf, 1, 3), persist["edge"], nfix["u"])
     for l in range(L):
-        refresh(_cls_view(nf, 4 + l, 1), p.persist["cell"], nfix["tr"][l])
+        _refresh(_cls_view(nf, 4 + l, 1), persist["cell"], nfix["tr"][l])
     return nf
 
 
@@ -901,17 +1166,122 @@ def fb_patch_megastep_framed(mesh, cfg, carry, t, dt, out=None, work=None,
                                 t, dt, wind_stress=_sub_wind(wind))
     nfix = dict(h=sub.h[p.fix_cells_local], u=sub.u[p.fix_edges_local],
                 tr=sub.tracers[:, p.fix_cells_local])
-    return _refresh_frames(p, nf, nfix), nfix
+    return _refresh_frames(p, nf, nfix, p.persist), nfix
 
 
 def _sub_wind(wind):
     return None if wind is None else wind[1]
 
 
-def unstack_frames(mesh, carry, state_cls=ModelState):
-    """(frames, fix rows) -> flat state."""
+def _fct_diffusion_tendency(sub, cfg, h, u, tr, mean_h_edge):
+    """The del2 / del4 tracer terms of tendencies.compute_tracer_tendency
+    alone: what FCT's stage A accumulates before the limiter."""
+    tc = cfg.tendencies
+    tr_aux = auxmod.tracer_aux(sub, cfg, h, u, tr, mean_h_edge)
+    tend = tc.eddy_diff2 * auxmod._weighted_cell_laplacian(
+        sub, trisk.col(sub, "mesh_scaling_del2") * mean_h_edge, tr)
+    return tend - tc.eddy_diff4 * auxmod._weighted_cell_laplacian(
+        sub, trisk.col(sub, "mesh_scaling_del4"), tr_aux.del2_tracers_cell)
+
+
+def new_mid(frames):
+    """Stage A's output for frames like `frames`: (K, 4+2L, P)."""
+    K, CH, P = frames.shape
+    return frames.new_empty((K, 2 * CH - 4, P))
+
+
+def fct_sub_a(p, cfg, frames, fix, t, dt, wind=None):
+    """The composed stage A on the FCT fix submesh of an FCT prep `p`: the
+    fix rows of h_new, trtd and facc (`mid_fix`), and what stage B's
+    composed part reads (the submesh's u, tracers and mass flux, and the
+    fix rows of u_new)."""
+    from omega_tpu_torch.core import fct as fctmod
+    from omega_tpu_torch.core import tendencies as tend_mod
+    sub, fc = p.sub_mesh, p.fix_cells_local
+    h0, u0, tr0 = _sub_state(p, frames, fix)
+    dh, thick = tend_mod.compute_thickness_tendency(sub, cfg, h0, u0, t)
+    h_new = h0 + dt * dh
+    trtd = fctmod.fct_provisional(sub, h0, h_new, u0, tr0, dt,
+                                  thick.flux_h_edge)
+    facc = tr0 * h0[None] + dt * _fct_diffusion_tendency(
+        sub, cfg, h0, u0, tr0, thick.mean_h_edge)
+    du, _ = tend_mod.compute_velocity_tendency(sub, cfg, h_new, u0, t + dt,
+                                               _sub_wind(wind))
+    mid_fix = dict(h=h_new[fc], trtd=trtd[:, fc], facc=facc[:, fc])
+    return mid_fix, (u0, tr0, thick.flux_h_edge,
+                     (u0 + dt * du)[p.fix_edges_local])
+
+
+def fct_refresh_mid(p, mid, mid_fix):
+    """The refresh of stage A's [h_new, trtd x L, facc x L] in `mid`, in
+    place, on the FCT prep's cell maps with the submesh's fix rows."""
+    pc = p.persist["cell"]
+    _refresh(_cls_view(mid, 0, 1), pc, mid_fix["h"])
+    for l in range(mid_fix["trtd"].shape[0]):
+        _refresh(_cls_view(mid, 4 + 2 * l, 1), pc, mid_fix["trtd"][l])
+        _refresh(_cls_view(mid, 5 + 2 * l, 1), pc, mid_fix["facc"][l])
+    return mid
+
+
+def fct_sub_b(p, mid, mid_fix, sub_a, dt):
+    """The composed stage B on the FCT fix submesh (core/fct.
+    fct_limited_tendency) from the refreshed `mid`: the next fix rows."""
+    from omega_tpu_torch.core import fct as fctmod
+    u0, tr0, flux_h_edge, u_new_fix = sub_a
+    fc = p.fix_cells_local
+
+    def rows(c):
+        return _cls_view(mid, c, 1)[:, p.sub_cell_src].T
+
+    L = tr0.shape[0]
+    h_new = rows(0).contiguous()
+    h_new[fc] = mid_fix["h"]
+    trtd = torch.stack([rows(4 + 2 * l) for l in range(L)])
+    trtd[:, fc] = mid_fix["trtd"]
+    facc = torch.stack([rows(5 + 2 * l) for l in range(L)])
+    facc[:, fc] = mid_fix["facc"]
+    adv = fctmod.fct_limited_tendency(p.sub_mesh, h_new, u0, tr0, trtd, dt,
+                                      flux_h_edge)
+    trn = (facc + dt * adv) / h_new[None]
+    return dict(h=mid_fix["h"], u=u_new_fix, tr=trn[:, fc])
+
+
+def fct_patch_megastep_framed(mesh, cfg, carry, t, dt, out=None, work=None,
+                              wind=None, mid=None):
+    """One FB step with Zalesak FCT tracer fluxes on the (frames, fix rows)
+    carry of an FCT configuration (the reference's two-stage driver; the
+    limiter's radius-10 chain exceeds the MH = 8 margin, so the step splits
+    where the provisional field is formed):
+
+      stage A (icos_mega.fct_stage_a_chain, `fct_a`): h_new, u_new, the
+        provisional trtd{l} and the numerator facc{l}, into `mid`;
+      the composed stage A on the FCT fix submesh (`fct_sub_a`);
+      the refresh of [h_new, trtd, facc] in `mid` (`fct_refresh_mid`);
+      stage B (fct_stage_b_chain, `fct_b`): the limiter from the refreshed
+        mid fields and the original frames, trn{l} into `out`;
+      the composed stage B on the submesh (`fct_sub_b`) and the final
+        refresh on the FCT maps.
+
+    `out` receives the next frames (a new array when None; never the
+    carry's own); `mid` is stage A's output (`new_mid`), `work` the
+    kernels' scratch (`new_work`), `wind` a `make_wind` bundle."""
     frames, fix = carry
-    p = prep(mesh, frames.dtype, frames.device)
+    p = _prep_for(mesh, cfg, frames.dtype, frames.device)
+    mid = fct_a(p, cfg, frames, dt, out=mid, work=work, wind=wind)
+    mid_fix, sub_a = fct_sub_a(p, cfg, frames, fix, t, dt, wind)
+    fct_refresh_mid(p, mid, mid_fix)
+    out = torch.empty_like(frames) if out is None else out
+    out[:, :4] = mid[:, :4]            # h_new and u_new from stage A
+    fct_b(p, cfg, mid, frames, dt, out, work)
+    nfix = fct_sub_b(p, mid, mid_fix, sub_a, dt)
+    return _refresh_frames(p, out, nfix, p.persist), nfix
+
+
+def unstack_frames(mesh, cfg, carry, state_cls=ModelState):
+    """(frames, fix rows) carry of `cfg` -> flat state (an FCT
+    configuration's fix rows live on the FCT fix sets)."""
+    frames, fix = carry
+    p = _prep_for(mesh, cfg, frames.dtype, frames.device)
     L = frames.shape[1] - 4
 
     def read(flat, src, ok, fixg, fix_rows):

@@ -29,9 +29,13 @@ coefficient kernel and the column-solve kernel (one launch each), the pole
 rows from the composed step on a small submesh. `run_steps` keeps the halo
 frames as its carry on any device (the kernels' plain versions on the CPU)
 and lays the wind into the frames once per segment; `forward_backward_step`
-takes the per-step API for a CUDA state. The Thomas method, column ssh,
-FCT, custom tendencies and the other steppers run composed through the
-patch operators (ops/patch_stencil.py).
+takes the per-step API for a CUDA state. In `run_steps` alone, FCT tracer
+fluxes without vertical mixing are fused too: per step FCT's stage A (the
+patch kernel's FCT variant, five launches), the refresh of its fields,
+stage B (the limiter, four launches), the FCT fix submesh's composed step
+and the final refresh. The Thomas method, column ssh, FCT in the per-step
+API or with mixing, custom tendencies and the other steppers run composed
+through the patch operators (ops/patch_stencil.py).
 """
 
 from __future__ import annotations
@@ -241,28 +245,33 @@ def run_steps(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
 
     if (stepper is forward_backward_step and halo is _identity
             and isinstance(dt, (int, float))
-            and patch_megastep.supported(mesh, cfg)):
+            and patch_megastep.supported(mesh, cfg, framed=True)):
         # the sphere's framed path: the (frames, pole rows) carry of
         # ops/patch_megastep.py lives across the segment, so a step is the
         # patch kernels (their plain versions on the CPU), the pole submesh
-        # step and the in-frame refresh; the next frames go into a second
-        # buffer and the two swap roles, and the wind frames and the
+        # step and the in-frame refresh (FCT: its two stages, the refresh
+        # between them, the FCT submesh's step); the next frames go into a
+        # second buffer and the two swap roles, and the wind frames and the
         # kernels' scratch are made once
         carry = patch_megastep.stack_frames(mesh, cfg, state)
         nxt = torch.empty_like(carry[0])
         work = patch_megastep.new_work(carry[0])
-        coef = patch_megastep.new_coef(carry[0], cfg)
         wind = patch_megastep.make_wind(mesh, cfg, wind_stress,
                                         state.h.dtype)
+        if cfg.flux_tracer_type == "fct":
+            kw = dict(mid=patch_megastep.new_mid(carry[0]))
+            pstep = patch_megastep.fct_patch_megastep_framed
+        else:
+            kw = dict(coef=patch_megastep.new_coef(carry[0], cfg))
+            pstep = patch_megastep.fb_patch_megastep_framed
         t = t0
         for _ in range(nsteps):
             cur = carry[0]
-            carry = patch_megastep.fb_patch_megastep_framed(
-                mesh, cfg, carry, t, dt, out=nxt, work=work, wind=wind,
-                coef=coef)
+            carry = pstep(mesh, cfg, carry, t, dt, out=nxt, work=work,
+                          wind=wind, **kw)
             nxt = cur
             t = t + dt
-        return patch_megastep.unstack_frames(mesh, carry, type(state))
+        return patch_megastep.unstack_frames(mesh, cfg, carry, type(state))
 
     split_params = getattr(stepper, "split_explicit_params", None)
     if (split_params is not None and halo is _identity

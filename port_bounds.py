@@ -22,6 +22,21 @@ being the bound. Float32 throughout, K = 100 layers, 2 tracers.
           step's science variant; "coeffs": the PP81 coefficient pass;
           "solve": the column solves), each input read once and each output
           written once
+  patch_fct  the same site at icos48, kinds fcta / fctb (patch_megastep.py
+          :1797): one FB step with Zalesak FCT tracer fluxes (flagship
+          terms, center thickness flux). Stage A reads the state and the
+          flagship's weights and writes h_new, u_new and per tracer the
+          provisional field and the numerator (4 + 2L fields); stage B
+          reads the state, h_new, the provisional fields and the
+          numerators and the divergence weights (its relu'd halves are
+          the same numbers; the neighbour picks carry no weights) and
+          writes the tracers; the step reads the state and the weights and
+          writes the state, as `patch`. Operations: the flagship chain's
+          for stage A; for stage B per tracer the flux pair, four budget
+          walks, the corrected flux's divergence, 26 min / max of the
+          bounds and the pointwise limiter. Also the TPU kernels' own I/O
+          (frames of 10 x SS x SS x 128 lanes with SS = S + 16, S = n + 16,
+          outputs S x S; their weight-plane stack not counted)
   gather  omega_tpu/ops/pallas_gather.py:160, one gather pass
           out[n] = sum_j w[n, j] field[idx[n, j]] at icos48 x 100 (the shape
           named at pallas_gather.py:94-96), for the tangential
@@ -126,6 +141,39 @@ def patch_science(n=48):
             "parts": parts}
 
 
+def patch_fct(n=48):
+    C, E, V, ce, ve, tang = icos(n)
+    fb = patch_fb(n)
+    state = (C * (1 + L) + E) * K
+    mid = C * (1 + 2 * L) * K                     # h_new, trtd, facc
+    # stage A reads h, u, tr and writes h_new, u_new, trtd, facc
+    a_bytes = (2 * state + C * L * K) * F32 + fb["weight_bytes"]
+    b_bytes = (state + mid + C * L * K) * F32 + ce * F32
+    # per (cell, layer) of one tracer in stage B: flux pair (2 picks, the
+    # mean and the upwind pick, two products, a difference), the four
+    # budget walks and the corrected flux's divergence over 6 edges, the
+    # 26 min / max, the pointwise limiter (~24) and the update (4)
+    per_tracer_b = 3 * 8 + 2 * 5 * 6 + 26 + 24 + 4
+    b_flops = L * per_tracer_b * C * K
+    S = n + 16
+    SS = S + 16
+    chan_in = 10 * SS * SS * 128 * F32
+    chan_out = 10 * S * S * 128 * F32
+    return {"kernel": "omega_tpu/ops/patch_megastep.py:1425",
+            "function": f"one FB step with FCT tracer fluxes, icos{n} x {K} "
+            f"layers x {L} tracers",
+            **bound(fb["bytes"], fb["flops"] + b_flops),
+            "stage_a": bound(a_bytes, fb["flops"]),
+            "stage_b": bound(b_bytes, b_flops),
+            "tpu_fcta_io": {"reads": f"{4 + L} frame channels",
+                            "writes": f"{4 + 2 * L} channels",
+                            **bound((4 + L) * chan_in + (4 + 2 * L) * chan_out,
+                                    0)},
+            "tpu_fctb_io": {"reads": f"{5 + 3 * L} frame channels",
+                            "writes": f"{L} channels",
+                            **bound((5 + 3 * L) * chan_in + L * chan_out, 0)}}
+
+
 def gather(n=48):
     C, E, V, ce, ve, tang = icos(n)
     out = {}
@@ -155,5 +203,6 @@ def tpu_split_io(ny=256, nx=256):
 if __name__ == "__main__":
     print(json.dumps({"patch": patch_fb()}))
     print(json.dumps({"patch_science": patch_science()}))
+    print(json.dumps({"patch_fct": patch_fct()}))
     print(json.dumps({"gather": gather()}))
     print(json.dumps({"split": tpu_split_io()}))

@@ -115,7 +115,7 @@ def test_plain_chain_against_jax_kernel(setup, monkeypatch):
         r = np.asarray(jcarry[1][key])
         assert np.abs(carry[1][key].numpy() - r).max() <= 1e-12 \
             * np.abs(r).max(), key
-    _close(patch_megastep.unstack_frames(pp, carry), jout, 1e-12)
+    _close(patch_megastep.unstack_frames(pp, cfg, carry), jout, 1e-12)
 
 
 @pytest.fixture(scope="module")
