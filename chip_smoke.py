@@ -11,8 +11,9 @@
 It builds the CUDA kernels from omega_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card, drives the port's main paths
 (256 x 256 cells x 100 layers x 2 tracers, float32; forward-backward, RK2,
-RK4 and split-explicit steppers; the icosahedral sphere icos48 x 100 x 2)
-through the entry points a user calls, and prints one JSON line per phase:
+RK4 and split-explicit steppers; the icosahedral sphere icos48 x 100 x 2
+with the forward-backward, RK4 and RK2 steppers) through the entry points a
+user calls, and prints one JSON line per phase:
 
   device          the card, and nvidia-smi's name / power-limit line
   build           nvcc build of the kernels, seconds
@@ -39,6 +40,11 @@ through the entry points a user calls, and prints one JSON line per phase:
                   framed FCT steps vs the composed stepper; the kernels'
                   range vs the plain versions' over 10 steps; the FCT fix
                   submesh, its host build and the parts of a step
+  kernel_patch_rk  the RK stages on the sphere (four launches per stage)
+                  vs plain, every mode, flux pair and tails, at icos16
+                  float64 and icos48 x 100 x 2 float32; fused framed RK2 /
+                  RK4 steps vs the composed steppers; each mode's time, the
+                  submesh's tendencies and the refresh
   main_path       2 x 10 steps of the bench configuration; launch counts
   composed_path   column ssh: the composed stepper + stencil kernel
   science_path    2 x 10 steps with wind, bottom drag, upwind fluxes and PP81
@@ -59,6 +65,11 @@ through the entry points a user calls, and prints one JSON line per phase:
                   (a 0/1 cap, tracer diffusion off): five stage-A and four
                   stage-B launches per step; the cap stays in [0, 1] at the
                   planar FCT limits at u = 0.05 and 0.5 x noise
+  sphere_rk4_path 2 x 10 RK4 steps of sphere_path's configuration: four
+                  stage calls (4 x 4 launches) per step
+  sphere_rk2_path 2 x 10 RK2 steps of sphere_science_path's configuration:
+                  two stage calls (2 x 4 launches), one coefficient and one
+                  solve launch per step
   rk_order        the manufactured solution in float64: the steppers'
                   temporal order and the spatial order
   profile         (only with --profile) device time by kernel, every path
@@ -1687,6 +1698,214 @@ def main(argv=None):
     fcv = fcr[f"f32_icos{N_SPHERE}x{NLAYERS}x{NTRACERS}"]
     del fr48, mid48, work48, out48
 
+    # ------------------------------------------------ 4h. kernel_patch_rk
+    # the RK stages on the sphere (csrc/patch_rk.cuh, four launches per
+    # call) against their plain version on the same inputs: every mode
+    # (RK_PROV from the step's frames and from a provisional level, RK_FIRST,
+    # RK_MID, RK_LAST), every pair of flux types, with and without the wind /
+    # drag tails, the provisional level and the accumulator being what RK4's
+    # first stage makes of the frames. Float64 at icos16 x 8 x 2: per channel
+    # max|diff| <= 1e-12 max|ref| of out and of the accumulator; three fused
+    # framed RK2 steps (the science configuration: upwind fluxes, wind,
+    # drag, PP81) and three RK4 steps (flagship) against the composed
+    # steppers, rtol = atol = 1e-10. Float32 at icos48 x 100 x 2 by the
+    # increment per channel, limit PATCH_INCR (out against the level the
+    # stage starts from, the accumulator against what it holds before the
+    # stage adds to it). Each mode's time over 20 launches at the paths'
+    # shapes, the plain version's, the pole submesh's tendencies (one per
+    # stage) and the refresh
+    from omega_tpu_torch.core import tendencies as tend_mod
+    RK_PROV, RK_FIRST = patch_megastep.RK_PROV, patch_megastep.RK_FIRST
+    RK_MID, RK_LAST = patch_megastep.RK_MID, patch_megastep.RK_LAST
+    # mode name -> (mode, a, b, the level: the frames or a provisional one)
+    RK_CASES = {"prov_a": (RK_PROV, 0.5, 0.0, False),
+                "prov_b": (RK_PROV, 1.0, 0.0, True),
+                "first": (RK_FIRST, 0.5, 1.0 / 6.0, False),
+                "mid": (RK_MID, 0.5, 1.0 / 3.0, True),
+                "last": (RK_LAST, 0.0, 1.0 / 6.0, True)}
+    RK_VARIANTS = {
+        "cc": ({}, {}), "uc": (dict(flux_thickness_type="upwind"), {}),
+        "cu": (dict(flux_tracer_type="upwind"), {}), "uu": (UPWIND, {}),
+        "cc_wind_drag": ({}, SCI_WIND_DRAG),
+        "uc_wind_drag": (dict(flux_thickness_type="upwind"), SCI_WIND_DRAG),
+        "cu_wind_drag": (dict(flux_tracer_type="upwind"), SCI_WIND_DRAG),
+        "uu_wind_drag": (UPWIND, SCI_WIND_DRAG)}
+
+    def rk_inputs(p, cfg_v, fr, wind):
+        """(provisional level, accumulator, the accumulator's start (h, u,
+        tr h of the frames), RK_LAST's start (the accumulator's h, u and tr
+        h / h)) of a step from the frames `fr`"""
+        acc, prov = patch_megastep.rk_stage_plain(
+            p, cfg_v, RK_FIRST, 0.5 * DT, DT / 6.0, fr, fr, None, wind)
+        trh = fr.clone()
+        trh[:, 4:] *= fr[:, :1]
+        last0 = acc.clone()
+        last0[:, 4:] = torch.where(acc[:, :1] != 0, acc[:, 4:]
+                                   / torch.where(acc[:, :1] != 0, acc[:, :1],
+                                                 torch.ones_like(acc[:, :1])),
+                                   torch.zeros_like(acc[:, 4:]))
+        return prov, acc, trh, last0
+
+    def rk_call(p, cfg_v, case, fr, prov, acc, wind, out, acc_out, work):
+        """one stage, kernel into `out` / `acc_out`; the plain version"""
+        mode, a, b, on_prov = RK_CASES[case]
+        ev = prov if on_prov else fr
+        patch_megastep.rk_stage(
+            p, cfg_v, mode, a * DT, b * DT, ev, out,
+            base=None if mode == RK_LAST else fr,
+            acc=acc if mode in (RK_MID, RK_LAST) else None,
+            acc_out=acc_out if mode in (RK_FIRST, RK_MID) else None,
+            work=work, wind=wind)
+        return patch_megastep.rk_stage_plain(p, cfg_v, mode, a * DT, b * DT,
+                                             ev, fr, acc, wind)
+
+    def rk_starts(case, fr, acc, trh, last0):
+        """(out's start, the accumulator's start) of a mode"""
+        mode = RK_CASES[case][0]
+        return (last0 if mode == RK_LAST else fr,
+                trh if mode == RK_FIRST else acc)
+
+    rkp = {"tolerance": "f64 per channel max|diff| <= 1e-12 max|ref| "
+           "against plain (out and the accumulator), fused framed RK2 / RK4 "
+           "steps vs composed steps rtol=atol=1e-10 over 3 steps; f32 per "
+           "channel the error of the increment <= PATCH_INCR of the largest "
+           "increment", "PATCH_INCR": PATCH_INCR,
+           "passes_per_call": patch_megastep.RK_PASSES,
+           "f64_icos16x8x2": {}}
+    for variant, (kw, tend) in RK_VARIANTS.items():
+        cfg_v = bench_cfg(8, NTRACERS, dict(eddy_diff4=1e9, **tend), **kw)
+        for rk_kind in ("rk2", "rk4"):
+            if not patch_megastep.supported(m16, cfg_v, framed=True,
+                                            kind=rk_kind):
+                fail(f"sphere {rk_kind} {variant} not supported by the fused "
+                     "path")
+        fr16, _ = patch_megastep.stack_frames(m16, cfg_v, st16s)
+        pw16 = patch_megastep.make_wind(m16, cfg_v, w16, torch.float64)
+        prov, acc, _, _ = rk_inputs(p16, cfg_v, fr16, pw16)
+        errs = {}
+        for case in RK_CASES:
+            out16, acc16 = torch.empty_like(fr16), torch.empty_like(fr16)
+            ref_acc, ref = rk_call(p16, cfg_v, case, fr16, prov, acc, pw16,
+                                   out16, acc16, None)
+            torch.cuda.synchronize()
+            e = [chan_err(out16[:, c][None], ref[:, c][None])
+                 for c in range(len(names))]
+            if ref_acc is not None:
+                e += [chan_err(acc16[:, c][None], ref_acc[:, c][None])
+                      for c in range(len(names))]
+            errs[case] = max(e)
+            if not max(e) <= 1e-12 or not bool(torch.isfinite(out16).all()):
+                fail(f"sphere RK stage {variant} {case} vs plain at icos16 "
+                     f"f64: {e}")
+        rkp["f64_icos16x8x2"][variant] = errs
+    # whole steps: the framed fused path against the composed steppers
+    rkp["f64_icos16_steps_vs_composed"] = {}
+    for rk_kind, stepper, cfg_v, st_v in (("rk2", rk2_step, cfg16s, st16s),
+                                          ("rk4", rk4_step, cfg16, st16)):
+        patch_megastep.rk_launches = 0
+        patch_megastep.coeff_launches = patch_megastep.solve_launches = 0
+        ker = run_steps(m16, cfg_v, st_v, 0.0, DT, 3, stepper=stepper,
+                        wind_stress=w16)
+        got_l = (patch_megastep.rk_launches, patch_megastep.coeff_launches,
+                 patch_megastep.solve_launches)
+        mix = 3 if vmix_kernel.vmix_on(cfg_v) else 0
+        stages = 2 if rk_kind == "rk2" else 4
+        want_l = (stages * 3 * patch_megastep.RK_PASSES,
+                  mix if cfg_v.vert_mix.scheme == "pp81" else 0, mix)
+        if got_l != want_l:
+            fail(f"fused sphere {rk_kind} steps: launches {got_l}, expected "
+                 f"{want_l}")
+        comp = st_v
+        for i in range(3):
+            comp = composed(stepper, m16, cfg_v, comp, i * DT, DT,
+                            wind_stress=w16)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for a_, b_ in zip(ker, comp):
+            d = (a_ - b_).abs()
+            if bool((d > 1e-10 + 1e-10 * b_.abs()).any()) \
+                    or not bool(torch.isfinite(a_).all()):
+                fail(f"fused sphere {rk_kind} steps vs composed at icos16 "
+                     f"f64: {d.max().item()}")
+            worst = max(worst, d.max().item())
+        rkp["f64_icos16_steps_vs_composed"][rk_kind] = worst
+    del fr16, prov, acc, ker, comp
+
+    # float32 at bench.py's sphere width: the flagship variant (sphere_rk4
+    # _path's) and the science variant (sphere_rk2_path's), every mode
+    prb = port_bounds.patch_rk(N_SPHERE)
+    rk_stage_of = {"prov_a": "rk2a", "prov_b": "rk2b", "first": "rk4s1",
+                   "mid": "rk4s2", "last": "rk4s4"}
+    f32 = {}
+    for variant, cfg_v, st_v in (("cc", cfg48, st48),
+                                 ("uu_wind_drag", cfg48s, st48s)):
+        fr48, fix48 = patch_megastep.stack_frames(m48, cfg_v, st_v)
+        pw48 = patch_megastep.make_wind(m48, cfg_v, w48, torch.float32)
+        prov, acc, trh, last0 = rk_inputs(p48, cfg_v, fr48, pw48)
+        out48, acc48 = torch.empty_like(fr48), torch.empty_like(fr48)
+        work48 = fr48.new_empty(patch_megastep.rk_work_fields(NTRACERS)
+                                * NLAYERS * p48.P)
+        res = {}
+        for case in RK_CASES:
+            ref_acc, ref = rk_call(p48, cfg_v, case, fr48, prov, acc, pw48,
+                                   out48, acc48, work48)
+            torch.cuda.synchronize()
+            s_out, s_acc = rk_starts(case, fr48, acc, trh, last0)
+            inc = incr_err(out48.transpose(0, 1), ref.transpose(0, 1),
+                           s_out.transpose(0, 1))
+            rec = {"increments": dict(zip(names, inc)),
+                   "max_abs_err": (out48 - ref).abs().max().item()}
+            if ref_acc is not None:
+                inc_a = incr_err(acc48.transpose(0, 1),
+                                 ref_acc.transpose(0, 1),
+                                 s_acc.transpose(0, 1))
+                rec["acc_increments"] = dict(zip(names, inc_a))
+                inc = inc + inc_a
+            if max(inc) > PATCH_INCR or not bool(torch.isfinite(out48).all()):
+                fail(f"sphere RK stage {variant} {case} at icos{N_SPHERE} "
+                     f"f32: {rec}")
+            del ref, ref_acc
+            mode, a, b, on_prov = RK_CASES[case]
+            ev = prov if on_prov else fr48
+            rec["ms"] = cuda_ms(lambda: patch_megastep.rk_stage(
+                p48, cfg_v, mode, a * DT, b * DT, ev, out48,
+                base=None if mode == RK_LAST else fr48,
+                acc=acc if mode in (RK_MID, RK_LAST) else None,
+                acc_out=acc48 if mode in (RK_FIRST, RK_MID) else None,
+                work=work48, wind=pw48), 20)
+            bnd = prb["stages"][rk_stage_of[case]]
+            rec.update(bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
+            res[case] = rec
+        # the plain version at the widest mode, once
+        res["mid"]["plain_ms"] = cuda_ms(
+            lambda: patch_megastep.rk_stage_plain(
+                p48, cfg_v, RK_MID, 0.5 * DT, DT / 3.0, prov, fr48, acc,
+                pw48), 2, 1)
+        # the host parts of a stage: the pole submesh's tendencies and the
+        # refresh of one set of frames
+        sub_v = patch_megastep._sub_state(p48, fr48, fix48)
+        res["submesh_tendencies_ms"] = cuda_ms(
+            lambda: tend_mod.compute_all_tendencies(
+                p48.sub_mesh, cfg_v, *sub_v, 0.0, None if pw48 is None
+                else pw48[1]), 20)
+        nfix48 = dict(h=sub_v.h[p48.fix_cells_local],
+                      u=sub_v.u[p48.fix_edges_local],
+                      tr=sub_v.tracers[:, p48.fix_cells_local])
+        res["refresh_ms"] = cuda_ms(lambda: patch_megastep._refresh_frames(
+            p48, out48, nfix48, p48.persist), 20)
+        f32[variant] = res
+        del fr48, prov, acc, trh, last0, out48, acc48, work48, sub_v
+    f32["rk2_step_bound_ms"] = prb["rk2_step"]["bound_ms"]
+    f32["rk4_step_bound_ms"] = prb["rk4_step"]["bound_ms"]
+    f32["rk2_science_step_bound_ms"] = prb["rk2_step_science"]["bound_ms"]
+    f32["rk4_stages_ms"] = sum(f32["cc"][c]["ms"] for c in
+                               ("first", "mid", "mid", "last"))
+    f32["rk2_science_stages_ms"] = sum(f32["uu_wind_drag"][c]["ms"] for c in
+                                       ("prov_a", "prov_b"))
+    rkp[f"f32_icos{N_SPHERE}x{NLAYERS}x{NTRACERS}"] = f32
+    emit({"phase": "kernel_patch_rk", **rkp})
+    rkpv = f32
+
     # ------------------------------------------------------- 5. main_path
     # the bench configuration, through the entry points a user calls
     mesh_np = planar_hex_mesh(NX, NY, dc=5000.0, f0=1e-4,
@@ -1814,7 +2033,8 @@ def main(argv=None):
                 "patch_coeffs": patch_megastep.coeff_launches,
                 "patch_solve": patch_megastep.solve_launches,
                 "patch_fct_a": patch_megastep.fct_a_launches,
-                "patch_fct_b": patch_megastep.fct_b_launches}
+                "patch_fct_b": patch_megastep.fct_b_launches,
+                "patch_rk": patch_megastep.rk_launches}
 
     def reset_counts():
         megastep.launches = megastep.rk_launches = 0
@@ -1825,11 +2045,12 @@ def main(argv=None):
         patch_megastep.launches = 0
         patch_megastep.coeff_launches = patch_megastep.solve_launches = 0
         patch_megastep.fct_a_launches = patch_megastep.fct_b_launches = 0
+        patch_megastep.rk_launches = 0
 
     # the split kernels launch on no path but split_path, the patch kernels
-    # on no path but sphere_path, sphere_science_path and sphere_fct_path
+    # on no path but the sphere's
     NO_PATCH = {"patch_step": 0, "patch_coeffs": 0, "patch_solve": 0,
-                "patch_fct_a": 0, "patch_fct_b": 0}
+                "patch_fct_a": 0, "patch_fct_b": 0, "patch_rk": 0}
     NO_SPLIT = {"split_pre": 0, "barotropic": 0, "split_post": 0,
                 **NO_PATCH}
 
@@ -2305,6 +2526,87 @@ def main(argv=None):
                            "framed_step": fcv["step_ms"]}})
     del sf, sf05
 
+    # ---------------------------------------- 10f. sphere_rk4_path / rk2
+    # bench.py's sphere (icos48 x 100 x 2, float32, dt = 30 s) with the RK4
+    # stepper and flagship terms (sphere_path's state), and with the RK2
+    # stepper and the science configuration (sphere_science_path's state
+    # and stress), through run_steps. A step is per stage one call of the
+    # RK stage kernel (four launches), the pole submesh's tendencies and
+    # the refresh (RK4: of the provisional frames and the accumulator), then
+    # with mixing the PP81 coefficient kernel and the column solve; no
+    # other kernel launches
+    def sphere_run(name, cfg_p, st, stepper, want, wind_stress=None):
+        run_steps(m48, cfg_p, st, 0.0, DT, 1, stepper=stepper,
+                  wind_stress=wind_stress)                      # untimed
+        reset_counts()
+        out, secs = st, []
+        for i in range(nseg):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_steps(m48, cfg_p, out, i * seg * DT, DT, seg,
+                            stepper=stepper, wind_stress=wind_stress)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        got = counts()
+        finite(name, out)
+        check_launches(name, got, want)
+        (v0, t0_), (v1, t1_) = sphere_content(st), sphere_content(out)
+        vol = abs(v1 - v0) / v0
+        trc = max(abs(b - a) / abs(a) for a, b in zip(t0_, t1_))
+        umax = out.u.abs().max().item()
+        udead = out.u[dead].abs().max().item() if bool(dead.any()) else 0.0
+        if vol > 1e-5 or trc > 1e-5 or not 0.0 < umax < 1.0 or udead != 0.0:
+            fail(f"{name}: drift {vol} / {trc}, max|u| {umax}, u on dead "
+                 f"edges {udead}")
+        ms = secs[-1] / seg * 1e3
+        return out, {
+            "steps": nseg * seg, "segment_seconds": secs, "ms_per_step": ms,
+            "gridpoint_steps_per_s": real_cells * NLAYERS / (ms * 1e-3),
+            "launches": got,
+            "launches_per_step": {k: v / (nseg * seg) for k, v in got.items()},
+            "volume_drift": vol, "tracer_drift": trc, "max_abs_u": umax,
+            "max_abs_u_dead_edges": udead}
+
+    none = {"fb_step": 0, "rk_stage": 0, "pp81_coeffs": 0, "vmix_solve": 0,
+            "stencil": 0, "split_pre": 0, "barotropic": 0, "split_post": 0,
+            **NO_PATCH}
+    rk4s, rec = sphere_run(
+        "sphere rk4 path", cfg48, sph0, rk4_step,
+        {**none, "patch_rk": 4 * patch_megastep.RK_PASSES * nseg * seg})
+    rk4s_launches = rec["launches"]
+    cc = rkpv["cc"]
+    emit({"phase": "sphere_rk4_path", "config": f"as sphere_path, "
+          "stepper=rk4_step", **rec,
+          "breakdown_ms": {
+              "rk_stages": rkpv["rk4_stages_ms"],
+              "submesh_tendencies": 4 * cc["submesh_tendencies_ms"],
+              "refresh": 7 * cc["refresh_ms"],
+              "per_stage": {c: cc[c]["ms"] for c in ("first", "mid",
+                                                     "last")}},
+          "breakdown_note": "per step: the four stages' kernel times, four "
+          "submesh tendency evaluations, seven refreshes (provisional and "
+          "accumulator after stages 1-3, the state after stage 4)"})
+    del rk4s
+    rk2s, rec = sphere_run(
+        "sphere rk2 path", cfg_ss, ss0, rk2_step,
+        {**none, "patch_rk": 2 * patch_megastep.RK_PASSES * nseg * seg,
+         "patch_coeffs": nseg * seg, "patch_solve": nseg * seg},
+        wind_stress=w48)
+    rk2s_launches = rec["launches"]
+    uw = rkpv["uu_wind_drag"]
+    emit({"phase": "sphere_rk2_path", "config": "as sphere_science_path, "
+          "stepper=rk2_step", **rec,
+          "breakdown_ms": {
+              "rk_stages": rkpv["rk2_science_stages_ms"],
+              "pp81_coeffs": sciv["coeffs_ms"],
+              "column_solve": sciv["solve_ms"]["pp81"],
+              "submesh_tendencies": 2 * uw["submesh_tendencies_ms"],
+              "refresh": 2 * uw["refresh_ms"]},
+          "breakdown_note": "per step: the two stages' kernel times, the "
+          "column kernels, two submesh tendency evaluations (the submesh's "
+          "vertical mixing not counted), two refreshes"})
+    del rk2s
+
     # ------------------------------------------------------- 11. rk_order
     # the manufactured solution (tests/test_model.py:79-166) in float64 on
     # the card; custom tendencies run the composed steppers, every stencil
@@ -2425,7 +2727,12 @@ def main(argv=None):
               "sphere_science_5_steps": traced(lambda: run_steps(
                   m48, cfg_ss, ss0, 0.0, DT, 5, wind_stress=w48)),
               "sphere_fct_5_steps": traced(lambda: run_steps(
-                  m48, cfg_sf, sf0, 0.0, DT, 5))})
+                  m48, cfg_sf, sf0, 0.0, DT, 5)),
+              "sphere_rk4_5_steps": traced(lambda: run_steps(
+                  m48, cfg48, sph0, 0.0, DT, 5, stepper=rk4_step)),
+              "sphere_rk2_5_steps": traced(lambda: run_steps(
+                  m48, cfg_ss, ss0, 0.0, DT, 5, stepper=rk2_step,
+                  wind_stress=w48))})
 
     # ---------------------------------------------------------- 8. kernels
     print(smi_line, flush=True)
@@ -2669,6 +2976,51 @@ def main(argv=None):
          f"{tuple(patv['frames'])} -> tracers, float32, center thickness "
          "flux", "passes_per_call": patch_megastep.FCT_B_PASSES,
          "path": "sphere_fct_path"},
+        {"name": "patch_rk", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/patch_rk_cc.cu",
+         "template": "omega_tpu_torch/csrc/patch_rk.cuh",
+         "replaces": "omega_tpu/ops/patch_megastep.py:1218",
+         "call_site": "omega_tpu/ops/patch_megastep.py:1425",
+         "kinds": "rk2a, rk2b, rk4s1-rk4s4",
+         "chain": "omega_tpu/mesh/icos_mega.py:822 rk2_stage_chain, :857 "
+         "rk4_stage_chain",
+         "launches": rk4s_launches["patch_rk"],
+         "max_abs_err": rkpv["cc"]["mid"]["max_abs_err"],
+         "ms": rkpv["cc"]["mid"]["ms"],
+         "plain_ms": rkpv["cc"]["mid"]["plain_ms"],
+         "bound_ms": rkpv["cc"]["mid"]["bound_ms"],
+         "bound_by": rkpv["cc"]["mid"]["bound_by"], "library_ms": None,
+         "shape": f"mode mid: 3 x frames {tuple(patv['frames'])} in, 2 out, "
+         "float32, center fluxes, no tails",
+         "modes_ms": {c: rkpv["cc"][c]["ms"] for c in RK_CASES},
+         "modes_bound_ms": {c: rkpv["cc"][c]["bound_ms"] for c in RK_CASES},
+         "rk4_step_stages_ms": rkpv["rk4_stages_ms"],
+         "rk4_step_bound_ms": rkpv["rk4_step_bound_ms"],
+         "passes_per_call": patch_megastep.RK_PASSES,
+         "path": "sphere_rk4_path"},
+        {"name": "patch_rk_science", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/patch_rk_uu.cu",
+         "template": "omega_tpu_torch/csrc/patch_rk.cuh",
+         "replaces": "omega_tpu/ops/patch_megastep.py:1218",
+         "call_site": "omega_tpu/ops/patch_megastep.py:1425",
+         "kinds": "rk2a, rk2b",
+         "chain": "omega_tpu/mesh/icos_mega.py:822 rk2_stage_chain (upwind, "
+         "wind, drag)",
+         "launches": rk2s_launches["patch_rk"],
+         "max_abs_err": rkpv["uu_wind_drag"]["prov_b"]["max_abs_err"],
+         "ms": rkpv["uu_wind_drag"]["prov_b"]["ms"],
+         "plain_ms": rkpv["uu_wind_drag"]["mid"]["plain_ms"],
+         "plain_ms_mode": "mid",
+         "bound_ms": rkpv["uu_wind_drag"]["prov_b"]["bound_ms"],
+         "bound_by": rkpv["uu_wind_drag"]["prov_b"]["bound_by"],
+         "library_ms": None,
+         "shape": f"mode prov: 2 x frames {tuple(patv['frames'])} + wind "
+         f"(3, {p48.P}) in, 1 out, float32, upwind fluxes, wind and drag",
+         "modes_ms": {c: rkpv["uu_wind_drag"][c]["ms"] for c in RK_CASES},
+         "rk2_step_stages_ms": rkpv["rk2_science_stages_ms"],
+         "rk2_step_bound_ms": rkpv["rk2_step_bound_ms"],
+         "passes_per_call": patch_megastep.RK_PASSES,
+         "path": "sphere_rk2_path"},
     ], "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -504,10 +504,15 @@ def _tracer_tend_ops(l: int, uw_tr=False):
 
 def _vel_tend_ops(hv: str, uw_h=False):
     # du accumulates term by term; `hv` is the thickness feeding the
-    # momentum terms: "h_new" for the forward-backward stepper. (The
-    # reference's `ssh="column"` form serves its split-explicit chain,
-    # which the port does not evaluate on the sphere yet.)
-    if uw_h:
+    # momentum terms: "h_new" for the forward-backward stepper, "h" for the
+    # RK stage chains (every tendency at one level), where mean_hn and
+    # flux_hn are aliases of _pre_ops' mean_h and flux_h. (The reference's
+    # `ssh="column"` form serves its split-explicit chain, which the port
+    # does not evaluate on the sphere yet.)
+    if hv == "h":
+        pre_hn = [("mean_hn", "ew", "copy", "mean_h"),
+                  ("flux_hn", "ew", "copy", "flux_h")]
+    elif uw_h:
         pre_hn = [("hn0", "st", "c0", hv), ("hn1", "st", "c1", hv),
                   ("mean_hn", "ew", "mean2", "hn0", "hn1"),
                   ("flux_hn", "ew", "upwind", "u", "hn0", "hn1")]
@@ -727,6 +732,157 @@ def fct_stage_b_chain(L: int, uw_h=False):
              -1.0),
         ]
     return ops
+
+
+def _rk_tend_ops(L: int, wind=False, drag=False, uw_h=False, uw_tr=False):
+    """ALL tendencies at the in-kernel state (h, u, tr{l}): unlike the
+    forward-backward chain the momentum terms read the SAME h (mean_hn is
+    mean_h, F is flux)."""
+    ops = list(_pre_ops(uw_h, uw_tr))
+    for l in range(L):
+        ops += _tracer_tend_ops(l, uw_tr)
+    return ops + _vel_tend_ops("h", uw_h=uw_h) + _phys_ops(wind, drag)
+
+
+def _rk_update_ops(L: int, mode: str, b: str, ca: float, cb: float):
+    """The stage update of an RK stage chain from its tendencies (dh, du,
+    dtr{l}), coefficients times dt (`ca`, `cb`) as the ops' literals:
+
+      "prov"   out = base + ca k                  (both RK2 stages)
+      "first"  out = base + ca k ; acc = (h, u, tr h)(base) + cb k
+      "mid"    out = base + ca k ; acc = acc + cb k
+      "last"   out = acc + cb k
+
+    with `b` the suffix of the base's names ("" for the in-kernel state,
+    "0" for the original state h0 / u0 / tr0{l}), the accumulator in
+    h_a / u_a / tra{l} (thickness-weighted tracers) and out's tracers
+    (tr h of base + ca dtr) / out's h (TimeStepper.h:205-237). Outputs are
+    h_new / u_new / trn{l} and h_acc / u_acc / tracc{l}."""
+    if mode == "last":
+        return ([("h_new", "ew", "axpy", "h_a", -cb, "dh")]
+                + [(f"trn{l}", "ew", "tracer_fin", f"tra{l}", f"dtr{l}",
+                    "h_new", cb) for l in range(L)]
+                + [("u_new", "ew", "axpy_m", "u_a", cb, "du", "$edge_mask")])
+    trb = [f"tr{b}{l}" if b else f"tr{l}" for l in range(L)]
+    ops = [("h_new", "ew", "axpy", f"h{b}", -ca, "dh")]
+    ops += [(f"trn{l}", "ew", "tracer_updc", trb[l], f"h{b}", f"dtr{l}",
+             "h_new", ca) for l in range(L)]
+    ops += [("u_new", "ew", "axpy_m", f"u{b}", ca, "du", "$edge_mask")]
+    if mode == "first":
+        ops += [("h_acc", "ew", "axpy", f"h{b}", -cb, "dh")]
+        ops += [(f"tracc{l}", "ew", "tracer_acc0", trb[l], f"h{b}",
+                 f"dtr{l}", cb) for l in range(L)]
+        ops += [("u_acc", "ew", "axpy_m", f"u{b}", cb, "du", "$edge_mask")]
+    elif mode == "mid":
+        ops += [("h_acc", "ew", "axpy", "h_a", -cb, "dh")]
+        ops += [(f"tracc{l}", "ew", "axpy", f"tra{l}", cb, f"dtr{l}")
+                for l in range(L)]
+        ops += [("u_acc", "ew", "axpy_m", "u_a", cb, "du", "$edge_mask")]
+    return ops
+
+
+def rk_stage_ops(L: int, mode: str, b: str, ca: float, cb: float,
+                 wind=False, drag=False, uw_h=False, uw_tr=False):
+    """One RK stage's horizontal chain: the tendencies at the in-kernel
+    state, then `_rk_update_ops(L, mode, b, ca, cb)`."""
+    return (_rk_tend_ops(L, wind, drag, uw_h, uw_tr)
+            + _rk_update_ops(L, mode, b, ca, cb))
+
+
+def rk2_stage_chain(L: int, base: str, coef: float, wind=False,
+                    drag=False, vmix=False, uw_h=False, uw_tr=False,
+                    pp=None):
+    """One RK2 stage (stepping.steppers.rk2_step): all tendencies at the
+    in-kernel state, then the state update from the `base` state with
+    `coef` dt:
+
+      stage A: base "" (the in-kernel state itself), coef 0.5 -> midpoint
+      stage B: base "0" (the original state h0 / u0 / tr0{l}), coef 1.0
+               -> the full step, then with `vmix` the vertical mixing
+
+    Outputs keep the h_new / u_new / trn{l} names, so the FB chain's
+    exactness masks and refresh maps apply unchanged (both stages are
+    shallower than the FB chain: the masks are conservative)."""
+    ops = rk_stage_ops(L, "prov", base, coef, 0.0, wind, drag, uw_h, uw_tr)
+    if vmix and base:          # the final stage updates the full step
+        ops += _vmix_ops(L, pp)
+    return ops
+
+
+# classic RK4: stage weights a (also the stage times) and b
+_RKA = (0.0, 0.5, 0.5, 1.0)
+_RKB = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+
+
+def rk4_stage_chain(L: int, stage: int, wind=False, drag=False,
+                    vmix=False, uw_h=False, uw_tr=False, pp=None):
+    """One classic-RK4 stage (stepping.steppers.rk4_step): k_s = all
+    tendencies at the in-kernel state (stage 1's is the original; stages
+    2-4 read the refreshed provisional state, with the original in h0 /
+    u0 / tr0{l} and the accumulator in h_a / u_a / tra{l}). Stages 1-3
+    emit the next provisional state (h_new / u_new / trn{l}) and the
+    updated accumulator (h_acc / u_acc / tracc{l}, thickness-weighted
+    tracers); stage 4 emits the final state, then with `vmix` the vertical
+    mixing."""
+    mode = {1: "first", 4: "last"}.get(stage, "mid")
+    ops = rk_stage_ops(L, mode, "" if stage == 1 else "0",
+                       _RKA[stage] if stage < 4 else 0.0, _RKB[stage - 1],
+                       wind, drag, uw_h, uw_tr)
+    if vmix and stage == 4:
+        ops += _vmix_ops(L, pp)
+    return ops
+
+
+# the element class of every chain value
+CLASS_OF = {"h": "cell", "u": "edge", "u_m": "edge",
+            "h0": "cell", "u0": "edge",
+            "h_a": "cell", "u_a": "edge",
+            "h_acc": "cell", "u_acc": "edge",
+            "mean_h": "edge", "flux": "edge",
+            "dh": "cell", "h_new": "cell", "u2": "edge", "ke": "cell",
+            "div_u": "cell", "rvort": "vertex", "h_v": "vertex",
+            "qv": "vertex", "q_e": "edge", "cdd": "edge", "vdr_f": "edge",
+            "vdr": "edge", "del2_e": "edge", "dd2": "cell", "dr2": "vertex",
+            "mean_hn": "edge", "F": "edge", "Fq": "edge", "tf": "edge",
+            "tfq": "edge", "gke": "edge", "gh": "edge", "cd4": "edge",
+            "vd4": "edge", "du": "edge", "u_new": "edge",
+            "kee": "edge", "he_new": "edge",
+            "sshc": "cell", "du_out": "edge",
+            "hp0": "edge", "hp1": "edge", "hn0": "edge", "hn1": "edge",
+            "flux_h": "edge", "flux_hn": "edge",
+            "duv": "edge", "dze": "cell", "n2c": "cell", "dzee": "edge",
+            "du2": "edge", "keduv": "cell", "kapc": "cell",
+            "n2e": "edge", "nue": "edge", "mflux": "edge"}
+
+# per-tracer value prefixes; order matters where one prefix starts another
+# ("tracc" and "tra" before "tr", "facc" before "fa")
+_PREFIXES = (("tracc", "cell"), ("tra", "cell"), ("tr", "cell"),
+             ("t0", "edge"), ("t1", "edge"), ("htre", "edge"),
+             ("hflux", "edge"), ("htr", "cell"), ("adv", "cell"),
+             ("ctr", "edge"), ("mc", "edge"), ("d2aux", "cell"),
+             ("diff2", "cell"), ("cd2", "edge"), ("hyp", "cell"),
+             ("dtr", "cell"), ("trn", "cell"),
+             ("trtd", "cell"), ("facc", "cell"), ("dtrd", "cell"),
+             ("flo", "edge"), ("fhi", "edge"), ("fbp", "edge"),
+             ("fbn", "edge"), ("fa", "edge"), ("fc", "edge"),
+             ("dlo", "cell"), ("pi1", "cell"), ("pi2", "cell"),
+             ("po1", "cell"), ("po2", "cell"), ("pin", "cell"),
+             ("pout", "cell"), ("tmax", "cell"), ("tmin", "cell"),
+             ("nb", "cell"), ("qin", "cell"), ("qout", "cell"),
+             ("rin", "cell"), ("rout", "cell"), ("ri0", "edge"),
+             ("ri1", "edge"), ("ro0", "edge"), ("ro1", "edge"))
+
+
+def chain_class(name: str) -> str:
+    """The element class ("cell", "edge", "vertex") of a chain value; a
+    per-tracer name is a prefix and the tracer's index (tr00 is tracer 0
+    of the original state)."""
+    if name in CLASS_OF:
+        return CLASS_OF[name]
+    for pre, cls in _PREFIXES:
+        if name.startswith(pre) and name[len(pre):].isdigit():
+            return cls
+    raise KeyError(name)
 
 
 def validity_chain(mh: int, phys_masks: bool):

@@ -161,6 +161,13 @@ def load() -> ctypes.CDLL:
                 # in, out, offs, wts, cpl, work, consts, ints, stream
                 fn.argtypes = [vp] * 9
                 fn.restype = ci
+        for flux in ("cc", "uc", "cu", "uu"):
+            for tails in ("plain", "tails"):
+                fn = getattr(lib, f"omega_patch_rk_{flux}_{tails}_{suffix}")
+                # ev, base, acc, acc_out, out, offs, wts, cpl, work,
+                # consts, ints, stream
+                fn.argtypes = [vp] * 12
+                fn.restype = ci
         for flux in ("c", "u"):
             fn = getattr(lib, f"omega_patch_fct_b_{flux}_{suffix}")
             # mid, in, out, offs, wts, cpl, work, consts, ints, stream

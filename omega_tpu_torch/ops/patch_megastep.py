@@ -1,7 +1,8 @@
-"""The forward-backward step on the icosahedral sphere, fused.
+"""The forward-backward and Runge-Kutta steps on the icosahedral sphere,
+fused.
 
-Counterpart of omega_tpu/ops/patch_megastep.py for kinds `fb`, `fcta` and
-`fctb`. Icosahedral
+Counterpart of omega_tpu/ops/patch_megastep.py for kinds `fb`, `fcta`,
+`fctb`, `rk2a` / `rk2b` and `rk4s1`-`rk4s4`. Icosahedral
 meshes renumbered by mesh/icos_patches.py run the whole FB chain
 (mesh/icos_mega.fb_chain: center or upwind fluxes, wind, bottom drag,
 implicit vertical mixing with constant or PP81 coefficients) on halo-MH
@@ -27,6 +28,16 @@ Execution model per step, frames as the loop carry:
      mesh/icos_mega.py do not call exact are refilled from an exact copy
      of the same element, the pole rows come from the submesh step, and
      lattice holes are set to zero again
+
+The RK steppers (`rk2_patch_megastep_framed`, `rk4_patch_megastep_framed`,
+run_steps only) run one kernel launch group per stage: every tendency at
+the in-kernel level (icos_mega.rk2_stage_chain / rk4_stage_chain: one level
+shallower than the FB chain, whose masks therefore serve), then the
+stage's update against the step's initial frames and, for RK4, the
+accumulator (csrc/patch_rk.cuh, four passes; plain version
+`rk_stage_plain`), each stage followed by the pole submesh's tendencies at
+that stage and the in-frame refresh; vertical mixing after the last stage
+(the column kernels above).
 
 With Zalesak FCT tracer fluxes (`fct_patch_megastep_framed`, run_steps
 only, no vertical mixing) the step has two stages, as the reference's
@@ -58,8 +69,9 @@ hole would otherwise poison valid sums through 0 * NaN entries; the column
 solve leaves a column whose thickness is not positive at every layer (a
 hole, or a frame position no exact value depends on) as it found it.
 
-Semantics == stepping.forward_backward_step on the sphere configurations
-`supported` names; reference chain per core/tendencies.py / core/aux.py /
+Semantics == stepping.forward_backward_step, rk2_step and rk4_step on the
+sphere configurations `supported` names; reference chain per
+core/tendencies.py / core/aux.py /
 core/vmix.py (TendencyTerms.h:70-340, AuxiliaryState.cpp:60-143,
 TriDiagSolvers.h PCRDiffusionSolver).
 """
@@ -75,19 +87,32 @@ from omega_tpu_torch.core import aux as auxmod
 from omega_tpu_torch.core.state import ModelState
 from omega_tpu_torch.mesh import icos_mega as imx
 from omega_tpu_torch.mesh.icos_patches import NPER
-from omega_tpu_torch.ops import _build, tridiag, trisk, vmix_kernel
+from omega_tpu_torch.ops import _build, megastep, tridiag, trisk, \
+    vmix_kernel
 
 # launches since the last reset: the patch step (PASSES per call), the
 # PP81 coefficient kernel and the column-solve kernel (one per call each),
 # FCT's stage A (the patch step's FCT variant, PASSES per call) and stage B
-# (FCT_B_PASSES per call)
+# (FCT_B_PASSES per call), the RK stage (RK_PASSES per call)
 launches = 0
 coeff_launches = 0
 solve_launches = 0
 fct_a_launches = 0
 fct_b_launches = 0
+rk_launches = 0
 PASSES = 5
 FCT_B_PASSES = 4
+RK_PASSES = 4
+# what an RK stage makes of its tendencies k (megastep's modes, the same
+# run-time enum RkMode of the kernels), with ca = a dt and cb = b dt:
+#   RK_PROV   out = base + ca k                  (RK2's two stages)
+#   RK_FIRST  acc = (h, u, tr h)(base) + cb k ;  out = base + ca k
+#   RK_MID    acc = acc + cb k ;                 out = base + ca k
+#   RK_LAST   out = acc + cb k
+RK_PROV, RK_FIRST, RK_MID, RK_LAST = (megastep.RK_PROV, megastep.RK_FIRST,
+                                      megastep.RK_MID, megastep.RK_LAST)
+_MODE_NAME = {RK_PROV: "prov", RK_FIRST: "first", RK_MID: "mid",
+              RK_LAST: "last"}
 # layers one thread walks with the weights of its position in registers
 LAYERS_PER_THREAD = 8
 THREADS = 128
@@ -125,6 +150,14 @@ def work_fields(L: int) -> int:
     return 3 + 1 + 1 + 2 + 3 * L + 3 * L + L + L + 3 + 3 + 2 + 2
 
 
+def rk_work_fields(L: int) -> int:
+    """The RK stage's scratch in (K, 1, P) fields: flux (3), hflux (3L), mc
+    / cd2 (3L), ke, div_u / dd2, rvort / dr2 (2), qv (2), dh, trp (L), d2aux
+    (L), dup (3), del2e (3), Fq (3); csrc/patch_rk.cuh carves it in this
+    order."""
+    return 3 + 3 * L + 3 * L + 1 + 1 + 2 + 2 + 1 + L + L + 3 + 3 + 3
+
+
 def enabled(x) -> bool:
     """The kernel serves tensors that live on a CUDA device."""
     return x.is_cuda
@@ -134,17 +167,23 @@ vmix_on = vmix_kernel.vmix_on
 
 
 def supported(mesh, cfg, mh: int = imx.MH, phys_masks: bool = True,
-              framed: bool = False) -> bool:
-    """The sphere configurations of the fused step on a patch mesh (the
-    reference's `supported(kind="fb", framed=...)`): center or upwind
-    thickness and tracer fluxes, stacked ssh, every standard term, wind
-    and bottom drag, implicit vertical mixing by PCR (constant or PP81
-    coefficients, at least two layers), no custom tendency. The radius-7
-    vmix chain needs a margin `mh` of at least 7 and the worst-case
-    validity masks (`phys_masks`), with which `prep` builds; the Thomas
-    method stays composed. FCT tracer fluxes are fused only on the framed
-    path (`framed`: run_steps' carry, the two-stage driver
-    `fct_patch_megastep_framed`) and only without vertical mixing."""
+              framed: bool = False, kind: str = "fb") -> bool:
+    """The sphere configurations of the fused steps on a patch mesh (the
+    reference's `supported(kind=..., framed=...)`; `kind` "fb", "rk2" or
+    "rk4"): center or upwind thickness and tracer fluxes, stacked ssh,
+    every standard term, wind and bottom drag, implicit vertical mixing by
+    PCR (constant or PP81 coefficients, at least two layers), no custom
+    tendency. The radius-7 vmix chain needs a margin `mh` of at least 7
+    and the worst-case validity masks (`phys_masks`), with which `prep`
+    builds; the Thomas method stays composed. FCT tracer fluxes are fused
+    only in the FB step on the framed path (`framed`: run_steps' carry,
+    the two-stage step `fct_patch_megastep_framed`) and only without
+    vertical mixing; the RK steps run on the framed path alone
+    (`rk2_patch_megastep_framed`, `rk4_patch_megastep_framed`). The
+    reference declines PP81 under RK for its chip's on-chip memory alone
+    (OMEGA_PATCH_PP81); the port fuses it."""
+    if kind not in ("fb", "rk2", "rk4"):
+        raise ValueError(f"unknown kind {kind!r}")
     if getattr(mesh, "patch_info", None) is None:
         return False
     if cfg.vert_mix.enabled and not vmix_on(cfg):
@@ -153,7 +192,7 @@ def supported(mesh, cfg, mh: int = imx.MH, phys_masks: bool = True,
         return False
     tc = cfg.tendencies
     tracer_types = ("center", "upwind")
-    if framed and not cfg.vert_mix.enabled:
+    if kind == "fb" and framed and not cfg.vert_mix.enabled:
         tracer_types += ("fct",)
     return (cfg.flux_thickness_type in ("center", "upwind")
             and cfg.flux_tracer_type in tracer_types
@@ -192,6 +231,39 @@ def chain_ops(cfg, L: int, wind: bool):
                        uw_h=cfg.flux_thickness_type == "upwind",
                        uw_tr=cfg.flux_tracer_type == "upwind", pp=pp)
     cut = next(i for i, op in enumerate(ops) if op[0] == "u_new") + 1
+    tail = ops[cut:]
+    solve = [op for op in tail
+             if op[0] == "he_new" or op[2].startswith("vmix_")]
+    coeffs = [op for op in tail if op not in solve]
+    return ops[:cut], coeffs, solve
+
+
+RK_KINDS = ("rk2a", "rk2b", "rk4s1", "rk4s2", "rk4s3", "rk4s4")
+
+
+def rk_ops(cfg, L: int, kind: str, wind: bool):
+    """The chain of RK stage `kind` (icos_mega.rk2_stage_chain /
+    rk4_stage_chain with the options of `cfg`), split into (horizontal,
+    coefficients, solve) as `chain_ops` splits the FB chain: the RK stage
+    kernel's ops (the tendencies and the stage update, the accumulator's
+    included), the PP81 coefficient fields and the column solves (those
+    two only at the last stage, rk2b / rk4s4, with vertical mixing)."""
+    if kind not in RK_KINDS:
+        raise ValueError(f"unknown RK stage kind {kind!r}")
+    vm = cfg.vert_mix
+    mix = vmix_on(cfg)
+    pp = (vm.temp_index, vm.salt_index) if mix and vm.scheme == "pp81" \
+        else None
+    kw = dict(wind=wind, drag=_drag_on(cfg), vmix=mix,
+              uw_h=cfg.flux_thickness_type == "upwind",
+              uw_tr=cfg.flux_tracer_type == "upwind", pp=pp)
+    if kind.startswith("rk2"):
+        ops = (imx.rk2_stage_chain(L, "", 0.5, **kw) if kind == "rk2a"
+               else imx.rk2_stage_chain(L, "0", 1.0, **kw))
+    else:
+        ops = imx.rk4_stage_chain(L, int(kind[4:]), **kw)
+    cut = next((i for i, op in enumerate(ops) if op[0] == "he_new"),
+               len(ops))
     tail = ops[cut:]
     solve = [op for op in tail
              if op[0] == "he_new" or op[2].startswith("vmix_")]
@@ -668,21 +740,27 @@ def _eval(p, cfg, ops, vals, dt, wind_planes=None):
     return vals
 
 
+_TRACER_NAME = {"": "tr", "_new": "trn", "0": "tr0", "_a": "tra"}
+
+
 def _vals(p, frames, prefix=""):
     """The frames' channels as chain values: h, u (the three edge classes)
-    and tr{l}, with `prefix` ("" or "_new": h_new, u_new, trn{l})."""
+    and tr{l}, with `prefix` "" (h, u, tr{l}), "_new" (h_new, u_new,
+    trn{l}), "0" (the RK stages' original state h0, u0, tr0{l}) or "_a"
+    (their accumulator h_a, u_a, tra{l})."""
     K, CH, P = frames.shape
     fr = frames.reshape(K, CH, 10, p.S, p.S)
-    t = "trn" if prefix else "tr"
+    t = _TRACER_NAME[prefix]
     vals = {"h" + prefix: fr[:, 0:1], "u" + prefix: fr[:, 1:4]}
     for l in range(CH - 4):
         vals[f"{t}{l}"] = fr[:, 4 + l:5 + l]
     return vals
 
 
-def _frames_out(vals, K, CH, P, out):
-    res = torch.cat([vals["h_new"], vals["u_new"]]
-                    + [vals[f"trn{l}"] for l in range(CH - 4)], 1)
+def _frames_out(vals, K, CH, P, out, names=("h_new", "u_new", "trn")):
+    h, u, t = names
+    res = torch.cat([vals[h], vals[u]]
+                    + [vals[f"{t}{l}"] for l in range(CH - 4)], 1)
     res = res.reshape(K, CH, P)
     if out is None:
         return res
@@ -780,6 +858,33 @@ def fct_b_plain(p, cfg, mid, frames, dt):
     return torch.cat([vals[f"trn{l}"] for l in range(L)], 1).reshape(K, L, P)
 
 
+def rk_stage_plain(p, cfg, mode, ca, cb, ev, base=None, acc=None,
+                   wind=None):
+    """The plain PyTorch version of one RK stage on the (K, 4+L, P) frames:
+    every tendency at the level `ev`, then the update of `mode` (RK_PROV
+    ... RK_LAST) against `base` (the step's initial frames) and `acc` (the
+    accumulator, thickness-weighted tracers), with ca = a dt and cb = b dt
+    (icos_mega.rk_stage_ops; the coefficients are the chain's literals, so
+    it runs at dt = 1). `wind` is a `make_wind` bundle or None. Returns
+    (acc_out or None, out)."""
+    K, CH, P = ev.shape
+    ops = imx.rk_stage_ops(CH - 4, _MODE_NAME[mode], "0", ca, cb,
+                           wind is not None, _drag_on(cfg),
+                           cfg.flux_thickness_type == "upwind",
+                           cfg.flux_tracer_type == "upwind")
+    vals = _vals(p, ev)
+    if mode != RK_LAST:
+        vals.update(_vals(p, base, "0"))
+    if mode in (RK_MID, RK_LAST):
+        vals.update(_vals(p, acc, "_a"))
+    vals = _eval(p, cfg, ops, vals, 1.0, _wind_planes(p, wind))
+    acc_out = None
+    if mode in (RK_FIRST, RK_MID):
+        acc_out = _frames_out(vals, K, CH, P, None,
+                              ("h_acc", "u_acc", "tracc"))
+    return acc_out, _frames_out(vals, K, CH, P, None)
+
+
 # ----------------------------------------------------------------------
 # the kernels
 
@@ -822,7 +927,8 @@ def _rows_ok(lib, p):
 def _fb_args(p, cfg, frames, dt, wind, tracer):
     """(entry point, const planes, consts, ints) of the patch step's call
     for the thickness flux and tails of `cfg` and the tracer-flux variant
-    `tracer` ("c", "u", or "f" for FCT's stage A)."""
+    `tracer` ("c", "u", or "f" for FCT's stage A); the RK stage's call
+    takes the same with its ca in place of dt."""
     K, CH, P = frames.shape
     cpl = p.cpl if wind is None else wind[0]
     if cpl.shape != p.cpl.shape or cpl.dtype != p.dtype \
@@ -959,6 +1065,74 @@ def fct_b(p, cfg, mid, frames, dt, out, work=None):
     return out
 
 
+_RK_NEEDS = {RK_PROV: ("base",), RK_FIRST: ("base", "acc_out"),
+             RK_MID: ("base", "acc", "acc_out"), RK_LAST: ("acc",)}
+
+
+def rk_stage(p, cfg, mode, ca, cb, ev, out, base=None, acc=None,
+             acc_out=None, work=None, wind=None):
+    """One RK stage on the (K, 4+L, P) frames `ev` into `out`: every
+    tendency at `ev`, then the update of `mode` (RK_PROV ... RK_LAST, see
+    `rk_stage_plain`) with ca = a dt and cb = b dt, writing RK_FIRST's and
+    RK_MID's accumulator into `acc_out`. For a CUDA array one C call
+    launches the RK_PASSES kernels of csrc/patch_rk.cuh (the variant for
+    the flux types of `cfg`, with the tails when `wind` is given or drag is
+    on) on PyTorch's current stream (`work`: scratch of rk_work_fields(L)
+    fields, made here when not given); for a CPU array the plain version
+    runs. `out` must alias none of `ev` (read at neighbours), `base`,
+    `acc` and `acc_out`; `acc_out` may be `acc` (a position reads and
+    writes only its own value). Returns `out`."""
+    global rk_launches
+    if cfg.flux_tracer_type not in _FLUX or p.fct:
+        raise ValueError("the RK stages take center or upwind tracer fluxes "
+                         "and an FB prep: FCT needs the thickness-first "
+                         "order of the forward-backward step")
+    arrays = dict(base=base, acc=acc, acc_out=acc_out)
+    for name in _RK_NEEDS[mode]:
+        if arrays[name] is None:
+            raise ValueError(f"RK stage mode {mode} needs `{name}`")
+    if any(a is not None and a.data_ptr() == out.data_ptr()
+           for a in (ev, base, acc, acc_out)):
+        raise ValueError("an RK stage writes `out` out of place")
+    if not ev.is_cuda:
+        acc_new, res = rk_stage_plain(p, cfg, mode, ca, cb, ev, base, acc,
+                                      wind)
+        if acc_new is not None:
+            acc_out.copy_(acc_new)
+        out.copy_(res)
+        return out
+    K, CH, P = ev.shape
+    if work is None:
+        work = ev.new_empty(rk_work_fields(CH - 4) * K * P)
+    _check(p, ev, out, work, work_n=rk_work_fields(CH - 4))
+    ptrs = {}
+    for name in ("base", "acc", "acc_out"):
+        a = arrays[name] if name in _RK_NEEDS[mode] else None
+        if a is not None and (a.shape != ev.shape or a.dtype != ev.dtype
+                              or a.device != ev.device
+                              or not a.is_contiguous()):
+            raise ValueError(f"`{name}` must be a contiguous array like "
+                             "the frames")
+        ptrs[name] = None if a is None else a.data_ptr()
+    lib = _build.load()
+    _rows_ok(lib, p)
+    name, cpl, consts, ints = _fb_args(p, cfg, ev, ca, wind,
+                                       _FLUX[cfg.flux_tracer_type])
+    name = name.replace("omega_patch_fb_", "omega_patch_rk_")
+    consts = np.append(consts, float(cb))
+    ints = np.append(ints, int(mode)).astype(np.int32)
+    with torch.cuda.device(ev.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, name)(
+            ev.data_ptr(), ptrs["base"], ptrs["acc"], ptrs["acc_out"],
+            out.data_ptr(), p.offs.data_ptr(), p.wts.data_ptr(),
+            cpl.data_ptr(), work.data_ptr(), consts.ctypes.data,
+            ints.ctypes.data, stream)
+    _build.check(code, "RK stage launch")
+    rk_launches += RK_PASSES
+    return out
+
+
 def _vmix_args(p, cfg, frames, dt):
     vm = cfg.vert_mix
     K, CH, P = frames.shape
@@ -1053,17 +1227,23 @@ def new_coef(frames, cfg):
     return frames.new_empty((K, 4, P))
 
 
-def step(p, cfg, frames, dt, out=None, work=None, wind=None, coef=None):
-    """The whole chain of `cfg` on the frames into `out`: the patch step,
-    then with vertical mixing the coefficient kernel (PP81) and the column
-    solve on `out`."""
-    nf = chain(p, cfg, frames, dt, out=out, work=work, wind=wind)
+def _mix_frames(p, cfg, nf, dt, coef=None):
+    """The vertical mixing of `cfg` on the frames a chain made, in place:
+    the coefficient kernel (PP81) and the column solve."""
     if vmix_on(cfg):
         if cfg.vert_mix.scheme == "pp81":
             coef = vmix_coeffs(p, cfg, nf, coef)
         vmix_solve(p, cfg, nf, dt, coef if cfg.vert_mix.scheme == "pp81"
                    else None)
     return nf
+
+
+def step(p, cfg, frames, dt, out=None, work=None, wind=None, coef=None):
+    """The whole chain of `cfg` on the frames into `out`: the patch step,
+    then with vertical mixing the coefficient kernel (PP81) and the column
+    solve on `out`."""
+    nf = chain(p, cfg, frames, dt, out=out, work=work, wind=wind)
+    return _mix_frames(p, cfg, nf, dt, coef)
 
 
 # ----------------------------------------------------------------------
@@ -1151,6 +1331,12 @@ def _sub_state(p, frames, fix):
     return ModelState(h=h, u=u, tracers=tr)
 
 
+def _fix_rows(p, h, u, tr):
+    """The carried fix rows of a submesh state (h, u, tracers)."""
+    return dict(h=h[p.fix_cells_local], u=u[p.fix_edges_local],
+                tr=tr[:, p.fix_cells_local])
+
+
 def fb_patch_megastep_framed(mesh, cfg, carry, t, dt, out=None, work=None,
                              wind=None, coef=None):
     """One FB step on the (frames, fix rows) carry: the chain (the kernels
@@ -1164,8 +1350,7 @@ def fb_patch_megastep_framed(mesh, cfg, carry, t, dt, out=None, work=None,
     nf = step(p, cfg, frames, dt, out=out, work=work, wind=wind, coef=coef)
     sub = forward_backward_step(p.sub_mesh, cfg, _sub_state(p, frames, fix),
                                 t, dt, wind_stress=_sub_wind(wind))
-    nfix = dict(h=sub.h[p.fix_cells_local], u=sub.u[p.fix_edges_local],
-                tr=sub.tracers[:, p.fix_cells_local])
+    nfix = _fix_rows(p, *sub)
     return _refresh_frames(p, nf, nfix, p.persist), nfix
 
 
@@ -1275,6 +1460,150 @@ def fct_patch_megastep_framed(mesh, cfg, carry, t, dt, out=None, work=None,
     fct_b(p, cfg, mid, frames, dt, out, work)
     nfix = fct_sub_b(p, mid, mid_fix, sub_a, dt)
     return _refresh_frames(p, out, nfix, p.persist), nfix
+
+
+def new_rk_scratch(frames, cfg, kind):
+    """The buffers of the RK steps of `kind` ("rk2", "rk4") for frames
+    like `frames`, made once per segment: the provisional frames (RK2 one,
+    RK4 two that swap), RK4's accumulator, the stage kernel's work fields
+    (None on the CPU) and the PP81 coefficients (`new_coef`)."""
+    K, CH, P = frames.shape
+    return dict(
+        prov=[torch.empty_like(frames) for _ in range(1 if kind == "rk2"
+                                                      else 2)],
+        acc=torch.empty_like(frames) if kind == "rk4" else None,
+        work=(frames.new_empty(rk_work_fields(CH - 4) * K * P)
+              if frames.is_cuda else None),
+        coef=new_coef(frames, cfg))
+
+
+def rk2_patch_megastep_framed(mesh, cfg, carry, t, dt, out=None, wind=None,
+                              scratch=None):
+    """One midpoint-RK2 step on the (frames, fix rows) carry (the
+    reference's two-stage step: the MH = 8 margins hold one chain
+    radius, so the stages are two kernel calls with an in-frame refresh
+    between them):
+
+      stage A (RK_PROV, a = 1/2): the midpoint into scratch["prov"][0];
+        the pole submesh's tendencies at the original state give the
+        midpoint's fix rows; the refresh of the midpoint frames
+      stage B (RK_PROV, a = 1, from the original frames): the full step
+        into `out`; the submesh's tendencies at the midpoint (its rows
+        gathered from the refreshed midpoint frames), the composed
+        vertical mixing on the submesh (steppers._mix) and on the frames
+        the column kernels; the refresh.
+
+    `out` receives the next frames (a new array when None; never the
+    carry's own); `wind` is a `make_wind` bundle; `scratch` the buffers of
+    `new_rk_scratch` (made here when None)."""
+    from omega_tpu_torch.core import tendencies as tend_mod
+    from omega_tpu_torch.stepping.steppers import _mix
+    frames, fix = carry
+    p = prep(mesh, frames.dtype, frames.device)
+    sc = new_rk_scratch(frames, cfg, "rk2") if scratch is None else scratch
+    out = torch.empty_like(frames) if out is None else out
+    sub, wsub = p.sub_mesh, _sub_wind(wind)
+    h0, u0, tr0 = _sub_state(p, frames, fix)
+    trh0 = tr0 * h0[None]
+
+    mid = rk_stage(p, cfg, RK_PROV, 0.5 * dt, 0.0, frames, sc["prov"][0],
+                   base=frames, work=sc["work"], wind=wind)
+    k = tend_mod.compute_all_tendencies(sub, cfg, h0, u0, tr0, t, wsub)
+    hm = h0 + 0.5 * dt * k.dh
+    mid_fix = _fix_rows(p, hm, u0 + 0.5 * dt * k.du,
+                        (trh0 + 0.5 * dt * k.dtr) / hm[None])
+    _refresh_frames(p, mid, mid_fix, p.persist)
+
+    rk_stage(p, cfg, RK_PROV, dt, 0.0, mid, out, base=frames,
+             work=sc["work"], wind=wind)
+    hm, um, trm = _sub_state(p, mid, mid_fix)
+    k = tend_mod.compute_all_tendencies(sub, cfg, hm, um, trm, t + 0.5 * dt,
+                                        wsub)
+    hn = h0 + dt * k.dh
+    st = _mix(sub, cfg, ModelState(h=hn, u=u0 + dt * k.du,
+                                   tracers=(trh0 + dt * k.dtr) / hn[None]),
+              dt)
+    nfix = _fix_rows(p, *st)
+    _mix_frames(p, cfg, out, dt, sc["coef"])
+    return _refresh_frames(p, out, nfix, p.persist), nfix
+
+
+def rk4_patch_megastep_framed(mesh, cfg, carry, t, dt, out=None, wind=None,
+                              scratch=None):
+    """One classic-RK4 step on the (frames, fix rows) carry (the
+    reference's four-stage step): stage s evaluates every tendency at
+    its level (the original frames, then the refreshed provisional ones)
+    and writes the next provisional frames and the accumulator (RK_FIRST,
+    RK_MID, RK_MID), the last stage the next frames from the accumulator
+    (RK_LAST). After each stage the pole submesh's tendencies at that
+    stage's level and time give the fix rows of both (the accumulator's
+    thickness-weighted), and both are refreshed in-frame; after the last,
+    the vertical mixing (steppers._mix on the submesh, the column kernels
+    on the frames) and the refresh. The provisional frames alternate
+    between the two buffers of scratch["prov"], the accumulator is updated
+    in place (a stage reads it only at the position it writes), and the
+    original frames stay untouched until the step ends. Arguments as
+    `rk2_patch_megastep_framed`."""
+    from omega_tpu_torch.core import tendencies as tend_mod
+    from omega_tpu_torch.stepping.steppers import _mix
+    frames, fix = carry
+    p = prep(mesh, frames.dtype, frames.device)
+    sc = new_rk_scratch(frames, cfg, "rk4") if scratch is None else scratch
+    out = torch.empty_like(frames) if out is None else out
+    A, B = megastep.RK4_A, megastep.RK4_B
+    prov, acc = sc["prov"], sc["acc"]
+    sub, wsub = p.sub_mesh, _sub_wind(wind)
+    h0, u0, tr0 = _sub_state(p, frames, fix)
+    trh0 = tr0 * h0[None]
+    ev, ev_fix, acc_fix = frames, fix, None
+    for s in range(4):
+        # the submesh's rows of this stage's level and of the accumulator,
+        # gathered before the stage updates the accumulator in place
+        hp, up, trp = (h0, u0, tr0) if s == 0 else _sub_state(p, ev, ev_fix)
+        if s:
+            ha, ua, tra = _sub_state(p, acc, acc_fix)
+        mode = (RK_FIRST, RK_MID, RK_MID, RK_LAST)[s]
+        nxt = out if s == 3 else prov[s % 2]
+        rk_stage(p, cfg, mode, A[s + 1] * dt if s < 3 else 0.0, B[s] * dt,
+                 ev, nxt, base=frames if s < 3 else None,
+                 acc=acc if s else None, acc_out=acc if s < 3 else None,
+                 work=sc["work"], wind=wind)
+        k = tend_mod.compute_all_tendencies(sub, cfg, hp, up, trp,
+                                            t + A[s] * dt, wsub)
+        if s == 0:
+            ha = h0 + B[0] * dt * k.dh
+            ua = u0 + B[0] * dt * k.du
+            tra = trh0 + B[0] * dt * k.dtr
+        else:
+            ha = ha + B[s] * dt * k.dh
+            ua = ua + B[s] * dt * k.du
+            tra = tra + B[s] * dt * k.dtr
+        if s < 3:
+            hp = h0 + A[s + 1] * dt * k.dh
+            ev_fix = _fix_rows(p, hp, u0 + A[s + 1] * dt * k.du,
+                               (trh0 + A[s + 1] * dt * k.dtr) / hp[None])
+            acc_fix = _fix_rows(p, ha, ua, tra)
+            ev = _refresh_frames(p, nxt, ev_fix, p.persist)
+            _refresh_frames(p, acc, acc_fix, p.persist)
+    st = _mix(sub, cfg, ModelState(h=ha, u=ua, tracers=tra / ha[None]), dt)
+    nfix = _fix_rows(p, *st)
+    _mix_frames(p, cfg, out, dt, sc["coef"])
+    return _refresh_frames(p, out, nfix, p.persist), nfix
+
+
+def framed_stepper(cfg, kind, frames):
+    """The function of one framed step of `kind` ("fb", "rk2", "rk4") for
+    `cfg` and the scratch it reuses across a segment, for frames like
+    `frames`: (step function, its keyword arguments)."""
+    if kind == "fb" and cfg.flux_tracer_type == "fct":
+        return fct_patch_megastep_framed, dict(work=new_work(frames),
+                                               mid=new_mid(frames))
+    if kind == "fb":
+        return fb_patch_megastep_framed, dict(work=new_work(frames),
+                                              coef=new_coef(frames, cfg))
+    fn = rk2_patch_megastep_framed if kind == "rk2" \
+        else rk4_patch_megastep_framed
+    return fn, dict(scratch=new_rk_scratch(frames, cfg, kind))
 
 
 def unstack_frames(mesh, cfg, carry, state_cls=ModelState):

@@ -33,9 +33,14 @@ takes the per-step API for a CUDA state. In `run_steps` alone, FCT tracer
 fluxes without vertical mixing are fused too: per step FCT's stage A (the
 patch kernel's FCT variant, five launches), the refresh of its fields,
 stage B (the limiter, four launches), the FCT fix submesh's composed step
-and the final refresh. The Thomas method, column ssh, FCT in the per-step
-API or with mixing, custom tendencies and the other steppers run composed
-through the patch operators (ops/patch_stencil.py).
+and the final refresh. So are the RK steppers, in the same configurations
+as the FB step but FCT: per stage one call of the RK stage kernel (four
+launches; RK2 two stages, RK4 four), the pole submesh's tendencies at that
+stage and the in-frame refresh, then with vertical mixing the column
+kernels. The Thomas method, column ssh, FCT in the per-step API, with
+mixing or under RK, custom tendencies, the split-explicit stepper and
+`rk2_step` / `rk4_step` called step by step run composed through the patch
+operators (ops/patch_stencil.py).
 """
 
 from __future__ import annotations
@@ -243,32 +248,27 @@ def run_steps(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
         return megastep.unstack_state(mesh, cur, h.shape[-1], tr.shape[0],
                                       type(state))
 
-    if (stepper is forward_backward_step and halo is _identity
+    if (kind is not None and halo is _identity
             and isinstance(dt, (int, float))
-            and patch_megastep.supported(mesh, cfg, framed=True)):
+            and patch_megastep.supported(mesh, cfg, framed=True, kind=kind)):
         # the sphere's framed path: the (frames, pole rows) carry of
         # ops/patch_megastep.py lives across the segment, so a step is the
-        # patch kernels (their plain versions on the CPU), the pole submesh
-        # step and the in-frame refresh (FCT: its two stages, the refresh
-        # between them, the FCT submesh's step); the next frames go into a
-        # second buffer and the two swap roles, and the wind frames and the
-        # kernels' scratch are made once
+        # patch kernels (their plain versions on the CPU), the pole
+        # submesh's composed part and the in-frame refresh (FCT: its two
+        # stages, the refresh between them, the FCT submesh's step; RK2 /
+        # RK4: the RK stage kernel, the submesh's tendencies and the
+        # refresh per stage); the next frames go into a second buffer and
+        # the two swap roles, and the wind frames and the kernels' scratch
+        # (RK: the provisional frames and the accumulator too) are made once
         carry = patch_megastep.stack_frames(mesh, cfg, state)
         nxt = torch.empty_like(carry[0])
-        work = patch_megastep.new_work(carry[0])
         wind = patch_megastep.make_wind(mesh, cfg, wind_stress,
                                         state.h.dtype)
-        if cfg.flux_tracer_type == "fct":
-            kw = dict(mid=patch_megastep.new_mid(carry[0]))
-            pstep = patch_megastep.fct_patch_megastep_framed
-        else:
-            kw = dict(coef=patch_megastep.new_coef(carry[0], cfg))
-            pstep = patch_megastep.fb_patch_megastep_framed
+        pstep, kw = patch_megastep.framed_stepper(cfg, kind, carry[0])
         t = t0
         for _ in range(nsteps):
             cur = carry[0]
-            carry = pstep(mesh, cfg, carry, t, dt, out=nxt, work=work,
-                          wind=wind, **kw)
+            carry = pstep(mesh, cfg, carry, t, dt, out=nxt, wind=wind, **kw)
             nxt = cur
             t = t + dt
         return patch_megastep.unstack_frames(mesh, cfg, carry, type(state))

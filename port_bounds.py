@@ -37,6 +37,28 @@ being the bound. Float32 throughout, K = 100 layers, 2 tracers.
           bounds and the pointwise limiter. Also the TPU kernels' own I/O
           (frames of 10 x SS x SS x 128 lanes with SS = S + 16, S = n + 16,
           outputs S x S; their weight-plane stack not counted)
+  patch_rk  the same site at icos48, kinds rk2a / rk2b / rk4s1-rk4s4
+          (patch_megastep.py:1711, :2005): one RK stage of the flagship
+          chain, each input read once and each output written once, the
+          weights read once per stage. rk2a reads the state and writes the
+          midpoint; rk2b reads the midpoint and the original state and
+          writes the state; rk4s1 reads the state and writes the
+          provisional state and the accumulator; rk4s2 / rk4s3 read the
+          provisional state, the original state and the accumulator and
+          write the provisional state and the accumulator; rk4s4 reads the
+          provisional state and the accumulator and writes the state. Each
+          stage's operations are the FB chain's. Also one RK2 and one RK4
+          step (the sums of their stages) and, for RK2, the same step with
+          the science configuration's wind rows read by both stages and its
+          coefficient and solve kernels after the last stage
+          (patch_science's parts)
+  patch_split  the same site at icos48, kinds splitpre / splitpost
+          (patch_megastep.py:2131): splitpre reads h, u and the tracers and
+          the momentum chain's weights and writes du_out (the three edge
+          classes); splitpost reads h, the transport velocity and the
+          tracers and the thickness and tracer weights and writes h_new and
+          the tracers; operations the FB chain's momentum part and its
+          thickness and tracer parts
   gather  omega_tpu/ops/pallas_gather.py:160, one gather pass
           out[n] = sum_j w[n, j] field[idx[n, j]] at icos48 x 100 (the shape
           named at pallas_gather.py:94-96), for the tangential
@@ -81,9 +103,10 @@ def icos(n):
     return C, E, V, cell_edge, vert_edge, tang
 
 
-def hex_flops_per_cell_layer(ntracers):
-    """_fb_flops_per_point of chip_smoke.py with the hex mesh's entries per
-    table and destination class (per cell: 3 edges, 2 vertices)."""
+def hex_flops_parts():
+    """The parts of _fb_flops_per_point of chip_smoke.py with the hex
+    mesh's entries per table and destination class (per cell: 3 edges, 2
+    vertices): (thickness, one tracer, momentum) per (cell, layer)."""
     n = {"div": 6, "ke": 6, "curl": 6, "kite": 6, "tang": 24, "cdiff": 6,
          "cmean": 6, "vdiff": 6, "vmean": 6, "signed_div": 6}
     s = lambda *names: sum(n[k] for k in names)
@@ -93,6 +116,11 @@ def hex_flops_per_cell_layer(ntracers):
     vel = 2 * s("ke", "div", "curl", "kite", "vmean", "vmean", "cdiff",
                 "vdiff", "div", "curl", "cmean", "tang", "tang", "cdiff",
                 "cdiff", "cdiff", "vdiff") + 90
+    return thick, tracer, vel
+
+
+def hex_flops_per_cell_layer(ntracers):
+    thick, tracer, vel = hex_flops_parts()
     return thick + ntracers * tracer + vel
 
 
@@ -174,6 +202,50 @@ def patch_fct(n=48):
                             **bound((5 + 3 * L) * chan_in + L * chan_out, 0)}}
 
 
+def patch_rk(n=48):
+    fb = patch_fb(n)
+    sci = patch_science(n)
+    state = fb["state_bytes_in_out"] // 2
+    # stage -> (state volumes read, state volumes written)
+    io = {"rk2a": (1, 1), "rk2b": (2, 1), "rk4s1": (1, 2), "rk4s2": (3, 2),
+          "rk4s3": (3, 2), "rk4s4": (2, 1)}
+    stages = {k: bound((r + w) * state + fb["weight_bytes"], fb["flops"])
+              for k, (r, w) in io.items()}
+
+    def total(kinds, extra=()):
+        parts = [stages[k] for k in kinds] + list(extra)
+        return bound(sum(x["bytes"] for x in parts),
+                     sum(x["flops"] for x in parts))
+    return {"kernel": "omega_tpu/ops/patch_megastep.py:1425",
+            "function": f"one RK stage of the flagship chain, icos{n} x {K} "
+            f"layers x {L} tracers",
+            "state_bytes": state, "weight_bytes": fb["weight_bytes"],
+            "stages": stages,
+            "rk2_step": total(("rk2a", "rk2b")),
+            "rk4_step": total(("rk4s1", "rk4s2", "rk4s3", "rk4s4")),
+            "rk2_step_science": total(
+                ("rk2a", "rk2b"), (sci["parts"]["coeffs"],
+                                   sci["parts"]["solve"],
+                                   bound(2 * sci["wind_bytes"], 0)))}
+
+
+def patch_split(n=48):
+    C, E, V, ce, ve, tang = icos(n)
+    fb = patch_fb(n)
+    state = fb["state_bytes_in_out"] // 2
+    thick, tracer, vel = hex_flops_parts()
+    # weights: the momentum chain's (div, ke; curl, kite; tang; 1/dc, 1/dv;
+    # f) and the thickness and tracer chain's (div, signed div; 1/dc)
+    w_pre = (2 * ce + 2 * ve + tang + 2 * E + V) * F32
+    w_post = (2 * ce + E) * F32
+    return {"kernel": "omega_tpu/ops/patch_megastep.py:1425",
+            "function": f"split-explicit phases, icos{n} x {K} layers x "
+            f"{L} tracers",
+            "splitpre": bound(state + E * K * F32 + w_pre, vel * C * K),
+            "splitpost": bound(state + C * (1 + L) * K * F32 + w_post,
+                               (thick + L * tracer) * C * K)}
+
+
 def gather(n=48):
     C, E, V, ce, ve, tang = icos(n)
     out = {}
@@ -204,5 +276,7 @@ if __name__ == "__main__":
     print(json.dumps({"patch": patch_fb()}))
     print(json.dumps({"patch_science": patch_science()}))
     print(json.dumps({"patch_fct": patch_fct()}))
+    print(json.dumps({"patch_rk": patch_rk()}))
+    print(json.dumps({"patch_split": patch_split()}))
     print(json.dumps({"gather": gather()}))
     print(json.dumps({"split": tpu_split_io()}))
