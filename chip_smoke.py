@@ -12,8 +12,8 @@ It builds the CUDA kernels from omega_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card, drives the port's main paths
 (256 x 256 cells x 100 layers x 2 tracers, float32; forward-backward, RK2,
 RK4 and split-explicit steppers; the icosahedral sphere icos48 x 100 x 2
-with the forward-backward, RK4 and RK2 steppers) through the entry points a
-user calls, and prints one JSON line per phase:
+with the forward-backward, RK4, RK2 and split-explicit steppers) through the
+entry points a user calls, and prints one JSON line per phase:
 
   device          the card, and nvidia-smi's name / power-limit line
   build           nvcc build of the kernels, seconds
@@ -45,6 +45,13 @@ user calls, and prints one JSON line per phase:
                   float64 and icos48 x 100 x 2 float32; fused framed RK2 /
                   RK4 steps vs the composed steppers; each mode's time, the
                   submesh's tendencies and the refresh
+  kernel_patch_split  the split-explicit step on the sphere: splitpre (five
+                  launches), splitpost (four) and the gather-form barotropic
+                  subcycles (two launches per subcycle, M = 10, bt_drag 0 and
+                  1e-4) vs plain at icos16 float64 and icos48 x 100 x 2
+                  float32; fused framed split steps vs the composed split
+                  stepper; each kernel's time, the submesh's part, the
+                  refresh
   main_path       2 x 10 steps of the bench configuration; launch counts
   composed_path   column ssh: the composed stepper + stencil kernel
   science_path    2 x 10 steps with wind, bottom drag, upwind fluxes and PP81
@@ -70,6 +77,12 @@ user calls, and prints one JSON line per phase:
   sphere_rk2_path 2 x 10 RK2 steps of sphere_science_path's configuration:
                   two stage calls (2 x 4 launches), one coefficient and one
                   solve launch per step
+  sphere_split_composed  2 steps of the composed split stepper on the same
+                  sphere with the column free surface, for comparison
+  sphere_split_path 2 x 10 split-explicit steps (dt = 120 s, M = 10) of
+                  sphere_path's sphere with the column free surface: five
+                  splitpre, twenty subcycle and four splitpost launches per
+                  step
   rk_order        the manufactured solution in float64: the steppers'
                   temporal order and the spatial order
   profile         (only with --profile) device time by kernel, every path
@@ -1074,7 +1087,7 @@ def main(argv=None):
     # three steps, 1e-10
     import port_bounds
     from omega_tpu_torch.mesh import patch_icos_mesh, spherical_icos_mesh
-    from omega_tpu_torch.ops import patch_megastep
+    from omega_tpu_torch.ops import bt_gather, patch_megastep
 
     PATCH_INCR = 5e-4
     N_SPHERE = 48
@@ -1906,6 +1919,223 @@ def main(argv=None):
     emit({"phase": "kernel_patch_rk", **rkp})
     rkpv = f32
 
+    # --------------------------------------------- 4i. kernel_patch_split
+    # the split-explicit step on the sphere (csrc/patch_split.cu: splitpre,
+    # five launches, and splitpost, four; csrc/bt_gather.cu: the
+    # barotropic subcycles, two launches each) against their plain versions
+    # on the same inputs, at the flat phase's own inputs (the mode split and
+    # the slow forcing of the state). Float64 at icos16 x 8 x 2: splitpre's
+    # du_out per channel max|diff| <= SPLIT_F64 max|ref| (its momentum terms
+    # summed in another order than the chain's, as the RK stage's), splitpost
+    # and the subcycles likewise (the subcycles' tangential and divergence
+    # sums run in slot order, the plain loop's patch stencils in their entry
+    # order); three fused framed split steps against the composed split
+    # stepper, rtol = atol = 1e-10. Float32 at icos48 x 100 x 2: du_out per
+    # channel max|diff| / max|ref| <= PATCH_INCR (du_out is itself the
+    # increment per unit dt), splitpost and the subcycles by the increment
+    # per channel, PATCH_INCR. M = 10 with bt_drag 0 and 1e-4
+    SPLIT_F64 = 1e-14
+    cfg16p = bench_cfg(8, NTRACERS, dict(eddy_diff4=1e9),
+                       ssh_formulation="column")
+    cfg48p = bench_cfg(NLAYERS, NTRACERS, ssh_formulation="column")
+    for m_, c_ in ((m16, cfg16p), (m48, cfg48p)):
+        if not patch_megastep.split_patch_supported(m_, c_):
+            fail("sphere split configuration not supported by the framed "
+                 "path")
+    from omega_tpu_torch.ops import trisk
+    from omega_tpu_torch.stepping.split import (_depth_avg_edge,
+                                                split_forward_backward_step)
+
+    def split_inputs(mesh_, p, cfg_v, st, fr):
+        """(the flat phase's subcycle inputs (ubar, ssh, g_slow, het), the
+        frames with the transport velocity in their u channels) of a
+        state, from the plain splitpre and the plain subcycles"""
+        du = patch_megastep.split_du(mesh_, cfg_v, p,
+                                     patch_megastep.split_pre_plain(
+                                         p, cfg_v, fr), st.h, st.u, 0.0)
+        he = trisk.cell_mean_on_edge(mesh_, st.h)
+        ubar = _depth_avg_edge(he, st.u)
+        ssh = st.h.sum(-1, keepdim=True) - trisk.col(mesh_, "bottom_depth")
+        gs = _depth_avg_edge(he, du) - bt_gather.fast(mesh_, ubar, ssh,
+                                                      cfg_v.gravity)
+        ins = (ubar, ssh, gs, he.sum(-1, keepdim=True))
+        _, _, avg = bt_gather.subcycles_plain(
+            mesh_, *ins, gravity=cfg_v.gravity, dt_bt=DT_SPLIT / M_SPLIT,
+            n_subcycles=M_SPLIT)
+        ft = fr.clone()
+        patch_megastep._frames_of(p, "edge", st.u - ubar + avg, 3,
+                                  ft[:, 1:4])
+        return ins, ft
+
+    def split_checks(mesh_, p, cfg_v, st, work=None):
+        """every split kernel against its plain version on `st`: (record,
+        the inputs)"""
+        fr, _ = patch_megastep.stack_frames(mesh_, cfg_v, st)
+        du = patch_megastep.split_pre(p, cfg_v, fr, work=work)
+        ref = patch_megastep.split_pre_plain(p, cfg_v, fr)
+        ins, ft = split_inputs(mesh_, p, cfg_v, st, fr)
+        out = torch.zeros_like(fr)
+        patch_megastep.split_post(p, cfg_v, ft, DT_SPLIT, out, work=work)
+        ref_post = patch_megastep.split_post_plain(p, cfg_v, ft, DT_SPLIT)
+        torch.cuda.synchronize()
+        post = torch.cat([out[:, :1], out[:, 4:]], 1)
+        start = torch.cat([ft[:, :1], ft[:, 4:]], 1)
+        rec = {"split_pre": [chan_err(du[:, c][None], ref[:, c][None])
+                             for c in range(3)],
+               "split_pre_max_abs_err": (du - ref).abs().max().item(),
+               "split_post": [chan_err(post[:, c][None], ref_post[:, c][None])
+                              for c in range(1 + NTRACERS)],
+               "split_post_increments": incr_err(
+                   post.transpose(0, 1), ref_post.transpose(0, 1),
+                   start.transpose(0, 1)),
+               "split_post_max_abs_err": (post - ref_post).abs().max().item(),
+               "split_post_u_untouched": bool((out[:, 1:4] == 0).all())}
+        dead_e = mesh_.edge_mask == 0
+        for r in (0.0, 1e-4):
+            kw = dict(gravity=cfg_v.gravity, dt_bt=DT_SPLIT / M_SPLIT,
+                      n_subcycles=M_SPLIT, bt_drag=r)
+            got_bt = bt_gather.bt_subcycles(mesh_, *ins, **kw)
+            ref_bt = bt_gather.subcycles_plain(mesh_, *ins, **kw)
+            torch.cuda.synchronize()
+            rec[f"bt_drag_{r}"] = {
+                "rel": [nerr(a_, b_) for a_, b_ in zip(got_bt, ref_bt)],
+                "increments": [incr_err(a_.T, b_.T, s_.T)[0] for a_, b_, s_
+                               in zip(got_bt, ref_bt,
+                                      (ins[0], ins[1], ins[0]))],
+                "max_abs_err": max((a_ - b_).abs().max().item()
+                                   for a_, b_ in zip(got_bt, ref_bt)),
+                "dead_edges": got_bt[0][dead_e].abs().max().item()
+                if bool(dead_e.any()) else 0.0}
+        return rec, (fr, ins, ft, out)
+
+    spt = {"tolerance": "f64 per channel max|diff| <= SPLIT_F64 max|ref| "
+           "against plain (splitpre, splitpost, the subcycles), fused "
+           "framed split steps vs composed steps rtol=atol=1e-10 over 3 "
+           "steps; f32 splitpre per channel max|diff|/max|ref| and "
+           "splitpost and the subcycles per channel the error of the "
+           "increment <= PATCH_INCR", "SPLIT_F64": SPLIT_F64,
+           "PATCH_INCR": PATCH_INCR, "M": M_SPLIT, "dt": DT_SPLIT,
+           "passes_per_call": {
+               "split_pre": patch_megastep.SPLIT_PRE_PASSES,
+               "split_post": patch_megastep.SPLIT_POST_PASSES,
+               "bt_gather": bt_gather.LAUNCHES_PER_SUBCYCLE * M_SPLIT}}
+    st16p = sphere_state(m16_np, 8, NTRACERS, torch.float64, 0.1, 1.0)
+    rec, _ = split_checks(m16, p16, cfg16p, st16p)
+    worst = max(rec["split_pre"] + rec["split_post"]
+                + [max(rec[f"bt_drag_{r}"]["rel"]) for r in (0.0, 1e-4)])
+    if not worst <= SPLIT_F64 or max(rec[f"bt_drag_{r}"]["dead_edges"]
+                                     for r in (0.0, 1e-4)) != 0.0:
+        fail(f"sphere split kernels vs plain at icos16 f64: {rec}")
+    spt["f64_icos16x8x2"] = rec
+    # whole steps: the framed fused path against the composed stepper
+    patch_megastep.split_pre_launches = 0
+    patch_megastep.split_post_launches = bt_gather.launches = 0
+    ker = run_steps(m16, cfg16p, st16p, 0.0, DT_SPLIT, 3,
+                    stepper=split_forward_backward_step)
+    got_l = (patch_megastep.split_pre_launches, bt_gather.launches,
+             patch_megastep.split_post_launches)
+    want_l = (3 * patch_megastep.SPLIT_PRE_PASSES,
+              3 * M_SPLIT * bt_gather.LAUNCHES_PER_SUBCYCLE,
+              3 * patch_megastep.SPLIT_POST_PASSES)
+    if got_l != want_l:
+        fail(f"fused sphere split steps: launches {got_l}, expected "
+             f"{want_l}")
+    # and one step of the per-step API (a CUDA state takes the framed path)
+    patch_megastep.split_pre_launches = 0
+    one = split_forward_backward_step(m16, cfg16p, st16p, 0.0, DT_SPLIT)
+    if patch_megastep.split_pre_launches != patch_megastep.SPLIT_PRE_PASSES:
+        fail("split_forward_backward_step on the card did not take the "
+             "framed path")
+    comp = st16p
+    for i in range(3):
+        comp = composed(split_forward_backward_step, m16, cfg16p, comp,
+                        i * DT_SPLIT, DT_SPLIT)
+        if i == 0:
+            comp1 = comp
+    torch.cuda.synchronize()
+    worst = 0.0
+    for a_, b_ in list(zip(ker, comp)) + list(zip(one, comp1)):
+        d = (a_ - b_).abs()
+        if bool((d > 1e-10 + 1e-10 * b_.abs()).any()) \
+                or not bool(torch.isfinite(a_).all()):
+            fail(f"fused sphere split steps vs composed at icos16 f64: "
+                 f"{d.max().item()}")
+        worst = max(worst, d.max().item())
+    spt["f64_icos16_steps_vs_composed"] = worst
+    del ker, comp, comp1, one
+
+    # float32 at bench.py's sphere width
+    st48p = sphere_state(m48_np, NLAYERS, NTRACERS, torch.float32, 0.01,
+                         1.0)
+    fr48, _ = patch_megastep.stack_frames(m48, cfg48p, st48p)
+    sc48 = patch_megastep.new_split_scratch(fr48)
+    rec, (fr48, ins48, ft48, out48) = split_checks(m48, p48, cfg48p, st48p,
+                                                   sc48["work"])
+    f32_worst = max(rec["split_pre"] + rec["split_post_increments"]
+                    + [max(rec[f"bt_drag_{r}"]["increments"])
+                       for r in (0.0, 1e-4)])
+    if not f32_worst <= PATCH_INCR or max(
+            rec[f"bt_drag_{r}"]["dead_edges"] for r in (0.0, 1e-4)) != 0.0:
+        fail(f"sphere split kernels vs plain at icos{N_SPHERE} f32: {rec}")
+    bt_kw = dict(gravity=cfg48p.gravity, dt_bt=DT_SPLIT / M_SPLIT,
+                 n_subcycles=M_SPLIT)
+    psb, bbt = port_bounds.patch_split(N_SPHERE), port_bounds.sphere_bt(
+        N_SPHERE, M_SPLIT)
+    rec.update(
+        split_pre_ms=cuda_ms(lambda: patch_megastep.split_pre(
+            p48, cfg48p, fr48, out=sc48["du"], work=sc48["work"]), 20),
+        split_pre_plain_ms=cuda_ms(lambda: patch_megastep.split_pre_plain(
+            p48, cfg48p, fr48), 2, 1),
+        split_post_ms=cuda_ms(lambda: patch_megastep.split_post(
+            p48, cfg48p, ft48, DT_SPLIT, out48, work=sc48["work"]), 20),
+        split_post_plain_ms=cuda_ms(lambda: patch_megastep.split_post_plain(
+            p48, cfg48p, ft48, DT_SPLIT), 2, 1),
+        bt_ms=cuda_ms(lambda: bt_gather.bt_subcycles(m48, *ins48, **bt_kw),
+                      20),
+        bt_plain_ms=cuda_ms(lambda: bt_gather.subcycles_plain(
+            m48, *ins48, **bt_kw), 2, 1),
+        split_pre_bound_ms=psb["splitpre"]["bound_ms"],
+        split_pre_bound_by=psb["splitpre"]["bound_by"],
+        split_post_bound_ms=psb["splitpost"]["bound_ms"],
+        split_post_bound_by=psb["splitpost"]["bound_by"],
+        bt_bound_ms=bbt[f"M{M_SPLIT}"]["bound_ms"],
+        bt_bound_by=bbt[f"M{M_SPLIT}"]["bound_by"],
+        bt_subcycle_bound_ms=bbt["subcycle"]["bound_ms"],
+        bt_each_from_memory_bound_ms=bbt[f"M{M_SPLIT}_each_from_memory"][
+            "bound_ms"])
+    # the host parts of a framed split step: the flat state's read-out, the
+    # pole submesh's tendency and advance, the flat phase's composed
+    # operators, and the refresh
+    carry48 = patch_megastep.stack_frames(m48, cfg48p, st48p)
+    h48, u48, tr48 = patch_megastep.unstack_frames(m48, cfg48p, carry48)
+
+    def submesh_part():
+        hs, us = h48[p48.sub_cells], u48[p48.sub_edges]
+        tend_mod.compute_velocity_tendency(p48.sub_mesh, cfg48p, hs, us, 0.0)
+        he = trisk.cell_mean_on_edge(p48.sub_mesh, hs)
+        hn = hs + DT_SPLIT * -trisk.div_cell(p48.sub_mesh, he * us)
+        tend_mod.compute_tracer_tendency(
+            p48.sub_mesh, cfg48p, hs, us, tr48[:, p48.sub_cells], he, 0.0,
+            h_new=hn, dt=DT_SPLIT, flux_h_edge=he)
+    rec["submesh_ms"] = cuda_ms(submesh_part, 10)
+    nfix48 = dict(h=h48[p48.fix_cells_global], u=u48[p48.fix_edges_global],
+                  tr=tr48[:, p48.fix_cells_global])
+    rec["refresh_ms"] = cuda_ms(lambda: patch_megastep._refresh_frames(
+        p48, out48, nfix48, p48.persist), 20)
+    # a whole framed step (its carry's u channels take the transport
+    # velocity each time: the work is the same)
+    rec["step_ms"] = cuda_ms(
+        lambda: patch_megastep.split_patch_megastep_framed(
+            m48, cfg48p, carry48, 0.0, DT_SPLIT, M_SPLIT, 0.0, out=out48,
+            work=sc48), 5)
+    rec["step_rest_ms"] = rec["step_ms"] - (
+        rec["split_pre_ms"] + rec["bt_ms"] + rec["split_post_ms"]
+        + rec["submesh_ms"] + rec["refresh_ms"])
+    spt[f"f32_icos{N_SPHERE}x{NLAYERS}x{NTRACERS}"] = rec
+    emit({"phase": "kernel_patch_split", **spt})
+    sptv = rec
+    del fr48, ft48, out48, sc48, ins48, h48, u48, tr48, carry48
+
     # ------------------------------------------------------- 5. main_path
     # the bench configuration, through the entry points a user calls
     mesh_np = planar_hex_mesh(NX, NY, dc=5000.0, f0=1e-4,
@@ -2034,7 +2264,10 @@ def main(argv=None):
                 "patch_solve": patch_megastep.solve_launches,
                 "patch_fct_a": patch_megastep.fct_a_launches,
                 "patch_fct_b": patch_megastep.fct_b_launches,
-                "patch_rk": patch_megastep.rk_launches}
+                "patch_rk": patch_megastep.rk_launches,
+                "patch_split_pre": patch_megastep.split_pre_launches,
+                "bt_gather": bt_gather.launches,
+                "patch_split_post": patch_megastep.split_post_launches}
 
     def reset_counts():
         megastep.launches = megastep.rk_launches = 0
@@ -2046,11 +2279,14 @@ def main(argv=None):
         patch_megastep.coeff_launches = patch_megastep.solve_launches = 0
         patch_megastep.fct_a_launches = patch_megastep.fct_b_launches = 0
         patch_megastep.rk_launches = 0
+        patch_megastep.split_pre_launches = 0
+        patch_megastep.split_post_launches = bt_gather.launches = 0
 
     # the split kernels launch on no path but split_path, the patch kernels
     # on no path but the sphere's
     NO_PATCH = {"patch_step": 0, "patch_coeffs": 0, "patch_solve": 0,
-                "patch_fct_a": 0, "patch_fct_b": 0, "patch_rk": 0}
+                "patch_fct_a": 0, "patch_fct_b": 0, "patch_rk": 0,
+                "patch_split_pre": 0, "bt_gather": 0, "patch_split_post": 0}
     NO_SPLIT = {"split_pre": 0, "barotropic": 0, "split_post": 0,
                 **NO_PATCH}
 
@@ -2535,15 +2771,16 @@ def main(argv=None):
     # the refresh (RK4: of the provisional frames and the accumulator), then
     # with mixing the PP81 coefficient kernel and the column solve; no
     # other kernel launches
-    def sphere_run(name, cfg_p, st, stepper, want, wind_stress=None):
-        run_steps(m48, cfg_p, st, 0.0, DT, 1, stepper=stepper,
+    def sphere_run(name, cfg_p, st, stepper, want, wind_stress=None,
+                   dt=DT):
+        run_steps(m48, cfg_p, st, 0.0, dt, 1, stepper=stepper,
                   wind_stress=wind_stress)                      # untimed
         reset_counts()
         out, secs = st, []
         for i in range(nseg):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = run_steps(m48, cfg_p, out, i * seg * DT, DT, seg,
+            out = run_steps(m48, cfg_p, out, i * seg * dt, dt, seg,
                             stepper=stepper, wind_stress=wind_stress)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
@@ -2606,6 +2843,61 @@ def main(argv=None):
           "column kernels, two submesh tendency evaluations (the submesh's "
           "vertical mixing not counted), two refreshes"})
     del rk2s
+
+    # ------------------------------------------- 10g. sphere_split_path
+    # the split-explicit stepper on bench.py's sphere with the column free
+    # surface (icos48 x 100 x 2, float32, dt = 120 s, M = 10, bt_drag 0:
+    # the reference's `sphere-split` item, scripts/tpu_r3_item.py:172-178)
+    # through run_steps with split_forward_backward_step. A step is splitpre
+    # (five launches), the flat 2-D phase with the subcycles (two launches
+    # each), splitpost (four launches), the pole submesh's composed part and
+    # the refresh; no other kernel launches. First the composed split
+    # stepper over two steps, for comparison
+    sp0 = sphere_state(m48_np, NLAYERS, NTRACERS, torch.float32, 0.01, 0.0)
+    composed(split_forward_backward_step, m48, cfg48p, sp0, 0.0, DT_SPLIT)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comp = sp0
+    for i in range(2):
+        comp = composed(split_forward_backward_step, m48, cfg48p, comp,
+                        i * DT_SPLIT, DT_SPLIT)
+    torch.cuda.synchronize()
+    comp_ms = (time.perf_counter() - t0) / 2 * 1e3
+    finite("sphere split composed", comp)
+    emit({"phase": "sphere_split_composed", "config": "as "
+          "sphere_split_path, the composed split stepper (patch operators, "
+          "the subcycles' plain loop)", "steps": 2, "ms_per_step": comp_ms,
+          "launches": counts()})
+    del comp
+    sps, rec = sphere_run(
+        "sphere split path", cfg48p, sp0, split_forward_backward_step,
+        {**none,
+         "patch_split_pre": patch_megastep.SPLIT_PRE_PASSES * nseg * seg,
+         "bt_gather": bt_gather.LAUNCHES_PER_SUBCYCLE * M_SPLIT * nseg * seg,
+         "patch_split_post": patch_megastep.SPLIT_POST_PASSES * nseg * seg},
+        dt=DT_SPLIT)
+    sps_launches = rec["launches"]
+    emit({"phase": "sphere_split_path", "config": "as sphere_path with "
+          "ssh_formulation=column, tracers 10, stepper "
+          f"split_forward_backward_step (M = {M_SPLIT}, bt_drag = 0), dt = "
+          f"{DT_SPLIT}", **rec,
+          "simulated_s_per_wall_s": DT_SPLIT / (rec["ms_per_step"] * 1e-3),
+          "sphere_path_simulated_s_per_wall_s": DT / (sph_ms * 1e-3),
+          "composed_ms_per_step": comp_ms,
+          "breakdown_ms": {"split_pre": sptv["split_pre_ms"],
+                           "subcycles": sptv["bt_ms"],
+                           "split_post": sptv["split_post_ms"],
+                           "submesh": sptv["submesh_ms"],
+                           "refresh": sptv["refresh_ms"],
+                           "framed_step": sptv["step_ms"],
+                           "rest": sptv["step_rest_ms"]},
+          "breakdown_note": "per step, by CUDA events (kernel_patch_split): "
+          "splitpre, the M subcycles, splitpost, the pole submesh's "
+          "tendency and advance, the refresh; `rest` the framed step less "
+          "those (the read-out, the flat phase's composed operators, the "
+          "frames of u_trans and u_new)"})
+    del sps
 
     # ------------------------------------------------------- 11. rk_order
     # the manufactured solution (tests/test_model.py:79-166) in float64 on
@@ -2732,7 +3024,10 @@ def main(argv=None):
                   m48, cfg48, sph0, 0.0, DT, 5, stepper=rk4_step)),
               "sphere_rk2_5_steps": traced(lambda: run_steps(
                   m48, cfg_ss, ss0, 0.0, DT, 5, stepper=rk2_step,
-                  wind_stress=w48))})
+                  wind_stress=w48)),
+              "sphere_split_5_steps": traced(lambda: run_steps(
+                  m48, cfg48p, sp0, 0.0, DT_SPLIT, 5,
+                  stepper=split_forward_backward_step))})
 
     # ---------------------------------------------------------- 8. kernels
     print(smi_line, flush=True)
@@ -3021,6 +3316,55 @@ def main(argv=None):
          "rk2_step_bound_ms": rkpv["rk2_step_bound_ms"],
          "passes_per_call": patch_megastep.RK_PASSES,
          "path": "sphere_rk2_path"},
+        {"name": "patch_split_pre", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/patch_split.cu",
+         "template": "omega_tpu_torch/csrc/patch_rk.cuh",
+         "replaces": "omega_tpu/ops/patch_megastep.py:1218",
+         "call_site": "omega_tpu/ops/patch_megastep.py:1411",
+         "kinds": "splitpre",
+         "chain": "omega_tpu/mesh/icos_mega.py:645 split_pre_chain",
+         "launches": sps_launches["patch_split_pre"],
+         "max_abs_err": sptv["split_pre_max_abs_err"],
+         "ms": sptv["split_pre_ms"], "plain_ms": sptv["split_pre_plain_ms"],
+         "bound_ms": sptv["split_pre_bound_ms"],
+         "bound_by": sptv["split_pre_bound_by"], "library_ms": None,
+         "shape": f"frames {tuple(patv['frames'])} in, du_out ({NLAYERS}, "
+         f"3, {p48.P}) out, float32, center fluxes, column ssh",
+         "passes_per_call": patch_megastep.SPLIT_PRE_PASSES,
+         "path": "sphere_split_path"},
+        {"name": "bt_gather", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/bt_gather.cu",
+         "replaces": "omega_tpu/ops/patch_megastep.py:2205",
+         "replaces_note": "the reference's lax.scan of the barotropic "
+         "subcycles (not a Pallas site); the planar Pallas counterpart is "
+         "omega_tpu/ops/barotropic_kernel.py:62",
+         "launches": sps_launches["bt_gather"],
+         "max_abs_err": max(sptv[f"bt_drag_{r}"]["max_abs_err"]
+                            for r in (0.0, 1e-4)),
+         "ms": sptv["bt_ms"], "plain_ms": sptv["bt_plain_ms"],
+         "bound_ms": sptv["bt_bound_ms"], "bound_by": sptv["bt_bound_by"],
+         "library_ms": None,
+         "shape": f"({m48.nedges}, 1) x 3 + ({m48.ncells}, 1) in, 3 out, "
+         f"float32, M = {M_SPLIT} (two launches per subcycle)",
+         "subcycle_bound_ms": sptv["bt_subcycle_bound_ms"],
+         "path": "sphere_split_path"},
+        {"name": "patch_split_post", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/patch_split.cu",
+         "template": "omega_tpu_torch/csrc/patch_step.cuh",
+         "replaces": "omega_tpu/ops/patch_megastep.py:1218",
+         "call_site": "omega_tpu/ops/patch_megastep.py:1413",
+         "kinds": "splitpost",
+         "chain": "omega_tpu/mesh/icos_mega.py:659 split_post_chain",
+         "launches": sps_launches["patch_split_post"],
+         "max_abs_err": sptv["split_post_max_abs_err"],
+         "ms": sptv["split_post_ms"],
+         "plain_ms": sptv["split_post_plain_ms"],
+         "bound_ms": sptv["split_post_bound_ms"],
+         "bound_by": sptv["split_post_bound_by"], "library_ms": None,
+         "shape": f"frames {tuple(patv['frames'])} in, h and tracers of "
+         "the next frames out, float32, center fluxes",
+         "passes_per_call": patch_megastep.SPLIT_POST_PASSES,
+         "path": "sphere_split_path"},
     ], "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

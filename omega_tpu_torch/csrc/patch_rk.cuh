@@ -58,6 +58,12 @@
 // version rounds it, and stencil sums run in the plain version's order.
 // Divisions are guarded against lattice-hole zeros (safe_div).
 //
+// The split-explicit stepper's splitpre (csrc/patch_split.cu) is these
+// passes with the compile-time switch SP: no thickness or tracer work, the
+// pressure gradient g cgrad(sshc) of the column free surface (a field of its
+// own, written by a pass before A) in place of g (cgrad(h) - gdepth), and an
+// epilogue that writes du, ungated, and no stage update.
+//
 // Bound on this card: device memory. A stage must read its level, the base
 // and the accumulator it takes and the weights, and write its outputs once
 // (port_bounds.patch_rk: 117-283 MB per stage at icos48 x 100 x 2 in
@@ -82,12 +88,13 @@ struct RkArgs : Args<T> {
   const T* acc;    // the accumulator read (RK_MID, RK_LAST)
   T* acc_out;      // the accumulator written (RK_FIRST, RK_MID)
   T *dh, *Fq;      // work fields (K, 1 | 3, P)
+  T* sshc;         // splitpre: the column free surface (1, P)
   T cb;
   int mode;
 };
 
 // ------------------------------------------------------------- pass A
-template <typename T, bool UH, int TR>
+template <typename T, bool UH, int TR, bool SP = false>
 __global__ void __launch_bounds__(256) rk_pass_a(const RkArgs<T> a) {
   constexpr bool kPair = UH || TR == kTrUpwind;
   int p, k0, k1;
@@ -124,6 +131,7 @@ __global__ void __launch_bounds__(256) rk_pass_a(const RkArgs<T> a) {
       }
       const long long q = (k * 3LL + t) * P + p;
       a.flux[q] = mul_rn(flux_h, u);
+      if constexpr (SP) continue;
       const T um = masked(a, em, u);
       for (int l = 0; l < L; ++l) {
         const T* tr = h + (4 + l) * P;
@@ -179,14 +187,14 @@ __global__ void __launch_bounds__(256) rk_pass_a(const RkArgs<T> a) {
 }
 
 // ------------------------------------------------------------- pass B
-template <typename T>
+template <typename T, bool SP = false>
 __global__ void __launch_bounds__(256) rk_pass_b(const RkArgs<T> a) {
   int p, k0, k1;
   if (!where(a, p, k0, k1)) return;
   const long long P = a.P, lay = static_cast<long long>(a.CH) * P;
   const int L = a.L;
   // cells: dh, and per tracer trp, d2aux
-  {
+  if constexpr (!SP) {
     int o[6];
     T wv[6], wg[6], wg2[6];
     load_off(a.off, kOffDiv, a.P, p, o);
@@ -221,13 +229,20 @@ __global__ void __launch_bounds__(256) rk_pass_b(const RkArgs<T> a) {
     for (int k = k0; k < k1; ++k) {
       const T gke = sten(wg, oc, a.ke + k * P, p);
       const T cdd = sten(wg, oc, a.divu + k * P, p);
-      const T gh = sten(wg, oc, a.in + k * lay, p);
       const T* rv = a.rvort + k * 2LL * P;
       const T vdr = sten(wvg, ov, rv, p);
       const T vdrf = sten(wvf, ov, rv, p);
       const T qe = sten(wvm, ov, a.qv + k * 2LL * P, p);
       const long long q = (k * 3LL + t) * P + p;
-      a.dup[q] = (mul_rn(nu2s, cdd - vdr) - gke) - mul_rn(a.grav, gh - gd);
+      // the pressure gradient: g (cgrad(h) - gdepth), or with the column
+      // free surface g cgrad(sshc)
+      T pg;
+      if constexpr (SP) {
+        pg = mul_rn(a.grav, sten(wg, oc, a.sshc, p));
+      } else {
+        pg = mul_rn(a.grav, sten(wg, oc, a.in + k * lay, p) - gd);
+      }
+      a.dup[q] = (mul_rn(nu2s, cdd - vdr) - gke) - pg;
       a.del2e[q] = masked(a, em, cdd) - vdrf;
       a.Fq[q] = mul_rn(a.flux[q], qe);
     }
@@ -235,14 +250,14 @@ __global__ void __launch_bounds__(256) rk_pass_b(const RkArgs<T> a) {
 }
 
 // ------------------------------------------------------------- pass C
-template <typename T>
+template <typename T, bool SP = false>
 __global__ void __launch_bounds__(256) rk_pass_c(const RkArgs<T> a) {
   int p, k0, k1;
   if (!where(a, p, k0, k1)) return;
   const long long P = a.P;
   const int L = a.L;
   // edges: cd2 (into mc's field)
-  for (int t = 0; t < 3; ++t) {
+  if constexpr (!SP) for (int t = 0; t < 3; ++t) {
     int o[2];
     T wd[2];
     load_off(a.off, kOffCm + 2 * t, a.P, p, o);
@@ -274,7 +289,7 @@ __global__ void __launch_bounds__(256) rk_pass_c(const RkArgs<T> a) {
 }
 
 // ------------------------------------------------------------- pass D
-template <typename T, bool UH, int TR, bool TAILS>
+template <typename T, bool UH, int TR, bool TAILS, bool SP = false>
 __global__ void __launch_bounds__(256) rk_pass_d(const RkArgs<T> a) {
   constexpr bool kPair = UH || TR == kTrUpwind;
   int p, k0, k1;
@@ -283,7 +298,7 @@ __global__ void __launch_bounds__(256) rk_pass_d(const RkArgs<T> a) {
   const int L = a.L, mode = a.mode;
   const T ca = a.dt, cb = a.cb;
   // cells: h and the tracers of out (and acc_out)
-  {
+  if constexpr (!SP) {
     int o[6];
     T w4[6];
     load_off(a.off, kOffDiv, a.P, p, o);
@@ -371,6 +386,10 @@ __global__ void __launch_bounds__(256) rk_pass_d(const RkArgs<T> a) {
         }
       }
       du = du + mul_rn(T(0.5), sten(wt, ot, a.Fq + k * 3LL * P, p));
+      if constexpr (SP) {
+        a.out[q] = du;   // splitpre's du_out (K, 3, P), ungated
+        continue;
+      }
       const T md = masked(a, em, du);
       const long long c = k * lay + (1 + t) * P + p;
       if (mode == kRkLast) {

@@ -68,6 +68,11 @@
 // not the chain's; every product is rounded on its own (mul_rn), as the
 // plain version rounds it, and stencil sums run in the same order as its.
 //
+// The split-explicit stepper's splitpost (csrc/patch_split.cu) is passes A-D
+// with the compile-time switch MOM off: the thickness and tracer work alone
+// (center fluxes), the u channels of `in` holding the transport velocity and
+// those of `out` left to the caller.
+//
 // Holes and NaN: lattice holes hold zeros in the frames; the divisions by
 // h_v, h_new and mean_hn are guarded (a zero divisor gives 0), as
 // _safe_div does.
@@ -145,7 +150,7 @@ __device__ __forceinline__ T upwind(T u, T a, T b) {
 }
 
 // ------------------------------------------------------------- pass A
-template <typename T, bool UH, int TR>
+template <typename T, bool UH, int TR, bool MOM = true>
 __global__ void __launch_bounds__(256) pass_a(const Args<T> a) {
   // mean_h from the pair picks hp0 / hp1 where the chain forms them (an
   // upwind flux), else cmean; FCT reads the pair weights for its tracer
@@ -212,6 +217,7 @@ __global__ void __launch_bounds__(256) pass_a(const Args<T> a) {
       }
     }
   }
+  if constexpr (!MOM) return;
   // cells: ke(u^2), div(u)
   {
     int o[6];
@@ -242,7 +248,7 @@ __global__ void __launch_bounds__(256) pass_a(const Args<T> a) {
 }
 
 // ------------------------------------------------------------- pass B
-template <typename T, int TR>
+template <typename T, int TR, bool MOM = true>
 __global__ void __launch_bounds__(256) pass_b(const Args<T> a) {
   int p, k0, k1;
   if (!where(a, p, k0, k1)) return;
@@ -281,6 +287,7 @@ __global__ void __launch_bounds__(256) pass_b(const Args<T> a) {
       }
     }
   }
+  if constexpr (!MOM) return;
   // edges: dup, del2e
   for (int t = 0; t < 3; ++t) {
     int oc[2], ov[2];
@@ -306,7 +313,7 @@ __global__ void __launch_bounds__(256) pass_b(const Args<T> a) {
 }
 
 // ------------------------------------------------------------- pass C
-template <typename T, bool UH, int TR>
+template <typename T, bool UH, int TR, bool MOM = true>
 __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
   int p, k0, k1;
   if (!where(a, p, k0, k1)) return;
@@ -331,6 +338,7 @@ __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
         a.mc[(k * 3LL * L + 3 * l + t) * P + p] =
             sten(wd, o, a.d2aux + (k * static_cast<long long>(L) + l) * P,
                  p);
+      if constexpr (!MOM) continue;
       const T* hn = a.out + k * layo;
       const long long q = (k * 3LL + t) * P + p;
       const T u = a.in[k * lay + (1 + t) * P + p];
@@ -344,6 +352,7 @@ __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
       a.dup[q] = a.dup[q] - mul_rn(a.grav, sten(wg, o, hn, p) - gd);
     }
   }
+  if constexpr (!MOM) return;
   // vertices: qv, dr2
   for (int t = 0; t < 2; ++t) {
     int ok[3], oc[3];
@@ -372,7 +381,7 @@ __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
 }
 
 // ------------------------------------------------------------- pass D
-template <typename T, bool UH, int TR, bool TAILS>
+template <typename T, bool UH, int TR, bool TAILS, bool MOM = true>
 __global__ void __launch_bounds__(256) pass_d(const Args<T> a) {
   int p, k0, k1;
   if (!where(a, p, k0, k1)) return;
@@ -403,6 +412,7 @@ __global__ void __launch_bounds__(256) pass_d(const Args<T> a) {
       }
     }
   }
+  if constexpr (!MOM) return;
   // edges: Fq (into del2e's field), PV and del4 terms into dup
   for (int t = 0; t < 3; ++t) {
     int ov[2], oc[2], ot[10];

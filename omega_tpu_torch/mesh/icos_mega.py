@@ -437,6 +437,11 @@ def _const_planes(mesh, content):
             ce >= 0, arr[np.maximum(ce, 0)], 0.0)
     em = np.asarray(mesh.edge_mask, np.float64)
     pls["edge_mask"] = np.where(ce >= 0, em[np.maximum(ce, 0)], 0.0)
+    # cell bottom depth: the column free surface of the split-explicit chain
+    # reads ssh = sum_k h - depth (a uniform depth becomes a scalar in the
+    # prep)
+    cc = content["cell"]
+    pls["depth"] = np.where(cc >= 0, depth[np.maximum(cc, 0)], 0.0)
     return pls
 
 
@@ -502,13 +507,14 @@ def _tracer_tend_ops(l: int, uw_tr=False):
     ]
 
 
-def _vel_tend_ops(hv: str, uw_h=False):
+def _vel_tend_ops(hv: str, ssh: str = "stacked", uw_h=False):
     # du accumulates term by term; `hv` is the thickness feeding the
     # momentum terms: "h_new" for the forward-backward stepper, "h" for the
-    # RK stage chains (every tendency at one level), where mean_hn and
-    # flux_hn are aliases of _pre_ops' mean_h and flux_h. (The reference's
-    # `ssh="column"` form serves its split-explicit chain, which the port
-    # does not evaluate on the sphere yet.)
+    # RK stage chains and the split-explicit chain (every tendency at one
+    # level), where mean_hn and flux_hn are aliases of _pre_ops' mean_h and
+    # flux_h. `ssh` "column" is the true shared free surface of
+    # cfg.ssh_formulation="column": the pressure gradient reads ssh = sum_k
+    # h - depth, one value per column, with the depth a cell const plane
     if hv == "h":
         pre_hn = [("mean_hn", "ew", "copy", "mean_h"),
                   ("flux_hn", "ew", "copy", "flux_h")]
@@ -519,6 +525,13 @@ def _vel_tend_ops(hv: str, uw_h=False):
     else:
         pre_hn = [("mean_hn", "st", "cmean", hv),
                   ("flux_hn", "ew", "copy", "mean_hn")]
+    if ssh == "column":
+        gssh = [("sshc", "ew", "ssh_col", hv, "$depth"),
+                ("gh", "st", "cgrad", "sshc"),
+                ("du", "ew", "gssh_col", "du", "gh")]
+    else:
+        gssh = [("gh", "st", "cgrad", hv),
+                ("du", "ew", "gssh", "du", "gh", "$gdepth")]
     return [
         ("h_v", "st", "kite", hv),
         ("rvort", "st", "curl", "u"),
@@ -534,8 +547,7 @@ def _vel_tend_ops(hv: str, uw_h=False):
         ("ke", "st", "ke", "u2"),
         ("gke", "st", "cgrad", "ke"),
         ("du", "ew", "sub", "du", "gke"),
-        ("gh", "st", "cgrad", hv),                    # du - g*grad(ssh)
-        ("du", "ew", "gssh", "du", "gh", "$gdepth"),
+        *gssh,                                        # du - g*grad(ssh)
         ("div_u", "st", "div", "u"),
         ("cdd", "st", "cgrad", "div_u"),
         ("vdr", "st", "vgrad", "rvort"),
@@ -602,13 +614,9 @@ def _vmix_ops(L: int, pp81=None):
     return ops
 
 
-def fb_chain(L: int, wind=False, drag=False, vmix=False, uw_h=False,
-             uw_tr=False, pp=None):
-    """The forward-backward step as a chain: h_new, trn{l}, u_new. `uw_h`
-    / `uw_tr` select upwind thickness / tracer fluxes, `wind` / `drag`
-    the top-layer stress and the bottom drag, `vmix` the implicit
-    vertical mixing (PP81 coefficients with `pp` = (T, S) tracer rows,
-    else constant ones)."""
+def _thick_tracer_ops(L: int, uw_h=False, uw_tr=False):
+    """The FB chain's thickness and tracer section: h_new, then per tracer
+    its tendency and trn{l}."""
     pre = _pre_ops(uw_h, uw_tr)
     nsplit = len(pre) - 1                 # ops through "dh" (u_m after)
     ops = pre[:nsplit] + [
@@ -619,7 +627,18 @@ def fb_chain(L: int, wind=False, drag=False, vmix=False, uw_h=False,
             (f"trn{l}", "ew", "tracer_update", f"tr{l}", "h", f"dtr{l}",
              "h_new"),
         ]
-    ops += _vel_tend_ops("h_new", uw_h) + _phys_ops(wind, drag) + [
+    return ops
+
+
+def fb_chain(L: int, wind=False, drag=False, vmix=False, uw_h=False,
+             uw_tr=False, pp=None):
+    """The forward-backward step as a chain: h_new, trn{l}, u_new. `uw_h`
+    / `uw_tr` select upwind thickness / tracer fluxes, `wind` / `drag`
+    the top-layer stress and the bottom drag, `vmix` the implicit
+    vertical mixing (PP81 coefficients with `pp` = (T, S) tracer rows,
+    else constant ones)."""
+    ops = _thick_tracer_ops(L, uw_h, uw_tr)
+    ops += _vel_tend_ops("h_new", uw_h=uw_h) + _phys_ops(wind, drag) + [
         # every momentum term carries the edge mask in the composed
         # chain (tendencies.py velocity_tendency); with mask in {0, 1}
         # gating the accumulated du once is bit-identical (and covers
@@ -629,6 +648,29 @@ def fb_chain(L: int, wind=False, drag=False, vmix=False, uw_h=False,
     if vmix:
         ops += _vmix_ops(L, pp)
     return ops
+
+
+def split_pre_chain(L: int):
+    """Split-explicit phase 1 (stepping/split.py): the full 3-D velocity
+    tendency at the current state with the column free surface, emitted
+    whole and ungated (du_out). The depth averages, the mode split, the
+    frozen slow forcing and the barotropic subcycles run on the flat 2-D
+    arrays outside the kernel (ops/patch_megastep.split_patch_megastep_
+    framed)."""
+    return ([("mean_h", "st", "cmean", "h"),
+             # the center-flux alias (split is fused with center fluxes
+             # only); the velocity section with hv = "h" reads flux_h for F
+             ("flux_h", "ew", "copy", "mean_h")]
+            + _vel_tend_ops("h", ssh="column")
+            + [("du_out", "ew", "copy", "du")])
+
+
+def split_post_chain(L: int):
+    """Split-explicit phase 3: the thickness and tracer advance with the
+    transport velocity, which the caller lays into the frames' u channels
+    (u' + <ubar>): the FB chain's thickness and tracer section with center
+    fluxes."""
+    return _thick_tracer_ops(L)
 
 
 def fct_stage_a_chain(L: int, wind=False, drag=False, uw_h=False):
@@ -665,7 +707,8 @@ def fct_stage_a_chain(L: int, wind=False, drag=False, uw_h=False):
             (f"dtrd{l}", "ew", "diff_rhs", f"diff2{l}", f"hyp{l}"),
             (f"facc{l}", "ew", "tracer_acc0", t, "h", f"dtrd{l}", 1.0),
         ]
-    return ops + _vel_tend_ops("h_new", uw_h) + _phys_ops(wind, drag) + [
+    return ops + _vel_tend_ops("h_new", uw_h=uw_h) \
+        + _phys_ops(wind, drag) + [
         ("u_new", "ew", "axpy_m", "u", 1.0, "du", "$edge_mask"),
     ]
 
@@ -927,7 +970,8 @@ def chain_validity(tables: Dict[str, MegaTable], content, resolved,
                   "$scal2": content["edge"] >= 0,
                   "$scal4": content["edge"] >= 0,
                   "$edge_mask": content["edge"] >= 0,
-                  "$wind_stress": content["edge"] >= 0}
+                  "$wind_stress": content["edge"] >= 0,
+                  "$depth": content["cell"] >= 0}
     for op in ops:
         name, kind = op[0], op[1]
         if kind == "st":

@@ -178,6 +178,19 @@ def load() -> ctypes.CDLL:
             # frames, offs, wts, coef, consts, ints, stream
             fn.argtypes = [vp] * 7
             fn.restype = ci
+        fn = getattr(lib, f"omega_patch_split_pre_{suffix}")
+        # in, out, offs, wts, cpl, depth row, work, consts, ints, stream
+        fn.argtypes = [vp] * 10
+        fn.restype = ci
+        fn = getattr(lib, f"omega_patch_split_post_{suffix}")
+        # in, out, offs, wts, cpl, work, consts, ints, stream
+        fn.argtypes = [vp] * 9
+        fn.restype = ci
+        fn = getattr(lib, f"omega_bt_gather_{suffix}")
+        # ubar, ssh, g_slow, het, ub_out, ub_work, ssh_out, avg, the mesh's
+        # 8 arrays, consts, ints, stream
+        fn.argtypes = [vp] * 19
+        fn.restype = ci
     for name in ("omega_patch_rows", "omega_patch_fct_rows"):
         getattr(lib, name).argtypes = [ci]
         getattr(lib, name).restype = ci

@@ -2,8 +2,8 @@
 fused.
 
 Counterpart of omega_tpu/ops/patch_megastep.py for kinds `fb`, `fcta`,
-`fctb`, `rk2a` / `rk2b` and `rk4s1`-`rk4s4`. Icosahedral
-meshes renumbered by mesh/icos_patches.py run the whole FB chain
+`fctb`, `rk2a` / `rk2b`, `rk4s1`-`rk4s4` and `splitpre` / `splitpost`.
+Icosahedral meshes renumbered by mesh/icos_patches.py run the whole FB chain
 (mesh/icos_mega.fb_chain: center or upwind fluxes, wind, bottom drag,
 implicit vertical mixing with constant or PP81 coefficients) on halo-MH
 frames of the 10 rhombi, with the padded-domain tables of
@@ -39,6 +39,16 @@ accumulator (csrc/patch_rk.cuh, four passes; plain version
 that stage and the in-frame refresh; vertical mixing after the last stage
 (the column kernels above).
 
+The split-explicit stepper (`split_patch_megastep_framed`, run_steps and
+split_forward_backward_step) runs per step the splitpre kernel (the full 3-D
+velocity tendency with the column free surface, icos_mega.split_pre_chain;
+csrc/patch_split.cu, five passes; plain version `split_pre_plain`), the
+flat 2-D phase on the (E, K) / (C, K) arrays with the barotropic subcycles
+(ops/bt_gather.py: a gather-form kernel, two launches per subcycle), then
+the splitpost kernel (the thickness and tracer advance with the transport
+velocity, icos_mega.split_post_chain; four passes; `split_post_plain`), the
+pole submesh's composed advance and the in-frame refresh.
+
 With Zalesak FCT tracer fluxes (`fct_patch_megastep_framed`, run_steps
 only, no vertical mixing) the step has two stages, as the reference's
 (the limiter's chain is deeper than the MH margin): stage A is the patch
@@ -69,8 +79,9 @@ hole would otherwise poison valid sums through 0 * NaN entries; the column
 solve leaves a column whose thickness is not positive at every layer (a
 hole, or a frame position no exact value depends on) as it found it.
 
-Semantics == stepping.forward_backward_step, rk2_step and rk4_step on the
-sphere configurations `supported` names; reference chain per
+Semantics == stepping.forward_backward_step, rk2_step, rk4_step and
+split_forward_backward_step on the sphere configurations `supported` and
+`split_patch_supported` name; reference chain per
 core/tendencies.py / core/aux.py /
 core/vmix.py (TendencyTerms.h:70-340, AuxiliaryState.cpp:60-143,
 TriDiagSolvers.h PCRDiffusionSolver).
@@ -79,6 +90,7 @@ TriDiagSolvers.h PCRDiffusionSolver).
 from __future__ import annotations
 
 import copy
+import dataclasses
 
 import numpy as np
 import torch
@@ -93,16 +105,22 @@ from omega_tpu_torch.ops import _build, megastep, tridiag, trisk, \
 # launches since the last reset: the patch step (PASSES per call), the
 # PP81 coefficient kernel and the column-solve kernel (one per call each),
 # FCT's stage A (the patch step's FCT variant, PASSES per call) and stage B
-# (FCT_B_PASSES per call), the RK stage (RK_PASSES per call)
+# (FCT_B_PASSES per call), the RK stage (RK_PASSES per call), the split
+# stepper's splitpre (SPLIT_PRE_PASSES per call) and splitpost
+# (SPLIT_POST_PASSES per call)
 launches = 0
 coeff_launches = 0
 solve_launches = 0
 fct_a_launches = 0
 fct_b_launches = 0
 rk_launches = 0
+split_pre_launches = 0
+split_post_launches = 0
 PASSES = 5
 FCT_B_PASSES = 4
 RK_PASSES = 4
+SPLIT_PRE_PASSES = 5
+SPLIT_POST_PASSES = 4
 # what an RK stage makes of its tendencies k (megastep's modes, the same
 # run-time enum RkMode of the kernels), with ca = a dt and cb = b dt:
 #   RK_PROV   out = base + ca k                  (RK2's two stages)
@@ -134,6 +152,9 @@ FCT_GROUPS = (("fdiv", ("div_pos", "div_neg"), 6),) + tuple(
 CONSTS = (("f_vertex", "vertex"), ("gdepth", "edge"), ("scal2", "edge"),
           ("scal4", "edge"), ("edge_mask", "edge"))
 WIND_ROW = sum(NPER[cls] for _, cls in CONSTS)
+# the const the split-explicit chain reads besides (the column free
+# surface's bottom depth); the splitpre kernel takes it as its own row
+SPLIT_CONSTS = (("depth", "cell"),)
 
 
 def fct_b_work_fields(L: int) -> int:
@@ -156,6 +177,15 @@ def rk_work_fields(L: int) -> int:
     (L), dup (3), del2e (3), Fq (3); csrc/patch_rk.cuh carves it in this
     order."""
     return 3 + 3 * L + 3 * L + 1 + 1 + 2 + 2 + 1 + L + L + 3 + 3 + 3
+
+
+def split_work_fields(L: int) -> int:
+    """The split kernels' scratch in (K, 1, P) fields, shared by the two
+    (one runs after the other): splitpre's flux (3), ke, div_u / dd2, rvort
+    / dr2 (2), qv (2), dup (3), del2e (3), Fq (3) and the column free surface
+    sshc (one field); splitpost's flux (3), hflux (3L), mc / cd2 (3L), trp
+    (L), d2aux (L). csrc/patch_split.cu carves them in these orders."""
+    return max(3 + 1 + 1 + 2 + 2 + 3 + 3 + 3 + 1, 3 + 8 * L)
 
 
 def enabled(x) -> bool:
@@ -204,6 +234,22 @@ def supported(mesh, cfg, mh: int = imx.MH, phys_masks: bool = True,
             and not tc.use_custom_tendency)
 
 
+def split_patch_supported(mesh, cfg) -> bool:
+    """The split-explicit configurations of the sphere's framed path
+    (`split_patch_megastep_framed`; the reference's gate): the column free
+    surface, a configuration `supported` takes with the stacked one, center
+    thickness and tracer fluxes, and no vertical mixing, wind or bottom drag
+    (those keep the composed split stepper, as on the plane)."""
+    tc = cfg.tendencies
+    return (cfg.ssh_formulation == "column"
+            and supported(mesh, dataclasses.replace(
+                cfg, ssh_formulation="stacked"))
+            and cfg.flux_thickness_type == "center"
+            and cfg.flux_tracer_type == "center"
+            and not cfg.vert_mix.enabled
+            and not tc.wind_forcing and not tc.bottom_drag)
+
+
 def _drag_on(cfg) -> bool:
     tc = cfg.tendencies
     return bool(tc.bottom_drag and tc.bottom_drag_coeff != 0.0)
@@ -236,6 +282,16 @@ def chain_ops(cfg, L: int, wind: bool):
              if op[0] == "he_new" or op[2].startswith("vmix_")]
     coeffs = [op for op in tail if op not in solve]
     return ops[:cut], coeffs, solve
+
+
+def split_ops(cfg, L: int):
+    """The two chains of the split-explicit step (icos_mega.split_pre_chain,
+    split_post_chain): (splitpre, splitpost). Center fluxes only
+    (`split_patch_supported`)."""
+    if cfg.flux_thickness_type != "center" or \
+            cfg.flux_tracer_type != "center":
+        raise ValueError("the split chains take center fluxes")
+    return imx.split_pre_chain(L), imx.split_post_chain(L)
 
 
 RK_KINDS = ("rk2a", "rk2b", "rk4s1", "rk4s2", "rk4s3", "rk4s4")
@@ -365,12 +421,12 @@ def compact_table(mg, groups=GROUPS, tables=None):
     return np.concatenate(offs), np.concatenate(wts)
 
 
-def _const_values(mg):
+def _const_values(mg, consts=CONSTS):
     """name -> python float where the const plane is uniform over live
     content (0.0 where it is identically zero), else the (T, 10, S, S)
     float64 plane — the reference's decision (_prep_build)."""
     out = {}
-    for cname, cls in CONSTS:
+    for cname, cls in consts:
         cpl = mg.const_planes[cname]
         T = cpl.shape[0]
         live = (mg.content[cls] >= 0).reshape(T, -1)
@@ -415,7 +471,11 @@ def prep(mesh, dtype, device, fct: bool = False) -> Prep:
                         for (td, ts, da, db, wpl) in tab.entries]
                  for name, tab in mg.tables.items()}
     p.consts = {k: (v if isinstance(v, float) else put(v))
-                for k, v in _const_values(mg).items()}
+                for k, v in _const_values(mg, CONSTS + SPLIT_CONSTS).items()}
+    # the splitpre kernel's depth: a (P,) row, or None where it is uniform
+    dv = p.consts["depth"]
+    p.depth_row = None if isinstance(dv, float) else \
+        dv.reshape(p.P).contiguous()
 
     # the kernel's compact table and const plane rows (the wind rows zero:
     # make_wind fills a copy)
@@ -604,7 +664,6 @@ def _eval(p, cfg, ops, vals, dt, wind_planes=None):
     a sum of roll-shifted sources times weight planes in the reference's
     entry order; returns `vals`."""
     tc, vm = cfg.tendencies, cfg.vert_mix
-    K = next(iter(vals.values())).shape[0]
     dt, grav = float(dt), float(cfg.gravity)
     nu2, nu4, dfac = tc.visc_del2, tc.visc_del4, tc.div_factor
     ed2, ed4 = tc.eddy_diff2, tc.eddy_diff4
@@ -617,7 +676,7 @@ def _eval(p, cfg, ops, vals, dt, wind_planes=None):
             term = w * torch.roll(src[:, ts], shifts=(-db, -da),
                                   dims=(-2, -1))
             outs[td] = term if outs[td] is None else outs[td] + term
-        zero = src.new_zeros((K, 10, S, S))
+        zero = src.new_zeros(src.shape[:1] + (10, S, S))
         return torch.stack([o if o is not None else zero for o in outs], 1)
 
     def c(name):
@@ -699,6 +758,13 @@ def _eval(p, cfg, ops, vals, dt, wind_planes=None):
             r = 0.5 * (v(0) * v(1) + v(2))
         elif fn == "gssh":                   # du - g*(gh - gdepth)
             r = v(0) - grav * (v(1) - c(a[2][1:]))
+        elif fn == "ssh_col":    # sum_k h - depth, one value per column,
+            h, acc = v(0), v(0)[0]           # summed layer by layer as the
+            for k in range(1, h.shape[0]):   # kernel sums it
+                acc = acc + h[k]
+            r = acc[None] - c(a[1][1:])
+        elif fn == "gssh_col":               # du - g*gh (column ssh)
+            r = v(0) - grav * v(1)
         elif fn == "visc2":                  # du + nu2*s2*(cdd - vdr)
             r = v(0) + nu2 * c(a[3][1:]) * (v(1) - v(2))
         elif fn == "visc4":                  # du - nu4*s4*(df*cd4 - vd4)
@@ -883,6 +949,28 @@ def rk_stage_plain(p, cfg, mode, ca, cb, ev, base=None, acc=None,
         acc_out = _frames_out(vals, K, CH, P, None,
                               ("h_acc", "u_acc", "tracc"))
     return acc_out, _frames_out(vals, K, CH, P, None)
+
+
+def split_pre_plain(p, cfg, frames):
+    """The plain PyTorch version of the splitpre kernel: the full velocity
+    tendency with the column free surface (icos_mega.split_pre_chain) at
+    every position of the (K, 4+L, P) frames, ungated, as the reference's
+    kernel emits it. Returns du_out, (K, 3, P)."""
+    K, CH, P = frames.shape
+    vals = _eval(p, cfg, split_ops(cfg, CH - 4)[0], _vals(p, frames), 0.0)
+    return vals["du_out"].reshape(K, 3, P)
+
+
+def split_post_plain(p, cfg, frames, dt):
+    """The plain PyTorch version of the splitpost kernel: the thickness and
+    tracer advance (icos_mega.split_post_chain) of the (K, 4+L, P) frames
+    whose u channels hold the transport velocity. Returns (K, 1+L, P):
+    h_new, then trn{l}."""
+    K, CH, P = frames.shape
+    L = CH - 4
+    vals = _eval(p, cfg, split_ops(cfg, L)[1], _vals(p, frames), dt)
+    return torch.cat([vals["h_new"]] + [vals[f"trn{l}"] for l in range(L)],
+                     1).reshape(K, 1 + L, P)
 
 
 # ----------------------------------------------------------------------
@@ -1130,6 +1218,83 @@ def rk_stage(p, cfg, mode, ca, cb, ev, out, base=None, acc=None,
             ints.ctypes.data, stream)
     _build.check(code, "RK stage launch")
     rk_launches += RK_PASSES
+    return out
+
+
+def _split_call(name, p, cfg, frames, out, work, dt, extra):
+    """One C call of csrc/patch_split.cu: entry `name` with the patch step's
+    consts and ints (`_fb_args`) and `extra` (pointers after cpl)."""
+    _check(p, frames, out, work, out_ch=out.shape[1],
+           work_n=split_work_fields(frames.shape[1] - 4))
+    lib = _build.load()
+    _rows_ok(lib, p)
+    _, cpl, consts, ints = _fb_args(p, cfg, frames, dt, None, "c")
+    dv = p.consts["depth"]
+    consts = np.append(consts, dv if isinstance(dv, float) else 0.0)
+    ints = np.append(ints, int(p.depth_row is not None)).astype(np.int32)
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, f"{name}_{_suffix(frames)}")(
+            frames.data_ptr(), out.data_ptr(), p.offs.data_ptr(),
+            p.wts.data_ptr(), cpl.data_ptr(), *extra, work.data_ptr(),
+            consts.ctypes.data, ints.ctypes.data, stream)
+    _build.check(code, f"{name} launch")
+
+
+def _check_split(p, cfg):
+    if p.fct or cfg.flux_thickness_type != "center" \
+            or cfg.flux_tracer_type != "center":
+        raise ValueError("the split kernels take center fluxes and an FB "
+                         "prep")
+
+
+def split_pre(p, cfg, frames, out=None, work=None):
+    """splitpre on the (K, 4+L, P) frames: du_out (K, 3, P), ungated (see
+    `split_pre_plain`). For a CUDA array one C call launches the
+    SPLIT_PRE_PASSES kernels of csrc/patch_split.cu (the column free
+    surface, then the momentum passes of csrc/patch_rk.cuh) on PyTorch's
+    current stream (`work`: scratch of split_work_fields(L) fields, made
+    here when not given); for a CPU array the plain version runs."""
+    global split_pre_launches
+    _check_split(p, cfg)
+    if not frames.is_cuda:
+        res = split_pre_plain(p, cfg, frames)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    K, CH, P = frames.shape
+    out = frames.new_empty((K, 3, P)) if out is None else out
+    if work is None:
+        work = frames.new_empty(split_work_fields(CH - 4) * K * P)
+    _split_call("omega_patch_split_pre", p, cfg, frames, out, work, 0.0,
+                (None if p.depth_row is None else p.depth_row.data_ptr(),))
+    split_pre_launches += SPLIT_PRE_PASSES
+    return out
+
+
+def split_post(p, cfg, frames, dt, out, work=None):
+    """splitpost on the (K, 4+L, P) frames whose u channels hold the
+    transport velocity: h_new and trn{l} into channels 0 and 4.. of `out`
+    (K, 4+L, P; its u channels are left as they are). For a CUDA array one C
+    call launches the SPLIT_POST_PASSES kernels of csrc/patch_split.cu (the
+    thickness and tracer passes of csrc/patch_step.cuh) on PyTorch's current
+    stream (`work` as for `split_pre`); for a CPU array the plain version
+    runs. `out` must not be `frames` (read at neighbours)."""
+    global split_post_launches
+    _check_split(p, cfg)
+    if out.data_ptr() == frames.data_ptr():
+        raise ValueError("splitpost writes `out` out of place")
+    if not frames.is_cuda:
+        res = split_post_plain(p, cfg, frames, dt)
+        out[:, :1] = res[:, :1]
+        out[:, 4:] = res[:, 1:]
+        return out
+    K, CH, P = frames.shape
+    if work is None:
+        work = frames.new_empty(split_work_fields(CH - 4) * K * P)
+    _split_call("omega_patch_split_post", p, cfg, frames, out, work, dt, ())
+    split_post_launches += SPLIT_POST_PASSES
     return out
 
 
@@ -1588,6 +1753,107 @@ def rk4_patch_megastep_framed(mesh, cfg, carry, t, dt, out=None, wind=None,
     st = _mix(sub, cfg, ModelState(h=ha, u=ua, tracers=tra / ha[None]), dt)
     nfix = _fix_rows(p, *st)
     _mix_frames(p, cfg, out, dt, sc["coef"])
+    return _refresh_frames(p, out, nfix, p.persist), nfix
+
+
+def new_split_scratch(frames):
+    """The buffers of the split steps for frames like `frames`, made once
+    per segment: splitpre's du_out (K, 3, P) and the split kernels' work
+    fields (both None on the CPU)."""
+    if not frames.is_cuda:
+        return dict(du=None, work=None)
+    K, CH, P = frames.shape
+    return dict(du=frames.new_empty((K, 3, P)),
+                work=frames.new_empty(split_work_fields(CH - 4) * K * P))
+
+
+def split_du(mesh, cfg, p, du_fr, h, u, t):
+    """splitpre's du_out (K, 3, P) read out flat, (E, K): every edge from a
+    position the prep's refresh maps call exact (`edge_src`: the kernel's
+    output has the frames' layout), gated by the edge mask (the composed
+    tendency masks every term; dead seam slots read 0), the pole rows from
+    the composed tendency on the submesh at the flat state (h, u)."""
+    from omega_tpu_torch.core import tendencies as tend_mod
+    K = du_fr.shape[0]
+    du = du_fr.reshape(K, 3 * p.P)[:, p.edge_src].T
+    mask = trisk.col(mesh, "edge_mask")
+    if not isinstance(mask, (int, float)):
+        du = torch.where(mask != 0, du, torch.zeros_like(du))
+    du = torch.where(p.edge_src_ok[:, None], du, torch.zeros_like(du))
+    du_s, _ = tend_mod.compute_velocity_tendency(
+        p.sub_mesh, cfg, h[p.sub_cells], u[p.sub_edges], t)
+    du[p.fix_edges_global] = du_s[p.fix_edges_local]
+    return du
+
+
+def split_patch_megastep_framed(mesh, cfg, carry, t, dt, n_subcycles=10,
+                                bt_drag=0.0, out=None, work=None):
+    """One split-explicit step on the (frames, fix rows) carry
+    (stepping/split.py's semantics on the sphere; the reference's driver):
+
+      1. splitpre (`split_pre`): the full 3-D velocity tendency with the
+         column free surface at every frame position, read out flat through
+         the refresh maps (`edge_src`: the kernel's output shares the frames'
+         layout), gated by the edge mask; the pole rows from the composed
+         tendency on the submesh
+      2. the flat 2-D phase on the (E, K) / (C, K) arrays: the
+         thickness-weighted mode split, the frozen slow forcing and the
+         barotropic subcycles (ops/bt_gather.bt_subcycles: the gather-form
+         kernel on the card); the subcycles are global, so the pole rows
+         need nothing of their own
+      3. the transport velocity u' + <ubar> laid into the carry's u
+         channels, splitpost (`split_post`): h_new and the tracers into
+         `out`; the submesh's composed advance with the global transport
+         velocity for the fix rows; the new velocity u' + dt (G - Gbar) +
+         ubar_final, pointwise flat, laid into `out`'s u channels; the
+         refresh.
+
+    The carry's frames are consumed: their u channels take the transport
+    velocity. `out` receives the next frames (a new array when None; never
+    the carry's own); `work` the buffers of `new_split_scratch`."""
+    from omega_tpu_torch.core import tendencies as tend_mod
+    from omega_tpu_torch.ops import bt_gather
+    from omega_tpu_torch.stepping.split import _depth_avg_edge
+    frames, fix = carry
+    p = prep(mesh, frames.dtype, frames.device)
+    sc = new_split_scratch(frames) if work is None else work
+    out = torch.empty_like(frames) if out is None else out
+    h, u, tr = unstack_frames(mesh, cfg, carry)
+
+    # 1. the full velocity tendency, read out flat
+    du = split_du(mesh, cfg, p, split_pre(p, cfg, frames, out=sc["du"],
+                                          work=sc["work"]), h, u, t)
+    h_sub, tr_sub = h[p.sub_cells], tr[:, p.sub_cells]
+
+    # 2. the flat 2-D phase (stepping/split.py's order of operations)
+    h_edge = trisk.cell_mean_on_edge(mesh, h)
+    h_edge_tot = torch.sum(h_edge, dim=-1, keepdim=True)
+    ubar = _depth_avg_edge(h_edge, u)
+    uprime = u - ubar
+    du_bar = _depth_avg_edge(h_edge, du)
+    ssh = (torch.sum(h, dim=-1, keepdim=True)
+           - trisk.col(mesh, "bottom_depth"))
+    g_slow = du_bar - bt_gather.fast(mesh, ubar, ssh, cfg.gravity,
+                                     bt_drag)
+    ub_final, _, ubar_avg = bt_gather.bt_subcycles(
+        mesh, ubar, ssh, g_slow, h_edge_tot, gravity=cfg.gravity,
+        dt_bt=dt / n_subcycles, n_subcycles=n_subcycles, bt_drag=bt_drag)
+    u_new = (uprime + dt * (du - du_bar)) + ub_final
+    u_trans = uprime + ubar_avg
+
+    # 3. the thickness and tracer advance with the transport velocity
+    _frames_of(p, "edge", u_trans, 3, frames[:, 1:4])
+    split_post(p, cfg, frames, dt, out, work=sc["work"])
+    ut_sub = u_trans[p.sub_edges]
+    he_sub = trisk.cell_mean_on_edge(p.sub_mesh, h_sub)
+    h_sub_new = h_sub + dt * -trisk.div_cell(p.sub_mesh, he_sub * ut_sub)
+    dtr_sub, _ = tend_mod.compute_tracer_tendency(
+        p.sub_mesh, cfg, h_sub, ut_sub, tr_sub, he_sub, t, h_new=h_sub_new,
+        dt=dt, flux_h_edge=he_sub)
+    tr_sub_new = (tr_sub * h_sub[None] + dt * dtr_sub) / h_sub_new[None]
+    nfix = dict(h=h_sub_new[p.fix_cells_local], u=u_new[p.fix_edges_global],
+                tr=tr_sub_new[:, p.fix_cells_local])
+    _frames_of(p, "edge", u_new, 3, out[:, 1:4])
     return _refresh_frames(p, out, nfix, p.persist), nfix
 
 

@@ -24,7 +24,11 @@ Per step of length dt with M subcycles:
 For a state on a CUDA device and the configuration the fused kernels take
 (`megastep.split_supported`) a step is three kernel calls: splitpre (mode
 split, column-ssh velocity tendency, slow forcing), the barotropic
-subcycles (ops/barotropic_kernel.py) and splitpost (ops/megastep.py).
+subcycles (ops/barotropic_kernel.py) and splitpost (ops/megastep.py). On the
+icosahedral sphere (`patch_megastep.split_patch_supported`) a step of a
+CUDA state runs the framed path of ops/patch_megastep.py: the splitpre and
+splitpost patch kernels around the flat 2-D phase, whose subcycles are the
+gather-form kernel of ops/bt_gather.py.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from omega_tpu_torch.core.config import ModelConfig
 from omega_tpu_torch.core.state import ModelState
 from omega_tpu_torch.mesh.horz_mesh import HorzMesh
 from omega_tpu_torch.ops import barotropic_kernel as btk
-from omega_tpu_torch.ops import megastep, trisk
+from omega_tpu_torch.ops import bt_gather, megastep, patch_megastep, trisk
 from omega_tpu_torch.stepping.steppers import Halo, _identity, _mix
 
 
@@ -72,6 +76,16 @@ def split_forward_backward_step(mesh: HorzMesh, cfg: ModelConfig,
         # splitpost kernel (megastep.split_megastep_stacked)
         return megastep.split_megastep(mesh, cfg, state, t, dt, n_subcycles,
                                        bt_drag)
+    if (halo is _identity and wind_stress is None
+            and isinstance(dt, (int, float))
+            and patch_megastep.enabled(state.h)
+            and patch_megastep.split_patch_supported(mesh, cfg)):
+        # the sphere's framed path for one step: splitpre, the flat 2-D
+        # phase with the gather-form subcycle kernel, splitpost
+        carry = patch_megastep.stack_frames(mesh, cfg, state)
+        carry = patch_megastep.split_patch_megastep_framed(
+            mesh, cfg, carry, t, dt, n_subcycles, bt_drag)
+        return patch_megastep.unstack_frames(mesh, cfg, carry, type(state))
     h, u, tr = state
     g = cfg.gravity
 
@@ -88,20 +102,10 @@ def split_forward_backward_step(mesh: HorzMesh, cfg: ModelConfig,
     du_bar = _depth_avg_edge(h_edge, du_full)              # (E, 1)
 
     # fast operator, re-evaluated every subcycle: SSH gradient +
-    # barotropic Coriolis + optional linear drag
-    f_e = trisk.col(mesh, "f_edge")
-    mask = trisk.col(mesh, "edge_mask")
-
-    def fast(ub, ssh_s):
-        out = (-g * trisk.grad_edge(mesh, ssh_s)
-               + f_e * trisk.tangential_edge(mesh, ub))
-        if bt_drag:
-            out = out - bt_drag * ub
-        return mask * out
-
+    # barotropic Coriolis + optional linear drag (bt_gather.fast)
     ssh = (torch.sum(h, dim=-1, keepdim=True)
            - trisk.col(mesh, "bottom_depth"))
-    du_fast0 = fast(ubar, ssh)                             # (E, 1)
+    du_fast0 = bt_gather.fast(mesh, ubar, ssh, g, bt_drag)   # (E, 1)
     g_slow = du_bar - du_fast0                             # held fixed
 
     # --- barotropic FB subcycles
@@ -119,14 +123,10 @@ def split_forward_backward_step(mesh: HorzMesh, cfg: ModelConfig,
             mesh, ubar, ssh, g_slow, h_edge_tot, gravity=g, dt_bt=dt_bt,
             n_subcycles=n_subcycles, bt_drag=bt_drag)
     else:
-        ub, ssh_s, acc = ubar, ssh, torch.zeros_like(ubar)
-        for _ in range(n_subcycles):
-            ub = ub + dt_bt * (fast(ub, ssh_s) + g_slow)
-            ub = edge_ex(ub)
-            ssh_s = ssh_s - dt_bt * trisk.div_cell(mesh, h_edge_tot * ub)
-            ssh_s = cell_ex(ssh_s)
-            acc = acc + ub
-        ub_final, ubar_avg = ub, acc / n_subcycles
+        ub_final, _, ubar_avg = bt_gather.subcycles_plain(
+            mesh, ubar, ssh, g_slow, h_edge_tot, gravity=g, dt_bt=dt_bt,
+            n_subcycles=n_subcycles, bt_drag=bt_drag, edge_ex=edge_ex,
+            cell_ex=cell_ex)
 
     # --- baroclinic velocity update (slow modes only)
     uprime_new = uprime + dt * (du_full - du_bar)

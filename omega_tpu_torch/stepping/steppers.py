@@ -37,10 +37,16 @@ and the final refresh. So are the RK steppers, in the same configurations
 as the FB step but FCT: per stage one call of the RK stage kernel (four
 launches; RK2 two stages, RK4 four), the pole submesh's tendencies at that
 stage and the in-frame refresh, then with vertical mixing the column
-kernels. The Thomas method, column ssh, FCT in the per-step API, with
-mixing or under RK, custom tendencies, the split-explicit stepper and
-`rk2_step` / `rk4_step` called step by step run composed through the patch
-operators (ops/patch_stencil.py).
+kernels. So is the split-explicit stepper with the column free surface,
+center fluxes and no wind, drag or mixing (`split_patch_supported`): per
+step splitpre (five launches), the flat 2-D phase with the barotropic
+subcycles (ops/bt_gather.py, two launches per subcycle), splitpost (four
+launches), the pole submesh's composed part and the refresh;
+`split_forward_backward_step` takes it step by step for a CUDA state. The
+Thomas method, column ssh with the unsplit steppers, FCT in the per-step
+API, with mixing or under RK, custom tendencies, the split stepper's other
+configurations and `rk2_step` / `rk4_step` called step by step run composed
+through the patch operators (ops/patch_stencil.py).
 """
 
 from __future__ import annotations
@@ -274,6 +280,28 @@ def run_steps(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
         return patch_megastep.unstack_frames(mesh, cfg, carry, type(state))
 
     split_params = getattr(stepper, "split_explicit_params", None)
+    if (split_params is not None and halo is _identity
+            and wind_stress is None and isinstance(dt, (int, float))
+            and patch_megastep.split_patch_supported(mesh, cfg)):
+        # the sphere's framed split-explicit path: per step splitpre, the
+        # flat 2-D phase with the barotropic subcycles, splitpost, the pole
+        # submesh's composed part and the refresh (their plain versions on
+        # the CPU); the next frames go into a second buffer and the two swap
+        # roles, and du_out and the kernels' work fields are made once
+        n_sub, r_drag = split_params
+        carry = patch_megastep.stack_frames(mesh, cfg, state)
+        nxt = torch.empty_like(carry[0])
+        scratch = patch_megastep.new_split_scratch(carry[0])
+        t = t0
+        for _ in range(nsteps):
+            cur = carry[0]
+            carry = patch_megastep.split_patch_megastep_framed(
+                mesh, cfg, carry, t, dt, n_sub, r_drag, out=nxt,
+                work=scratch)
+            nxt = cur
+            t = t + dt
+        return patch_megastep.unstack_frames(mesh, cfg, carry, type(state))
+
     if (split_params is not None and halo is _identity
             and wind_stress is None and isinstance(dt, (int, float))
             and megastep.enabled(state)

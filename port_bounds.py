@@ -59,6 +59,18 @@ being the bound. Float32 throughout, K = 100 layers, 2 tracers.
           tracers and the thickness and tracer weights and writes h_new and
           the tracers; operations the FB chain's momentum part and its
           thickness and tracer parts
+  sphere_bt  the split step's barotropic subcycles on the icosahedral
+          sphere at icos48 (the reference's `lax.scan` at
+          omega_tpu/ops/patch_megastep.py:2205-2226, not a Pallas site; the
+          port's csrc/bt_gather.cu): one subcycle reads ub, ssh, g_slow,
+          het and the accumulator, writes ub, ssh and the accumulator, and
+          reads the gradient's cells and 1/dc, the tangential
+          reconstruction's edges and weights, the divergence's edges and
+          weights, f and the edge mask, once each; M = 10 subcycles as one
+          function read its inputs (ubar, ssh, g_slow, het, the mesh's
+          arrays) once and write ub, ssh and <ubar> once, and also as M
+          subcycles each from device memory. Operations: two per gather
+          entry, about ten more per edge and two per cell
   gather  omega_tpu/ops/pallas_gather.py:160, one gather pass
           out[n] = sum_j w[n, j] field[idx[n, j]] at icos48 x 100 (the shape
           named at pallas_gather.py:94-96), for the tangential
@@ -246,6 +258,21 @@ def patch_split(n=48):
                                (thick + L * tracer) * C * K)}
 
 
+def sphere_bt(n=48, M=10):
+    C, E, V, ce, ve, tang = icos(n)
+    fields_sub = (4 * E + C) + (2 * E + C)       # read, written
+    fields_fn = (3 * E + C) + (2 * E + C)        # ubar, ssh, g_slow, het
+    mesh = (2 * E * IDX + E * F32) + tang * (IDX + F32) \
+        + ce * (IDX + F32) + 2 * E * F32
+    flops = 2 * (2 * E + tang + ce) + 10 * E + 2 * C
+    sub = bound(fields_sub * F32 + mesh, flops)
+    return {"kernel": "omega_tpu/ops/patch_megastep.py:2205 (lax.scan)",
+            "function": f"barotropic subcycles, icos{n}, (E, 1) / (C, 1)",
+            "cells": C, "edges": E, "subcycle": sub,
+            f"M{M}": bound(fields_fn * F32 + mesh, M * flops),
+            f"M{M}_each_from_memory": bound(M * sub["bytes"], M * flops)}
+
+
 def gather(n=48):
     C, E, V, ce, ve, tang = icos(n)
     out = {}
@@ -278,5 +305,6 @@ if __name__ == "__main__":
     print(json.dumps({"patch_fct": patch_fct()}))
     print(json.dumps({"patch_rk": patch_rk()}))
     print(json.dumps({"patch_split": patch_split()}))
+    print(json.dumps({"sphere_bt": sphere_bt()}))
     print(json.dumps({"gather": gather()}))
     print(json.dumps({"split": tpu_split_io()}))
