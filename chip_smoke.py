@@ -12,12 +12,15 @@ It builds the CUDA kernels from omega_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card, drives the port's main paths
 (256 x 256 cells x 100 layers x 2 tracers, float32; forward-backward, RK2,
 RK4 and split-explicit steppers; the icosahedral sphere icos48 x 100 x 2
-with the forward-backward, RK4, RK2 and split-explicit steppers) through the
-entry points a user calls, and prints one JSON line per phase:
+with the forward-backward, RK4, RK2 and split-explicit steppers, and its
+RCM-renumbered gather layout, global and with land) through the entry points
+a user calls, and prints one JSON line per phase:
 
   device          the card, and nvidia-smi's name / power-limit line
   build           nvcc build of the kernels, seconds
-  kernel_stencil  structured-stencil kernel vs plain, every table
+  kernel_stencil  structured-stencil kernel vs plain, every table; cmean,
+                  div and tang timed beside torch.sparse.mm (the stencil
+                  as CSR: the library call)
   kernel_fb_step  fused FB step vs plain and vs the composed step, for the
                   flagship chain and its variants (upwind and FCT fluxes,
                   wind, drag); FCT's 0/1 tracer stays in [0, 1]
@@ -52,6 +55,10 @@ entry points a user calls, and prints one JSON line per phase:
                   float32; fused framed split steps vs the composed split
                   stepper; each kernel's time, the submesh's part, the
                   refresh
+  kernel_gather   the gather kernel vs plain on each of the 16 tables of
+                  the RCM-renumbered icos48 x 100 float32 (cell-source
+                  tables also with two leading indices) and icos16 float64;
+                  each table's time beside its bound and torch.sparse.mm
   main_path       2 x 10 steps of the bench configuration; launch counts
   composed_path   column ssh: the composed stepper + stencil kernel
   science_path    2 x 10 steps with wind, bottom drag, upwind fluxes and PP81
@@ -83,6 +90,14 @@ entry points a user calls, and prints one JSON line per phase:
                   sphere_path's sphere with the column free surface: five
                   splitpre, twenty subcycle and four splitpost launches per
                   step
+  gather_path     2 x 10 FB steps of bench.py's OMEGA_PATCHES=0 sphere
+                  (reorder_mesh(spherical_icos_mesh(48)) x 100 x 2): the
+                  composed step, every operator with a table one gather
+                  launch, no index_select; then the same with the tables
+                  stripped (the index_select route)
+  coastal_gather_path  the same on a carved icos48 (a continent of about
+                  10% of the cells): u = 0 on the coast, the coast's mask
+                  kept by reorder_mesh
   rk_order        the manufactured solution in float64: the steppers'
                   temporal order and the spatial order
   profile         (only with --profile) device time by kernel, every path
@@ -93,6 +108,7 @@ is never printed. Needs a CUDA device; imports nothing of JAX.
 """
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -247,9 +263,18 @@ def main(argv=None):
             if dtype == torch.float32:
                 tables[key[3]] = {"max_abs_err": worst}
                 stencil_err_f32 = max(stencil_err_f32, worst)
-    # times at the shapes the composed step gives them
+    # times at the shapes the composed step gives them; the library call
+    # is cuSPARSE's SpMM (torch.sparse.mm) with the stencil as a CSR matrix
+    # built from the mesh's connectivity (the class-major numbering is the
+    # stencil layout), block-diagonal over the leading index
     mesh32 = mesh_on_card(NX, NY, torch.float32)
     C = NX * NY
+    host = lambda a: np.asarray(getattr(mesh32, a).cpu())
+    csr_of = {"cmean": (host("cells_on_edge"),
+                        np.full((3 * C, 2), 0.5), C),
+              "div": (host("edges_on_cell"), host("w_div_cell"), 3 * C),
+              "tang": (host("edges_on_edge"), host("weights_on_edge"),
+                       3 * C)}
     timed = {}
     for name, lead in (("cmean", ()), ("div", ()), ("tang", (2,))):
         tab, dst, src = structured._TABLE_CACHE[
@@ -261,12 +286,19 @@ def main(argv=None):
             mesh32, (tab, dst, src), f), 20)
         plain = cuda_ms(lambda: stencil_kernel.apply_stencil_plain(
             tab, ps, pd, NX, NY, f), 5)
+        A = _spmm_operand(*csr_of[name], nb, dev, torch.float32)
+        f2 = f.reshape(-1, NLAYERS)
+        lib_err = _spmm_check(
+            torch.sparse.mm(A, f2),
+            structured.apply_stencil(mesh32, (tab, dst, src), f), name)
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(A, f2), 20)
         b_ms, b_by = bound((ps + pd) * nb * C * NLAYERS * 4,
                            2 * len(tab) * nb * C * NLAYERS)
         timed[name] = {"lead": list(lead), "ms": ms, "plain_ms": plain,
+                       "library_ms": lib_ms, "library_rel_err": lib_err,
                        "bound_ms": b_ms, "bound_by": b_by}
         tables[name].update(timed[name])
-        del f
+        del f, f2, A
     emit({"phase": "kernel_stencil", "tables": tables,
           "max_abs_err_f32": stencil_err_f32,
           "tolerance": "f64 atol 1e-12; f32 1e-5 of max|ref|"})
@@ -2136,6 +2168,91 @@ def main(argv=None):
     sptv = rec
     del fr48, ft48, out48, sc48, ins48, h48, u48, tr48, carry48
 
+    # --------------------------------------------------- 4j. kernel_gather
+    # the gather kernel (csrc/gather.cu, one launch per pass) against its
+    # plain version on each of the 16 tables of bench.py's OMEGA_PATCHES=0
+    # sphere (reorder_mesh(spherical_icos_mesh(48)): RCM, the tables built)
+    # at 100 layers in float32, with one and two leading indices (the FB
+    # step calls both, port_bounds.FB_STEP_GATHERS): max|diff| <= 1e-6
+    # max|ref|; the same at icos16 x 8 (and K = 1) in float64, 1e-14 (both
+    # sum in slot order, every product rounded on its own). Per table and
+    # leading count at icos48: the kernel's time by CUDA events over 20
+    # launches, the plain version's, the bound from this run's table
+    # (_gather_bytes_flops) and torch.sparse.mm with the table as CSR (the
+    # library call); and their sums over one FB step's gather calls
+    from omega_tpu_torch.mesh import carve_mesh, reorder_mesh
+    from omega_tpu_torch.ops import gather_kernel, trisk
+
+    GATHER_TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
+    t_m = time.perf_counter()
+    s48_np = spherical_icos_mesh(N_SPHERE)
+    t_r = time.perf_counter()
+    g48_np = reorder_mesh(s48_np)
+    reorder_s = time.perf_counter() - t_r
+    t_w = time.perf_counter()
+    trisk.warm_gather(g48_np)
+    warm_s = time.perf_counter() - t_w
+    gth = {"tolerance": "max|diff| <= 1e-6 max|ref| (float32, icos48 x "
+           "100), 1e-14 (float64, icos16 x 8 and x 1) against apply_plain",
+           "host_sphere_build_s": t_r - t_m,
+           "host_reorder_mesh_s": reorder_s,
+           "host_warm_gather_s_of_it": warm_s}
+
+    def gather_check(mesh_np, dtype, Ks, timed=None):
+        worst = 0.0
+        for name, t in mesh_np.gather_info.items():
+            for lead in ((), (2,)):
+                for K in Ks:
+                    f = rand(lead + (t.nsrc, K), dtype)
+                    got = gather_kernel.apply(t, f)
+                    ref = gather_kernel.apply_plain(t, f)
+                    torch.cuda.synchronize()
+                    if got.shape != ref.shape \
+                            or not bool(torch.isfinite(got).all()):
+                        fail(f"gather {name} {lead} K={K} {dtype}: bad "
+                             "output")
+                    err = ((got - ref).abs().max()
+                           / ref.abs().max().clamp_min(1e-30)).item()
+                    if err > GATHER_TOL[dtype]:
+                        fail(f"gather {name} {lead} K={K} {dtype}: "
+                             f"{err} of max|ref|")
+                    worst = max(worst, err)
+                    if timed is None:
+                        continue
+                    L = lead[0] if lead else 1
+                    A = _spmm_operand(t.idx[:t.n], t.w[:t.n], t.nsrc, L,
+                                      dev, dtype)
+                    f2 = f.reshape(-1, K)
+                    lib_err = _spmm_check(torch.sparse.mm(A, f2), ref, name)
+                    nbytes, flops = _gather_bytes_flops(t, L, K)
+                    b_ms, b_by = bound(nbytes, flops)
+                    timed[name + ("_L2" if lead else "")] = {
+                        "rows": t.n, "slots": t.m, "source_rows": t.nsrc,
+                        "window": t.window,
+                        "entries": int((t.w[:t.n] != 0).sum()),
+                        "max_abs_err": (got - ref).abs().max().item(),
+                        "ms": cuda_ms(lambda: gather_kernel.apply(t, f), 20),
+                        "plain_ms": cuda_ms(
+                            lambda: gather_kernel.apply_plain(t, f), 5),
+                        "library_ms": cuda_ms(
+                            lambda: torch.sparse.mm(A, f2), 20),
+                        "library_rel_err": lib_err, "bytes": nbytes,
+                        "bound_ms": b_ms, "bound_by": b_by}
+        return worst
+
+    gtab = {}
+    gth["f32_icos48_x100"] = gather_check(g48_np, torch.float32, (NLAYERS,),
+                                          gtab)
+    gth["f64_icos16"] = gather_check(reorder_mesh(spherical_icos_mesh(16)),
+                                     torch.float64, (8, 1))
+    gth["tables"] = gtab
+    gth["fb_step_calls"] = sum(port_bounds.FB_STEP_GATHERS.values())
+    for q in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        gth[f"fb_step_{q}"] = sum(
+            n * gtab[name + ("_L2" if L == 2 else "")][q]
+            for (name, L), n in port_bounds.FB_STEP_GATHERS.items())
+    emit({"phase": "kernel_gather", **gth})
+
     # ------------------------------------------------------- 5. main_path
     # the bench configuration, through the entry points a user calls
     mesh_np = planar_hex_mesh(NX, NY, dc=5000.0, f0=1e-4,
@@ -2267,7 +2384,8 @@ def main(argv=None):
                 "patch_rk": patch_megastep.rk_launches,
                 "patch_split_pre": patch_megastep.split_pre_launches,
                 "bt_gather": bt_gather.launches,
-                "patch_split_post": patch_megastep.split_post_launches}
+                "patch_split_post": patch_megastep.split_post_launches,
+                "gather": gather_kernel.launches}
 
     def reset_counts():
         megastep.launches = megastep.rk_launches = 0
@@ -2281,12 +2399,15 @@ def main(argv=None):
         patch_megastep.rk_launches = 0
         patch_megastep.split_pre_launches = 0
         patch_megastep.split_post_launches = bt_gather.launches = 0
+        gather_kernel.launches = 0
 
     # the split kernels launch on no path but split_path, the patch kernels
-    # on no path but the sphere's
+    # on no path but the sphere's, the gather kernel on no path but the
+    # gather paths'
     NO_PATCH = {"patch_step": 0, "patch_coeffs": 0, "patch_solve": 0,
                 "patch_fct_a": 0, "patch_fct_b": 0, "patch_rk": 0,
-                "patch_split_pre": 0, "bt_gather": 0, "patch_split_post": 0}
+                "patch_split_pre": 0, "bt_gather": 0, "patch_split_post": 0,
+                "gather": 0}
     NO_SPLIT = {"split_pre": 0, "barotropic": 0, "split_post": 0,
                 **NO_PATCH}
 
@@ -2899,6 +3020,131 @@ def main(argv=None):
           "frames of u_trans and u_new)"})
     del sps
 
+    # ------------------------------------------------------ 10h. gather_path
+    # bench.py's sphere with OMEGA_PATCHES=0 (bench.py:77-92): the
+    # RCM-renumbered icos48 with its gather tables (kernel_gather's
+    # g48_np), sphere_path's state and configuration (x 100 x 2, float32,
+    # dt = 30 s), 2 x 10 FB steps through run_steps on a CUDA state: the
+    # composed step, in which every TRiSK operator that has a table is one
+    # launch of the gather kernel and no index_select; then, as
+    # information, the same steps with the tables stripped
+    # (gather_info=None: the index_select route)
+    def gather_run(name, mesh_np):
+        g = mesh_np.to(dev, torch.float32)
+        st0 = sphere_state(mesh_np, NLAYERS, NTRACERS, torch.float32, 0.01,
+                           0.0)
+        area = torch.as_tensor(np.asarray(mesh_np.area_cell),
+                               device=dev)[:, None]
+
+        def cont(st):
+            h64 = st.h.double()
+            return ((area * h64).sum().item(),
+                    [(area * h64 * st.tracers[l].double()).sum().item()
+                     for l in range(NTRACERS)])
+
+        def segments(m, n):
+            out, secs = st0, []
+            for i in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run_steps(m, cfg48, out, i * seg * DT, DT, seg,
+                                stepper=forward_backward_step)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            return out, secs
+
+        reset_counts()
+        trisk.take_launches = 0
+        run_steps(g, cfg48, st0, 0.0, DT, 1)                     # untimed
+        per_step = gather_kernel.launches
+        if per_step <= 0 or trisk.take_launches != 0:
+            fail(f"{name}: a step made {per_step} gather launches and "
+                 f"{trisk.take_launches} index_select launches")
+        reset_counts()
+        out, secs = segments(g, nseg)
+        got, takes = counts(), trisk.take_launches
+        finite(name, out)
+        check_launches(name, got, {**none, "gather": per_step * nseg * seg})
+        if takes != 0:
+            fail(f"{name}: {takes} index_select launches in operators with "
+                 "a table")
+        (v0, t0_), (v1, t1_) = cont(st0), cont(out)
+        vol = abs(v1 - v0) / v0
+        trc = max(abs(b - a) / abs(a) for a, b in zip(t0_, t1_))
+        umax = out.u.abs().max().item()
+        coast = torch.as_tensor(np.asarray(mesh_np.edge_mask) == 0,
+                                device=dev)
+        ucoast = out.u[coast].abs().max().item() if bool(coast.any()) \
+            else 0.0
+        if vol > 1e-5 or trc > 1e-5 or not 0.0 < umax < 1.0 \
+                or ucoast != 0.0:
+            fail(f"{name}: drift {vol} / {trc}, max|u| {umax}, u on the "
+                 f"coast {ucoast}")
+        ms = secs[-1] / seg * 1e3
+        # the index_select route, as information
+        bare = dataclasses.replace(g, gather_info=None)
+        run_steps(bare, cfg48, st0, 0.0, DT, 1)                  # untimed
+        trisk.take_launches = 0
+        bare_out, bare_secs = segments(bare, nseg)
+        bare_ms = bare_secs[-1] / seg * 1e3
+        bare_diff = max((a - b).abs().max().item() / b.abs().max().item()
+                        for a, b in zip(out, bare_out))
+        rec = {"cells": mesh_np.ncells, "edges": mesh_np.nedges,
+               "steps": nseg * seg, "segment_seconds": secs,
+               "ms_per_step": ms,
+               "gridpoint_steps_per_s": mesh_np.ncells * NLAYERS
+               / (ms * 1e-3),
+               "simulated_s_per_wall_s": DT / (ms * 1e-3),
+               "sphere_path_simulated_s_per_wall_s": DT / (sph_ms * 1e-3),
+               "launches": got, "gather_launches_per_step": per_step,
+               "index_select_launches_in_table_operators": takes,
+               "volume_drift": vol, "tracer_drift": trc, "max_abs_u": umax,
+               "max_abs_u_coast": ucoast,
+               "coast_edges": int(coast.sum().item()),
+               "index_select_route": {
+                   "ms_per_step": bare_ms, "segment_seconds": bare_secs,
+                   "index_select_launches_per_step":
+                       trisk.take_launches / (nseg * seg),
+                   "max_rel_diff_vs_table_path": bare_diff}}
+        del g, bare, out, bare_out
+        return rec
+
+    gp = gather_run("gather path", g48_np)
+    emit({"phase": "gather_path", "config": f"reorder_mesh(spherical_icos_"
+          f"mesh({N_SPHERE})) (RCM, 16 gather tables) x {NLAYERS} x "
+          f"{NTRACERS} float32, bottom_depth 4000, h = (depth + sin 2 lat "
+          "cos lon) / K, tracers 10, u = 0.01 x noise, dt=30 "
+          "visc_del2=1e3 visc_del4=1e9; forward_backward_step through "
+          "run_steps (bench.py OMEGA_PATCHES=0)",
+          "host_reorder_mesh_s": reorder_s,
+          "host_warm_gather_s_of_it": warm_s, **gp})
+
+    # ----------------------------------------------- 10i. coastal_gather_path
+    # the same at full width on a carved icos48: land where |lat| < 60 deg
+    # and 0 <= lon < 40 deg (about 10% of the cells), then reorder_mesh.
+    # The coast's 2-slot table entries have weight 0; u stays 0 on the
+    # coast edges, and the reordered mesh keeps the carved mesh's coast
+    lat = np.asarray(s48_np.lat_cell)
+    lon = np.mod(np.asarray(s48_np.lon_cell), 2 * np.pi)
+    land = (np.abs(lat) < np.deg2rad(60.0)) & (lon < np.deg2rad(40.0))
+    t_m = time.perf_counter()
+    c48_carved = carve_mesh(s48_np, ~land)
+    c48_np = reorder_mesh(c48_carved)
+    coast_build_s = time.perf_counter() - t_m
+    n_coast = int((np.asarray(c48_carved.edge_mask) == 0).sum())
+    if int((np.asarray(c48_np.edge_mask) == 0).sum()) != n_coast \
+            or n_coast == 0 or len(c48_np.gather_info) != 16:
+        fail(f"coastal gather path: {n_coast} coast edges carved, "
+             f"{int((np.asarray(c48_np.edge_mask) == 0).sum())} after "
+             "reorder_mesh")
+    cg = gather_run("coastal gather path", c48_np)
+    emit({"phase": "coastal_gather_path", "config": "as gather_path on "
+          f"carve_mesh(spherical_icos_mesh({N_SPHERE})) without |lat| < 60 "
+          "deg, 0 <= lon < 40 deg, then reorder_mesh; u = 0.01 x noise x "
+          "edge_mask", "land_cells": int(land.sum()),
+          "carved_coast_edges": n_coast,
+          "host_carve_and_reorder_s": coast_build_s, **cg})
+
     # ------------------------------------------------------- 11. rk_order
     # the manufactured solution (tests/test_model.py:79-166) in float64 on
     # the card; custom tendencies run the composed steppers, every stencil
@@ -2977,6 +3223,9 @@ def main(argv=None):
     # ------------------------------------------------- optional: profile
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
+        g48, c48 = (m.to(dev, torch.float32) for m in (g48_np, c48_np))
+        g48_0, c48_0 = (sphere_state(m, NLAYERS, NTRACERS, torch.float32,
+                                     0.01, 0.0) for m in (g48_np, c48_np))
 
         def traced(fn):
             fn()                                  # untimed first call
@@ -3027,7 +3276,11 @@ def main(argv=None):
                   wind_stress=w48)),
               "sphere_split_5_steps": traced(lambda: run_steps(
                   m48, cfg48p, sp0, 0.0, DT_SPLIT, 5,
-                  stepper=split_forward_backward_step))})
+                  stepper=split_forward_backward_step)),
+              "gather_5_steps": traced(lambda: run_steps(
+                  g48, cfg48, g48_0, 0.0, DT, 5)),
+              "coastal_gather_5_steps": traced(lambda: run_steps(
+                  c48, cfg48, c48_0, 0.0, DT, 5))})
 
     # ---------------------------------------------------------- 8. kernels
     print(smi_line, flush=True)
@@ -3142,7 +3395,10 @@ def main(argv=None):
          "max_abs_err": stencil_err_f32,
          "ms": timed["tang"]["ms"], "plain_ms": timed["tang"]["plain_ms"],
          "bound_ms": timed["tang"]["bound_ms"],
-         "bound_by": timed["tang"]["bound_by"], "library_ms": None,
+         "bound_by": timed["tang"]["bound_by"],
+         "library_ms": timed["tang"]["library_ms"],
+         "library": "torch.sparse.mm, the stencil as a block-diagonal CSR "
+         "matrix (cuSPARSE SpMM)",
          "shape": f"tang on (2, {3 * C}, {NLAYERS}) float32",
          "path": "composed_path", "per_table": timed,
          "rk_order_launches": order_launches["stencil"]},
@@ -3365,6 +3621,29 @@ def main(argv=None):
          "the next frames out, float32, center fluxes",
          "passes_per_call": patch_megastep.SPLIT_POST_PASSES,
          "path": "sphere_split_path"},
+        {"name": "gather", "route": "cuda",
+         "source": "omega_tpu_torch/csrc/gather.cu",
+         "replaces": "omega_tpu/ops/pallas_gather.py:113",
+         "call_site": "omega_tpu/ops/pallas_gather.py:160",
+         "launches": gp["launches"]["gather"],
+         "max_abs_err": gtab["tang_L2"]["max_abs_err"],
+         "max_rel_err_all_tables": gth["f32_icos48_x100"],
+         "ms": gtab["tang_L2"]["ms"], "plain_ms": gtab["tang_L2"]["plain_ms"],
+         "bound_ms": gtab["tang_L2"]["bound_ms"],
+         "bound_by": gtab["tang_L2"]["bound_by"],
+         "library_ms": gtab["tang_L2"]["library_ms"],
+         "library": "torch.sparse.mm, the table as a block-diagonal CSR "
+         "matrix (cuSPARSE SpMM)",
+         "shape": f"tang: (2, {g48_np.nedges}, {NLAYERS}) in, "
+         f"(2, {g48_np.nedges}, {NLAYERS}) out, 12 slots, float32",
+         "path": "gather_path",
+         "fb_step_sums_ms": {q: gth[f"fb_step_{q}"] for q in
+                             ("ms", "plain_ms", "library_ms", "bound_ms")},
+         "launches_per_step": gp["gather_launches_per_step"],
+         "coastal_launches": cg["launches"]["gather"],
+         "per_table": {k: {q: v[q] for q in ("ms", "plain_ms", "library_ms",
+                                             "bound_ms", "max_abs_err")}
+                       for k, v in gtab.items()}},
     ], "seconds": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -3404,6 +3683,49 @@ def _composed_step(mesh, cfg, state, dt, wind_stress=None):
     du, _ = tend.compute_velocity_tendency(mesh, cfg, h_new, u, dt,
                                            wind_stress)
     return ModelState(h=h_new, u=u + dt * du, tracers=tr_new)
+
+
+def _spmm_operand(idx, w, nsrc, L, dev, dtype):
+    """The library call's operand for a stencil (idx, w) with `nsrc` source
+    rows: the (L n, L nsrc) block-diagonal CSR matrix of its nonzero-weight
+    slots, which torch.sparse.mm applies to a field of L leading indices
+    seen as (L nsrc, K)."""
+    import numpy as np
+    import torch
+    idx = np.asarray(idx, np.int64)
+    w = np.asarray(w, np.float64)
+    n = idx.shape[0]
+    nz = w != 0.0
+    rows = np.broadcast_to(np.arange(n)[:, None], idx.shape)[nz]
+    rows = np.concatenate([rows + b * n for b in range(L)])
+    cols = np.concatenate([idx[nz] + b * nsrc for b in range(L)])
+    vals = np.tile(w[nz], L)
+    A = torch.sparse_coo_tensor(np.stack([rows, cols]), vals,
+                                (L * n, L * nsrc)).coalesce()
+    return A.to_sparse_csr().to(device=dev, dtype=dtype)
+
+
+def _spmm_check(lib_out, ref, name):
+    """The library call computes the same function: within 1e-5 of the
+    largest value (float32 sums in another order). Returns the error."""
+    err = ((lib_out.reshape(ref.shape) - ref).abs().max()
+           / ref.abs().max().clamp_min(1e-30)).item()
+    if not err <= 1e-5:
+        raise RuntimeError(f"torch.sparse.mm of {name} disagrees with the "
+                           f"kernel by {err} of max|ref|")
+    return err
+
+
+def _gather_bytes_flops(table, L, K, itemsize=4):
+    """A gather pass's least work, from this run's table (as
+    port_bounds.gather counts it): the field read and the output written
+    once per leading index, the table as CSR (its nonzero-weight entries,
+    an int32 column and a weight each, and n + 1 int32 row offsets) read
+    once; two operations per entry per layer."""
+    nnz = int((table.w[:table.n] != 0.0).sum())
+    nbytes = (L * (table.nsrc + table.n) * K * itemsize
+              + nnz * (4 + itemsize) + (table.n + 1) * 4)
+    return nbytes, 2 * nnz * K * L
 
 
 def _fb_flops_per_point(tabs, ntracers, fct=False):

@@ -153,6 +153,13 @@ class HorzMesh:
     # shares one set of tables.
     patch_info: Any = dataclasses.field(default=None, compare=False,
                                         repr=False)
+    # host-side gather tables of a bandwidth-bounded (RCM-renumbered)
+    # unstructured mesh: {stencil name: ops/gather_kernel.GatherTable},
+    # built by ops/trisk.warm_gather; None on other meshes. Like patch_info
+    # it rides along through `.to()`; each table keeps its device copies per
+    # (device, dtype), made at first use.
+    gather_info: Any = dataclasses.field(default=None, compare=False,
+                                         repr=False)
 
     # ------------------------------------------------------------------
     def to(self, device=None, dtype=None) -> "HorzMesh":

@@ -191,6 +191,10 @@ def load() -> ctypes.CDLL:
         # 8 arrays, consts, ints, stream
         fn.argtypes = [vp] * 19
         fn.restype = ci
+        fn = getattr(lib, f"omega_gather_{suffix}")
+        # field, out, idx, w, ints, stream
+        fn.argtypes = [vp] * 6
+        fn.restype = ci
     for name in ("omega_patch_rows", "omega_patch_fct_rows"):
         getattr(lib, name).argtypes = [ci]
         getattr(lib, name).restype = ci

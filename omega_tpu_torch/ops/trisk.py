@@ -6,9 +6,13 @@ whole-array weighted gather: neighbor indices are static (C, M) int32
 arrays (padded entries point at element 0 with weight 0) and the vertical
 dimension K is the trailing axis of every field.
 
-Three execution paths, numerically equivalent:
+Four execution paths, numerically equivalent:
   * gather path — general unstructured MPAS meshes; also the oracle the
     tests hold the structured path against
+  * table path  — unstructured meshes with gather tables (`warm_gather`,
+    built by mesh/reorder.reorder_mesh): one pass of the gather kernel
+    (ops/gather_kernel.py) per operator on a CUDA field, its plain version
+    on a CPU field
   * shift path  — uniform planar hex meshes (ops/structured.py): every
     neighbor access becomes a lattice shift (the stencil kernel on a CUDA
     field, rolls on a CPU field)
@@ -30,12 +34,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from omega_tpu_torch.mesh.horz_mesh import HorzMesh
-from omega_tpu_torch.ops import patch_stencil, structured
+from omega_tpu_torch.mesh.horz_mesh import HorzMesh, unclamped_connectivity
+from omega_tpu_torch.ops import gather_kernel, patch_stencil, structured
+
+# index_select launches of the gather path since the last reset (a plain
+# integer: the smoke run shows that operators with a table make none)
+take_launches = 0
 
 
 def _take(field, idx):
     """field[..., idx, :] for an index array of any shape."""
+    global take_launches
+    take_launches += 1
     flat = field.index_select(-2, idx.reshape(-1))
     return flat.reshape(field.shape[:-2] + tuple(idx.shape)
                         + field.shape[-1:])
@@ -119,12 +129,66 @@ def warm_structured(mesh: HorzMesh) -> bool:
     return ok
 
 
+def warm_gather(mesh: HorzMesh) -> HorzMesh:
+    """Build the gather tables of an UNSTRUCTURED mesh (host side, numpy
+    arrays) and return the mesh with them in `gather_info`; the TRiSK
+    operators that have a table then take the table path. Meant for a mesh
+    with bounded index bandwidth (mesh/reorder.reorder_mesh, RCM), where
+    each block of rows reads a narrow window of sources; every table is
+    built whatever its window (a direct gather has no window to fit)."""
+    import dataclasses
+
+    C, E, V = mesh.ncells, mesh.nedges, mesh.nvertices
+    w_signed = -np.asarray(mesh.edge_sign_on_cell) / np.asarray(
+        mesh.area_cell)[:, None]
+    w_div = np.asarray(mesh.w_div_cell)
+    # boundary meshes: the 2-slot entries of a missing neighbour get weight
+    # 0 from the unclamped form (the index_select path reads the clamped
+    # element-0 value there instead; both are masked downstream)
+    unc = unclamped_connectivity(mesh)
+    coe_u = unc["cells_on_edge"]
+    voe_u = unc["vertices_on_edge"]
+    vw = lambda raw, w01: np.where(raw >= 0, np.asarray(w01), 0.0)
+    cl = lambda raw: np.maximum(raw, 0)
+    specs = [
+        ("div", mesh.edges_on_cell, w_div, E),
+        ("div_pos", mesh.edges_on_cell, np.maximum(w_div, 0.0), E),
+        ("div_neg", mesh.edges_on_cell, np.maximum(-w_div, 0.0), E),
+        ("ke", mesh.edges_on_cell, mesh.w_ke_cell, E),
+        ("signed_div", mesh.edges_on_cell, w_signed, E),
+        ("curl", mesh.edges_on_vertex, mesh.w_curl_vertex, E),
+        ("kite", mesh.cells_on_vertex, mesh.w_kite_frac, C),
+        ("tang", mesh.edges_on_edge, mesh.weights_on_edge, E),
+        ("cdiff", cl(coe_u), vw(coe_u, [-1.0, 1.0]), C),
+        ("cmean", cl(coe_u), vw(coe_u, [0.5, 0.5]), C),
+        ("vdiff", cl(voe_u), vw(voe_u, [-1.0, 1.0]), V),
+        ("vmean", cl(voe_u), vw(voe_u, [0.5, 0.5]), V),
+        ("c0", cl(coe_u[:, :1]), vw(coe_u[:, :1], [1.0]), C),
+        ("c1", cl(coe_u[:, 1:]), vw(coe_u[:, 1:], [1.0]), C),
+        ("v0", cl(voe_u[:, :1]), vw(voe_u[:, :1], [1.0]), V),
+        ("v1", cl(voe_u[:, 1:]), vw(voe_u[:, 1:], [1.0]), V),
+    ]
+    tables = {name: gather_kernel.GatherTable(np.asarray(idx),
+                                              np.asarray(w), nsrc)
+              for name, idx, w, nsrc in specs}
+    return dataclasses.replace(mesh, gather_info=tables)
+
+
+def _gtab(mesh, name):
+    """The mesh's gather table `name`, or None."""
+    info = getattr(mesh, "gather_info", None)
+    return None if info is None else info.get(name)
+
+
 # ----------------------------------------------------------------------
 # primitives
 
 def _pair(mesh, f, name0, name1, idx0, idx1, dst, src):
     t0 = _struct(mesh, name0, idx0, dst, src)
     if t0 is None:
+        g0, g1 = _gtab(mesh, name0), _gtab(mesh, name1)
+        if g0 is not None and g1 is not None:
+            return gather_kernel.apply(g0, f), gather_kernel.apply(g1, f)
         return _take(f, idx0), _take(f, idx1)
     t1 = _struct(mesh, name1, idx1, dst, src)
     return _apply(mesh, t0, f), _apply(mesh, t1, f)
@@ -152,6 +216,9 @@ def _two_slot(mesh, f, name, idx2, w01, combine, dst, src):
     t = _struct(mesh, name, idx2, dst, src, w_np)
     if t is not None:
         return _apply(mesh, t, f)
+    g = _gtab(mesh, name)
+    if g is not None:
+        return gather_kernel.apply(g, f)
     return combine(_take(f, idx2[:, 0]), _take(f, idx2[:, 1]))
 
 
@@ -186,6 +253,9 @@ def cell_to_vertex_kite(mesh: HorzMesh, f):
                 mesh.w_kite_frac)
     if t is not None:
         return _apply(mesh, t, f)
+    gt = _gtab(mesh, "kite")
+    if gt is not None:
+        return gather_kernel.apply(gt, f)
     return _gather_sum(mesh.w_kite_frac, mesh.cells_on_vertex, f)
 
 
@@ -200,6 +270,9 @@ def edge_to_cell_signed(mesh: HorzMesh, g):
                 w_np)
     if t is not None:
         return _apply(mesh, t, g)
+    gt = _gtab(mesh, "signed_div")
+    if gt is not None:
+        return gather_kernel.apply(gt, g)
     w = -mesh.edge_sign_on_cell / mesh.area_cell[:, None]
     return _gather_sum(w, mesh.edges_on_cell, g)
 
@@ -211,6 +284,9 @@ def ke_cell(mesh: HorzMesh, u):
                 mesh.w_ke_cell)
     if t is not None:
         return _apply(mesh, t, u2)
+    gt = _gtab(mesh, "ke")
+    if gt is not None:
+        return gather_kernel.apply(gt, u2)
     return _gather_sum(mesh.w_ke_cell, mesh.edges_on_cell, u2)
 
 
@@ -223,6 +299,9 @@ def _signed_div_part(mesh: HorzMesh, g, positive: bool):
     t = _struct(mesh, name, mesh.edges_on_cell, "cell", "edge", w_np)
     if t is not None:
         return _apply(mesh, t, g)
+    gt = _gtab(mesh, name)
+    if gt is not None:
+        return gather_kernel.apply(gt, g)
     w = torch.clamp(mesh.w_div_cell * (1.0 if positive else -1.0),
                     min=0.0)
     return _gather_sum(w, mesh.edges_on_cell, g)
@@ -279,6 +358,9 @@ def div_cell(mesh: HorzMesh, vec_edge):
                 mesh.w_div_cell)
     if t is not None:
         return _apply(mesh, t, vec_edge)
+    gt = _gtab(mesh, "div")
+    if gt is not None:
+        return gather_kernel.apply(gt, vec_edge)
     return _gather_sum(mesh.w_div_cell, mesh.edges_on_cell, vec_edge)
 
 
@@ -296,6 +378,9 @@ def curl_vertex(mesh: HorzMesh, vec_edge):
                 mesh.w_curl_vertex)
     if t is not None:
         return _apply(mesh, t, vec_edge)
+    gt = _gtab(mesh, "curl")
+    if gt is not None:
+        return gather_kernel.apply(gt, vec_edge)
     return _gather_sum(mesh.w_curl_vertex, mesh.edges_on_vertex, vec_edge)
 
 
@@ -308,6 +393,9 @@ def tangential_edge(mesh: HorzMesh, vec_edge):
                 mesh.weights_on_edge)
     if t is not None:
         return _apply(mesh, t, vec_edge)
+    gt = _gtab(mesh, "tang")
+    if gt is not None:
+        return gather_kernel.apply(gt, vec_edge)
     return _gather_sum(mesh.weights_on_edge, mesh.edges_on_edge, vec_edge)
 
 

@@ -72,10 +72,18 @@ being the bound. Float32 throughout, K = 100 layers, 2 tracers.
           subcycles each from device memory. Operations: two per gather
           entry, about ten more per edge and two per cell
   gather  omega_tpu/ops/pallas_gather.py:160, one gather pass
-          out[n] = sum_j w[n, j] field[idx[n, j]] at icos48 x 100 (the shape
-          named at pallas_gather.py:94-96), for the tangential
-          reconstruction (edges from edges, the widest table) and the
-          divergence (cells from edges)
+          out[l, n] = sum_j w[n, j] field[l, idx[n, j]] at icos48 x 100
+          (the shape named at pallas_gather.py:94-96), for each of the 16
+          tables of trisk.warm_gather, with L = 1 and 2 leading indices:
+          the field read and the output written once per leading index,
+          the table read once as CSR (each nonzero entry an int32 column
+          and a float32 weight, n + 1 int32 row offsets; the CSR bytes are
+          printed). Entries: every slot of a valid neighbour (the sphere
+          has no land); chip_smoke.py counts the nonzero weights of the
+          run's own tables instead (the tangential table holds a few exact
+          zeros). Also one FB step's gather calls (FB_STEP_GATHERS: the
+          composed step's calls by table and leading count, held against
+          the port's step by tests/test_torch_gather.py) summed
   split   the TPU split kernels' own I/O (megastep.py:1136 kinds splitpre /
           splitpost; barotropic_kernel.py:97) at 256 x 256, for comparison
           with the port's (chip_smoke.py computes the port's bounds)
@@ -273,16 +281,42 @@ def sphere_bt(n=48, M=10):
             f"M{M}_each_from_memory": bound(M * sub["bytes"], M * flops)}
 
 
-def gather(n=48):
+# one composed FB step's gather passes on an unstructured mesh with tables
+# (ops/trisk.py's table branch): (table, leading indices) -> passes
+FB_STEP_GATHERS = {("cdiff", 1): 5, ("cdiff", 2): 3, ("cmean", 1): 2,
+                   ("cmean", 2): 1, ("curl", 1): 2, ("div", 1): 3,
+                   ("div", 2): 1, ("ke", 1): 1, ("kite", 1): 1,
+                   ("signed_div", 2): 3, ("tang", 2): 1, ("vdiff", 1): 3,
+                   ("vmean", 2): 1}
+
+
+def gather_tables(n=48):
+    """table -> (rows, source rows, nonzero entries) at icos n."""
     C, E, V, ce, ve, tang = icos(n)
+    return {"div": (C, E, ce), "div_pos": (C, E, E), "div_neg": (C, E, E),
+            "ke": (C, E, ce), "signed_div": (C, E, ce),
+            "curl": (V, E, ve), "kite": (V, C, ve), "tang": (E, E, tang),
+            "cdiff": (E, C, 2 * E), "cmean": (E, C, 2 * E),
+            "vdiff": (E, V, 2 * E), "vmean": (E, V, 2 * E),
+            "c0": (E, C, E), "c1": (E, C, E), "v0": (E, V, E),
+            "v1": (E, V, E)}
+
+
+def gather(n=48):
     out = {}
-    for name, nsrc, ndst, entries in (("tang", E, E, tang),
-                                      ("div", E, C, ce)):
-        nbytes = (nsrc + ndst) * K * F32 + entries * (IDX + F32)
-        out[name] = {"rows": ndst, "source_rows": nsrc, "entries": entries,
-                     **bound(nbytes, 2 * entries * K)}
+    for name, (rows, nsrc, entries) in gather_tables(n).items():
+        csr = entries * (IDX + F32) + (rows + 1) * IDX
+        for lead in (1, 2):
+            nbytes = lead * (nsrc + rows) * K * F32 + csr
+            out[f"{name}_L{lead}"] = {
+                "rows": rows, "source_rows": nsrc, "entries": entries,
+                "csr_bytes": csr, **bound(nbytes, 2 * entries * K * lead)}
+    step = {q: sum(c * out[f"{t}_L{lead}"][q]
+                   for (t, lead), c in FB_STEP_GATHERS.items())
+            for q in ("bytes", "flops", "bound_ms")}
     return {"kernel": "omega_tpu/ops/pallas_gather.py:160",
-            "function": f"one gather pass, icos{n} x {K} layers", **out}
+            "function": f"one gather pass, icos{n} x {K} layers", **out,
+            "fb_step": {"passes": sum(FB_STEP_GATHERS.values()), **step}}
 
 
 def tpu_split_io(ny=256, nx=256):
