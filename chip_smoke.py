@@ -43,22 +43,25 @@ a user calls, and prints one JSON line per phase:
                   framed FCT steps vs the composed stepper; the kernels'
                   range vs the plain versions' over 10 steps; the FCT fix
                   submesh, its host build and the parts of a step
-  kernel_patch_rk  the RK stages on the sphere (four launches per stage)
+  kernel_patch_rk  the RK stages on the sphere (five launches per stage)
                   vs plain, every mode, flux pair and tails, at icos16
                   float64 and icos48 x 100 x 2 float32; fused framed RK2 /
-                  RK4 steps vs the composed steppers; each mode's time, the
-                  submesh's tendencies and the refresh
+                  RK4 steps vs the composed steppers; each mode's time, each
+                  pass's device time (torch.profiler) with its registers
+                  and spill, the submesh's tendencies and the refresh
   kernel_patch_split  the split-explicit step on the sphere: splitpre (five
                   launches), splitpost (four) and the gather-form barotropic
                   subcycles (two launches per subcycle, M = 10, bt_drag 0 and
                   1e-4) vs plain at icos16 float64 and icos48 x 100 x 2
                   float32; fused framed split steps vs the composed split
-                  stepper; each kernel's time, the submesh's part, the
-                  refresh
+                  stepper; each kernel's time, splitpre's passes' device
+                  times with their registers and spill, the submesh's
+                  part, the refresh
   kernel_gather   the gather kernel vs plain on each of the 16 tables of
-                  the RCM-renumbered icos48 x 100 float32 (cell-source
-                  tables also with two leading indices) and icos16 float64;
-                  each table's time beside its bound and torch.sparse.mm
+                  the RCM-renumbered icos48 x 100 float32 with one and two
+                  leading indices and icos16 float64, and on a table of 20
+                  slots; each case's time (median and spread of 5 x 50
+                  launches) beside its bound and torch.sparse.mm's
   main_path       2 x 10 steps of the bench configuration; launch counts
   composed_path   column ssh: the composed stepper + stencil kernel
   science_path    2 x 10 steps with wind, bottom drag, upwind fluxes and PP81
@@ -80,9 +83,9 @@ a user calls, and prints one JSON line per phase:
                   stage-B launches per step; the cap stays in [0, 1] at the
                   planar FCT limits at u = 0.05 and 0.5 x noise
   sphere_rk4_path 2 x 10 RK4 steps of sphere_path's configuration: four
-                  stage calls (4 x 4 launches) per step
+                  stage calls (4 x 5 launches) per step
   sphere_rk2_path 2 x 10 RK2 steps of sphere_science_path's configuration:
-                  two stage calls (2 x 4 launches), one coefficient and one
+                  two stage calls (2 x 5 launches), one coefficient and one
                   solve launch per step
   sphere_split_composed  2 steps of the composed split stepper on the same
                   sphere with the column free surface, for comparison
@@ -185,6 +188,35 @@ def main(argv=None):
         b.record()
         torch.cuda.synchronize()
         return a.elapsed_time(b) / reps
+
+    def cuda_med(fn, reps=50, repeats=5):
+        """The median and spread (min, max) over `repeats` runs of the
+        milliseconds per call of fn(), each run `reps` calls between two
+        CUDA events: resolves 10% at 0.03 ms per call."""
+        runs = sorted(cuda_ms(fn, reps, 2 if i == 0 else 0)
+                      for i in range(repeats))
+        return {"ms": runs[len(runs) // 2],
+                "spread_ms": [runs[0], runs[-1]]}
+
+    def kernel_ms(fn, kernels, reps=20):
+        """{label: device milliseconds per call of fn() in the kernels whose
+        name holds kernels[label]}, from torch.profiler over `reps` calls
+        after an untimed one (None where the trace shows no device time)."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = dict.fromkeys(kernels, 0.0)
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for lab, sub in kernels.items():
+                    if sub in e.key:
+                        us[lab] += e.device_time_total
+        return {lab: t / reps / 1e3 if t > 0 else None
+                for lab, t in us.items()}
 
     def bound(nbytes, flops):
         tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS_F32 * 1e3
@@ -1768,6 +1800,14 @@ def main(argv=None):
                 "first": (RK_FIRST, 0.5, 1.0 / 6.0, False),
                 "mid": (RK_MID, 0.5, 1.0 / 3.0, True),
                 "last": (RK_LAST, 0.0, 1.0 / 6.0, True)}
+    # the kernel of each RK pass (csrc/patch_rk.cuh) and of splitpre's
+    # (csrc/patch_split.cu), as the profiler names them
+    RK_PASS_KERNELS = dict(zip(patch_megastep.RK_PASS_NAMES, (
+        "rk_pass_a<", "rk_pass_b<", "rk_pass_c<", "rk_pass_d_cells<",
+        "rk_pass_d_edges<")))
+    SPLIT_PRE_KERNELS = {nm: "ssh_column<" if nm == "ssh"
+                         else RK_PASS_KERNELS[nm]
+                         for nm in patch_megastep.SPLIT_PRE_PASS_NAMES}
     RK_VARIANTS = {
         "cc": ({}, {}), "uc": (dict(flux_thickness_type="upwind"), {}),
         "cu": (dict(flux_tracer_type="upwind"), {}), "uu": (UPWIND, {}),
@@ -1921,6 +1961,26 @@ def main(argv=None):
             bnd = prb["stages"][rk_stage_of[case]]
             rec.update(bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"])
             res[case] = rec
+        # pass by pass (device time per launch from torch.profiler over
+        # whole calls) at the mode the kernels line reports, with its
+        # registers and spill
+        tm = "mid" if variant == "cc" else "prov_b"
+        t_mode, t_a, t_b, t_prov = RK_CASES[tm]
+        t_ev = prov if t_prov else fr48
+        attrs = patch_megastep.rk_pass_attrs(
+            cfg_v, torch.float32,
+            pw48 is not None or patch_megastep._drag_on(cfg_v))
+        res["passes_mode"] = tm
+        pbs = prb["passes"][rk_stage_of[tm]]
+        res["passes"] = {
+            nm: {"ms": ms, **attrs[nm], "bound_ms": pbs[nm]["bound_ms"]}
+            for nm, ms in kernel_ms(
+                lambda: patch_megastep.rk_stage(
+                    p48, cfg_v, t_mode, t_a * DT, t_b * DT, t_ev, out48,
+                    base=None if t_mode == RK_LAST else fr48,
+                    acc=acc if t_mode in (RK_MID, RK_LAST) else None,
+                    acc_out=acc48 if t_mode in (RK_FIRST, RK_MID) else None,
+                    work=work48, wind=pw48), RK_PASS_KERNELS).items()}
         # the plain version at the widest mode, once
         res["mid"]["plain_ms"] = cuda_ms(
             lambda: patch_megastep.rk_stage_plain(
@@ -2135,6 +2195,15 @@ def main(argv=None):
         bt_subcycle_bound_ms=bbt["subcycle"]["bound_ms"],
         bt_each_from_memory_bound_ms=bbt[f"M{M_SPLIT}_each_from_memory"][
             "bound_ms"])
+    # splitpre pass by pass: device time per launch (torch.profiler over
+    # whole calls), registers and spill (cudaFuncGetAttributes)
+    sp_attrs = patch_megastep.split_pre_attrs(torch.float32)
+    rec["split_pre_passes"] = {
+        nm: {"ms": ms, **sp_attrs[nm]}
+        for nm, ms in kernel_ms(
+            lambda: patch_megastep.split_pre(
+                p48, cfg48p, fr48, out=sc48["du"], work=sc48["work"]),
+            SPLIT_PRE_KERNELS).items()}
     # the host parts of a framed split step: the flat state's read-out, the
     # pole submesh's tendency and advance, the flat phase's composed
     # operators, and the refresh
@@ -2226,16 +2295,18 @@ def main(argv=None):
                     lib_err = _spmm_check(torch.sparse.mm(A, f2), ref, name)
                     nbytes, flops = _gather_bytes_flops(t, L, K)
                     b_ms, b_by = bound(nbytes, flops)
+                    own = cuda_med(lambda: gather_kernel.apply(t, f))
+                    lib = cuda_med(lambda: torch.sparse.mm(A, f2))
                     timed[name + ("_L2" if lead else "")] = {
                         "rows": t.n, "slots": t.m, "source_rows": t.nsrc,
                         "window": t.window,
                         "entries": int((t.w[:t.n] != 0).sum()),
                         "max_abs_err": (got - ref).abs().max().item(),
-                        "ms": cuda_ms(lambda: gather_kernel.apply(t, f), 20),
+                        "ms": own["ms"], "spread_ms": own["spread_ms"],
                         "plain_ms": cuda_ms(
                             lambda: gather_kernel.apply_plain(t, f), 5),
-                        "library_ms": cuda_ms(
-                            lambda: torch.sparse.mm(A, f2), 20),
+                        "library_ms": lib["ms"],
+                        "library_spread_ms": lib["spread_ms"],
                         "library_rel_err": lib_err, "bytes": nbytes,
                         "bound_ms": b_ms, "bound_by": b_by}
         return worst
@@ -2246,6 +2317,28 @@ def main(argv=None):
     gth["f64_icos16"] = gather_check(reorder_mesh(spherical_icos_mesh(16)),
                                      torch.float64, (8, 1))
     gth["tables"] = gtab
+    # a table wider than the slots a thread holds in registers (20 slots,
+    # a third of the weights 0): the kernel's any-width path, float32 (its
+    # own generator, so that later phases draw what they drew before)
+    rng_w = np.random.default_rng(args.seed + 20)
+    ww = rng_w.standard_normal((20000, 20))
+    ww[rng_w.random(ww.shape) < 1 / 3] = 0.0
+    tw = gather_kernel.GatherTable(rng_w.integers(0, 10000, ww.shape), ww,
+                                   10000)
+    for lead in ((), (2,)):
+        f = torch.as_tensor(
+            rng_w.standard_normal(lead + (tw.nsrc, NLAYERS)),
+            dtype=torch.float32, device=dev)
+        got = gather_kernel.apply(tw, f)
+        ref = gather_kernel.apply_plain(tw, f)
+        err = ((got - ref).abs().max()
+               / ref.abs().max().clamp_min(1e-30)).item()
+        if got.shape != ref.shape or not err <= GATHER_TOL[torch.float32]:
+            fail(f"gather of 20 slots {lead}: {err} of max|ref|")
+        gth[f"wide_rows_20_slots_L{len(lead) + 1}_max_abs_err"] = (
+            got - ref).abs().max().item()
+    gth["slower_than_library"] = sorted(
+        k for k, v in gtab.items() if v["ms"] > v["library_ms"])
     gth["fb_step_calls"] = sum(port_bounds.FB_STEP_GATHERS.values())
     for q in ("ms", "plain_ms", "library_ms", "bound_ms"):
         gth[f"fb_step_{q}"] = sum(
@@ -3548,6 +3641,7 @@ def main(argv=None):
          "rk4_step_stages_ms": rkpv["rk4_stages_ms"],
          "rk4_step_bound_ms": rkpv["rk4_step_bound_ms"],
          "passes_per_call": patch_megastep.RK_PASSES,
+         "passes": rkpv["cc"]["passes"],
          "path": "sphere_rk4_path"},
         {"name": "patch_rk_science", "route": "cuda",
          "source": "omega_tpu_torch/csrc/patch_rk_uu.cu",
@@ -3571,6 +3665,7 @@ def main(argv=None):
          "rk2_step_stages_ms": rkpv["rk2_science_stages_ms"],
          "rk2_step_bound_ms": rkpv["rk2_step_bound_ms"],
          "passes_per_call": patch_megastep.RK_PASSES,
+         "passes": rkpv["uu_wind_drag"]["passes"],
          "path": "sphere_rk2_path"},
         {"name": "patch_split_pre", "route": "cuda",
          "source": "omega_tpu_torch/csrc/patch_split.cu",
@@ -3587,6 +3682,7 @@ def main(argv=None):
          "shape": f"frames {tuple(patv['frames'])} in, du_out ({NLAYERS}, "
          f"3, {p48.P}) out, float32, center fluxes, column ssh",
          "passes_per_call": patch_megastep.SPLIT_PRE_PASSES,
+         "passes": sptv["split_pre_passes"],
          "path": "sphere_split_path"},
         {"name": "bt_gather", "route": "cuda",
          "source": "omega_tpu_torch/csrc/bt_gather.cu",
@@ -3641,7 +3737,9 @@ def main(argv=None):
                              ("ms", "plain_ms", "library_ms", "bound_ms")},
          "launches_per_step": gp["gather_launches_per_step"],
          "coastal_launches": cg["launches"]["gather"],
-         "per_table": {k: {q: v[q] for q in ("ms", "plain_ms", "library_ms",
+         "slower_than_library": gth["slower_than_library"],
+         "per_table": {k: {q: v[q] for q in ("ms", "spread_ms",
+                                             "plain_ms", "library_ms",
                                              "bound_ms", "max_abs_err")}
                        for k, v in gtab.items()}},
     ], "seconds": time.perf_counter() - t_start})

@@ -6,12 +6,24 @@ advection-diffusion, discretized with the TRiSK finite-volume scheme
 mirrors the JAX package's layout (mesh/, ops/, core/, stepping/) so each
 module's counterpart is found by path; it imports torch and numpy only.
 
-Plain tensor code is PyTorch; the hot kernels (the fused
-forward-backward step, the Runge-Kutta stage, the split-explicit step's
-splitpre / splitpost and barotropic subcycles, the vertical-mixing
-coefficient and column-solve kernels, the structured stencil pass, and the
-icosahedral sphere's forward-backward step) are CUDA C++ under csrc/,
-compiled at first use by ops/_build.py.
+Plain tensor code is PyTorch; the hot kernels are CUDA C++ under csrc/,
+compiled at first use by ops/_build.py:
+
+- the planar hex mesh: the fused forward-backward step (fb_step.cuh,
+  fb_step*.cu; levels in slab_chain.cuh), the Runge-Kutta stage
+  (rk_stage.cuh, rk_stage_*.cu), the split-explicit step's splitpre /
+  splitpost (split.cu) and barotropic subcycles (barotropic.cu), the PP81
+  coefficient and column-solve kernels (vmix.cu; PCR levels in
+  pcr_columns.cuh), and the structured stencil pass (stencil.cu);
+- the icosahedral sphere's patch frames (table layout in
+  patch_common.cuh): the forward-backward step (patch_step.cuh,
+  patch_step_*.cu, FCT's stage A among them), FCT's limiter (patch_fct.cu),
+  the Runge-Kutta stage (patch_rk.cuh, patch_rk_*.cu), the split-explicit
+  step (patch_split.cu) with the gather-form barotropic subcycles
+  (bt_gather.cu), and the PP81 coefficient and column-solve kernels
+  (patch_vmix.cu);
+- unstructured meshes with gather tables (mesh/reorder.py): the weighted
+  gather pass (gather.cu).
 
 Devices are explicit: every function that creates tensors takes
 `device=None`, meaning `default_device()`, which is the CUDA device and

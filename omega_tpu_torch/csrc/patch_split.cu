@@ -14,7 +14,7 @@
 // with the column free surface, written whole and ungated into `out` (K, 3,
 // P), as the reference's kernel emits du_out. The pressure gradient reads
 // g cgrad(sshc) with sshc = sum_k h - depth, which couples all K layers of a
-// column while a thread of the patch passes walks LAYERS_PER_THREAD of them;
+// column while a thread of the patch passes walks a group of them;
 // so a pass of its own (one thread per position, the column summed layer by
 // layer from the top, as ops/patch_megastep._eval sums it) writes the (1, P)
 // field first, as the planar port's split_columns pass does (split.cu). Then
@@ -122,14 +122,28 @@ int launch_split_pre(const void* in, void* out, const void* off,
   ssh_column<T><<<blocks, threads, 0, stream>>>(
       a.in, a.sshc, static_cast<const T*>(depth_row),
       static_cast<T>(c[9 + kNConst]), a.P, a.K, a.CH);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(blocks, (a.K + a.kg - 1) / a.kg);
-  OMEGA_SPLIT_PASS(rk_pass_a<T, false, kTrCenter, true>)
-  OMEGA_SPLIT_PASS(rk_pass_b<T, true>)
-  OMEGA_SPLIT_PASS(rk_pass_c<T, true>)
-  OMEGA_SPLIT_PASS(rk_pass_d<T, false, kTrCenter, false, true>)
-  return 0;
+  return rk_passes<T, false, kTrCenter, false, true>(a, threads, stream);
+}
+
+// cudaFuncGetAttributes of splitpre's pass `pass` (0 the column pass, 1 + i
+// the RK stage's pass i; D1 refused): numRegs, localSizeBytes,
+// sharedSizeBytes into out[0..2]
+template <typename T>
+int split_pre_attrs(int pass, int* out) {
+  if (pass == 0) {
+    if (out == nullptr) return cudaErrorInvalidValue;
+    cudaFuncAttributes fa;
+    const cudaError_t err = cudaFuncGetAttributes(
+        &fa, reinterpret_cast<const void*>(ssh_column<T>));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    out[0] = fa.numRegs;
+    out[1] = static_cast<int>(fa.localSizeBytes);
+    out[2] = static_cast<int>(fa.sharedSizeBytes);
+    return 0;
+  }
+  return rk_pass_attrs<T, false, kTrCenter, false, true>(pass - 1, out);
 }
 
 template <typename T>
@@ -175,8 +189,10 @@ int launch_split_post(const void* in, void* out, const void* off,
 // step's (ops/patch_megastep._fb_args: dt, g, nu2, nu4, div_factor,
 // eddy_diff2, eddy_diff4, the uniform consts, rho0, the drag coefficient;
 // P, S, K, L, layers per thread, threads per block, the const flags, wind
-// and drag off) followed by the uniform depth and its flag (1: `depth_row`).
-// Returns the first refused launch's error code, or 0.
+// and drag off) followed by the uniform depth and its flag (1: `depth_row`;
+// splitpre's RK passes walk patch_rk.cuh's kRkPassLayers, not the layers
+// per thread). Returns the first refused launch's error code, or 0.
+// omega_patch_split_pre_attrs_<f32|f64>(pass, out): see split_pre_attrs.
 extern "C" {
 #define OMEGA_SPLIT_ENTRIES(SUF, T)                                           \
   int omega_patch_split_pre_##SUF(                                            \
@@ -186,6 +202,9 @@ extern "C" {
     return omega::patch::launch_split_pre<T>(                                 \
         in, out, off, w, cpl, depth_row, work, consts, ints,                  \
         static_cast<cudaStream_t>(stream));                                   \
+  }                                                                           \
+  int omega_patch_split_pre_attrs_##SUF(int pass, int* out) {                 \
+    return omega::patch::split_pre_attrs<T>(pass, out);                       \
   }                                                                           \
   int omega_patch_split_post_##SUF(                                           \
       const void* in, void* out, const void* off, const void* w,              \

@@ -168,6 +168,10 @@ def load() -> ctypes.CDLL:
                 # consts, ints, stream
                 fn.argtypes = [vp] * 12
                 fn.restype = ci
+                fn = getattr(lib, f"omega_patch_rk_attrs_{flux}_{tails}_"
+                                  f"{suffix}")
+                fn.argtypes = [ci, vp]        # pass, out[3]
+                fn.restype = ci
         for flux in ("c", "u"):
             fn = getattr(lib, f"omega_patch_fct_b_{flux}_{suffix}")
             # mid, in, out, offs, wts, cpl, work, consts, ints, stream
@@ -181,6 +185,9 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, f"omega_patch_split_pre_{suffix}")
         # in, out, offs, wts, cpl, depth row, work, consts, ints, stream
         fn.argtypes = [vp] * 10
+        fn.restype = ci
+        fn = getattr(lib, f"omega_patch_split_pre_attrs_{suffix}")
+        fn.argtypes = [ci, vp]               # pass, out[3]
         fn.restype = ci
         fn = getattr(lib, f"omega_patch_split_post_{suffix}")
         # in, out, offs, wts, cpl, work, consts, ints, stream

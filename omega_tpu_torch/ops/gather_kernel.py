@@ -9,13 +9,16 @@ mesh/reorder.py). The kernel (csrc/gather.cu) is the counterpart of the JAX
 package's windowed Pallas gather (`omega_tpu/ops/pallas_gather.py:_kernel`),
 which DMAs each 256-row block's source window into VMEM and multiplies a
 weighted one-hot matrix into it on the MXU. On the card a gather is a direct
-indexed load: the fields of one step fit in the 50 MB L2, so the kernel reads
-its sources where they are, and the window `W` of each block is kept as
-information for a later shared-memory design.
+indexed load: a row's slots in registers, 16-byte loads of K through the
+L2 (the fields of one step fit in the 50 MB L2), one launch over every
+leading index; the window `W` of each block is kept as information.
 
 `apply` is what trisk's operators call: a CUDA field launches the kernel, a
 CPU field takes `apply_plain`, anything else raises. A kernel that fails to
-build or launch raises; nothing falls back.
+build or launch raises; nothing falls back. The launch's arguments are
+worked out once per (device, dtype, shape) and kept on the table, since a
+one-index pass at icos48 x 100 takes the card about as long as a Python
+call takes the host.
 """
 
 from __future__ import annotations
@@ -30,8 +33,10 @@ from omega_tpu_torch.ops import _build
 launches = 0
 
 BLOCK = 256          # rows per block of the table (the reference's BLOCK)
-THREADS = 256        # threads per block of the kernel
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# the current stream's handle without building a Stream object (PyTorch's
+# CUDA builds have it; torch.cuda.current_stream otherwise)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 class GatherTable:
@@ -42,7 +47,8 @@ class GatherTable:
     source length the table reads, `window` the widest span of source rows
     any block of BLOCK rows touches (information: a direct gather has no
     window to fit, so the reference's VMEM cap is not applied). Device
-    copies of idx and w are made once per (device, dtype), at first use."""
+    copies of idx and w are made once per (device, dtype), at first use,
+    and a launch's arguments once per (device, dtype, shape)."""
 
     def __init__(self, idx, weights, nsrc: int):
         idx = np.asarray(idx, np.int64)
@@ -77,6 +83,7 @@ class GatherTable:
         self.idx = idx_p.astype(np.int32)
         self.w = w_p
         self._dev = {}
+        self._calls = {}
 
     def on(self, device, dtype):
         """(idx int32, w in `dtype`) on `device`, contiguous, made once."""
@@ -115,34 +122,50 @@ def apply_plain(table: GatherTable, field):
     return out
 
 
+def _call_of(table: GatherTable, f):
+    """(entry point, ints array, idx and w pointers, output shape) of a
+    launch on the contiguous CUDA field `f`."""
+    _check(table, f)
+    lead, K = tuple(f.shape[:-2]), f.shape[-1]
+    L = int(np.prod(lead, dtype=np.int64))
+    if K < 1 or L < 1:
+        raise ValueError(f"field of shape {tuple(f.shape)}: the gather "
+                         "needs K >= 1 and prod(leading dims) >= 1")
+    idx, w = table.on(f.device, f.dtype)
+    ints = np.array([table.n, table.m, K, table.nsrc, L], np.int32)
+    fn = getattr(_build.load(), f"omega_gather_{_SUFFIX[f.dtype]}")
+    return fn, ints, idx.data_ptr(), w.data_ptr(), lead + (table.n, K)
+
+
 def apply(table: GatherTable, field):
     """sum_j w[n, j] * field[..., idx[n, j], :] -> (..., N, K) for a field
     of shape (..., N_src, K): one launch of csrc/gather.cu over every
     leading index for a CUDA field (made contiguous first), the plain
     version for a CPU field. Raises on any other device, dtype or shape."""
     global launches
-    _check(table, field)
     if field.device.type == "cpu":
+        _check(table, field)
         return apply_plain(table, field)
     if not field.is_cuda:
         raise ValueError(f"the gather runs on CUDA or CPU fields, not "
                          f"{field.device}")
-    lead = field.shape[:-2]
-    K = field.shape[-1]
-    L = int(np.prod(lead, dtype=np.int64))
-    if K < 1 or L < 1 or L > 65535:
-        raise ValueError(f"field of shape {tuple(field.shape)}: the gather "
-                         "needs K >= 1 and 1 <= prod(leading dims) <= 65535")
-    f = field.contiguous()
-    idx, w = table.on(f.device, f.dtype)
-    out = torch.empty(lead + (table.n, K), dtype=f.dtype, device=f.device)
-    ints = np.array([table.n, table.m, K, table.nsrc, L, THREADS], np.int32)
-    lib = _build.load()
-    with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(lib, f"omega_gather_{_SUFFIX[f.dtype]}")(
-            f.data_ptr(), out.data_ptr(), idx.data_ptr(), w.data_ptr(),
-            ints.ctypes.data, stream)
+    f = field if field.is_contiguous() else field.contiguous()
+    key = (f.device, f.dtype, f.shape)
+    call = table._calls.get(key)
+    if call is None:
+        call = table._calls[key] = _call_of(table, f)
+    fn, ints, idx, w, shape = call
+    out = torch.empty(shape, dtype=f.dtype, device=f.device)
+    dev = f.device.index
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            code = fn(f.data_ptr(), out.data_ptr(), idx, w, ints.ctypes.data,
+                      torch.cuda.current_stream().cuda_stream)
+    else:
+        stream = (_raw_stream(dev) if _raw_stream is not None
+                  else torch.cuda.current_stream().cuda_stream)
+        code = fn(f.data_ptr(), out.data_ptr(), idx, w, ints.ctypes.data,
+                  stream)
     _build.check(code, "gather launch")
     launches += 1
     return out

@@ -34,7 +34,7 @@ run_steps only) run one kernel launch group per stage: every tendency at
 the in-kernel level (icos_mega.rk2_stage_chain / rk4_stage_chain: one level
 shallower than the FB chain, whose masks therefore serve), then the
 stage's update against the step's initial frames and, for RK4, the
-accumulator (csrc/patch_rk.cuh, four passes; plain version
+accumulator (csrc/patch_rk.cuh, five passes; plain version
 `rk_stage_plain`), each stage followed by the pole submesh's tendencies at
 that stage and the in-frame refresh; vertical mixing after the last stage
 (the column kernels above).
@@ -118,8 +118,13 @@ split_pre_launches = 0
 split_post_launches = 0
 PASSES = 5
 FCT_B_PASSES = 4
-RK_PASSES = 4
+RK_PASSES = 5
 SPLIT_PRE_PASSES = 5
+# the passes of an RK stage (csrc/patch_rk.cuh: A, B, C, D1 the cells, D2
+# the edges) and of splitpre (csrc/patch_split.cu: the column free surface,
+# then the stage's momentum passes), in launch order
+RK_PASS_NAMES = ("A", "B", "C", "D1", "D2")
+SPLIT_PRE_PASS_NAMES = ("ssh", "A", "B", "C", "D2")
 SPLIT_POST_PASSES = 4
 # what an RK stage makes of its tendencies k (megastep's modes, the same
 # run-time enum RkMode of the kernels), with ca = a dt and cb = b dt:
@@ -131,7 +136,9 @@ RK_PROV, RK_FIRST, RK_MID, RK_LAST = (megastep.RK_PROV, megastep.RK_FIRST,
                                       megastep.RK_MID, megastep.RK_LAST)
 _MODE_NAME = {RK_PROV: "prov", RK_FIRST: "first", RK_MID: "mid",
               RK_LAST: "last"}
-# layers one thread walks with the weights of its position in registers
+# layers one thread of the FB, FCT and splitpost passes walks with the
+# weights of its position in registers (the RK stage's and splitpre's
+# passes walk their own groups, csrc/patch_rk.cuh: kRkPassLayers)
 LAYERS_PER_THREAD = 8
 THREADS = 128
 
@@ -1219,6 +1226,38 @@ def rk_stage(p, cfg, mode, ca, cb, ev, out, base=None, acc=None,
     _build.check(code, "RK stage launch")
     rk_launches += RK_PASSES
     return out
+
+
+def _attrs(fn, *args):
+    got = np.zeros(3, np.int32)
+    _build.check(fn(*args, got.ctypes.data), "cudaFuncGetAttributes")
+    return dict(zip(("num_regs", "local_bytes", "shared_bytes"),
+                    map(int, got)))
+
+
+def rk_pass_attrs(cfg, dtype, tails):
+    """{pass name: cudaFuncGetAttributes' numRegs, localSizeBytes (the
+    spill) and sharedSizeBytes} of the RK stage's kernels for the flux
+    types of `cfg`, with or without the tails, in `dtype`."""
+    lib = _build.load()
+    fn = getattr(lib, f"omega_patch_rk_attrs_"
+                      f"{_FLUX[cfg.flux_thickness_type]}"
+                      f"{_FLUX[cfg.flux_tracer_type]}_"
+                      f"{'tails' if tails else 'plain'}_"
+                      f"{_suffix(torch.empty(0, dtype=dtype))}")
+    return {name: _attrs(fn, i) for i, name in enumerate(RK_PASS_NAMES)}
+
+
+def split_pre_attrs(dtype):
+    """{pass name: numRegs, localSizeBytes, sharedSizeBytes} of splitpre's
+    kernels in `dtype`."""
+    lib = _build.load()
+    fn = getattr(lib, f"omega_patch_split_pre_attrs_"
+                      f"{_suffix(torch.empty(0, dtype=dtype))}")
+    # the C call numbers the column pass 0 and the RK stage's pass i 1 + i
+    return {name: _attrs(fn, 0 if name == "ssh" else
+                         1 + RK_PASS_NAMES.index(name))
+            for name in SPLIT_PRE_PASS_NAMES}
 
 
 def _split_call(name, p, cfg, frames, out, work, dt, extra):

@@ -34,7 +34,7 @@ fluxes without vertical mixing are fused too: per step FCT's stage A (the
 patch kernel's FCT variant, five launches), the refresh of its fields,
 stage B (the limiter, four launches), the FCT fix submesh's composed step
 and the final refresh. So are the RK steppers, in the same configurations
-as the FB step but FCT: per stage one call of the RK stage kernel (four
+as the FB step but FCT: per stage one call of the RK stage kernel (five
 launches; RK2 two stages, RK4 four), the pole submesh's tendencies at that
 stage and the in-frame refresh, then with vertical mixing the column
 kernels. So is the split-explicit stepper with the column free surface,

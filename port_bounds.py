@@ -51,7 +51,9 @@ being the bound. Float32 throughout, K = 100 layers, 2 tracers.
           step (the sums of their stages) and, for RK2, the same step with
           the science configuration's wind rows read by both stages and its
           coefficient and solve kernels after the last stage
-          (patch_science's parts)
+          (patch_science's parts); and each kind's five passes as functions
+          of their own (patch_rk_passes: the intermediates each pass reads
+          and writes once, and its weights)
   patch_split  the same site at icos48, kinds splitpre / splitpost
           (patch_megastep.py:2131): splitpre reads h, u and the tracers and
           the momentum chain's weights and writes du_out (the three edge
@@ -231,6 +233,9 @@ def patch_rk(n=48):
           "rk4s3": (3, 2), "rk4s4": (2, 1)}
     stages = {k: bound((r + w) * state + fb["weight_bytes"], fb["flops"])
               for k, (r, w) in io.items()}
+    passes = {k: patch_rk_passes(n, r - 1 if k in ("rk2b", "rk4s2", "rk4s3",
+                                                   "rk4s4") else r, w)
+              for k, (r, w) in io.items()}
 
     def total(kinds, extra=()):
         parts = [stages[k] for k in kinds] + list(extra)
@@ -240,13 +245,42 @@ def patch_rk(n=48):
             "function": f"one RK stage of the flagship chain, icos{n} x {K} "
             f"layers x {L} tracers",
             "state_bytes": state, "weight_bytes": fb["weight_bytes"],
-            "stages": stages,
+            "stages": stages, "passes": passes,
             "rk2_step": total(("rk2a", "rk2b")),
             "rk4_step": total(("rk4s1", "rk4s2", "rk4s3", "rk4s4")),
             "rk2_step_science": total(
                 ("rk2a", "rk2b"), (sci["parts"]["coeffs"],
                                    sci["parts"]["solve"],
                                    bound(2 * sci["wind_bytes"], 0)))}
+
+
+def patch_rk_passes(n=48, base_reads=1, writes=1):
+    """Each pass of the port's RK stage (csrc/patch_rk.cuh: A, B, C, D1 the
+    cells' update, D2 the edges') as a function of its own: the fields it
+    reads and writes, each once, and the per-element weights it applies
+    (patch_fb's model: div, ke and the signed divergence on cell-edge
+    pairs, curl and kite areas on vertex-edge pairs, the tangential
+    weights, 1/dc and 1/dv, f; a uniform weight is a scalar). D1 and D2
+    also read `base_reads` state volumes (the base and the accumulator the
+    mode takes; the level is pass A's) and write `writes` (out and the
+    accumulator). Operations: two per stencil entry applied per layer."""
+    C, E, V, ce, ve, tang = icos(n)
+    # field reads and writes in (element, layer) units
+    io = {"A": ((C * (1 + L) + E), (E * (1 + 2 * L) + 2 * C + 2 * V)),
+          "B": (E * (1 + 2 * L) + 3 * C + 2 * V, C * (1 + 2 * L) + 3 * E),
+          "C": (C * L + E, E * L + V + C),
+          "D1": (C * (1 + L) + E * L + base_reads * C * (1 + L),
+                 writes * C * (1 + L)),
+          "D2": (2 * V + C + 3 * E + base_reads * E, writes * E)}
+    weights = {"A": 2 * ce + E + 2 * ve + V, "B": 2 * ce + 2 * E,
+               "C": E + ve + ce, "D1": ce, "D2": 2 * E + tang}
+    entries = {"A": 2 * E * (1 + 2 * L) + 2 * ce + 2 * ve,
+               "B": ce * (1 + 3 * L) + 4 * 2 * E + 2 * E * 2,
+               "C": 2 * E * L + ve + ce, "D1": ce * L,
+               "D2": 2 * E * 3 + 2 * tang}
+    return {k: bound((r + w) * K * F32 + weights[k] * F32,
+                     2 * entries[k] * K)
+            for k, (r, w) in io.items()}
 
 
 def patch_split(n=48):

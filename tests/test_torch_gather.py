@@ -10,13 +10,19 @@ CPU in float64.
   (reconstructed from bases and relative indices where the weight is not 0).
 - `apply_plain` against the JAX Pallas gather in interpret mode (1e-12
   absolute, tests/test_gather.py's limit) and against `trisk._gather_sum`.
-- Steps: 3 FB steps and one FCT step at icos8 x 3 layers x 2 tracers, the
-  port on the table path against the JAX steppers with OMEGA_PALLAS_GATHER=1
-  (1e-11 absolute).
+- Steps at icos8 x 3 layers x 2 tracers, the port on the table path
+  against the JAX steppers with OMEGA_PALLAS_GATHER=1 (1e-11 absolute):
+  3 FB steps, one FCT step, one RK4 step, one FB step of the science
+  configuration (upwind fluxes, wind, bottom drag 3e-3, PP81 mixing) and
+  one split-explicit step (column ssh, 10 subcycles).
 - Carved meshes: `carve_mesh` bit-equal to JAX's; the port's reordered
   carved mesh keeps the coast and its steps equal, after permuting back,
   JAX's on the un-reordered carved mesh; JAX's own `reorder_mesh` loses the
   coast's edge mask (a statement about the reference).
+- The direct kernel's launch plan: its threads cover every output value
+  once at each vector width, on the 16 tables of the reordered icos8 and of
+  the reordered carved icos8; a torch emulation of the kernel, block by
+  block, equals `apply_plain` bit for bit in float64 and float32.
 - Dispatch: a CPU field takes the plain version; an unsupported dtype,
   shape or device raises.
 """
@@ -31,6 +37,7 @@ from torch_port_helpers import (flagship_cfg, jax_call, jax_state, port_cfg,
 import jax.numpy as jnp
 
 from omega_tpu.core import ModelState as JModelState
+from omega_tpu.core import VertMixConfig as JVertMixConfig
 from omega_tpu.mesh import planar_hex_mesh as jplanar
 from omega_tpu.mesh.carve import carve_mesh as jcarve
 from omega_tpu.mesh.reorder import gather_window_stats as jstats
@@ -40,7 +47,9 @@ from omega_tpu.mesh.spherical import spherical_icos_mesh as jsphere
 from omega_tpu.ops import pallas_gather as jpg
 from omega_tpu.ops import trisk as jtrisk
 from omega_tpu.stepping import forward_backward_step as jfb
+from omega_tpu.stepping import rk4_step as jrk4
 from omega_tpu.stepping import run_steps as jrun_steps
+from omega_tpu.stepping.split import split_forward_backward_step as jsplit
 
 from omega_tpu_torch.mesh import (carve_mesh, planar_hex_mesh,
                                   reorder_mesh, spherical_icos_mesh)
@@ -48,7 +57,9 @@ from omega_tpu_torch.mesh.horz_mesh import ARRAY_FIELDS
 from omega_tpu_torch.mesh.reorder import (gather_window_stats,
                                           sfc_permutations)
 from omega_tpu_torch.ops import gather_kernel, trisk
-from omega_tpu_torch.stepping import forward_backward_step, run_steps
+from omega_tpu_torch.stepping import (forward_backward_step, rk4_step,
+                                      run_steps)
+from omega_tpu_torch.stepping.split import split_forward_backward_step
 
 NAMES = ("div", "div_pos", "div_neg", "ke", "signed_div", "curl", "kite",
          "tang", "cdiff", "cmean", "vdiff", "vmean", "c0", "c1", "v0", "v1")
@@ -210,30 +221,56 @@ def _assert_state(got, ref, perm=None):
                                    atol=1e-11, err_msg=n)
 
 
-@pytest.mark.parametrize("fct", [False, True], ids=["fb3", "fct1"])
-def test_steps_against_jax_gather_kernel(fct, monkeypatch):
+PP81 = JVertMixConfig(enabled=True, scheme="pp81", nu0=1e-2, alpha=5.0,
+                      n_exp=2, temp_index=0, salt_index=1)
+# kind -> (flagship_cfg keywords, steps, JAX stepper, port stepper, wind,
+# the index_select launches of the steps: only FCT's extrema have no table)
+STEPS = {
+    "fb3": ({}, 3, jfb, forward_backward_step, False, 0),
+    "fct1": (dict(flux_tracer_type="fct"), 1, jfb, forward_backward_step,
+             False, 2),
+    "rk4": ({}, 1, jrk4, rk4_step, False, 0),
+    "science": (dict(flux_thickness_type="upwind", flux_tracer_type="upwind",
+                     vert_mix=PP81, tendencies=dict(
+                         wind_forcing=True, bottom_drag=True,
+                         bottom_drag_coeff=3e-3)),
+                1, jfb, forward_backward_step, True, 0),
+    "split": (dict(ssh_formulation="column"), 1, jsplit,
+              split_forward_backward_step, False, 0),
+}
+
+
+@pytest.mark.parametrize("kind", list(STEPS))
+def test_steps_against_jax_gather_kernel(kind, monkeypatch):
     """The port's table path (apply_plain on the CPU) against the JAX
-    steppers with the Pallas gather on (interpret mode): 3 FB steps, or one
-    FB step with FCT tracer fluxes (div_pos / div_neg)."""
+    steppers with the Pallas gather on (interpret mode): 3 FB steps, one FB
+    step with FCT tracer fluxes (div_pos / div_neg), one RK4 step, one FB
+    step of the science configuration (wind stress 0.1 cos lat, 0.05 sin
+    lat) and one split-explicit step."""
     jr, pr = reordered("icos8")
-    kw = dict(flux_tracer_type="fct") if fct else {}
+    kw, nsteps, jstep, step, wind, takes = STEPS[kind]
     jcfg = flagship_cfg(K, L, **kw)
     fields = _sphere_fields(pr, K, L)
-    nsteps = 1 if fct else 3
+    lat = np.asarray(pr.lat_cell)
+    stress = (0.1 * np.cos(lat), 0.05 * np.sin(lat)) if wind else None
     monkeypatch.setenv("OMEGA_PALLAS_GATHER", "1")
 
-    def jax_steps(h, u, tr):
+    def jax_steps(h, u, tr, *ws):
         s = JModelState(h, u, tr)
         for i in range(nsteps):
-            s = jfb(jr, jcfg, s, i * DT, DT)
+            s = jstep(jr, jcfg, s, i * DT, DT,
+                      wind_stress=tuple(ws) if ws else None)
         return s
-    ref = jax_call(("gather-steps", fct), jax_steps, *jax_state(*fields))
+    ref = jax_call(("gather-steps", kind), jax_steps, *jax_state(*fields),
+                   *(jnp.asarray(w) for w in stress or ()))
     mesh = pr.to("cpu", torch.float64)
     trisk.take_launches = 0
     s = port_state(*fields)
+    ws = None if stress is None else tuple(torch.as_tensor(w)
+                                           for w in stress)
     for i in range(nsteps):
-        s = forward_backward_step(mesh, port_cfg(jcfg), s, i * DT, DT)
-    assert trisk.take_launches == (2 if fct else 0)   # the FCT extrema
+        s = step(mesh, port_cfg(jcfg), s, i * DT, DT, wind_stress=ws)
+    assert trisk.take_launches == takes
     _assert_state(s, ref)
 
 
@@ -304,6 +341,78 @@ def test_coastal_steps_against_jax_unreordered():
     _assert_state(out, ref, {"h": cp, "u": ep, "tracers": cp})
     coast = np.asarray(pr.edge_mask) == 0
     assert coast.any() and (out.u.numpy()[coast] == 0.0).all()
+
+
+def _plan_meshes():
+    return {"icos8": reordered("icos8")[1], "coastal": carved("icos8")[2]}
+
+
+def _direct_grid(n, K, itemsize):
+    """csrc/gather.cu's direct launch for n rows of K values of `itemsize`
+    bytes, 16-byte aligned: (vector width, blocks of 256 threads, each
+    thread's row, vector and whether it is live)."""
+    wide = 16 // itemsize
+    vw = wide if K % wide == 0 else 2 if K % 2 == 0 else 1
+    nv = K // vw
+    blocks = -(-n * nv // 256)
+    g = np.arange(blocks * 256)
+    return vw, blocks, g // nv, g % nv, g < n * nv
+
+
+@pytest.mark.parametrize("kind", ["icos8", "coastal"])
+def test_direct_grid_covers_every_output(kind):
+    """The direct launch's threads cover every (row, value of K) of every
+    table's output once, at every vector width, with no empty block."""
+    mesh = _plan_meshes()[kind]
+    assert len(mesh.gather_info) == len(NAMES)
+    for name, t in mesh.gather_info.items():
+        for K, itemsize in ((12, 4), (6, 4), (5, 4), (12, 8), (3, 8),
+                            (1, 8)):
+            vw, blocks, n, v, live = _direct_grid(t.n, K, itemsize)
+            assert vw * itemsize <= 16 and K % vw == 0
+            assert blocks * 256 - live.sum() < 256, name
+            hits = np.zeros((t.n, K), np.int64)
+            cols = v[live, None] * vw + np.arange(vw)
+            np.add.at(hits, (n[live, None], cols), 1)
+            assert (hits == 1).all(), (name, K, itemsize)
+
+
+def _emulate_direct(table, field):
+    """csrc/gather.cu's direct form in torch, block by block: each live
+    thread's row slots loaded once, then for every leading index its
+    vector of K summed in slot order, every product rounded on its own."""
+    lead, K = field.shape[:-2], field.shape[-1]
+    f = field.reshape((-1,) + field.shape[-2:])
+    out = torch.full((f.shape[0], table.n, K), float("nan"),
+                     dtype=field.dtype)
+    vw, blocks, n, v, live = _direct_grid(table.n, K, field.element_size())
+    idx = torch.as_tensor(table.idx, dtype=torch.long)
+    w = torch.as_tensor(table.w, dtype=field.dtype)
+    for b in range(blocks):
+        sl = slice(b * 256, (b + 1) * 256)
+        nb = torch.as_tensor(n[sl][live[sl]])
+        cols = torch.as_tensor(v[sl][live[sl], None] * vw + np.arange(vw))
+        ix, wr = idx[nb], w[nb]
+        for l in range(f.shape[0]):
+            s = wr[:, :1] * f[l][ix[:, :1], cols]
+            for j in range(1, table.m):
+                s = s + wr[:, j:j + 1] * f[l][ix[:, j:j + 1], cols]
+            out[l][nb[:, None], cols] = s
+    return out.reshape(lead + (table.n, K))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("kind", ["icos8", "coastal"])
+def test_direct_emulator_equals_plain(kind, dtype):
+    mesh = _plan_meshes()[kind]
+    rng = np.random.default_rng(7)
+    for name, t in mesh.gather_info.items():
+        for K in (12, 6, 3):
+            f = torch.as_tensor(rng.standard_normal((2, t.nsrc, K)),
+                                dtype=dtype)
+            assert torch.equal(_emulate_direct(t, f),
+                               gather_kernel.apply_plain(t, f)), (name, K)
 
 
 def test_apply_dispatch():

@@ -5,10 +5,12 @@ their plain versions, float64 and float32, icosahedral subdivision 8, 10
 layers (two layer groups of the patch passes), 2 tracers.
 
 The stand-in maps `__global__` / `__device__` to nothing, `__fmul_rn` /
-`__dmul_rn` to a product stored through a volatile (never fused), and a
-launch `kern<<<grid, block, smem, stream>>>(args)` to a loop that runs the
-grid's threads one after another. That is exact for these kernels: they use
-no shared memory and no barrier, and no launch reads at a neighbour what it
+`__dmul_rn` to a product stored through a volatile (never fused), a
+`__shared__` array to a static one, and a launch
+`kern<<<grid, block, smem, stream>>>(args)` to a loop that runs the grid's
+threads one after another. That is exact for these kernels: they meet at no
+barrier, a thread reads only the part of a `__shared__` array it wrote
+itself (the RK stage's pass D2), and no launch reads at a neighbour what it
 writes. What the card alone can show (the build by nvcc, the launch, the
 times) is chip_smoke.py's `kernel_patch_split`.
 
@@ -49,6 +51,7 @@ using std::sqrt;
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __shared__ static
 #define __launch_bounds__(...)
 #define __grid_constant__
 struct dim3 {
@@ -59,7 +62,16 @@ inline thread_local dim3 blockIdx, threadIdx, blockDim, gridDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+struct cudaFuncAttributes {
+  int numRegs = 0;
+  size_t localSizeBytes = 0, sharedSizeBytes = 0;
+};
 inline cudaError_t cudaGetLastError() { return 0; }
+template <class F>
+cudaError_t cudaFuncGetAttributes(cudaFuncAttributes* a, F) {
+  *a = cudaFuncAttributes();
+  return 0;
+}
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline double __dmul_rn(double a, double b) {
   volatile double r = a * b;
