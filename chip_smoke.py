@@ -5,8 +5,6 @@
     python3 chip_smoke.py --tiles 16x16,32x32@256     # also time those tiles
     python3 chip_smoke.py --solve-columns 4,16,32     # also time the column
                                     # solve with those many columns per block
-    python3 chip_smoke.py --patch-layers 4,16x256     # also time the sphere's
-                                    # patch step with other layer groups
 
 It builds the CUDA kernels from omega_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card, drives the port's main paths
@@ -25,13 +23,17 @@ a user calls, and prints one JSON line per phase:
                   flagship chain and its variants (upwind and FCT fluxes,
                   wind, drag); FCT's 0/1 tracer stays in [0, 1]
   kernel_vmix     PP81 coefficient kernel and column-solve kernel vs plain
-  kernel_rk       RK stage kernel vs plain, every stage mode; fused RK2 / RK4
+  kernel_rk       RK stage kernel vs plain, every stage mode, with its
+                  registers, spill and blocks per SM; fused RK2 / RK4
                   steps vs the composed steppers
   kernel_split    splitpre's passes, the barotropic subcycles and splitpost
                   vs plain; fused split steps vs the composed split stepper
-  kernel_patch    the sphere's FB step (five launches) vs plain at icos16
+  kernel_patch    the sphere's FB step (six launches) vs plain at icos16
                   float64 and icos48 x 100 x 2 float32; fused framed steps
-                  vs the composed stepper; the host parts of a framed step
+                  vs the composed stepper; each pass's device time
+                  (torch.profiler) with its registers, spill and blocks per
+                  SM (likewise for the science variant, FCT's stage A and
+                  splitpost below); the host parts of a framed step
   kernel_patch_science  the sphere's science variants (upwind fluxes, wind,
                   drag), PP81 coefficient and column-solve kernels vs plain
                   at icos16 float64 and icos48 x 100 x 2 float32; fused
@@ -73,13 +75,13 @@ a user calls, and prints one JSON line per phase:
   split_path      2 x 10 split-explicit steps (column ssh, dt = 120 s, ten
                   barotropic subcycles): 3 + 10 + 1 launches per step
   sphere_path     2 x 10 FB steps of bench.py's sphere (icos48 x 100 x 2):
-                  five patch-step launches per step, nothing else
+                  six patch-step launches per step, nothing else
   sphere_science_path  2 x 10 FB steps of the science configuration on the
-                  same sphere (upwind fluxes, wind, drag, PP81 mixing): five
+                  same sphere (upwind fluxes, wind, drag, PP81 mixing): six
                   patch-step launches, one coefficient and one solve launch
                   per step
   sphere_fct_path 2 x 10 FB steps with FCT tracer fluxes on the same sphere
-                  (a 0/1 cap, tracer diffusion off): five stage-A and four
+                  (a 0/1 cap, tracer diffusion off): six stage-A and four
                   stage-B launches per step; the cap stays in [0, 1] at the
                   planar FCT limits at u = 0.05 and 0.5 x noise
   sphere_rk4_path 2 x 10 RK4 steps of sphere_path's configuration: four
@@ -144,12 +146,6 @@ def main(argv=None):
                     help="extra column-group widths of the vertical-mixing "
                     "solve kernel to time (the module has one, "
                     "vmix_kernel.SOLVE_COLUMNS), e.g. 4,16,32")
-    ap.add_argument("--patch-layers", default="",
-                    help="extra layer groups of the sphere's patch step to "
-                    "time, as LAYERS or LAYERSxTHREADS (layers one thread "
-                    "walks, threads per block; the module has one, "
-                    "patch_megastep.LAYERS_PER_THREAD x THREADS), e.g. "
-                    "4,16x256")
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few steps of both paths with "
                     "torch.profiler and print device time by kernel")
@@ -909,9 +905,11 @@ def main(argv=None):
         tabs, consts = megastep._mega_args(mesh32, cfg_r, DT)
         flops = _fb_flops_per_point(tabs, NTRACERS) * NLAYERS * C
         wbytes = 3 * C * 4 if plane is not None else 0
-        res = {"plan": megastep.plan_tile(
-            NY, NX, 4, megastep._ring(tabs, consts, plane, "rk"), None,
-            megastep.RK_SLOTS), "modes": {}}
+        res = {"plan": megastep.rk_plan(
+            4, megastep._ring(tabs, consts, plane, "rk")),
+            "attrs": megastep.rk_stage_attrs(
+                cfg_r, torch.float32,
+                plane is not None or consts["cd"] != 0.0), "modes": {}}
         abs_err = 0.0
         for mname, mode in MODES.items():
             errs = {}
@@ -1142,7 +1140,7 @@ def main(argv=None):
     del s0, st, du, wplanes, du_p, pl_p, planes, out, bt_out, bt_work
 
     # ---------------------------------------------------- 4e. kernel_patch
-    # the sphere's FB step (csrc/patch_step.cuh, five launches per call)
+    # the sphere's FB step (csrc/patch_step.cuh, six launches per call)
     # against its plain version on the same frames: float64 at icos16 x 8 x
     # 2, per channel max|diff| <= 1e-12 max|ref| (the passes sum the
     # momentum terms in another order than the chain); float32 at bench.py's
@@ -1169,12 +1167,28 @@ def main(argv=None):
         return ModelState(h=put(h, dtype), u=put(u, dtype),
                           tracers=put(tr, dtype))
 
+    # the FB patch step's passes (csrc/patch_step.cuh), and the kernel name
+    # each one's device time is read under
+    FB_PASS_KERNELS = dict(zip(patch_megastep.FB_PASS_NAMES, (
+        "pass_a<", "pass_b<", "pass_c<", "pass_d_cells<", "pass_d_edges<",
+        "pass_e<")))
+
+    def fb_passes(fn, cfg_v, tails, bounds=None):
+        """{pass: device ms per call of fn() (torch.profiler over whole
+        calls), the pass's registers, spill, static shared bytes and blocks
+        per SM, and its bound where `bounds` has one}"""
+        attrs = patch_megastep.fb_pass_attrs(cfg_v, torch.float32, tails)
+        times = kernel_ms(fn, FB_PASS_KERNELS)
+        return {nm: {"ms": ms, **attrs[nm],
+                     **({"bound_ms": bounds[nm]["bound_ms"]}
+                        if bounds else {})}
+                for nm, ms in times.items()}
+
     pat = {"tolerance": "f64 per channel max|diff| <= 1e-12 max|ref| "
            "against plain; fused framed steps vs composed steps rtol=atol="
            "1e-10 over 3 steps; f32 per channel the error of the increment "
            "<= PATCH_INCR of the largest increment", "PATCH_INCR": PATCH_INCR,
            "passes_per_step": patch_megastep.PASSES,
-           "layers_per_thread": patch_megastep.LAYERS_PER_THREAD,
            "threads": patch_megastep.THREADS}
     t_m = time.perf_counter()
     m16_np = patch_icos_mesh(spherical_icos_mesh(16), 16)
@@ -1241,17 +1255,9 @@ def main(argv=None):
         p48, cfg48, fr48, DT, out48, work48), 20)
     patch_plain_ms = cuda_ms(lambda: patch_megastep.chain_plain(
         p48, cfg48, fr48, DT), 2, 1)
-    groups_ms = {}
-    for spec in filter(None, args.patch_layers.split(",")):
-        kg, _, nt = spec.partition("x")
-        keep = patch_megastep.LAYERS_PER_THREAD, patch_megastep.THREADS
-        patch_megastep.LAYERS_PER_THREAD = int(kg)
-        patch_megastep.THREADS = int(nt or keep[1])
-        try:
-            groups_ms[spec] = cuda_ms(lambda: patch_megastep.chain(
-                p48, cfg48, fr48, DT, out48, work48), 20)
-        finally:
-            patch_megastep.LAYERS_PER_THREAD, patch_megastep.THREADS = keep
+    passes_ms = fb_passes(lambda: patch_megastep.chain(
+        p48, cfg48, fr48, DT, out48, work48), cfg48, False,
+        port_bounds.patch_fb_passes(N_SPHERE))
     # the host parts of a framed step: the pole submesh's composed step and
     # the in-frame refresh (on a copy of the chain's output)
     sub48 = patch_megastep._sub_state(p48, fr48, fix48)
@@ -1276,7 +1282,7 @@ def main(argv=None):
         "fix_cells": int(p48.fix_cells_global.numel()),
         "fix_edges": int(p48.fix_edges_global.numel()),
         "submesh_step_ms": sub_ms, "refresh_ms": refresh_ms,
-        "host_build_s": sphere_build_s, "layer_groups_ms": groups_ms}
+        "host_build_s": sphere_build_s, "passes": passes_ms}
     emit({"phase": "kernel_patch", **pat})
     patv = pat[f"f32_icos{N_SPHERE}x{NLAYERS}x{NTRACERS}"]
     del fr48, out48, work48, sub48
@@ -1496,6 +1502,8 @@ def main(argv=None):
         p48, cfg48s, fr48, DT, out48, work48, pw48), 20)
     sci_step_plain_ms = cuda_ms(lambda: patch_megastep.chain_plain(
         p48, cfg48s, fr48, DT, wind=pw48), 2, 1)
+    sci_passes = fb_passes(lambda: patch_megastep.chain(
+        p48, cfg48s, fr48, DT, out48, work48, pw48), cfg48s, True)
     sci_coef_ms = cuda_ms(lambda: patch_megastep.vmix_coeffs(
         p48, cfg48s, out48, coef48), 20)
     sci_coef_plain_ms = cuda_ms(lambda: patch_megastep.vmix_coeffs_plain(
@@ -1522,6 +1530,7 @@ def main(argv=None):
     psb = port_bounds.patch_science(N_SPHERE)
     f32.update({
         "step_ms": sci_step_ms, "step_plain_ms": sci_step_plain_ms,
+        "step_passes": sci_passes,
         "coeffs_ms": sci_coef_ms, "coeffs_plain_ms": sci_coef_plain_ms,
         "solve_ms": sci_solve_ms, "solve_plain_ms_pp81": sci_solve_plain_ms,
         "submesh_step_ms": sci_sub_ms, "refresh_ms": sci_refresh_ms,
@@ -1536,7 +1545,7 @@ def main(argv=None):
 
     # ----------------------------------------------- 4g. kernel_patch_fct
     # Zalesak FCT on the sphere: stage A (the patch step's FCT variant,
-    # csrc/patch_step_cf.cu / _uf.cu, five launches per call) and stage B
+    # csrc/patch_step_cf.cu / _uf.cu, six launches per call) and stage B
     # (the limiter, csrc/patch_fct.cu, four launches per call) against their
     # plain versions on the same inputs (stage B on stage A's output after
     # the refresh the driver makes), center and upwind thickness flux, with
@@ -1695,6 +1704,8 @@ def main(argv=None):
         p48f, cfg48f, fr48, DT, mid48, work48), 20)
     fa_plain_ms = cuda_ms(lambda: patch_megastep.fct_a_plain(
         p48f, cfg48f, fr48, DT), 2, 1)
+    fa_passes = fb_passes(lambda: patch_megastep.fct_a(
+        p48f, cfg48f, fr48, DT, mid48, work48), cfg48f, False)
     fb_ms = cuda_ms(lambda: patch_megastep.fct_b(
         p48f, cfg48f, mid, fr48, DT, out48, work48), 20)
     fb_plain_ms = cuda_ms(lambda: patch_megastep.fct_b_plain(
@@ -1757,6 +1768,7 @@ def main(argv=None):
         "errors": f32_errs, "stage_a_max_abs_err": a_abs,
         "stage_b_max_abs_err": b_abs,
         "stage_a_ms": fa_ms, "stage_a_plain_ms": fa_plain_ms,
+        "stage_a_passes": fa_passes,
         "stage_b_ms": fb_ms, "stage_b_plain_ms": fb_plain_ms,
         "stage_a_bound_ms": pfb["stage_a"]["bound_ms"],
         "stage_a_bound_by": pfb["stage_a"]["bound_by"],
@@ -2204,6 +2216,16 @@ def main(argv=None):
             lambda: patch_megastep.split_pre(
                 p48, cfg48p, fr48, out=sc48["du"], work=sc48["work"]),
             SPLIT_PRE_KERNELS).items()}
+    # splitpost pass by pass, likewise, with blocks per SM
+    sq_attrs = patch_megastep.split_post_attrs(torch.float32)
+    post_names = patch_megastep.FB_PASS_NAMES[
+        :patch_megastep.SPLIT_POST_PASSES]
+    rec["split_post_passes"] = {
+        nm: {"ms": ms, **sq_attrs[nm]}
+        for nm, ms in kernel_ms(
+            lambda: patch_megastep.split_post(
+                p48, cfg48p, ft48, DT_SPLIT, out48, work=sc48["work"]),
+            {nm: FB_PASS_KERNELS[nm] for nm in post_names}).items()}
     # the host parts of a framed split step: the flat state's read-out, the
     # pole submesh's tendency and advance, the flat phase's composed
     # operators, and the refresh
@@ -2760,7 +2782,7 @@ def main(argv=None):
     # bench.py's sphere configuration (icos48 x 100 layers x 2 tracers,
     # float32, dt = 30 s) through run_steps with u = 0.01 x noise x
     # edge_mask: the frames are the loop's carry, a step is one call of the
-    # patch step (five launches), the pole submesh's composed step and the
+    # patch step (six launches), the pole submesh's composed step and the
     # in-frame refresh; no other kernel launches
     def sphere_content(st):
         a = torch.as_tensor(np.asarray(m48_np.area_cell), device=dev)[:, None]
@@ -2822,7 +2844,7 @@ def main(argv=None):
     # x 2, float32, dt = 30 s): upwind thickness and tracer fluxes, a wind
     # stress varying with latitude, bottom drag 3e-3, PP81 mixing on a
     # stratified T / S, through run_steps with the stress. A step is one
-    # call of the patch step's science variant (five launches), the PP81
+    # call of the patch step's science variant (six launches), the PP81
     # coefficient kernel, the column solve, the pole submesh's composed
     # step and the refresh; no other kernel launches
     cfg_ss = cfg48s
@@ -2908,7 +2930,7 @@ def main(argv=None):
     # 30 s, flagship terms, center thickness flux), tracer diffusion off
     # (eddy_diff2 = eddy_diff4 = 0, its flags on): a 0/1 spherical cap in
     # tracer 0, u = 0.05 x noise x edge_mask, through run_steps. A step is
-    # stage A (five launches), the refresh of its fields, stage B (four
+    # stage A (six launches), the refresh of its fields, stage B (four
     # launches), the FCT fix submesh's composed stages and the final
     # refresh; no other kernel launches. The cap stays in [0, 1] within
     # MONO_F32 (the planar limits), at u = 0.05 and at the reference's 0.5

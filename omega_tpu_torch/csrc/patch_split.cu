@@ -22,10 +22,10 @@
 // stencils, B the gradients and the column pressure gradient, C dd2 / dr2, D
 // the deepest stencils and du.
 //
-// splitpost (four launches): passes A-D of the FB step (patch_step.cuh,
-// switch MOM off): h_new and the tracers, with the transport velocity in
-// the u channels of `in`, into channels 0 and 4.. of `out`; its u channels
-// are the caller's.
+// splitpost (four launches): passes A, B, C and D1 of the FB step
+// (patch_step.cuh, switch MOM off; D1 is D's cell section): h_new and the
+// tracers, with the transport velocity in the u channels of `in`, into
+// channels 0 and 4.. of `out`; its u channels are the caller's.
 //
 // Bound on this card: device memory. splitpre must read h, u and the
 // momentum weights and write du (port_bounds.patch_split: 88.7 MB at icos48
@@ -61,9 +61,8 @@ bool fill_args(Args<T>& a, const void* in, void* out, const void* off,
   a.K = n[2];
   a.L = n[3];
   a.CH = 4 + a.L;
-  a.kg = n[4];
   threads = n[5];
-  if (a.P < 1 || a.K < 1 || a.L < 0 || a.kg < 1 || threads < 32 ||
+  if (a.P < 1 || a.K < 1 || a.L < 0 || threads < 32 ||
       threads > 256 || threads % 32 || in == nullptr || out == nullptr ||
       off == nullptr || w == nullptr || cpl == nullptr || in == out) {
     return false;
@@ -91,9 +90,9 @@ bool fill_args(Args<T>& a, const void* in, void* out, const void* off,
   return a.wind == 0 && a.drag == 0;
 }
 
-#define OMEGA_SPLIT_PASS(...)                           \
-  __VA_ARGS__<<<grid, threads, 0, stream>>>(a);         \
-  err = cudaGetLastError();                             \
+#define OMEGA_SPLIT_PASS(I, ...)                              \
+  __VA_ARGS__<<<grid[I], threads, 0, stream>>>(ap[I]);         \
+  err = cudaGetLastError();                                    \
   if (err != cudaSuccess) return static_cast<int>(err);
 
 template <typename T>
@@ -165,16 +164,35 @@ int launch_split_post(const void* in, void* out, const void* off,
     *fields[i] = wp;
     wp += width[i] * f;
   }
-  const dim3 grid((a.P + threads - 1) / threads, (a.K + a.kg - 1) / a.kg);
+  Args<T> ap[kFbPassD1 + 1];
+  dim3 grid[kFbPassD1 + 1];
+  for (int i = 0; i <= kFbPassD1; ++i)
+    fb_pass_args(a, threads, i, ap[i], grid[i]);
   cudaError_t err;
-  OMEGA_SPLIT_PASS(pass_a<T, false, kTrCenter, false>)
-  OMEGA_SPLIT_PASS(pass_b<T, kTrCenter, false>)
-  OMEGA_SPLIT_PASS(pass_c<T, false, kTrCenter, false>)
-  OMEGA_SPLIT_PASS(pass_d<T, false, kTrCenter, false, false>)
+  OMEGA_SPLIT_PASS(kFbPassA, pass_a<T, false, kTrCenter, false>)
+  OMEGA_SPLIT_PASS(kFbPassB, pass_b<T, kTrCenter, false>)
+  OMEGA_SPLIT_PASS(kFbPassC, pass_c<T, false, kTrCenter, false>)
+  OMEGA_SPLIT_PASS(kFbPassD1, pass_d_cells<T, kTrCenter>)
   return 0;
 }
 
 #undef OMEGA_SPLIT_PASS
+
+// kernel_attrs of splitpost's pass `pass` (A, B, C, D1: 0 ... 3)
+template <typename T>
+int split_post_attrs(int pass, int threads, int* out) {
+  const void* k =
+      pass == kFbPassA
+          ? reinterpret_cast<const void*>(pass_a<T, false, kTrCenter, false>)
+      : pass == kFbPassB
+          ? reinterpret_cast<const void*>(pass_b<T, kTrCenter, false>)
+      : pass == kFbPassC
+          ? reinterpret_cast<const void*>(pass_c<T, false, kTrCenter, false>)
+      : pass == kFbPassD1
+          ? reinterpret_cast<const void*>(pass_d_cells<T, kTrCenter>)
+          : nullptr;
+  return kernel_attrs(k, threads, out);
+}
 
 }  // namespace patch
 }  // namespace omega
@@ -190,9 +208,12 @@ int launch_split_post(const void* in, void* out, const void* off,
 // eddy_diff2, eddy_diff4, the uniform consts, rho0, the drag coefficient;
 // P, S, K, L, layers per thread, threads per block, the const flags, wind
 // and drag off) followed by the uniform depth and its flag (1: `depth_row`;
-// splitpre's RK passes walk patch_rk.cuh's kRkPassLayers, not the layers
-// per thread). Returns the first refused launch's error code, or 0.
-// omega_patch_split_pre_attrs_<f32|f64>(pass, out): see split_pre_attrs.
+// the layers per thread are not read: splitpre's RK passes walk
+// patch_rk.cuh's kRkPassLayers, splitpost's passes patch_step.cuh's
+// kFbPassLayers). Returns the first refused launch's error code, or 0.
+// omega_patch_split_pre_attrs_<f32|f64>(pass, out): see split_pre_attrs;
+// omega_patch_split_post_attrs_<f32|f64>(pass, threads, out): see
+// split_post_attrs.
 extern "C" {
 #define OMEGA_SPLIT_ENTRIES(SUF, T)                                           \
   int omega_patch_split_pre_##SUF(                                            \
@@ -205,6 +226,9 @@ extern "C" {
   }                                                                           \
   int omega_patch_split_pre_attrs_##SUF(int pass, int* out) {                 \
     return omega::patch::split_pre_attrs<T>(pass, out);                       \
+  }                                                                           \
+  int omega_patch_split_post_attrs_##SUF(int pass, int threads, int* out) {   \
+    return omega::patch::split_post_attrs<T>(pass, threads, out);             \
   }                                                                           \
   int omega_patch_split_post_##SUF(                                           \
       const void* in, void* out, const void* off, const void* w,              \

@@ -1,6 +1,6 @@
 // The forward-backward step on the icosahedral sphere: the horizontal part
 // of the FB chain of mesh/icos_mega.fb_chain on the persistent halo frames,
-// in five launches made by one C call. One source per pair of flux types
+// in six launches made by one C call. One source per pair of flux types
 // instantiates this template (patch_step_cc.cu, _uc, _cu, _uu; with FCT
 // tracer fluxes _cf, _uf), each with and without the wind / drag tails, in
 // both precisions.
@@ -28,10 +28,11 @@
 // plane to all 128 lanes of K. Here a position's stencil rows come from the
 // compact table built on the host (ops/patch_megastep.py:compact_table).
 // Every layer uses the same weights, so a thread loads the slots of its
-// position once into registers and walks LAYERS_PER_THREAD layers with
-// them: the table (60 offset and 120 weight rows of P, 29.5 MB at icos48 in
-// float32) is read once per pass, not once per layer. Neighbouring threads
-// are neighbouring positions, so field reads are coalesced along x.
+// position once into registers and walks a group of layers with them (each
+// pass its own group, kFbPassLayers): the table (60 offset and 120 weight
+// rows of P, 29.5 MB at icos48 in float32) is read once per layer group and
+// pass, not once per layer. Neighbouring threads are neighbouring
+// positions, so field reads are coalesced along x.
 //
 // Levels. The chain has six stencil levels; a launch evaluates a group of
 // them at every frame position, the intermediates of one launch going
@@ -48,14 +49,19 @@
 //      dup = nu2 s2 (cgrad(div u) - vgrad(curl u)) - cgrad(ke) and
 //      del2e = mask cgrad(div u) - vgrad_floor(curl u)
 //   C: per tracer cd2 = cdiff(d2aux); F = flux_hn u;
-//      dup -= g (cgrad(h_new) - gdepth); qv = (curl u + f) / kite(h_new);
-//      dr2 = curl(del2e); dd2 = div(del2e)
-//   D: trn = (tr h + dt (trp - ed4 sdiv_geo4(cd2))) / h_new;
-//      Fq = F vmean(qv); dup += 0.5 vmean(qv) tang(F)
-//      - nu4 s4 (df cgrad(dd2) - vgrad(dr2)); the tails: on layer 0
+//      qv = (curl u + f) / kite(h_new); dr2 = curl(del2e); dd2 = div(del2e)
+//   D1 (cells): trn = (tr h + dt (trp - ed4 sdiv_geo4(cd2))) / h_new
+//   D2 (edges, one edge class per grid z): Fq = F vmean(qv);
+//      dup += -g (cgrad(h_new) - gdepth) - nu4 s4 (df cgrad(dd2) -
+//      vgrad(dr2)) + 0.5 vmean(qv) tang(F); the tails: on layer 0
 //      dup += stress / (rho0 mean_hn), on layer K-1
 //      dup -= cd sqrt(2 cmean(ke)) u / mean_hn
 //   E: u_new = u + dt mask (dup + 0.5 tang(Fq))
+// D is split by section and edge class, as the RK stage's is
+// (patch_rk.cuh), so that a D2 thread holds one edge class's slots, its
+// tangential ones in shared memory; the pressure gradient, a read of h_new,
+// is taken in D2 and not in C, so that dup goes through device memory once
+// less (C wrote it back).
 // Center fluxes: mean_h = flux_h = cmean(h), htre = cmean(h tr), mean_hn =
 // flux_hn = cmean(h_new). Upwind (either flux): the pair tables c0 / c1
 // give the edge's two cells, hp0 / hp1, and mean_h = 0.5 (hp0 + hp1); an
@@ -68,10 +74,10 @@
 // not the chain's; every product is rounded on its own (mul_rn), as the
 // plain version rounds it, and stencil sums run in the same order as its.
 //
-// The split-explicit stepper's splitpost (csrc/patch_split.cu) is passes A-D
-// with the compile-time switch MOM off: the thickness and tracer work alone
-// (center fluxes), the u channels of `in` holding the transport velocity and
-// those of `out` left to the caller.
+// The split-explicit stepper's splitpost (csrc/patch_split.cu) is passes A,
+// B, C and D1 with the compile-time switch MOM off: the thickness and tracer
+// work alone (center fluxes), the u channels of `in` holding the transport
+// velocity and those of `out` left to the caller.
 //
 // Holes and NaN: lattice holes hold zeros in the frames; the divisions by
 // h_v, h_new and mean_hn are guarded (a zero divisor gives 0), as
@@ -80,9 +86,10 @@
 // Bound on this card: device memory. One step must read the state and
 // write it once and read the weights, plus the wind rows with wind
 // (port_bounds.patch_fb / patch_science: 117 MB at icos48 x 100 x 2 in
-// float32, 0.035 ms); the five launches also write and read the
-// intermediates (about 55 state-field volumes at L = 2), which this first
-// version does not keep on chip.
+// float32, 0.035 ms); the six launches also write and read the
+// intermediates: each pass as a function of its own moves 113-287 MB, the
+// six 1.16 GB (port_bounds.patch_fb_passes: 0.35 ms), since a pass reads
+// its inputs at the neighbours of every position of the whole frames.
 #pragma once
 
 #include "patch_common.cuh"
@@ -320,19 +327,17 @@ __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
   const long long P = a.P, lay = static_cast<long long>(a.CH) * P,
                   layo = out_layer<TR>(a);
   const int L = a.L;
-  // edges: cd2 (into mc's field), F (into flux's), the ssh gradient
+  // edges: cd2 (into mc's field), F (into flux's)
   for (int t = 0; t < 3; ++t) {
     int o[2];
-    T wd[2], wm[2], wg[2], w0[2], w1[2];
+    T wd[2], wm[2], w0[2], w1[2];
     load_off(a.off, kOffCm + 2 * t, a.P, p, o);
     load_w(a.w, kWCdiff + 2 * t, a.P, p, wd);
     load_w(a.w, kWCmean + 2 * t, a.P, p, wm);
-    load_w(a.w, kWCgrad + 2 * t, a.P, p, wg);
     if constexpr (UH) {
       load_w(a.w, kWC0 + 2 * t, a.P, p, w0);
       load_w(a.w, kWC1 + 2 * t, a.P, p, w1);
     }
-    const T gd = cval(a, kGd, kCGd + t, p);
     for (int k = k0; k < k1; ++k) {
       for (int l = 0; l < L; ++l)
         a.mc[(k * 3LL * L + 3 * l + t) * P + p] =
@@ -349,7 +354,6 @@ __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
         flux_hn = sten(wm, o, hn, p);
       }
       a.flux[q] = mul_rn(flux_hn, u);
-      a.dup[q] = a.dup[q] - mul_rn(a.grav, sten(wg, o, hn, p) - gd);
     }
   }
   if constexpr (!MOM) return;
@@ -381,92 +385,117 @@ __global__ void __launch_bounds__(256) pass_c(const Args<T> a) {
 }
 
 // ------------------------------------------------------------- pass D
-template <typename T, bool UH, int TR, bool TAILS, bool MOM = true>
-__global__ void __launch_bounds__(256) pass_d(const Args<T> a) {
+// D is split by section, so that no thread holds the slots of more than one
+// edge class: D1 the cells (the new tracers; FCT: the numerators facc), D2
+// the edges (Fq and du), one edge class per grid z. The two write disjoint
+// fields and read none the other writes.
+template <typename T, int TR>
+__global__ void __launch_bounds__(256) pass_d_cells(const Args<T> a) {
   int p, k0, k1;
   if (!where(a, p, k0, k1)) return;
   const long long P = a.P, lay = static_cast<long long>(a.CH) * P,
                   layo = out_layer<TR>(a);
   const int L = a.L;
-  // cells: the new tracers (FCT: the numerators facc)
-  {
-    int o[6];
-    T w4[6];
-    load_off(a.off, kOffDiv, a.P, p, o);
-    load_w(a.w, kWSg4, a.P, p, w4);
-    for (int k = k0; k < k1; ++k) {
-      const T h = a.in[k * lay + p];
-      const T hn = a.out[k * layo + p];
-      for (int l = 0; l < L; ++l) {
-        const T hyp = sten(w4, o, a.mc + (k * 3LL * L + 3 * l) * P, p);
-        const T dtr =
-            a.trp[(k * static_cast<long long>(L) + l) * P + p] -
-            mul_rn(a.ed4, hyp);
-        const T tr = a.in[k * lay + (4 + l) * P + p];
-        const T acc = mul_rn(tr, h) + mul_rn(a.dt, dtr);
-        if constexpr (TR == kTrFct) {
-          a.out[k * layo + (5 + 2 * l) * P + p] = acc;
-        } else {
-          a.out[k * layo + (4 + l) * P + p] = safe_div(acc, hn);
-        }
+  int o[6];
+  T w4[6];
+  load_off(a.off, kOffDiv, a.P, p, o);
+  load_w(a.w, kWSg4, a.P, p, w4);
+  for (int k = k0; k < k1; ++k) {
+    const T h = a.in[k * lay + p];
+    const T hn = a.out[k * layo + p];
+    for (int l = 0; l < L; ++l) {
+      const T hyp = sten(w4, o, a.mc + (k * 3LL * L + 3 * l) * P, p);
+      const T dtr =
+          a.trp[(k * static_cast<long long>(L) + l) * P + p] -
+          mul_rn(a.ed4, hyp);
+      const T tr = a.in[k * lay + (4 + l) * P + p];
+      const T acc = mul_rn(tr, h) + mul_rn(a.dt, dtr);
+      if constexpr (TR == kTrFct) {
+        a.out[k * layo + (5 + 2 * l) * P + p] = acc;
+      } else {
+        a.out[k * layo + (4 + l) * P + p] = safe_div(acc, hn);
       }
     }
   }
-  if constexpr (!MOM) return;
-  // edges: Fq (into del2e's field), PV and del4 terms into dup
-  for (int t = 0; t < 3; ++t) {
-    int ov[2], oc[2], ot[10];
-    T wvm[2], wvg[2], wg[2], wt[10], wm[2], w0[2], w1[2];
-    load_off(a.off, kOffVm + 2 * t, a.P, p, ov);
-    load_w(a.w, kWVmean + 2 * t, a.P, p, wvm);
-    load_w(a.w, kWVgrad + 2 * t, a.P, p, wvg);
-    load_off(a.off, kOffCm + 2 * t, a.P, p, oc);
-    load_w(a.w, kWCgrad + 2 * t, a.P, p, wg);
-    load_off(a.off, kOffTang + 10 * t, a.P, p, ot);
-    load_w(a.w, kWTang + 10 * t, a.P, p, wt);
-    if constexpr (TAILS) {
-      load_w(a.w, kWCmean + 2 * t, a.P, p, wm);
-      if constexpr (UH) {
-        load_w(a.w, kWC0 + 2 * t, a.P, p, w0);
-        load_w(a.w, kWC1 + 2 * t, a.P, p, w1);
-      }
+}
+
+// D2: Fq (into del2e's field), and into dup the pressure gradient g
+// (cgrad(h_new) - gdepth), the PV and del4 terms and the tails. Its register
+// budget: at least 4 blocks of 256 threads resident per SM (64 registers);
+// the tangential slots in shared memory, each thread's own column, read
+// through a volatile pointer at every use (as patch_rk.cuh's D2)
+template <typename T, bool UH, int TR, bool TAILS>
+__global__ void __launch_bounds__(256, 4) pass_d_edges(const Args<T> a) {
+  __shared__ int s_ot[10][256];
+  __shared__ T s_wt[10][256];
+  int p, k0, k1;
+  if (!where(a, p, k0, k1)) return;
+  const int t = blockIdx.z;
+  const long long P = a.P, lay = static_cast<long long>(a.CH) * P,
+                  layo = out_layer<TR>(a);
+  int ov[2], oc[2], ot[10];
+  T wvm[2], wvg[2], wg[2], wt[10], wm[2], w0[2], w1[2];
+  load_off(a.off, kOffVm + 2 * t, a.P, p, ov);
+  load_w(a.w, kWVmean + 2 * t, a.P, p, wvm);
+  load_w(a.w, kWVgrad + 2 * t, a.P, p, wvg);
+  load_off(a.off, kOffCm + 2 * t, a.P, p, oc);
+  load_w(a.w, kWCgrad + 2 * t, a.P, p, wg);
+  load_off(a.off, kOffTang + 10 * t, a.P, p, ot);
+  load_w(a.w, kWTang + 10 * t, a.P, p, wt);
+  const int tid = threadIdx.x;
+  _Pragma("unroll") for (int s = 0; s < 10; ++s) {
+    s_ot[s][tid] = ot[s];
+    s_wt[s][tid] = wt[s];
+  }
+  if constexpr (TAILS) {
+    load_w(a.w, kWCmean + 2 * t, a.P, p, wm);
+    if constexpr (UH) {
+      load_w(a.w, kWC0 + 2 * t, a.P, p, w0);
+      load_w(a.w, kWC1 + 2 * t, a.P, p, w1);
     }
-    const T nu4s = mul_rn(a.nu4, cval(a, kS4, kCS4 + t, p));
-    for (int k = k0; k < k1; ++k) {
-      const long long q = (k * 3LL + t) * P + p;
-      const T qe = sten(wvm, ov, a.qv + k * 2LL * P, p);
-      a.del2e[q] = mul_rn(a.flux[q], qe);
-      const T tf = sten(wt, ot, a.flux + k * 3LL * P, p);
-      const T cd4 = sten(wg, oc, a.divu + k * P, p);
-      const T vd4 = sten(wvg, ov, a.dr2 + k * 2LL * P, p);
-      T du = (a.dup[q] - mul_rn(nu4s, mul_rn(a.dfac, cd4) - vd4)) +
-             mul_rn(T(0.5), mul_rn(qe, tf));
-      if constexpr (TAILS) {
-        const bool top = a.wind && k == 0, bottom = a.drag && k == a.K - 1;
-        if (top || bottom) {
-          const T* hn = a.out + k * layo;
-          T mean_hn;
-          if constexpr (UH) {
-            mean_hn = mul_rn(T(0.5), sten(w0, oc, hn, p) +
-                                         sten(w1, oc, hn, p));
-          } else {
-            mean_hn = sten(wm, oc, hn, p);
-          }
-          if (top)
-            du = du + safe_div(a.cpl[(kCWind + t) * P + p],
-                               mul_rn(a.rho0, mean_hn));
-          if (bottom) {
-            const T kee = sten(wm, oc, a.ke + k * P, p);
-            const T two = T(2) * kee;
-            const T speed = sqrt(two > T(0) ? two : T(0));
-            du = du - safe_div(mul_rn(mul_rn(a.cd, speed),
-                                      a.in[k * lay + (1 + t) * P + p]),
-                               mean_hn);
-          }
+  }
+  const T nu4s = mul_rn(a.nu4, cval(a, kS4, kCS4 + t, p));
+  const T gd = cval(a, kGd, kCGd + t, p);
+  const volatile int* so = &s_ot[0][tid];
+  const volatile T* sw = &s_wt[0][tid];
+  for (int k = k0; k < k1; ++k) {
+    const long long q = (k * 3LL + t) * P + p;
+    const T* hn = a.out + k * layo;
+    const T qe = sten(wvm, ov, a.qv + k * 2LL * P, p);
+    a.del2e[q] = mul_rn(a.flux[q], qe);
+    const T* fl = a.flux + k * 3LL * P;
+    T tf = T(0);
+    _Pragma("unroll") for (int s = 0; s < 10; ++s)
+      tf = tf + mul_rn(static_cast<T>(sw[s * 256]), fl[p + so[s * 256]]);
+    const T cd4 = sten(wg, oc, a.divu + k * P, p);
+    const T vd4 = sten(wvg, ov, a.dr2 + k * 2LL * P, p);
+    const T pg = mul_rn(a.grav, sten(wg, oc, hn, p) - gd);
+    T du = ((a.dup[q] - pg) - mul_rn(nu4s, mul_rn(a.dfac, cd4) - vd4)) +
+           mul_rn(T(0.5), mul_rn(qe, tf));
+    if constexpr (TAILS) {
+      const bool top = a.wind && k == 0, bottom = a.drag && k == a.K - 1;
+      if (top || bottom) {
+        T mean_hn;
+        if constexpr (UH) {
+          mean_hn = mul_rn(T(0.5), sten(w0, oc, hn, p) +
+                                       sten(w1, oc, hn, p));
+        } else {
+          mean_hn = sten(wm, oc, hn, p);
+        }
+        if (top)
+          du = du + safe_div(a.cpl[(kCWind + t) * P + p],
+                             mul_rn(a.rho0, mean_hn));
+        if (bottom) {
+          const T kee = sten(wm, oc, a.ke + k * P, p);
+          const T two = T(2) * kee;
+          const T speed = sqrt(two > T(0) ? two : T(0));
+          du = du - safe_div(mul_rn(mul_rn(a.cd, speed),
+                                    a.in[k * lay + (1 + t) * P + p]),
+                             mean_hn);
         }
       }
-      a.dup[q] = du;
     }
+    a.dup[q] = du;
   }
 }
 
@@ -493,6 +522,66 @@ __global__ void __launch_bounds__(256) pass_e(const Args<T> a) {
   }
 }
 
+// The FB step's passes: A, B, C, D1 (cells), D2 (edges, one launch of grid
+// z = 3), E, each walking its own group of layers per thread
+// (kFbPassLayers; splitpost, passes A-D1, walks the same groups): the
+// fastest of 4, 8 and 16 for each pass at icos48 x 100 x 2 in float32 on an
+// H100 (PERF.md, row 5), though none moves a pass by more than 10%.
+enum { kFbPassA = 0, kFbPassB, kFbPassC, kFbPassD1, kFbPassD2, kFbPassE,
+       kFbPasses };
+constexpr int kFbPassLayers[kFbPasses] = {4, 8, 4, 8, 16, 4};
+
+// pass i's arguments (its layer group) and grid
+template <typename T>
+void fb_pass_args(const Args<T>& a, int threads, int i, Args<T>& ai,
+                  dim3& grid) {
+  ai = a;
+  ai.kg = kFbPassLayers[i];
+  grid = dim3((a.P + threads - 1) / threads,
+              (a.K + kFbPassLayers[i] - 1) / kFbPassLayers[i],
+              i == kFbPassD2 ? 3 : 1);
+}
+
+// the kernel of pass `pass`, or null
+template <typename T, bool UH, int TR, bool TAILS>
+const void* fb_pass_kernel(int pass) {
+  switch (pass) {
+    case kFbPassA: return reinterpret_cast<const void*>(pass_a<T, UH, TR>);
+    case kFbPassB: return reinterpret_cast<const void*>(pass_b<T, TR>);
+    case kFbPassC: return reinterpret_cast<const void*>(pass_c<T, UH, TR>);
+    case kFbPassD1: return reinterpret_cast<const void*>(pass_d_cells<T, TR>);
+    case kFbPassD2:
+      return reinterpret_cast<const void*>(pass_d_edges<T, UH, TR, TAILS>);
+    case kFbPassE: return reinterpret_cast<const void*>(pass_e<T, TR>);
+    default: return nullptr;
+  }
+}
+
+// cudaFuncGetAttributes of kernel k (numRegs, localSizeBytes,
+// sharedSizeBytes into out[0..2]) and the blocks of `threads` threads an
+// SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor, out[3])
+inline int kernel_attrs(const void* k, int threads, int* out) {
+  if (k == nullptr || out == nullptr || threads < 32 || threads > 256)
+    return cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  out[3] = blocks;
+  return 0;
+}
+
+// kernel_attrs of the FB step's pass `pass`
+template <typename T, bool UH, int TR, bool TAILS>
+int fb_pass_attrs(int pass, int threads, int* out) {
+  return kernel_attrs(fb_pass_kernel<T, UH, TR, TAILS>(pass), threads, out);
+}
+
 template <typename T, bool UH, int TR, bool TAILS>
 int launch(const void* in, void* out, const void* off, const void* w,
            const void* cpl, void* work, const double* c, const int* n,
@@ -502,10 +591,9 @@ int launch(const void* in, void* out, const void* off, const void* w,
   a.K = n[2];
   a.L = n[3];
   a.CH = 4 + a.L;
-  a.kg = n[4];
   const int threads = n[5];
-  if (a.P < 1 || a.K < 1 || a.L < 0 || a.kg < 1 || threads < 32 ||
-      threads > 256 || threads % 32) {
+  if (a.P < 1 || a.K < 1 || a.L < 0 || threads < 32 || threads > 256 ||
+      threads % 32) {
     return cudaErrorInvalidValue;
   }
   if (in == nullptr || out == nullptr || off == nullptr || w == nullptr ||
@@ -543,17 +631,20 @@ int launch(const void* in, void* out, const void* off, const void* w,
   a.wind = n[6 + kNConst];
   a.drag = n[7 + kNConst];
   if (!TAILS && (a.wind || a.drag)) return cudaErrorInvalidValue;
-  const dim3 grid((a.P + threads - 1) / threads, (a.K + a.kg - 1) / a.kg);
+  Args<T> ap[kFbPasses];
+  dim3 grid[kFbPasses];
+  for (int i = 0; i < kFbPasses; ++i) fb_pass_args(a, threads, i, ap[i], grid[i]);
   cudaError_t err;
-#define OMEGA_PASS(...)                                 \
-  __VA_ARGS__<<<grid, threads, 0, stream>>>(a);         \
-  err = cudaGetLastError();                             \
+#define OMEGA_PASS(I, ...)                                     \
+  __VA_ARGS__<<<grid[I], threads, 0, stream>>>(ap[I]);         \
+  err = cudaGetLastError();                                    \
   if (err != cudaSuccess) return static_cast<int>(err);
-  OMEGA_PASS(pass_a<T, UH, TR>)
-  OMEGA_PASS(pass_b<T, TR>)
-  OMEGA_PASS(pass_c<T, UH, TR>)
-  OMEGA_PASS(pass_d<T, UH, TR, TAILS>)
-  OMEGA_PASS(pass_e<T, TR>)
+  OMEGA_PASS(kFbPassA, pass_a<T, UH, TR>)
+  OMEGA_PASS(kFbPassB, pass_b<T, TR>)
+  OMEGA_PASS(kFbPassC, pass_c<T, UH, TR>)
+  OMEGA_PASS(kFbPassD1, pass_d_cells<T, TR>)
+  OMEGA_PASS(kFbPassD2, pass_d_edges<T, UH, TR, TAILS>)
+  OMEGA_PASS(kFbPassE, pass_e<T, TR>)
 #undef OMEGA_PASS
   return 0;
 }
@@ -569,9 +660,13 @@ int launch(const void* in, void* out, const void* off, const void* w,
 // const planes, `work` the scratch of work_fields(L) (K, 1, P) fields;
 // `consts` = dt, g, nu2, nu4, div_factor, eddy_diff2, eddy_diff4, the
 // uniform values of f_vertex, gdepth, scal2, scal4, edge_mask, then rho0 and
-// the drag coefficient; `ints` = P, S, K, L, layers per thread, threads per
-// block, one flag per const (1: a plane of `cpl`), then wind and drag on
-// (1) or off (0). Returns the first refused launch's error code, or 0.
+// the drag coefficient; `ints` = P, S, K, L, layers per thread (not read:
+// each pass walks kFbPassLayers), threads per block, one flag per const (1:
+// a plane of `cpl`), then wind and drag on (1) or off (0). Returns the
+// first refused launch's error code, or 0.
+// omega_patch_fb_attrs_<FL>_<plain|tails>_<f32|f64>(pass, threads, out):
+// pass A ... E's (0 ... 5) numRegs, localSizeBytes, sharedSizeBytes and
+// blocks per SM at `threads` threads a block.
 #define OMEGA_PATCH_ENTRY(FL, TL, SUF, T, UH, TR, TAILS)                    \
   int omega_patch_fb_##FL##_##TL##_##SUF(                                    \
       const void* in, void* out, const void* off, const void* w,             \
@@ -580,6 +675,11 @@ int launch(const void* in, void* out, const void* off, const void* w,
     return omega::patch::launch<T, UH, TR, TAILS>(                           \
         in, out, off, w, cpl, work, consts, ints,                            \
         static_cast<cudaStream_t>(stream));                                  \
+  }                                                                          \
+  int omega_patch_fb_attrs_##FL##_##TL##_##SUF(int pass, int threads,        \
+                                              int* out) {                    \
+    return omega::patch::fb_pass_attrs<T, UH, TR, TAILS>(pass, threads,      \
+                                                         out);              \
   }
 
 #define OMEGA_PATCH_VARIANTS(FL, UH, TR)                                    \

@@ -12,11 +12,11 @@
 //         (h, u), wind on the top layer and drag on the bottom one with
 //         mean_h of that level
 //
-// with the levels the FB step shares (slab_chain.cuh) and the same
-// compile-time variants <UPH, UPT, TAILS>. The epilogue at the owned centre
-// is a run-time branch uniform over the launch (`mode`, enum RkMode), with
-// ca = a*dt and cb = b*dt folded in float64 on the host and rounded to T
-// once, as the JAX code does with python floats:
+// with the FB step's arithmetic (slab_chain.cuh) and the same compile-time
+// variants <UPH, UPT, TAILS>. The epilogue at the owned centre is a run-time
+// branch uniform over the launch (`mode`, enum RkMode), with ca = a*dt and
+// cb = b*dt folded in float64 on the host and rounded to T once, as the JAX
+// code does with python floats:
 //
 //   RK_PROV   out = base + ca k                       (RK2: both launches)
 //   RK_FIRST  acc = (h, u, tr*h)(base) + cb k ; out = base + ca k   (RK4 s1)
@@ -32,10 +32,37 @@
 // as deep and shared memory for the midpoint state, on a card whose block has
 // 227 KB, not the TPU's 128 MB.
 //
+// Design for this card. A block is one layer x one kBY x kBX tile with the
+// chain's (kRY, kRX) ring, as in the FB step, but the slab geometry and the
+// planar hex mesh's entry pattern (source class, dj, and di per row parity
+// of every table entry, hex_ent) are compile-time constants here: every
+// shared-memory read of a stencil is one load at an immediate offset from
+// the point's own index, with no parity select and no address arithmetic,
+// and its weight is an operand from the kernel's parameter space. On the
+// slab a thread evaluates a column of four rows (even, odd, even, odd; at
+// the owned centre two): the slab's first row is even (kBY and kRY are even,
+// ny is even), so every parity is compile-time and a warp never diverges on
+// it, and the points share the loads their stencils have in common. The
+// thread that owns a pair of the tile keeps it for the whole stage
+// (kRkThreads == the tile's row pairs x columns), so
+// out's h stays in registers across the tracers, and the epilogue's base
+// and accumulator values (and the next tracer's slab) are loaded a level
+// before they are used. The flux F = flux_h * u is formed once on the slab
+// and serves dh and the PV walk (its 8 tangential entries read F and q, not
+// flux_h, u and q). The edge PV level is split in two (q, then del2 of u)
+// and du's del2 term is kept in registers, so that 18 slab arrays suffice:
+// 4 blocks per SM in float32. The launcher refuses any other tile, ring,
+// entry pattern or block size (the host then runs the composed step:
+// megastep.rk_pattern_fits).
+//
 // Bound: bytes, per launch the evaluated level (4+L channels), the base and
 // accumulator read at the owned centre, and the outputs written; the chain's
-// stencil arithmetic is the FB step's, and like it what the time goes to.
+// stencil arithmetic runs out of shared memory, whose loads (about 344 per
+// owned point and stage as written, 1.48 slab points per owned point) and
+// the barriers between the chain's levels are what the time goes to.
 #pragma once
+
+#include <utility>
 
 #include "slab_chain.cuh"
 
@@ -43,119 +70,452 @@ namespace omega {
 
 enum RkMode { RK_PROV = 0, RK_FIRST = 1, RK_MID = 2, RK_LAST = 3 };
 
-constexpr int kRkSlots = 21;
+constexpr int kRkSlots = 18;
+
+namespace rk {
+
+// the tile, its ring and the block the RK stage is compiled for
+constexpr int kBY = 16, kBX = 32, kRY = 2, kRX = 3;
+constexpr int kXX = kBX + 2 * kRX, kYY = kBY + 2 * kRY, kS = kXX * kYY;
+constexpr int kGuard = 2 * kXX + 2;   // guard_elems of ops/megastep.py
+constexpr int kSlabJobs = (kYY / 4) * kXX;   // row quads x columns
+constexpr int kOwnJobs = (kBY / 2) * kBX;
+constexpr int kRkThreads = 256;
+// blocks an SM must hold (the register budget): 18 float32 slabs take
+// 55,344 bytes a block, 4 blocks an SM; float64 ones 2
+template <typename T>
+constexpr int kRkMinBlocks = sizeof(T) == 4 ? 4 : 2;
+static_assert(kBY % 2 == 0 && kRY % 2 == 0, "the slab's first row is even");
+static_assert(kYY % 4 == 0, "the slab is whole row quads");
+static_assert(kOwnJobs == kRkThreads, "one owned pair per thread");
+
+// Field f of the planar hex mesh's table entry e, in the packed order of
+// ops/megastep.pack_params (tables in FbTable order, destination classes in
+// order, table order within a class): source class, dj, di on even rows, di
+// on odd rows. ops/megastep.RK_PATTERN is the same list. (A local array:
+// device code may read no host variable.)
+__host__ __device__ constexpr int hex_ent(int e, int f) {
+  constexpr signed char t[kFbMaxEntries][4] = {
+    {0, 0, 0, 0},   {1, 0, 0, 0},   {2, 0, 0, 0},   {0, 0, -1, -1},  // div
+    {1, -1, -1, 0}, {2, -1, 0, 1},
+    {0, 0, 0, 0},   {1, 0, 0, 0},   {2, 0, 0, 0},   {0, 0, -1, -1},  // ke
+    {1, -1, -1, 0}, {2, -1, 0, 1},
+    {0, 0, 0, 0},   {1, 0, 0, 0},   {2, 0, 1, 1},                    // curl
+    {1, 0, 0, 0},   {2, 0, 0, 0},   {0, 1, -1, 0},
+    {0, 0, 0, 0},   {0, 0, 1, 1},   {0, 1, 0, 1},                    // kite
+    {0, 0, 0, 0},   {0, 1, 0, 1},   {0, 1, -1, 0},
+    {1, 0, 0, 0},   {2, 0, 0, 0},   {1, -1, -1, 0}, {2, -1, 0, 1},   // tang
+    {1, -1, 0, 1},  {2, -1, 1, 2},  {1, 0, 1, 1},   {2, 0, 1, 1},
+    {2, 0, 0, 0},   {0, 0, -1, -1}, {2, -1, 0, 1},  {0, 0, 0, 0},
+    {2, 0, 1, 1},   {0, 1, 0, 1},   {2, 1, 0, 1},   {0, 1, -1, 0},
+    {0, 0, -1, -1}, {1, -1, -1, 0}, {0, 0, 0, 0},   {1, 0, 0, 0},
+    {0, 1, -1, 0},  {1, 1, -1, 0},  {0, 1, -2, -1}, {1, 0, -1, -1},
+    {0, 0, 0, 0},   {0, 0, 1, 1},   {0, 0, 0, 0},   {0, 1, 0, 1},    // cdiff
+    {0, 0, 0, 0},   {0, 1, -1, 0},
+    {0, 0, 0, 0},   {0, 0, 1, 1},   {0, 0, 0, 0},   {0, 1, 0, 1},    // cmean
+    {0, 0, 0, 0},   {0, 1, -1, 0},
+    {1, -1, 0, 1},  {0, 0, 0, 0},   {0, 0, 0, 0},   {1, 0, 0, 0},    // vdiff
+    {1, 0, 0, 0},   {0, 0, -1, -1},
+    {1, -1, 0, 1},  {0, 0, 0, 0},   {0, 0, 0, 0},   {1, 0, 0, 0},    // vmean
+    {1, 0, 0, 0},   {0, 0, -1, -1},
+    {0, 0, 0, 0},   {1, 0, 0, 0},   {2, 0, 0, 0},   {0, 0, -1, -1},  // sdiv
+    {1, -1, -1, 0}, {2, -1, 0, 1},
+    {0, 0, 0, 0},   {0, 0, 0, 0},   {0, 0, 0, 0},                    // c0
+    {0, 0, 1, 1},   {0, 1, 0, 1},   {0, 1, -1, 0},                   // c1
+    {0, 0, 0, 0},   {1, 0, 0, 0},   {2, 0, 0, 0},                    // div_pos
+    {0, 0, -1, -1}, {1, -1, -1, 0}, {2, -1, 0, 1},                   // div_neg
+    {0, 0, 1, 1},   {0, 1, 0, 1},   {0, 1, -1, 0},                   // coc
+    {0, 0, -1, -1}, {0, -1, -1, 0}, {0, -1, 0, 1}};
+  return t[e][f];
+}
+
+// flat slab offset of entry e for a point on a row of parity par
+__host__ __device__ constexpr int hex_off(int e, int par) {
+  return hex_ent(e, 0) * kS + hex_ent(e, 1) * kXX + hex_ent(e, 2 + par);
+}
+template <int E, int PAR>
+struct Off {
+  static constexpr int v = hex_off(E, PAR);
+};
+
+template <int V>
+using ic = std::integral_constant<int, V>;
+
+template <typename F, int... I>
+__device__ __forceinline__ void static_for_(F&& f,
+                                            std::integer_sequence<int, I...>) {
+  (f(ic<I>{}), ...);
+}
+// f(ic<0>), ..., f(ic<N-1>) in order
+template <int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_(f, std::make_integer_sequence<int, N>{});
+}
+
+template <int B, int t, int PAR, typename T, typename Rd, int... I>
+__device__ __forceinline__ T ap_(const FbParams<T>& p, int q, const Rd& rd,
+                                 std::integer_sequence<int, I...>) {
+  constexpr int e0 = tab_base(B) + t * tab_count(B);
+  T acc = T(0);
+  ((acc += p.w[e0 + I] * rd(q + Off<e0 + I, PAR>::v)), ...);
+  return acc;
+}
+// sum_i w[i] * rd(q + off[i]) over the entries of (table B, class t), for a
+// point q on a row of parity PAR: apply() of slab_chain.cuh with every
+// offset an immediate
+template <int B, int t, int PAR, typename T, typename Rd>
+__device__ __forceinline__ T ap(const FbParams<T>& p, int q, const Rd& rd) {
+  return ap_<B, t, PAR>(p, q, rd,
+                        std::make_integer_sequence<int, tab_count(B)>{});
+}
+// the offset of the one entry of pair table B (T_C0 or T_C1), class t
+template <int B, int t, int PAR>
+constexpr int kPair = hex_off(tab_base(B) + t, PAR);
+
+// f(ic<0>, q), f(ic<1>, q + kXX), f(ic<0>, q + 2 kXX), f(ic<1>, q + 3 kXX)
+// for every row quad and column of the slab, q on the quad's first row
+template <typename F>
+__device__ __forceinline__ void slab_quads(F&& f) {
+  for (int j = threadIdx.x; j < kSlabJobs; j += kRkThreads) {
+    const int pr = j / kXX, q = 4 * pr * kXX + (j - pr * kXX);
+    f(ic<0>{}, q);
+    f(ic<1>{}, q + kXX);
+    f(ic<0>{}, q + 2 * kXX);
+    f(ic<1>{}, q + 3 * kXX);
+  }
+}
+
+// the host's plan is the tile, ring and entry pattern compiled here
+template <typename T>
+bool geometry_ok(const FbParams<T>& p) {
+  if (p.by != kBY || p.bx != kBX || p.ry != kRY || p.rx != kRX ||
+      p.guard != kGuard || p.ny % 2 != 0)
+    return false;
+  for (int e = 0; e < tab_base(T_COUNT); ++e)
+    for (int par = 0; par < 2; ++par)
+      if (p.off[par][e] != hex_off(e, par)) return false;
+  return true;
+}
+
+}  // namespace rk
 
 template <typename T, bool UPH, bool UPT, bool TAILS>
-__global__ void __launch_bounds__(512)
+__global__ void __launch_bounds__(rk::kRkThreads, rk::kRkMinBlocks<T>)
 rk_stage_kernel(const T* __restrict__ ev, const T* __restrict__ base,
                 const T* acc, T* acc_out, T* __restrict__ out,
                 const T* __restrict__ wind,
                 const __grid_constant__ FbParams<T> p, T ca, T cb, int mode) {
+  using namespace rk;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Slab sl(p);
-  const int S = sl.S;
-  T* const sm = reinterpret_cast<T*>(smem_raw) + p.guard;
-
+  T* const sm = reinterpret_cast<T*>(smem_raw) + kGuard;
+  // slab arrays ("slots", kS elements each; a class-strided array's class
+  // is part of every entry offset). Throughout: H, U (3), F = flux_h u (3)
+  T* const H = sm;
+  T* const U = sm + 1 * kS;
+  T* const F = sm + 4 * kS;
   // tracer phase
-  T* const H = sm;              // thickness of the level (the whole stage)
-  T* const U = sm + 1 * S;      // 3 edge classes
-  T* const MH = sm + 4 * S;     // mean_h, 3
-  T* const HO = sm + 7 * S;     // out's h (owned centre only)
-  T* const TR = sm + 8 * S;     // current tracer
-  T* const HTR = sm + 9 * S;    // h*tr on edges, 3
-  T* const FH = sm + 9 * S;     // upwind flux_h, 3 (dead before the tracers)
-  T* const G = sm + 12 * S;     // geo*mean_h*cdiff(tr), 3
-  T* const ADV = sm + 15 * S;
-  T* const D2 = sm + 16 * S;
-  T* const CD2 = sm + 17 * S;   // geo4*cdiff(d2tr), 3
-  // momentum phase: as the FB step's, on H, with KE in HO's slot
-  const MomSlots<T> m{H,
-                      sm + 4 * S,    // FL: flux_h of h, 3
-                      sm + 7 * S,    // KE
-                      sm + 8 * S,    // DIVU
-                      sm + 9 * S,    // RV, 2
-                      sm + 11 * S,   // NRV, 2
-                      sm + 13 * S,   // NPV, 2
-                      sm + 15 * S,   // Q, 3
-                      sm + 18 * S,   // D2E, 3
-                      sm + 11 * S,   // D2DIV
-                      sm + 12 * S};  // D2RV, 2
+  T* const MH = sm + 7 * kS;    // mean_h, 3
+  T* const TR = sm + 10 * kS;   // current tracer, then ADV
+  T* const ADV = sm + 10 * kS;
+  T* const HTR = sm + 11 * kS;  // h*tr on edges, 3, then CD2
+  T* const CD2 = sm + 11 * kS;  // geo4*cdiff(d2tr), 3
+  T* const G = sm + 14 * kS;    // geo*mean_h*cdiff(tr), 3
+  T* const D2 = sm + 17 * kS;
+  // momentum phase
+  T* const KE = sm + 7 * kS;
+  T* const DIVU = sm + 8 * kS;  // then D2DIV
+  T* const RV = sm + 9 * kS;    // 2, then D2RV
+  T* const NRV = sm + 11 * kS;  // 2, then D2E (3)
+  T* const NPV = sm + 13 * kS;  // 2
+  T* const Q = sm + 15 * kS;    // 3
+  T* const D2E = sm + 11 * kS;
+  T* const D2DIV = sm + 8 * kS;
+  T* const D2RV = sm + 9 * kS;
 
-  load_hu(sl, p, ev, H, U);
-  __syncthreads();
-  thickness_level<UPH>(sl, p, H, U, MH, FH);
-  __syncthreads();
+  const int y0 = blockIdx.y * kBY, x0 = blockIdx.x * kBX, k = blockIdx.z;
+  const int gy0 = y0 - kRY, gx0 = x0 - kRX;
+  const long long plane = static_cast<long long>(p.ny) * p.nx;
+  const auto chan = [&](int ch) {
+    return (static_cast<long long>(ch) * p.K + k) * plane;
+  };
+  const auto gofs = [&](int q) {
+    const int sy = q / kXX, sx = q - sy * kXX;
+    return static_cast<long long>(wrap_any(gy0 + sy, p.ny)) * p.nx +
+           wrap_any(gx0 + sx, p.nx);
+  };
+  const auto at = [](const T* a) { return [a](int r) { return a[r]; }; };
 
-  // ---- dh = -div(flux_h * u) at the owned centre: out's and acc's h
-  for (int o = threadIdx.x; o < sl.nown; o += blockDim.x) {
-    int q;
-    long long g;
-    bool odd;
-    if (!sl.owned(p, o, q, g, odd)) continue;
-    const T dh = -AP(T_DIV, 0, [&](int r) {
-      return (UPH ? FH[r] : MH[r]) * U[r];
+  // the thread's owned pair: column ox, rows oy (even) and oy + 1 of the tile
+  const int oy = 2 * (threadIdx.x / kBX), ox = threadIdx.x % kBX;
+  const bool own = y0 + oy < p.ny && x0 + ox < p.nx;
+  const int qo = (oy + kRY) * kXX + ox + kRX;
+  const long long go = static_cast<long long>(y0 + oy) * p.nx + x0 + ox;
+  // f(ic<0>, q, g) and f(ic<1>, ...) at the owned pair's slab points and
+  // plane offsets
+  const auto owned = [&](auto&& f) {
+    if (!own) return;
+    f(ic<0>{}, qo, go);
+    f(ic<1>{}, qo + kXX, go + p.nx);
+  };
+
+  // the epilogue's inputs of channel ch at the owned pair, fetched a level
+  // or more before they are used: base (not read by RK_LAST) and acc
+  // (RK_MID, RK_LAST)
+  const auto fetch = [&](int ch, T(&b)[2], T(&a)[2]) {
+    owned([&](auto par, int, long long g) {
+      constexpr int PAR = decltype(par)::value;
+      const long long c = chan(ch) + g;
+      b[PAR] = mode != RK_LAST ? base[c] : T(0);
+      a[PAR] = mode == RK_MID || mode == RK_LAST ? acc[c] : T(0);
     });
-    const long long c = sl.chan(p, 0) + g;
+  };
+  // the slab of a tracer channel, a thread's points in registers: loaded a
+  // tracer ahead, stored when its slot is free
+  constexpr int kPer = (kS + kRkThreads - 1) / kRkThreads;
+  T trs[kPer];
+  const auto load_tr = [&](int l) {
+    _Pragma("unroll") for (int i = 0; i < kPer; ++i) {
+      const int q = threadIdx.x + i * kRkThreads;
+      if (q < kS) trs[i] = ev[chan(4 + l) + gofs(q)];
+    }
+  };
+
+  for (int q = threadIdx.x; q < kS; q += kRkThreads) {
+    const long long g = gofs(q);
+    H[q] = ev[chan(0) + g];
+    U[q] = ev[chan(1) + g];
+    U[kS + q] = ev[chan(2) + g];
+    U[2 * kS + q] = ev[chan(3) + g];
+  }
+  T hb[2], ha[2];
+  fetch(0, hb, ha);
+  if (p.L > 0) load_tr(0);
+  __syncthreads();
+
+  // ---- mean_h and the thickness flux F = flux_h * u on the slab
+  slab_quads([&](auto par, int q) {
+    constexpr int PAR = decltype(par)::value;
+    static_for<3>([&](auto tc) {
+      constexpr int t = decltype(tc)::value;
+      const T u = U[t * kS + q];
+      T mh, fh;
+      if constexpr (UPH) {
+        const T h0 = H[q + kPair<T_C0, t, PAR>];
+        const T h1 = H[q + kPair<T_C1, t, PAR>];
+        mh = T(0.5) * (h0 + h1);
+        fh = upwind_sel(u, h0, h1);
+      } else {
+        mh = ap<T_CMEAN, t, PAR>(p, q, at(H));
+        fh = mh;
+      }
+      MH[t * kS + q] = mh;
+      F[t * kS + q] = fh * u;
+    });
+  });
+  __syncthreads();
+
+  // ---- dh = -div(F) at the owned pair: out's and acc's h (ho in registers)
+  T ho[2] = {T(0), T(0)};
+  owned([&](auto par, int q, long long g) {
+    constexpr int PAR = decltype(par)::value;
+    const T dh = -ap<T_DIV, 0, PAR>(p, q, at(F));
+    const long long c = chan(0) + g;
     T h;
     if (mode == RK_LAST) {
-      h = acc[c] + cb * dh;
+      h = ha[PAR] + cb * dh;
     } else {
-      h = base[c] + ca * dh;
+      h = hb[PAR] + ca * dh;
       if (mode != RK_PROV)
-        acc_out[c] = (mode == RK_FIRST ? base[c] : acc[c]) + cb * dh;
+        acc_out[c] = (mode == RK_FIRST ? hb[PAR] : ha[PAR]) + cb * dh;
     }
-    HO[q] = h;
+    ho[PAR] = h;
     out[c] = h;
-  }
-  __syncthreads();
+  });
 
   // ---- tracers, one at a time through the same slab arrays
   for (int l = 0; l < p.L; ++l) {
-    for (int q = threadIdx.x; q < S; q += blockDim.x)
-      TR[q] = ev[sl.chan(p, 4 + l) + sl.gofs(p, q)];
-    __syncthreads();
-    tracer_levels<UPT>(sl, p, H, U, MH, TR, HTR, G, ADV, D2, CD2);
-    for (int o = threadIdx.x; o < sl.nown; o += blockDim.x) {
-      int q;
-      long long g;
-      bool odd;
-      if (!sl.owned(p, o, q, g, odd)) continue;
-      const T dtr = tracer_dtr(p, q, odd, ADV, D2, CD2);
-      const long long c = sl.chan(p, 4 + l) + g;
-      if (mode == RK_LAST) {
-        out[c] = (acc[c] + cb * dtr) / HO[q];
-      } else {
-        const T trh = base[c] * base[sl.chan(p, 0) + g];
-        if (mode != RK_PROV)
-          acc_out[c] = (mode == RK_FIRST ? trh : acc[c]) + cb * dtr;
-        out[c] = (trh + ca * dtr) / HO[q];
-      }
+    _Pragma("unroll") for (int i = 0; i < kPer; ++i) {
+      const int q = threadIdx.x + i * kRkThreads;
+      if (q < kS) TR[q] = trs[i];
     }
+    T tb[2], ta[2];
+    fetch(4 + l, tb, ta);
+    if (l + 1 < p.L) load_tr(l + 1);
+    __syncthreads();
+    // HTR = h*tr on edges (center or upwind), G = geo*mean_h*cdiff(tr)
+    slab_quads([&](auto par, int q) {
+      constexpr int PAR = decltype(par)::value;
+      static_for<3>([&](auto tc) {
+        constexpr int t = decltype(tc)::value;
+        if constexpr (UPT) {
+          constexpr int o0 = kPair<T_C0, t, PAR>, o1 = kPair<T_C1, t, PAR>;
+          HTR[t * kS + q] = upwind_sel(U[t * kS + q], H[q + o0] * TR[q + o0],
+                                       H[q + o1] * TR[q + o1]);
+        } else {
+          HTR[t * kS + q] = ap<T_CMEAN, t, PAR>(
+              p, q, [&](int r) { return H[r] * TR[r]; });
+        }
+        const T ctr = ap<T_CDIFF, t, PAR>(p, q, at(TR));
+        G[t * kS + q] = p.geo * MH[t * kS + q] * ctr;
+      });
+    });
+    __syncthreads();
+    // ADV = -div(HTR*u) (into TR's slot), D2 = signed_div(G)
+    slab_quads([&](auto par, int q) {
+      constexpr int PAR = decltype(par)::value;
+      const T adv = -ap<T_DIV, 0, PAR>(p, q, [&](int r) {
+        return HTR[r] * U[r];
+      });
+      const T d2 = ap<T_SDIV, 0, PAR>(p, q, at(G));
+      ADV[q] = adv;
+      D2[q] = d2;
+    });
+    __syncthreads();
+    // CD2 = geo4*cdiff(D2) (into HTR's slots)
+    slab_quads([&](auto par, int q) {
+      constexpr int PAR = decltype(par)::value;
+      static_for<3>([&](auto tc) {
+        constexpr int t = decltype(tc)::value;
+        CD2[t * kS + q] = p.geo4 * ap<T_CDIFF, t, PAR>(p, q, at(D2));
+      });
+    });
+    __syncthreads();
+    owned([&](auto par, int q, long long g) {
+      constexpr int PAR = decltype(par)::value;
+      const T hyp = ap<T_SDIV, 0, PAR>(p, q, at(CD2));
+      const T dtr = ADV[q] + p.ed2s * D2[q] - p.ed4 * hyp;
+      const long long c = chan(4 + l) + g;
+      if (mode == RK_LAST) {
+        out[c] = (ta[PAR] + cb * dtr) / ho[PAR];
+      } else {
+        const T trh = tb[PAR] * hb[PAR];
+        if (mode != RK_PROV)
+          acc_out[c] = (mode == RK_FIRST ? trh : ta[PAR]) + cb * dtr;
+        out[c] = (trh + ca * dtr) / ho[PAR];
+      }
+    });
     __syncthreads();
   }
 
-  // ---- momentum aux on the level, then u at the owned centre
-  momentum_levels<UPH>(sl, p, U, m);
-  const bool top = TAILS && wind != nullptr && sl.k == 0;
-  const bool bottom = TAILS && p.cd != T(0) && sl.k == p.K - 1;
-  for (int o = threadIdx.x; o < sl.nown; o += blockDim.x) {
-    int q;
-    long long g;
-    bool odd;
-    if (!sl.owned(p, o, q, g, odd)) continue;
-    _Pragma("unroll") for (int t = 0; t < 3; ++t) {
-      const T du = momentum_du<UPH, TAILS>(sl, p, q, odd, t, g, U, m, wind,
-                                           top, bottom);
-      const long long c = sl.chan(p, 1 + t) + g;
-      if (mode == RK_LAST) {
-        out[c] = acc[c] + cb * du;
-      } else {
-        out[c] = base[c] + ca * du;
-        if (mode != RK_PROV)
-          acc_out[c] = (mode == RK_FIRST ? base[c] : acc[c]) + cb * du;
+  // ---- momentum aux on the level: ke, div, curl, the normalized
+  // vorticities (MH's and the tracers' slots are free now)
+  slab_quads([&](auto par, int q) {
+    constexpr int PAR = decltype(par)::value;
+    KE[q] = ap<T_KE, 0, PAR>(p, q, [&](int r) { return U[r] * U[r]; });
+    DIVU[q] = ap<T_DIV, 0, PAR>(p, q, at(U));
+    static_for<2>([&](auto tc) {
+      constexpr int t = decltype(tc)::value;
+      const T rv = ap<T_CURL, t, PAR>(p, q, at(U));
+      const T hv = ap<T_KITE, t, PAR>(p, q, at(H));
+      RV[t * kS + q] = rv;
+      NRV[t * kS + q] = rv / hv;
+      NPV[t * kS + q] = p.f0v / hv;
+    });
+  });
+  __syncthreads();
+  // edge PV; and du's del2 term at the owned pair, in registers
+  slab_quads([&](auto par, int q) {
+    constexpr int PAR = decltype(par)::value;
+    static_for<3>([&](auto tc) {
+      constexpr int t = decltype(tc)::value;
+      const T nrv_e = ap<T_VMEAN, t, PAR>(p, q, at(NRV));
+      const T npv_e = ap<T_VMEAN, t, PAR>(p, q, at(NPV));
+      Q[t * kS + q] = nrv_e + npv_e;
+    });
+  });
+  // the du diffusion terms use plain 1/dv, del2_e the floored one
+  T del2[3][2];
+  owned([&](auto par, int q, long long) {
+    constexpr int PAR = decltype(par)::value;
+    static_for<3>([&](auto tc) {
+      constexpr int t = decltype(tc)::value;
+      const T cdd = ap<T_CDIFF, t, PAR>(p, q, at(DIVU));
+      const T vdr = ap<T_VDIFF, t, PAR>(p, q, at(RV));
+      del2[t][PAR] = cdd * p.inv_dc - vdr * p.inv_dv;
+    });
+  });
+  __syncthreads();
+  // del2 of u on edges (into the normalized vorticities' slots)
+  slab_quads([&](auto par, int q) {
+    constexpr int PAR = decltype(par)::value;
+    static_for<3>([&](auto tc) {
+      constexpr int t = decltype(tc)::value;
+      const T cdd = ap<T_CDIFF, t, PAR>(p, q, at(DIVU));
+      const T vdr = ap<T_VDIFF, t, PAR>(p, q, at(RV));
+      D2E[t * kS + q] = cdd * p.inv_dc - vdr * p.inv_dv_floor;
+    });
+  });
+  __syncthreads();
+  T ub[3][2], ua[3][2];
+  _Pragma("unroll") for (int t = 0; t < 3; ++t) fetch(1 + t, ub[t], ua[t]);
+  // div and curl of del2 on edges (into div u's and curl u's slots)
+  slab_quads([&](auto par, int q) {
+    constexpr int PAR = decltype(par)::value;
+    const T dd = ap<T_DIV, 0, PAR>(p, q, at(D2E));
+    const T r0 = ap<T_CURL, 0, PAR>(p, q, at(D2E));
+    const T r1 = ap<T_CURL, 1, PAR>(p, q, at(D2E));
+    D2DIV[q] = dd;
+    D2RV[q] = r0;
+    D2RV[kS + q] = r1;
+  });
+  __syncthreads();
+
+  // ---- du at the owned pair (momentum_du of slab_chain.cuh on F), then u
+  const bool top = TAILS && wind != nullptr && k == 0;
+  const bool bottom = TAILS && p.cd != T(0) && k == p.K - 1;
+  owned([&](auto par, int q, long long g) {
+    constexpr int PAR = decltype(par)::value;
+    static_for<3>([&](auto tc) {
+      constexpr int t = decltype(tc)::value;
+      // tang(F) and tang(F*q) share the walk
+      T tf = T(0), tfq = T(0);
+      static_for<tab_count(T_TANG)>([&](auto ic_) {
+        constexpr int e =
+            tab_base(T_TANG) + t * tab_count(T_TANG) + decltype(ic_)::value;
+        constexpr int o = Off<e, PAR>::v;
+        const T f = F[q + o];
+        tf += p.w[e] * f;
+        tfq += p.w[e] * (f * Q[q + o]);
+      });
+      const T qe = Q[t * kS + q];
+      const T pv = T(0.5) * (qe * tf + tfq);
+      const T gke = ap<T_CDIFF, t, PAR>(p, q, at(KE));
+      const T gssh = ap<T_CDIFF, t, PAR>(p, q, at(H));
+      const T cd4 = ap<T_CDIFF, t, PAR>(p, q, at(D2DIV));
+      const T vd4 = ap<T_VDIFF, t, PAR>(p, q, at(D2RV));
+      T du = pv - gke * p.inv_dc - p.grav * gssh * p.inv_dc +
+             p.nu2s * del2[t][PAR] -
+             p.nu4s * (p.div_factor * cd4 * p.inv_dc - vd4 * p.inv_dv);
+      if constexpr (TAILS) {
+        if (top || bottom) {
+          T mh;   // mean_h of the level
+          if constexpr (UPH) {
+            mh = T(0.5) * (H[q + kPair<T_C0, t, PAR>] +
+                           H[q + kPair<T_C1, t, PAR>]);
+          } else {
+            mh = ap<T_CMEAN, t, PAR>(p, q, at(H));
+          }
+          if (top) du = du + wind[t * plane + g] / (p.rho0 * mh);
+          if (bottom) {
+            // 2*cmean(ke) == ke0 + ke1 bit for bit (halving and doubling
+            // are exact), the composed step's sqrt(ke0 + ke1)
+            const T kee = ap<T_CMEAN, t, PAR>(p, q, at(KE));
+            const T twice = T(2) * kee;
+            const T speed = sqrt(twice > T(0) ? twice : T(0));
+            du = du + (-(p.cd * speed * U[t * kS + q] / mh));
+          }
+        }
       }
-    }
-  }
+      const long long c = chan(1 + t) + g;
+      if (mode == RK_LAST) {
+        out[c] = ua[t][PAR] + cb * du;
+      } else {
+        out[c] = ub[t][PAR] + ca * du;
+        if (mode != RK_PROV)
+          acc_out[c] = (mode == RK_FIRST ? ub[t][PAR] : ua[t][PAR]) + cb * du;
+      }
+    });
+  });
 }
 
 template <typename T, bool UPH, bool UPT, bool TAILS>
@@ -164,9 +524,9 @@ int launch_rk_stage(const void* ev, const void* base, const void* acc,
                     const FbParams<T>* hp, double ca, double cb, int mode,
                     int threads, cudaStream_t stream) {
   const FbParams<T>& p = *hp;
-  if (threads < 32 || threads > 512) return cudaErrorInvalidConfiguration;
+  if (threads != rk::kRkThreads) return cudaErrorInvalidConfiguration;
   if (!TAILS && (wind != nullptr || p.cd != T(0))) return cudaErrorInvalidValue;
-  if (!layout_ok(p)) return cudaErrorInvalidValue;
+  if (!layout_ok(p) || !rk::geometry_ok(p)) return cudaErrorInvalidValue;
   // the arrays each mode reads and writes; out never aliases the level
   const bool ok = out != nullptr && out != ev &&
                   (mode == RK_LAST ? acc != nullptr
@@ -188,14 +548,43 @@ int launch_rk_stage(const void* ev, const void* base, const void* acc,
   return static_cast<int>(cudaGetLastError());
 }
 
+// cudaFuncGetAttributes of the stage kernel (numRegs, localSizeBytes,
+// sharedSizeBytes into out[0..2]) and, for its dynamic shared memory, the
+// blocks an SM holds (out[3], cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+template <typename T, bool UPH, bool UPT, bool TAILS>
+int rk_stage_attrs(int* out) {
+  if (out == nullptr) return cudaErrorInvalidValue;
+  auto* const k = &rk_stage_kernel<T, UPH, UPT, TAILS>;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem =
+      (kRkSlots * static_cast<size_t>(rk::kS) + 2 * rk::kGuard) * sizeof(T);
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k,
+                                                      rk::kRkThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  out[3] = blocks;
+  return 0;
+}
+
 }  // namespace omega
 
 // The C interface of one (UPH, UPT) pair, with and without the tails, in both
 // precisions: omega_rk_stage_<NAME>_<plain|tails>_<f32|f64>. `params` points
-// at a host FbParams<T>; ev, base, acc, acc_out and out are stacked
-// (4+L, K, ny, nx) arrays (null where the mode reads or writes none); ca and
-// cb are a*dt and b*dt, rounded to T once here. Each returns the launch's
-// error code.
+// at a host FbParams<T> packed for the tile, ring and entry pattern of
+// omega::rk (the launch is refused otherwise); ev, base, acc, acc_out and
+// out are stacked (4+L, K, ny, nx) arrays (null where the mode reads or
+// writes none); ca and cb are a*dt and b*dt, rounded to T once here;
+// `threads` must be rk::kRkThreads. Each returns the launch's error code.
+// omega_rk_stage_attrs_<NAME>_<plain|tails>_<f32|f64>(out): registers,
+// local (spill) bytes, static shared bytes and blocks per SM.
 #define OMEGA_RK_ENTRY(NAME, UPH, UPT, TAILS, SUF, T)                         \
   int omega_rk_stage_##NAME##SUF(const void* ev, const void* base,            \
                                  const void* acc, void* acc_out, void* out,   \
@@ -206,6 +595,9 @@ int launch_rk_stage(const void* ev, const void* base, const void* acc,
         ev, base, acc, acc_out, out, wind,                                    \
         static_cast<const omega::FbParams<T>*>(params), ca, cb, mode,         \
         threads, static_cast<cudaStream_t>(stream));                          \
+  }                                                                           \
+  int omega_rk_stage_attrs_##NAME##SUF(int* out) {                            \
+    return omega::rk_stage_attrs<T, UPH, UPT, TAILS>(out);                    \
   }
 #define OMEGA_RK_VARIANTS(NAME, UPH, UPT)                   \
   extern "C" {                                              \

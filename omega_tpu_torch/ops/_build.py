@@ -123,6 +123,10 @@ def load() -> ctypes.CDLL:
                 # threads, stream
                 fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, cd, cd, ci, ci, vp]
                 fn.restype = ci
+                fn = getattr(lib, f"omega_rk_stage_attrs_{flux}_{tails}_"
+                                  f"{suffix}")
+                fn.argtypes = [vp]           # out[4]
+                fn.restype = ci
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"omega_split_pre_{suffix}")
         # state, du, planes, params x3, depth, ggrad, f_e, r, threads x3,
@@ -161,6 +165,10 @@ def load() -> ctypes.CDLL:
                 # in, out, offs, wts, cpl, work, consts, ints, stream
                 fn.argtypes = [vp] * 9
                 fn.restype = ci
+                fn = getattr(lib, f"omega_patch_fb_attrs_{flux}_{tails}_"
+                                  f"{suffix}")
+                fn.argtypes = [ci, ci, vp]    # pass, threads, out[4]
+                fn.restype = ci
         for flux in ("cc", "uc", "cu", "uu"):
             for tails in ("plain", "tails"):
                 fn = getattr(lib, f"omega_patch_rk_{flux}_{tails}_{suffix}")
@@ -188,6 +196,9 @@ def load() -> ctypes.CDLL:
         fn.restype = ci
         fn = getattr(lib, f"omega_patch_split_pre_attrs_{suffix}")
         fn.argtypes = [ci, vp]               # pass, out[3]
+        fn.restype = ci
+        fn = getattr(lib, f"omega_patch_split_post_attrs_{suffix}")
+        fn.argtypes = [ci, ci, vp]           # pass, threads, out[4]
         fn.restype = ci
         fn = getattr(lib, f"omega_patch_split_post_{suffix}")
         # in, out, offs, wts, cpl, work, consts, ints, stream

@@ -108,7 +108,44 @@ MAX_ENTRIES = 96      # kFbMaxEntries
 SLOTS = 21
 FCT_SLOTS = 22
 FCT_UPWIND_SLOTS = 25
-RK_SLOTS = 21
+RK_SLOTS = 18
+# the tile and block the RK stage kernel is compiled for (rk::kBY, kBX,
+# kRkThreads in csrc/rk_stage.cuh), whatever the domain
+RK_TILE = (16, 32, 256)
+# the planar hex mesh's table entries in pack_params' order, (source class,
+# dj, di on even rows, di on odd rows): rk::hex_ent, which the RK stage
+# kernel's offsets are compiled from
+RK_PATTERN = (
+    (0, 0, 0, 0), (1, 0, 0, 0), (2, 0, 0, 0), (0, 0, -1, -1), (1, -1, -1, 0),
+    (2, -1, 0, 1),
+    (0, 0, 0, 0), (1, 0, 0, 0), (2, 0, 0, 0), (0, 0, -1, -1), (1, -1, -1, 0),
+    (2, -1, 0, 1),
+    (0, 0, 0, 0), (1, 0, 0, 0), (2, 0, 1, 1), (1, 0, 0, 0), (2, 0, 0, 0),
+    (0, 1, -1, 0),
+    (0, 0, 0, 0), (0, 0, 1, 1), (0, 1, 0, 1), (0, 0, 0, 0), (0, 1, 0, 1),
+    (0, 1, -1, 0),
+    (1, 0, 0, 0), (2, 0, 0, 0), (1, -1, -1, 0), (2, -1, 0, 1), (1, -1, 0, 1),
+    (2, -1, 1, 2), (1, 0, 1, 1), (2, 0, 1, 1), (2, 0, 0, 0), (0, 0, -1, -1),
+    (2, -1, 0, 1), (0, 0, 0, 0), (2, 0, 1, 1), (0, 1, 0, 1), (2, 1, 0, 1),
+    (0, 1, -1, 0), (0, 0, -1, -1), (1, -1, -1, 0), (0, 0, 0, 0),
+    (1, 0, 0, 0), (0, 1, -1, 0), (1, 1, -1, 0), (0, 1, -2, -1),
+    (1, 0, -1, -1),
+    (0, 0, 0, 0), (0, 0, 1, 1), (0, 0, 0, 0), (0, 1, 0, 1), (0, 0, 0, 0),
+    (0, 1, -1, 0),
+    (0, 0, 0, 0), (0, 0, 1, 1), (0, 0, 0, 0), (0, 1, 0, 1), (0, 0, 0, 0),
+    (0, 1, -1, 0),
+    (1, -1, 0, 1), (0, 0, 0, 0), (0, 0, 0, 0), (1, 0, 0, 0), (1, 0, 0, 0),
+    (0, 0, -1, -1),
+    (1, -1, 0, 1), (0, 0, 0, 0), (0, 0, 0, 0), (1, 0, 0, 0), (1, 0, 0, 0),
+    (0, 0, -1, -1),
+    (0, 0, 0, 0), (1, 0, 0, 0), (2, 0, 0, 0), (0, 0, -1, -1), (1, -1, -1, 0),
+    (2, -1, 0, 1),
+    (0, 0, 0, 0), (0, 0, 0, 0), (0, 0, 0, 0),
+    (0, 0, 1, 1), (0, 1, 0, 1), (0, 1, -1, 0),
+    (0, 0, 0, 0), (1, 0, 0, 0), (2, 0, 0, 0),
+    (0, 0, -1, -1), (1, -1, -1, 0), (2, -1, 0, 1),
+    (0, 0, 1, 1), (0, 1, 0, 1), (0, 1, -1, 0), (0, 0, -1, -1), (0, -1, -1, 0),
+    (0, -1, 0, 1))
 SMEM_LIMIT = 232448   # dynamic shared memory one block may use on sm_90
 _FLOAT = {torch.float32: (np.float32, "f32"), torch.float64: (np.float64, "f64")}
 
@@ -150,6 +187,8 @@ def supported(mesh, cfg, kind="fb") -> bool:
         return False
     if not tables_fit(mesh):
         return False
+    if kind != "fb" and not rk_pattern_fits(mesh):
+        return False
     # FCT (Zalesak) tracer fluxes need the thickness-first update order of
     # the FB step (core/tendencies.compute_tracer_tendency), as in the JAX
     # package's kernel
@@ -175,6 +214,28 @@ def tables_fit(mesh) -> bool:
                for t in range(_PD[n])):
             return False
     return True
+
+
+_PATTERN_CACHE: dict = {}
+
+
+def rk_pattern_fits(mesh) -> bool:
+    """The tables' entries, packed as pack_params packs them, are the
+    planar hex pattern the RK stage kernel is compiled for (RK_PATTERN),
+    on an even number of rows (once per set of tables)."""
+    tabs = tuple(structured.cached_table(mesh, n) for n in TABLE_NAMES)
+    key = (tabs, mesh.structured_ny % 2)
+    if key not in _PATTERN_CACHE:
+        got = []
+        for n, tab in zip(TABLE_NAMES, tabs):
+            if tab is None:
+                break
+            ent, _ = pack_entries(tab, _PD[n], np.float64)
+            got += [(int(e["ts"]), int(e["dj"]), int(e["di_e"]),
+                     int(e["di_o"])) for e in ent]
+        _PATTERN_CACHE[key] = (tuple(got) == RK_PATTERN
+                               and mesh.structured_ny % 2 == 0)
+    return _PATTERN_CACHE[key]
 
 
 def _mega_args(mesh, cfg, dt):
@@ -557,6 +618,18 @@ def plan_tile(ny, nx, itemsize, ring, tile=None, nslots=SLOTS):
         raise ValueError(f"bad thread count {threads}")
     return dict(by=by, bx=bx, ry=ry, rx=rx, threads=threads,
                 guard=guard_elems(bx + 2 * rx), smem=smem(by, bx))
+
+
+def rk_plan(itemsize, ring):
+    """The RK stage kernel's plan (plan_tile's keys): the tile and block it
+    is compiled for (RK_TILE) with the chain's ring, whatever the domain (a
+    tile larger than the domain is ragged: wrapped reads, masked writes)."""
+    by, bx, threads = RK_TILE
+    ry, rx = ring
+    guard = guard_elems(bx + 2 * rx)
+    smem = (RK_SLOTS * (by + 2 * ry) * (bx + 2 * rx) + 2 * guard) * itemsize
+    return dict(by=by, bx=bx, ry=ry, rx=rx, threads=threads, guard=guard,
+                smem=smem)
 
 
 # ----------------------------------------------------------------------
@@ -993,9 +1066,11 @@ def _check_wind(wind, stacked, ny, nx):
                          f"{nx}) array of the state's type and device")
 
 
-def _launch_args(mesh, cfg, dt, stacked, tile, wind, kind):
-    """(lib, rec, threads, C function name) of a kernel launch on a CUDA
-    stacked state, the record packed once per configuration and shape."""
+def launch_record(mesh, cfg, dt, stacked, tile, wind, kind):
+    """(rec, threads, C function name, slab arrays, variant) of a chain
+    kernel's launch on this stacked state: the FbParams record packed once
+    per configuration and shape (`kind` "fb" or "rk"; the RK stage's plan
+    is rk_plan's)."""
     ft, suffix = _FLOAT[stacked.dtype]
     nx, ny = mesh.structured_nx, mesh.structured_ny
     L, K = stacked.shape[0] - 4, stacked.shape[1]
@@ -1005,8 +1080,12 @@ def _launch_args(mesh, cfg, dt, stacked, tile, wind, kind):
     if hit is None:
         tabs, consts = _mega_args(mesh, cfg, dt)
         nslots = slots(consts, kind)
-        plan = plan_tile(ny, nx, np.dtype(ft).itemsize,
-                         _ring(tabs, consts, wind, kind), tile, nslots)
+        ring = _ring(tabs, consts, wind, kind)
+        if kind == "rk":
+            plan = rk_plan(np.dtype(ft).itemsize, ring)
+        else:
+            plan = plan_tile(ny, nx, np.dtype(ft).itemsize, ring, tile,
+                             nslots)
         rec = pack_params(tabs, consts, ft, plan)
         rec["L"], rec["K"], rec["ny"], rec["nx"] = L, K, ny, nx
         # the compiled variant: flux types, and the tails only when wanted
@@ -1019,7 +1098,15 @@ def _launch_args(mesh, cfg, dt, stacked, tile, wind, kind):
         variant = (int(kind == "rk"), int(consts["uph"]), int(consts["fct"]))
         hit = _PARAM_CACHE[key] = (rec, plan["threads"], name, nslots,
                                    variant)
-    rec, threads, name, nslots, variant = hit
+    return hit
+
+
+def _launch_args(mesh, cfg, dt, stacked, tile, wind, kind):
+    """(lib, rec, threads, C function name) of a kernel launch on a CUDA
+    stacked state (launch_record), with the library's layout checked."""
+    ft, suffix = _FLOAT[stacked.dtype]
+    rec, threads, name, nslots, variant = launch_record(
+        mesh, cfg, dt, stacked, tile, wind, kind)
     lib = _build.load()
     size = getattr(lib, f"omega_fb_params_size_{suffix}")()
     if size != rec.dtype.itemsize or lib.omega_chain_slots(*variant) != nslots:
@@ -1114,6 +1201,22 @@ def rk_stage(mesh, cfg, mode, ca, cb, ev, out, base=None, acc=None,
     _build.check(code, "RK stage launch")
     rk_launches += 1
     return out
+
+
+def rk_stage_attrs(cfg, dtype, tails):
+    """cudaFuncGetAttributes' numRegs, localSizeBytes (the spill) and
+    sharedSizeBytes of the RK stage kernel for the flux types of `cfg`,
+    with or without the tails, in `dtype`, and the blocks an SM holds at
+    its dynamic shared memory."""
+    lib = _build.load()
+    fn = getattr(lib, "omega_rk_stage_attrs_{}{}_{}_{}".format(
+        "u" if cfg.flux_thickness_type == "upwind" else "c",
+        "u" if cfg.flux_tracer_type == "upwind" else "c",
+        "tails" if tails else "plain", _FLOAT[dtype][1]))
+    got = np.zeros(4, np.int32)
+    _build.check(fn(got.ctypes.data), "cudaFuncGetAttributes")
+    return dict(zip(("num_regs", "local_bytes", "shared_bytes",
+                     "blocks_per_sm"), map(int, got)))
 
 
 def rk2_megastep_stacked(mesh, cfg, stacked, dt, out=None, wind=None,

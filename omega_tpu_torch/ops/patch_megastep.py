@@ -17,7 +17,7 @@ extracted submesh by the composed stepper and scattered over the result.
 Execution model per step, frames as the loop carry:
   1. the chain evaluates every frame position of the (K, 4+L, 10, S, S)
      frames (channel 0 = h, 1..3 = the edge classes of u, 4.. = tracers;
-     S = n + 2 MH). On the card: the horizontal part in the five passes
+     S = n + 2 MH). On the card: the horizontal part in the six passes
      of the patch kernel (csrc/patch_step.cuh, one source per pair of
      flux types), then with vertical mixing the PP81 coefficient kernel
      and the column-solve kernel (csrc/patch_vmix.cu); on the CPU their
@@ -68,8 +68,9 @@ number of slots of (offset, one weight per table), zero weights in unused
 slots; offsets are flat within a layer of the source field. Every layer
 uses the same weights. The kernel evaluates whole frames (so the
 reference's tiled validity masks are sufficient: an untiled evaluation is
-exact wherever the tiled one is) in five launches, one per group of chain
-levels, with the intermediate fields in device memory. The reference runs
+exact wherever the tiled one is) in six launches, one per group of chain
+levels (the deepest split by section: cells, edges), with the intermediate
+fields in device memory. The reference runs
 PP81 and upwind fluxes as two staged kernels (its kinds fb2a / fb2b) to
 fit its on-chip memory; that staging is not semantics, and the port
 evaluates the one chain.
@@ -116,7 +117,7 @@ fct_b_launches = 0
 rk_launches = 0
 split_pre_launches = 0
 split_post_launches = 0
-PASSES = 5
+PASSES = 6
 FCT_B_PASSES = 4
 RK_PASSES = 5
 SPLIT_PRE_PASSES = 5
@@ -124,6 +125,9 @@ SPLIT_PRE_PASSES = 5
 # the edges) and of splitpre (csrc/patch_split.cu: the column free surface,
 # then the stage's momentum passes), in launch order
 RK_PASS_NAMES = ("A", "B", "C", "D1", "D2")
+# the passes of the FB step and FCT's stage A (csrc/patch_step.cuh: A, B, C,
+# D1 the cells, D2 the edges, E), in launch order
+FB_PASS_NAMES = ("A", "B", "C", "D1", "D2", "E")
 SPLIT_PRE_PASS_NAMES = ("ssh", "A", "B", "C", "D2")
 SPLIT_POST_PASSES = 4
 # what an RK stage makes of its tendencies k (megastep's modes, the same
@@ -136,9 +140,11 @@ RK_PROV, RK_FIRST, RK_MID, RK_LAST = (megastep.RK_PROV, megastep.RK_FIRST,
                                       megastep.RK_MID, megastep.RK_LAST)
 _MODE_NAME = {RK_PROV: "prov", RK_FIRST: "first", RK_MID: "mid",
               RK_LAST: "last"}
-# layers one thread of the FB, FCT and splitpost passes walks with the
-# weights of its position in registers (the RK stage's and splitpre's
-# passes walk their own groups, csrc/patch_rk.cuh: kRkPassLayers)
+# layers one thread of FCT's stage B and of the PP81 coefficient kernel
+# walks with the weights of its position in registers (the FB, RK and split
+# passes walk their own groups, compiled in: csrc/patch_step.cuh's
+# kFbPassLayers, patch_rk.cuh's kRkPassLayers; they do not read this entry
+# of the call's ints)
 LAYERS_PER_THREAD = 8
 THREADS = 128
 
@@ -1233,6 +1239,40 @@ def _attrs(fn, *args):
     _build.check(fn(*args, got.ctypes.data), "cudaFuncGetAttributes")
     return dict(zip(("num_regs", "local_bytes", "shared_bytes"),
                     map(int, got)))
+
+
+def _pass_attrs(fn, names):
+    out = {}
+    for i, name in enumerate(names):
+        got = np.zeros(4, np.int32)
+        _build.check(fn(i, THREADS, got.ctypes.data), "cudaFuncGetAttributes")
+        out[name] = dict(zip(("num_regs", "local_bytes", "shared_bytes",
+                              "blocks_per_sm"), map(int, got)))
+    return out
+
+
+def fb_pass_attrs(cfg, dtype, tails):
+    """{pass name: cudaFuncGetAttributes' numRegs, localSizeBytes (the
+    spill), sharedSizeBytes, and the blocks of THREADS threads an SM holds}
+    of the FB step's kernels (FCT's stage A for an FCT `cfg`) for the flux
+    types of `cfg`, with or without the tails, in `dtype`."""
+    lib = _build.load()
+    tr = "f" if cfg.flux_tracer_type == "fct" \
+        else _FLUX[cfg.flux_tracer_type]
+    fn = getattr(lib, f"omega_patch_fb_attrs_"
+                      f"{_FLUX[cfg.flux_thickness_type]}{tr}_"
+                      f"{'tails' if tails else 'plain'}_"
+                      f"{_suffix(torch.empty(0, dtype=dtype))}")
+    return _pass_attrs(fn, FB_PASS_NAMES)
+
+
+def split_post_attrs(dtype):
+    """fb_pass_attrs of splitpost's kernels (the FB step's passes A, B, C
+    and D1 with the momentum compiled out) in `dtype`."""
+    lib = _build.load()
+    fn = getattr(lib, f"omega_patch_split_post_attrs_"
+                      f"{_suffix(torch.empty(0, dtype=dtype))}")
+    return _pass_attrs(fn, FB_PASS_NAMES[:SPLIT_POST_PASSES])
 
 
 def rk_pass_attrs(cfg, dtype, tails):

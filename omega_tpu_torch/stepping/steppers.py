@@ -24,14 +24,14 @@ On a patch-renumbered icosahedral mesh (mesh/icos_patches.py) the FB step
 of the configurations `patch_megastep.supported` names (center or upwind
 fluxes, wind, bottom drag, PCR vertical mixing with constant or PP81
 coefficients) is fused (ops/patch_megastep.py): one call of the patch
-kernel (five launches) per step, then with vertical mixing the PP81
+kernel (six launches) per step, then with vertical mixing the PP81
 coefficient kernel and the column-solve kernel (one launch each), the pole
 rows from the composed step on a small submesh. `run_steps` keeps the halo
 frames as its carry on any device (the kernels' plain versions on the CPU)
 and lays the wind into the frames once per segment; `forward_backward_step`
 takes the per-step API for a CUDA state. In `run_steps` alone, FCT tracer
 fluxes without vertical mixing are fused too: per step FCT's stage A (the
-patch kernel's FCT variant, five launches), the refresh of its fields,
+patch kernel's FCT variant, six launches), the refresh of its fields,
 stage B (the limiter, four launches), the FCT fix submesh's composed step
 and the final refresh. So are the RK steppers, in the same configurations
 as the FB step but FCT: per stage one call of the RK stage kernel (five

@@ -54,6 +54,8 @@ being the bound. Float32 throughout, K = 100 layers, 2 tracers.
           (patch_science's parts); and each kind's five passes as functions
           of their own (patch_rk_passes: the intermediates each pass reads
           and writes once, and its weights)
+  patch_fb_passes  the FB step's six passes on the sphere (the patch
+          step, kind fb) as functions of their own, as patch_rk_passes
   patch_split  the same site at icos48, kinds splitpre / splitpost
           (patch_megastep.py:2131): splitpre reads h, u and the tracers and
           the momentum chain's weights and writes du_out (the three edge
@@ -283,6 +285,42 @@ def patch_rk_passes(n=48, base_reads=1, writes=1):
             for k, (r, w) in io.items()}
 
 
+def patch_fb_passes(n=48):
+    """Each pass of the port's FB patch step (csrc/patch_step.cuh: A, B, C,
+    D1 the cells' tracers, D2 the edges' du, E the new u), flagship chain,
+    as a function of its own: the fields it reads and writes, each once,
+    and the per-element weights it applies (patch_rk_passes' model).
+    A reads the state and writes flux, hflux and mc per tracer, ke, div u
+    and curl u; B reads those and h and writes h_new, trp and d2aux per
+    tracer, dup and del2e; C reads d2aux, h_new, u, curl u and del2e and
+    writes cd2 per tracer, F, qv, dr2 and dd2; D1 reads h, h_new, trp, cd2
+    and the tracers and writes the tracers; D2 reads qv, F, dd2, dr2,
+    h_new and dup and writes Fq and dup; E reads u, dup and Fq and writes
+    u. Operations: two per stencil entry applied per layer. Also the six
+    passes' sum."""
+    C, E, V, ce, ve, tang = icos(n)
+    # field reads and writes in (element, layer) units
+    io = {"A": (C * (1 + L) + E, E * (1 + 2 * L) + 2 * C + V),
+          "B": (E * (1 + 2 * L) + 3 * C + V, C * (1 + 2 * L) + 2 * E),
+          "C": (C * (1 + L) + 2 * E + V, E * (1 + L) + 2 * V + C),
+          "D1": (C * (2 + 2 * L) + E * L, C * L),
+          "D2": (2 * V + 2 * C + 2 * E, 2 * E),
+          "E": (3 * E, E)}
+    weights = {"A": 2 * ce + E + ve, "B": 2 * ce + 2 * E,
+               "C": E + 2 * ve + ce + V, "D1": ce, "D2": 2 * E + tang,
+               "E": tang}
+    entries = {"A": 2 * E * (1 + 2 * L) + 2 * ce + ve,
+               "B": ce * (1 + 3 * L) + 4 * 2 * E,
+               "C": 2 * E * (1 + L) + 2 * ve + ce, "D1": ce * L,
+               "D2": 2 * E * 4 + tang, "E": tang}
+    out = {k: bound((r + w) * K * F32 + weights[k] * F32,
+                    2 * entries[k] * K)
+           for k, (r, w) in io.items()}
+    out["sum"] = bound(sum(v["bytes"] for v in out.values()),
+                       sum(v["flops"] for v in out.values()))
+    return out
+
+
 def patch_split(n=48):
     C, E, V, ce, ve, tang = icos(n)
     fb = patch_fb(n)
@@ -371,6 +409,7 @@ if __name__ == "__main__":
     print(json.dumps({"patch": patch_fb()}))
     print(json.dumps({"patch_science": patch_science()}))
     print(json.dumps({"patch_fct": patch_fct()}))
+    print(json.dumps({"patch_fb_passes": patch_fb_passes()}))
     print(json.dumps({"patch_rk": patch_rk()}))
     print(json.dumps({"patch_split": patch_split()}))
     print(json.dumps({"sphere_bt": sphere_bt()}))
