@@ -2,9 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (omega_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, as a release check
-    python3 chip_smoke.py --tiles 16x16,32x32@256     # also time those tiles
-    python3 chip_smoke.py --solve-columns 4,16,32     # also time the column
-                                    # solve with those many columns per block
+    python3 chip_smoke.py --profile  # also device time by kernel, every path
 
 It builds the CUDA kernels from omega_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card, drives the port's main paths
@@ -21,8 +19,10 @@ a user calls, and prints one JSON line per phase:
                   as CSR: the library call)
   kernel_fb_step  fused FB step vs plain and vs the composed step, for the
                   flagship chain and its variants (upwind and FCT fluxes,
-                  wind, drag); FCT's 0/1 tracer stays in [0, 1]
-  kernel_vmix     PP81 coefficient kernel and column-solve kernel vs plain
+                  wind, drag), with each variant's registers, spill and
+                  blocks per SM; FCT's 0/1 tracer stays in [0, 1]
+  kernel_vmix     PP81 coefficient kernel and column-solve kernel vs plain,
+                  the solve's registers, spill and blocks per SM
   kernel_rk       RK stage kernel vs plain, every stage mode, with its
                   registers, spill and blocks per SM; fused RK2 / RK4
                   steps vs the composed steppers
@@ -139,13 +139,6 @@ def fail(msg):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tiles", default="",
-                    help="extra fused-kernel tiles to time, as ROWSxCOLS or "
-                    "ROWSxCOLS@THREADS, e.g. 16x16,32x32@256")
-    ap.add_argument("--solve-columns", default="",
-                    help="extra column-group widths of the vertical-mixing "
-                    "solve kernel to time (the module has one, "
-                    "vmix_kernel.SOLVE_COLUMNS), e.g. 4,16,32")
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few steps of both paths with "
                     "torch.profiler and print device time by kernel")
@@ -521,9 +514,9 @@ def main(argv=None):
         del pla, comp_s
         buf = [s0.clone(), ker]
 
-        def step_pingpong(tile=None):
+        def step_pingpong():
             megastep.fb_megastep_stacked(mesh32, cfg_v, buf[0], DT,
-                                         out=buf[1], tile=tile, wind=plane)
+                                         out=buf[1], wind=plane)
             buf.reverse()
 
         ms = cuda_ms(step_pingpong, 20)
@@ -531,25 +524,17 @@ def main(argv=None):
         plain_ms = cuda_ms(lambda: megastep.fb_megastep_plain(
             mesh32, cfg_v, buf[0], DT, wind=plane), 3, 1)
         tabs, consts = megastep._mega_args(mesh32, cfg_v, DT)
-        plan = megastep.plan_tile(NY, NX, 4,
-                                  megastep._ring(tabs, consts, plane), None,
-                                  megastep.slots(consts))
+        plan = megastep.hex_plan(4, megastep._ring(tabs, consts, plane),
+                                 megastep.slots(consts))
         b_ms, b_by = bound(
             (2 * CH * NLAYERS + (3 if plane is not None else 0)) * C * 4,
             _fb_flops_per_point(tabs, NTRACERS, consts["fct"])
             * NLAYERS * C)
         fbv[variant] = {"f32_256x256x100x2": f32, "max_abs_err": abs_err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "plan": plan}
-        if variant == "flagship":
-            tile_ms = {}
-            for spec in filter(None, args.tiles.split(",")):
-                dims, _, thr = spec.partition("@")
-                tile = tuple(int(v) for v in dims.split("x")) \
-                    + ((int(thr),) if thr else ())
-                buf[0].copy_(s0)
-                tile_ms[spec] = cuda_ms(lambda: step_pingpong(tile), 10)
-            fbv[variant]["tile_ms"] = tile_ms
+                        "bound_by": b_by, "plan": plan,
+                        "attrs": megastep.fb_step_attrs(
+                            cfg_v, torch.float32, plane is not None)}
         del buf, ker
     # FCT is monotone: a 0/1 step tracer stays in [0, 1] over 20 fused
     # steps at full width, with tracer diffusion off, in the reference's
@@ -609,9 +594,11 @@ def main(argv=None):
     emit({"phase": "kernel_fb_step", **fb})
 
     # ----------------------------------------------------- 4b. kernel_vmix
-    # f64 at rtol=atol=1e-10 against the plain PCR (same arithmetic level
-    # for level; only FMA contraction differs). f32 at full width: 1e-4 of
-    # the largest reference value per output, as for the fused step.
+    # f64 at rtol=atol=1e-10 against the plain PCR: the kernel solves the
+    # same diagonally dominant system by elimination in chunks (no pivoting
+    # needed), so the two differ by the rounding of either, some 1e-15 of
+    # a value. f32 at full width: 1e-4 of the largest reference value per
+    # output, as for the fused step.
     PP81 = VertMixConfig(enabled=True, scheme="pp81", temp_index=0,
                          salt_index=1)
     CONST = VertMixConfig(enabled=True, kappa_tracer=1.0e-3,
@@ -749,19 +736,6 @@ def main(argv=None):
             mesh32, cfg_ct, work, DT), 20),
         "pp81": cuda_ms(lambda: vmix_kernel.vmix_solve(
             mesh32, cfg_pp, work, DT, (kap, nu)), 20)}
-    # other column groups, for the record: the module's constant is set for
-    # the timing and put back
-    columns_ms = {}
-    for spec in filter(None, args.solve_columns.split(",")):
-        keep = vmix_kernel.SOLVE_COLUMNS
-        try:
-            vmix_kernel.SOLVE_COLUMNS = int(spec)
-            vmix_kernel._PARAM_CACHE.clear()
-            columns_ms[spec] = cuda_ms(lambda: vmix_kernel.vmix_solve(
-                mesh32, cfg_pp, work, DT, (kap, nu)), 20)
-        finally:
-            vmix_kernel.SOLVE_COLUMNS = keep
-            vmix_kernel._PARAM_CACHE.clear()
     solve_plain_ms = cuda_ms(lambda: vmix_kernel.vmix_solve_plain(
         mesh32, cfg_pp, sv, DT, (kap, nu)), 2, 1)
     KI = NLAYERS - 1
@@ -769,10 +743,10 @@ def main(argv=None):
     coeff_b_ms, coeff_b_by = bound((6 * NLAYERS + 4 * KI) * C * 4,
                                    90 * KI * C)
     # reads h, 3 u, L tracers (and the 4 coefficient planes), writes 3 u and
-    # L tracers; per row and level 16 operations for the matrix and 4 per
-    # right-hand side, in 4 systems with 3 + L right-hand sides in all
-    levels = vmix_kernel.plan_solve(NLAYERS, NTRACERS, 4)["levels"]
-    solve_flops = levels * NLAYERS * C * (4 * 16 + 4 * (3 + NTRACERS))
+    # L tracers; per row about 12 operations for the coupling and the
+    # elimination of the matrix and 7 per right-hand side, in 4 systems
+    # with 3 + L right-hand sides in all
+    solve_flops = NLAYERS * C * (4 * 12 + 7 * (3 + NTRACERS))
     solve_b = {
         "constant": bound((4 + NTRACERS + 3 + NTRACERS) * NLAYERS * C * 4,
                           solve_flops),
@@ -784,11 +758,11 @@ def main(argv=None):
                    "plain_ms": coeff_plain_ms, "bound_ms": coeff_b_ms,
                    "bound_by": coeff_b_by},
         "solve": {"f32_256x256x100x2": solve, "max_abs_err": solve_abs,
-                  "ms": solve_ms, "columns_ms": columns_ms,
-                  "plain_ms_pp81": solve_plain_ms,
+                  "ms": solve_ms, "plain_ms_pp81": solve_plain_ms,
                   "bound_ms": {k: v[0] for k, v in solve_b.items()},
                   "bound_by": {k: v[1] for k, v in solve_b.items()},
-                  "plan": vmix_kernel.plan_solve(NLAYERS, NTRACERS, 4)}})
+                  "plan": vmix_kernel.plan_chunks(NLAYERS, 4),
+                  "attrs": vmix_kernel.solve_attrs(mesh32, cfg_pp, sv)}})
     emit({"phase": "kernel_vmix", **vmx})
     del work, sv, kap_p, nu_p, s0, st
 
@@ -905,8 +879,8 @@ def main(argv=None):
         tabs, consts = megastep._mega_args(mesh32, cfg_r, DT)
         flops = _fb_flops_per_point(tabs, NTRACERS) * NLAYERS * C
         wbytes = 3 * C * 4 if plane is not None else 0
-        res = {"plan": megastep.rk_plan(
-            4, megastep._ring(tabs, consts, plane, "rk")),
+        res = {"plan": megastep.hex_plan(
+            4, megastep._ring(tabs, consts, plane, "rk"), megastep.RK_SLOTS),
             "attrs": megastep.rk_stage_attrs(
                 cfg_r, torch.float32,
                 plane is not None or consts["cd"] != 0.0), "modes": {}}

@@ -14,13 +14,12 @@ int omega_fb_params_size_f32() {
 int omega_fb_params_size_f64() {
   return static_cast<int>(sizeof(omega::FbParams<double>));
 }
-// slab arrays of a chain: kind 0 = the FB step (flux variant uph, fct),
+// slab arrays of a chain: kind 0 = the FB step (fct: its FCT variants),
 // 1 = the RK stage
-int omega_chain_slots(int kind, int uph, int fct) {
+int omega_chain_slots(int kind, int fct) {
   if (kind == 1) return omega::kRkSlots;
-  if (fct) return uph ? omega::fb_slots<true, omega::TR_FCT>()
-                      : omega::fb_slots<false, omega::TR_FCT>();
-  return omega::fb_slots<false, omega::TR_CENTER>();
+  return fct ? omega::fb_slots<omega::TR_FCT>()
+             : omega::fb_slots<omega::TR_CENTER>();
 }
 
 }  // extern "C"

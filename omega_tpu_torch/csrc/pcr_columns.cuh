@@ -1,7 +1,7 @@
 // Backward-Euler vertical diffusion of a group of columns by parallel cyclic
-// reduction, in shared memory: the part the column-solve kernels of the
-// plane (vmix.cu) and of the sphere's frames (patch_vmix.cu) share. They
-// differ only in how a column is laid out in device memory.
+// reduction, in shared memory: the levels of the sphere's column solve
+// (patch_vmix.cu). (The planar solve, vmix.cu, eliminates in chunks
+// instead.)
 //
 // A block takes CW columns (threadIdx.x) and walks their K levels with
 // blockDim.y threads. A staged array holds N = K CW elements, [k][CW] with k

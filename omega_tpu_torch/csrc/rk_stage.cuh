@@ -33,9 +33,10 @@
 // 227 KB, not the TPU's 128 MB.
 //
 // Design for this card. A block is one layer x one kBY x kBX tile with the
-// chain's (kRY, kRX) ring, as in the FB step, but the slab geometry and the
+// chain's (kRY, kRX) ring, as in the FB step, and the slab geometry and the
 // planar hex mesh's entry pattern (source class, dj, and di per row parity
-// of every table entry, hex_ent) are compile-time constants here: every
+// of every table entry, hex_ent) are compile-time constants (hex_slab.cuh,
+// which the FB step shares): every
 // shared-memory read of a stencil is one load at an immediate offset from
 // the point's own index, with no parity select and no address arithmetic,
 // and its weight is an operand from the kernel's parameter space. On the
@@ -53,7 +54,7 @@
 // and du's del2 term is kept in registers, so that 18 slab arrays suffice:
 // 4 blocks per SM in float32. The launcher refuses any other tile, ring,
 // entry pattern or block size (the host then runs the composed step:
-// megastep.rk_pattern_fits).
+// megastep.hex_pattern_fits).
 //
 // Bound: bytes, per launch the evaluated level (4+L channels), the base and
 // accumulator read at the owned centre, and the outputs written; the chain's
@@ -62,9 +63,7 @@
 // the barriers between the chain's levels are what the time goes to.
 #pragma once
 
-#include <utility>
-
-#include "slab_chain.cuh"
+#include "hex_slab.cuh"
 
 namespace omega {
 
@@ -75,127 +74,16 @@ constexpr int kRkSlots = 18;
 namespace rk {
 
 // the tile, its ring and the block the RK stage is compiled for
-constexpr int kBY = 16, kBX = 32, kRY = 2, kRX = 3;
-constexpr int kXX = kBX + 2 * kRX, kYY = kBY + 2 * kRY, kS = kXX * kYY;
-constexpr int kGuard = 2 * kXX + 2;   // guard_elems of ops/megastep.py
-constexpr int kSlabJobs = (kYY / 4) * kXX;   // row quads x columns
-constexpr int kOwnJobs = (kBY / 2) * kBX;
-constexpr int kRkThreads = 256;
+using Geo = HexSlab<16, 32, 2, 3, 256>;
+constexpr int kBY = Geo::kBY, kBX = Geo::kBX, kRY = Geo::kRY, kRX = Geo::kRX;
+constexpr int kXX = Geo::kXX, kS = Geo::kS, kGuard = Geo::kGuard;
+constexpr int kRkThreads = Geo::kThreads;
 // blocks an SM must hold (the register budget): 18 float32 slabs take
 // 55,344 bytes a block, 4 blocks an SM; float64 ones 2
 template <typename T>
 constexpr int kRkMinBlocks = sizeof(T) == 4 ? 4 : 2;
-static_assert(kBY % 2 == 0 && kRY % 2 == 0, "the slab's first row is even");
-static_assert(kYY % 4 == 0, "the slab is whole row quads");
-static_assert(kOwnJobs == kRkThreads, "one owned pair per thread");
-
-// Field f of the planar hex mesh's table entry e, in the packed order of
-// ops/megastep.pack_params (tables in FbTable order, destination classes in
-// order, table order within a class): source class, dj, di on even rows, di
-// on odd rows. ops/megastep.RK_PATTERN is the same list. (A local array:
-// device code may read no host variable.)
-__host__ __device__ constexpr int hex_ent(int e, int f) {
-  constexpr signed char t[kFbMaxEntries][4] = {
-    {0, 0, 0, 0},   {1, 0, 0, 0},   {2, 0, 0, 0},   {0, 0, -1, -1},  // div
-    {1, -1, -1, 0}, {2, -1, 0, 1},
-    {0, 0, 0, 0},   {1, 0, 0, 0},   {2, 0, 0, 0},   {0, 0, -1, -1},  // ke
-    {1, -1, -1, 0}, {2, -1, 0, 1},
-    {0, 0, 0, 0},   {1, 0, 0, 0},   {2, 0, 1, 1},                    // curl
-    {1, 0, 0, 0},   {2, 0, 0, 0},   {0, 1, -1, 0},
-    {0, 0, 0, 0},   {0, 0, 1, 1},   {0, 1, 0, 1},                    // kite
-    {0, 0, 0, 0},   {0, 1, 0, 1},   {0, 1, -1, 0},
-    {1, 0, 0, 0},   {2, 0, 0, 0},   {1, -1, -1, 0}, {2, -1, 0, 1},   // tang
-    {1, -1, 0, 1},  {2, -1, 1, 2},  {1, 0, 1, 1},   {2, 0, 1, 1},
-    {2, 0, 0, 0},   {0, 0, -1, -1}, {2, -1, 0, 1},  {0, 0, 0, 0},
-    {2, 0, 1, 1},   {0, 1, 0, 1},   {2, 1, 0, 1},   {0, 1, -1, 0},
-    {0, 0, -1, -1}, {1, -1, -1, 0}, {0, 0, 0, 0},   {1, 0, 0, 0},
-    {0, 1, -1, 0},  {1, 1, -1, 0},  {0, 1, -2, -1}, {1, 0, -1, -1},
-    {0, 0, 0, 0},   {0, 0, 1, 1},   {0, 0, 0, 0},   {0, 1, 0, 1},    // cdiff
-    {0, 0, 0, 0},   {0, 1, -1, 0},
-    {0, 0, 0, 0},   {0, 0, 1, 1},   {0, 0, 0, 0},   {0, 1, 0, 1},    // cmean
-    {0, 0, 0, 0},   {0, 1, -1, 0},
-    {1, -1, 0, 1},  {0, 0, 0, 0},   {0, 0, 0, 0},   {1, 0, 0, 0},    // vdiff
-    {1, 0, 0, 0},   {0, 0, -1, -1},
-    {1, -1, 0, 1},  {0, 0, 0, 0},   {0, 0, 0, 0},   {1, 0, 0, 0},    // vmean
-    {1, 0, 0, 0},   {0, 0, -1, -1},
-    {0, 0, 0, 0},   {1, 0, 0, 0},   {2, 0, 0, 0},   {0, 0, -1, -1},  // sdiv
-    {1, -1, -1, 0}, {2, -1, 0, 1},
-    {0, 0, 0, 0},   {0, 0, 0, 0},   {0, 0, 0, 0},                    // c0
-    {0, 0, 1, 1},   {0, 1, 0, 1},   {0, 1, -1, 0},                   // c1
-    {0, 0, 0, 0},   {1, 0, 0, 0},   {2, 0, 0, 0},                    // div_pos
-    {0, 0, -1, -1}, {1, -1, -1, 0}, {2, -1, 0, 1},                   // div_neg
-    {0, 0, 1, 1},   {0, 1, 0, 1},   {0, 1, -1, 0},                   // coc
-    {0, 0, -1, -1}, {0, -1, -1, 0}, {0, -1, 0, 1}};
-  return t[e][f];
-}
-
-// flat slab offset of entry e for a point on a row of parity par
-__host__ __device__ constexpr int hex_off(int e, int par) {
-  return hex_ent(e, 0) * kS + hex_ent(e, 1) * kXX + hex_ent(e, 2 + par);
-}
-template <int E, int PAR>
-struct Off {
-  static constexpr int v = hex_off(E, PAR);
-};
-
-template <int V>
-using ic = std::integral_constant<int, V>;
-
-template <typename F, int... I>
-__device__ __forceinline__ void static_for_(F&& f,
-                                            std::integer_sequence<int, I...>) {
-  (f(ic<I>{}), ...);
-}
-// f(ic<0>), ..., f(ic<N-1>) in order
-template <int N, typename F>
-__device__ __forceinline__ void static_for(F&& f) {
-  static_for_(f, std::make_integer_sequence<int, N>{});
-}
-
-template <int B, int t, int PAR, typename T, typename Rd, int... I>
-__device__ __forceinline__ T ap_(const FbParams<T>& p, int q, const Rd& rd,
-                                 std::integer_sequence<int, I...>) {
-  constexpr int e0 = tab_base(B) + t * tab_count(B);
-  T acc = T(0);
-  ((acc += p.w[e0 + I] * rd(q + Off<e0 + I, PAR>::v)), ...);
-  return acc;
-}
-// sum_i w[i] * rd(q + off[i]) over the entries of (table B, class t), for a
-// point q on a row of parity PAR: apply() of slab_chain.cuh with every
-// offset an immediate
-template <int B, int t, int PAR, typename T, typename Rd>
-__device__ __forceinline__ T ap(const FbParams<T>& p, int q, const Rd& rd) {
-  return ap_<B, t, PAR>(p, q, rd,
-                        std::make_integer_sequence<int, tab_count(B)>{});
-}
-// the offset of the one entry of pair table B (T_C0 or T_C1), class t
-template <int B, int t, int PAR>
-constexpr int kPair = hex_off(tab_base(B) + t, PAR);
-
-// f(ic<0>, q), f(ic<1>, q + kXX), f(ic<0>, q + 2 kXX), f(ic<1>, q + 3 kXX)
-// for every row quad and column of the slab, q on the quad's first row
-template <typename F>
-__device__ __forceinline__ void slab_quads(F&& f) {
-  for (int j = threadIdx.x; j < kSlabJobs; j += kRkThreads) {
-    const int pr = j / kXX, q = 4 * pr * kXX + (j - pr * kXX);
-    f(ic<0>{}, q);
-    f(ic<1>{}, q + kXX);
-    f(ic<0>{}, q + 2 * kXX);
-    f(ic<1>{}, q + 3 * kXX);
-  }
-}
-
-// the host's plan is the tile, ring and entry pattern compiled here
-template <typename T>
-bool geometry_ok(const FbParams<T>& p) {
-  if (p.by != kBY || p.bx != kBX || p.ry != kRY || p.rx != kRX ||
-      p.guard != kGuard || p.ny % 2 != 0)
-    return false;
-  for (int e = 0; e < tab_base(T_COUNT); ++e)
-    for (int par = 0; par < 2; ++par)
-      if (p.off[par][e] != hex_off(e, par)) return false;
-  return true;
-}
+static_assert(kRY % 2 == 0, "the slab's first row is even");
+static_assert(Geo::kYY % 4 == 0, "the slab is whole row quads");
 
 }  // namespace rk
 
@@ -293,19 +181,19 @@ rk_stage_kernel(const T* __restrict__ ev, const T* __restrict__ base,
   __syncthreads();
 
   // ---- mean_h and the thickness flux F = flux_h * u on the slab
-  slab_quads([&](auto par, int q) {
+  Geo::rows([&](auto par, int q) {
     constexpr int PAR = decltype(par)::value;
     static_for<3>([&](auto tc) {
       constexpr int t = decltype(tc)::value;
       const T u = U[t * kS + q];
       T mh, fh;
       if constexpr (UPH) {
-        const T h0 = H[q + kPair<T_C0, t, PAR>];
-        const T h1 = H[q + kPair<T_C1, t, PAR>];
+        const T h0 = H[q + Geo::kPair<T_C0, t, PAR>];
+        const T h1 = H[q + Geo::kPair<T_C1, t, PAR>];
         mh = T(0.5) * (h0 + h1);
         fh = upwind_sel(u, h0, h1);
       } else {
-        mh = ap<T_CMEAN, t, PAR>(p, q, at(H));
+        mh = Geo::ap<T_CMEAN, t, PAR>(p, q, at(H));
         fh = mh;
       }
       MH[t * kS + q] = mh;
@@ -318,7 +206,7 @@ rk_stage_kernel(const T* __restrict__ ev, const T* __restrict__ base,
   T ho[2] = {T(0), T(0)};
   owned([&](auto par, int q, long long g) {
     constexpr int PAR = decltype(par)::value;
-    const T dh = -ap<T_DIV, 0, PAR>(p, q, at(F));
+    const T dh = -Geo::ap<T_DIV, 0, PAR>(p, q, at(F));
     const long long c = chan(0) + g;
     T h;
     if (mode == RK_LAST) {
@@ -343,46 +231,47 @@ rk_stage_kernel(const T* __restrict__ ev, const T* __restrict__ base,
     if (l + 1 < p.L) load_tr(l + 1);
     __syncthreads();
     // HTR = h*tr on edges (center or upwind), G = geo*mean_h*cdiff(tr)
-    slab_quads([&](auto par, int q) {
+    Geo::rows([&](auto par, int q) {
       constexpr int PAR = decltype(par)::value;
       static_for<3>([&](auto tc) {
         constexpr int t = decltype(tc)::value;
         if constexpr (UPT) {
-          constexpr int o0 = kPair<T_C0, t, PAR>, o1 = kPair<T_C1, t, PAR>;
+          constexpr int o0 = Geo::kPair<T_C0, t, PAR>;
+          constexpr int o1 = Geo::kPair<T_C1, t, PAR>;
           HTR[t * kS + q] = upwind_sel(U[t * kS + q], H[q + o0] * TR[q + o0],
                                        H[q + o1] * TR[q + o1]);
         } else {
-          HTR[t * kS + q] = ap<T_CMEAN, t, PAR>(
+          HTR[t * kS + q] = Geo::ap<T_CMEAN, t, PAR>(
               p, q, [&](int r) { return H[r] * TR[r]; });
         }
-        const T ctr = ap<T_CDIFF, t, PAR>(p, q, at(TR));
+        const T ctr = Geo::ap<T_CDIFF, t, PAR>(p, q, at(TR));
         G[t * kS + q] = p.geo * MH[t * kS + q] * ctr;
       });
     });
     __syncthreads();
     // ADV = -div(HTR*u) (into TR's slot), D2 = signed_div(G)
-    slab_quads([&](auto par, int q) {
+    Geo::rows([&](auto par, int q) {
       constexpr int PAR = decltype(par)::value;
-      const T adv = -ap<T_DIV, 0, PAR>(p, q, [&](int r) {
+      const T adv = -Geo::ap<T_DIV, 0, PAR>(p, q, [&](int r) {
         return HTR[r] * U[r];
       });
-      const T d2 = ap<T_SDIV, 0, PAR>(p, q, at(G));
+      const T d2 = Geo::ap<T_SDIV, 0, PAR>(p, q, at(G));
       ADV[q] = adv;
       D2[q] = d2;
     });
     __syncthreads();
     // CD2 = geo4*cdiff(D2) (into HTR's slots)
-    slab_quads([&](auto par, int q) {
+    Geo::rows([&](auto par, int q) {
       constexpr int PAR = decltype(par)::value;
       static_for<3>([&](auto tc) {
         constexpr int t = decltype(tc)::value;
-        CD2[t * kS + q] = p.geo4 * ap<T_CDIFF, t, PAR>(p, q, at(D2));
+        CD2[t * kS + q] = p.geo4 * Geo::ap<T_CDIFF, t, PAR>(p, q, at(D2));
       });
     });
     __syncthreads();
     owned([&](auto par, int q, long long g) {
       constexpr int PAR = decltype(par)::value;
-      const T hyp = ap<T_SDIV, 0, PAR>(p, q, at(CD2));
+      const T hyp = Geo::ap<T_SDIV, 0, PAR>(p, q, at(CD2));
       const T dtr = ADV[q] + p.ed2s * D2[q] - p.ed4 * hyp;
       const long long c = chan(4 + l) + g;
       if (mode == RK_LAST) {
@@ -399,14 +288,14 @@ rk_stage_kernel(const T* __restrict__ ev, const T* __restrict__ base,
 
   // ---- momentum aux on the level: ke, div, curl, the normalized
   // vorticities (MH's and the tracers' slots are free now)
-  slab_quads([&](auto par, int q) {
+  Geo::rows([&](auto par, int q) {
     constexpr int PAR = decltype(par)::value;
-    KE[q] = ap<T_KE, 0, PAR>(p, q, [&](int r) { return U[r] * U[r]; });
-    DIVU[q] = ap<T_DIV, 0, PAR>(p, q, at(U));
+    KE[q] = Geo::ap<T_KE, 0, PAR>(p, q, [&](int r) { return U[r] * U[r]; });
+    DIVU[q] = Geo::ap<T_DIV, 0, PAR>(p, q, at(U));
     static_for<2>([&](auto tc) {
       constexpr int t = decltype(tc)::value;
-      const T rv = ap<T_CURL, t, PAR>(p, q, at(U));
-      const T hv = ap<T_KITE, t, PAR>(p, q, at(H));
+      const T rv = Geo::ap<T_CURL, t, PAR>(p, q, at(U));
+      const T hv = Geo::ap<T_KITE, t, PAR>(p, q, at(H));
       RV[t * kS + q] = rv;
       NRV[t * kS + q] = rv / hv;
       NPV[t * kS + q] = p.f0v / hv;
@@ -414,12 +303,12 @@ rk_stage_kernel(const T* __restrict__ ev, const T* __restrict__ base,
   });
   __syncthreads();
   // edge PV; and du's del2 term at the owned pair, in registers
-  slab_quads([&](auto par, int q) {
+  Geo::rows([&](auto par, int q) {
     constexpr int PAR = decltype(par)::value;
     static_for<3>([&](auto tc) {
       constexpr int t = decltype(tc)::value;
-      const T nrv_e = ap<T_VMEAN, t, PAR>(p, q, at(NRV));
-      const T npv_e = ap<T_VMEAN, t, PAR>(p, q, at(NPV));
+      const T nrv_e = Geo::ap<T_VMEAN, t, PAR>(p, q, at(NRV));
+      const T npv_e = Geo::ap<T_VMEAN, t, PAR>(p, q, at(NPV));
       Q[t * kS + q] = nrv_e + npv_e;
     });
   });
@@ -429,19 +318,19 @@ rk_stage_kernel(const T* __restrict__ ev, const T* __restrict__ base,
     constexpr int PAR = decltype(par)::value;
     static_for<3>([&](auto tc) {
       constexpr int t = decltype(tc)::value;
-      const T cdd = ap<T_CDIFF, t, PAR>(p, q, at(DIVU));
-      const T vdr = ap<T_VDIFF, t, PAR>(p, q, at(RV));
+      const T cdd = Geo::ap<T_CDIFF, t, PAR>(p, q, at(DIVU));
+      const T vdr = Geo::ap<T_VDIFF, t, PAR>(p, q, at(RV));
       del2[t][PAR] = cdd * p.inv_dc - vdr * p.inv_dv;
     });
   });
   __syncthreads();
   // del2 of u on edges (into the normalized vorticities' slots)
-  slab_quads([&](auto par, int q) {
+  Geo::rows([&](auto par, int q) {
     constexpr int PAR = decltype(par)::value;
     static_for<3>([&](auto tc) {
       constexpr int t = decltype(tc)::value;
-      const T cdd = ap<T_CDIFF, t, PAR>(p, q, at(DIVU));
-      const T vdr = ap<T_VDIFF, t, PAR>(p, q, at(RV));
+      const T cdd = Geo::ap<T_CDIFF, t, PAR>(p, q, at(DIVU));
+      const T vdr = Geo::ap<T_VDIFF, t, PAR>(p, q, at(RV));
       D2E[t * kS + q] = cdd * p.inv_dc - vdr * p.inv_dv_floor;
     });
   });
@@ -449,11 +338,11 @@ rk_stage_kernel(const T* __restrict__ ev, const T* __restrict__ base,
   T ub[3][2], ua[3][2];
   _Pragma("unroll") for (int t = 0; t < 3; ++t) fetch(1 + t, ub[t], ua[t]);
   // div and curl of del2 on edges (into div u's and curl u's slots)
-  slab_quads([&](auto par, int q) {
+  Geo::rows([&](auto par, int q) {
     constexpr int PAR = decltype(par)::value;
-    const T dd = ap<T_DIV, 0, PAR>(p, q, at(D2E));
-    const T r0 = ap<T_CURL, 0, PAR>(p, q, at(D2E));
-    const T r1 = ap<T_CURL, 1, PAR>(p, q, at(D2E));
+    const T dd = Geo::ap<T_DIV, 0, PAR>(p, q, at(D2E));
+    const T r0 = Geo::ap<T_CURL, 0, PAR>(p, q, at(D2E));
+    const T r1 = Geo::ap<T_CURL, 1, PAR>(p, q, at(D2E));
     D2DIV[q] = dd;
     D2RV[q] = r0;
     D2RV[kS + q] = r1;
@@ -472,17 +361,17 @@ rk_stage_kernel(const T* __restrict__ ev, const T* __restrict__ base,
       static_for<tab_count(T_TANG)>([&](auto ic_) {
         constexpr int e =
             tab_base(T_TANG) + t * tab_count(T_TANG) + decltype(ic_)::value;
-        constexpr int o = Off<e, PAR>::v;
+        constexpr int o = Geo::off(e, PAR);
         const T f = F[q + o];
         tf += p.w[e] * f;
         tfq += p.w[e] * (f * Q[q + o]);
       });
       const T qe = Q[t * kS + q];
       const T pv = T(0.5) * (qe * tf + tfq);
-      const T gke = ap<T_CDIFF, t, PAR>(p, q, at(KE));
-      const T gssh = ap<T_CDIFF, t, PAR>(p, q, at(H));
-      const T cd4 = ap<T_CDIFF, t, PAR>(p, q, at(D2DIV));
-      const T vd4 = ap<T_VDIFF, t, PAR>(p, q, at(D2RV));
+      const T gke = Geo::ap<T_CDIFF, t, PAR>(p, q, at(KE));
+      const T gssh = Geo::ap<T_CDIFF, t, PAR>(p, q, at(H));
+      const T cd4 = Geo::ap<T_CDIFF, t, PAR>(p, q, at(D2DIV));
+      const T vd4 = Geo::ap<T_VDIFF, t, PAR>(p, q, at(D2RV));
       T du = pv - gke * p.inv_dc - p.grav * gssh * p.inv_dc +
              p.nu2s * del2[t][PAR] -
              p.nu4s * (p.div_factor * cd4 * p.inv_dc - vd4 * p.inv_dv);
@@ -490,16 +379,16 @@ rk_stage_kernel(const T* __restrict__ ev, const T* __restrict__ base,
         if (top || bottom) {
           T mh;   // mean_h of the level
           if constexpr (UPH) {
-            mh = T(0.5) * (H[q + kPair<T_C0, t, PAR>] +
-                           H[q + kPair<T_C1, t, PAR>]);
+            mh = T(0.5) * (H[q + Geo::kPair<T_C0, t, PAR>] +
+                           H[q + Geo::kPair<T_C1, t, PAR>]);
           } else {
-            mh = ap<T_CMEAN, t, PAR>(p, q, at(H));
+            mh = Geo::ap<T_CMEAN, t, PAR>(p, q, at(H));
           }
           if (top) du = du + wind[t * plane + g] / (p.rho0 * mh);
           if (bottom) {
             // 2*cmean(ke) == ke0 + ke1 bit for bit (halving and doubling
             // are exact), the composed step's sqrt(ke0 + ke1)
-            const T kee = ap<T_CMEAN, t, PAR>(p, q, at(KE));
+            const T kee = Geo::ap<T_CMEAN, t, PAR>(p, q, at(KE));
             const T twice = T(2) * kee;
             const T speed = sqrt(twice > T(0) ? twice : T(0));
             du = du + (-(p.cd * speed * U[t * kS + q] / mh));
@@ -526,7 +415,7 @@ int launch_rk_stage(const void* ev, const void* base, const void* acc,
   const FbParams<T>& p = *hp;
   if (threads != rk::kRkThreads) return cudaErrorInvalidConfiguration;
   if (!TAILS && (wind != nullptr || p.cd != T(0))) return cudaErrorInvalidValue;
-  if (!layout_ok(p) || !rk::geometry_ok(p)) return cudaErrorInvalidValue;
+  if (!layout_ok(p) || !rk::Geo::geometry_ok(p)) return cudaErrorInvalidValue;
   // the arrays each mode reads and writes; out never aliases the level
   const bool ok = out != nullptr && out != ev &&
                   (mode == RK_LAST ? acc != nullptr

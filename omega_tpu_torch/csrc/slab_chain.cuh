@@ -1,9 +1,11 @@
-// What the fused FB step (fb_step.cuh) and the RK stage kernel
-// (rk_stage.cuh) share: the shift tables as compile-time entry layouts with
-// their offsets and weights in the kernel's parameter space, the one-layer x
-// (by, bx) slab with the periodic wrap as index arithmetic, and the levels of
-// the chain both evaluate (the thickness fluxes, the center / upwind tracer
-// tendency, the momentum aux and du).
+// What the planar chain kernels share: the shift tables as compile-time
+// entry layouts with their offsets and weights in the kernel's parameter
+// space (FbParams, which the FB step and the RK stage read too), the
+// one-layer x (by, bx) slab with the periodic wrap as index arithmetic, and
+// the levels the split passes (split.cu) evaluate on it (the thickness
+// fluxes, the center / upwind tracer tendency, the momentum aux and du).
+// The FB step and the RK stage walk the same chain on a compiled slab
+// geometry and entry pattern instead (hex_slab.cuh).
 //
 // A block is one layer k x one (by, bx) horizontal tile of the stacked state
 // (4+L, K, ny, nx), x fastest; it holds a (by+2ry) x (bx+2rx) slab of every

@@ -117,6 +117,10 @@ def load() -> ctypes.CDLL:
                 # in, out, wind, params, threads, stream
                 fn.argtypes = [vp, vp, vp, vp, ci, vp]
                 fn.restype = ci
+                fn = getattr(lib, f"omega_fb_step_attrs_{flux}_{tails}_"
+                                  f"{suffix}")
+                fn.argtypes = [vp]           # out[4]
+                fn.restype = ci
             for flux in ("cc", "uc", "cu", "uu"):
                 fn = getattr(lib, f"omega_rk_stage_{flux}_{tails}_{suffix}")
                 # ev, base, acc, acc_out, out, wind, params, ca, cb, mode,
@@ -149,6 +153,10 @@ def load() -> ctypes.CDLL:
                  "omega_vmix_solve_f32", "omega_vmix_solve_f64"):
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, vp, vp, vp]   # state, kappa, nu, params, stream
+        fn.restype = ci
+    for name in ("omega_vmix_solve_attrs_f32", "omega_vmix_solve_attrs_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp, vp]               # params, out[4]
         fn.restype = ci
     for name in ("omega_stencil_params_size_f32",
                  "omega_stencil_params_size_f64",
@@ -216,7 +224,7 @@ def load() -> ctypes.CDLL:
     for name in ("omega_patch_rows", "omega_patch_fct_rows"):
         getattr(lib, name).argtypes = [ci]
         getattr(lib, name).restype = ci
-    lib.omega_chain_slots.argtypes = [ci, ci, ci]
+    lib.omega_chain_slots.argtypes = [ci, ci]
     lib.omega_chain_slots.restype = ci
     lib.omega_error_string.argtypes = [ci]
     lib.omega_error_string.restype = ctypes.c_char_p

@@ -27,7 +27,9 @@ Mechanics:
     centre stays exact because the ring is at least the chain radius
     (`chain_radius`, derived from each chain itself)
   * supported configuration = a structured f-plane mesh with uniform
-    geometry, stacked ssh and every tendency term on, with center or upwind
+    geometry whose tables pack into the hex pattern the FB step and RK
+    stage kernels are compiled for (`hex_pattern_fits`), stacked ssh and
+    every tendency term on, with center or upwind
     thickness and tracer fluxes, wind forcing, quadratic bottom drag and
     implicit vertical mixing (constant or PP81 coefficients, PCR); the FB
     step also takes the flux-corrected (FCT) tracer flux, which needs the
@@ -103,19 +105,19 @@ CONST_FIELDS = ("dt", "grav", "nu2s", "nu4s", "div_factor", "ed2s", "ed4",
                 "rho0", "cd")
 MAX_ENTRIES = 96      # kFbMaxEntries
 # slab arrays in shared memory, per chain: the FB step (fb_slots in
-# csrc/fb_step.cuh: FCT keeps its fluxes, bounds and ratios on the slab, and
-# with the upwind thickness flux also that flux), the RK stage (kRkSlots)
-SLOTS = 21
+# csrc/fb_step.cuh: FCT keeps its fluxes, bounds and ratios on the slab), the
+# RK stage (kRkSlots); `plan_tile`'s default
+SLOTS = 16
 FCT_SLOTS = 22
-FCT_UPWIND_SLOTS = 25
 RK_SLOTS = 18
-# the tile and block the RK stage kernel is compiled for (rk::kBY, kBX,
-# kRkThreads in csrc/rk_stage.cuh), whatever the domain
-RK_TILE = (16, 32, 256)
+# the tile and block the FB step and the RK stage kernels are compiled for
+# (HexSlab's BY, BX, THREADS in csrc/fb_step.cuh and csrc/rk_stage.cuh, with
+# their chains' rings), whatever the domain
+HEX_TILE = (16, 32, 256)
 # the planar hex mesh's table entries in pack_params' order, (source class,
-# dj, di on even rows, di on odd rows): rk::hex_ent, which the RK stage
-# kernel's offsets are compiled from
-RK_PATTERN = (
+# dj, di on even rows, di on odd rows): hex_ent of csrc/hex_slab.cuh, which
+# both kernels' offsets are compiled from
+HEX_PATTERN = (
     (0, 0, 0, 0), (1, 0, 0, 0), (2, 0, 0, 0), (0, 0, -1, -1), (1, -1, -1, 0),
     (2, -1, 0, 1),
     (0, 0, 0, 0), (1, 0, 0, 0), (2, 0, 0, 0), (0, 0, -1, -1), (1, -1, -1, 0),
@@ -185,9 +187,7 @@ def supported(mesh, cfg, kind="fb") -> bool:
         return False
     if structured.uniform_scalar(mesh, "edge_mask") != 1.0:
         return False
-    if not tables_fit(mesh):
-        return False
-    if kind != "fb" and not rk_pattern_fits(mesh):
+    if not tables_fit(mesh) or not hex_pattern_fits(mesh):
         return False
     # FCT (Zalesak) tracer fluxes need the thickness-first update order of
     # the FB step (core/tendencies.compute_tracer_tendency), as in the JAX
@@ -219,10 +219,10 @@ def tables_fit(mesh) -> bool:
 _PATTERN_CACHE: dict = {}
 
 
-def rk_pattern_fits(mesh) -> bool:
+def hex_pattern_fits(mesh) -> bool:
     """The tables' entries, packed as pack_params packs them, are the
-    planar hex pattern the RK stage kernel is compiled for (RK_PATTERN),
-    on an even number of rows (once per set of tables)."""
+    planar hex pattern the FB step and RK stage kernels are compiled for
+    (HEX_PATTERN), on an even number of rows (once per set of tables)."""
     tabs = tuple(structured.cached_table(mesh, n) for n in TABLE_NAMES)
     key = (tabs, mesh.structured_ny % 2)
     if key not in _PATTERN_CACHE:
@@ -233,7 +233,7 @@ def rk_pattern_fits(mesh) -> bool:
             ent, _ = pack_entries(tab, _PD[n], np.float64)
             got += [(int(e["ts"]), int(e["dj"]), int(e["di_e"]),
                      int(e["di_o"])) for e in ent]
-        _PATTERN_CACHE[key] = (tuple(got) == RK_PATTERN
+        _PATTERN_CACHE[key] = (tuple(got) == HEX_PATTERN
                                and mesh.structured_ny % 2 == 0)
     return _PATTERN_CACHE[key]
 
@@ -567,9 +567,7 @@ def slots(consts, kind="fb") -> int:
     """Slab arrays of the chain and variant these constants select."""
     if kind == "rk":
         return RK_SLOTS
-    if consts["fct"]:
-        return FCT_UPWIND_SLOTS if consts["uph"] else FCT_SLOTS
-    return SLOTS
+    return FCT_SLOTS if consts["fct"] else SLOTS
 
 
 def guard_elems(slab_width):
@@ -580,13 +578,14 @@ def guard_elems(slab_width):
 
 
 def plan_tile(ny, nx, itemsize, ring, tile=None, nslots=SLOTS):
-    """Pick a kernel's tile: dict(by, bx, ry, rx, threads, guard, smem).
+    """Pick a kernel's tile: dict(by, bx, ry, rx, threads, guard, smem);
+    the split passes' and the barotropic kernel's planner.
 
     The slab (by+2ry) x (bx+2rx) times `nslots` arrays must fit one block's
     shared memory; the tile need not divide the domain (ragged tiles are
     masked) and is never larger than it. The default is 16 rows x 32
-    columns (the fastest of the tiles timed on an H100 at 256 x 256 x 100,
-    see PERF.md), halved until it fits. `tile=(by, bx)` or
+    columns (the fastest of the tiles timed for the FB step on an H100 at
+    256 x 256 x 100, see PERF.md), halved until it fits. `tile=(by, bx)` or
     `(by, bx, threads)` overrides it."""
     ry, rx = ring
 
@@ -620,14 +619,15 @@ def plan_tile(ny, nx, itemsize, ring, tile=None, nslots=SLOTS):
                 guard=guard_elems(bx + 2 * rx), smem=smem(by, bx))
 
 
-def rk_plan(itemsize, ring):
-    """The RK stage kernel's plan (plan_tile's keys): the tile and block it
-    is compiled for (RK_TILE) with the chain's ring, whatever the domain (a
-    tile larger than the domain is ragged: wrapped reads, masked writes)."""
-    by, bx, threads = RK_TILE
+def hex_plan(itemsize, ring, nslots):
+    """The FB step's or the RK stage kernel's plan (plan_tile's keys): the
+    tile and block both are compiled for (HEX_TILE) with the chain's ring
+    and `nslots` slab arrays, whatever the domain (a tile larger than the
+    domain is ragged: wrapped reads, masked writes)."""
+    by, bx, threads = HEX_TILE
     ry, rx = ring
     guard = guard_elems(bx + 2 * rx)
-    smem = (RK_SLOTS * (by + 2 * ry) * (bx + 2 * rx) + 2 * guard) * itemsize
+    smem = (nslots * (by + 2 * ry) * (bx + 2 * rx) + 2 * guard) * itemsize
     return dict(by=by, bx=bx, ry=ry, rx=rx, threads=threads, guard=guard,
                 smem=smem)
 
@@ -1066,26 +1066,22 @@ def _check_wind(wind, stacked, ny, nx):
                          f"{nx}) array of the state's type and device")
 
 
-def launch_record(mesh, cfg, dt, stacked, tile, wind, kind):
+def launch_record(mesh, cfg, dt, stacked, wind, kind):
     """(rec, threads, C function name, slab arrays, variant) of a chain
     kernel's launch on this stacked state: the FbParams record packed once
-    per configuration and shape (`kind` "fb" or "rk"; the RK stage's plan
-    is rk_plan's)."""
+    per configuration and shape (`kind` "fb" or "rk"; the plan is
+    hex_plan's)."""
     ft, suffix = _FLOAT[stacked.dtype]
     nx, ny = mesh.structured_nx, mesh.structured_ny
     L, K = stacked.shape[0] - 4, stacked.shape[1]
     key = (kind, nx, ny, mesh.structured_dc, mesh.structured_scalars, cfg,
-           float(dt), suffix, L, K, tile, wind is not None)
+           float(dt), suffix, L, K, wind is not None)
     hit = _PARAM_CACHE.get(key)
     if hit is None:
         tabs, consts = _mega_args(mesh, cfg, dt)
         nslots = slots(consts, kind)
         ring = _ring(tabs, consts, wind, kind)
-        if kind == "rk":
-            plan = rk_plan(np.dtype(ft).itemsize, ring)
-        else:
-            plan = plan_tile(ny, nx, np.dtype(ft).itemsize, ring, tile,
-                             nslots)
+        plan = hex_plan(np.dtype(ft).itemsize, ring, nslots)
         rec = pack_params(tabs, consts, ft, plan)
         rec["L"], rec["K"], rec["ny"], rec["nx"] = L, K, ny, nx
         # the compiled variant: flux types, and the tails only when wanted
@@ -1095,18 +1091,18 @@ def launch_record(mesh, cfg, dt, stacked, tile, wind, kind):
             "f" if consts["fct"] else "u" if consts["upt"] else "c",
             "tails" if wind is not None or consts["cd"] != 0.0 else "plain",
             suffix)
-        variant = (int(kind == "rk"), int(consts["uph"]), int(consts["fct"]))
+        variant = (int(kind == "rk"), int(consts["fct"]))
         hit = _PARAM_CACHE[key] = (rec, plan["threads"], name, nslots,
                                    variant)
     return hit
 
 
-def _launch_args(mesh, cfg, dt, stacked, tile, wind, kind):
+def _launch_args(mesh, cfg, dt, stacked, wind, kind):
     """(lib, rec, threads, C function name) of a kernel launch on a CUDA
     stacked state (launch_record), with the library's layout checked."""
     ft, suffix = _FLOAT[stacked.dtype]
     rec, threads, name, nslots, variant = launch_record(
-        mesh, cfg, dt, stacked, tile, wind, kind)
+        mesh, cfg, dt, stacked, wind, kind)
     lib = _build.load()
     size = getattr(lib, f"omega_fb_params_size_{suffix}")()
     if size != rec.dtype.itemsize or lib.omega_chain_slots(*variant) != nslots:
@@ -1126,8 +1122,7 @@ def _finish(mesh, cfg, res, dt, out):
     return out
 
 
-def fb_megastep_stacked(mesh, cfg, stacked, dt, out=None, tile=None,
-                        wind=None):
+def fb_megastep_stacked(mesh, cfg, stacked, dt, out=None, wind=None):
     """One FB step on the stacked layout (stacked -> stacked), out of
     place: on PyTorch's current stream for a CUDA array, one launch of the
     horizontal kernel, then, with vertical mixing, the column kernels in
@@ -1148,8 +1143,8 @@ def fb_megastep_stacked(mesh, cfg, stacked, dt, out=None, tile=None,
         raise ValueError("the fused FB step is out of place: `out` must "
                          "not alias the input")
     _check_wind(wind, stacked, mesh.structured_ny, mesh.structured_nx)
-    lib, rec, threads, name = _launch_args(mesh, cfg, dt, stacked, tile,
-                                           wind, "fb")
+    lib, rec, threads, name = _launch_args(mesh, cfg, dt, stacked, wind,
+                                           "fb")
     with torch.cuda.device(stacked.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, name)(
@@ -1189,8 +1184,7 @@ def rk_stage(mesh, cfg, mode, ca, cb, ev, out, base=None, acc=None,
                          "the evaluated level")
     _check_wind(wind, ev, mesh.structured_ny, mesh.structured_nx)
     # (the stage reads no dt of its own: ca and cb carry it)
-    lib, rec, threads, name = _launch_args(mesh, cfg, 0.0, ev, None, wind,
-                                           "rk")
+    lib, rec, threads, name = _launch_args(mesh, cfg, 0.0, ev, wind, "rk")
     ptr = lambda a: None if a is None else a.data_ptr()
     with torch.cuda.device(ev.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -1203,20 +1197,31 @@ def rk_stage(mesh, cfg, mode, ca, cb, ev, out, base=None, acc=None,
     return out
 
 
-def rk_stage_attrs(cfg, dtype, tails):
+def _attrs(kind, cfg, dtype, tails):
     """cudaFuncGetAttributes' numRegs, localSizeBytes (the spill) and
-    sharedSizeBytes of the RK stage kernel for the flux types of `cfg`,
-    with or without the tails, in `dtype`, and the blocks an SM holds at
-    its dynamic shared memory."""
+    sharedSizeBytes of the FB step (`kind` "fb_step") or RK stage
+    ("rk_stage") kernel for the flux types of `cfg`, with or without the
+    tails, in `dtype`, and the blocks an SM holds at its dynamic shared
+    memory."""
     lib = _build.load()
-    fn = getattr(lib, "omega_rk_stage_attrs_{}{}_{}_{}".format(
-        "u" if cfg.flux_thickness_type == "upwind" else "c",
-        "u" if cfg.flux_tracer_type == "upwind" else "c",
+    fn = getattr(lib, "omega_{}_attrs_{}{}_{}_{}".format(
+        kind, "u" if cfg.flux_thickness_type == "upwind" else "c",
+        {"upwind": "u", "fct": "f"}.get(cfg.flux_tracer_type, "c"),
         "tails" if tails else "plain", _FLOAT[dtype][1]))
     got = np.zeros(4, np.int32)
     _build.check(fn(got.ctypes.data), "cudaFuncGetAttributes")
     return dict(zip(("num_regs", "local_bytes", "shared_bytes",
                      "blocks_per_sm"), map(int, got)))
+
+
+def fb_step_attrs(cfg, dtype, tails):
+    """_attrs of the FB step kernel."""
+    return _attrs("fb_step", cfg, dtype, tails)
+
+
+def rk_stage_attrs(cfg, dtype, tails):
+    """_attrs of the RK stage kernel."""
+    return _attrs("rk_stage", cfg, dtype, tails)
 
 
 def rk2_megastep_stacked(mesh, cfg, stacked, dt, out=None, wind=None,

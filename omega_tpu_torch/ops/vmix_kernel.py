@@ -9,10 +9,13 @@ in place, on the same stacked (4+L, K, ny, nx) array (csrc/vmix.cu):
                      pp81_coefficients) on the updated state: kappa_cell
                      (K-1, ny, nx) and nu_edge (3, K-1, ny, nx); launched
                      only for scheme "pp81"
-  * `vmix_solve`   — backward-Euler diffusion of every column by parallel
-                     cyclic reduction (ops/tridiag.pcr level for level): the
-                     L tracers against the cell thickness, the three edge
-                     classes of u against cmean(h)
+  * `vmix_solve`   — backward-Euler diffusion of every column: the L
+                     tracers against the cell thickness, the three edge
+                     classes of u against cmean(h); the system of
+                     ops/tridiag.pcr, solved by elimination in chunks of
+                     rows (a block's columns staged in shared memory, each
+                     k-lane's chunk eliminated in place, the chunks' end
+                     rows solved together)
 
 They are the counterparts of `_pp81_coeffs` and of `_vmix_apply` with
 `_pcr_diffusion` in the JAX package's fused kernel (ops/megastep.py there).
@@ -44,11 +47,18 @@ solve_launches = 0
 
 MAX_ENTRIES = 16      # kVmixMaxEntries in csrc/vmix.cu
 SMEM_LIMIT = 232448   # dynamic shared memory one block may use on sm_90
-SOLVE_COLUMNS = 8     # adjacent columns one block of the solve kernel takes
+# the sphere's PCR solve (csrc/patch_vmix.cu, `plan_solve`): adjacent
+# columns one block takes
+SOLVE_COLUMNS = 8
+# the planar solve (csrc/vmix.cu): rows a k-lane holds (kChunk), tracers per
+# pass (kSolveRhs), k-lanes of a block at most
+SOLVE_CHUNK = 25
+SOLVE_RHS = 2
+MAX_LANES = 32
 EPS = 1.0e-16         # floor of shear^2 in the Richardson number
 _REAL_FIELDS = ("dt", "grav", "nu0", "alpha", "a_t", "b_s", "kt0", "km0")
 _INT_FIELDS = ("n_exp", "ti", "si", "L", "K", "ny", "nx", "by", "bx", "ry",
-               "rx", "cw", "ty", "lc", "levels")
+               "rx", "cw", "lanes")
 
 
 def vmix_on(cfg) -> bool:
@@ -158,8 +168,30 @@ def vmix_plain(mesh, cfg, stacked, dt):
 # ----------------------------------------------------------------------
 # planning and parameters (host python, exercised by the CPU tests)
 
+def plan_chunks(K, itemsize):
+    """The planar solve kernel's block: dict(cw, lanes, chunk, smem).
+
+    A column's K rows are cut into `lanes` contiguous chunks of at most
+    SOLVE_CHUNK rows, each eliminated by one k-lane (threadIdx.y); the
+    fewest lanes that take the column, so every chunk has at least two
+    rows. A block takes cw adjacent columns (32, one warp's coalesced
+    segment, where cw x lanes <= 256 and the staging fits) and stages four
+    arrays of K rows x cw (thickness, coefficients, right-hand sides) and
+    the reduced system of the chunks' end rows, 2 lanes rows of a, c and
+    SOLVE_RHS right-hand sides."""
+    lanes = -(-K // SOLVE_CHUNK)
+    if K >= 2 and lanes <= MAX_LANES:
+        for cw in (32, 16, 8):
+            smem = (4 * K + (2 + SOLVE_RHS) * 2 * lanes) * cw * itemsize
+            if cw * lanes <= 256 and smem <= SMEM_LIMIT:
+                return dict(cw=cw, lanes=lanes, chunk=-(-K // lanes),
+                            smem=smem)
+    raise ValueError(f"{K} layers do not fit the solve kernel")
+
+
 def plan_solve(K, L, itemsize):
-    """The solve kernel's block: dict(cw, ty, lc, levels, smem).
+    """The sphere's PCR solve kernel's block (csrc/patch_vmix.cu):
+    dict(cw, ty, lc, levels, smem).
 
     A block stages 2 * (3 + lc) arrays of K x cw elements (cw =
     SOLVE_COLUMNS adjacent columns, lc tracers per pass) and runs cw x ty
@@ -223,8 +255,8 @@ def pack_params(mesh, cfg, dt, ft, L, K):
     rec["ti"], rec["si"] = vm.temp_index, vm.salt_index
     rec["L"], rec["K"], rec["ny"], rec["nx"] = L, K, ny, nx
     plan = plan_coeffs(ny, nx, ke_tab, cm_tab)
-    plan.update(plan_solve(K, L, np.dtype(ft).itemsize))
-    for k in ("by", "bx", "ry", "rx", "cw", "ty", "lc", "levels"):
+    plan.update(plan_chunks(K, np.dtype(ft).itemsize))
+    for k in ("by", "bx", "ry", "rx", "cw", "lanes"):
         rec[k] = plan[k]
     return rec
 
@@ -312,6 +344,18 @@ def vmix_solve(mesh, cfg, stacked, dt, coeffs=None):
     _build.check(code, "vertical-mixing solve kernel launch")
     solve_launches += 1
     return stacked
+
+
+def solve_attrs(mesh, cfg, stacked):
+    """cudaFuncGetAttributes' numRegs, localSizeBytes (the spill) and
+    sharedSizeBytes of the solve kernel in the state's type, and the blocks
+    an SM holds for this state's plan."""
+    lib, rec, suffix = _checked(mesh, cfg, stacked, 0.0)
+    got = np.zeros(4, np.int32)
+    _build.check(getattr(lib, f"omega_vmix_solve_attrs_{suffix}")(
+        rec.ctypes.data, got.ctypes.data), "cudaFuncGetAttributes")
+    return dict(zip(("num_regs", "local_bytes", "shared_bytes",
+                     "blocks_per_sm"), map(int, got)))
 
 
 def vmix_stacked(mesh, cfg, stacked, dt):

@@ -88,6 +88,12 @@ being the bound. Float32 throughout, K = 100 layers, 2 tracers.
           zeros). Also one FB step's gather calls (FB_STEP_GATHERS: the
           composed step's calls by table and leading count, held against
           the port's step by tests/test_torch_gather.py) summed
+  composed_planar  omega_tpu/ops/pallas_stencil_dma.py:153, the composed
+          planar FB step's 27 structured stencil passes at 256 x 256 x 100
+          (FB_STEP_GATHERS: the same calls by table and leading count),
+          each pass's input read and output written once; with column ssh
+          (chip_smoke.py's composed_path) the ssh gradient is one pass on
+          a single plane
   split   the TPU split kernels' own I/O (megastep.py:1136 kinds splitpre /
           splitpost; barotropic_kernel.py:97) at 256 x 256, for comparison
           with the port's (chip_smoke.py computes the port's bounds)
@@ -391,6 +397,27 @@ def gather(n=48):
             "fb_step": {"passes": sum(FB_STEP_GATHERS.values()), **step}}
 
 
+# classes per lattice cell of a stencil table's source and destination on
+# the planar hex mesh (cells 1, edges 3, vertices 2)
+HEX_CLASSES = {"div": (3, 1), "ke": (3, 1), "signed_div": (3, 1),
+               "curl": (3, 2), "kite": (1, 2), "tang": (3, 3),
+               "cdiff": (1, 3), "cmean": (1, 3), "vdiff": (2, 3),
+               "vmean": (2, 3)}
+
+
+def composed_planar(ny=256, nx=256):
+    """The composed planar FB step's stencil passes, summed: stacked ssh
+    (every pass on K layers) and column ssh (the ssh gradient, one cdiff
+    pass, on a single plane)."""
+    vol = ny * nx * K * F32
+    nbytes = sum(sum(HEX_CLASSES[t]) * lead * n * vol
+                 for (t, lead), n in FB_STEP_GATHERS.items())
+    column = nbytes - sum(HEX_CLASSES["cdiff"]) * vol * (1 - 1 / K)
+    return {"passes": sum(FB_STEP_GATHERS.values()),
+            "stacked_ssh": bound(nbytes, 0),
+            "column_ssh": bound(int(column), 0)}
+
+
 def tpu_split_io(ny=256, nx=256):
     plane = ny * nx * F32
     vol = K * plane
@@ -414,4 +441,5 @@ if __name__ == "__main__":
     print(json.dumps({"patch_split": patch_split()}))
     print(json.dumps({"sphere_bt": sphere_bt()}))
     print(json.dumps({"gather": gather()}))
+    print(json.dumps({"composed_planar": composed_planar()}))
     print(json.dumps({"split": tpu_split_io()}))

@@ -174,8 +174,8 @@ def _call(lib, mesh, cfg, mode, s, prov, acc, plane, out, acc_out,
           threads=None, rec=None, name=None):
     """one launch of `mode` on the inputs a step gives it; its return code"""
     ev = s if mode in (megastep.RK_PROV, megastep.RK_FIRST) else prov
-    r, th, nm, _, _ = megastep.launch_record(mesh, cfg, 0.0, ev, None,
-                                             plane, "rk")
+    r, th, nm, _, _ = megastep.launch_record(mesh, cfg, 0.0, ev, plane,
+                                             "rk")
     ptr = lambda a: None if a is None else a.data_ptr()
     return getattr(lib, name or nm)(
         ev.data_ptr(), ptr(None if mode == megastep.RK_LAST else s),
@@ -235,7 +235,7 @@ def test_rk_stage_against_plain(lib, mesh_np, fl, tails, mode, suf):
 
 
 def test_tiled_plain_is_the_kernel_cut(mesh_np):
-    """rk_stage_plain tiled as the kernel cuts (RK_TILE with the chain's
+    """rk_stage_plain tiled as the kernel cuts (HEX_TILE with the chain's
     ring, larger than this domain in x: ragged) equals the whole grid."""
     mesh, cfg, plane, s, prov, acc = _setup(mesh_np, "uu", True,
                                             torch.float64)
@@ -247,7 +247,7 @@ def test_tiled_plain_is_the_kernel_cut(mesh_np):
                               torch.full((L, small.ncells, K), 10.0))))):
         whole = megastep.tend_plain(m, cfg, st)
         assert torch.equal(megastep.tend_plain(
-            m, cfg, st, tile=megastep.RK_TILE[:2]), whole)
+            m, cfg, st, tile=megastep.HEX_TILE[:2]), whole)
 
 
 # case -> what it changes in a valid RK_MID call of the plain center-flux
@@ -276,7 +276,7 @@ def test_rk_stage_refuses_bad_arguments(lib, mesh_np, case):
     mesh, cfg, _, s, prov, acc = _setup(mesh_np, "cc", False, torch.float64)
     bad = REFUSED[case]
     mode = bad.get("mode", megastep.RK_MID)
-    rec = megastep.launch_record(mesh, cfg, 0.0, prov, None, None, "rk")[0]
+    rec = megastep.launch_record(mesh, cfg, 0.0, prov, None, "rk")[0]
     rec = rec.copy()
     if "tile" in bad:
         tabs, consts = megastep._mega_args(mesh, cfg, 0.0)
@@ -304,13 +304,13 @@ def test_rk_stage_refuses_bad_arguments(lib, mesh_np, case):
 
 
 def test_supported_needs_the_compiled_entry_pattern(mesh_np, monkeypatch):
-    """The RK steppers fuse only where the tables pack into the compiled
-    pattern (RK_PATTERN); otherwise they run composed, and the FB step
-    (runtime offsets) still fuses."""
+    """The RK steppers and the FB step fuse only where the tables pack
+    into the compiled pattern (HEX_PATTERN, which both kernels share);
+    otherwise all three run composed."""
     mesh = mesh_np.to("cpu", torch.float64)
     cfg = ModelConfig(nvertlayers=K, ntracers=L,
                       tendencies=TendencyConfig(visc_del2=1e3, visc_del4=1e9))
-    assert megastep.rk_pattern_fits(mesh)
+    assert megastep.hex_pattern_fits(mesh)
     assert all(megastep.supported(mesh, cfg, kind)
                for kind in ("fb", "rk2", "rk4"))
     real = structured.cached_table
@@ -322,7 +322,7 @@ def test_supported_needs_the_compiled_entry_pattern(mesh_np, monkeypatch):
         # two entries of class 0: the same counts, another order
         return (tab[3],) + tab[1:3] + (tab[0],) + tab[4:]
     monkeypatch.setattr(structured, "cached_table", swapped)
-    assert not megastep.rk_pattern_fits(mesh)
-    assert megastep.supported(mesh, cfg, "fb")
+    assert not megastep.hex_pattern_fits(mesh)
+    assert not megastep.supported(mesh, cfg, "fb")
     assert not megastep.supported(mesh, cfg, "rk2")
     assert not megastep.supported(mesh, cfg, "rk4")

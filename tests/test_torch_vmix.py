@@ -236,6 +236,34 @@ def test_plan_solve_invariants(K, L, itemsize):
         assert plan["lc"] == max(L, 1)
 
 
+@pytest.mark.parametrize("K", [2, 3, 7, 25, 26, 33, 100, 200, 201, 400,
+                               800])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_plan_chunks_invariants(K, itemsize):
+    """The planar solve's plan: the fewest k-lanes whose chunks of at most
+    SOLVE_CHUNK rows take the column, every chunk at least two rows, at
+    most 256 threads, a warp of columns up to 8 lanes, the staged columns
+    within a block's shared memory."""
+    plan = vmix_kernel.plan_chunks(K, itemsize)
+    lanes, cw = plan["lanes"], plan["cw"]
+    assert lanes == -(-K // vmix_kernel.SOLVE_CHUNK)
+    sizes = [(j + 1) * K // lanes - j * K // lanes for j in range(lanes)]
+    assert sum(sizes) == K and plan["chunk"] == max(sizes)
+    assert 2 <= min(sizes) and max(sizes) <= vmix_kernel.SOLVE_CHUNK
+    assert cw * lanes <= 256 and (cw == 32) == (lanes <= 8)
+    assert plan["smem"] == (4 * K + (2 + vmix_kernel.SOLVE_RHS) * 2
+                            * lanes) * cw * itemsize
+    assert plan["smem"] <= vmix_kernel.SMEM_LIMIT
+    if K == 100:          # the main path's shape: four chunks of 25 rows
+        assert (lanes, cw, plan["chunk"]) == (4, 32, 25)
+
+
+def test_plan_chunks_refuses_what_cannot_fit():
+    for K in (1, vmix_kernel.SOLVE_CHUNK * vmix_kernel.MAX_LANES + 1):
+        with pytest.raises(ValueError):
+            vmix_kernel.plan_chunks(K, 4)
+
+
 def test_plan_solve_refuses_what_cannot_fit():
     with pytest.raises(ValueError):
         vmix_kernel.plan_solve(10000, 1, 8)
@@ -248,9 +276,9 @@ def test_param_record_mirrors_the_kernel_struct(ft):
     pm, cfg, _, _ = _stacked("pp81_wind_drag", 5)
     rec = vmix_kernel.pack_params(pm, cfg, 30.0, ft, 2, 5)
     size = np.dtype(ft).itemsize
-    # Entry<T>[16], int nke, int[4], 8 T, 15 int, padded to T's alignment
+    # Entry<T>[16], int nke, int[4], 8 T, 13 int, padded to T's alignment
     raw = 16 * entry_dtype(ft).itemsize + 20
-    raw = -(-raw // size) * size + 8 * size + 15 * 4
+    raw = -(-raw // size) * size + 8 * size + 13 * 4
     assert rec.dtype.itemsize == -(-raw // size) * size
     ke, cmean = vmix_kernel._tables(pm)
     assert rec["nke"] == len(ke) == 6
@@ -263,6 +291,8 @@ def test_param_record_mirrors_the_kernel_struct(ft):
     assert (rec["ry"], rec["rx"]) == (1, 1)
     assert rec["dt"] == ft(30.0) and rec["n_exp"] == 2
     assert (rec["ti"], rec["si"], rec["L"], rec["K"]) == (0, 1, 2, 5)
-    assert rec["levels"] == 3 and rec["kt0"] == ft(cfg.vert_mix.kappa_tracer)
+    # the solve's plan: one k-lane holds the 5 rows, a warp of columns
+    assert (rec["cw"], rec["lanes"]) == (32, 1)
+    assert rec["kt0"] == ft(cfg.vert_mix.kappa_tracer)
     with pytest.raises(ValueError):
         vmix_kernel.pack_params(pm, cfg, 30.0, ft, 1, 5)   # S row missing
