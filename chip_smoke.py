@@ -27,7 +27,9 @@ a user calls, and prints one JSON line per phase:
                   registers, spill and blocks per SM; fused RK2 / RK4
                   steps vs the composed steppers
   kernel_split    splitpre's passes, the barotropic subcycles and splitpost
-                  vs plain; fused split steps vs the composed split stepper
+                  vs plain; fused split steps vs the composed split stepper;
+                  splitpre's device time per pass (torch.profiler) with its
+                  registers, spill and blocks per SM
   kernel_patch    the sphere's FB step (six launches) vs plain at icos16
                   float64 and icos48 x 100 x 2 float32; fused framed steps
                   vs the composed stepper; each pass's device time
@@ -73,7 +75,7 @@ a user calls, and prints one JSON line per phase:
   rk2_path        2 x 10 RK2 steps of the science configuration: two stage
                   launches and the two vertical-mixing kernels per step
   split_path      2 x 10 split-explicit steps (column ssh, dt = 120 s, ten
-                  barotropic subcycles): 3 + 10 + 1 launches per step
+                  barotropic subcycles): 2 + 10 + 1 launches per step
   sphere_path     2 x 10 FB steps of bench.py's sphere (icos48 x 100 x 2):
                   six patch-step launches per step, nothing else
   sphere_science_path  2 x 10 FB steps of the science configuration on the
@@ -944,6 +946,7 @@ def main(argv=None):
     # ten times the first run's readings (PERF.md): g_slow 5.1e-6 (a
     # difference of near-equal terms), ssh's increment 3.9e-6, a tracer's
     # increment 5.1e-4 (as in the FB step).
+    import port_bounds
     from omega_tpu_torch.ops import barotropic_kernel as btk
     from omega_tpu_torch.stepping import (make_stepper,
                                           split_forward_backward_step)
@@ -1096,13 +1099,26 @@ def main(argv=None):
     pre_b = bound(7 * VOL + 13 * PL, pre_f * NLAYERS * C)
     bt_b = bound(17 * PL, M_SPLIT * bt_f * C)
     post_b = bound((2 * CH + 3) * VOL + 12 * PL, post_f * NLAYERS * C)
-    rings = {k: megastep.split_ring(tabs, k) for k in megastep.SPLIT_SLOTS}
+    rings = {k: megastep.split_ring(tabs, k)
+             for k in megastep._SPLIT_CHAINS}
+    # splitpre pass by pass: device time per launch (torch.profiler over
+    # whole calls), registers, spill and blocks per SM, each pass's bytes
+    pre_attrs = megastep.split_pre_attrs(torch.float32)
+    pre_pass_b = port_bounds.split_pre_passes(NX, NY, NLAYERS)
+    pre_passes = {
+        nm: {"ms": ms, **pre_attrs[nm], "bound_ms": pre_pass_b[nm]["bound_ms"],
+             "bound_by": pre_pass_b[nm]["bound_by"]}
+        for nm, ms in kernel_ms(
+            lambda: megastep.split_pre(mesh32, cfg_s, s0, du, wplanes),
+            {nm: f"split_{nm}_kernel"
+             for nm in megastep.SPLIT_PRE_PASS_NAMES}).items()}
     rings["barotropic"] = btk.ring(tabs)
     spl["f32_256x256x100x2"] = {
         "errors": f32, "rings": rings,
         "split_pre": {"max_abs_err": pre_abs, "ms": pre_ms,
                       "plain_ms": pre_plain_ms, "bound_ms": pre_b[0],
                       "bound_by": pre_b[1]},
+        "split_pre_passes": pre_passes,
         "barotropic": {"M": M_SPLIT, "max_abs_err": bt_abs, "ms": bt_ms,
                        "plain_ms": bt_plain_ms, "bound_ms": bt_b[0],
                        "bound_by": bt_b[1]},
@@ -1121,7 +1137,6 @@ def main(argv=None):
     # sphere width (icos48 x 100 x 2) by the increment per channel, limit
     # PATCH_INCR; the fused step against the composed one in float64 over
     # three steps, 1e-10
-    import port_bounds
     from omega_tpu_torch.mesh import patch_icos_mesh, spherical_icos_mesh
     from omega_tpu_torch.ops import bt_gather, patch_megastep
 
@@ -1511,7 +1526,7 @@ def main(argv=None):
         "bound_ms": {k: v["bound_ms"] for k, v in psb["parts"].items()},
         "bound_by": {k: v["bound_by"] for k, v in psb["parts"].items()},
         "step_bound_ms": psb["bound_ms"],
-        "solve_plan": vmix_kernel.plan_solve(NLAYERS, NTRACERS, 4)})
+        "solve_attrs": patch_megastep.solve_attrs(cfg48s, scratch48)})
     sci[f"f32_icos{N_SPHERE}x{NLAYERS}x{NTRACERS}"] = f32
     emit({"phase": "kernel_patch_science", **sci})
     sciv = f32
@@ -2718,7 +2733,7 @@ def main(argv=None):
     # ----------------------------------------------------- 10b. split_path
     # the split-explicit stepper on the bench configuration with the column
     # free surface, at four times main_path's dt with M = 10 barotropic
-    # subcycles, through make_stepper("SplitExplicit"): splitpre (three
+    # subcycles, through make_stepper("SplitExplicit"): splitpre (two
     # launches), ten subcycle launches and splitpost per step, nothing else
     cfg_split = bench_cfg(NLAYERS, NTRACERS, ssh_formulation="column")
     split_stepper = make_stepper("SplitExplicit")
@@ -2730,7 +2745,7 @@ def main(argv=None):
     check_launches("split path", spl_launches,
                    {"fb_step": 0, "rk_stage": 0, "pp81_coeffs": 0,
                     "vmix_solve": 0, "stencil": 0,
-                    "split_pre": 3 * nseg * seg,
+                    "split_pre": megastep.SPLIT_PRE_PASSES * nseg * seg,
                     "barotropic": M_SPLIT * nseg * seg,
                     "split_post": nseg * seg, **NO_PATCH})
     spl_vol, spl_trc = drifts(state0, spl_st)
@@ -3415,6 +3430,7 @@ def main(argv=None):
          f"(3, {KI}, {NY}, {NX}) float32", "path": "science_path"},
         {"name": "vmix_solve", "route": "cuda",
          "source": "omega_tpu_torch/csrc/vmix.cu",
+         "shared": "omega_tpu_torch/csrc/column_solve.cuh",
          "replaces": "omega_tpu/ops/megastep.py:430",
          "also_replaces": "omega_tpu/ops/megastep.py:360",
          "launches": sci_launches["vmix_solve"],
@@ -3503,8 +3519,7 @@ def main(argv=None):
          "bound_by": splv["split_pre"]["bound_by"], "library_ms": None,
          "shape": f"({CH}, {NLAYERS}, {NY}, {NX}) in; (3, {NLAYERS}, {NY}, "
          f"{NX}) + 13 x ({NY}, {NX}) out, float32",
-         "passes": "split_columns, split_chain, split_slow (three launches "
-         "per call)", "path": "split_path"},
+         "passes": splv["split_pre_passes"], "path": "split_path"},
         {"name": "barotropic", "route": "cuda",
          "source": "omega_tpu_torch/csrc/barotropic.cu",
          "replaces": "omega_tpu/ops/barotropic_kernel.py:62",
@@ -3570,7 +3585,7 @@ def main(argv=None):
          f"{p48.P}) float32", "path": "sphere_science_path"},
         {"name": "patch_vmix_solve", "route": "cuda",
          "source": "omega_tpu_torch/csrc/patch_vmix.cu",
-         "shared": "omega_tpu_torch/csrc/pcr_columns.cuh",
+         "shared": "omega_tpu_torch/csrc/column_solve.cuh",
          "replaces": "omega_tpu/ops/patch_megastep.py:1218",
          "chain": "omega_tpu/ops/patch_megastep.py:932-948 (vmix_u, vmix_c, "
          "vmix_u_arr, vmix_c_arr), omega_tpu/ops/megastep.py:360 "

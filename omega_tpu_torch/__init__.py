@@ -10,19 +10,20 @@ Plain tensor code is PyTorch; the hot kernels are CUDA C++ under csrc/,
 compiled at first use by ops/_build.py:
 
 - the planar hex mesh: the fused forward-backward step (fb_step.cuh,
-  fb_step*.cu) and the Runge-Kutta stage (rk_stage.cuh, rk_stage_*.cu),
-  both on the compiled entry pattern and slab of hex_slab.cuh, the
-  split-explicit step's splitpre / splitpost (split.cu) and barotropic
-  subcycles (barotropic.cu), all on the levels of slab_chain.cuh, the PP81
-  coefficient and column-solve kernels (vmix.cu), and the structured
-  stencil pass (stencil.cu);
+  fb_step*.cu), the Runge-Kutta stage (rk_stage.cuh, rk_stage_*.cu) and
+  splitpre's chain (split.cu), on the compiled entry pattern and slab of
+  hex_slab.cuh, splitpost (split.cu) and the barotropic subcycles
+  (barotropic.cu), on the levels of slab_chain.cuh, the PP81 coefficient
+  and column-solve kernels (vmix.cu; the solve's elimination in
+  column_solve.cuh), and the structured stencil pass (stencil.cu);
 - the icosahedral sphere's patch frames (table layout in
   patch_common.cuh): the forward-backward step (patch_step.cuh,
   patch_step_*.cu, FCT's stage A among them), FCT's limiter (patch_fct.cu),
   the Runge-Kutta stage (patch_rk.cuh, patch_rk_*.cu), the split-explicit
   step (patch_split.cu) with the gather-form barotropic subcycles
   (bt_gather.cu), and the PP81 coefficient and column-solve kernels
-  (patch_vmix.cu; PCR levels in pcr_columns.cuh);
+  (patch_vmix.cu; the solve's elimination in column_solve.cuh, shared
+  with the plane);
 - unstructured meshes with gather tables (mesh/reorder.py): the weighted
   gather pass (gather.cu).
 

@@ -32,28 +32,43 @@
 // patch_vmix_solve: backward-Euler diffusion of every column, in place on
 // the frames: system 0 of a position is the L tracers against h_new,
 // systems 1..3 the edge classes of u against cmean(h_new) (two reads
-// through the compact table). A block takes `cw` adjacent positions: a
-// column has stride (4+L) P, neighbouring positions are contiguous, so
-// every load and store of a level k is one coalesced segment. The columns
-// are staged in shared memory and solved by pcr_columns.cuh, the same
-// levels and identity rows as ops/tridiag.pcr and the reference's
-// _pcr_diffusion. Frames hold lattice holes (zeros) and positions no exact
-// value depends on: a column whose thickness is not positive at every layer
-// (dz = 0 would make G infinite, 0 x NaN would then poison a later sum) is
-// left as it was, as the plain version leaves it. Bound: bytes (h_new, u,
-// tracers and coefficients read once, u and tracers written once).
+// through the compact table, each product rounded as the plain version
+// rounds it). Solved by elimination in chunks (column_solve.cuh, which the
+// planar solve shares; the plain version is the reference's PCR): a block
+// takes cw adjacent positions (32 where the staging fits: a column has
+// stride (4+L) P, neighbouring positions are contiguous, so every row's
+// load and store is one 128-byte segment of a frame channel) and `lanes`
+// k-lanes of at most kChunk rows; it stages the thickness (for an edge
+// class h_new at both cmean sources), the coefficient channel and the
+// right-hand sides in shared memory by cp.async; each lane eliminates its
+// chunk in place, lane 0 solves the chunks' end rows by Thomas, and every
+// row is finished from its chunk's two ends. All L tracers go in one pass
+// where the staging fits (lc per pass, the sweeps compiled for kRhs = 2 or
+// kFrameRhs values). Frames hold lattice holes (zeros) and positions no
+// exact value depends on: a column whose thickness is not positive at
+// every layer (dz = 0 would make G infinite) is left as it was, as the
+// plain version leaves it. (PCR over every row, two divisions and 9 + 3n
+// shared loads per row and level with 8 positions a block, took 26x its
+// bytes on an H100.) Bound: bytes (h_new, u, tracers and coefficients read
+// once, u and tracers written once).
 #include "patch_common.cuh"
-#include "pcr_columns.cuh"
+#include "column_solve.cuh"
 
 namespace omega {
 namespace patch {
 
-constexpr int kMaxColumns = 64;   // cw of the solve
+// the solve: positions a block takes at most, and the widths its sweeps are
+// compiled for (values per pass: 2, or up to kFrameRhs)
+constexpr int kMaxColumns = 32;
+constexpr int kSolveRhs = 2;
+constexpr int kFrameRhs = 8;
+template <typename T>
+constexpr int kSolveMinBlocks = sizeof(T) == 4 ? 4 : 1;
 
 template <typename T>
 struct VmixArgs {
   T dt, grav, nu0, alpha, a_t, b_s, kt0, km0;
-  int P, K, L, CH, ti, si, n_exp, kg, cw, lc, levels;
+  int P, K, L, CH, ti, si, n_exp, kg, cw, lanes, lc, rhs;
 };
 
 // NaN-propagating max(x, lo), as torch.clamp(min=lo) has it
@@ -137,77 +152,43 @@ patch_pp81_coeffs(const T* __restrict__ fr, const int* __restrict__ off,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256)
+template <typename T, int kRhs>
+__global__ void __launch_bounds__(256, kSolveMinBlocks<T>)
 patch_vmix_solve(T* __restrict__ fr, const int* __restrict__ off,
                  const T* __restrict__ w, const T* __restrict__ coef,
                  const VmixArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int ok[kMaxColumns];
-  T* const sm = reinterpret_cast<T*>(smem_raw);
-  const int CW = a.cw, K = a.K;
-  const int N = K * CW;               // one staged array
-  const int NA = 3 + a.lc;            // arrays per buffer: a, b, c, x[lc]
-  const int tx = threadIdx.x, ty = threadIdx.y, TY = blockDim.y;
-  const int pos = blockIdx.x * CW + tx;
+  const int pos = blockIdx.x * blockDim.x + threadIdx.x;
   const int sys = blockIdx.y;         // 0: tracers on cells, 1..3: u classes
-  const bool live = pos < a.P;        // ragged last group: compute, no store
-  const int p = live ? pos : a.P - 1;
-  const long long P = a.P, lay = static_cast<long long>(a.CH) * P;
-  const int nrhs = sys == 0 ? a.L : 1;
-  const int ch0 = sys == 0 ? 4 : sys;
+  const int p = pos < a.P ? pos : a.P - 1;
+  const long long P = a.P;
+  ColumnSystem<T> c;
+  // row k of channel ch at (k (4+L) + ch) P + p
+  c.rows = ColumnRows{p, P, a.CH * P};
+  c.cells = sys == 0;
   // thickness of the system: h_new, or cmean(h_new) for the edge class
   int o[2] = {0, 0};
-  T wm[2] = {T(0), T(0)};
+  T wm[2] = {T(1), T(0)};
   if (sys > 0) {
     load_off(off, kOffCm + 2 * (sys - 1), a.P, p, o);
     load_w(w, kWCmean + 2 * (sys - 1), a.P, p, wm);
   }
-  const T coef0 = sys == 0 ? a.kt0 : a.km0;
-  if (ty == 0) ok[tx] = 1;
-
-  for (int l0 = 0; l0 < nrhs; l0 += a.lc) {
-    const int n = a.lc < nrhs - l0 ? a.lc : nrhs - l0;
-    T* cur = sm;
-    T* nxt = sm + static_cast<long long>(NA) * N;
-    T* const HS = nxt;        // thickness and coupling, staged in the buffer
-    T* const G = nxt + N;     // the first level writes last
-    __syncthreads();
-    for (int k = ty; k < K; k += TY) {
-      const T* const hk = fr + k * lay;
-      const T hs = sys == 0 ? hk[p] : sten(wm, o, hk, p);
-      HS[k * CW + tx] = hs;
-      if (!(hs > T(0))) ok[tx] = 0;
-    }
-    __syncthreads();
-    for (int k = ty; k < K; k += TY) {
-      const int i = k * CW + tx;
-      T gk = T(0);
-      if (k < K - 1) {
-        const T kap = coef ? coef[(k * 4LL + sys) * P + p] : coef0;
-        gk = a.dt * kap / (T(0.5) * (HS[i] + HS[i + CW]));
-      }
-      G[i] = gk;
-    }
-    __syncthreads();
-    pcr_matrix(cur, HS, G, K, CW);
-    for (int k = ty; k < K; k += TY) {
-      const int i = k * CW + tx;
-      for (int l = 0; l < n; ++l)
-        cur[(3 + l) * N + i] = HS[i] * fr[k * lay + (ch0 + l0 + l) * P + p];
-    }
-    __syncthreads();
-    cur = pcr_levels(cur, nxt, K, CW, n, a.levels);
-
-    if (live && ok[tx]) {
-      for (int k = ty; k < K; k += TY) {
-        const int i = k * CW + tx;
-        for (int l = 0; l < n; ++l)
-          fr[k * lay + (ch0 + l0 + l) * P + p] =
-              cur[(3 + l) * N + i] / cur[N + i];
-      }
-    }
-  }
+  c.d0 = o[0];
+  c.d1 = o[1];
+  c.w0 = wm[0];
+  c.w1 = wm[1];
+  c.coef = coef ? coef + sys * P + p : nullptr;
+  c.cstride = 4 * P;
+  c.coef0 = sys == 0 ? a.kt0 : a.km0;
+  c.dt = a.dt;
+  c.K = a.K;
+  c.ch0 = sys == 0 ? 4 : sys;
+  c.nrhs = sys == 0 ? a.L : 1;
+  c.lc = a.lc;
+  c.live = pos < a.P;                 // ragged last group: compute, no store
+  solve_columns<T, kRhs, true, true>(fr, c, reinterpret_cast<T*>(smem_raw),
+                                     ok);
 }
 
 template <typename T>
@@ -229,10 +210,11 @@ bool unpack(const double* c, const int* n, VmixArgs<T>& a) {
   a.n_exp = n[5];
   a.kg = n[6];
   a.cw = n[8];
+  a.lanes = n[9];
   a.lc = n[10];
-  a.levels = n[11];
+  a.rhs = n[11];
   return a.P >= 1 && a.K >= 2 && a.L >= 0 && a.ti < a.L && a.si < a.L &&
-         a.n_exp >= 0 && a.kg >= 1 && (1 << a.levels) >= a.K;
+         a.n_exp >= 0 && a.kg >= 1;
 }
 
 template <typename T>
@@ -252,26 +234,82 @@ int launch_coeffs(const void* fr, const void* off, const void* w, void* coef,
 }
 
 template <typename T>
-int launch_solve(void* fr, const void* off, const void* w, const void* coef,
-                 const double* c, const int* n, cudaStream_t stream) {
-  VmixArgs<T> a;
-  const int ty = n[9];
-  if (!unpack(c, n, a) || a.cw < 1 || a.cw > kMaxColumns || ty < 1 ||
-      a.cw * ty > 256 || a.lc < 1 || fr == nullptr || off == nullptr ||
-      w == nullptr)
-    return cudaErrorInvalidValue;
-  const size_t smem =
-      static_cast<size_t>(2) * (3 + a.lc) * a.K * a.cw * sizeof(T);
+size_t solve_smem_bytes(const VmixArgs<T>& a) {
+  return static_cast<size_t>(column_smem_elems(a.K, a.cw, a.lanes, a.lc)) *
+         sizeof(T);
+}
+
+// the solve's plan: cw x lanes threads, every lane 2 .. kChunk rows, lc
+// values per pass within the compiled width rhs (2 or kFrameRhs)
+template <typename T>
+bool solve_plan_ok(const VmixArgs<T>& a) {
+  return a.cw >= 1 && a.cw <= kMaxColumns && a.lanes >= 1 &&
+         a.cw * a.lanes <= 256 && 2 * a.lanes <= a.K &&
+         a.lanes * kChunk >= a.K && a.lc >= 1 &&
+         (a.rhs == kSolveRhs || a.rhs == kFrameRhs) && a.lc <= a.rhs;
+}
+
+template <typename T, int kRhs>
+int launch_solve_as(void* fr, const void* off, const void* w,
+                    const void* coef, const VmixArgs<T>& a,
+                    cudaStream_t stream) {
+  const size_t smem = solve_smem_bytes(a);
   cudaError_t err = cudaFuncSetAttribute(
-      patch_vmix_solve<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      patch_vmix_solve<T, kRhs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.P + a.cw - 1) / a.cw, 4);
-  const dim3 block(a.cw, ty);
-  patch_vmix_solve<T><<<grid, block, smem, stream>>>(
+  const dim3 block(a.cw, a.lanes);
+  patch_vmix_solve<T, kRhs><<<grid, block, smem, stream>>>(
       static_cast<T*>(fr), static_cast<const int*>(off),
       static_cast<const T*>(w), static_cast<const T*>(coef), a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_solve(void* fr, const void* off, const void* w, const void* coef,
+                 const double* c, const int* n, cudaStream_t stream) {
+  VmixArgs<T> a;
+  if (!unpack(c, n, a) || !solve_plan_ok(a) || fr == nullptr ||
+      off == nullptr || w == nullptr)
+    return cudaErrorInvalidValue;
+  return a.rhs == kSolveRhs
+             ? launch_solve_as<T, kSolveRhs>(fr, off, w, coef, a, stream)
+             : launch_solve_as<T, kFrameRhs>(fr, off, w, coef, a, stream);
+}
+
+// cudaFuncGetAttributes of the solve kernel the plan in `n` launches
+// (numRegs, localSizeBytes, sharedSizeBytes into out[0..2]) and the blocks
+// an SM holds for it (out[3], cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+template <typename T, int kRhs>
+int solve_attrs_as(const VmixArgs<T>& a, int* out) {
+  auto* const k = &patch_vmix_solve<T, kRhs>;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = solve_smem_bytes(a);
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k,
+                                                      a.cw * a.lanes, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  out[3] = blocks;
+  return 0;
+}
+
+template <typename T>
+int solve_attrs(const double* c, const int* n, int* out) {
+  VmixArgs<T> a;
+  if (c == nullptr || n == nullptr || out == nullptr || !unpack(c, n, a) ||
+      !solve_plan_ok(a))
+    return cudaErrorInvalidValue;
+  return a.rhs == kSolveRhs ? solve_attrs_as<T, kSolveRhs>(a, out)
+                            : solve_attrs_as<T, kFrameRhs>(a, out);
 }
 
 }  // namespace patch
@@ -282,9 +320,12 @@ int launch_solve(void* fr, const void* off, const void* w, const void* coef,
 // (K, 4, P) coefficients (null in the solve for constant coefficients);
 // `consts` = dt, g, nu0, alpha, eos_alpha_t, eos_beta_s, kappa_tracer,
 // kappa_momentum; `ints` = P, K, L, temp_index, salt_index, n_exp, layers
-// per thread, threads per block (coefficients), then cw, ty, lc, levels
-// (solve: columns per block, threads along K, tracers per pass, PCR
-// levels). Each returns the launch's error code, or 0.
+// per thread, threads per block (coefficients), then cw, lanes, lc, rhs
+// (solve: positions per block, k-lanes, values per pass, the compiled
+// width 2 or 8). Each returns the launch's error code, or 0.
+// omega_patch_vmix_solve_attrs_*(consts, ints, out): registers, local
+// (spill) bytes, static shared bytes and blocks per SM of the solve kernel
+// for that plan.
 // omega_patch_rows(0 | 1 | 2) gives the row counts of the compact table's
 // offsets and weights and of the const planes.
 extern "C" {
@@ -312,6 +353,15 @@ int omega_patch_vmix_solve_f64(void* frames, const void* off, const void* w,
                                const int* ints, void* stream) {
   return omega::patch::launch_solve<double>(
       frames, off, w, coef, consts, ints, static_cast<cudaStream_t>(stream));
+}
+
+int omega_patch_vmix_solve_attrs_f32(const double* consts, const int* ints,
+                                     int* out) {
+  return omega::patch::solve_attrs<float>(consts, ints, out);
+}
+int omega_patch_vmix_solve_attrs_f64(const double* consts, const int* ints,
+                                     int* out) {
+  return omega::patch::solve_attrs<double>(consts, ints, out);
 }
 
 int omega_patch_rows(int which) {

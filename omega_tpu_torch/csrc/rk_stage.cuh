@@ -349,7 +349,7 @@ rk_stage_kernel(const T* __restrict__ ev, const T* __restrict__ base,
   });
   __syncthreads();
 
-  // ---- du at the owned pair (momentum_du of slab_chain.cuh on F), then u
+  // ---- du at the owned pair (PV flux on F, gradients, del2 and del4), then u
   const bool top = TAILS && wind != nullptr && k == 0;
   const bool bottom = TAILS && p.cd != T(0) && k == p.K - 1;
   owned([&](auto par, int q, long long g) {

@@ -2,10 +2,10 @@
 // entry layouts with their offsets and weights in the kernel's parameter
 // space (FbParams, which the FB step and the RK stage read too), the
 // one-layer x (by, bx) slab with the periodic wrap as index arithmetic, and
-// the levels the split passes (split.cu) evaluate on it (the thickness
-// fluxes, the center / upwind tracer tendency, the momentum aux and du).
-// The FB step and the RK stage walk the same chain on a compiled slab
-// geometry and entry pattern instead (hex_slab.cuh).
+// the levels splitpost (split.cu) evaluates on it (the thickness fluxes, the
+// center / upwind tracer tendency). The FB step, the RK stage and
+// splitpre's chain walk the same chain on a compiled slab geometry and
+// entry pattern instead (hex_slab.cuh).
 //
 // A block is one layer k x one (by, bx) horizontal tile of the stacked state
 // (4+L, K, ny, nx), x fastest; it holds a (by+2ry) x (bx+2rx) slab of every
@@ -199,21 +199,6 @@ struct Slab {
        q += blockDim.x, sy += sl.dy, sx_ += sl.dx,                          \
            (sx_ >= sl.XX ? (sx_ -= sl.XX, ++sy) : 0))
 
-// h and the three classes of u of stacked array `in` into slots H and U,
-// with the periodic wrap
-template <typename T>
-__device__ __forceinline__ void load_hu(const Slab& sl, const FbParams<T>& p,
-                                        const T* __restrict__ in, T* H,
-                                        T* U) {
-  for (int q = threadIdx.x; q < sl.S; q += blockDim.x) {
-    const long long g = sl.gofs(p, q);
-    H[q] = in[sl.chan(p, 0) + g];
-    U[q] = in[sl.chan(p, 1) + g];
-    U[sl.S + q] = in[sl.chan(p, 2) + g];
-    U[2 * sl.S + q] = in[sl.chan(p, 3) + g];
-  }
-}
-
 // mean_h = cmean(h); upwind: mean_h = 0.5*(h0+h1), flux_h = the pick (FH)
 template <bool UPH, typename T>
 __device__ __forceinline__ void thickness_level(const Slab& sl,
@@ -287,136 +272,6 @@ __device__ __forceinline__ T tracer_dtr(const FbParams<T>& p, int q, bool odd,
                                         const T* CD2) {
   const T hyp = AP(T_SDIV, 0, at(CD2));
   return ADV[q] + p.ed2s * D2[q] - p.ed4 * hyp;
-}
-
-// The slots of the momentum levels. HL is the thickness level the momentum
-// aux is evaluated on (h_new in the FB step, the evaluated level in an RK
-// stage); FL holds its flux thickness (cmean or the upwind pick).
-template <typename T>
-struct MomSlots {
-  const T* HL;
-  T *FL, *KE, *DIVU, *RV, *NRV, *NPV, *Q, *D2E, *D2DIV, *D2RV;
-};
-
-// The momentum aux's slab levels: ke, div, curl, h_v, the normalized
-// vorticities and FL; then edge PV and del2 of u on edges; then div and curl
-// of that. Ends on a barrier; `momentum_du` finishes at an owned point.
-template <bool UPH, typename T>
-__device__ __forceinline__ void momentum_levels(const Slab& sl,
-                                                const FbParams<T>& p,
-                                                const T* U,
-                                                const MomSlots<T>& m) {
-  const int S = sl.S;
-  FOR_SLAB(q, sy) {
-    const bool odd = sl.is_odd(sy);
-    m.KE[q] = AP(T_KE, 0, [&](int r) { return U[r] * U[r]; });
-    m.DIVU[q] = AP(T_DIV, 0, at(U));
-    _Pragma("unroll") for (int t = 0; t < 3; ++t) {
-      if constexpr (UPH) {
-        m.FL[t * S + q] = upwind_sel(U[t * S + q],
-                                     m.HL[q + pair_ofs<T_C0>(p, t, odd)],
-                                     m.HL[q + pair_ofs<T_C1>(p, t, odd)]);
-      } else {
-        m.FL[t * S + q] = AP(T_CMEAN, t, at(m.HL));
-      }
-    }
-    _Pragma("unroll") for (int t = 0; t < 2; ++t) {
-      const T rv = AP(T_CURL, t, at(U));
-      const T hv = AP(T_KITE, t, at(m.HL));
-      m.RV[t * S + q] = rv;
-      m.NRV[t * S + q] = rv / hv;
-      m.NPV[t * S + q] = p.f0v / hv;
-    }
-  }
-  __syncthreads();
-
-  FOR_SLAB(q, sy) {
-    const bool odd = sl.is_odd(sy);
-    _Pragma("unroll") for (int t = 0; t < 3; ++t) {
-      const T nrv_e = AP(T_VMEAN, t, at(m.NRV));
-      const T npv_e = AP(T_VMEAN, t, at(m.NPV));
-      m.Q[t * S + q] = nrv_e + npv_e;
-      const T cdd = AP(T_CDIFF, t, at(m.DIVU));
-      const T vdr = AP(T_VDIFF, t, at(m.RV));
-      m.D2E[t * S + q] = cdd * p.inv_dc - vdr * p.inv_dv_floor;
-    }
-  }
-  __syncthreads();
-
-  FOR_SLAB(q, sy) {
-    const bool odd = sl.is_odd(sy);
-    m.D2DIV[q] = AP(T_DIV, 0, at(m.D2E));
-    _Pragma("unroll") for (int t = 0; t < 2; ++t)
-      m.D2RV[t * S + q] = AP(T_CURL, t, at(m.D2E));
-  }
-  __syncthreads();
-}
-
-// du of edge class t at owned point q (plane offset g): PV flux, KE and ssh
-// gradients, del2 and del4 diffusion, and with TAILS the wind stress on the
-// top layer and quadratic drag on the bottom one (both with mean_h of HL).
-// The ssh gradient is that of HL (stacked ssh, uniform depth), or with
-// COLSSH that of the column free surface, the (ny, nx) plane `sshc` read
-// straight from device memory (du is wanted at owned points only, whose
-// cdiff neighbours lie inside the slab).
-template <bool UPH, bool TAILS, bool COLSSH = false, typename T>
-__device__ __forceinline__ T momentum_du(const Slab& sl, const FbParams<T>& p,
-                                         int q, bool odd, int t, long long g,
-                                         const T* U, const MomSlots<T>& m,
-                                         const T* __restrict__ wind, bool top,
-                                         bool bottom,
-                                         const T* __restrict__ sshc = nullptr) {
-  const int S = sl.S;
-  // tang(F) and tang(F*q) share the walk; F = flux thickness * u on the fly
-  T tf = T(0), tfq = T(0);
-#pragma unroll
-  for (int i = 0; i < tab_count(T_TANG); ++i) {
-    const int e = tab_base(T_TANG) + t * tab_count(T_TANG) + i;
-    const int r = q + (odd ? p.off[1][e] : p.off[0][e]);
-    const T F = m.FL[r] * U[r];
-    tf += p.w[e] * F;
-    tfq += p.w[e] * (F * m.Q[r]);
-  }
-  const T qe = m.Q[t * S + q];
-  const T pv = T(0.5) * (qe * tf + tfq);
-
-  const T gke = AP(T_CDIFF, t, at(m.KE));
-  T gssh;
-  if constexpr (COLSSH) {
-    gssh = AP(T_CDIFF, t, [&](int r) { return sshc[sl.gofs(p, r)]; });
-  } else {
-    gssh = AP(T_CDIFF, t, at(m.HL));
-  }
-  const T cd4 = AP(T_CDIFF, t, at(m.D2DIV));
-  const T vd4 = AP(T_VDIFF, t, at(m.D2RV));
-  const T cdd = AP(T_CDIFF, t, at(m.DIVU));
-  const T vdr = AP(T_VDIFF, t, at(m.RV));
-
-  // the du diffusion terms use plain 1/dv, del2_e the floored one
-  T du = pv - gke * p.inv_dc - p.grav * gssh * p.inv_dc +
-         p.nu2s * (cdd * p.inv_dc - vdr * p.inv_dv) -
-         p.nu4s * (p.div_factor * cd4 * p.inv_dc - vd4 * p.inv_dv);
-  if constexpr (TAILS) {
-    if (top || bottom) {
-      T mh;
-      if constexpr (UPH) {
-        mh = T(0.5) * (m.HL[q + pair_ofs<T_C0>(p, t, odd)] +
-                       m.HL[q + pair_ofs<T_C1>(p, t, odd)]);
-      } else {
-        mh = m.FL[t * S + q];
-      }
-      if (top) du = du + wind[t * sl.plane + g] / (p.rho0 * mh);
-      if (bottom) {
-        // 2*cmean(ke) == ke0 + ke1 bit for bit (halving and doubling are
-        // exact), the composed step's sqrt(ke0 + ke1)
-        const T kee = AP(T_CMEAN, t, at(m.KE));
-        const T twice = T(2) * kee;
-        const T speed = sqrt(twice > T(0) ? twice : T(0));
-        du = du + (-(p.cd * speed * U[t * S + q] / mh));
-      }
-    }
-  }
-  return du;
 }
 
 // bytes of dynamic shared memory for `slots` slab arrays and the guards

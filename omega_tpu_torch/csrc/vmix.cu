@@ -23,41 +23,16 @@
 // vmix_solve_kernel: backward-Euler diffusion of every column, in place.
 // System 0 of a cell column is the L tracers against the cell thickness,
 // systems 1..3 are the edge classes of u against cmean(h) (two reads through
-// the cmean table's shifts, the periodic wrap as index arithmetic). The
-// system of a column is the diffusion form of ops/tridiag.py
-//   -G_{k-1} x_{k-1} + (H_k + G_k + G_{k-1}) x_k - G_k x_{k+1} = H_k phi_k,
-// G = dt kappa / dz above the bottom interface and 0 at it. The plain
-// version solves it by parallel cyclic reduction (ops/tridiag.pcr, the TPU
-// kernel's _pcr_diffusion: ceil(log2 K) levels over every row, a layout for
-// the TPU's lanes); here it is solved by elimination, O(K) work, split into
-// chunks (the partition method). A block takes cw ADJACENT columns of one
-// row y (threadIdx.x: every load and store of a row k is one coalesced
-// segment) and `lanes` k-lanes (threadIdx.y); lane j takes the contiguous
-// rows [j K / lanes, (j+1) K / lanes) of its column (at most kChunk, at
-// least 2). A pass
-//   1. stages the block's columns (thickness, coefficients, right-hand
-//      sides; [k][cw] arrays) in shared memory by cp.async, every copy in
-//      flight at once and none held in a register;
-//   2. lets each lane eliminate inside its chunk (the modified Thomas
-//      sweeps, in place in the staged arrays), which leaves every row
-//      coupled only to the chunk's first and last rows and those two to
-//      the neighbouring chunks' last and first;
-//   3. solves the chunks' first and last rows, a tridiagonal system of
-//      2 lanes rows per column, by Thomas in lane 0;
-//   4. finishes every row from its chunk's two end values and stores it.
-// The matrix is diagonally dominant (H > 0, G >= 0), so elimination needs
-// no pivoting, and it solves the same system as the plain PCR: the two
-// agree to the rounding of either (float64 within 1e-10 in chip_smoke.py).
-// A row costs one reciprocal and some ten operations and a few shared
-// accesses, where PCR took two divisions and 9 + 3n shared loads per row
-// and level (n right-hand sides). What the design does about the card: the
-// staging keeps registers low (4 blocks of 128 threads per SM in float32
-// at K = 100: 4 lanes of 25 rows) while every load is in flight; loads
-// held in registers behind the divisions (an earlier form) left each
-// block waiting on one round trip after another. Up to kSolveRhs tracers
-// go in one pass (the columns are restaged per pass). Bound: bytes (h, u,
-// tracers and coefficients read once, u and tracers written once).
-#include "stencil_common.cuh"
+// the cmean table's shifts, the periodic wrap as index arithmetic). It is
+// solved by elimination in chunks (column_solve.cuh, which the sphere's
+// solve shares): a block takes cw ADJACENT columns of one row y and `lanes`
+// k-lanes of at most kChunk rows, stages the columns in shared memory by
+// cp.async, and solves kSolveRhs tracers per pass. The plain version is the
+// reference's PCR; the two agree to the rounding of either (float64 within
+// 1e-10 in chip_smoke.py). 4 blocks of 128 threads per SM in float32 at K =
+// 100 (4 lanes of 25 rows). Bound: bytes (h, u, tracers and coefficients
+// read once, u and tracers written once).
+#include "column_solve.cuh"
 
 namespace omega {
 
@@ -79,9 +54,8 @@ struct VmixParams {
   int cw, lanes;             // solve: columns x k-lanes per block
 };
 
-// the solve: rows a k-lane takes at most, right-hand sides per pass, and
-// the blocks an SM must hold (the register budget)
-constexpr int kChunk = 25;
+// the solve: right-hand sides per pass, and the blocks an SM must hold (the
+// register budget)
 constexpr int kSolveRhs = 2;
 template <typename T>
 constexpr int kSolveMinBlocks = sizeof(T) == 4 ? 4 : 1;
@@ -186,64 +160,28 @@ pp81_coeffs_kernel(const T* __restrict__ s, T* __restrict__ kappa,
   }
 }
 
-// a global -> shared copy of one element, in flight until copies_done()
-// (cp.async: no register holds it); a plain copy where no card compiles it
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-               "l"(src), "n"(sizeof(T)));
-#else
-  *dst = *src;
-#endif
-}
-__device__ __forceinline__ void copies_done() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-#endif
-}
-
 template <typename T>
 __global__ void __launch_bounds__(256, kSolveMinBlocks<T>)
 vmix_solve_kernel(T* __restrict__ s, const T* __restrict__ kappa,
                   const T* __restrict__ nu,
                   const __grid_constant__ VmixParams<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const sm = reinterpret_cast<T*>(smem_raw);
-  const int K = p.K, CW = blockDim.x, P = blockDim.y, R = 2 * P;
-  const int tx = threadIdx.x, lane = threadIdx.y;
-  const int x = blockIdx.x * CW + tx, y = blockIdx.y;
+  const int K = p.K, CW = blockDim.x;
+  const int x = blockIdx.x * CW + threadIdx.x, y = blockIdx.y;
   const int sys = blockIdx.z;         // 0: tracers on cells, 1..3: u classes
   const bool cells = sys == 0;
-  const bool live = x < p.nx;         // ragged last group: compute, no store
-  const int xc = live ? x : p.nx - 1;
+  const int xc = x < p.nx ? x : p.nx - 1;
   const long long plane = static_cast<long long>(p.ny) * p.nx;
   const long long g = static_cast<long long>(y) * p.nx + xc;
-  auto chan = [&](int ch, int kk) {
-    return (static_cast<long long>(ch) * K + kk) * plane;
-  };
-  // the staged columns, four arrays of [K][CW] (k slowest): the thickness
-  // (edges: of the first cell), the coefficients, then the right-hand
-  // sides' values (edges: the second cell's thickness, then u). The sweeps
-  // overwrite a row's thickness with a', its coefficient with c' and its
-  // values with d'. Then the reduced system: [R rows][CW] of a, c and the
-  // right-hand sides.
-  const int N = K * CW;
-  T* const SH = sm;
-  T* const SC = sm + N;
-  T* const SH1 = sm + 2 * N;
-  T* const SV = sm + (cells ? 2 : 3) * N;
-  T* const RA = sm + 4 * N;
-  T* const RC = RA + R * CW;
-  T* const RD = RC + R * CW;
-
-  const int nrhs = cells ? p.L : 1;
-  const int ch0 = cells ? 4 : sys;
+  ColumnSystem<T> c;
+  // row k of channel ch at (ch K + k) plane + g
+  c.rows = ColumnRows{g, K * plane, plane};
+  c.cells = cells;
   // thickness of the system: the cell's own, or the edge's cmean of two
   // cells (w0 h[g0] + w1 h[g1]; a one-cell table gives w1 = 0)
-  long long g0 = g, g1 = g;
-  T w0 = T(1), w1 = T(0);
+  c.d0 = c.d1 = 0;
+  c.w0 = T(1);
+  c.w1 = T(0);
   if (!cells) {
     const bool odd = (y & 1) != 0;
     const int e0 = p.cm_start[sys - 1], ne = p.cm_start[sys] - e0;
@@ -251,187 +189,27 @@ vmix_solve_kernel(T* __restrict__ s, const T* __restrict__ kappa,
       return static_cast<long long>(wrap_near(y + e.dj, p.ny)) * p.nx +
              wrap_near(xc + (odd ? e.di_o : e.di_e), p.nx);
     };
-    g0 = cell(p.e[e0]);
-    w0 = p.e[e0].w;
-    g1 = ne > 1 ? cell(p.e[e0 + 1]) : g0;
-    w1 = ne > 1 ? p.e[e0 + 1].w : T(0);
+    const long long g0 = cell(p.e[e0]);
+    c.d0 = g0 - g;
+    c.w0 = p.e[e0].w;
+    c.d1 = (ne > 1 ? cell(p.e[e0 + 1]) : g0) - g;
+    c.w1 = ne > 1 ? p.e[e0 + 1].w : T(0);
   }
   const T* const coef =
       cells ? kappa
             : (nu ? nu + static_cast<long long>(sys - 1) * (K - 1) * plane
                   : nullptr);
-  const T coef0 = cells ? p.kt0 : p.km0;
-  // the lane's rows [k0, k0 + m), 2 <= m <= kChunk
-  const int k0 = lane * K / P, m = (lane + 1) * K / P - k0;
-  const auto thick = [&](int k) {
-    const int e = k * CW + tx;
-    return cells ? SH[e] : w0 * SH[e] + w1 * SH1[e];
-  };
-  // G of interface k from the thickness of rows k and k+1; 0 at the bottom
-  const auto coupling = [&](int k, T hk, T hk1) {
-    if (k >= K - 1) return T(0);
-    const T kap = coef ? SC[k * CW + tx] : coef0;
-    return p.dt * kap / (T(0.5) * (hk + hk1));
-  };
-
-  for (int l0 = 0; l0 < nrhs; l0 += kSolveRhs) {
-    const int n = kSolveRhs < nrhs - l0 ? kSolveRhs : nrhs - l0;
-    // stage the pass's columns, every row once (rows strided over the
-    // lanes), all copies in flight together
-    for (int k = lane; k < K; k += P) {
-      const long long c = chan(0, k);
-      const int e = k * CW + tx;
-      copy_async(&SH[e], &s[c + g0]);
-      if (!cells) copy_async(&SH1[e], &s[c + g1]);
-      if (coef && k < K - 1)
-        copy_async(&SC[e], &coef[static_cast<long long>(k) * plane + g]);
-      for (int q = 0; q < n; ++q)
-        copy_async(&SV[q * N + e], &s[chan(ch0 + l0 + q, k) + g]);
-    }
-    copies_done();
-    __syncthreads();
-    // what the chunk reads of its neighbours' rows, before they rewrite
-    // them: G of interface k0-1, the thickness of row k0+m
-    T gm = k0 > 0 ? coupling(k0 - 1, thick(k0 - 1), thick(k0)) : T(0);
-    const T hlast = k0 + m < K ? thick(k0 + m) : T(1);
-    __syncthreads();
-
-    // the rows a x_{k-1} + b x_k + c x_{k+1} = d, d = H phi, a = -G_{k-1},
-    // c = -G_k, b = H + G_k + G_{k-1}. Forward sweep: rows 0 and 1
-    // normalised, row i >= 2 made a'_i x_0 + x_i + c'_i x_{i+1} = d'_i
-    T a0 = T(0), c0 = T(0), d0[kSolveRhs];   // row 0, kept for its step
-    T ap = T(0), cp = T(0), dp[kSolveRhs];   // the row before
-#pragma unroll
-    for (int q = 0; q < kSolveRhs; ++q) d0[q] = dp[q] = T(0);
-    T hk = thick(k0);
-    for (int i = 0; i < m; ++i) {
-      const int k = k0 + i, e = k * CW + tx;
-      const T hk1 = i + 1 < m ? thick(k + 1) : hlast;
-      const T gk = coupling(k, hk, hk1);
-      const T b = hk + gk + gm;
-      T a = -gm, c = -gk, d[kSolveRhs];
-#pragma unroll
-      for (int q = 0; q < kSolveRhs; ++q)
-        d[q] = q < n ? hk * SV[q * N + e] : T(0);
-      if (i < 2) {
-        const T r = T(1) / b;
-        a *= r;
-        c *= r;
-#pragma unroll
-        for (int q = 0; q < kSolveRhs; ++q) d[q] *= r;
-      } else {
-        const T r = T(1) / (b - a * cp);
-#pragma unroll
-        for (int q = 0; q < kSolveRhs; ++q) d[q] = r * (d[q] - a * dp[q]);
-        c = r * c;
-        a = -r * a * ap;
-      }
-      SH[e] = a;
-      SC[e] = c;
-#pragma unroll
-      for (int q = 0; q < kSolveRhs; ++q)
-        if (q < n) SV[q * N + e] = d[q];
-      if (i == 0) {
-        a0 = a;
-        c0 = c;
-#pragma unroll
-        for (int q = 0; q < kSolveRhs; ++q) d0[q] = d[q];
-      }
-      ap = a;
-      cp = c;
-#pragma unroll
-      for (int q = 0; q < kSolveRhs; ++q) dp[q] = d[q];
-      gm = gk;
-      hk = hk1;
-    }
-    // (ap, cp, dp) is the last row now. Backward sweep: row i in [1, m-3]
-    // becomes a'_i x_0 + x_i + c'_i x_{m-1} = d'_i (rows m-2, m-1 already
-    // are); (an, cn, dn) is the row after
-    T an = T(0), cn = T(0), dn[kSolveRhs];
-#pragma unroll
-    for (int q = 0; q < kSolveRhs; ++q) dn[q] = T(0);
-    if (m >= 3) {
-      const int e = (k0 + m - 2) * CW + tx;
-      an = SH[e];
-      cn = SC[e];
-#pragma unroll
-      for (int q = 0; q < kSolveRhs; ++q)
-        if (q < n) dn[q] = SV[q * N + e];
-    }
-    for (int i = m - 3; i >= 1; --i) {
-      const int e = (k0 + i) * CW + tx;
-      const T c = SC[e];
-      const T a = SH[e] - c * an;
-#pragma unroll
-      for (int q = 0; q < kSolveRhs; ++q)
-        if (q < n) dn[q] = SV[q * N + e] - c * dn[q];
-      cn = -c * cn;
-      an = a;
-      SH[e] = an;
-      SC[e] = cn;
-#pragma unroll
-      for (int q = 0; q < kSolveRhs; ++q)
-        if (q < n) SV[q * N + e] = dn[q];
-    }
-    // row 0: a'_0 x_{k0-1} + x_0 + c'_0 x_{m-1} = d'_0 (already so for
-    // m = 2); (an, cn, dn) is row 1 now
-    if (m >= 3) {
-      const T r = T(1) / (T(1) - c0 * an);
-#pragma unroll
-      for (int q = 0; q < kSolveRhs; ++q) d0[q] = r * (d0[q] - c0 * dn[q]);
-      a0 = r * a0;
-      c0 = -r * c0 * cn;
-    }
-
-    // the reduced system: the lane's first and last rows
-    const int r0 = 2 * lane * CW + tx, r1 = r0 + CW;
-    RA[r0] = a0;
-    RC[r0] = c0;
-    RA[r1] = ap;
-    RC[r1] = cp;
-#pragma unroll
-    for (int q = 0; q < kSolveRhs; ++q) {
-      RD[q * R * CW + r0] = d0[q];
-      RD[q * R * CW + r1] = dp[q];
-    }
-    __syncthreads();
-    if (lane == 0) {
-      // Thomas on the R rows (unit diagonal), the solution into RD
-      for (int j = 1; j < R; ++j) {
-        const int i = j * CW + tx, im = i - CW;
-        const T r = T(1) / (T(1) - RA[i] * RC[im]);
-        RC[i] = r * RC[i];
-#pragma unroll
-        for (int q = 0; q < kSolveRhs; ++q)
-          RD[q * R * CW + i] =
-              r * (RD[q * R * CW + i] - RA[i] * RD[q * R * CW + im]);
-      }
-      for (int j = R - 2; j >= 0; --j) {
-        const int i = j * CW + tx;
-#pragma unroll
-        for (int q = 0; q < kSolveRhs; ++q)
-          RD[q * R * CW + i] -= RC[i] * RD[q * R * CW + i + CW];
-      }
-    }
-    __syncthreads();
-
-    // back-substitution inside the chunk, and the stores
-#pragma unroll
-    for (int q = 0; q < kSolveRhs; ++q) {
-      if (q < n && live) {
-        const T xf = RD[q * R * CW + r0], xl = RD[q * R * CW + r1];
-        const long long cq = chan(ch0 + l0 + q, k0) + g;
-        for (int i = 0; i < m; ++i) {
-          const int e = (k0 + i) * CW + tx;
-          s[cq + i * plane] = i == 0       ? xf
-                              : i == m - 1 ? xl
-                                           : SV[q * N + e] - SH[e] * xf -
-                                                 SC[e] * xl;
-        }
-      }
-    }
-    __syncthreads();   // the next pass restages the columns
-  }
+  c.coef = coef ? coef + g : nullptr;
+  c.cstride = plane;
+  c.coef0 = cells ? p.kt0 : p.km0;
+  c.dt = p.dt;
+  c.K = K;
+  c.ch0 = cells ? 4 : sys;
+  c.nrhs = cells ? p.L : 1;
+  c.lc = kSolveRhs;
+  c.live = x < p.nx;                  // ragged last group: compute, no store
+  solve_columns<T, kSolveRhs, false, false>(
+      s, c, reinterpret_cast<T*>(smem_raw), nullptr);
 }
 
 template <typename T>
@@ -442,8 +220,9 @@ size_t coeffs_smem_bytes(const VmixParams<T>& p) {
 
 template <typename T>
 size_t solve_smem_bytes(const VmixParams<T>& p) {
-  return (static_cast<size_t>(4) * p.K + (2 + kSolveRhs) * 2 * p.lanes) *
-         p.cw * sizeof(T);
+  return static_cast<size_t>(column_smem_elems(p.K, p.cw, p.lanes,
+                                               kSolveRhs)) *
+         sizeof(T);
 }
 
 // the larger of |a| and |b|

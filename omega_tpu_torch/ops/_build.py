@@ -133,9 +133,11 @@ def load() -> ctypes.CDLL:
                 fn.restype = ci
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"omega_split_pre_{suffix}")
-        # state, du, planes, params x3, depth, ggrad, f_e, r, threads x3,
-        # stream
-        fn.argtypes = [vp] * 6 + [cd] * 4 + [ci] * 3 + [vp]
+        # state, du, planes, params, depth, ggrad, f_e, r, threads, stream
+        fn.argtypes = [vp] * 4 + [cd] * 4 + [ci, vp]
+        fn.restype = ci
+        fn = getattr(lib, f"omega_split_pre_attrs_{suffix}")
+        fn.argtypes = [ci, vp]               # pass, out[4]
         fn.restype = ci
         fn = getattr(lib, f"omega_split_post_{suffix}")
         # state, du, planes, out, params, threads, stream
@@ -198,6 +200,9 @@ def load() -> ctypes.CDLL:
             # frames, offs, wts, coef, consts, ints, stream
             fn.argtypes = [vp] * 7
             fn.restype = ci
+        fn = getattr(lib, f"omega_patch_vmix_solve_attrs_{suffix}")
+        fn.argtypes = [vp] * 3               # consts, ints, out[4]
+        fn.restype = ci
         fn = getattr(lib, f"omega_patch_split_pre_{suffix}")
         # in, out, offs, wts, cpl, depth row, work, consts, ints, stream
         fn.argtypes = [vp] * 10

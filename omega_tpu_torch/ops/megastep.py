@@ -48,12 +48,14 @@ Mechanics:
     `RK_FIRST`, `RK_MID`, `RK_LAST`): the provisional state, the
     thickness-weighted accumulator, the new state. RK2 is two launches of
     it, RK4 four; the (acc, prov) channels pass through device memory.
-  * no block sees a column, so splitpre is three launches: the column sums
-    (layers walked in order inside a thread), the momentum chain with the
-    ssh gradient of the column free surface, the depth average of du and
-    the slow forcing; splitpost is the FB step's thickness and tracer
-    levels with the transport velocity formed as the slab loads. The 2-D
-    fields between them live in one (NPLANES, ny, nx) array.
+  * no block sees a column, so splitpre is two launches: the column sums
+    (layers walked in order inside a thread), then the momentum chain with
+    the ssh gradient of the column free surface on the RK stage's compiled
+    slab, which also carries the depth average of du from layer to layer
+    of a tile in layer order and forms the slow forcing at the last layer;
+    splitpost is the FB step's thickness and tracer levels with the
+    transport velocity formed as the slab loads. The 2-D fields between
+    them live in one (NPLANES, ny, nx) array.
 
 Beside the kernels stand their plain PyTorch versions,
 `fb_megastep_plain`, `tend_plain` with `rk_stage_plain`,
@@ -78,8 +80,8 @@ from omega_tpu_torch.ops.stencil_kernel import pack_entries
 from omega_tpu_torch.ops.structured import apply_grid
 
 # launches of the CUDA kernels since the last reset (plain integers):
-# the fused FB step, the RK stage kernel, splitpre's passes (three per
-# split step) and splitpost
+# the fused FB step, the RK stage kernel, splitpre's passes
+# (SPLIT_PRE_PASSES per split step) and splitpost
 launches = 0
 rk_launches = 0
 split_pre_launches = 0
@@ -579,7 +581,7 @@ def guard_elems(slab_width):
 
 def plan_tile(ny, nx, itemsize, ring, tile=None, nslots=SLOTS):
     """Pick a kernel's tile: dict(by, bx, ry, rx, threads, guard, smem);
-    the split passes' and the barotropic kernel's planner.
+    splitpost's and the barotropic kernel's planner.
 
     The slab (by+2ry) x (bx+2rx) times `nslots` arrays must fit one block's
     shared memory; the tile need not divide the domain (ragged tiles are
@@ -802,17 +804,13 @@ def rk4_megastep_plain(mesh, cfg, stacked, dt, tile=None, wind=None):
 P_UBAR, P_SSH, P_GSLOW, P_HET, P_DUBAR = 0, 3, 4, 7, 10
 P_UBF, P_SSHF, P_UAVG, P_WORK, NPLANES = 13, 16, 17, 20, 24
 # slab arrays of the split kernels (kSplit*Slots in csrc/split.cu): the
-# column passes keep KB layers of h, and their per-column sums in slab-sized
-# arrays indexed by owned point; the chain is the momentum levels of
-# slab_chain.cuh; splitpost the FB step's thickness and tracer levels
-SPLIT_KB = 4
-SPLIT_SLOTS = {"splitcol": SPLIT_KB + 7, "splitpre": 21,
-               "splitslow": SPLIT_KB + 7, "splitpost": 20}
-# the column passes walk 100 layers in one block per tile: narrow tiles give
-# four times the blocks of the chains' 16 x 32, so that the SMs have enough
-# of them in flight (PERF.md)
-SPLIT_TILES = {"splitcol": (4, 32), "splitslow": (4, 32)}
-_SPLIT_PASS = {"splitcol": 0, "splitpre": 1, "splitslow": 2, "splitpost": 3}
+# chain is the RK stage's momentum levels on its compiled tile (HEX_TILE,
+# ring (2, 3)); splitpost the FB step's thickness and tracer levels
+SPLIT_SLOTS = {"splitpre": 18, "splitpost": 20}
+_SPLIT_PASS = {"splitpre": 1, "splitpost": 3}
+# splitpre's launches per call (the column pass, the chain) and their names
+SPLIT_PRE_PASSES = 2
+SPLIT_PRE_PASS_NAMES = ("columns", "chain")
 
 
 def split_supported(mesh, cfg) -> bool:
@@ -949,10 +947,11 @@ def split_work(stacked):
 
 
 def split_pre_plain(mesh, cfg, stacked, bt_drag=0.0, tile=None):
-    """The plain PyTorch version of splitpre's three passes on the stacked
-    state: (du_full (3, K, ny, nx), planes (P_DUBAR + 3, ny, nx) holding
-    ubar, sshc, g_slow, het and du_bar at their P_* indices); whole grid or
-    tiled with each pass's probed ring."""
+    """The plain PyTorch version of splitpre, as three chains (the column
+    sums, the momentum chain, the depth average and slow forcing) on the
+    stacked state: (du_full (3, K, ny, nx), planes (P_DUBAR + 3, ny, nx)
+    holding ubar, sshc, g_slow, het and du_bar at their P_* indices); whole
+    grid or tiled with each pass's probed ring."""
     tabs, c = _split_args(mesh, cfg, 0.0, bt_drag)
     cols = _split_pass(mesh, "splitcol", [stacked], None, tabs, c, tile)
     planes = stacked.new_zeros((P_DUBAR + 3,) + tuple(stacked.shape[2:]))
@@ -1309,7 +1308,8 @@ def rk4_megastep(mesh, cfg, state, t, dt, wind_stress=None):
 
 def _split_rec(mesh, cfg, dt, stacked, kind):
     """(rec, threads, (depth, ggrad, f_e)) of a split pass on a CUDA
-    stacked state, packed once per configuration and shape."""
+    stacked state, packed once per configuration and shape: splitpre's
+    chain for the compiled tile (hex_plan), splitpost for plan_tile's."""
     ft, suffix = _FLOAT[stacked.dtype]
     nx, ny = mesh.structured_nx, mesh.structured_ny
     L, K = stacked.shape[0] - 4, stacked.shape[1]
@@ -1318,9 +1318,10 @@ def _split_rec(mesh, cfg, dt, stacked, kind):
     hit = _PARAM_CACHE.get(key)
     if hit is None:
         tabs, c = _split_args(mesh, cfg, dt)
-        plan = plan_tile(ny, nx, np.dtype(ft).itemsize,
-                         split_ring(tabs, kind), SPLIT_TILES.get(kind),
-                         SPLIT_SLOTS[kind])
+        ring, itemsize = split_ring(tabs, kind), np.dtype(ft).itemsize
+        plan = hex_plan(itemsize, ring, SPLIT_SLOTS[kind]) \
+            if kind == "splitpre" else \
+            plan_tile(ny, nx, itemsize, ring, nslots=SPLIT_SLOTS[kind])
         rec = pack_params(tabs, c, ft, plan)
         rec["L"], rec["K"], rec["ny"], rec["nx"] = L, K, ny, nx
         hit = _PARAM_CACHE[key] = (rec, plan["threads"],
@@ -1348,9 +1349,11 @@ def _check_split_work(mesh, stacked, du, planes):
 def split_pre(mesh, cfg, stacked, du, planes, bt_drag=0.0):
     """splitpre on the stacked state into the work arrays of `split_work`:
     du_full into `du`, ubar, sshc, g_slow, het and du_bar into `planes`.
-    For a CUDA array one C call launches the three passes (the column sums,
-    the column-ssh momentum chain, the slow forcing) on PyTorch's current
-    stream; for a CPU array the plain version runs."""
+    For a CUDA array one C call launches the SPLIT_PRE_PASSES passes (the
+    column sums; the column-ssh momentum chain with the depth average and
+    the slow forcing, which keeps its counters and partial sums in the work
+    planes P_WORK..) on PyTorch's current stream; for a CPU array the plain
+    version runs."""
     global split_pre_launches
     if not stacked.is_cuda:
         d, p = split_pre_plain(mesh, cfg, stacked, bt_drag)
@@ -1359,20 +1362,34 @@ def split_pre(mesh, cfg, stacked, du, planes, bt_drag=0.0):
         return du, planes
     _check_stacked(mesh, stacked, "splitpre")
     _check_split_work(mesh, stacked, du, planes)
-    recs = [_split_rec(mesh, cfg, 0.0, stacked, k)
-            for k in ("splitcol", "splitpre", "splitslow")]
-    depth, ggrad, f_e = recs[0][2]
+    rec, threads, (depth, ggrad, f_e) = _split_rec(mesh, cfg, 0.0, stacked,
+                                                   "splitpre")
     suffix = _FLOAT[stacked.dtype][1]
     lib = _build.load()
     with torch.cuda.device(stacked.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, f"omega_split_pre_{suffix}")(
             stacked.data_ptr(), du.data_ptr(), planes.data_ptr(),
-            *(r[0].ctypes.data for r in recs), depth, ggrad, f_e,
-            float(bt_drag), *(r[1] for r in recs), stream)
+            rec.ctypes.data, depth, ggrad, f_e, float(bt_drag), threads,
+            stream)
     _build.check(code, "splitpre launch")
-    split_pre_launches += 3
+    split_pre_launches += SPLIT_PRE_PASSES
     return du, planes
+
+
+def split_pre_attrs(dtype):
+    """{pass name: cudaFuncGetAttributes' numRegs, localSizeBytes (the
+    spill) and sharedSizeBytes, and the blocks an SM holds at the launch's
+    block and shared memory} of splitpre's kernels in `dtype`."""
+    lib = _build.load()
+    fn = getattr(lib, f"omega_split_pre_attrs_{_FLOAT[dtype][1]}")
+    out = {}
+    for i, name in enumerate(SPLIT_PRE_PASS_NAMES):
+        got = np.zeros(4, np.int32)
+        _build.check(fn(i, got.ctypes.data), "cudaFuncGetAttributes")
+        out[name] = dict(zip(("num_regs", "local_bytes", "shared_bytes",
+                              "blocks_per_sm"), map(int, got)))
+    return out
 
 
 def split_post(mesh, cfg, stacked, du, planes, dt, out):
@@ -1406,7 +1423,8 @@ def split_megastep_stacked(mesh, cfg, stacked, dt, n_subcycles=10,
     """One split-explicit step on the stacked layout, out of place:
     splitpre, the barotropic subcycles (barotropic_kernel.bt_planes: one C
     call, one launch per subcycle) and splitpost, on the card for a CUDA
-    array (3 + M + 1 launches), with the plain versions for a CPU array.
+    array (SPLIT_PRE_PASSES + M + 1 launches), with the plain versions for
+    a CPU array.
     `work` is `split_work(stacked)` (made here when None). dt_bt = dt / M
     is folded in float64 and rounded once, as the JAX code does."""
     from omega_tpu_torch.ops import barotropic_kernel as btk

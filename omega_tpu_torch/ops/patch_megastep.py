@@ -1383,13 +1383,13 @@ def _vmix_args(p, cfg, frames, dt):
     L = CH - 4
     if vm.temp_index >= L or vm.salt_index >= L:
         raise ValueError("temp_index / salt_index exceed the tracer count")
-    plan = vmix_kernel.plan_solve(K, L, frames.element_size())
+    plan = vmix_kernel.plan_frames(K, L, frames.element_size())
     consts = np.array([float(dt), cfg.gravity, vm.nu0, vm.alpha,
                        vm.eos_alpha_t, vm.eos_beta_s, vm.kappa_tracer,
                        vm.kappa_momentum], np.float64)
     ints = np.array([P, K, L, vm.temp_index, vm.salt_index, vm.n_exp,
-                     LAYERS_PER_THREAD, THREADS, plan["cw"], plan["ty"],
-                     plan["lc"], plan["levels"]], np.int32)
+                     LAYERS_PER_THREAD, THREADS, plan["cw"], plan["lanes"],
+                     plan["lc"], plan["rhs"]], np.int32)
     return consts, ints
 
 
@@ -1450,6 +1450,25 @@ def vmix_solve(p, cfg, frames, dt, coef=None):
     _build.check(code, "patch column-solve launch")
     solve_launches += 1
     return frames
+
+
+def solve_attrs(cfg, frames):
+    """cudaFuncGetAttributes' numRegs, localSizeBytes (the spill) and
+    sharedSizeBytes of the column-solve kernel these frames launch, the
+    blocks an SM holds for their plan, and the plan
+    (vmix_kernel.plan_frames)."""
+    lib = _build.load()
+    consts, ints = _vmix_args(None, cfg, frames, 0.0)
+    got = np.zeros(4, np.int32)
+    _build.check(getattr(lib, f"omega_patch_vmix_solve_attrs_"
+                              f"{_suffix(frames)}")(
+        consts.ctypes.data, ints.ctypes.data, got.ctypes.data),
+        "cudaFuncGetAttributes")
+    K, CH, _ = frames.shape
+    return dict(zip(("num_regs", "local_bytes", "shared_bytes",
+                     "blocks_per_sm"), map(int, got)),
+                plan=vmix_kernel.plan_frames(K, CH - 4,
+                                             frames.element_size()))
 
 
 def new_work(frames):

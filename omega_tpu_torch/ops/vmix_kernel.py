@@ -13,7 +13,8 @@ in place, on the same stacked (4+L, K, ny, nx) array (csrc/vmix.cu):
                      tracers against the cell thickness, the three edge
                      classes of u against cmean(h); the system of
                      ops/tridiag.pcr, solved by elimination in chunks of
-                     rows (a block's columns staged in shared memory, each
+                     rows (csrc/column_solve.cuh, shared with the sphere's
+                     solve: a block's columns staged in shared memory, each
                      k-lane's chunk eliminated in place, the chunks' end
                      rows solved together)
 
@@ -30,8 +31,6 @@ kernels or raises. Each kernel counts its launches.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
@@ -47,13 +46,13 @@ solve_launches = 0
 
 MAX_ENTRIES = 16      # kVmixMaxEntries in csrc/vmix.cu
 SMEM_LIMIT = 232448   # dynamic shared memory one block may use on sm_90
-# the sphere's PCR solve (csrc/patch_vmix.cu, `plan_solve`): adjacent
-# columns one block takes
-SOLVE_COLUMNS = 8
-# the planar solve (csrc/vmix.cu): rows a k-lane holds (kChunk), tracers per
-# pass (kSolveRhs), k-lanes of a block at most
+# the column solves (csrc/column_solve.cuh): rows a k-lane holds (kChunk),
+# the planar solve's tracers per pass (kSolveRhs), k-lanes of a block at
+# most; the sphere's solve (csrc/patch_vmix.cu) takes up to FRAME_RHS
+# tracers per pass (kFrameRhs)
 SOLVE_CHUNK = 25
 SOLVE_RHS = 2
+FRAME_RHS = 8
 MAX_LANES = 32
 EPS = 1.0e-16         # floor of shear^2 in the Richardson number
 _REAL_FIELDS = ("dt", "grav", "nu0", "alpha", "a_t", "b_s", "kt0", "km0")
@@ -168,47 +167,43 @@ def vmix_plain(mesh, cfg, stacked, dt):
 # ----------------------------------------------------------------------
 # planning and parameters (host python, exercised by the CPU tests)
 
-def plan_chunks(K, itemsize):
-    """The planar solve kernel's block: dict(cw, lanes, chunk, smem).
+def plan_chunks(K, itemsize, lc=SOLVE_RHS):
+    """A column solve kernel's block: dict(cw, lanes, chunk, smem).
 
     A column's K rows are cut into `lanes` contiguous chunks of at most
     SOLVE_CHUNK rows, each eliminated by one k-lane (threadIdx.y); the
     fewest lanes that take the column, so every chunk has at least two
     rows. A block takes cw adjacent columns (32, one warp's coalesced
-    segment, where cw x lanes <= 256 and the staging fits) and stages four
-    arrays of K rows x cw (thickness, coefficients, right-hand sides) and
-    the reduced system of the chunks' end rows, 2 lanes rows of a, c and
-    SOLVE_RHS right-hand sides."""
+    segment, where cw x lanes <= 256 and the staging fits) and stages per
+    pass 2 + max(lc, 2) arrays of K rows x cw (thickness, coefficients, an
+    edge's second cell and u, or lc right-hand sides) and the reduced
+    system of the chunks' end rows, 2 lanes rows of a, c and lc right-hand
+    sides (csrc/column_solve.cuh: column_smem_elems)."""
     lanes = -(-K // SOLVE_CHUNK)
-    if K >= 2 and lanes <= MAX_LANES:
+    if K >= 2 and lanes <= MAX_LANES and lc >= 1:
         for cw in (32, 16, 8):
-            smem = (4 * K + (2 + SOLVE_RHS) * 2 * lanes) * cw * itemsize
+            smem = ((2 + max(lc, 2)) * K + (2 + lc) * 2 * lanes) * cw \
+                * itemsize
             if cw * lanes <= 256 and smem <= SMEM_LIMIT:
                 return dict(cw=cw, lanes=lanes, chunk=-(-K // lanes),
                             smem=smem)
     raise ValueError(f"{K} layers do not fit the solve kernel")
 
 
-def plan_solve(K, L, itemsize):
-    """The sphere's PCR solve kernel's block (csrc/patch_vmix.cu):
-    dict(cw, ty, lc, levels, smem).
-
-    A block stages 2 * (3 + lc) arrays of K x cw elements (cw =
-    SOLVE_COLUMNS adjacent columns, lc tracers per pass) and runs cw x ty
-    threads (256, or cw x K for a shallow column), each walking
-    ceil(K / ty) levels of its column. Small staging wins (of the column
-    groups timed on an NVIDIA H100 at 256 x 256 x 100 x 2 float32, 8 was
-    the fastest; see PERF.md), so the group is fixed and all L tracers go in one
-    pass where a block's shared memory holds them, else as many as it does."""
-    levels = math.ceil(math.log2(K)) if K > 1 else 0
-    cw = SOLVE_COLUMNS
-    for lc in range(max(L, 1), 0, -1):
-        smem = 2 * (3 + lc) * K * cw * itemsize
-        if smem <= SMEM_LIMIT:
-            return dict(cw=cw, ty=max(1, min(256 // cw, K)), lc=lc,
-                        levels=levels, smem=smem)
-    raise ValueError(f"{K} layers do not fit the solve kernel's shared "
-                     "memory")
+def plan_frames(K, L, itemsize):
+    """The sphere's solve kernel's block (csrc/patch_vmix.cu): plan_chunks'
+    keys for lc tracers per pass, and `rhs`, the width of the kernel that
+    runs it (SOLVE_RHS, or FRAME_RHS for more tracers than that). All L
+    tracers go in one pass where the staging fits (at most FRAME_RHS),
+    else as many as it takes."""
+    for lc in range(min(max(L, 1), FRAME_RHS), 0, -1):
+        try:
+            plan = plan_chunks(K, itemsize, lc)
+        except ValueError:
+            continue
+        return dict(plan, lc=lc,
+                    rhs=SOLVE_RHS if lc <= SOLVE_RHS else FRAME_RHS)
+    raise ValueError(f"{K} layers do not fit the sphere's solve kernel")
 
 
 def plan_coeffs(ny, nx, ke_tab, cm_tab):

@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Device time of the planar splitpre's passes, and host time per step of
+the sphere's forward-backward path, on one NVIDIA GPU.
+
+    python3 pass_times.py            # from the root of a checkout
+
+Runs on the checkout it is started from, so that two checkouts (a commit
+and the one before it) can be read in turn on one card: it reads only
+what both have. Prints one JSON line per part, and the card's name and
+power limit first:
+
+  ptxas       registers, stack and spill of every kernel of csrc/split.cu,
+              as nvcc's -Xptxas -v reported them at the build
+  split_pre   splitpre at 256 x 256 x 100 x 2 float32 (chip_smoke.py's
+              kernel_split state, column ssh): ms per call by CUDA events
+              (three reads of 20 calls) and each pass's device ms per call
+              from torch.profiler over 20 whole calls, with the launches
+              the trace recorded
+  sphere      host ms per step (three 10-step segments through run_steps,
+              each ending in torch.cuda.synchronize()) of icos48 x 100 x 2
+              float32: the flagship configuration and the science one
+              (upwind fluxes, wind, drag 3e-3, PP81), as chip_smoke.py's
+              sphere_path and sphere_science_path drive them
+
+Needs a CUDA device; imports nothing of JAX.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def main():
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("pass_times.py needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ".")
+    from omega_tpu_torch.core import (ModelConfig, ModelState,
+                                      TendencyConfig, VertMixConfig)
+    from omega_tpu_torch.mesh import (patch_icos_mesh, planar_hex_mesh,
+                                      spherical_icos_mesh)
+    from omega_tpu_torch.ops import _build, megastep
+    from omega_tpu_torch.stepping import forward_backward_step, run_steps
+    dev, rng = "cuda", np.random.default_rng(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    emit({"device": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi.stdout.strip()})
+
+    _build.load()
+    lines = _build.BUILD_INFO["ptxas"].splitlines()
+    emit({"ptxas": [[ln.split("'")[1]] + [x.strip() for x in
+                                          lines[i + 1:i + 5]]
+                    for i, ln in enumerate(lines)
+                    if "Compiling entry function" in ln and "split_" in ln
+                    and "patch" not in ln]})
+
+    def cuda_ms(fn, reps=20):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    def pass_ms(fn, kernels, reps=20):
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, n = dict.fromkeys(kernels, 0.0), dict.fromkeys(kernels, 0)
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for lab, sub in kernels.items():
+                    if sub in e.key:
+                        us[lab] += e.device_time_total
+                        n[lab] += e.count
+        return {lab: {"ms": us[lab] / n[lab] / 1e3 if n[lab] else None,
+                      "launches_recorded": n[lab]} for lab in kernels}
+
+    K, L = 100, 2
+    mesh_np = planar_hex_mesh(256, 256, dc=5000.0, f0=1e-4,
+                              bottom_depth=1000.0)
+    mesh = mesh_np.to(dev, torch.float32)
+    cfg = ModelConfig(nvertlayers=K, ntracers=L, ssh_formulation="column",
+                      tendencies=TendencyConfig(visc_del2=1.0e3,
+                                                visc_del4=1.0e9))
+    kx = 2 * np.pi / mesh_np.x_period
+    put = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    st = ModelState(
+        put((1000.0 + np.sin(kx * mesh_np.x_cell))[:, None] / K
+            * np.ones((1, K))),
+        put(0.01 * rng.standard_normal((mesh_np.nedges, K))),
+        put(10.0 + rng.standard_normal((L, mesh_np.ncells, K))))
+    s0 = megastep.stack_state(mesh, st)
+    du, planes = megastep.split_work(s0)
+    fn = lambda: megastep.split_pre(mesh, cfg, s0, du, planes)
+    emit({"split_pre": {
+        "ms": [cuda_ms(fn) for _ in range(3)],
+        "passes": pass_ms(fn, {p: f"split_{p}_kernel"
+                               for p in ("columns", "chain", "slow")})}})
+    del s0, du, planes, st
+
+    mnp = patch_icos_mesh(spherical_icos_mesh(48), 48)
+    m = mnp.to(dev, torch.float32)
+    lat, lon = np.asarray(mnp.lat_cell), np.asarray(mnp.lon_cell)
+    depth = float(np.asarray(mnp.bottom_depth)[0])
+    T = 10.0 + 2.0 * np.arange(K)[::-1] / K \
+        + 0.1 * rng.standard_normal((mnp.ncells, K))
+    S = 35.0 + 0.1 * rng.standard_normal((mnp.ncells, K))
+    sph = ModelState(
+        put((depth + np.sin(2 * lat) * np.cos(lon))[:, None] / K
+            * np.ones((1, K))),
+        put(0.01 * rng.standard_normal((mnp.nedges, K))
+            * np.asarray(mnp.edge_mask)[:, None]),
+        put(np.stack([T, S])))
+    wind = (put(0.1 * np.cos(lat)), put(0.05 * np.sin(lat)))
+    tend = dict(visc_del2=1.0e3, visc_del4=1.0e9)
+    cfgs = {
+        "flagship": (ModelConfig(nvertlayers=K, ntracers=L,
+                                 tendencies=TendencyConfig(**tend)), None),
+        "science": (ModelConfig(
+            nvertlayers=K, ntracers=L, flux_thickness_type="upwind",
+            flux_tracer_type="upwind",
+            vert_mix=VertMixConfig(enabled=True, scheme="pp81",
+                                   temp_index=0, salt_index=1),
+            tendencies=TendencyConfig(wind_forcing=True, bottom_drag=True,
+                                      bottom_drag_coeff=3.0e-3, **tend)),
+            wind)}
+    host = {}
+    for name, (c, w) in cfgs.items():
+        run_steps(m, c, sph, 0.0, 30.0, 1, wind_stress=w)     # untimed
+        s, segs = sph, []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = run_steps(m, c, s, i * 300.0, 30.0, 10,
+                          stepper=forward_backward_step, wind_stress=w)
+            torch.cuda.synchronize()
+            segs.append((time.perf_counter() - t0) / 10 * 1e3)
+        host[name] = segs
+    emit({"sphere": {"host_ms_per_step": host}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -97,6 +97,11 @@ being the bound. Float32 throughout, K = 100 layers, 2 tracers.
   split   the TPU split kernels' own I/O (megastep.py:1136 kinds splitpre /
           splitpost; barotropic_kernel.py:97) at 256 x 256, for comparison
           with the port's (chip_smoke.py computes the port's bounds)
+  split_pre_passes  the planar splitpre's passes at 256 x 256 x 100 as
+          functions of their own (this design's column pass and chain, and
+          the earlier design's three passes), each input read once and
+          each output written once (chip_smoke.py computes the whole
+          call's bound)
 
 Element counts of the icosahedral mesh of subdivision n: 10 n^2 + 2 cells
 (12 pentagons), 30 n^2 edges, 20 n^2 vertices; a cell has as many edges as
@@ -418,6 +423,35 @@ def composed_planar(ny=256, nx=256):
             "column_ssh": bound(int(column), 0)}
 
 
+def split_pre_passes(nx=256, ny=256, k=K):
+    """The planar splitpre's passes as functions of their own at nx x ny x
+    k float32, each input read once and each output written once: this
+    design's two (the column pass: h, u in, ubar, sshc, het out; the chain
+    with the depth average and the slow forcing: h, u, sshc, ubar, het in,
+    du_full, g_slow, du_bar out; its partial sums are its own) and the
+    earlier three-pass design's (the column pass; the chain: h, u, sshc in,
+    du_full out; the slow pass: h, du_full, sshc, ubar, het in, g_slow,
+    du_bar out). Operations:
+    the column sums 2 per cmean entry and 3 per edge class and layer; the
+    chain the momentum part of the hex chain (hex_flops_parts); the depth
+    average 2 per edge class and layer, the slow forcing's stencils 2 per
+    entry on one plane."""
+    plane = ny * nx * F32
+    vol = k * plane
+    pts = ny * nx * k
+    vel = hex_flops_parts()[2]
+    cols = 3 * (2 * 2 + 3) + 1
+    avg = 3 * 2
+    slow = 3 * 2 * (2 + 8) + 12
+    return {"columns": bound(4 * vol + 7 * plane, cols * pts),
+            "chain": bound(7 * vol + 13 * plane,
+                           (vel + avg) * pts + slow * ny * nx),
+            "three_pass": {"columns": bound(4 * vol + 7 * plane, cols * pts),
+                    "chain": bound(7 * vol + plane, vel * pts),
+                    "slow": bound(4 * vol + 13 * plane,
+                                  (avg + 6) * pts + slow * ny * nx)}}
+
+
 def tpu_split_io(ny=256, nx=256):
     plane = ny * nx * F32
     vol = K * plane
@@ -443,3 +477,4 @@ if __name__ == "__main__":
     print(json.dumps({"gather": gather()}))
     print(json.dumps({"composed_planar": composed_planar()}))
     print(json.dumps({"split": tpu_split_io()}))
+    print(json.dumps({"split_pre_passes": split_pre_passes()}))

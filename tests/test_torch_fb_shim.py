@@ -1,7 +1,7 @@
 """The planar FB step kernel (csrc/fb_step.cuh through fb_step.cu and the
 five other fb_step_*.cu, one per flux pair) compiled for the CPU by g++
 against the block-level stand-in for the CUDA runtime of
-tests/test_torch_rk_shim.py (a block's threads as `std::thread`s meeting at
+tests/test_torch_rk_shim.py (a block's threads as fibers meeting at
 `__syncthreads()`, its dynamic shared array one NaN-filled buffer, so a read
 of a slot no level wrote shows), and run on CPU tensors against the
 kernel's plain version (ops/megastep.fb_megastep_plain) on a 32 x 16 planar

@@ -1,11 +1,13 @@
 """The planar RK stage kernel (csrc/rk_stage.cuh through rk_stage_cc.cu and
 rk_stage_uu.cu) compiled for the CPU by g++ against the stand-in for the CUDA
 runtime of tests/test_torch_sphere_split_shim.py, with a block-level launch:
-each block's threads run as `std::thread`s that meet at `__syncthreads()`
-through a C++20 `std::barrier`, and the block's dynamic shared array is one
-buffer per block, filled with NaN bytes before the block starts (a read of
-a slot no level wrote shows). Run on CPU tensors against the kernel's plain
-version (ops/megastep.rk_stage_plain) on a 32 x 16 planar hex mesh, 3
+each block's threads run as fibers (`ucontext`) on the calling thread, one
+after another up to the next `__syncthreads()`, which passes when every
+thread has met it, and the block's dynamic shared array is one buffer per
+block, filled with NaN bytes before the block starts (a read of a slot no
+level wrote, or one a later thread writes before the barrier, shows). Run
+on CPU tensors against the kernel's plain version
+(ops/megastep.rk_stage_plain) on a 32 x 16 planar hex mesh, 3
 layers, 2 tracers: every stage mode (RK_PROV, RK_FIRST, RK_MID, RK_LAST),
 center fluxes without tails and upwind fluxes with the wind / drag tails
 (and the other two pairings), float64 and float32; then the arguments a
@@ -44,9 +46,9 @@ MODES = {"prov": megastep.RK_PROV, "first": megastep.RK_FIRST,
 CA, CB = 0.5 * DT, DT / 3.0
 
 BLOCK_RUNTIME = RUNTIME + r"""
-#include <barrier>
+#include <ucontext.h>
 #include <cstring>
-#include <thread>
+#include <memory>
 #include <vector>
 #define __align__(n) alignas(n)
 #define __syncthreads() shim::sync()
@@ -57,32 +59,65 @@ enum {
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 namespace shim {
-inline thread_local std::barrier<>* bar = nullptr;
+// a block's threads are fibers on the calling thread: each runs until it
+// meets __syncthreads() (or ends), then the next one runs; a barrier is
+// passed when every fiber has reached it
 inline thread_local unsigned char* dyn = nullptr;
-inline void sync() { bar->arrive_and_wait(); }
+inline thread_local ucontext_t* sched = nullptr;
+inline thread_local ucontext_t* cur = nullptr;
+inline thread_local void (*body)(void*) = nullptr;
+inline thread_local void* body_arg = nullptr;
+inline thread_local char* done = nullptr;
+inline thread_local unsigned cur_t = 0;
+inline void sync() { swapcontext(cur, sched); }
+inline void trampoline() {
+  body(body_arg);
+  done[cur_t] = 1;
+}
 // the grid's blocks one after another, each block's threads side by side
+// (fibers switched at every barrier), the dynamic shared array one buffer
+// filled with NaN bytes before each block
 template <class F>
 cudaError_t run_blocks(dim3 g, dim3 b, size_t smem, void*, F f) {
   const unsigned nt = b.x * b.y * b.z;
+  constexpr size_t kStack = 1 << 18;
   std::vector<double> buf(smem / sizeof(double) + 1);
+  std::vector<std::unique_ptr<char[]>> stacks(nt);
+  for (auto& s : stacks) s.reset(new char[kStack]);
+  std::vector<ucontext_t> ctx(nt);
+  std::vector<char> fin(nt);
+  ucontext_t main_ctx;
+  gridDim = g;
+  blockDim = b;
+  dyn = reinterpret_cast<unsigned char*>(buf.data());
+  sched = &main_ctx;
+  done = fin.data();
+  body = [](void* a) { (*static_cast<F*>(a))(); };
+  body_arg = &f;
   for (unsigned z = 0; z < g.z; ++z)
     for (unsigned y = 0; y < g.y; ++y)
       for (unsigned x = 0; x < g.x; ++x) {
         std::memset(buf.data(), 0xff, buf.size() * sizeof(double));
-        std::barrier<> br(nt);
-        std::vector<std::thread> ts;
-        ts.reserve(nt);
-        for (unsigned t = 0; t < nt; ++t)
-          ts.emplace_back([&, t] {
-            gridDim = g;
-            blockDim = b;
-            blockIdx = dim3(x, y, z);
+        blockIdx = dim3(x, y, z);
+        for (unsigned t = 0; t < nt; ++t) {
+          getcontext(&ctx[t]);
+          ctx[t].uc_stack.ss_sp = stacks[t].get();
+          ctx[t].uc_stack.ss_size = kStack;
+          ctx[t].uc_link = &main_ctx;
+          makecontext(&ctx[t], trampoline, 0);
+          fin[t] = 0;
+        }
+        for (bool live = true; live;) {
+          live = false;
+          for (unsigned t = 0; t < nt; ++t) {
+            if (fin[t]) continue;
+            live = true;
             threadIdx = dim3(t % b.x, t / b.x % b.y, t / (b.x * b.y));
-            bar = &br;
-            dyn = reinterpret_cast<unsigned char*>(buf.data());
-            f();
-          });
-        for (auto& th : ts) th.join();
+            cur = &ctx[t];
+            cur_t = t;
+            swapcontext(&main_ctx, &ctx[t]);
+          }
+        }
       }
   return 0;
 }

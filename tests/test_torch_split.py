@@ -276,7 +276,7 @@ def test_rings_are_probed_and_tight():
                    [s] if kind in ("splitcol", "splitpre") else [s, du],
                    None if kind == "splitcol" else planes,
                    megastep.split_ring(tabs, kind), c)
-            for kind in megastep.SPLIT_SLOTS}
+            for kind in megastep._SPLIT_CHAINS}
     cb = btk._consts(pm, cfg.gravity, DT / 8, 1e-4)
     runs["bt"] = (btk._subcycle, [], pre[:10], btk.ring(tabs), cb)
     assert runs["splitpre"][3] == (2, 3) and runs["bt"][3] == (2, 2)

@@ -219,21 +219,33 @@ def test_vmix_on(what):
 
 @pytest.mark.parametrize("K,L,itemsize", [(100, 2, 4), (100, 2, 8), (2, 0, 4),
                                           (7, 5, 8), (64, 1, 4),
-                                          (400, 8, 4)])
+                                          (400, 8, 4), (100, 10, 4),
+                                          (800, 8, 8)])
 def test_plan_solve_invariants(K, L, itemsize):
-    plan = vmix_kernel.plan_solve(K, L, itemsize)
-    assert plan["cw"] == vmix_kernel.SOLVE_COLUMNS == 8
-    assert 1 <= plan["lc"] <= max(L, 1)
-    assert 1 <= plan["cw"] * plan["ty"] <= 256 and plan["ty"] <= K
-    assert 2 ** plan["levels"] >= K > 2 ** (plan["levels"] - 1)
-    assert plan["smem"] == 2 * (3 + plan["lc"]) * K * plan["cw"] * itemsize
+    """The sphere's solve plan (plan_frames): plan_chunks' block for lc
+    tracers per pass, all L where the staging fits (at most FRAME_RHS),
+    run by the kernel compiled for SOLVE_RHS or FRAME_RHS values."""
+    plan = vmix_kernel.plan_frames(K, L, itemsize)
+    lc = plan["lc"]
+    assert 1 <= lc <= min(max(L, 1), vmix_kernel.FRAME_RHS)
+    assert plan["rhs"] == (vmix_kernel.SOLVE_RHS
+                           if lc <= vmix_kernel.SOLVE_RHS
+                           else vmix_kernel.FRAME_RHS)
+    want = vmix_kernel.plan_chunks(K, itemsize, lc)
+    assert {k: plan[k] for k in want} == want
+    assert plan["smem"] == ((2 + max(lc, 2)) * K + (2 + lc) * 2
+                            * plan["lanes"]) * plan["cw"] * itemsize
     assert plan["smem"] <= vmix_kernel.SMEM_LIMIT
-    if K == 100 and itemsize == 4:          # the main path's shape
-        assert (plan["ty"], plan["lc"], plan["smem"]) == (32, 2, 32000)
-    if K == 400:          # eight tracers do not fit one pass: six per pass
-        assert plan["lc"] == 6
-    else:
-        assert plan["lc"] == max(L, 1)
+    assert 1 <= plan["cw"] * plan["lanes"] <= 256 and plan["cw"] <= 32
+    if K == 100 and L == 2 and itemsize == 4:     # the main path's shape
+        assert (plan["cw"], plan["lanes"], plan["chunk"], lc,
+                plan["smem"]) == (32, 4, 25, 2, 55296)
+    if L > vmix_kernel.FRAME_RHS:         # passes of FRAME_RHS tracers
+        assert lc == vmix_kernel.FRAME_RHS
+    elif (K, itemsize) != (800, 8):
+        assert lc == max(L, 1)
+    else:           # eight float64 tracers of 800 layers do not fit a pass
+        assert lc < L
 
 
 @pytest.mark.parametrize("K", [2, 3, 7, 25, 26, 33, 100, 200, 201, 400,
@@ -265,10 +277,12 @@ def test_plan_chunks_refuses_what_cannot_fit():
 
 
 def test_plan_solve_refuses_what_cannot_fit():
-    with pytest.raises(ValueError):
-        vmix_kernel.plan_solve(10000, 1, 8)
-    with pytest.raises(TypeError):
-        vmix_kernel.plan_solve(100, 2, 4, cw=32)     # the group is fixed
+    """The sphere's plan refuses a column no k-lanes take (one layer, more
+    than SOLVE_CHUNK x MAX_LANES layers), as plan_chunks does."""
+    for K in (1, vmix_kernel.SOLVE_CHUNK * vmix_kernel.MAX_LANES + 1,
+              10000):
+        with pytest.raises(ValueError):
+            vmix_kernel.plan_frames(K, 2, 8)
 
 
 @pytest.mark.parametrize("ft", [np.float32, np.float64])

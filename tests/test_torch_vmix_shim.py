@@ -1,7 +1,7 @@
 """The planar column kernels (csrc/vmix.cu: the chunked column solve and the
 PP81 coefficient pass) compiled for the CPU by g++ against the block-level
 stand-in for the CUDA runtime of tests/test_torch_rk_shim.py (a block's
-threads as `std::thread`s meeting at `__syncthreads()`, its dynamic shared
+threads as fibers meeting at `__syncthreads()`, its dynamic shared
 array one NaN-filled buffer), and run on CPU tensors against the kernels'
 plain versions (ops/vmix_kernel.vmix_solve_plain, the reference's PCR, and
 pp81_coeffs_plain) on a 16 x 8 planar hex mesh with 2 tracers: constant
