@@ -1124,7 +1124,8 @@ def main(argv=None):
                        "bound_by": bt_b[1]},
         "split_post": {"max_abs_err": post_abs, "ms": post_ms,
                        "plain_ms": post_plain_ms, "bound_ms": post_b[0],
-                       "bound_by": post_b[1]}}
+                       "bound_by": post_b[1],
+                       **megastep.split_post_attrs(torch.float32)}}
     emit({"phase": "kernel_split", **spl})
     splv = spl["f32_256x256x100x2"]
     del s0, st, du, wplanes, du_p, pl_p, planes, out, bt_out, bt_work
@@ -1697,6 +1698,18 @@ def main(argv=None):
         p48f, cfg48f, fr48, DT, mid48, work48), cfg48f, False)
     fb_ms = cuda_ms(lambda: patch_megastep.fct_b(
         p48f, cfg48f, mid, fr48, DT, out48, work48), 20)
+    # stage B pass by pass: device time (torch.profiler over whole calls),
+    # registers, spill and blocks per SM, each pass's bound
+    fb_attrs = patch_megastep.fct_b_attrs(cfg48f, torch.float32)
+    fb_pass_b = port_bounds.patch_fct_b_passes(N_SPHERE)
+    fb_passes = {
+        nm: {"ms": ms, **fb_attrs[nm],
+             "bound_ms": fb_pass_b[nm]["bound_ms"],
+             "bound_by": fb_pass_b[nm]["bound_by"]}
+        for nm, ms in kernel_ms(lambda: patch_megastep.fct_b(
+            p48f, cfg48f, mid, fr48, DT, out48, work48),
+            {nm: f"fct::pass_{nm}<"
+             for nm in patch_megastep.FCT_B_PASS_NAMES}).items()}
     fb_plain_ms = cuda_ms(lambda: patch_megastep.fct_b_plain(
         p48f, cfg48f, mid, fr48, DT), 2, 1)
     mid_fix48, sub_a48 = patch_megastep.fct_sub_a(p48f, cfg48f, fr48, fix48,
@@ -1759,6 +1772,7 @@ def main(argv=None):
         "stage_a_ms": fa_ms, "stage_a_plain_ms": fa_plain_ms,
         "stage_a_passes": fa_passes,
         "stage_b_ms": fb_ms, "stage_b_plain_ms": fb_plain_ms,
+        "stage_b_passes": fb_passes,
         "stage_a_bound_ms": pfb["stage_a"]["bound_ms"],
         "stage_a_bound_by": pfb["stage_a"]["bound_by"],
         "stage_b_bound_ms": pfb["stage_b"]["bound_ms"],
@@ -3630,7 +3644,7 @@ def main(argv=None):
          "shape": f"({NLAYERS}, {4 + 2 * NTRACERS}, {p48.P}) + frames "
          f"{tuple(patv['frames'])} -> tracers, float32, center thickness "
          "flux", "passes_per_call": patch_megastep.FCT_B_PASSES,
-         "path": "sphere_fct_path"},
+         "passes": fcv["stage_b_passes"], "path": "sphere_fct_path"},
         {"name": "patch_rk", "route": "cuda",
          "source": "omega_tpu_torch/csrc/patch_rk_cc.cu",
          "template": "omega_tpu_torch/csrc/patch_rk.cuh",

@@ -10,10 +10,11 @@ Plain tensor code is PyTorch; the hot kernels are CUDA C++ under csrc/,
 compiled at first use by ops/_build.py:
 
 - the planar hex mesh: the fused forward-backward step (fb_step.cuh,
-  fb_step*.cu), the Runge-Kutta stage (rk_stage.cuh, rk_stage_*.cu) and
-  splitpre's chain (split.cu), on the compiled entry pattern and slab of
-  hex_slab.cuh, splitpost (split.cu) and the barotropic subcycles
-  (barotropic.cu), on the levels of slab_chain.cuh, the PP81 coefficient
+  fb_step*.cu; with the momentum compiled out, splitpost in split.cu), the
+  Runge-Kutta stage (rk_stage.cuh, rk_stage_*.cu) and splitpre's chain
+  (split.cu), on the compiled entry pattern and slab of hex_slab.cuh, the
+  barotropic subcycles (barotropic.cu), on the run-time slab of
+  slab_chain.cuh, the PP81 coefficient
   and column-solve kernels (vmix.cu; the solve's elimination in
   column_solve.cuh), and the structured stencil pass (stencil.cu);
 - the icosahedral sphere's patch frames (table layout in

@@ -64,7 +64,17 @@
 //     float32: 4 blocks per SM), FCT 22 (3 blocks).
 // The launcher refuses any other tile, ring, entry pattern or block size
 // (the host then runs the composed step: megastep.hex_pattern_fits).
+//
+// The split-explicit step's splitpost (split.cu) is this kernel with the
+// switch SPLIT: center fluxes, no tails, the momentum phase compiled out.
+// Its slab holds the transport velocity u_trans = (u - ubar) + <ubar>,
+// formed as the slab loads, in U's slots, so the thickness and tracer
+// levels run as they are; the owned pair then takes u_new = (u - ubar) +
+// dt (du_full - du_bar) + ub_final in the reference's order. Its ring is
+// splitpost's own chain radius (2, 2), so it has its own compiled geometry.
 #pragma once
+
+#include <type_traits>
 
 #include "hex_slab.cuh"
 
@@ -79,10 +89,20 @@ constexpr int fb_slots() {
   return TRF == TR_FCT ? 22 : 16;
 }
 
+// where splitpost's (ny, nx) planes lie in its `planes` argument: kUbar,
+// kDubar, kUbf and kUavg, the first of three planes each. split.cu, the one
+// user of the switch SPLIT, defines SplitPlanes<true> from its plane layout
+template <bool SPLIT>
+struct SplitPlanes;
+
 namespace fb {
 
 // the tile, its ring and the block the FB step is compiled for
 using Geo = HexSlab<16, 32, 3, 3, 256>;
+// splitpost's: the same tile and block, its chain's ring (2, 2)
+using PostGeo = HexSlab<16, 32, 2, 2, 256>;
+template <bool SPLIT>
+using GeoOf = std::conditional_t<SPLIT, PostGeo, Geo>;
 // blocks an SM must hold (the register budget): 16 float32 slabs take 54,128
 // bytes a block, 4 blocks an SM; FCT's 22 take 74,192, 3; float64 2 and 1
 template <typename T, int TRF>
@@ -92,13 +112,19 @@ constexpr int kMinBlocks = sizeof(T) == 4 ? (TRF == TR_FCT ? 3 : 4)
 }  // namespace fb
 
 // UPH: upwind thickness flux; TRF: tracer flux; TAILS: wind and drag
-// compiled in. `wind` is the (3, ny, nx) edge-normal stress plane or null.
-template <typename T, bool UPH, int TRF, bool TAILS>
-__global__ void __launch_bounds__(fb::Geo::kThreads, fb::kMinBlocks<T, TRF>)
+// compiled in; SPLIT: splitpost. `wind` is the (3, ny, nx) edge-normal
+// stress plane or null; splitpost reads du_full (3, K, ny, nx) and the
+// split step's planes (null for the FB step).
+template <typename T, bool UPH, int TRF, bool TAILS, bool SPLIT = false>
+__global__ void __launch_bounds__(fb::GeoOf<SPLIT>::kThreads,
+                                  fb::kMinBlocks<T, TRF>)
 fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
-               const T* __restrict__ wind,
+               const T* __restrict__ wind, const T* __restrict__ du,
+               const T* __restrict__ planes,
                const __grid_constant__ FbParams<T> p) {
-  using Geo = fb::Geo;
+  using Geo = fb::GeoOf<SPLIT>;
+  static_assert(!SPLIT || (!UPH && TRF == TR_CENTER && !TAILS),
+                "splitpost: center fluxes, no tails");
   constexpr int kS = Geo::kS, kXX = Geo::kXX, kThreads = Geo::kThreads;
   constexpr bool FCT = TRF == TR_FCT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -182,9 +208,19 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
   for (int q = threadIdx.x; q < kS; q += kThreads) {
     const long long g = gofs(q);
     H[q] = in[chan(0) + g];
-    U[q] = in[chan(1) + g];
-    U[kS + q] = in[chan(2) + g];
-    U[2 * kS + q] = in[chan(3) + g];
+    if constexpr (SPLIT) {
+      // the transport velocity u' + <ubar>, u' = u - ubar
+      using SP = SplitPlanes<SPLIT>;
+      _Pragma("unroll") for (int t = 0; t < 3; ++t) {
+        const T uprime = in[chan(1 + t) + g] -
+                         planes[(SP::kUbar + t) * plane + g];
+        U[t * kS + q] = uprime + planes[(SP::kUavg + t) * plane + g];
+      }
+    } else {
+      U[q] = in[chan(1) + g];
+      U[kS + q] = in[chan(2) + g];
+      U[2 * kS + q] = in[chan(3) + g];
+    }
   }
   if (p.L > 0) load_tr(0);
   __syncthreads();
@@ -195,12 +231,12 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
     static_for<3>([&](auto tc) {
       constexpr int t = decltype(tc)::value;
       if constexpr (UPH) {
-        const T h0 = H[q + Geo::kPair<T_C0, t, PAR>];
-        const T h1 = H[q + Geo::kPair<T_C1, t, PAR>];
+        const T h0 = H[q + Geo::template kPair<T_C0, t, PAR>];
+        const T h1 = H[q + Geo::template kPair<T_C1, t, PAR>];
         MH[t * kS + q] = T(0.5) * (h0 + h1);
         FH[t * kS + q] = upwind_sel(U[t * kS + q], h0, h1);
       } else {
-        MH[t * kS + q] = Geo::ap<T_CMEAN, t, PAR>(p, q, at(H));
+        MH[t * kS + q] = Geo::template ap<T_CMEAN, t, PAR>(p, q, at(H));
       }
     });
   });
@@ -209,7 +245,7 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
   // ---- h_new = h + dt * (-div(flux_h * u)) on the slab
   Geo::rows([&](auto par, int q) {
     constexpr int PAR = decltype(par)::value;
-    const T dh = Geo::ap<T_DIV, 0, PAR>(p, q, [&](int r) {
+    const T dh = Geo::template ap<T_DIV, 0, PAR>(p, q, [&](int r) {
       return (UPH ? FH[r] : MH[r]) * U[r];
     });
     HN[q] = H[q] + p.dt * (-dh);
@@ -245,8 +281,8 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
         constexpr int PAR = decltype(par)::value;
         static_for<3>([&](auto tc) {
           constexpr int t = decltype(tc)::value;
-          constexpr int o0 = Geo::kPair<T_C0, t, PAR>;
-          constexpr int o1 = Geo::kPair<T_C1, t, PAR>;
+          constexpr int o0 = Geo::template kPair<T_C0, t, PAR>;
+          constexpr int o1 = Geo::template kPair<T_C1, t, PAR>;
           const T t0 = TR[q + o0], t1 = TR[q + o1];
           const T u = U[t * kS + q];
           T fh;
@@ -260,7 +296,7 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
           const T lo = mul_rn(u > T(0) ? t0 : (u < T(0) ? t1 : mean), mf);
           FLO[t * kS + q] = lo;
           AA[t * kS + q] = mul_rn(mean, mf) - lo;
-          const T ctr = Geo::ap<T_CDIFF, t, PAR>(p, q, at(TR));
+          const T ctr = Geo::template ap<T_CDIFF, t, PAR>(p, q, at(TR));
           FG[t * kS + q] = p.geo * MH[t * kS + q] * ctr;
         });
       });
@@ -269,15 +305,15 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
       // (p_in = dt (div_neg(a+) + div_pos(a-)), p_out the other pairing), D2
       Geo::rows([&](auto par, int q) {
         constexpr int PAR = decltype(par)::value;
-        const T div_lo = Geo::ap<T_DIV, 0, PAR>(p, q, at(FLO));
+        const T div_lo = Geo::template ap<T_DIV, 0, PAR>(p, q, at(FLO));
         TD[q] = (mul_rn(TR[q], H[q]) - mul_rn(p.dt, div_lo)) / HN[q];
         const auto pos = [&](int r) { return AA[r] > T(0) ? AA[r] : T(0); };
         const auto neg = [&](int r) { return -AA[r] > T(0) ? -AA[r] : T(0); };
-        PIN[q] = p.dt * (Geo::ap<T_DIVN, 0, PAR>(p, q, pos) +
-                         Geo::ap<T_DIVP, 0, PAR>(p, q, neg));
-        POUT[q] = p.dt * (Geo::ap<T_DIVP, 0, PAR>(p, q, pos) +
-                          Geo::ap<T_DIVN, 0, PAR>(p, q, neg));
-        FD2[q] = Geo::ap<T_SDIV, 0, PAR>(p, q, at(FG));
+        PIN[q] = p.dt * (Geo::template ap<T_DIVN, 0, PAR>(p, q, pos) +
+                         Geo::template ap<T_DIVP, 0, PAR>(p, q, neg));
+        POUT[q] = p.dt * (Geo::template ap<T_DIVP, 0, PAR>(p, q, pos) +
+                          Geo::template ap<T_DIVN, 0, PAR>(p, q, neg));
+        FD2[q] = Geo::template ap<T_SDIV, 0, PAR>(p, q, at(FG));
       });
       __syncthreads();
       // admissible bounds over the cell and its six neighbours, old and
@@ -305,7 +341,8 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
         POUT[q] = r_out < T(0) ? T(0) : (r_out > T(1) ? T(1) : r_out);
         static_for<3>([&](auto tc) {
           constexpr int t = decltype(tc)::value;
-          FG[t * kS + q] = p.geo4 * Geo::ap<T_CDIFF, t, PAR>(p, q, at(FD2));
+          FG[t * kS + q] =
+              p.geo4 * Geo::template ap<T_CDIFF, t, PAR>(p, q, at(FD2));
         });
       });
       __syncthreads();
@@ -315,8 +352,8 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
         constexpr int PAR = decltype(par)::value;
         static_for<3>([&](auto tc) {
           constexpr int t = decltype(tc)::value;
-          constexpr int o0 = Geo::kPair<T_C0, t, PAR>;
-          constexpr int o1 = Geo::kPair<T_C1, t, PAR>;
+          constexpr int o0 = Geo::template kPair<T_C0, t, PAR>;
+          constexpr int o1 = Geo::template kPair<T_C1, t, PAR>;
           const T a = AA[t * kS + q];
           const T x = PIN[q + o1] < POUT[q + o0] ? PIN[q + o1] : POUT[q + o0];
           const T y = PIN[q + o0] < POUT[q + o1] ? PIN[q + o0] : POUT[q + o1];
@@ -329,8 +366,8 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
       // bound sees)
       owned([&](auto par, int q, long long g) {
         constexpr int PAR = decltype(par)::value;
-        const T adv = -Geo::ap<T_DIV, 0, PAR>(p, q, at(FLO));
-        const T hyp = Geo::ap<T_SDIV, 0, PAR>(p, q, at(FG));
+        const T adv = -Geo::template ap<T_DIV, 0, PAR>(p, q, at(FLO));
+        const T hyp = Geo::template ap<T_SDIV, 0, PAR>(p, q, at(FG));
         const T dtr = adv + mul_rn(p.ed2s, FD2[q]) - mul_rn(p.ed4, hyp);
         const T num = mul_rn(to[PAR], ho[PAR]) + mul_rn(p.dt, dtr);
         out[chan(4 + l) + g] = num / hn[PAR];
@@ -342,15 +379,15 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
         static_for<3>([&](auto tc) {
           constexpr int t = decltype(tc)::value;
           if constexpr (TRF == TR_UPWIND) {
-            constexpr int o0 = Geo::kPair<T_C0, t, PAR>;
-            constexpr int o1 = Geo::kPair<T_C1, t, PAR>;
+            constexpr int o0 = Geo::template kPair<T_C0, t, PAR>;
+            constexpr int o1 = Geo::template kPair<T_C1, t, PAR>;
             HTR[t * kS + q] = upwind_sel(U[t * kS + q], H[q + o0] * TR[q + o0],
                                          H[q + o1] * TR[q + o1]);
           } else {
-            HTR[t * kS + q] = Geo::ap<T_CMEAN, t, PAR>(
+            HTR[t * kS + q] = Geo::template ap<T_CMEAN, t, PAR>(
                 p, q, [&](int r) { return H[r] * TR[r]; });
           }
-          const T ctr = Geo::ap<T_CDIFF, t, PAR>(p, q, at(TR));
+          const T ctr = Geo::template ap<T_CDIFF, t, PAR>(p, q, at(TR));
           G[t * kS + q] = p.geo * MH[t * kS + q] * ctr;
         });
       });
@@ -358,10 +395,10 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
       // ADV = -div(HTR*u) (into TR's slot), D2 = signed_div(G)
       Geo::rows([&](auto par, int q) {
         constexpr int PAR = decltype(par)::value;
-        const T adv = -Geo::ap<T_DIV, 0, PAR>(p, q, [&](int r) {
+        const T adv = -Geo::template ap<T_DIV, 0, PAR>(p, q, [&](int r) {
           return HTR[r] * U[r];
         });
-        const T d2 = Geo::ap<T_SDIV, 0, PAR>(p, q, at(G));
+        const T d2 = Geo::template ap<T_SDIV, 0, PAR>(p, q, at(G));
         ADV[q] = adv;
         D2[q] = d2;
       });
@@ -371,14 +408,15 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
         constexpr int PAR = decltype(par)::value;
         static_for<3>([&](auto tc) {
           constexpr int t = decltype(tc)::value;
-          CD2[t * kS + q] = p.geo4 * Geo::ap<T_CDIFF, t, PAR>(p, q, at(D2));
+          CD2[t * kS + q] =
+              p.geo4 * Geo::template ap<T_CDIFF, t, PAR>(p, q, at(D2));
         });
       });
       __syncthreads();
       // owned pair: del4, then the thickness-weighted update
       owned([&](auto par, int q, long long g) {
         constexpr int PAR = decltype(par)::value;
-        const T hyp = Geo::ap<T_SDIV, 0, PAR>(p, q, at(CD2));
+        const T hyp = Geo::template ap<T_SDIV, 0, PAR>(p, q, at(CD2));
         const T dtr = ADV[q] + p.ed2s * D2[q] - p.ed4 * hyp;
         out[chan(4 + l) + g] = (to[PAR] * ho[PAR] + p.dt * dtr) / hn[PAR];
       });
@@ -386,28 +424,46 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
     __syncthreads();
   }
 
+  if constexpr (SPLIT) {
+    // ---- splitpost: u_new = u' + dt (du_full - du_bar) + ub_final
+    using SP = SplitPlanes<SPLIT>;
+    owned([&](auto, int, long long g) {
+      _Pragma("unroll") for (int t = 0; t < 3; ++t) {
+        const long long c = chan(1 + t) + g;
+        const T uprime = in[c] - planes[(SP::kUbar + t) * plane + g];
+        const T du_slow =
+            du[chan(t) + g] - planes[(SP::kDubar + t) * plane + g];
+        out[c] = (uprime + mul_rn(p.dt, du_slow)) +
+                 planes[(SP::kUbf + t) * plane + g];
+      }
+    });
+    return;
+  }
+
   // ---- momentum aux on h_new: F, ke, div, curl, the normalized
   // vorticities (the tracer phase's slots are free now); u at the owned
   // pair into registers
   Geo::rows([&](auto par, int q) {
     constexpr int PAR = decltype(par)::value;
-    KE[q] = Geo::ap<T_KE, 0, PAR>(p, q, [&](int r) { return U[r] * U[r]; });
-    DIVU[q] = Geo::ap<T_DIV, 0, PAR>(p, q, at(U));
+    KE[q] = Geo::template ap<T_KE, 0, PAR>(
+        p, q, [&](int r) { return U[r] * U[r]; });
+    DIVU[q] = Geo::template ap<T_DIV, 0, PAR>(p, q, at(U));
     static_for<3>([&](auto tc) {
       constexpr int t = decltype(tc)::value;
       T fl;
       if constexpr (UPH) {
-        fl = upwind_sel(U[t * kS + q], HN[q + Geo::kPair<T_C0, t, PAR>],
-                        HN[q + Geo::kPair<T_C1, t, PAR>]);
+        fl = upwind_sel(U[t * kS + q],
+                        HN[q + Geo::template kPair<T_C0, t, PAR>],
+                        HN[q + Geo::template kPair<T_C1, t, PAR>]);
       } else {
-        fl = Geo::ap<T_CMEAN, t, PAR>(p, q, at(HN));
+        fl = Geo::template ap<T_CMEAN, t, PAR>(p, q, at(HN));
       }
       F[t * kS + q] = fl * U[t * kS + q];
     });
     static_for<2>([&](auto tc) {
       constexpr int t = decltype(tc)::value;
-      const T rv = Geo::ap<T_CURL, t, PAR>(p, q, at(U));
-      const T hv = Geo::ap<T_KITE, t, PAR>(p, q, at(HN));
+      const T rv = Geo::template ap<T_CURL, t, PAR>(p, q, at(U));
+      const T hv = Geo::template ap<T_KITE, t, PAR>(p, q, at(HN));
       RV[t * kS + q] = rv;
       NRV[t * kS + q] = rv / hv;
       NPV[t * kS + q] = p.f0v / hv;
@@ -425,8 +481,8 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
     constexpr int PAR = decltype(par)::value;
     static_for<3>([&](auto tc) {
       constexpr int t = decltype(tc)::value;
-      const T nrv_e = Geo::ap<T_VMEAN, t, PAR>(p, q, at(NRV));
-      const T npv_e = Geo::ap<T_VMEAN, t, PAR>(p, q, at(NPV));
+      const T nrv_e = Geo::template ap<T_VMEAN, t, PAR>(p, q, at(NRV));
+      const T npv_e = Geo::template ap<T_VMEAN, t, PAR>(p, q, at(NPV));
       Q[t * kS + q] = nrv_e + npv_e;
     });
   });
@@ -435,8 +491,8 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
     constexpr int PAR = decltype(par)::value;
     static_for<3>([&](auto tc) {
       constexpr int t = decltype(tc)::value;
-      const T cdd = Geo::ap<T_CDIFF, t, PAR>(p, q, at(DIVU));
-      const T vdr = Geo::ap<T_VDIFF, t, PAR>(p, q, at(RV));
+      const T cdd = Geo::template ap<T_CDIFF, t, PAR>(p, q, at(DIVU));
+      const T vdr = Geo::template ap<T_VDIFF, t, PAR>(p, q, at(RV));
       del2[t][PAR] = cdd * p.inv_dc - vdr * p.inv_dv;
     });
   });
@@ -446,8 +502,8 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
     constexpr int PAR = decltype(par)::value;
     static_for<3>([&](auto tc) {
       constexpr int t = decltype(tc)::value;
-      const T cdd = Geo::ap<T_CDIFF, t, PAR>(p, q, at(DIVU));
-      const T vdr = Geo::ap<T_VDIFF, t, PAR>(p, q, at(RV));
+      const T cdd = Geo::template ap<T_CDIFF, t, PAR>(p, q, at(DIVU));
+      const T vdr = Geo::template ap<T_VDIFF, t, PAR>(p, q, at(RV));
       D2E[t * kS + q] = cdd * p.inv_dc - vdr * p.inv_dv_floor;
     });
   });
@@ -455,9 +511,9 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
   // div and curl of del2 on edges (into div u's and curl u's slots)
   Geo::rows([&](auto par, int q) {
     constexpr int PAR = decltype(par)::value;
-    const T dd = Geo::ap<T_DIV, 0, PAR>(p, q, at(D2E));
-    const T r0 = Geo::ap<T_CURL, 0, PAR>(p, q, at(D2E));
-    const T r1 = Geo::ap<T_CURL, 1, PAR>(p, q, at(D2E));
+    const T dd = Geo::template ap<T_DIV, 0, PAR>(p, q, at(D2E));
+    const T r0 = Geo::template ap<T_CURL, 0, PAR>(p, q, at(D2E));
+    const T r1 = Geo::template ap<T_CURL, 1, PAR>(p, q, at(D2E));
     D2DIV[q] = dd;
     D2RV[q] = r0;
     D2RV[kS + q] = r1;
@@ -483,10 +539,10 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
       });
       const T qe = Q[t * kS + q];
       const T pv = T(0.5) * (qe * tf + tfq);
-      const T gke = Geo::ap<T_CDIFF, t, PAR>(p, q, at(KE));
-      const T gssh = Geo::ap<T_CDIFF, t, PAR>(p, q, at(HN));
-      const T cd4 = Geo::ap<T_CDIFF, t, PAR>(p, q, at(D2DIV));
-      const T vd4 = Geo::ap<T_VDIFF, t, PAR>(p, q, at(D2RV));
+      const T gke = Geo::template ap<T_CDIFF, t, PAR>(p, q, at(KE));
+      const T gssh = Geo::template ap<T_CDIFF, t, PAR>(p, q, at(HN));
+      const T cd4 = Geo::template ap<T_CDIFF, t, PAR>(p, q, at(D2DIV));
+      const T vd4 = Geo::template ap<T_VDIFF, t, PAR>(p, q, at(D2RV));
       T du = pv - gke * p.inv_dc - p.grav * gssh * p.inv_dc +
              p.nu2s * del2[t][PAR] -
              p.nu4s * (p.div_factor * cd4 * p.inv_dc - vd4 * p.inv_dv);
@@ -494,16 +550,16 @@ fb_step_kernel(const T* __restrict__ in, T* __restrict__ out,
         if (top || bottom) {
           T mh;   // mean_h of h_new
           if constexpr (UPH) {
-            mh = T(0.5) * (HN[q + Geo::kPair<T_C0, t, PAR>] +
-                           HN[q + Geo::kPair<T_C1, t, PAR>]);
+            mh = T(0.5) * (HN[q + Geo::template kPair<T_C0, t, PAR>] +
+                           HN[q + Geo::template kPair<T_C1, t, PAR>]);
           } else {
-            mh = Geo::ap<T_CMEAN, t, PAR>(p, q, at(HN));
+            mh = Geo::template ap<T_CMEAN, t, PAR>(p, q, at(HN));
           }
           if (top) du = du + wind[t * plane + g] / (p.rho0 * mh);
           if (bottom) {
             // 2*cmean(ke) == ke0 + ke1 bit for bit (halving and doubling
             // are exact), the composed step's sqrt(ke0 + ke1)
-            const T kee = Geo::ap<T_CMEAN, t, PAR>(p, q, at(KE));
+            const T kee = Geo::template ap<T_CMEAN, t, PAR>(p, q, at(KE));
             const T twice = T(2) * kee;
             const T speed = sqrt(twice > T(0) ? twice : T(0));
             du = du + (-(p.cd * speed * uo[t][PAR] / mh));
@@ -533,7 +589,7 @@ int launch_fb_step(const void* in, void* out, const void* wind,
   if (err != cudaSuccess) return static_cast<int>(err);
   fb_step_kernel<T, UPH, TRF, TAILS><<<slab_grid(p), threads, smem, stream>>>(
       static_cast<const T*>(in), static_cast<T*>(out),
-      static_cast<const T*>(wind), p);
+      static_cast<const T*>(wind), nullptr, nullptr, p);
   return static_cast<int>(cudaGetLastError());
 }
 

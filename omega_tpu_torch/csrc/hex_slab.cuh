@@ -1,9 +1,10 @@
 // The planar hex mesh's table-entry pattern and a slab geometry compiled in:
-// what the fused FB step (fb_step.cuh) and the RK stage (rk_stage.cuh)
-// share, so that every shared-memory read of a stencil is one load at an
-// immediate offset from the point's own index, with no parity select and no
-// address arithmetic, and its weight an operand from the kernel's parameter
-// space (FbParams::w).
+// what the fused FB step (fb_step.cuh, splitpost among its instantiations),
+// the RK stage (rk_stage.cuh) and splitpre's chain (split.cu) share, so
+// that every shared-memory read of a stencil is one load at an immediate
+// offset from the point's own index, with no parity select and no address
+// arithmetic, and its weight an operand from the kernel's parameter space
+// (FbParams::w).
 //
 // A kernel names its geometry, HexSlab<BY, BX, RY, RX, THREADS>: a block is
 // one layer x one BY x BX tile with a (RY, RX) ring, THREADS threads, and

@@ -1,6 +1,7 @@
-// Shared by the sphere's patch kernels (patch_step.cuh, patch_vmix.cu): the
-// layout of the compact per-position table and the const planes built by
-// ops/patch_megastep.py (compact_table, prep), and the reads through it.
+// Shared by the sphere's patch kernels (patch_step.cuh, patch_vmix.cu,
+// patch_fct.cu): the layout of the compact per-position table and the const
+// planes built by ops/patch_megastep.py (compact_table, prep), the reads
+// through it, and a kernel's registers, spill and blocks per SM.
 //
 // The frames are (K, 4+L, P) with P = 10 S S positions: channel 0 = h,
 // 1..3 = the edge classes of u, 4.. = tracers; a layer's channels are
@@ -72,6 +73,25 @@ __device__ __forceinline__ T sten(const T (&w)[N], const int (&o)[N],
 template <typename T>
 __device__ __forceinline__ T safe_div(T n, T d) {
   return d != T(0) ? n / d : T(0);
+}
+
+// cudaFuncGetAttributes of kernel k (numRegs, localSizeBytes,
+// sharedSizeBytes into out[0..2]) and the blocks of `threads` threads an
+// SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor, out[3])
+inline int kernel_attrs(const void* k, int threads, int* out) {
+  if (k == nullptr || out == nullptr || threads < 32 || threads > 256)
+    return cudaErrorInvalidValue;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  out[3] = blocks;
+  return 0;
 }
 
 }  // namespace patch

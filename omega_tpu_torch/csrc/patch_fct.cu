@@ -272,6 +272,18 @@ int launch(const void* mid, const void* in, void* out, const void* off,
   return 0;
 }
 
+// kernel_attrs of pass `pass` (flux, ratios, limit, tracers: 0 ... 3)
+template <typename T, bool UH>
+int pass_attrs(int pass, int threads, int* out) {
+  const void* k =
+      pass == 0   ? reinterpret_cast<const void*>(pass_flux<T, UH>)
+      : pass == 1 ? reinterpret_cast<const void*>(pass_ratios<T>)
+      : pass == 2 ? reinterpret_cast<const void*>(pass_limit<T>)
+      : pass == 3 ? reinterpret_cast<const void*>(pass_tracers<T>)
+                  : nullptr;
+  return kernel_attrs(k, threads, out);
+}
+
 }  // namespace fct
 }  // namespace patch
 }  // namespace omega
@@ -284,8 +296,10 @@ int launch(const void* mid, const void* in, void* out, const void* off,
 // `consts` = dt, the edge mask's value where it is uniform; `ints` = P, S,
 // K, L, layers per thread, threads per block, 1 when the edge mask is a
 // plane of `cpl`. Returns the first refused launch's error code, or 0.
-// omega_patch_fct_rows(0 | 1) gives the row counts of an FCT prep's compact
-// offsets and weights.
+// omega_patch_fct_b_attrs_<c|u>_<f32|f64>(pass, threads, out): registers,
+// local (spill) and static shared bytes of pass `pass` and the blocks of
+// `threads` threads an SM holds (out[0..3]). omega_patch_fct_rows(0 | 1)
+// gives the row counts of an FCT prep's compact offsets and weights.
 #define OMEGA_FCT_ENTRY(FL, SUF, T, UH)                                      \
   int omega_patch_fct_b_##FL##_##SUF(                                        \
       const void* mid, const void* in, void* out, const void* off,           \
@@ -294,6 +308,9 @@ int launch(const void* mid, const void* in, void* out, const void* off,
     return omega::patch::fct::launch<T, UH>(                                 \
         mid, in, out, off, w, cpl, work, consts, ints,                       \
         static_cast<cudaStream_t>(stream));                                  \
+  }                                                                          \
+  int omega_patch_fct_b_attrs_##FL##_##SUF(int pass, int threads, int* out) { \
+    return omega::patch::fct::pass_attrs<T, UH>(pass, threads, out);         \
   }
 
 extern "C" {

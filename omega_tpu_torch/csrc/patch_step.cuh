@@ -557,25 +557,6 @@ const void* fb_pass_kernel(int pass) {
   }
 }
 
-// cudaFuncGetAttributes of kernel k (numRegs, localSizeBytes,
-// sharedSizeBytes into out[0..2]) and the blocks of `threads` threads an
-// SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor, out[3])
-inline int kernel_attrs(const void* k, int threads, int* out) {
-  if (k == nullptr || out == nullptr || threads < 32 || threads > 256)
-    return cudaErrorInvalidValue;
-  cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, k);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = fa.numRegs;
-  out[1] = static_cast<int>(fa.localSizeBytes);
-  out[2] = static_cast<int>(fa.sharedSizeBytes);
-  out[3] = blocks;
-  return 0;
-}
-
 // kernel_attrs of the FB step's pass `pass`
 template <typename T, bool UH, int TR, bool TAILS>
 int fb_pass_attrs(int pass, int threads, int* out) {

@@ -1,11 +1,11 @@
 // What the planar chain kernels share: the shift tables as compile-time
 // entry layouts with their offsets and weights in the kernel's parameter
-// space (FbParams, which the FB step and the RK stage read too), the
-// one-layer x (by, bx) slab with the periodic wrap as index arithmetic, and
-// the levels splitpost (split.cu) evaluates on it (the thickness fluxes, the
-// center / upwind tracer tendency). The FB step, the RK stage and
-// splitpre's chain walk the same chain on a compiled slab geometry and
-// entry pattern instead (hex_slab.cuh).
+// space (FbParams, which every chain kernel reads), and the one-layer x
+// (by, bx) slab with the periodic wrap as index arithmetic and run-time
+// offsets, on which the barotropic subcycles (barotropic.cu) run. The FB
+// step, the RK stage and the split step's chain and splitpost walk their
+// chains on a compiled slab geometry and entry pattern instead
+// (hex_slab.cuh).
 //
 // A block is one layer k x one (by, bx) horizontal tile of the stacked state
 // (4+L, K, ny, nx), x fastest; it holds a (by+2ry) x (bx+2rx) slab of every
@@ -107,20 +107,6 @@ __device__ __forceinline__ T apply(const FbParams<T>& p, int t, bool odd,
 // apply table B (destination class t) at point q of row parity `odd`
 #define AP(B, t, read) apply<B>(p, t, odd, q, read)
 
-// flat offset of entry e for a point on a row of the given parity
-template <typename T>
-__device__ __forceinline__ int entry_ofs(const FbParams<T>& p, int e,
-                                         bool odd) {
-  return odd ? p.off[1][e] : p.off[0][e];
-}
-
-// flat offset of the one entry of pair table B (T_C0 or T_C1), class t
-template <int B, typename T>
-__device__ __forceinline__ int pair_ofs(const FbParams<T>& p, int t,
-                                        bool odd) {
-  return entry_ofs(p, tab_base(B) + t * tab_count(B), odd);
-}
-
 // the reference's upwind selection: a where u > 0, b where u < 0, the larger
 // of the two at rest
 template <typename T>
@@ -164,11 +150,6 @@ struct Slab {
     dy = blockDim.x / XX;
     dx = blockDim.x - dy * XX;
   }
-  // device-memory offset of channel ch, layer k
-  template <typename T>
-  __device__ long long chan(const FbParams<T>& p, int ch) const {
-    return (static_cast<long long>(ch) * p.K + k) * plane;
-  }
   // device-memory offset (within a channel plane) of slab point q
   template <typename T>
   __device__ long long gofs(const FbParams<T>& p, int q) const {
@@ -198,81 +179,6 @@ struct Slab {
   for (int q = threadIdx.x, sy = sl.sy0, sx_ = sl.sx0; q < sl.S;            \
        q += blockDim.x, sy += sl.dy, sx_ += sl.dx,                          \
            (sx_ >= sl.XX ? (sx_ -= sl.XX, ++sy) : 0))
-
-// mean_h = cmean(h); upwind: mean_h = 0.5*(h0+h1), flux_h = the pick (FH)
-template <bool UPH, typename T>
-__device__ __forceinline__ void thickness_level(const Slab& sl,
-                                                const FbParams<T>& p,
-                                                const T* H, const T* U, T* MH,
-                                                T* FH) {
-  const int S = sl.S;
-  FOR_SLAB(q, sy) {
-    const bool odd = sl.is_odd(sy);
-    _Pragma("unroll") for (int t = 0; t < 3; ++t) {
-      if constexpr (UPH) {
-        const T h0 = H[q + pair_ofs<T_C0>(p, t, odd)];
-        const T h1 = H[q + pair_ofs<T_C1>(p, t, odd)];
-        MH[t * S + q] = T(0.5) * (h0 + h1);
-        FH[t * S + q] = upwind_sel(U[t * S + q], h0, h1);
-      } else {
-        MH[t * S + q] = AP(T_CMEAN, t, at(H));
-      }
-    }
-  }
-}
-
-// The center / upwind tracer tendency's slab levels for the tracer in TR
-// (fluxes on h, H): HTR = h*tr on edges, G = geo*mean_h*cdiff(tr); then
-// ADV = -div(HTR*u), D2 = signed_div(G); then CD2 = geo4*cdiff(D2). Ends on
-// a barrier; `tracer_dtr` finishes at an owned point.
-template <bool UPT, typename T>
-__device__ __forceinline__ void tracer_levels(const Slab& sl,
-                                              const FbParams<T>& p,
-                                              const T* H, const T* U,
-                                              const T* MH, const T* TR,
-                                              T* HTR, T* G, T* ADV, T* D2,
-                                              T* CD2) {
-  const int S = sl.S;
-  FOR_SLAB(q, sy) {
-    const bool odd = sl.is_odd(sy);
-    _Pragma("unroll") for (int t = 0; t < 3; ++t) {
-      if constexpr (UPT) {
-        const int o0 = pair_ofs<T_C0>(p, t, odd);
-        const int o1 = pair_ofs<T_C1>(p, t, odd);
-        HTR[t * S + q] = upwind_sel(U[t * S + q], H[q + o0] * TR[q + o0],
-                                    H[q + o1] * TR[q + o1]);
-      } else {
-        HTR[t * S + q] = AP(T_CMEAN, t, [&](int r) { return H[r] * TR[r]; });
-      }
-      const T ctr = AP(T_CDIFF, t, at(TR));
-      G[t * S + q] = p.geo * MH[t * S + q] * ctr;
-    }
-  }
-  __syncthreads();
-
-  FOR_SLAB(q, sy) {
-    const bool odd = sl.is_odd(sy);
-    ADV[q] = -AP(T_DIV, 0, [&](int r) { return HTR[r] * U[r]; });
-    D2[q] = AP(T_SDIV, 0, at(G));
-  }
-  __syncthreads();
-
-  FOR_SLAB(q, sy) {
-    const bool odd = sl.is_odd(sy);
-    _Pragma("unroll") for (int t = 0; t < 3; ++t)
-      CD2[t * S + q] = p.geo4 * AP(T_CDIFF, t, at(D2));
-  }
-  __syncthreads();
-}
-
-// d(h tr)/dt at owned point q: adv + del2 - del4, del4 = signed_div(CD2)
-template <typename T>
-__device__ __forceinline__ T tracer_dtr(const FbParams<T>& p, int q, bool odd,
-                                        const T* ADV, const T* D2,
-                                        const T* CD2) {
-  const T hyp = AP(T_SDIV, 0, at(CD2));
-  return ADV[q] + p.ed2s * D2[q] - p.ed4 * hyp;
-}
 
 // bytes of dynamic shared memory for `slots` slab arrays and the guards
 template <typename T>

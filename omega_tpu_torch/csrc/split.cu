@@ -21,14 +21,18 @@
 //                  (-g/dc cdiff(sshc) + f_e tang(ubar) - r ubar) in the last
 //                  layer's block (planes)
 //
-// and splitpost is one launch: the FB step's thickness and tracer levels
-// (slab_chain.cuh) with the transport velocity u_trans = (u - ubar) + <ubar>
-// formed while the slab loads, and u_new = (u - ubar) + dt (du_full - du_bar)
-// + ub_final at the owned centre. uprime and du_slow are formed where
-// splitpost reads them, in the reference's order of operations, and never
-// stored. No float atomics: every sum over k runs in layer order, so the
-// kernels agree with their plain versions run after run; every product that
-// the plain version rounds before an add is rounded here too (mul_rn).
+// and splitpost is one launch: the FB step's kernel (fb_step.cuh) with its
+// switch SPLIT, on the compiled slab of hex_slab.cuh with splitpost's ring
+// (2, 2): the FB step's thickness and tracer levels with the transport
+// velocity u_trans = (u - ubar) + <ubar> formed while the slab loads, a
+// thread a row pair of the tile holding h, h_new and the tracer there in
+// registers, the next tracer's slab fetched a tracer ahead, and u_new =
+// (u - ubar) + dt (du_full - du_bar) + ub_final at the owned pair. uprime
+// and du_slow are formed where splitpost reads them, in the reference's
+// order of operations, and never stored. No float atomics: every sum over
+// k runs in layer order, so the kernels agree with their plain versions run
+// after run; every product that the plain version rounds before an add is
+// rounded here too (mul_rn).
 //
 // The chain's depth average. A block takes a ticket at its start (an
 // integer atomic on a counter the column pass zeroed) and works the tile
@@ -44,8 +48,9 @@
 // and the chain; 8 of the 4+L state volumes) and writes du_full (3 volumes)
 // and 13 planes; splitpost reads the state, du_full and 12 planes and writes
 // the state. The chain's stencil arithmetic (the momentum half of an RK
-// stage's) out of shared memory is what the time goes to.
-#include "hex_slab.cuh"
+// stage's) out of shared memory is what the time goes to; splitpost's, the
+// FB step's thickness and tracer levels'.
+#include "fb_step.cuh"
 
 namespace omega {
 
@@ -54,10 +59,17 @@ enum SplitPlane {
   P_UBAR = 0, P_SSH = 3, P_GSLOW = 4, P_HET = 7, P_DUBAR = 10, P_UBF = 13,
   P_SSHF = 16, P_UAVG = 17, P_WORK = 20
 };
+// where splitpost, the FB step's kernel with SPLIT, reads them
+template <>
+struct SplitPlanes<true> {
+  static constexpr int kUbar = P_UBAR, kDubar = P_DUBAR, kUbf = P_UBF,
+                       kUavg = P_UAVG;
+};
 
-// slab arrays of the chain and of splitpost (ops/megastep.py: SPLIT_SLOTS)
+// slab arrays of the chain and of splitpost (ops/megastep.py: SPLIT_SLOTS;
+// splitpost: the FB step's center-flux slots)
 constexpr int kSplitChainSlots = 18;
-constexpr int kSplitPostSlots = 20;
+constexpr int kSplitPostSlots = fb_slots<TR_CENTER>();
 
 namespace split {
 
@@ -390,98 +402,6 @@ split_chain_kernel(const T* __restrict__ in, T* __restrict__ planes,
   });
 }
 
-// splitpost: h and the tracers with u_trans, u_new at the owned centre
-template <typename T>
-__global__ void __launch_bounds__(512)
-split_post_kernel(const T* __restrict__ in, const T* __restrict__ du,
-                  const T* __restrict__ planes, T* __restrict__ out,
-                  const __grid_constant__ FbParams<T> p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Slab sl(p);
-  const int S = sl.S;
-  T* const sm = reinterpret_cast<T*>(smem_raw) + p.guard;
-  // the FB step's tracer-phase slots
-  T* const H = sm;              // old thickness
-  T* const U = sm + 1 * S;      // u_trans, 3 edge classes
-  T* const MH = sm + 4 * S;     // mean_h = cmean(h), 3
-  T* const HN = sm + 7 * S;     // new thickness
-  T* const TR = sm + 8 * S;     // current tracer
-  T* const HTR = sm + 9 * S;    // h*tr on edges, 3
-  T* const G = sm + 12 * S;     // geo*mean_h*cdiff(tr), 3
-  T* const ADV = sm + 15 * S;
-  T* const D2 = sm + 16 * S;
-  T* const CD2 = sm + 17 * S;   // geo4*cdiff(d2tr), 3
-  const long long plane = sl.plane;
-
-  // h, and the transport velocity u' + <ubar> with u' = u - ubar
-  for (int q = threadIdx.x; q < S; q += blockDim.x) {
-    const long long g = sl.gofs(p, q);
-    H[q] = in[sl.chan(p, 0) + g];
-    _Pragma("unroll") for (int t = 0; t < 3; ++t)
-      U[t * S + q] = (in[sl.chan(p, 1 + t) + g] - planes[(P_UBAR + t) * plane + g]) +
-                     planes[(P_UAVG + t) * plane + g];
-  }
-  __syncthreads();
-  thickness_level<false>(sl, p, H, U, MH, MH);
-  __syncthreads();
-
-  // h_new = h + dt * (-div(mean_h * u_trans))
-  FOR_SLAB(q, sy) {
-    const bool odd = sl.is_odd(sy);
-    const T dh = AP(T_DIV, 0, [&](int r) { return MH[r] * U[r]; });
-    HN[q] = H[q] + p.dt * (-dh);
-  }
-  __syncthreads();
-
-  // tracers, one at a time, fluxes on the old h with u_trans
-  for (int l = 0; l < p.L; ++l) {
-    for (int q = threadIdx.x; q < S; q += blockDim.x)
-      TR[q] = in[sl.chan(p, 4 + l) + sl.gofs(p, q)];
-    __syncthreads();
-    tracer_levels<false>(sl, p, H, U, MH, TR, HTR, G, ADV, D2, CD2);
-    for (int o = threadIdx.x; o < sl.nown; o += blockDim.x) {
-      int q;
-      long long g;
-      bool odd;
-      if (!sl.owned(p, o, q, g, odd)) continue;
-      const T dtr = tracer_dtr(p, q, odd, ADV, D2, CD2);
-      out[sl.chan(p, 4 + l) + g] = (TR[q] * H[q] + p.dt * dtr) / HN[q];
-    }
-    __syncthreads();
-  }
-
-  for (int o = threadIdx.x; o < sl.nown; o += blockDim.x) {
-    int q;
-    long long g;
-    bool odd;
-    if (!sl.owned(p, o, q, g, odd)) continue;
-    out[sl.chan(p, 0) + g] = HN[q];
-    _Pragma("unroll") for (int t = 0; t < 3; ++t) {
-      const long long c = sl.chan(p, 1 + t) + g;
-      const T uprime = in[c] - planes[(P_UBAR + t) * plane + g];
-      const T du_slow = du[sl.chan(p, t) + g] - planes[(P_DUBAR + t) * plane + g];
-      out[c] = (uprime + mul_rn(p.dt, du_slow)) + planes[(P_UBF + t) * plane + g];
-    }
-  }
-}
-
-// check, size the shared memory of and launch one split kernel; returns
-// from the enclosing launcher with the error code of a refused launch
-#define OMEGA_SPLIT_LAUNCH(KERN, P, SLOTS, GRID, THREADS, STREAM, ...)        \
-  do {                                                                        \
-    if ((THREADS) < 32 || (THREADS) > 512)                                    \
-      return cudaErrorInvalidConfiguration;                                   \
-    if (!layout_ok(P) || (P).K < 1) return cudaErrorInvalidValue;             \
-    const size_t smem_ = slab_smem_bytes(P, SLOTS);                           \
-    cudaError_t err_ = cudaFuncSetAttribute(                                  \
-        KERN, cudaFuncAttributeMaxDynamicSharedMemorySize,                    \
-        static_cast<int>(smem_));                                             \
-    if (err_ != cudaSuccess) return static_cast<int>(err_);                   \
-    KERN<<<GRID, THREADS, smem_, STREAM>>>(__VA_ARGS__);                      \
-    err_ = cudaGetLastError();                                                \
-    if (err_ != cudaSuccess) return static_cast<int>(err_);                   \
-  } while (0)
-
 // splitpre: the column pass, then the chain (whose record is packed for the
 // compiled tile, ring and entry pattern); `threads` must be the chain's
 // block
@@ -555,18 +475,59 @@ int split_pre_attrs(int pass, int* out) {
   return 0;
 }
 
+// splitpost: one launch of the FB step's kernel with the switch SPLIT
+// (fb_step.cuh), whose record is packed for its compiled tile, ring (2, 2)
+// and entry pattern; `threads` must be its block
 template <typename T>
 int launch_split_post(const void* in, const void* du, const void* planes,
                       void* out, const FbParams<T>* hp, int threads,
                       cudaStream_t stream) {
+  using Geo = fb::PostGeo;
   if (in == nullptr || du == nullptr || planes == nullptr || out == nullptr ||
-      out == in) {
+      hp == nullptr || out == in) {
     return cudaErrorInvalidValue;
   }
-  OMEGA_SPLIT_LAUNCH(split_post_kernel<T>, *hp, kSplitPostSlots,
-                     slab_grid(*hp), threads, stream,
-                     static_cast<const T*>(in), static_cast<const T*>(du),
-                     static_cast<const T*>(planes), static_cast<T*>(out), *hp);
+  const FbParams<T>& p = *hp;
+  if (threads != Geo::kThreads) return cudaErrorInvalidConfiguration;
+  if (!layout_ok(p) || !Geo::geometry_ok(p) || p.K < 1)
+    return cudaErrorInvalidValue;
+  auto* const k = &fb_step_kernel<T, false, TR_CENTER, false, true>;
+  const size_t smem = slab_smem_bytes(p, kSplitPostSlots);
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k<<<slab_grid(p), threads, smem, stream>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), nullptr,
+      static_cast<const T*>(du), static_cast<const T*>(planes), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cudaFuncGetAttributes of splitpost's kernel: numRegs, localSizeBytes,
+// sharedSizeBytes into out[0..2], and the blocks an SM holds at its block
+// and dynamic shared memory (out[3])
+template <typename T>
+int split_post_attrs(int* out) {
+  using Geo = fb::PostGeo;
+  if (out == nullptr) return cudaErrorInvalidValue;
+  const void* k = reinterpret_cast<const void*>(
+      &fb_step_kernel<T, false, TR_CENTER, false, true>);
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem =
+      (kSplitPostSlots * static_cast<size_t>(Geo::kS) + 2 * Geo::kGuard) *
+      sizeof(T);
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k,
+                                                      Geo::kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  out[3] = blocks;
   return 0;
 }
 
@@ -574,14 +535,16 @@ int launch_split_post(const void* in, const void* du, const void* planes,
 
 // The C interface, in both precisions. `params` point at host FbParams<T>
 // (splitpre: the chain's, packed for the compiled tile, ring (2, 3) and
-// entry pattern of split::Geo; splitpost: its own); `in` and `out` are
+// entry pattern of split::Geo; splitpost: its own, for the tile, ring
+// (2, 2) and entry pattern of fb::PostGeo); `in` and `out` are
 // stacked (4+L, K, ny, nx) states, `du` a (3, K, ny, nx) array, `planes` the
 // (24, ny, nx) planes (splitpre keeps its counters and partial sums in the
 // work planes 20..23). depth, ggrad = -g/dc, fe = f_edge and r = the linear
 // drag are rounded to T once here. Each returns the first refused launch's
 // error code, or 0. omega_split_pre_attrs_*(pass, out): registers, local
 // (spill) bytes, static shared bytes and blocks per SM of the column pass
-// (0) or the chain (1).
+// (0) or the chain (1); omega_split_post_attrs_*(out): the same of
+// splitpost's kernel.
 #define OMEGA_SPLIT_ENTRIES(SUF, T)                                           \
   int omega_split_pre_##SUF(const void* in, void* du, void* planes,           \
                             const void* params, double depth, double ggrad,   \
@@ -599,6 +562,9 @@ int launch_split_post(const void* in, const void* du, const void* planes,
     return omega::launch_split_post<T>(                                       \
         in, du, planes, out, static_cast<const omega::FbParams<T>*>(params),  \
         threads, static_cast<cudaStream_t>(stream));                          \
+  }                                                                           \
+  int omega_split_post_attrs_##SUF(int* out) {                                \
+    return omega::split_post_attrs<T>(out);                                   \
   }
 
 extern "C" {

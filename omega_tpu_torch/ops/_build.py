@@ -143,6 +143,9 @@ def load() -> ctypes.CDLL:
         # state, du, planes, out, params, threads, stream
         fn.argtypes = [vp] * 5 + [ci, vp]
         fn.restype = ci
+        fn = getattr(lib, f"omega_split_post_attrs_{suffix}")
+        fn.argtypes = [vp]                   # out[4]
+        fn.restype = ci
         fn = getattr(lib, f"omega_barotropic_{suffix}")
         # in, out, work, params, dt_bt, ggrad, f_e, r, M, threads, stream
         fn.argtypes = [vp] * 4 + [cd] * 4 + [ci, ci, vp]
@@ -194,6 +197,9 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, f"omega_patch_fct_b_{flux}_{suffix}")
             # mid, in, out, offs, wts, cpl, work, consts, ints, stream
             fn.argtypes = [vp] * 10
+            fn.restype = ci
+            fn = getattr(lib, f"omega_patch_fct_b_attrs_{flux}_{suffix}")
+            fn.argtypes = [ci, ci, vp]        # pass, threads, out[4]
             fn.restype = ci
         for name in ("pp81", "vmix_solve"):
             fn = getattr(lib, f"omega_patch_{name}_{suffix}")

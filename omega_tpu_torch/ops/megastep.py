@@ -53,7 +53,8 @@ Mechanics:
     the ssh gradient of the column free surface on the RK stage's compiled
     slab, which also carries the depth average of du from layer to layer
     of a tile in layer order and forms the slow forcing at the last layer;
-    splitpost is the FB step's thickness and tracer levels with the
+    splitpost is the FB step's kernel with the momentum compiled out, on
+    its own compiled ring (2, 2): its thickness and tracer levels with the
     transport velocity formed as the slab loads. The 2-D fields between
     them live in one (NPLANES, ny, nx) array.
 
@@ -581,7 +582,7 @@ def guard_elems(slab_width):
 
 def plan_tile(ny, nx, itemsize, ring, tile=None, nslots=SLOTS):
     """Pick a kernel's tile: dict(by, bx, ry, rx, threads, guard, smem);
-    splitpost's and the barotropic kernel's planner.
+    the barotropic kernel's planner.
 
     The slab (by+2ry) x (bx+2rx) times `nslots` arrays must fit one block's
     shared memory; the tile need not divide the domain (ragged tiles are
@@ -622,10 +623,11 @@ def plan_tile(ny, nx, itemsize, ring, tile=None, nslots=SLOTS):
 
 
 def hex_plan(itemsize, ring, nslots):
-    """The FB step's or the RK stage kernel's plan (plan_tile's keys): the
-    tile and block both are compiled for (HEX_TILE) with the chain's ring
-    and `nslots` slab arrays, whatever the domain (a tile larger than the
-    domain is ragged: wrapped reads, masked writes)."""
+    """The plan (plan_tile's keys) of a chain kernel compiled for the hex
+    mesh (the FB step, the RK stage, the split step's chain and
+    splitpost): the tile and block they are compiled for (HEX_TILE) with
+    the chain's ring and `nslots` slab arrays, whatever the domain (a tile
+    larger than the domain is ragged: wrapped reads, masked writes)."""
     by, bx, threads = HEX_TILE
     ry, rx = ring
     guard = guard_elems(bx + 2 * rx)
@@ -805,8 +807,10 @@ P_UBAR, P_SSH, P_GSLOW, P_HET, P_DUBAR = 0, 3, 4, 7, 10
 P_UBF, P_SSHF, P_UAVG, P_WORK, NPLANES = 13, 16, 17, 20, 24
 # slab arrays of the split kernels (kSplit*Slots in csrc/split.cu): the
 # chain is the RK stage's momentum levels on its compiled tile (HEX_TILE,
-# ring (2, 3)); splitpost the FB step's thickness and tracer levels
-SPLIT_SLOTS = {"splitpre": 18, "splitpost": 20}
+# ring (2, 3)); splitpost the FB step's kernel with the momentum compiled
+# out (csrc/fb_step.cuh, switch SPLIT; HEX_TILE, ring (2, 2)), its
+# center-flux slots
+SPLIT_SLOTS = {"splitpre": 18, "splitpost": 16}
 _SPLIT_PASS = {"splitpre": 1, "splitpost": 3}
 # splitpre's launches per call (the column pass, the chain) and their names
 SPLIT_PRE_PASSES = 2
@@ -1308,8 +1312,9 @@ def rk4_megastep(mesh, cfg, state, t, dt, wind_stress=None):
 
 def _split_rec(mesh, cfg, dt, stacked, kind):
     """(rec, threads, (depth, ggrad, f_e)) of a split pass on a CUDA
-    stacked state, packed once per configuration and shape: splitpre's
-    chain for the compiled tile (hex_plan), splitpost for plan_tile's."""
+    stacked state, packed once per configuration and shape for the
+    compiled tile (hex_plan) with the pass's probed ring: splitpre's chain
+    (2, 3), splitpost (2, 2) (the launchers refuse any other)."""
     ft, suffix = _FLOAT[stacked.dtype]
     nx, ny = mesh.structured_nx, mesh.structured_ny
     L, K = stacked.shape[0] - 4, stacked.shape[1]
@@ -1319,9 +1324,7 @@ def _split_rec(mesh, cfg, dt, stacked, kind):
     if hit is None:
         tabs, c = _split_args(mesh, cfg, dt)
         ring, itemsize = split_ring(tabs, kind), np.dtype(ft).itemsize
-        plan = hex_plan(itemsize, ring, SPLIT_SLOTS[kind]) \
-            if kind == "splitpre" else \
-            plan_tile(ny, nx, itemsize, ring, nslots=SPLIT_SLOTS[kind])
+        plan = hex_plan(itemsize, ring, SPLIT_SLOTS[kind])
         rec = pack_params(tabs, c, ft, plan)
         rec["L"], rec["K"], rec["ny"], rec["nx"] = L, K, ny, nx
         hit = _PARAM_CACHE[key] = (rec, plan["threads"],
@@ -1392,10 +1395,24 @@ def split_pre_attrs(dtype):
     return out
 
 
+def split_post_attrs(dtype):
+    """cudaFuncGetAttributes' numRegs, localSizeBytes (the spill) and
+    sharedSizeBytes of splitpost's kernel in `dtype`, and the blocks an SM
+    holds at its block and shared memory."""
+    lib = _build.load()
+    got = np.zeros(4, np.int32)
+    _build.check(getattr(lib, f"omega_split_post_attrs_"
+                              f"{_FLOAT[dtype][1]}")(got.ctypes.data),
+                 "cudaFuncGetAttributes")
+    return dict(zip(("num_regs", "local_bytes", "shared_bytes",
+                     "blocks_per_sm"), map(int, got)))
+
+
 def split_post(mesh, cfg, stacked, du, planes, dt, out):
     """splitpost into `out` (a distinct array like `stacked`): for a CUDA
-    array one launch on PyTorch's current stream, for a CPU array the plain
-    version."""
+    array one launch of the FB step's kernel with the momentum compiled
+    out (csrc/fb_step.cuh, instantiated by csrc/split.cu) on PyTorch's
+    current stream, for a CPU array the plain version."""
     global split_post_launches
     if not stacked.is_cuda:
         out.copy_(split_post_plain(mesh, cfg, stacked, du, planes, dt))

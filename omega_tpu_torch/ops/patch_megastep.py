@@ -130,6 +130,9 @@ RK_PASS_NAMES = ("A", "B", "C", "D1", "D2")
 FB_PASS_NAMES = ("A", "B", "C", "D1", "D2", "E")
 SPLIT_PRE_PASS_NAMES = ("ssh", "A", "B", "C", "D2")
 SPLIT_POST_PASSES = 4
+# the passes of FCT's stage B (csrc/patch_fct.cu: pass_flux, pass_ratios,
+# pass_limit, pass_tracers), in launch order
+FCT_B_PASS_NAMES = ("flux", "ratios", "limit", "tracers")
 # what an RK stage makes of its tendencies k (megastep's modes, the same
 # run-time enum RkMode of the kernels), with ca = a dt and cb = b dt:
 #   RK_PROV   out = base + ca k                  (RK2's two stages)
@@ -1123,6 +1126,30 @@ def fct_a(p, cfg, frames, dt, out=None, work=None, wind=None):
     return out
 
 
+def _fct_b_args(p, cfg, mid, frames, dt, out, work):
+    """(entry point, consts, ints, work) of stage B's call, after the
+    checks: shapes, types and devices, and `out` not aliasing `mid`."""
+    _check_fct(p, cfg)
+    K, CH, P = frames.shape
+    L = CH - 4
+    if work is None or work.numel() < fct_b_work_fields(L) * K * P:
+        work = frames.new_empty(fct_b_work_fields(L) * K * P)
+    work = work[:fct_b_work_fields(L) * K * P]
+    _check(p, frames, out, work, work_n=fct_b_work_fields(L))
+    _check(p, frames, mid, work, out_ch=2 * CH - 4,
+           work_n=fct_b_work_fields(L))
+    if out.data_ptr() == mid.data_ptr():
+        raise ValueError("stage B cannot write its input")
+    em = p.consts["edge_mask"]
+    consts = np.array([float(dt), em if isinstance(em, float) else 0.0],
+                      np.float64)
+    ints = np.array([P, p.S, K, L, LAYERS_PER_THREAD, THREADS,
+                     0 if isinstance(em, float) else 1], np.int32)
+    name = (f"omega_patch_fct_b_{_FLUX[cfg.flux_thickness_type]}_"
+            f"{_suffix(frames)}")
+    return name, consts, ints, work
+
+
 def fct_b(p, cfg, mid, frames, dt, out, work=None):
     """FCT's stage B: the new tracers from the refreshed stage-A output
     `mid` (K, 4+2L, P) and the original frames (K, 4+L, P), written into
@@ -1133,28 +1160,13 @@ def fct_b(p, cfg, mid, frames, dt, out, work=None):
     array the plain version runs."""
     global fct_b_launches
     _check_fct(p, cfg)
-    K, CH, P = frames.shape
-    L = CH - 4
     if not frames.is_cuda:
         out[:, 4:] = fct_b_plain(p, cfg, mid, frames, dt)
         return out
-    if work is None or work.numel() < fct_b_work_fields(L) * K * P:
-        work = frames.new_empty(fct_b_work_fields(L) * K * P)
-    work = work[:fct_b_work_fields(L) * K * P]
-    _check(p, frames, out, work, work_n=fct_b_work_fields(L))
-    _check(p, frames, mid, work, out_ch=2 * CH - 4,
-           work_n=fct_b_work_fields(L))
-    if out.data_ptr() == mid.data_ptr():
-        raise ValueError("stage B cannot write its input")
+    name, consts, ints, work = _fct_b_args(p, cfg, mid, frames, dt, out,
+                                           work)
     lib = _build.load()
     _rows_ok(lib, p)
-    em = p.consts["edge_mask"]
-    consts = np.array([float(dt), em if isinstance(em, float) else 0.0],
-                      np.float64)
-    ints = np.array([P, p.S, K, L, LAYERS_PER_THREAD, THREADS,
-                     0 if isinstance(em, float) else 1], np.int32)
-    name = (f"omega_patch_fct_b_{_FLUX[cfg.flux_thickness_type]}_"
-            f"{_suffix(frames)}")
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, name)(
@@ -1273,6 +1285,16 @@ def split_post_attrs(dtype):
     fn = getattr(lib, f"omega_patch_split_post_attrs_"
                       f"{_suffix(torch.empty(0, dtype=dtype))}")
     return _pass_attrs(fn, FB_PASS_NAMES[:SPLIT_POST_PASSES])
+
+
+def fct_b_attrs(cfg, dtype):
+    """fb_pass_attrs of stage B's kernels (FCT_B_PASS_NAMES) for the
+    thickness flux of `cfg` in `dtype`."""
+    lib = _build.load()
+    fn = getattr(lib, f"omega_patch_fct_b_attrs_"
+                      f"{_FLUX[cfg.flux_thickness_type]}_"
+                      f"{_suffix(torch.empty(0, dtype=dtype))}")
+    return _pass_attrs(fn, FCT_B_PASS_NAMES)
 
 
 def rk_pass_attrs(cfg, dtype, tails):

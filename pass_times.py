@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Device time of the planar splitpre's passes, and host time per step of
-the sphere's forward-backward path, on one NVIDIA GPU.
+"""Device time of the planar splitpre's passes and splitpost, of the
+sphere's FCT stage B and its launches, and host time per step of the
+sphere's forward-backward path, on one NVIDIA GPU.
 
     python3 pass_times.py            # from the root of a checkout
+    python3 pass_times.py fct_b      # only the parts named (split, fct_b,
+                                     # sphere); ptxas always
 
 Runs on the checkout it is started from, so that two checkouts (a commit
 and the one before it) can be read in turn on one card: it reads only
@@ -16,6 +19,17 @@ power limit first:
               (three reads of 20 calls) and each pass's device ms per call
               from torch.profiler over 20 whole calls, with the launches
               the trace recorded
+  split_post  splitpost on splitpre's output and the barotropic
+              subcycles' (M = 10) at the same shape: ms per call by CUDA
+              events (three reads of 20 calls), its registers, spill and
+              blocks per SM where the checkout reads them
+  fct_b       FCT's stage B at icos48 x 100 x 2 float32 (chip_smoke.py's
+              kernel_patch_fct inputs: center thickness flux, a 0/1 cap,
+              u = 0.05 x noise, stage A's refreshed output): ms per call by
+              CUDA events (three reads of 20 calls), each launch's device
+              ms per call (torch.profiler over 20 whole calls, by kernel
+              name), and each launch's registers, spill and blocks per SM
+              where the checkout reads them
   sphere      host ms per step (three 10-step segments through run_steps,
               each ending in torch.cuda.synchronize()) of icos48 x 100 x 2
               float32: the flagship configuration and the science one
@@ -35,7 +49,14 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def main():
+PARTS = ("split", "fct_b", "sphere")
+
+
+def main(argv):
+    parts = set(argv) or set(PARTS)
+    if not parts <= set(PARTS):
+        print(f"parts: {', '.join(PARTS)}", file=sys.stderr)
+        return 2
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -94,27 +115,39 @@ def main():
                       "launches_recorded": n[lab]} for lab in kernels}
 
     K, L = 100, 2
-    mesh_np = planar_hex_mesh(256, 256, dc=5000.0, f0=1e-4,
-                              bottom_depth=1000.0)
-    mesh = mesh_np.to(dev, torch.float32)
-    cfg = ModelConfig(nvertlayers=K, ntracers=L, ssh_formulation="column",
-                      tendencies=TendencyConfig(visc_del2=1.0e3,
-                                                visc_del4=1.0e9))
-    kx = 2 * np.pi / mesh_np.x_period
     put = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
-    st = ModelState(
-        put((1000.0 + np.sin(kx * mesh_np.x_cell))[:, None] / K
-            * np.ones((1, K))),
-        put(0.01 * rng.standard_normal((mesh_np.nedges, K))),
-        put(10.0 + rng.standard_normal((L, mesh_np.ncells, K))))
-    s0 = megastep.stack_state(mesh, st)
-    du, planes = megastep.split_work(s0)
-    fn = lambda: megastep.split_pre(mesh, cfg, s0, du, planes)
-    emit({"split_pre": {
-        "ms": [cuda_ms(fn) for _ in range(3)],
-        "passes": pass_ms(fn, {p: f"split_{p}_kernel"
-                               for p in ("columns", "chain", "slow")})}})
-    del s0, du, planes, st
+    if "split" in parts:
+        mesh_np = planar_hex_mesh(256, 256, dc=5000.0, f0=1e-4,
+                                  bottom_depth=1000.0)
+        mesh = mesh_np.to(dev, torch.float32)
+        cfg = ModelConfig(nvertlayers=K, ntracers=L, ssh_formulation="column",
+                          tendencies=TendencyConfig(visc_del2=1.0e3,
+                                                    visc_del4=1.0e9))
+        kx = 2 * np.pi / mesh_np.x_period
+        st = ModelState(
+            put((1000.0 + np.sin(kx * mesh_np.x_cell))[:, None] / K
+                * np.ones((1, K))),
+            put(0.01 * rng.standard_normal((mesh_np.nedges, K))),
+            put(10.0 + rng.standard_normal((L, mesh_np.ncells, K))))
+        s0 = megastep.stack_state(mesh, st)
+        du, planes = megastep.split_work(s0)
+        fn = lambda: megastep.split_pre(mesh, cfg, s0, du, planes)
+        emit({"split_pre": {
+            "ms": [cuda_ms(fn) for _ in range(3)],
+            "passes": pass_ms(fn, {p: f"split_{p}_kernel"
+                                   for p in ("columns", "chain", "slow")})}})
+        from omega_tpu_torch.ops import barotropic_kernel as btk
+        btk.bt_planes(mesh, planes[:megastep.P_DUBAR], gravity=cfg.gravity,
+                      dt_bt=12.0, n_subcycles=10,
+                      out=planes[megastep.P_UBF:megastep.P_UAVG + 3],
+                      work=planes[megastep.P_WORK:])
+        out = torch.empty_like(s0)
+        fn = lambda: megastep.split_post(mesh, cfg, s0, du, planes, 120.0, out)
+        rec = {"ms": [cuda_ms(fn) for _ in range(3)]}
+        if hasattr(megastep, "split_post_attrs"):
+            rec["attrs"] = megastep.split_post_attrs(torch.float32)
+        emit({"split_post": rec})
+        del s0, du, planes, st, out
 
     mnp = patch_icos_mesh(spherical_icos_mesh(48), 48)
     m = mnp.to(dev, torch.float32)
@@ -130,33 +163,72 @@ def main():
             * np.asarray(mnp.edge_mask)[:, None]),
         put(np.stack([T, S])))
     wind = (put(0.1 * np.cos(lat)), put(0.05 * np.sin(lat)))
-    tend = dict(visc_del2=1.0e3, visc_del4=1.0e9)
-    cfgs = {
-        "flagship": (ModelConfig(nvertlayers=K, ntracers=L,
-                                 tendencies=TendencyConfig(**tend)), None),
-        "science": (ModelConfig(
-            nvertlayers=K, ntracers=L, flux_thickness_type="upwind",
-            flux_tracer_type="upwind",
-            vert_mix=VertMixConfig(enabled=True, scheme="pp81",
-                                   temp_index=0, salt_index=1),
-            tendencies=TendencyConfig(wind_forcing=True, bottom_drag=True,
-                                      bottom_drag_coeff=3.0e-3, **tend)),
-            wind)}
-    host = {}
-    for name, (c, w) in cfgs.items():
-        run_steps(m, c, sph, 0.0, 30.0, 1, wind_stress=w)     # untimed
-        s, segs = sph, []
-        for i in range(3):
+
+    # FCT's stage B on stage A's refreshed output
+    if "fct_b" in parts:
+        from omega_tpu_torch.ops import patch_megastep as pm
+        cfg_f = ModelConfig(nvertlayers=K, ntracers=L, flux_tracer_type="fct",
+                            tendencies=TendencyConfig(visc_del2=1.0e3,
+                                                      visc_del4=1.0e9))
+        cap = (np.cos(lat) * np.cos(lon) > 0.7)[:, None] * np.ones((1, K))
+        st_f = ModelState(
+            sph.h, put(0.05 * rng.standard_normal((mnp.nedges, K))
+                       * np.asarray(mnp.edge_mask)[:, None]),
+            put(np.stack([cap, 10.0 + 0.0 * cap])))
+        pf = pm.prep(m, torch.float32, dev, fct=True)
+        fr, fix = pm.stack_frames(m, cfg_f, st_f)
+        mid_fix, _ = pm.fct_sub_a(pf, cfg_f, fr, fix, 0.0, 30.0)
+        mid = pm.fct_refresh_mid(pf, pm.fct_a(pf, cfg_f, fr, 30.0), mid_fix)
+        out, work = torch.empty_like(fr), pm.new_work(fr)
+        fn = lambda: pm.fct_b(pf, cfg_f, mid, fr, 30.0, out, work)
+        fn()
+        torch.cuda.synchronize()
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            s = run_steps(m, c, s, i * 300.0, 30.0, 10,
-                          stepper=forward_backward_step, wind_stress=w)
-            torch.cuda.synchronize()
-            segs.append((time.perf_counter() - t0) / 10 * 1e3)
-        host[name] = segs
-    emit({"sphere": {"host_ms_per_step": host}})
+        launches = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA \
+                    and "patch::fct::" in e.key:
+                name = e.key.split("fct::")[1].split("<")[0]
+                launches[name] = {"ms": e.device_time_total / 20 / 1e3,
+                                  "launches_recorded": e.count}
+        rec = {"ms": [cuda_ms(fn) for _ in range(3)], "launches": launches}
+        if hasattr(pm, "fct_b_attrs"):
+            rec["attrs"] = pm.fct_b_attrs(cfg_f, torch.float32)
+        emit({"fct_b": rec})
+        del fr, mid, out, work, st_f
+
+    if "sphere" in parts:
+        tend = dict(visc_del2=1.0e3, visc_del4=1.0e9)
+        cfgs = {
+            "flagship": (ModelConfig(nvertlayers=K, ntracers=L,
+                                     tendencies=TendencyConfig(**tend)), None),
+            "science": (ModelConfig(
+                nvertlayers=K, ntracers=L, flux_thickness_type="upwind",
+                flux_tracer_type="upwind",
+                vert_mix=VertMixConfig(enabled=True, scheme="pp81",
+                                       temp_index=0, salt_index=1),
+                tendencies=TendencyConfig(wind_forcing=True, bottom_drag=True,
+                                          bottom_drag_coeff=3.0e-3, **tend)),
+                wind)}
+        host = {}
+        for name, (c, w) in cfgs.items():
+            run_steps(m, c, sph, 0.0, 30.0, 1, wind_stress=w)     # untimed
+            s, segs = sph, []
+            for i in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                s = run_steps(m, c, s, i * 300.0, 30.0, 10,
+                              stepper=forward_backward_step, wind_stress=w)
+                torch.cuda.synchronize()
+                segs.append((time.perf_counter() - t0) / 10 * 1e3)
+            host[name] = segs
+        emit({"sphere": {"host_ms_per_step": host}})
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

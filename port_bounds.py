@@ -102,6 +102,11 @@ being the bound. Float32 throughout, K = 100 layers, 2 tracers.
           the earlier design's three passes), each input read once and
           each output written once (chip_smoke.py computes the whole
           call's bound)
+  split_post_pass  the planar splitpost at 256 x 256 x 100, one launch, as
+          a function of its own (chip_smoke.py's splitpost bound)
+  patch_fct_b_passes  FCT's stage B on the sphere at icos48 as its four
+          passes (flux, ratios, limit, tracers), each a function of its
+          own, and the scratch bytes they move through device memory
 
 Element counts of the icosahedral mesh of subdivision n: 10 n^2 + 2 cells
 (12 pentagons), 30 n^2 edges, 20 n^2 vertices; a cell has as many edges as
@@ -235,6 +240,39 @@ def patch_fct(n=48):
             "tpu_fctb_io": {"reads": f"{5 + 3 * L} frame channels",
                             "writes": f"{L} channels",
                             **bound((5 + 3 * L) * chan_in + L * chan_out, 0)}}
+
+
+def patch_fct_b_passes(n=48):
+    """FCT's stage B on the sphere at icos{n} as its four passes, each a
+    function of its own (each input read once, each output written once;
+    the fluxes on the mesh's edges, the ratios on its cells): flux reads h,
+    u, the tracers and the cmean weights and writes the antidiffusive and
+    the low-order flux; ratios reads the antidiffusive flux, the tracers,
+    trtd, h_new and the divergence weights and writes r_in and r_out; limit
+    reads both fluxes, r_in and r_out and writes the corrected flux;
+    tracers reads it, facc, h_new and the divergence weights and writes the
+    tracers. Operations per (edge or cell, layer) of one tracer: the flux
+    pair 8 per edge, the four budget walks, the 26 min / max and the ratios
+    (12) per cell, the picks and the limiter 8 per edge, the divergence and
+    the update per cell. Also the scratch the passes move through device
+    memory on the frames (P = 10 S^2, S = n + 16): pass 1 writes the two
+    fluxes (3L fields each), pass 2 reads the first and writes r_in and
+    r_out (L each), pass 3 reads all four and writes the corrected flux
+    over the low-order one, pass 4 reads it."""
+    C, E, V, ce, ve, tang = icos(n)
+    cells, edges = C * L * K, E * L * K          # one value per tracer
+    S = n + 16
+    fields = 10 * S * S * K * F32                 # one (K, P) field
+    scratch = (2 * 3 * L + 3 * L + 2 * L + 2 * L + 3 * 3 * L + 3 * L) \
+        * fields
+    return {"flux": bound(((C + E) * K + cells + 2 * edges) * F32
+                          + ce * F32, 8 * edges),
+            "ratios": bound((edges + 2 * cells + C * K + 2 * cells) * F32
+                            + ce * F32, (2 * 4 * 6 + 26 + 12) * cells),
+            "limit": bound((3 * edges + 2 * cells) * F32, 8 * edges),
+            "tracers": bound((edges + cells + C * K + cells) * F32
+                             + ce * F32, (2 * 6 + 4) * cells),
+            "scratch_bytes": scratch}
 
 
 def patch_rk(n=48):
@@ -452,6 +490,20 @@ def split_pre_passes(nx=256, ny=256, k=K):
                                   (avg + 6) * pts + slow * ny * nx)}}
 
 
+def split_post_pass(nx=256, ny=256, k=K):
+    """The planar splitpost at nx x ny x k float32 as a function of its
+    own: the state (4 + L volumes), du_full (3 volumes) and 12 planes
+    (ubar, du_bar, ub_final, <ubar>) read once, the state written once;
+    operations the hex chain's thickness and tracer parts (hex_flops_parts)
+    and u_new's five per edge class (chip_smoke.py's
+    _split_flops_per_point)."""
+    plane = ny * nx * F32
+    vol = k * plane
+    thick, tracer, _ = hex_flops_parts()
+    return bound((2 * (4 + L) + 3) * vol + 12 * plane,
+                 (thick + L * tracer + 3 * 5) * ny * nx * k)
+
+
 def tpu_split_io(ny=256, nx=256):
     plane = ny * nx * F32
     vol = K * plane
@@ -470,6 +522,7 @@ if __name__ == "__main__":
     print(json.dumps({"patch": patch_fb()}))
     print(json.dumps({"patch_science": patch_science()}))
     print(json.dumps({"patch_fct": patch_fct()}))
+    print(json.dumps({"patch_fct_b_passes": patch_fct_b_passes()}))
     print(json.dumps({"patch_fb_passes": patch_fb_passes()}))
     print(json.dumps({"patch_rk": patch_rk()}))
     print(json.dumps({"patch_split": patch_split()}))
@@ -478,3 +531,4 @@ if __name__ == "__main__":
     print(json.dumps({"composed_planar": composed_planar()}))
     print(json.dumps({"split": tpu_split_io()}))
     print(json.dumps({"split_pre_passes": split_pre_passes()}))
+    print(json.dumps({"split_post_pass": split_post_pass()}))

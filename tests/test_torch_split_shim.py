@@ -136,7 +136,7 @@ class _ShimLib:
 
     @staticmethod
     def omega_split_slots(kind):
-        return {1: 18, 3: 20}[kind]
+        return {1: 18, 3: 16}[kind]
 
 
 @pytest.mark.parametrize("suf", list(DTYPES))
