@@ -758,7 +758,9 @@ def main(argv=None):
         "coeffs": {"f32_256x256x100x2": coeff_err, "max_abs_err": coeff_abs,
                    "nu_range": spread, "ms": coeff_ms,
                    "plain_ms": coeff_plain_ms, "bound_ms": coeff_b_ms,
-                   "bound_by": coeff_b_by},
+                   "bound_by": coeff_b_by,
+                   "plan": vmix_kernel.plan_coeffs(NY, NX, NLAYERS),
+                   "attrs": vmix_kernel.coeff_attrs(torch.float32)},
         "solve": {"f32_256x256x100x2": solve, "max_abs_err": solve_abs,
                   "ms": solve_ms, "plain_ms_pp81": solve_plain_ms,
                   "bound_ms": {k: v[0] for k, v in solve_b.items()},
@@ -1527,6 +1529,7 @@ def main(argv=None):
         "bound_ms": {k: v["bound_ms"] for k, v in psb["parts"].items()},
         "bound_by": {k: v["bound_by"] for k, v in psb["parts"].items()},
         "step_bound_ms": psb["bound_ms"],
+        "coeffs_attrs": patch_megastep.coeff_attrs(cfg48s, scratch48),
         "solve_attrs": patch_megastep.solve_attrs(cfg48s, scratch48)})
     sci[f"f32_icos{N_SPHERE}x{NLAYERS}x{NTRACERS}"] = f32
     emit({"phase": "kernel_patch_science", **sci})
@@ -3441,7 +3444,9 @@ def main(argv=None):
          "plain_ms": coeff_plain_ms, "bound_ms": coeff_b_ms,
          "bound_by": coeff_b_by, "library_ms": None,
          "shape": f"({CH}, {NLAYERS}, {NY}, {NX}) -> ({KI}, {NY}, {NX}) + "
-         f"(3, {KI}, {NY}, {NX}) float32", "path": "science_path"},
+         f"(3, {KI}, {NY}, {NX}) float32", "path": "science_path",
+         "attrs": vmx["coeffs"]["attrs"],
+         "groups": vmx["coeffs"]["plan"]["groups"]},
         {"name": "vmix_solve", "route": "cuda",
          "source": "omega_tpu_torch/csrc/vmix.cu",
          "shared": "omega_tpu_torch/csrc/column_solve.cuh",
@@ -3595,6 +3600,8 @@ def main(argv=None):
          "ms": sciv["coeffs_ms"], "plain_ms": sciv["coeffs_plain_ms"],
          "bound_ms": sciv["bound_ms"]["coeffs"],
          "bound_by": sciv["bound_by"]["coeffs"], "library_ms": None,
+         "frame_bound_ms": sciv["bound_ms"]["coeffs_frames"],
+         "attrs": sciv["coeffs_attrs"],
          "shape": f"frames {tuple(patv['frames'])} -> ({NLAYERS}, 4, "
          f"{p48.P}) float32", "path": "sphere_science_path"},
         {"name": "patch_vmix_solve", "route": "cuda",

@@ -64,6 +64,19 @@ __device__ __forceinline__ void copies_done() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 #endif
 }
+// the copies issued since the last commit become one group; wait until at
+// most N groups are in flight (the coefficient kernels' layer pipelines)
+__device__ __forceinline__ void copies_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+template <int N>
+__device__ __forceinline__ void copies_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+#endif
+}
 
 // elements of shared memory a block stages: per pass the thickness, the
 // coefficients, and max(lc, 2) more [K][CW] arrays (an edge's second cell

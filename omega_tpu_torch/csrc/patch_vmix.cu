@@ -13,21 +13,38 @@
 // is two kernels of its own. Frames are (K, 4+L, P); the compact table is
 // patch_common.cuh's.
 //
-// patch_pp81_coeffs: one thread per frame position and group of layers, as
-// the horizontal passes. At interface k (layers k and k+1) it evaluates
+// patch_pp81_coeffs: one thread per frame position and group of
+// kCoefLayers interfaces. At interface k (layers k and k+1) it evaluates
 // core/vmix.pp81_coefficients expression for expression: kappa at the cell
 // from N^2 (the linear EOS on T and S, the hole guard of pp_n2: 0 where
 // dz = 0) and the shear of ke(du^2); nu at each edge class from cmean(N^2)
 // and du / cmean(dz). The neighbours' dz and N^2 and the edges' du are
-// recomputed where they are read, from h_new, the tracers and u_new, so the
+// formed where they are read, from h_new, the tracers and u_new, so the
 // pass writes only its result, coef (K, 4, P): channel 0 kappa, 1..3 nu;
-// layer K-1 is not written. f^n_exp is n_exp repeated multiplications, and
+// layer K-1 is not written. Design for this card: the thread walks its
+// position's column and loads every value it reads once per layer (about
+// 18 loads an interface, where forming every source's dz and N^2 anew
+// from memory took 60): its own h, T, S and three u, u at the ke slots
+// that name no edge of its own, and h, T, S at the other cmean source of
+// each edge class. It stages them by cp.async into its own column of the
+// block's shared memory a layer ahead of the interface that reads them
+// (layers k and k+1 read, k+2 in flight; no other thread reads them, so
+// no barrier), which holds no register while the loads are in flight:
+// carried in registers instead, the layers took 128 registers and spilled.
+// The cell's dz and N^2 are formed once per interface and serve every
+// cmean slot whose offset is 0 (almost everywhere one of an edge's two); a
+// slot that is neither the position nor the staged source (none on the
+// meshes built here) reads both layers from memory. The table's offsets
+// stay per position, so seams and pentagons take the same code. f^n_exp is
+// n_exp repeated multiplications (compiled in for PP81's default 2), and
 // every product the plain version rounds before an add is rounded here
 // (mul_rn): the two products of the buoyancy difference above all, whose
 // difference cancels where the column is near neutral (a fused
 // multiply-add there moved nu by 1.6e-4 of its range in float32 on the
 // plane). Bound: bytes, h_new, u_new, T and S read and the 4 coefficient
-// fields written.
+// fields written; its time goes mostly to its arithmetic, some 17 IEEE
+// divisions an interface, rounded as the plain version rounds them
+// (PERF.md).
 //
 // patch_vmix_solve: backward-Euler diffusion of every column, in place on
 // the frames: system 0 of a position is the L tracers against h_new,
@@ -77,79 +94,182 @@ __device__ __forceinline__ T floor_at(T x, T lo) {
   return x < lo ? lo : x;
 }
 
-// nu0 / f^n_exp with f = 1 + alpha max(ri, 0); returns nu, sets f
-template <typename T>
+// nu0 / f^n_exp with f = 1 + alpha max(ri, 0); returns nu, sets f.
+// kNexp >= 0 is the exponent compiled in (the products unrolled), -1 reads
+// a.n_exp
+template <int kNexp, typename T>
 __device__ __forceinline__ T pp81_nu(const VmixArgs<T>& a, T ri, T& f) {
   f = T(1) + mul_rn(a.alpha, floor_at(ri, T(0)));
   T pw = T(1);
-  for (int i = 0; i < a.n_exp; ++i) pw = pw * f;
+  if constexpr (kNexp >= 0) {
+#pragma unroll
+    for (int i = 0; i < kNexp; ++i) pw = pw * f;
+  } else {
+    for (int i = 0; i < a.n_exp; ++i) pw = pw * f;
+  }
   return a.nu0 / pw;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256)
+// interfaces a thread of the coefficient kernel walks (the call's layers
+// per thread, ints[6], is FCT's stage B's and not read here)
+constexpr int kCoefLayers = 8;
+// what the coefficient kernel stages of one layer at its position (slots):
+// h, the three edge classes' u, T and S at the position itself; u at the
+// six ke slots (those that name no edge of its own); h, T and S at the
+// other cmean source of each edge class. Layers k and k+1 of the
+// interface and k+2 in flight.
+constexpr int kCoefSlots = 21;
+constexpr int kCoefBufs = 3;
+// the exponent the kernel is compiled for besides the run-time one (PP81's
+// default, the science configuration's)
+constexpr int kNexpCompiled = 2;
+enum CoefSlot { kSlH = 0, kSlU = 1, kSlT = 4, kSlS = 5, kSlKe = 6,
+                kSlOh = 12, kSlOt = 15, kSlOs = 18 };
+
+// the class c of a ke slot's offset o when it names the position's own
+// edge of class c (offset c P), else -1: that u is staged already
+__device__ __forceinline__ int own_class(int o, int P) {
+  return o == 0 ? 0 : o == P ? 1 : o == 2 * P ? 2 : -1;
+}
+
+template <typename T, int kNexp>
+__global__ void __launch_bounds__(256, 3)
 patch_pp81_coeffs(const T* __restrict__ fr, const int* __restrict__ off,
                   const T* __restrict__ w, T* __restrict__ coef,
                   const VmixArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int k0 = blockIdx.y * a.kg;
-  const int k1 = min(a.K - 1, k0 + a.kg);
+  const int k0 = blockIdx.y * kCoefLayers;
+  const int k1 = min(a.K - 1, k0 + kCoefLayers);
   if (p >= a.P) return;
   const long long P = a.P, lay = static_cast<long long>(a.CH) * P;
   const bool strat = a.ti >= 0 && a.si >= 0;
+  const long long cT = (4 + a.ti) * P, cS = (4 + a.si) * P;
   const T eps = T(1.0e-16);
-  int od[6], oc[3][2];
+  int od[6], oc[3][2], ot[3];
   T wk[6], wm[3][2];
   load_off(off, kOffDiv, a.P, p, od);
   load_w(w, kWKe, a.P, p, wk);
   for (int t = 0; t < 3; ++t) {
     load_off(off, kOffCm + 2 * t, a.P, p, oc[t]);
     load_w(w, kWCmean + 2 * t, a.P, p, wm[t]);
+    // the source that is not the position itself (0 where both are)
+    ot[t] = oc[t][0] != 0 ? oc[t][0] : oc[t][1];
   }
+  // layer k's buffer: slot j at [j * blockDim.x], this thread's own column
+  // of the block's staging, read only by this thread (no barrier)
+  const int n = blockDim.x;
+  T* const sm = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
+  const auto buf = [&](int k) {
+    return sm + (k % kCoefBufs) * kCoefSlots * n;
+  };
+  const auto slot = [&](int k, int j) { return buf(k) + j * n; };
+  // layer k's values into its buffer, each loaded once, one copy group
+  const auto stage = [&](int k) {
+    const T* const f = fr + k * lay;
+    copy_async(slot(k, kSlH), f + p);
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      copy_async(slot(k, kSlU + c), f + (1 + c) * P + p);
+    if (strat) {
+      copy_async(slot(k, kSlT), f + cT + p);
+      copy_async(slot(k, kSlS), f + cS + p);
+    }
+#pragma unroll
+    for (int s = 0; s < 6; ++s)
+      if (own_class(od[s], a.P) < 0)
+        copy_async(slot(k, kSlKe + s), f + P + p + od[s]);
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      if (ot[t] == 0) continue;
+      const long long q = p + ot[t];
+      copy_async(slot(k, kSlOh + t), f + q);
+      if (strat) {
+        copy_async(slot(k, kSlOt + t), f + cT + q);
+        copy_async(slot(k, kSlOs + t), f + cS + q);
+      }
+    }
+    copies_commit();
+  };
+  // a cell's dz and N^2 from its h, T and S at layers k and k + 1 (N^2 of
+  // a stratified column only)
+  const auto dz_of = [](T h0, T h1) { return T(0.5) * (h0 + h1); };
+  const auto n2_of = [&](T t0, T t1, T s0, T s1, T dz) {
+    const T db = a.grav * (mul_rn(a.a_t, t0 - t1) - mul_rn(a.b_s, s0 - s1));
+    const T n2 = safe_div(db, dz);
+    return n2 > T(0) ? n2 : T(0);
+  };
+  stage(k0);
+  stage(k0 + 1);
   for (int k = k0; k < k1; ++k) {
-    const T* const h0 = fr + k * lay;   // layer k: h_new, u_new, trn
-    const T* const h1 = h0 + lay;       // layer k + 1
-    // the cell's dz and N^2 at position q
-    auto dz_at = [&](long long q) { return T(0.5) * (h0[q] + h1[q]); };
-    auto n2_at = [&](long long q, T dz) {
-      if (!strat) return T(0);
-      const long long cT = (4 + a.ti) * P + q, cS = (4 + a.si) * P + q;
-      const T db = a.grav * (mul_rn(a.a_t, h0[cT] - h1[cT]) -
-                             mul_rn(a.b_s, h0[cS] - h1[cS]));
-      const T n2 = safe_div(db, dz);
-      return n2 > T(0) ? n2 : T(0);
-    };
+    if (k + 2 <= k1)
+      stage(k + 2);
+    else
+      copies_commit();                // an empty group keeps the count
+    copies_wait<1>();                 // layers k and k + 1 have landed
+    const T* const b0 = buf(k);
+    const T* const b1 = buf(k + 1);
+    const auto v0 = [&](int j) { return b0[j * n]; };
+    const auto v1 = [&](int j) { return b1[j * n]; };
+    const auto v = [&](int j) { return v0(j) - v1(j); };
     // cell: kappa from N^2 and the shear of the KE average of du^2
-    const T dz = dz_at(p);
+    const T dz = dz_of(v0(kSlH), v1(kSlH));
+    const T n2 = strat ? n2_of(v0(kSlT), v1(kSlT), v0(kSlS), v1(kSlS), dz)
+                       : T(0);
+    T du[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) du[c] = v(kSlU + c);
     T ke = T(0);
 #pragma unroll
     for (int s = 0; s < 6; ++s) {
-      const long long q = P + p + od[s];
-      const T d = h0[q] - h1[q];
+      const int c = own_class(od[s], a.P);
+      const T d = c == 0   ? du[0]
+                  : c == 1 ? du[1]
+                  : c == 2 ? du[2]
+                           : v(kSlKe + s);
       ke = ke + mul_rn(wk[s], mul_rn(d, d));
     }
     const T shear2_cell = T(2) * ke / mul_rn(dz, dz);
     T f;
-    const T nu_c =
-        pp81_nu(a, n2_at(p, dz) / floor_at(shear2_cell, eps), f);
-    coef[(k * 4LL) * P + p] = nu_c / f + a.kt0;
-    // edges: dz and N^2 averaged from the edge's two cells
+    const T nu_c = pp81_nu<kNexp>(a, n2 / floor_at(shear2_cell, eps), f);
+    T* const out = coef + k * 4LL * P + p;
+    out[0] = nu_c / f + a.kt0;
+    // edges: dz and N^2 averaged from the edge's two cells: the position's
+    // own (offset 0), the other source staged, any third read here
 #pragma unroll
     for (int t = 0; t < 3; ++t) {
       T dz_e = T(0), n2_e = T(0);
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
-        const long long q = p + oc[t][s];
-        const T dzq = dz_at(q);
+        const int o = oc[t][s];
+        T dzq = dz, n2q = n2;
+        if (o != 0) {
+          if (o == ot[t]) {
+            dzq = dz_of(v0(kSlOh + t), v1(kSlOh + t));
+            n2q = strat ? n2_of(v0(kSlOt + t), v1(kSlOt + t),
+                                v0(kSlOs + t), v1(kSlOs + t), dzq)
+                        : T(0);
+          } else {
+            const T* const f0 = fr + k * lay + p + o;
+            const T* const f1 = f0 + lay;
+            dzq = dz_of(f0[0], f1[0]);
+            n2q = strat ? n2_of(f0[cT], f1[cT], f0[cS], f1[cS], dzq) : T(0);
+          }
+        }
         dz_e = dz_e + mul_rn(wm[t][s], dzq);
-        n2_e = n2_e + mul_rn(wm[t][s], n2_at(q, dzq));
+        n2_e = n2_e + mul_rn(wm[t][s], n2q);
       }
-      const long long e = (1 + t) * P + p;
-      const T sh = (h0[e] - h1[e]) / dz_e;
-      const T nu_e = pp81_nu(a, n2_e / floor_at(mul_rn(sh, sh), eps), f);
-      coef[(k * 4LL + 1 + t) * P + p] = nu_e + a.km0;
+      const T sh = du[t] / dz_e;
+      const T nu_e =
+          pp81_nu<kNexp>(a, n2_e / floor_at(mul_rn(sh, sh), eps), f);
+      out[(1 + t) * P] = nu_e + a.km0;
     }
   }
+}
+
+template <typename T>
+size_t coeffs_smem_bytes(int threads) {
+  return static_cast<size_t>(kCoefBufs) * kCoefSlots * threads * sizeof(T);
 }
 
 template <typename T, int kRhs>
@@ -217,6 +337,23 @@ bool unpack(const double* c, const int* n, VmixArgs<T>& a) {
          a.n_exp >= 0 && a.kg >= 1;
 }
 
+template <typename T, int kNexp>
+int launch_coeffs_as(const void* fr, const void* off, const void* w,
+                     void* coef, const VmixArgs<T>& a, int threads,
+                     cudaStream_t stream) {
+  const size_t smem = coeffs_smem_bytes<T>(threads);
+  const cudaError_t err = cudaFuncSetAttribute(
+      patch_pp81_coeffs<T, kNexp>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.P + threads - 1) / threads,
+                  (a.K - 1 + kCoefLayers - 1) / kCoefLayers);
+  patch_pp81_coeffs<T, kNexp><<<grid, threads, smem, stream>>>(
+      static_cast<const T*>(fr), static_cast<const int*>(off),
+      static_cast<const T*>(w), static_cast<T*>(coef), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_coeffs(const void* fr, const void* off, const void* w, void* coef,
                   const double* c, const int* n, cudaStream_t stream) {
@@ -225,12 +362,39 @@ int launch_coeffs(const void* fr, const void* off, const void* w, void* coef,
   if (!unpack(c, n, a) || threads < 32 || threads > 256 || threads % 32 ||
       fr == nullptr || off == nullptr || w == nullptr || coef == nullptr)
     return cudaErrorInvalidValue;
-  const dim3 grid((a.P + threads - 1) / threads,
-                  (a.K - 1 + a.kg - 1) / a.kg);
-  patch_pp81_coeffs<T><<<grid, threads, 0, stream>>>(
-      static_cast<const T*>(fr), static_cast<const int*>(off),
-      static_cast<const T*>(w), static_cast<T*>(coef), a);
-  return static_cast<int>(cudaGetLastError());
+  return a.n_exp == kNexpCompiled
+             ? launch_coeffs_as<T, kNexpCompiled>(fr, off, w, coef, a,
+                                                  threads, stream)
+             : launch_coeffs_as<T, -1>(fr, off, w, coef, a, threads, stream);
+}
+
+// registers, local (spill) bytes, static shared bytes and blocks per SM of
+// the coefficient kernel as the science configuration (n_exp 2) launches it
+// at the call's threads per block (ints[7])
+template <typename T>
+int coeffs_attrs(const double* c, const int* n, int* out) {
+  VmixArgs<T> a;
+  if (c == nullptr || n == nullptr || out == nullptr || !unpack(c, n, a) ||
+      n[7] < 32 || n[7] > 256)
+    return cudaErrorInvalidValue;
+  const int threads = n[7];
+  auto* const k = &patch_pp81_coeffs<T, kNexpCompiled>;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = coeffs_smem_bytes<T>(threads);
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads,
+                                                      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  out[3] = blocks;
+  return 0;
 }
 
 template <typename T>
@@ -323,9 +487,10 @@ int solve_attrs(const double* c, const int* n, int* out) {
 // per thread, threads per block (coefficients), then cw, lanes, lc, rhs
 // (solve: positions per block, k-lanes, values per pass, the compiled
 // width 2 or 8). Each returns the launch's error code, or 0.
-// omega_patch_vmix_solve_attrs_*(consts, ints, out): registers, local
-// (spill) bytes, static shared bytes and blocks per SM of the solve kernel
-// for that plan.
+// omega_patch_pp81_attrs_* and omega_patch_vmix_solve_attrs_*(consts,
+// ints, out): registers, local (spill) bytes, static shared bytes and
+// blocks per SM of the coefficient kernel at that block size and of the
+// solve kernel for that plan.
 // omega_patch_rows(0 | 1 | 2) gives the row counts of the compact table's
 // offsets and weights and of the const planes.
 extern "C" {
@@ -353,6 +518,15 @@ int omega_patch_vmix_solve_f64(void* frames, const void* off, const void* w,
                                const int* ints, void* stream) {
   return omega::patch::launch_solve<double>(
       frames, off, w, coef, consts, ints, static_cast<cudaStream_t>(stream));
+}
+
+int omega_patch_pp81_attrs_f32(const double* consts, const int* ints,
+                               int* out) {
+  return omega::patch::coeffs_attrs<float>(consts, ints, out);
+}
+int omega_patch_pp81_attrs_f64(const double* consts, const int* ints,
+                               int* out) {
+  return omega::patch::coeffs_attrs<double>(consts, ints, out);
 }
 
 int omega_patch_vmix_solve_attrs_f32(const double* consts, const int* ints,

@@ -9,16 +9,30 @@
 // cannot see a column, so the tail is two kernels of its own that run after
 // it on the same stacked (4+L, K, ny, nx) array, x fastest.
 //
-// pp81_coeffs_kernel: one interface k (layers k and k+1) x one (by, bx) tile
-// per block, with a ring as wide as the `ke` and `cmean` tables reach (1 on
-// the hex mesh). The block loads dz, N^2 and the three classes of du for its
-// slab into shared memory once, then every owned point evaluates
+// pp81_coeffs_kernel: a block owns one 16 x 32 tile with a (1, 1) ring
+// (the reach of the `ke` and `cmean` tables) and walks a group of
+// interfaces in order (grid z = the groups, VmixParams::groups, the host's
+// choice that fills the card). Each layer's six channels (h, 3 u, T, S) are
+// staged into shared memory by cp.async once, a layer ahead of the
+// interface that needs them; a thread stages and reads only its own slab
+// points, so the copies need no barrier. At interface k (layers k and
+// k+1) the slab's dz, N^2 and the three classes of du are formed into
+// shared memory, and every owned point evaluates
 // core/vmix.pp81_coefficients expression for expression and writes
-// kappa_cell (K-1, ny, nx) and nu_edge (3, K-1, ny, nx). f ** n_exp is n_exp
-// repeated multiplications (as the plain version does); the two products of
-// the buoyancy difference are kept out of a fused multiply-add, because
-// their difference cancels. Bound: bytes, the 6
-// channels it reads (h, 3 u, T, S) and the 4 planes it writes per interface.
+// kappa_cell (K-1, ny, nx) and nu_edge (3, K-1, ny, nx). The slab
+// geometry and the planar hex mesh's `ke` and `cmean` entries are compiled
+// in (hex_slab.cuh, the chain kernels' pattern): every stencil read is one
+// shared load at an immediate offset, with no parity select, and its
+// weight an operand from the parameter space. The launcher refuses any
+// other tile, ring or entry pattern (the host checks
+// megastep.hex_pattern_fits first). f ** n_exp is n_exp repeated
+// multiplications (as the plain version does; compiled in for PP81's
+// default 2); the two products of the buoyancy difference are kept out of
+// a fused multiply-add, because their difference cancels. 3 blocks per SM
+// in float32 (80 registers, 56 KB). Bound: bytes, the 6 channels it reads
+// (h, 3 u, T, S; each group reads its first layer once more) and the 4
+// planes it writes per interface; its time goes mostly to its arithmetic,
+// 13 IEEE divisions an owned point and interface (PERF.md).
 //
 // vmix_solve_kernel: backward-Euler diffusion of every column, in place.
 // System 0 of a cell column is the L tracers against the cell thickness,
@@ -33,6 +47,7 @@
 // 100 (4 lanes of 25 rows). Bound: bytes (h, u, tracers and coefficients
 // read once, u and tracers written once).
 #include "column_solve.cuh"
+#include "hex_slab.cuh"
 
 namespace omega {
 
@@ -52,6 +67,7 @@ struct VmixParams {
   int L, K, ny, nx;
   int by, bx, ry, rx;        // coefficient kernel: tile and ring
   int cw, lanes;             // solve: columns x k-lanes per block
+  int groups;                // coefficient kernel: groups of interfaces
 };
 
 // the solve: right-hand sides per pass, and the blocks an SM must hold (the
@@ -63,100 +79,175 @@ constexpr int kSolveMinBlocks = sizeof(T) == 4 ? 4 : 1;
 template <typename T>
 __device__ __forceinline__ T pos(T x) { return x > T(0) ? x : T(0); }
 
-// nu = nu0 / f^n_exp with f = 1 + alpha * max(ri, 0); returns nu, sets f
-template <typename T>
+// nu = nu0 / f^n_exp with f = 1 + alpha * max(ri, 0); returns nu, sets f.
+// kNexp >= 0 is the exponent compiled in (the products unrolled), -1 reads
+// p.n_exp
+template <int kNexp, typename T>
 __device__ __forceinline__ T pp81_nu(const VmixParams<T>& p, T ri, T& f) {
   f = T(1) + p.alpha * pos(ri);
   T pw = T(1);
-  for (int i = 0; i < p.n_exp; ++i) pw *= f;
+  if constexpr (kNexp >= 0) {
+#pragma unroll
+    for (int i = 0; i < kNexp; ++i) pw *= f;
+  } else {
+    for (int i = 0; i < p.n_exp; ++i) pw *= f;
+  }
   return p.nu0 / pw;
 }
 
+namespace coef {
+
+// the tile, ring and block the coefficient kernel is compiled for
+using Geo = HexSlab<16, 32, 1, 1, 256>;
+constexpr int kBY = Geo::kBY, kBX = Geo::kBX, kRY = Geo::kRY, kRX = Geo::kRX;
+constexpr int kXX = Geo::kXX, kS = Geo::kS, kThreads = Geo::kThreads;
+// slab points a thread stages, and the layers staged at once: k and k+1
+// of the interface, k+2 in flight
+constexpr int kPer = (kS + kThreads - 1) / kThreads;
+constexpr int kBufs = 3;
+// the entries read: the cell's ke (hex_ent 6-11) and the edge classes'
+// cmean (54-59), packed in that order as the record's 12 entries
+constexpr int kKe = tab_base(T_KE), kCm = tab_base(T_CMEAN);
+constexpr int kKeN = tab_count(T_KE), kCmN = tab_count(T_CMEAN);
+// shared memory: kBufs layers of 6 channels, then dz, N^2 and 3 du
+constexpr int kSlabs = kBufs * 6 + 5;
 template <typename T>
-__global__ void __launch_bounds__(256)
+constexpr int kMinBlocks = sizeof(T) == 4 ? 3 : 2;
+// the exponent the kernel is compiled for besides the run-time one (PP81's
+// default, the science configuration's)
+constexpr int kNexpCompiled = 2;
+
+}  // namespace coef
+
+template <typename T, int kNexp>
+__global__ void __launch_bounds__(coef::kThreads, coef::kMinBlocks<T>)
 pp81_coeffs_kernel(const T* __restrict__ s, T* __restrict__ kappa,
                    T* __restrict__ nu,
                    const __grid_constant__ VmixParams<T> p) {
+  using namespace coef;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const sm = reinterpret_cast<T*>(smem_raw);
-  const int YY = p.by + 2 * p.ry, XX = p.bx + 2 * p.rx, S = YY * XX;
-  T* const DZ = sm;           // 0.5 * (h_k + h_{k+1})
-  T* const N2 = sm + S;       // max(db / dz, 0)
-  T* const DU = sm + 2 * S;   // u_k - u_{k+1}, 3 edge classes
-  const int y0 = blockIdx.y * p.by, x0 = blockIdx.x * p.bx, k = blockIdx.z;
+  T* const raw = reinterpret_cast<T*>(smem_raw);  // [kBufs][6][kS]
+  T* const DZ = raw + kBufs * 6 * kS;             // 0.5 * (h_k + h_{k+1})
+  T* const N2 = DZ + kS;                          // max(db / dz, 0)
+  T* const DU = DZ + 2 * kS;                      // u_k - u_{k+1}, 3 classes
+  const int per = (p.K - 1 + gridDim.z - 1) / gridDim.z;
+  const int k0 = blockIdx.z * per, k1 = min(p.K - 1, k0 + per);
+  if (k0 >= k1) return;
+  const int y0 = blockIdx.y * kBY, x0 = blockIdx.x * kBX;
   const long long plane = static_cast<long long>(p.ny) * p.nx;
+  const long long nu_class = (p.K - 1) * plane;   // one edge class of nu
   const T eps = T(1.0e-16);
-  auto chan = [&](int ch, int kk) {
-    return (static_cast<long long>(ch) * p.K + kk) * plane;
-  };
   const bool strat = p.ti >= 0 && p.si >= 0;
+  // the six channels' rows of the stacked state (T and S only stratified)
+  const int chs[6] = {0, 1, 2, 3, 4 + p.ti, 4 + p.si};
 
-  for (int q = threadIdx.x; q < S; q += blockDim.x) {
-    const int sy = q / XX, sx = q - sy * XX;
-    const long long g =
-        static_cast<long long>(wrap_any(y0 - p.ry + sy, p.ny)) * p.nx +
-        wrap_any(x0 - p.rx + sx, p.nx);
-    const T dz = T(0.5) * (s[chan(0, k) + g] + s[chan(0, k + 1) + g]);
-    DZ[q] = dz;
-    T n2 = T(0);
-    if (strat) {
-      const T dT = s[chan(4 + p.ti, k) + g] - s[chan(4 + p.ti, k + 1) + g];
-      const T dS = s[chan(4 + p.si, k) + g] - s[chan(4 + p.si, k + 1) + g];
-      // The thermal and haline parts cancel where the column is near
-      // neutral, and a small shear then divides what is left: each product
-      // is rounded on its own, as the plain version rounds it, so that N^2
-      // is the same number in both (a fused multiply-add here moved nu by
-      // 1.6e-4 of its range in float32).
-      const T db = p.grav * (mul_rn(p.a_t, dT) - mul_rn(p.b_s, dS));
-      n2 = pos(db / dz);
-    }
-    N2[q] = n2;
+  // plane offsets of this thread's slab points
+  int gq[kPer];
 #pragma unroll
-    for (int t = 0; t < 3; ++t)
-      DU[t * S + q] = s[chan(1 + t, k) + g] - s[chan(1 + t, k + 1) + g];
+  for (int i = 0; i < kPer; ++i) {
+    const int q = threadIdx.x + i * kThreads;
+    const int sy = q / kXX, sx = q - sy * kXX;
+    gq[i] = wrap_any(y0 - kRY + sy, p.ny) * p.nx +
+            wrap_any(x0 - kRX + sx, p.nx);
   }
-  __syncthreads();
-
-  for (int o = threadIdx.x; o < p.by * p.bx; o += blockDim.x) {
-    const int oy = o / p.bx, ox = o - oy * p.bx;
-    const int gy = y0 + oy, gx = x0 + ox;
-    if (gy >= p.ny || gx >= p.nx) continue;
-    const int sy = oy + p.ry, sx = ox + p.rx, q = sy * XX + sx;
-    const bool odd = (gy & 1) != 0;
-    auto src = [&](const Entry<T>& e) {
-      return e.ts * S + (sy + e.dj) * XX + sx + (odd ? e.di_o : e.di_e);
-    };
-    const long long g = static_cast<long long>(gy) * p.nx + gx;
-
-    // cell: shear^2 from the KE average of du^2
-    T ke = T(0);
-    for (int i = 0; i < p.nke; ++i) {
-      const T d = DU[src(p.e[i])];
-      ke += p.e[i].w * (d * d);
-    }
-    const T dz = DZ[q];
-    const T shear2_cell = T(2) * ke / (dz * dz);
-    const T ri_cell = N2[q] / (shear2_cell > eps ? shear2_cell : eps);
-    T f;
-    const T nu_c = pp81_nu(p, ri_cell, f);
-    kappa[static_cast<long long>(k) * plane + g] = nu_c / f + p.kt0;
-
-    // edges: dz and N^2 averaged from the edge's two cells
+  // layer k's channels at this thread's slab points into buffer k % kBufs,
+  // one group of copies
+  const auto stage = [&](int k) {
+    T* const b = raw + (k % kBufs) * 6 * kS;
 #pragma unroll
-    for (int t = 0; t < 3; ++t) {
-      T dz_e = T(0), n2_e = T(0);
-      for (int i = p.cm_start[t]; i < p.cm_start[t + 1]; ++i) {
-        const int r = src(p.e[i]);
-        dz_e += p.e[i].w * DZ[r];
-        n2_e += p.e[i].w * N2[r];
+    for (int c = 0; c < 6; ++c) {
+      if (c >= 4 && !strat) break;
+      const T* const src =
+          s + (static_cast<long long>(chs[c]) * p.K + k) * plane;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int q = threadIdx.x + i * kThreads;
+        if (q < kS) copy_async(b + c * kS + q, src + gq[i]);
       }
-      const T sh = DU[t * S + q] / dz_e;
-      const T shear2_edge = sh * sh;
-      const T ri_edge = n2_e / (shear2_edge > eps ? shear2_edge : eps);
-      const T nu_e = pp81_nu(p, ri_edge, f);
-      nu[(static_cast<long long>(t) * (p.K - 1) + k) * plane + g] =
-          nu_e + p.km0;
     }
+    copies_commit();
+  };
+
+  // the thread's owned pair: column ox, rows oy (even) and oy + 1 of the tile
+  const int oy = 2 * (threadIdx.x / kBX), ox = threadIdx.x % kBX;
+  const bool own = y0 + oy < p.ny && x0 + ox < p.nx;
+  const int qo = (oy + kRY) * kXX + ox + kRX;
+  const long long go = static_cast<long long>(y0 + oy) * p.nx + x0 + ox;
+
+  stage(k0);
+  stage(k0 + 1);
+  for (int k = k0; k < k1; ++k) {
+    if (k + 2 <= k1)
+      stage(k + 2);
+    else
+      copies_commit();                // an empty group keeps the count
+    copies_wait<1>();                 // layers k and k + 1 have landed
+    const T* const b0 = raw + (k % kBufs) * 6 * kS;
+    const T* const b1 = raw + ((k + 1) % kBufs) * 6 * kS;
+    __syncthreads();                  // the last interface's reads are done
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int q = threadIdx.x + i * kThreads;
+      if (q >= kS) continue;
+      const T dz = T(0.5) * (b0[q] + b1[q]);
+      DZ[q] = dz;
+      T n2 = T(0);
+      if (strat) {
+        const T dT = b0[4 * kS + q] - b1[4 * kS + q];
+        const T dS = b0[5 * kS + q] - b1[5 * kS + q];
+        // The thermal and haline parts cancel where the column is near
+        // neutral, and a small shear then divides what is left: each
+        // product is rounded on its own, as the plain version rounds it,
+        // so that N^2 is the same number in both (a fused multiply-add
+        // here moved nu by 1.6e-4 of its range in float32).
+        const T db = p.grav * (mul_rn(p.a_t, dT) - mul_rn(p.b_s, dS));
+        n2 = pos(db / dz);
+      }
+      N2[q] = n2;
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+        DU[t * kS + q] = b0[(1 + t) * kS + q] - b1[(1 + t) * kS + q];
+    }
+    __syncthreads();
+    if (!own) continue;
+    T* const kap_k = kappa + k * plane + go;
+    T* const nu_k = nu + k * plane + go;
+    static_for<2>([&](auto par) {
+      constexpr int PAR = decltype(par)::value;
+      const int q = qo + PAR * kXX;
+      const int g = PAR * p.nx;
+      // cell: shear^2 from the KE average of du^2
+      T ke = T(0);
+      static_for<kKeN>([&](auto ic_) {
+        constexpr int i = decltype(ic_)::value;
+        constexpr int r = Geo::off(kKe + i, PAR);
+        const T d = DU[q + r];
+        ke += p.e[i].w * (d * d);
+      });
+      const T dz = DZ[q];
+      const T shear2_cell = T(2) * ke / (dz * dz);
+      const T ri_cell = N2[q] / (shear2_cell > eps ? shear2_cell : eps);
+      T f;
+      const T nu_c = pp81_nu<kNexp>(p, ri_cell, f);
+      kap_k[g] = nu_c / f + p.kt0;
+      // edges: dz and N^2 averaged from the edge's two cells
+      static_for<3>([&](auto tc) {
+        constexpr int t = decltype(tc)::value;
+        T dz_e = T(0), n2_e = T(0);
+        static_for<kCmN>([&](auto ic_) {
+          constexpr int i = decltype(ic_)::value;
+          constexpr int r = Geo::off(kCm + t * kCmN + i, PAR);
+          const T wt = p.e[kKeN + t * kCmN + i].w;
+          dz_e += wt * DZ[q + r];
+          n2_e += wt * N2[q + r];
+        });
+        const T sh = DU[t * kS + q] / dz_e;
+        const T shear2_edge = sh * sh;
+        const T ri_edge = n2_e / (shear2_edge > eps ? shear2_edge : eps);
+        const T nu_e = pp81_nu<kNexp>(p, ri_edge, f);
+        nu_k[t * nu_class + g] = nu_e + p.km0;
+      });
+    });
   }
 }
 
@@ -213,9 +304,8 @@ vmix_solve_kernel(T* __restrict__ s, const T* __restrict__ kappa,
 }
 
 template <typename T>
-size_t coeffs_smem_bytes(const VmixParams<T>& p) {
-  return static_cast<size_t>(5) * (p.by + 2 * p.ry) * (p.bx + 2 * p.rx) *
-         sizeof(T);
+constexpr size_t coeffs_smem_bytes() {
+  return static_cast<size_t>(coef::kSlabs) * coef::kS * sizeof(T);
 }
 
 template <typename T>
@@ -245,28 +335,54 @@ bool tables_ok(const VmixParams<T>& p) {
   return true;
 }
 
+// the record's plan and tables are what the coefficient kernel is compiled
+// for: the tile and ring, an even number of rows, and the hex mesh's ke and
+// cmean entries in order (hex_ent)
+template <typename T>
+bool coeffs_plan_ok(const VmixParams<T>& p) {
+  using namespace coef;
+  if (p.K < 2 || p.groups < 1 || p.by != kBY || p.bx != kBX ||
+      p.ry != kRY || p.rx != kRX || p.ny % 2 != 0 || !tables_ok(p) ||
+      p.n_exp < 0 || p.ti >= p.L || p.si >= p.L || p.nke != kKeN ||
+      p.cm_start[3] != kKeN + 3 * kCmN)
+    return false;
+  for (int t = 0; t < 3; ++t)
+    if (p.cm_start[t] != kKeN + t * kCmN) return false;
+  for (int i = 0; i < kKeN + 3 * kCmN; ++i) {
+    const int h = i < kKeN ? kKe + i : kCm + i - kKeN;
+    const Entry<T>& e = p.e[i];
+    if (e.ts != hex_ent(h, 0) || e.dj != hex_ent(h, 1) ||
+        e.di_e != hex_ent(h, 2) || e.di_o != hex_ent(h, 3))
+      return false;
+  }
+  return true;
+}
+
+template <typename T, int kNexp>
+int launch_pp81_coeffs_as(const void* s, void* kappa, void* nu,
+                          const VmixParams<T>& p, cudaStream_t stream) {
+  const size_t smem = coeffs_smem_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      pp81_coeffs_kernel<T, kNexp>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((p.nx + coef::kBX - 1) / coef::kBX,
+            (p.ny + coef::kBY - 1) / coef::kBY, p.groups);
+  pp81_coeffs_kernel<T, kNexp><<<grid, coef::kThreads, smem, stream>>>(
+      static_cast<const T*>(s), static_cast<T*>(kappa), static_cast<T*>(nu),
+      p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_pp81_coeffs(const void* s, void* kappa, void* nu,
                        const VmixParams<T>* hp, cudaStream_t stream) {
   const VmixParams<T>& p = *hp;
-  if (p.K < 2 || p.by < 1 || p.bx < 1 || !tables_ok(p) || p.n_exp < 0 ||
-      p.ti >= p.L || p.si >= p.L)
-    return cudaErrorInvalidValue;
-  for (int i = 0; i < p.cm_start[3]; ++i) {   // the ring covers every shift
-    const Entry<T>& e = p.e[i];
-    if (reach(e.dj, 0) > p.ry || reach(e.di_e, e.di_o) > p.rx)
-      return cudaErrorInvalidValue;
-  }
-  const size_t smem = coeffs_smem_bytes(p);
-  cudaError_t err = cudaFuncSetAttribute(
-      pp81_coeffs_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.nx + p.bx - 1) / p.bx, (p.ny + p.by - 1) / p.by, p.K - 1);
-  pp81_coeffs_kernel<T><<<grid, 256, smem, stream>>>(
-      static_cast<const T*>(s), static_cast<T*>(kappa), static_cast<T*>(nu),
-      p);
-  return static_cast<int>(cudaGetLastError());
+  if (!coeffs_plan_ok(p)) return cudaErrorInvalidValue;
+  return p.n_exp == coef::kNexpCompiled
+             ? launch_pp81_coeffs_as<T, coef::kNexpCompiled>(s, kappa, nu, p,
+                                                             stream)
+             : launch_pp81_coeffs_as<T, -1>(s, kappa, nu, p, stream);
 }
 
 template <typename T>
@@ -291,6 +407,32 @@ int launch_vmix_solve(void* s, const void* kappa, const void* nu,
       static_cast<T*>(s), static_cast<const T*>(kappa),
       static_cast<const T*>(nu), p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// cudaFuncGetAttributes of the coefficient kernel as the science
+// configuration launches it (numRegs, localSizeBytes, sharedSizeBytes into
+// out[0..2]) and the blocks an SM holds (out[3],
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+template <typename T>
+int pp81_coeffs_attrs(int* out) {
+  if (out == nullptr) return cudaErrorInvalidValue;
+  auto* const k = &pp81_coeffs_kernel<T, coef::kNexpCompiled>;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = coeffs_smem_bytes<T>();
+  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k,
+                                                      coef::kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  out[3] = blocks;
+  return 0;
 }
 
 // cudaFuncGetAttributes of the solve kernel (numRegs, localSizeBytes,
@@ -358,7 +500,13 @@ int omega_vmix_solve_f64(void* state, const void* kappa, const void* nu,
       static_cast<cudaStream_t>(stream));
 }
 // registers, local (spill) bytes, static shared bytes and blocks per SM of
-// the solve kernel for the plan in `params`
+// the coefficient kernel, and of the solve kernel for the plan in `params`
+int omega_pp81_coeffs_attrs_f32(int* out) {
+  return omega::pp81_coeffs_attrs<float>(out);
+}
+int omega_pp81_coeffs_attrs_f64(int* out) {
+  return omega::pp81_coeffs_attrs<double>(out);
+}
 int omega_vmix_solve_attrs_f32(const void* params, int* out) {
   return omega::vmix_solve_attrs<float>(
       static_cast<const omega::VmixParams<float>*>(params), out);

@@ -163,6 +163,10 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp]               # params, out[4]
         fn.restype = ci
+    for name in ("omega_pp81_coeffs_attrs_f32", "omega_pp81_coeffs_attrs_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp]                   # out[4]
+        fn.restype = ci
     for name in ("omega_stencil_params_size_f32",
                  "omega_stencil_params_size_f64",
                  "omega_fb_params_size_f32", "omega_fb_params_size_f64",
@@ -206,9 +210,10 @@ def load() -> ctypes.CDLL:
             # frames, offs, wts, coef, consts, ints, stream
             fn.argtypes = [vp] * 7
             fn.restype = ci
-        fn = getattr(lib, f"omega_patch_vmix_solve_attrs_{suffix}")
-        fn.argtypes = [vp] * 3               # consts, ints, out[4]
-        fn.restype = ci
+        for name in ("pp81", "vmix_solve"):
+            fn = getattr(lib, f"omega_patch_{name}_attrs_{suffix}")
+            fn.argtypes = [vp] * 3           # consts, ints, out[4]
+            fn.restype = ci
         fn = getattr(lib, f"omega_patch_split_pre_{suffix}")
         # in, out, offs, wts, cpl, depth row, work, consts, ints, stream
         fn.argtypes = [vp] * 10

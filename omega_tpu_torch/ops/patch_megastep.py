@@ -143,11 +143,11 @@ RK_PROV, RK_FIRST, RK_MID, RK_LAST = (megastep.RK_PROV, megastep.RK_FIRST,
                                       megastep.RK_MID, megastep.RK_LAST)
 _MODE_NAME = {RK_PROV: "prov", RK_FIRST: "first", RK_MID: "mid",
               RK_LAST: "last"}
-# layers one thread of FCT's stage B and of the PP81 coefficient kernel
-# walks with the weights of its position in registers (the FB, RK and split
-# passes walk their own groups, compiled in: csrc/patch_step.cuh's
-# kFbPassLayers, patch_rk.cuh's kRkPassLayers; they do not read this entry
-# of the call's ints)
+# layers one thread of FCT's stage B walks with the weights of its position
+# in registers (the FB, RK and split passes and the PP81 coefficient kernel
+# walk their own groups, compiled in: csrc/patch_step.cuh's kFbPassLayers,
+# patch_rk.cuh's kRkPassLayers, patch_vmix.cu's kCoefLayers; they do not
+# read this entry of the call's ints)
 LAYERS_PER_THREAD = 8
 THREADS = 128
 
@@ -1472,6 +1472,20 @@ def vmix_solve(p, cfg, frames, dt, coef=None):
     _build.check(code, "patch column-solve launch")
     solve_launches += 1
     return frames
+
+
+def coeff_attrs(cfg, frames):
+    """cudaFuncGetAttributes' numRegs, localSizeBytes (the spill) and
+    sharedSizeBytes of the PP81 coefficient kernel these frames launch, and
+    the blocks of THREADS threads an SM holds."""
+    lib = _build.load()
+    consts, ints = _vmix_args(None, cfg, frames, 0.0)
+    got = np.zeros(4, np.int32)
+    _build.check(getattr(lib, f"omega_patch_pp81_attrs_{_suffix(frames)}")(
+        consts.ctypes.data, ints.ctypes.data, got.ctypes.data),
+        "cudaFuncGetAttributes")
+    return dict(zip(("num_regs", "local_bytes", "shared_bytes",
+                     "blocks_per_sm"), map(int, got)))
 
 
 def solve_attrs(cfg, frames):

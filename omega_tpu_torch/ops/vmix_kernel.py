@@ -57,7 +57,14 @@ MAX_LANES = 32
 EPS = 1.0e-16         # floor of shear^2 in the Richardson number
 _REAL_FIELDS = ("dt", "grav", "nu0", "alpha", "a_t", "b_s", "kt0", "km0")
 _INT_FIELDS = ("n_exp", "ti", "si", "L", "K", "ny", "nx", "by", "bx", "ry",
-               "rx", "cw", "lanes")
+               "rx", "cw", "lanes", "groups")
+# the coefficient kernel's tile and ring (coef::Geo in csrc/vmix.cu), and the
+# blocks its grid aims at (tiles x groups of interfaces): two waves of an
+# H100's 132 SMs x 3 blocks of 256 threads, the fastest of 3-12 groups at
+# 256 x 256 x 100 (PERF.md)
+COEF_TILE = (16, 32)
+COEF_RING = (1, 1)
+COEF_BLOCKS = 792
 
 
 def vmix_on(cfg) -> bool:
@@ -206,13 +213,19 @@ def plan_frames(K, L, itemsize):
     raise ValueError(f"{K} layers do not fit the sphere's solve kernel")
 
 
-def plan_coeffs(ny, nx, ke_tab, cm_tab):
-    """The coefficient kernel's tile and ring: dict(by, bx, ry, rx); the
-    ring is as wide as the two tables reach."""
-    ents = list(ke_tab) + list(cm_tab)
-    return dict(by=min(16, ny), bx=min(32, nx),
-                ry=max(abs(e[2]) for e in ents),
-                rx=max(max(abs(e[3]), abs(e[4])) for e in ents))
+def plan_coeffs(ny, nx, K):
+    """The coefficient kernel's plan: dict(by, bx, ry, rx, groups). The
+    tile and ring are the compiled ones (COEF_TILE, COEF_RING; the ring is
+    the reach of the hex mesh's `ke` and `cmean` entries); a block walks
+    one group of interfaces of its tile, and the groups are as many as
+    bring the grid near COEF_BLOCKS blocks (each group reads its first
+    layer once more), none of them empty."""
+    by, bx = COEF_TILE
+    tiles = -(-ny // by) * -(-nx // bx)
+    groups = max(1, min(K - 1, round(COEF_BLOCKS / tiles)))
+    groups = -(-(K - 1) // -(-(K - 1) // groups))
+    return dict(by=by, bx=bx, ry=COEF_RING[0], rx=COEF_RING[1],
+                groups=groups)
 
 
 def _params_dtype(ft) -> np.dtype:
@@ -249,9 +262,9 @@ def pack_params(mesh, cfg, dt, ft, L, K):
     rec["kt0"], rec["km0"] = vm.kappa_tracer, vm.kappa_momentum
     rec["ti"], rec["si"] = vm.temp_index, vm.salt_index
     rec["L"], rec["K"], rec["ny"], rec["nx"] = L, K, ny, nx
-    plan = plan_coeffs(ny, nx, ke_tab, cm_tab)
+    plan = plan_coeffs(ny, nx, K)
     plan.update(plan_chunks(K, np.dtype(ft).itemsize))
-    for k in ("by", "bx", "ry", "rx", "cw", "lanes"):
+    for k in ("by", "bx", "ry", "rx", "cw", "lanes", "groups"):
         rec[k] = plan[k]
     return rec
 
@@ -289,6 +302,17 @@ def _checked(mesh, cfg, stacked, dt):
     return lib, rec, suffix
 
 
+def _check_pattern(mesh):
+    """The coefficient kernel is compiled for the planar hex mesh's entry
+    pattern, as the fused steps that call it are (their gate,
+    megastep.supported); any other mesh raises here."""
+    from omega_tpu_torch.ops import megastep     # megastep imports this
+    if not megastep.hex_pattern_fits(mesh):
+        raise ValueError("the PP81 coefficient kernel takes the planar hex "
+                         "mesh's entry pattern only "
+                         "(megastep.hex_pattern_fits)")
+
+
 def pp81_coeffs(mesh, cfg, stacked):
     """(kappa_cell (K-1, ny, nx), nu_edge (3, K-1, ny, nx)) of the PP81
     closure on a stacked state: one kernel launch on PyTorch's current
@@ -296,6 +320,7 @@ def pp81_coeffs(mesh, cfg, stacked):
     global coeff_launches
     if not stacked.is_cuda:
         return pp81_coeffs_plain(mesh, cfg, stacked)
+    _check_pattern(mesh)
     lib, rec, suffix = _checked(mesh, cfg, stacked, 0.0)
     K, ny, nx = stacked.shape[1:]
     kappa = stacked.new_empty((K - 1, ny, nx))
@@ -339,6 +364,18 @@ def vmix_solve(mesh, cfg, stacked, dt, coeffs=None):
     _build.check(code, "vertical-mixing solve kernel launch")
     solve_launches += 1
     return stacked
+
+
+def coeff_attrs(dtype):
+    """cudaFuncGetAttributes' numRegs, localSizeBytes (the spill) and
+    sharedSizeBytes of the coefficient kernel in `dtype`, and the blocks an
+    SM holds of it."""
+    suffix = _FLOAT[dtype][1]
+    got = np.zeros(4, np.int32)
+    _build.check(getattr(_build.load(), f"omega_pp81_coeffs_attrs_{suffix}")(
+        got.ctypes.data), "cudaFuncGetAttributes")
+    return dict(zip(("num_regs", "local_bytes", "shared_bytes",
+                     "blocks_per_sm"), map(int, got)))
 
 
 def solve_attrs(mesh, cfg, stacked):

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Device time of the planar splitpre's passes and splitpost, of the
-sphere's FCT stage B and its launches, and host time per step of the
-sphere's forward-backward path, on one NVIDIA GPU.
+sphere's FCT stage B and its launches, of the two PP81 coefficient kernels,
+and host time per step of the sphere's forward-backward path, on one
+NVIDIA GPU.
 
     python3 pass_times.py            # from the root of a checkout
     python3 pass_times.py fct_b      # only the parts named (split, fct_b,
-                                     # sphere); ptxas always
+                                     # pp81, sphere); ptxas always
 
 Runs on the checkout it is started from, so that two checkouts (a commit
 and the one before it) can be read in turn on one card: it reads only
@@ -30,6 +31,14 @@ power limit first:
               ms per call (torch.profiler over 20 whole calls, by kernel
               name), and each launch's registers, spill and blocks per SM
               where the checkout reads them
+  pp81        the PP81 coefficient kernels on chip_smoke.py's full-width
+              inputs, float32: the plane's (csrc/vmix.cu) at 256 x 256 x
+              100 x 2 on the state one science FB step leaves (upwind
+              fluxes, wind, drag), the sphere's (csrc/patch_vmix.cu) at
+              icos48 x 100 x 2 on the frames the science patch step writes:
+              ms per call by CUDA events (three reads of 20 calls), with
+              the kernels' registers, spill and blocks per SM where the
+              checkout reads them, and nvcc's report of them
   sphere      host ms per step (three 10-step segments through run_steps,
               each ending in torch.cuda.synchronize()) of icos48 x 100 x 2
               float32: the flagship configuration and the science one
@@ -49,7 +58,7 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-PARTS = ("split", "fct_b", "sphere")
+PARTS = ("split", "fct_b", "pp81", "sphere")
 
 
 def main(argv):
@@ -81,8 +90,9 @@ def main(argv):
     emit({"ptxas": [[ln.split("'")[1]] + [x.strip() for x in
                                           lines[i + 1:i + 5]]
                     for i, ln in enumerate(lines)
-                    if "Compiling entry function" in ln and "split_" in ln
-                    and "patch" not in ln]})
+                    if "Compiling entry function" in ln
+                    and (("split_" in ln and "patch" not in ln)
+                         or "pp81" in ln)]})
 
     def cuda_ms(fn, reps=20):
         for _ in range(2):
@@ -116,6 +126,46 @@ def main(argv):
 
     K, L = 100, 2
     put = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    tend = dict(visc_del2=1.0e3, visc_del4=1.0e9)
+    pp81 = VertMixConfig(enabled=True, scheme="pp81", temp_index=0,
+                         salt_index=1)
+    science = ModelConfig(
+        nvertlayers=K, ntracers=L, flux_thickness_type="upwind",
+        flux_tracer_type="upwind", vert_mix=pp81,
+        tendencies=TendencyConfig(wind_forcing=True, bottom_drag=True,
+                                  bottom_drag_coeff=3.0e-3, **tend))
+    pp81_rec = {}
+    if "pp81" in parts:
+        from omega_tpu_torch.ops import vmix_kernel
+        mesh_np = planar_hex_mesh(256, 256, dc=5000.0, f0=1e-4,
+                                  bottom_depth=1000.0)
+        mesh = mesh_np.to(dev, torch.float32)
+        kx = 2 * np.pi / mesh_np.x_period
+        ky = 2 * np.pi / mesh_np.y_period
+        ssh = np.sin(kx * mesh_np.x_cell) * np.sin(ky * mesh_np.y_cell)
+        st = ModelState(
+            put((1000.0 + ssh[:, None]) / K * np.ones((1, K))),
+            put(0.05 * rng.standard_normal((mesh_np.nedges, K))),
+            put(np.stack([10.0 + 2.0 * np.arange(K)[::-1] / K
+                          + 0.1 * rng.standard_normal((mesh_np.ncells, K)),
+                          35.0 + 0.1 * rng.standard_normal(
+                              (mesh_np.ncells, K))])))
+        cfg_h = ModelConfig(
+            nvertlayers=K, ntracers=L, flux_thickness_type="upwind",
+            flux_tracer_type="upwind",
+            tendencies=TendencyConfig(wind_forcing=True, bottom_drag=True,
+                                      bottom_drag_coeff=3.0e-3, **tend))
+        wind_p = (put(0.1 * np.sin(ky * mesh_np.y_cell)),
+                  put(0.05 * np.ones(mesh_np.ncells)))
+        sv = megastep.fb_megastep_stacked(
+            mesh, cfg_h, megastep.stack_state(mesh, st), 30.0,
+            wind=megastep.stack_wind(mesh, cfg_h, wind_p, torch.float32))
+        fn = lambda: vmix_kernel.pp81_coeffs(mesh, science, sv)
+        rec = {"ms": [cuda_ms(fn) for _ in range(3)]}
+        if hasattr(vmix_kernel, "coeff_attrs"):
+            rec["attrs"] = vmix_kernel.coeff_attrs(torch.float32)
+        pp81_rec["plane"] = rec
+        del sv, st, mesh
     if "split" in parts:
         mesh_np = planar_hex_mesh(256, 256, dc=5000.0, f0=1e-4,
                                   bottom_depth=1000.0)
@@ -164,6 +214,22 @@ def main(argv):
         put(np.stack([T, S])))
     wind = (put(0.1 * np.cos(lat)), put(0.05 * np.sin(lat)))
 
+    if "pp81" in parts:
+        from omega_tpu_torch.ops import patch_megastep as pm
+        p48 = pm.prep(m, torch.float32, dev)
+        fr, _ = pm.stack_frames(m, science, sph)
+        out = torch.empty_like(fr)
+        pm.chain(p48, science, fr, 30.0, out, pm.new_work(fr),
+                 pm.make_wind(m, science, wind, torch.float32))
+        coef = pm.new_coef(out, science)
+        fn = lambda: pm.vmix_coeffs(p48, science, out, coef)
+        rec = {"ms": [cuda_ms(fn) for _ in range(3)]}
+        if hasattr(pm, "coeff_attrs"):
+            rec["attrs"] = pm.coeff_attrs(science, out)
+        pp81_rec["sphere"] = rec
+        emit({"pp81": pp81_rec})
+        del fr, out, coef, p48
+
     # FCT's stage B on stage A's refreshed output
     if "fct_b" in parts:
         from omega_tpu_torch.ops import patch_megastep as pm
@@ -202,18 +268,10 @@ def main(argv):
         del fr, mid, out, work, st_f
 
     if "sphere" in parts:
-        tend = dict(visc_del2=1.0e3, visc_del4=1.0e9)
         cfgs = {
             "flagship": (ModelConfig(nvertlayers=K, ntracers=L,
                                      tendencies=TendencyConfig(**tend)), None),
-            "science": (ModelConfig(
-                nvertlayers=K, ntracers=L, flux_thickness_type="upwind",
-                flux_tracer_type="upwind",
-                vert_mix=VertMixConfig(enabled=True, scheme="pp81",
-                                       temp_index=0, salt_index=1),
-                tendencies=TendencyConfig(wind_forcing=True, bottom_drag=True,
-                                          bottom_drag_coeff=3.0e-3, **tend)),
-                wind)}
+            "science": (science, wind)}
         host = {}
         for name, (c, w) in cfgs.items():
             run_steps(m, c, sph, 0.0, 30.0, 1, wind_stress=w)     # untimed

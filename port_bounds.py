@@ -21,7 +21,10 @@ being the bound. Float32 throughout, K = 100 layers, 2 tracers.
           three kernels of the port one by one ("horizontal": the patch
           step's science variant; "coeffs": the PP81 coefficient pass;
           "solve": the column solves), each input read once and each output
-          written once
+          written once; and "coeffs_frames", the coefficient pass over the
+          port's frames (10 x S x S positions, S = n + 16: h, 3 u, T and
+          S read and kappa and 3 nu written at every position, the 1.78x
+          as many positions as the mesh has cells at icos48)
   patch_fct  the same site at icos48, kinds fcta / fctb (patch_megastep.py
           :1797): one FB step with Zalesak FCT tracer fluxes (flagship
           terms, center thickness flux). Stage A reads the state and the
@@ -187,6 +190,7 @@ def patch_science(n=48):
     wind = E * F32
     coef = (C + E) * KI * F32
     levels = (K - 1).bit_length()                 # ceil(log2 K)
+    frames = 10 * (n + 16) ** 2                   # frame positions
     # the horizontal step: the flagship's work and the wind rows; the
     # coefficients: h_new, u_new, T, S read, kappa and nu written, ~90
     # operations per cell and interface (chip_smoke.py's planar count);
@@ -198,7 +202,9 @@ def patch_science(n=48):
         "coeffs": bound(((3 * C + E) * K + coef // F32) * F32,
                         90 * KI * C),
         "solve": bound((C * (1 + 2 * L) + 2 * E) * K * F32 + coef,
-                       levels * K * (C * (16 + 4 * L) + E * (16 + 4)))}
+                       levels * K * (C * (16 + 4 * L) + E * (16 + 4))),
+        "coeffs_frames": bound((6 * K + 4 * KI) * frames * F32,
+                               90 * KI * frames)}
     return {"kernel": "omega_tpu/ops/patch_megastep.py:1425",
             "function": f"one FB step of the science configuration, icos{n}"
             f" x {K} layers x {L} tracers",

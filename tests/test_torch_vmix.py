@@ -290,9 +290,9 @@ def test_param_record_mirrors_the_kernel_struct(ft):
     pm, cfg, _, _ = _stacked("pp81_wind_drag", 5)
     rec = vmix_kernel.pack_params(pm, cfg, 30.0, ft, 2, 5)
     size = np.dtype(ft).itemsize
-    # Entry<T>[16], int nke, int[4], 8 T, 13 int, padded to T's alignment
+    # Entry<T>[16], int nke, int[4], 8 T, 14 int, padded to T's alignment
     raw = 16 * entry_dtype(ft).itemsize + 20
-    raw = -(-raw // size) * size + 8 * size + 13 * 4
+    raw = -(-raw // size) * size + 8 * size + 14 * 4
     assert rec.dtype.itemsize == -(-raw // size) * size
     ke, cmean = vmix_kernel._tables(pm)
     assert rec["nke"] == len(ke) == 6
@@ -303,6 +303,10 @@ def test_param_record_mirrors_the_kernel_struct(ft):
                                                              di_o)
         assert e["w"] == ft(w)
     assert (rec["ry"], rec["rx"]) == (1, 1)
+    # the coefficient kernel's compiled tile and its groups of interfaces
+    assert (rec["by"], rec["bx"]) == vmix_kernel.COEF_TILE
+    assert rec["groups"] == vmix_kernel.plan_coeffs(
+        pm.structured_ny, pm.structured_nx, 5)["groups"]
     assert rec["dt"] == ft(30.0) and rec["n_exp"] == 2
     assert (rec["ti"], rec["si"], rec["L"], rec["K"]) == (0, 1, 2, 5)
     # the solve's plan: one k-lane holds the 5 rows, a warp of columns

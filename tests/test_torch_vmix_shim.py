@@ -7,8 +7,12 @@ plain versions (ops/vmix_kernel.vmix_solve_plain, the reference's PCR, and
 pp81_coeffs_plain) on a 16 x 8 planar hex mesh with 2 tracers: constant
 and PP81 coefficients, K in {2, 3, 7, 33, 100} (one k-lane of 2, 3 and 7
 rows; two lanes of 16 and 17; four of 25), float64 and float32; then the
-arguments the launcher refuses. No JAX here: tests/test_torch_vmix.py holds
-the plain versions against the JAX package.
+arguments the launcher refuses. The coefficient pass also on a 64 x 32
+mesh (tiles that meet and wrap) with groups of several interfaces,
+stratified and not, and the meshes and records it refuses: off the
+compiled hex pattern, another tile or ring, an odd row count, no group.
+No JAX here: tests/test_torch_vmix.py holds the plain versions against the
+JAX package.
 
 Limits (chip_smoke.py's `kernel_vmix`): float64 rtol = atol = 1e-10 against
 plain; float32 max|diff| <= 1e-4 max|ref| per output, per channel the error
@@ -18,6 +22,7 @@ untouched. Layers are 10 m thick at every K, as on the main path (100 x
 10 m), so that the increments stand clear of float32 roundoff."""
 
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 
@@ -31,7 +36,7 @@ from test_torch_sphere_split_shim import CSRC
 from omega_tpu_torch.core import (ModelConfig, ModelState, TendencyConfig,
                                   VertMixConfig)
 from omega_tpu_torch.mesh import planar_hex_mesh
-from omega_tpu_torch.ops import megastep, vmix_kernel
+from omega_tpu_torch.ops import megastep, structured, vmix_kernel
 
 NX, NY, L, DT = 16, 8, 2, 30.0
 KS = (2, 3, 7, 33, 100)
@@ -144,24 +149,129 @@ def test_solve_against_plain(lib, mesh_np, K, name, suf):
     assert ((c1 - c0).abs() / c0.abs()).max().item() <= 1e-5
 
 
+# case -> (K, mesh (nx, ny), groups of interfaces or None for the plan's,
+# vertical mixing)
+UNSTRATIFIED = VertMixConfig(enabled=True, scheme="pp81", n_exp=3)
+COEFF_CASES = {
+    "2": (2, (NX, NY), None, None),
+    "33": (33, (NX, NY), None, None),
+    "64x32-7-g3": (7, (64, 32), 3, None),
+    "64x32-100-g4": (100, (64, 32), 4, None),
+    "64x32-33-g5-unstratified": (33, (64, 32), 5, UNSTRATIFIED),
+}
+
+
 @pytest.mark.parametrize("suf", list(DTYPES))
-@pytest.mark.parametrize("K", (2, 33))
-def test_pp81_coeffs_against_plain(lib, mesh_np, K, suf):
-    """The coefficient pass (one interface and tile per block, a barrier
-    between its staging and its points) against pp81_coeffs_plain."""
+@pytest.mark.parametrize("case", list(COEFF_CASES))
+def test_pp81_coeffs_against_plain(lib, mesh_np, case, suf):
+    """The coefficient pass (a tile walking its group of interfaces, each
+    layer staged once, a barrier between the slab's dz, N^2, du and its
+    points) against pp81_coeffs_plain."""
     dtype = DTYPES[suf]
-    mesh, cfg, s = _setup(mesh_np, K, "pp81", dtype)
+    K, shape, groups, vm = COEFF_CASES[case]
+    m = mesh_np if shape == (NX, NY) else planar_hex_mesh(
+        *shape, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
+    mesh, cfg, s = _setup(m, K, "pp81", dtype)
+    if vm is not None:
+        cfg = dataclasses.replace(cfg, vert_mix=vm)
     kp, npl = vmix_kernel.pp81_coeffs_plain(mesh, cfg, s)
     kap = torch.full_like(kp, float("nan"))
     nu = torch.full_like(npl, float("nan"))
+    rec = _rec(mesh, cfg, s)
+    if groups is not None:
+        rec["groups"] = groups
     assert getattr(lib, f"omega_pp81_coeffs_{suf}")(
-        s.data_ptr(), kap.data_ptr(), nu.data_ptr(),
-        _rec(mesh, cfg, s).ctypes.data, None) == 0
+        s.data_ptr(), kap.data_ptr(), nu.data_ptr(), rec.ctypes.data,
+        None) == 0
     for got, ref in ((kap, kp), (nu, npl)):
         if dtype == torch.float64:
             torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-10)
         else:
             assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_plan_coeffs_fills_the_card_with_whole_groups():
+    """At 256 x 256 (128 tiles) the plan takes 6 groups of 17 interfaces
+    (768 blocks); no plan leaves a group empty, and a small mesh takes a
+    group per interface."""
+    assert vmix_kernel.plan_coeffs(256, 256, 100) == dict(
+        by=16, bx=32, ry=1, rx=1, groups=6)
+    for ny, nx in ((8, 16), (32, 64), (256, 256), (512, 512)):
+        for K in (2, 3, 7, 10, 33, 100, 800):
+            g = vmix_kernel.plan_coeffs(ny, nx, K)["groups"]
+            per = -(-(K - 1) // g)
+            assert 1 <= g <= K - 1 and (g - 1) * per < K - 1
+    assert vmix_kernel.plan_coeffs(NY, NX, 33)["groups"] == 32
+
+
+# case -> what it changes in the record of a valid call at K = 7
+COEFF_REFUSED = {
+    "other_tile": dict(by=8),
+    "other_ring": dict(ry=2),
+    "odd_rows": dict(ny=NY - 1),
+    "no_group": dict(groups=0),
+    "one_layer": dict(K=1),
+    "other_entry_pattern": dict(swap=True),
+}
+
+
+@pytest.mark.parametrize("case", list(COEFF_REFUSED))
+def test_pp81_coeffs_refuse_bad_arguments(lib, mesh_np, case):
+    """A record the coefficient launcher does not take returns an error
+    code and writes nothing: another tile or ring than the compiled ones,
+    an odd number of rows, no group of interfaces, a single layer, ke
+    entries in another order than the compiled pattern."""
+    mesh, cfg, s = _setup(mesh_np, 7, "pp81", torch.float64)
+    rec = _rec(mesh, cfg, s).copy()
+    bad = COEFF_REFUSED[case]
+    for k, v in bad.items():
+        if k != "swap":
+            rec[k] = v
+    if bad.get("swap"):
+        rec["e"][[0, 3]] = rec["e"][[3, 0]]
+    kap = torch.zeros((6, NY, NX), dtype=torch.float64)
+    nu = torch.zeros((3, 6, NY, NX), dtype=torch.float64)
+    assert lib.omega_pp81_coeffs_f64(s.data_ptr(), kap.data_ptr(),
+                                     nu.data_ptr(), rec.ctypes.data,
+                                     None) != 0
+    assert not kap.any() and not nu.any()
+
+
+def test_pp81_coeffs_refuse_a_mesh_off_the_hex_pattern(lib, mesh_np,
+                                                      monkeypatch):
+    """The host raises, before it builds or launches anything, for a CUDA
+    array on a mesh whose tables do not pack into the compiled pattern:
+    a 4-column mesh, and the 16 x 8 mesh with two ke entries swapped,
+    whose record the launcher refuses too."""
+    m4 = planar_hex_mesh(4, NY, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
+    mesh4, cfg, s4 = _setup(m4, 7, "pp81", torch.float64)
+    mesh, _, s = _setup(mesh_np, 7, "pp81", torch.float64)
+    assert megastep.hex_pattern_fits(mesh)
+    real = structured.cached_table
+
+    def swapped(m, name):
+        tab = real(m, name)
+        if name != "ke" or m is not mesh:
+            return tab
+        return (tab[3],) + tab[1:3] + (tab[0],) + tab[4:]
+    monkeypatch.setattr(structured, "cached_table", swapped)
+    assert not megastep.hex_pattern_fits(mesh4)
+    assert not megastep.hex_pattern_fits(mesh)
+    kap = torch.zeros((6, NY, NX), dtype=torch.float64)
+    nu = torch.zeros((3, 6, NY, NX), dtype=torch.float64)
+    assert lib.omega_pp81_coeffs_f64(s.data_ptr(), kap.data_ptr(),
+                                     nu.data_ptr(),
+                                     _rec(mesh, cfg, s).ctypes.data,
+                                     None) != 0
+    assert not kap.any() and not nu.any()
+    loaded = []
+    monkeypatch.setattr(vmix_kernel._build, "load",
+                        lambda: loaded.append(1))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    for m, st in ((mesh4, s4), (mesh, s)):
+        with pytest.raises(ValueError, match="entry pattern"):
+            vmix_kernel.pp81_coeffs(m, cfg, st)
+    assert not loaded
 
 
 # case -> what it changes in a valid constant-coefficient call at K = 33
