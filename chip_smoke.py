@@ -26,10 +26,13 @@ a user calls, and prints one JSON line per phase:
   kernel_rk       RK stage kernel vs plain, every stage mode, with its
                   registers, spill and blocks per SM; fused RK2 / RK4
                   steps vs the composed steppers
-  kernel_split    splitpre's passes, the barotropic subcycles and splitpost
-                  vs plain; fused split steps vs the composed split stepper;
-                  splitpre's device time per pass (torch.profiler) with its
-                  registers, spill and blocks per SM
+  kernel_split    splitpre's passes, the barotropic subcycles (all M in one
+                  cooperative launch; M = 1, 7, 10, 30, bt_drag 0 and 1e-4,
+                  also float64 at full width) and splitpost vs plain; fused
+                  split steps vs the composed split stepper; splitpre's
+                  device time per pass (torch.profiler) with its registers,
+                  spill and blocks per SM; the subcycle kernel's registers,
+                  spill, blocks per SM and grid
   kernel_patch    the sphere's FB step (six launches) vs plain at icos16
                   float64 and icos48 x 100 x 2 float32; fused framed steps
                   vs the composed stepper; each pass's device time
@@ -55,12 +58,14 @@ a user calls, and prints one JSON line per phase:
                   and spill, the submesh's tendencies and the refresh
   kernel_patch_split  the split-explicit step on the sphere: splitpre (five
                   launches), splitpost (four) and the gather-form barotropic
-                  subcycles (two launches per subcycle, M = 10, bt_drag 0 and
-                  1e-4) vs plain at icos16 float64 and icos48 x 100 x 2
-                  float32; fused framed split steps vs the composed split
-                  stepper; each kernel's time, splitpre's passes' device
-                  times with their registers and spill, the submesh's
-                  part, the refresh
+                  subcycles (one cooperative launch for all M; M = 10,
+                  bt_drag 0 and 1e-4 at icos16 float64, M = 1, 7, 10, 30 at
+                  icos48 float64 and float32) vs plain at icos16 float64
+                  and icos48 x 100 x 2 float32; fused framed split steps vs
+                  the composed split stepper; each kernel's time, splitpre's
+                  passes' device times with their registers and spill, the
+                  subcycle kernel's registers, spill, blocks per SM and
+                  grid, the submesh's part, the refresh
   kernel_gather   the gather kernel vs plain on each of the 16 tables of
                   the RCM-renumbered icos48 x 100 float32 with one and two
                   leading indices and icos16 float64, and on a table of 20
@@ -75,7 +80,7 @@ a user calls, and prints one JSON line per phase:
   rk2_path        2 x 10 RK2 steps of the science configuration: two stage
                   launches and the two vertical-mixing kernels per step
   split_path      2 x 10 split-explicit steps (column ssh, dt = 120 s, ten
-                  barotropic subcycles): 2 + 10 + 1 launches per step
+                  barotropic subcycles): 2 + 1 + 1 launches per step
   sphere_path     2 x 10 FB steps of bench.py's sphere (icos48 x 100 x 2):
                   six patch-step launches per step, nothing else
   sphere_science_path  2 x 10 FB steps of the science configuration on the
@@ -95,7 +100,7 @@ a user calls, and prints one JSON line per phase:
                   sphere with the column free surface, for comparison
   sphere_split_path 2 x 10 split-explicit steps (dt = 120 s, M = 10) of
                   sphere_path's sphere with the column free surface: five
-                  splitpre, twenty subcycle and four splitpost launches per
+                  splitpre, one subcycle and four splitpost launches per
                   step
   gather_path     2 x 10 FB steps of bench.py's OMEGA_PATCHES=0 sphere
                   (reorder_mesh(spherical_icos_mesh(48)) x 100 x 2): the
@@ -105,6 +110,11 @@ a user calls, and prints one JSON line per phase:
   coastal_gather_path  the same on a carved icos48 (a continent of about
                   10% of the cells): u = 0 on the coast, the coast's mask
                   kept by reorder_mesh
+  gather_split    the gather-form subcycle kernel vs the plain loop on both
+                  gather meshes (float64 and float32, M = 1, 7, 10, 30,
+                  bt_drag 0 and 1e-4), and one composed split step on each
+                  with its subcycles in one bt_gather launch, against the
+                  composed step with the plain loop
   rk_order        the manufactured solution in float64: the steppers'
                   temporal order and the spatial order
   profile         (only with --profile) device time by kernel, every path
@@ -937,24 +947,25 @@ def main(argv=None):
     # --------------------------------------------------- 4d. kernel_split
     # the split-explicit kernels (splitpre's three passes, the barotropic
     # subcycles, splitpost) against their plain versions on the same inputs:
-    # f64 per channel within 1e-12 of max|ref|, the barotropic kernel at
-    # (M, bt_drag) = (10, 0), (7, 1e-4) and (30, 0); the fused split step
+    # f64 per channel within 1e-12 of max|ref|, the barotropic kernel (all
+    # M subcycles in one cooperative launch) at M = 10, 7, 30, 1 with
+    # bt_drag 0 and 1e-4, here and at full width; the fused split step
     # against the composed split stepper on the card, f64, 3 steps, rtol=
     # atol=1e-10 (tests/test_split.py:237-240). f32 at full width: splitpre's
     # outputs (new fields: du_full, the planes) per channel max|diff| over
-    # max|ref|; the barotropic kernel's and splitpost's per channel the error
-    # of the increment over the largest increment (ub_final and <ubar> over
-    # ubar, ssh over sshc, the state over the state). The limits are about
-    # ten times the first run's readings (PERF.md): g_slow 5.1e-6 (a
-    # difference of near-equal terms), ssh's increment 3.9e-6, a tracer's
-    # increment 5.1e-4 (as in the FB step).
+    # max|ref|; the barotropic kernel's (every case) and splitpost's per
+    # channel the error of the increment over the largest increment
+    # (ub_final and <ubar> over ubar, ssh over sshc, the state over the
+    # state). The limits are about ten times the first run's readings
+    # (PERF.md): g_slow 5.1e-6 (a difference of near-equal terms), ssh's
+    # increment 3.9e-6, a tracer's increment 5.1e-4 (as in the FB step).
     import port_bounds
     from omega_tpu_torch.ops import barotropic_kernel as btk
     from omega_tpu_torch.stepping import (make_stepper,
                                           split_forward_backward_step)
     DT_SPLIT, M_SPLIT = 120.0, 10
     SPLIT_PRE_ERR, BT_INCR, POST_INCR = 5e-5, 5e-5, 5e-3
-    BT_CASES = ((10, 0.0), (7, 1e-4), (30, 0.0))
+    BT_CASES = tuple((M, r) for M in (10, 7, 30, 1) for r in (0.0, 1e-4))
     PRE_NAMES = (["du0", "du1", "du2"]
                  + [f"ubar{t}" for t in range(3)] + ["sshc"]
                  + [f"g_slow{t}" for t in range(3)]
@@ -1010,7 +1021,7 @@ def main(argv=None):
         for M, r in BT_CASES:
             got, ref = bt_call(mesh, pl_p[:10].contiguous(), M, r)
             worst[f"barotropic M={M} r={r}"] = chan_err(got, ref)
-            if M == M_SPLIT:
+            if M == M_SPLIT and bt_ref10 is None:
                 bt_ref10 = ref
         out = torch.empty_like(s)
         planes = post_inputs(pl_p, bt_ref10)
@@ -1054,13 +1065,29 @@ def main(argv=None):
         if not e <= SPLIT_PRE_ERR or not bool(torch.isfinite(got).all()):
             fail(f"splitpre {name} at full width f32: {e} of max|ref|")
     stack = pl_p[:10].contiguous()
-    got, bt_ref = bt_call(mesh32, stack, M_SPLIT, 0.0)
     base = torch.cat([stack[:4], stack[:3]])
-    inc = incr_err(got, bt_ref, base)
-    f32["barotropic"] = dict(zip(BT_NAMES, inc))
+    f32["barotropic_cases"] = {}
+    for M, r in BT_CASES:
+        got, ref = bt_call(mesh32, stack, M, r)
+        inc = incr_err(got, ref, base)
+        f32["barotropic_cases"][f"M={M} r={r}"] = max(inc)
+        if max(inc) > BT_INCR or not bool(torch.isfinite(got).all()):
+            fail(f"barotropic kernel at full width f32, M={M} r={r}: "
+                 f"increments {inc}")
+    got, bt_ref = bt_call(mesh32, stack, M_SPLIT, 0.0)
+    f32["barotropic"] = dict(zip(BT_NAMES, incr_err(got, bt_ref, base)))
     bt_abs = (got - bt_ref).abs().max().item()
-    if max(inc) > BT_INCR or not bool(torch.isfinite(got).all()):
-        fail(f"barotropic kernel at full width f32: increments {inc}")
+    # float64 at full width, every case
+    mesh64 = mesh_np.to(dev, torch.float64)
+    stack64 = stack.double()
+    bt_f64 = {}
+    for M, r in BT_CASES:
+        got, ref = bt_call(mesh64, stack64, M, r)
+        bt_f64[f"M={M} r={r}"] = chan_err(got, ref)
+    if not max(bt_f64.values()) <= 1e-12:
+        fail(f"barotropic kernel at full width f64: {bt_f64}")
+    spl["f64"][f"barotropic_{NX}x{NY}"] = bt_f64
+    del mesh64, stack64, got, ref
     planes = post_inputs(pl_p, bt_ref)
     out = torch.empty_like(s0)
     megastep.split_post(mesh32, cfg_s, s0, du_p, planes, DT_SPLIT, out)
@@ -1086,6 +1113,11 @@ def main(argv=None):
                  n_subcycles=M_SPLIT)
     bt_ms = cuda_ms(lambda: btk.bt_planes(mesh32, stack, out=bt_out,
                                           work=bt_work, **bt_kw), 20)
+    # the kernel's own device time (the events above also hold the
+    # wrapper's host time where it is the longer)
+    bt_dev_ms = kernel_ms(lambda: btk.bt_planes(
+        mesh32, stack, out=bt_out, work=bt_work, **bt_kw),
+        {"bt": "bt_kernel"})["bt"]
     bt_plain_ms = cuda_ms(lambda: btk.bt_plain(mesh32, stack, **bt_kw), 3, 1)
     post_ms = cuda_ms(lambda: megastep.split_post(
         mesh32, cfg_s, s0, du_p, planes, DT_SPLIT, out), 20)
@@ -1122,8 +1154,10 @@ def main(argv=None):
                       "bound_by": pre_b[1]},
         "split_pre_passes": pre_passes,
         "barotropic": {"M": M_SPLIT, "max_abs_err": bt_abs, "ms": bt_ms,
+                       "device_ms": bt_dev_ms,
                        "plain_ms": bt_plain_ms, "bound_ms": bt_b[0],
-                       "bound_by": bt_b[1]},
+                       "bound_by": bt_b[1],
+                       **btk.attrs(torch.float32, mesh32)},
         "split_post": {"max_abs_err": post_abs, "ms": post_ms,
                        "plain_ms": post_plain_ms, "bound_ms": post_b[0],
                        "bound_by": post_b[1],
@@ -2032,7 +2066,7 @@ def main(argv=None):
     # --------------------------------------------- 4i. kernel_patch_split
     # the split-explicit step on the sphere (csrc/patch_split.cu: splitpre,
     # five launches, and splitpost, four; csrc/bt_gather.cu: the
-    # barotropic subcycles, two launches each) against their plain versions
+    # barotropic subcycles, one cooperative launch) against their plain versions
     # on the same inputs, at the flat phase's own inputs (the mode split and
     # the slow forcing of the state). Float64 at icos16 x 8 x 2: splitpre's
     # du_out per channel max|diff| <= SPLIT_F64 max|ref| (its momentum terms
@@ -2043,7 +2077,9 @@ def main(argv=None):
     # stepper, rtol = atol = 1e-10. Float32 at icos48 x 100 x 2: du_out per
     # channel max|diff| / max|ref| <= PATCH_INCR (du_out is itself the
     # increment per unit dt), splitpost and the subcycles by the increment
-    # per channel, PATCH_INCR. M = 10 with bt_drag 0 and 1e-4
+    # per channel, PATCH_INCR. M = 10 with bt_drag 0 and 1e-4; the
+    # subcycles also at icos48 for every BT_CASES case, float64 per output
+    # within 1e-12 of max|ref| and float32 by the increment, PATCH_INCR
     SPLIT_F64 = 1e-14
     cfg16p = bench_cfg(8, NTRACERS, dict(eddy_diff4=1e9),
                        ssh_formulation="column")
@@ -2128,7 +2164,7 @@ def main(argv=None):
            "passes_per_call": {
                "split_pre": patch_megastep.SPLIT_PRE_PASSES,
                "split_post": patch_megastep.SPLIT_POST_PASSES,
-               "bt_gather": bt_gather.LAUNCHES_PER_SUBCYCLE * M_SPLIT}}
+               "bt_gather": 1}}
     st16p = sphere_state(m16_np, 8, NTRACERS, torch.float64, 0.1, 1.0)
     rec, _ = split_checks(m16, p16, cfg16p, st16p)
     worst = max(rec["split_pre"] + rec["split_post"]
@@ -2145,7 +2181,7 @@ def main(argv=None):
     got_l = (patch_megastep.split_pre_launches, bt_gather.launches,
              patch_megastep.split_post_launches)
     want_l = (3 * patch_megastep.SPLIT_PRE_PASSES,
-              3 * M_SPLIT * bt_gather.LAUNCHES_PER_SUBCYCLE,
+              3,
               3 * patch_megastep.SPLIT_POST_PASSES)
     if got_l != want_l:
         fail(f"fused sphere split steps: launches {got_l}, expected "
@@ -2187,8 +2223,28 @@ def main(argv=None):
     if not f32_worst <= PATCH_INCR or max(
             rec[f"bt_drag_{r}"]["dead_edges"] for r in (0.0, 1e-4)) != 0.0:
         fail(f"sphere split kernels vs plain at icos{N_SPHERE} f32: {rec}")
+    # the subcycles at icos48, every case, float64 and float32
+    bt_cases = {"f64": {}, "f32": {}}
+    m48d = m48_np.to(dev, torch.float64)
+    for nm, mesh_, ins_ in (("f32", m48, ins48),
+                            ("f64", m48d, tuple(a.double() for a in ins48))):
+        for M, r in BT_CASES:
+            kw = dict(gravity=cfg48p.gravity, dt_bt=DT_SPLIT / M,
+                      n_subcycles=M, bt_drag=r)
+            got_bt = bt_gather.bt_subcycles(mesh_, *ins_, **kw)
+            ref_bt = bt_gather.subcycles_plain(mesh_, *ins_, **kw)
+            bt_cases[nm][f"M={M} r={r}"] = max(
+                nerr(a_, b_) if nm == "f64" else
+                incr_err(a_.T, b_.T, s_.T)[0] for a_, b_, s_
+                in zip(got_bt, ref_bt, (ins_[0], ins_[1], ins_[0])))
+    del m48d, got_bt, ref_bt
+    if not (max(bt_cases["f64"].values()) <= 1e-12
+            and max(bt_cases["f32"].values()) <= PATCH_INCR):
+        fail(f"sphere subcycles vs plain at icos{N_SPHERE}: {bt_cases}")
+    rec["bt_cases"] = bt_cases
     bt_kw = dict(gravity=cfg48p.gravity, dt_bt=DT_SPLIT / M_SPLIT,
                  n_subcycles=M_SPLIT)
+    bt_bufs = bt_gather.new_buffers(ins48[0], ins48[1])
     psb, bbt = port_bounds.patch_split(N_SPHERE), port_bounds.sphere_bt(
         N_SPHERE, M_SPLIT)
     rec.update(
@@ -2200,8 +2256,12 @@ def main(argv=None):
             p48, cfg48p, ft48, DT_SPLIT, out48, work=sc48["work"]), 20),
         split_post_plain_ms=cuda_ms(lambda: patch_megastep.split_post_plain(
             p48, cfg48p, ft48, DT_SPLIT), 2, 1),
-        bt_ms=cuda_ms(lambda: bt_gather.bt_subcycles(m48, *ins48, **bt_kw),
-                      20),
+        bt_ms=cuda_ms(lambda: bt_gather.bt_subcycles(
+            m48, *ins48, **bt_kw, out=bt_bufs[0], work=bt_bufs[1]), 20),
+        bt_device_ms=kernel_ms(lambda: bt_gather.bt_subcycles(
+            m48, *ins48, **bt_kw, out=bt_bufs[0], work=bt_bufs[1]),
+            {"bt": "bt_gather_kernel"})["bt"],
+        bt_attrs=bt_gather.attrs(torch.float32, m48),
         bt_plain_ms=cuda_ms(lambda: bt_gather.subcycles_plain(
             m48, *ins48, **bt_kw), 2, 1),
         split_pre_bound_ms=psb["splitpre"]["bound_ms"],
@@ -2751,7 +2811,7 @@ def main(argv=None):
     # the split-explicit stepper on the bench configuration with the column
     # free surface, at four times main_path's dt with M = 10 barotropic
     # subcycles, through make_stepper("SplitExplicit"): splitpre (two
-    # launches), ten subcycle launches and splitpost per step, nothing else
+    # launches), one subcycle launch and splitpost per step, nothing else
     cfg_split = bench_cfg(NLAYERS, NTRACERS, ssh_formulation="column")
     split_stepper = make_stepper("SplitExplicit")
     if split_stepper.split_explicit_params != (M_SPLIT, 0.0):
@@ -2763,7 +2823,7 @@ def main(argv=None):
                    {"fb_step": 0, "rk_stage": 0, "pp81_coeffs": 0,
                     "vmix_solve": 0, "stencil": 0,
                     "split_pre": megastep.SPLIT_PRE_PASSES * nseg * seg,
-                    "barotropic": M_SPLIT * nseg * seg,
+                    "barotropic": nseg * seg,
                     "split_post": nseg * seg, **NO_PATCH})
     spl_vol, spl_trc = drifts(state0, spl_st)
     spl_umax = spl_st.u.abs().max().item()
@@ -3091,8 +3151,8 @@ def main(argv=None):
     # surface (icos48 x 100 x 2, float32, dt = 120 s, M = 10, bt_drag 0:
     # the reference's `sphere-split` item, scripts/tpu_r3_item.py:172-178)
     # through run_steps with split_forward_backward_step. A step is splitpre
-    # (five launches), the flat 2-D phase with the subcycles (two launches
-    # each), splitpost (four launches), the pole submesh's composed part and
+    # (five launches), the flat 2-D phase with the subcycles (one
+    # launch), splitpost (four launches), the pole submesh's composed part and
     # the refresh; no other kernel launches. First the composed split
     # stepper over two steps, for comparison
     sp0 = sphere_state(m48_np, NLAYERS, NTRACERS, torch.float32, 0.01, 0.0)
@@ -3116,7 +3176,7 @@ def main(argv=None):
         "sphere split path", cfg48p, sp0, split_forward_backward_step,
         {**none,
          "patch_split_pre": patch_megastep.SPLIT_PRE_PASSES * nseg * seg,
-         "bt_gather": bt_gather.LAUNCHES_PER_SUBCYCLE * M_SPLIT * nseg * seg,
+         "bt_gather": nseg * seg,
          "patch_split_post": patch_megastep.SPLIT_POST_PASSES * nseg * seg},
         dt=DT_SPLIT)
     sps_launches = rec["launches"]
@@ -3265,6 +3325,74 @@ def main(argv=None):
           "edge_mask", "land_cells": int(land.sum()),
           "carved_coast_edges": n_coast,
           "host_carve_and_reorder_s": coast_build_s, **cg})
+
+    # ----------------------------------------------------- 10j. gather_split
+    # the composed split stepper on the gather layout and on the carved
+    # mesh sends its subcycles to the gather-form kernel on the card
+    # (stepping/split.subcycle_route): the kernel against the plain loop at
+    # the flat phase's inputs of sphere_state (u = 0.01 x noise x
+    # edge_mask), every BT_CASES case, float64 per output within 1e-12 of
+    # max|ref|, float32 by the increment, PATCH_INCR, u = 0 on the coast;
+    # then one composed split step of each (column ssh, dt = 120 s, M = 10,
+    # float32): one bt_gather launch, the rest gather launches, against the
+    # composed step with the plain loop, per field max|diff| <=
+    # GATHER_SPLIT_F32 max|ref| (the subcycles' float32 increments carried
+    # into u_new and the transport velocity)
+    GATHER_SPLIT_F32 = 1e-5
+    cfg_gs = bench_cfg(NLAYERS, NTRACERS, ssh_formulation="column")
+    gsp = {"tolerance": "subcycles f64 per output max|diff| <= 1e-12 "
+           "max|ref|, f32 per output the error of the increment <= "
+           "PATCH_INCR; a composed split step per field max|diff| <= "
+           "GATHER_SPLIT_F32 max|ref|", "GATHER_SPLIT_F32": GATHER_SPLIT_F32}
+    for name, mnp in (("gather", g48_np), ("coastal", c48_np)):
+        st = sphere_state(mnp, NLAYERS, NTRACERS, torch.float32, 0.01, 0.0)
+        cases = {"f64": {}, "f32": {}}
+        for nm, dt_ in (("f64", torch.float64), ("f32", torch.float32)):
+            m_ = mnp.to(dev, dt_)
+            h_, u_ = st.h.to(dt_), st.u.to(dt_)
+            he = trisk.cell_mean_on_edge(m_, h_)
+            mask = trisk.col(m_, "edge_mask")
+            ins_ = (_depth_avg_edge(he, u_),
+                    h_.sum(-1, keepdim=True) - trisk.col(m_, "bottom_depth"),
+                    1e-6 * torch.sin(torch.arange(
+                        mnp.nedges, device=dev, dtype=dt_))[:, None] * mask,
+                    he.sum(-1, keepdim=True))
+            for M, r in BT_CASES:
+                kw = dict(gravity=cfg_gs.gravity, dt_bt=DT_SPLIT / M,
+                          n_subcycles=M, bt_drag=r)
+                got_bt = bt_gather.bt_subcycles(m_, *ins_, **kw)
+                ref_bt = bt_gather.subcycles_plain(m_, *ins_, **kw)
+                cases[nm][f"M={M} r={r}"] = max(
+                    nerr(a_, b_) if nm == "f64" else
+                    incr_err(a_.T, b_.T, s_.T)[0] for a_, b_, s_
+                    in zip(got_bt, ref_bt, (ins_[0], ins_[1], ins_[0])))
+                coast_ub = got_bt[0][mask[:, 0] == 0]
+                if coast_ub.numel() and coast_ub.abs().max().item() != 0.0:
+                    fail(f"gather split {name} {nm} M={M}: ub on the coast")
+        if not (max(cases["f64"].values()) <= 1e-12
+                and max(cases["f32"].values()) <= PATCH_INCR):
+            fail(f"gather split {name}: subcycles vs plain {cases}")
+        g = mnp.to(dev, torch.float32)
+        reset_counts()
+        one = split_forward_backward_step(g, cfg_gs, st, 0.0, DT_SPLIT)
+        torch.cuda.synchronize()
+        got_l = counts()
+        if got_l["gather"] <= 0:
+            fail(f"gather split {name}: no gather launch")
+        check_launches(f"gather split {name}", got_l,
+                       {**none, "bt_gather": 1, "gather": got_l["gather"]})
+        ref = composed(split_forward_backward_step, g, cfg_gs, st, 0.0,
+                       DT_SPLIT)
+        torch.cuda.synchronize()
+        errs = {f: nerr(a_, b_) for f, a_, b_ in
+                zip(("h", "u", "tracers"), one, ref)}
+        if not max(errs.values()) <= GATHER_SPLIT_F32 or not all(
+                bool(torch.isfinite(a_).all()) for a_ in one):
+            fail(f"gather split {name}: step vs composed {errs}")
+        gsp[name] = {"subcycles": cases, "step_vs_plain_loop": errs,
+                     "launches_per_step": got_l}
+        del g, one, ref, st
+    emit({"phase": "gather_split", **gsp})
 
     # ------------------------------------------------------- 11. rk_order
     # the manufactured solution (tests/test_model.py:79-166) in float64 on
@@ -3545,11 +3673,15 @@ def main(argv=None):
          "launches": spl_launches["barotropic"],
          "max_abs_err": splv["barotropic"]["max_abs_err"],
          "ms": splv["barotropic"]["ms"],
+         "device_ms": splv["barotropic"]["device_ms"],
          "plain_ms": splv["barotropic"]["plain_ms"],
          "bound_ms": splv["barotropic"]["bound_ms"],
          "bound_by": splv["barotropic"]["bound_by"], "library_ms": None,
          "shape": f"10 x ({NY}, {NX}) in, 7 out, float32, M = {M_SPLIT} "
-         "(one launch per subcycle)", "path": "split_path"},
+         "(one cooperative launch for all M)",
+         "attrs": {k: splv["barotropic"][k]
+                   for k in ("resident", "streamed", "call")},
+         "path": "split_path"},
         {"name": "split_post", "route": "cuda",
          "source": "omega_tpu_torch/csrc/split.cu",
          "replaces": "omega_tpu/ops/megastep.py:831",
@@ -3725,12 +3857,17 @@ def main(argv=None):
          "launches": sps_launches["bt_gather"],
          "max_abs_err": max(sptv[f"bt_drag_{r}"]["max_abs_err"]
                             for r in (0.0, 1e-4)),
-         "ms": sptv["bt_ms"], "plain_ms": sptv["bt_plain_ms"],
+         "ms": sptv["bt_ms"], "device_ms": sptv["bt_device_ms"],
+         "plain_ms": sptv["bt_plain_ms"],
          "bound_ms": sptv["bt_bound_ms"], "bound_by": sptv["bt_bound_by"],
          "library_ms": None,
          "shape": f"({m48.nedges}, 1) x 3 + ({m48.ncells}, 1) in, 3 out, "
-         f"float32, M = {M_SPLIT} (two launches per subcycle)",
+         f"float32, M = {M_SPLIT} (one cooperative launch for all M)",
          "subcycle_bound_ms": sptv["bt_subcycle_bound_ms"],
+         "attrs": sptv["bt_attrs"],
+         "gather_split_launches_per_step": {
+             k: gsp[k]["launches_per_step"]["bt_gather"]
+             for k in ("gather", "coastal")},
          "path": "sphere_split_path"},
         {"name": "patch_split_post", "route": "cuda",
          "source": "omega_tpu_torch/csrc/patch_split.cu",
@@ -3783,17 +3920,19 @@ def main(argv=None):
 def composed(stepper, *args, **kw):
     """A stepper's composed path (the stencil-kernel path; on a patch mesh
     the patch operators) on the card: the stepper runs with the fused
-    kernels', the barotropic kernel's and the patch step's dispatch turned
-    away."""
+    kernels', the two barotropic kernels' and the patch step's dispatch
+    turned away (the subcycles the plain loop)."""
     from omega_tpu_torch.ops import barotropic_kernel as btk
-    from omega_tpu_torch.ops import megastep, patch_megastep
-    keep = megastep.enabled, btk.enabled, patch_megastep.enabled
-    megastep.enabled = btk.enabled = patch_megastep.enabled = \
-        lambda x: False
+    from omega_tpu_torch.ops import bt_gather, megastep, patch_megastep
+    mods = (megastep, btk, bt_gather, patch_megastep)
+    keep = [m.enabled for m in mods]
+    for m in mods:
+        m.enabled = lambda x: False
     try:
         return stepper(*args, **kw)
     finally:
-        megastep.enabled, btk.enabled, patch_megastep.enabled = keep
+        for m, k in zip(mods, keep):
+            m.enabled = k
 
 
 def _composed_step(mesh, cfg, state, dt, wind_stress=None):

@@ -1,23 +1,37 @@
 #!/usr/bin/env python3
-"""Forms of the two PP81 coefficient kernels, timed on one NVIDIA GPU.
+"""Forms of the two PP81 coefficient kernels and of the two barotropic
+subcycle kernels, timed on one NVIDIA GPU.
 
     python3 kernel_forms.py kernel_forms_pp81.json   # from a checkout's root
+    python3 kernel_forms.py kernel_forms_bt.json
 
 Each form in the JSON list is one of the checkout's kernel sources
-(`file`: vmix.cu for the plane's kernel, patch_vmix.cu for the sphere's)
-with text substitutions (`subs`: [old, new] pairs, each of which must
-occur), compiled with the package's nvcc flags into a library of its own
-and launched through its C entry point on chip_smoke.py's full-width
-inputs, float32: the plane at 256 x 256 x 100 x 2 on the state one
-science FB step leaves, the sphere at icos48 x 100 x 2 on the frames the
-science patch step writes. A plane form runs at each of its `groups`
-(the record's groups of interfaces), a sphere form at each of its
-`threads` per block. Prints one JSON line per form and setting: ms per
-call by CUDA events (three reads of 20 calls), whether its output is the
-checkout's own kernel's bit for bit (a form that skips work is not), and
-nvcc's registers and spill for it; first the card's name and power limit
-and the checkout's own kernels' times. Imports nothing of JAX.
+(`file`: vmix.cu for the plane's coefficient kernel, patch_vmix.cu for the
+sphere's, barotropic.cu and bt_gather.cu for the subcycles), or the text of
+another file of the repo in its place (`source`), with text substitutions
+(`subs`: [old, new] pairs, each of which must occur), compiled with the
+package's nvcc flags into a library of its own and launched through its C
+entry point on chip_smoke.py's full-width shapes, float32. The coefficient
+kernels: the plane at 256 x 256 x 100 x 2 on the state one science FB step
+leaves, the sphere at icos48 x 100 x 2 on the frames the science patch
+step writes; a plane form runs at each of its `groups` (the record's
+groups of interfaces), a sphere form at each of its `threads` per block.
+The subcycles: random inputs from a seed (ub 0.01 x noise, ssh noise,
+g_slow 1e-6 x noise, het 1000 + noise on the plane at 256 x 256, 4000 +
+noise on the sphere at icos48, masked by edge_mask), dt_bt = 12 s, at each
+of the form's `M` (default 10); a plane form at each of its `grid` (0: the
+launcher's choice), a sphere form at each of its `threads` and `groups`
+(cell groups; 0 for either: the package's choice). Prints one JSON line per form and
+setting: ms per call by CUDA events (three reads of 20 calls), whether its
+output is the checkout's own kernel's bit for bit (a form that skips work
+is not), and nvcc's registers and spill for it; first the card's name and
+power limit and the checkout's own kernels' times. Imports nothing of JAX.
 """
+
+# the kernels whose nvcc report a form prints, by file
+PTXAS = {"vmix.cu": ("pp81", "If"), "patch_vmix.cu": ("pp81", "If"),
+         "barotropic.cu": ("bt_kernel", "If"),
+         "bt_gather.cu": ("bt_gather_kernel", "If")}
 
 import ctypes
 import json
@@ -64,7 +78,8 @@ def main(argv):
         d.mkdir()
         for src in _build.CSRC.glob("*.cu*"):
             (d / src.name).write_text(src.read_text())
-        text = (_build.CSRC / f["file"]).read_text()
+        text = (Path(f["source"]) if "source" in f
+                else _build.CSRC / f["file"]).read_text()
         for old, new in f.get("subs", []):
             if old not in text:
                 raise ValueError(f"form {f['name']}: {old!r} not in "
@@ -82,12 +97,13 @@ def main(argv):
         built[name] = proc.returncode == 0
         if not built[name]:
             emit({"form": name, "build_failed": out[-3000:]})
-        # nvcc's report of the float32 coefficient kernels in this library
+        # nvcc's report of the form's float32 kernels in this library
+        key, typ = PTXAS[next(f["file"] for f in forms if f["name"] == name)]
         built[name, "ptxas"] = [
             [lines[i].split("'")[1]] + [x.strip() for x in lines[i + 2:i + 4]]
             for i, ln in enumerate(lines)
-            if "Compiling entry function" in ln and "pp81" in ln
-            and "If" in ln]
+            if "Compiling entry function" in ln and key in ln
+            and typ in ln]
 
     def cuda_ms(fn, reps=20):
         for _ in range(2):
@@ -112,8 +128,104 @@ def main(argv):
         emit({"form": name, **setting, "code": code, "ms": ms,
               "same": same, "ptxas": built[name, "ptxas"]})
 
-    K, L = 100, 2
     put = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    files = {f["file"] for f in forms}
+
+    # ---- the plane's subcycles
+    if "barotropic.cu" in files:
+        from omega_tpu_torch.ops import barotropic_kernel as btk
+        rb = np.random.default_rng(17)
+        mesh = planar_hex_mesh(256, 256, dc=5000.0, f0=1e-4,
+                               bottom_depth=1000.0).to(dev, torch.float32)
+        stack = put(np.concatenate([
+            0.01 * rb.standard_normal((3, 256, 256)),
+            rb.standard_normal((1, 256, 256)),
+            1e-6 * rb.standard_normal((3, 256, 256)),
+            1000.0 + rb.standard_normal((3, 256, 256))])).contiguous()
+        out = torch.empty((7, 256, 256), dtype=torch.float32, device=dev)
+        work = torch.empty((4, 256, 256), dtype=torch.float32, device=dev)
+        refs = {}
+
+        def ref_plane(M):
+            if M not in refs:
+                refs[M] = btk.bt_planes(mesh, stack, gravity=9.80616,
+                                        dt_bt=12.0, n_subcycles=M).clone()
+            return refs[M]
+        emit({"bt_plane": {"ms": [cuda_ms(lambda: btk.bt_planes(
+            mesh, stack, gravity=9.80616, dt_bt=12.0, n_subcycles=10,
+            out=out, work=work)) for _ in range(3)],
+            "attrs": btk.attrs(torch.float32, mesh)}})
+        rec = btk._rec(mesh, torch.float32)
+        c = btk._consts(mesh, 9.80616, 12.0, 0.0)
+        for f in forms:
+            if f["file"] != "barotropic.cu" or not built[f["name"]]:
+                continue
+            fn = ctypes.CDLL(str(tmp / f["name"] / "lib.so")) \
+                .omega_barotropic_f32
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_double] * 4 \
+                + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            for M in f.get("M", [10]):
+                for grid in f.get("grid", [0]):
+                    run(f["name"], lambda: fn(
+                        stack.data_ptr(), out.data_ptr(), work.data_ptr(),
+                        rec.ctypes.data, c["dt_bt"], c["ggrad"], c["f_e"],
+                        c["r"], M, grid, stream), (out,), (ref_plane(M),),
+                        {"M": M, "grid": grid})
+        del stack, out, work, refs
+
+    # ---- the sphere's subcycles
+    if "bt_gather.cu" in files:
+        from omega_tpu_torch.ops import bt_gather
+        rb = np.random.default_rng(17)
+        mnp = patch_icos_mesh(spherical_icos_mesh(48), 48)
+        m = mnp.to(dev, torch.float32)
+        E, C = mnp.nedges, mnp.ncells
+        em = put(np.asarray(mnp.edge_mask)[:, None])
+        ins = (put(0.01 * rb.standard_normal((E, 1))) * em,
+               put(rb.standard_normal((C, 1))),
+               put(1e-6 * rb.standard_normal((E, 1))) * em,
+               put(4000.0 + rb.standard_normal((E, 1))))
+        o, w = bt_gather.new_buffers(ins[0], ins[1])
+        kw = dict(gravity=9.80616, dt_bt=12.0)
+        refs = {}
+
+        def ref_sphere(M):
+            if M not in refs:
+                refs[M] = tuple(a.clone() for a in bt_gather.bt_subcycles(
+                    m, *ins, n_subcycles=M, **kw))
+            return refs[M]
+        ng = bt_gather.n_groups(m, dev)
+        emit({"bt_sphere": {"ms": [cuda_ms(lambda: bt_gather.bt_subcycles(
+            m, *ins, n_subcycles=10, out=o, work=w, **kw))
+            for _ in range(3)], "groups": ng,
+            "attrs": bt_gather.attrs(torch.float32, m)}})
+        for f in forms:
+            if f["file"] != "bt_gather.cu" or not built[f["name"]]:
+                continue
+            fn = ctypes.CDLL(str(tmp / f["name"] / "lib.so")).omega_bt_gather_f32
+            fn.argtypes = [ctypes.c_void_p] * 4
+            fn.restype = ctypes.c_int
+            for M in f.get("M", [10]):
+                for th in f.get("threads", [0]):
+                    for g in f.get("groups", [0]):
+                        view = bt_gather.mesh_view(m, torch.float32, dev,
+                                                   g or ng)
+                        a = bt_gather.call_args(view, ins, o, w,
+                                                n_subcycles=M,
+                                                threads=th or None, **kw)
+                        run(f["name"], lambda: fn(
+                            a[0].ctypes.data, a[1].ctypes.data,
+                            a[2].ctypes.data, stream), o, ref_sphere(M),
+                            {"M": M, "threads": th or bt_gather.block_threads(
+                                view["max_list"]), "groups": g or ng,
+                             "max_list": view["max_list"]})
+        del ins, o, w, refs
+    if not files & {"vmix.cu", "patch_vmix.cu"}:
+        return 0
+
+    K, L = 100, 2
     tend = dict(visc_del2=1.0e3, visc_del4=1.0e9)
     science = ModelConfig(
         nvertlayers=K, ntracers=L, flux_thickness_type="upwind",
@@ -122,7 +234,6 @@ def main(argv):
                                salt_index=1),
         tendencies=TendencyConfig(wind_forcing=True, bottom_drag=True,
                                   bottom_drag_coeff=3.0e-3, **tend))
-    stream = torch.cuda.current_stream().cuda_stream
 
     # ---- the plane: the state one science FB step leaves
     mesh_np = planar_hex_mesh(256, 256, dc=5000.0, f0=1e-4,

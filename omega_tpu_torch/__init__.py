@@ -12,9 +12,9 @@ compiled at first use by ops/_build.py:
 - the planar hex mesh: the fused forward-backward step (fb_step.cuh,
   fb_step*.cu; with the momentum compiled out, splitpost in split.cu), the
   Runge-Kutta stage (rk_stage.cuh, rk_stage_*.cu) and splitpre's chain
-  (split.cu), on the compiled entry pattern and slab of hex_slab.cuh, the
-  barotropic subcycles (barotropic.cu), on the run-time slab of
-  slab_chain.cuh, the PP81 coefficient
+  (split.cu) and the barotropic subcycles (barotropic.cu, all M in one
+  cooperative launch), on the compiled entry pattern and slab of
+  hex_slab.cuh, the PP81 coefficient
   and column-solve kernels (vmix.cu; the solve's elimination in
   column_solve.cuh), and the structured stencil pass (stencil.cu);
 - the icosahedral sphere's patch frames (table layout in
@@ -22,7 +22,8 @@ compiled at first use by ops/_build.py:
   patch_step_*.cu, FCT's stage A among them), FCT's limiter (patch_fct.cu),
   the Runge-Kutta stage (patch_rk.cuh, patch_rk_*.cu), the split-explicit
   step (patch_split.cu) with the gather-form barotropic subcycles
-  (bt_gather.cu), and the PP81 coefficient and column-solve kernels
+  (bt_gather.cu, all M in one cooperative launch; also the composed split
+  stepper's on any other mesh), and the PP81 coefficient and column-solve kernels
   (patch_vmix.cu; the solve's elimination in column_solve.cuh, shared
   with the plane);
 - unstructured meshes with gather tables (mesh/reorder.py): the weighted

@@ -17,6 +17,7 @@
 // go to the threads the quads left idle.
 #pragma once
 
+#include <array>
 #include <utility>
 
 #include "slab_chain.cuh"
@@ -109,9 +110,9 @@ struct HexSlab {
      ...);
     return acc;
   }
-  // sum_i w[i] * rd(q + off[i]) over the entries of (table B, class t), for
-  // a point q on a row of parity PAR: apply() of slab_chain.cuh with every
-  // offset an immediate
+  // sum_i w[i] * rd(q + off[i]) over the entries of (table B, class t), in
+  // entry order, for a point q on a row of parity PAR, with every offset an
+  // immediate
   template <int B, int t, int PAR, typename T, typename Rd>
   static __device__ __forceinline__ T ap(const FbParams<T>& p, int q,
                                          const Rd& rd) {
@@ -143,15 +144,22 @@ struct HexSlab {
     }
   }
 
-  // the host's plan is the tile, ring and entry pattern compiled here
+  // the host's plan is the tile, ring and entry pattern compiled here (the
+  // pattern's offsets worked out once: a launch checks them every call)
   template <typename T>
   static bool geometry_ok(const FbParams<T>& p) {
     if (p.by != kBY || p.bx != kBX || p.ry != kRY || p.rx != kRX ||
         p.guard != kGuard || p.ny % 2 != 0)
       return false;
+    static const std::array<std::array<int, kFbMaxEntries>, 2> offs = [] {
+      std::array<std::array<int, kFbMaxEntries>, 2> o{};
+      for (int e = 0; e < tab_base(T_COUNT); ++e)
+        for (int par = 0; par < 2; ++par) o[par][e] = off(e, par);
+      return o;
+    }();
     for (int e = 0; e < tab_base(T_COUNT); ++e)
       for (int par = 0; par < 2; ++par)
-        if (p.off[par][e] != off(e, par)) return false;
+        if (p.off[par][e] != offs[par][e]) return false;
     return true;
   }
 };

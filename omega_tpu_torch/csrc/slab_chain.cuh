@@ -1,11 +1,9 @@
 // What the planar chain kernels share: the shift tables as compile-time
 // entry layouts with their offsets and weights in the kernel's parameter
-// space (FbParams, which every chain kernel reads), and the one-layer x
-// (by, bx) slab with the periodic wrap as index arithmetic and run-time
-// offsets, on which the barotropic subcycles (barotropic.cu) run. The FB
-// step, the RK stage and the split step's chain and splitpost walk their
-// chains on a compiled slab geometry and entry pattern instead
-// (hex_slab.cuh).
+// space (FbParams, which every chain kernel reads), and the slab's shared
+// memory and grid. The FB step, the RK stage, the split step's chain and
+// splitpost and the barotropic subcycles walk their chains on a compiled
+// slab geometry and entry pattern (hex_slab.cuh).
 //
 // A block is one layer k x one (by, bx) horizontal tile of the stacked state
 // (4+L, K, ny, nx), x fastest; it holds a (by+2ry) x (bx+2rx) slab of every
@@ -89,24 +87,6 @@ bool layout_ok(const FbParams<T>& p) {
   return p.guard >= 2 * (p.bx + 2 * p.rx) + 2;
 }
 
-// sum_i w[i] * read(q + off[i]) over the entries of (table B, class t) for a
-// point q on a row of the given parity. With t a compile-time value (the
-// callers' loops over t are unrolled) every index below is a constant.
-template <int B, typename T, typename Read>
-__device__ __forceinline__ T apply(const FbParams<T>& p, int t, bool odd,
-                                   int q, Read read) {
-  T acc = T(0);
-#pragma unroll
-  for (int i = 0; i < tab_count(B); ++i) {
-    const int e = tab_base(B) + t * tab_count(B) + i;
-    acc += p.w[e] * read(q + (odd ? p.off[1][e] : p.off[0][e]));
-  }
-  return acc;
-}
-
-// apply table B (destination class t) at point q of row parity `odd`
-#define AP(B, t, read) apply<B>(p, t, odd, q, read)
-
 // the reference's upwind selection: a where u > 0, b where u < 0, the larger
 // of the two at rest
 template <typename T>
@@ -124,61 +104,6 @@ template <typename T>
 __device__ __forceinline__ At<T> at(const T* a) {
   return At<T>{a};
 }
-
-// The block's slab: layer k, tile origin (y0, x0), slab origin (gy0, gx0)
-// with the ring, S points in rows of XX; each thread walks the slab from
-// (sy0, sx0) in strides of (dy, dx).
-struct Slab {
-  int YY, XX, S, y0, x0, k, gy0, gx0, par0, nown, sy0, sx0, dy, dx;
-  long long plane;
-
-  template <typename T>
-  __device__ explicit Slab(const FbParams<T>& p) {
-    YY = p.by + 2 * p.ry;
-    XX = p.bx + 2 * p.rx;
-    S = YY * XX;
-    y0 = blockIdx.y * p.by;
-    x0 = blockIdx.x * p.bx;
-    k = blockIdx.z;
-    gy0 = y0 - p.ry;
-    gx0 = x0 - p.rx;
-    par0 = gy0 & 1;  // ny is even, so parity survives the wrap
-    plane = static_cast<long long>(p.ny) * p.nx;
-    nown = p.by * p.bx;
-    sy0 = threadIdx.x / XX;
-    sx0 = threadIdx.x - sy0 * XX;
-    dy = blockDim.x / XX;
-    dx = blockDim.x - dy * XX;
-  }
-  // device-memory offset (within a channel plane) of slab point q
-  template <typename T>
-  __device__ long long gofs(const FbParams<T>& p, int q) const {
-    const int sy = q / XX, sx = q - sy * XX;
-    return static_cast<long long>(wrap_any(gy0 + sy, p.ny)) * p.nx +
-           wrap_any(gx0 + sx, p.nx);
-  }
-  // parity of slab row sy's global row
-  __device__ bool is_odd(int sy) const { return ((par0 + sy) & 1) != 0; }
-  // owned point o of the tile: its slab point q, plane offset g and row
-  // parity; false where a ragged tile leaves the domain
-  template <typename T>
-  __device__ bool owned(const FbParams<T>& p, int o, int& q, long long& g,
-                        bool& odd) const {
-    const int oy = o / p.bx, ox = o - oy * p.bx;
-    const int gy = y0 + oy, gx = x0 + ox;
-    if (gy >= p.ny || gx >= p.nx) return false;
-    q = (oy + p.ry) * XX + ox + p.rx;
-    g = static_cast<long long>(gy) * p.nx + gx;
-    odd = is_odd(oy + p.ry);
-    return true;
-  }
-};
-
-// every slab point q of this thread, with its row sy kept by increments
-#define FOR_SLAB(q, sy)                                                     \
-  for (int q = threadIdx.x, sy = sl.sy0, sx_ = sl.sx0; q < sl.S;            \
-       q += blockDim.x, sy += sl.dy, sx_ += sl.dx,                          \
-           (sx_ >= sl.XX ? (sx_ -= sl.XX, ++sy) : 0))
 
 // bytes of dynamic shared memory for `slots` slab arrays and the guards
 template <typename T>

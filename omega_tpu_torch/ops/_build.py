@@ -147,8 +147,11 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [vp]                   # out[4]
         fn.restype = ci
         fn = getattr(lib, f"omega_barotropic_{suffix}")
-        # in, out, work, params, dt_bt, ggrad, f_e, r, M, threads, stream
+        # in, out, work, params, dt_bt, ggrad, f_e, r, M, grid, stream
         fn.argtypes = [vp] * 4 + [cd] * 4 + [ci, ci, vp]
+        fn.restype = ci
+        fn = getattr(lib, f"omega_barotropic_attrs_{suffix}")
+        fn.argtypes = [ci, vp]               # resident, out[5]
         fn.restype = ci
     lib.omega_split_slots.argtypes = [ci]
     lib.omega_split_slots.restype = ci
@@ -229,9 +232,11 @@ def load() -> ctypes.CDLL:
         fn.argtypes = [vp] * 9
         fn.restype = ci
         fn = getattr(lib, f"omega_bt_gather_{suffix}")
-        # ubar, ssh, g_slow, het, ub_out, ub_work, ssh_out, avg, the mesh's
-        # 8 arrays, consts, ints, stream
-        fn.argtypes = [vp] * 19
+        # the 20 arrays' pointers, consts, ints, stream
+        fn.argtypes = [vp] * 4
+        fn.restype = ci
+        fn = getattr(lib, f"omega_bt_gather_attrs_{suffix}")
+        fn.argtypes = [ci, ci, ci, vp]       # resident, threads, list, out[5]
         fn.restype = ci
         fn = getattr(lib, f"omega_gather_{suffix}")
         # field, out, idx, w, ints, stream

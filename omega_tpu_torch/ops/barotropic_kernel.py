@@ -12,14 +12,18 @@ forward-backward subcycles is
 and the call returns (ub_final, ssh_final, <ubar> = acc / M).
 
 The TPU kernel keeps the whole domain (2.6 MB at 256 x 256) resident in
-VMEM for all M subcycles. A Hopper block has 227 KB of shared memory, so the
-CUDA kernel (csrc/barotropic.cu) is one launch per subcycle, all M launched
-by one C call: a block loads its tile of (ub, ssh) with a ring, evaluates
-ub_new on the slab, then ssh_new, ub_new and acc at its owned points, and
-writes them to a second buffer (the planes stay in the 50 MB L2 between
-launches). The ring is that of ONE subcycle (`ring`, probed from the chain
-below), so the result is exact for any M: nothing is recomputed across
-subcycles.
+VMEM for all M subcycles. The CUDA kernel (csrc/barotropic.cu) runs all M
+subcycles in ONE cooperative launch whose blocks meet at a grid-wide
+barrier between subcycles: a block owns a 16 x 32 tile (megastep.HEX_TILE)
+with the ring of ONE subcycle (`ring`, probed from the chain below: (2, 2)
+on the hex mesh) on the compiled slab geometry and entry pattern of
+csrc/hex_slab.cuh, loads its slab of (ub, ssh) from one of two buffers,
+evaluates ub_new on the slab, then ssh_new and ub_new at its owned points
+into the other buffer (the planes stay in the 50 MB L2). With a block per
+tile the frozen slab is staged once and the accumulator stays in registers;
+a mesh with more tiles than the card holds blocks has each block walk
+several. Nothing is recomputed across subcycles, so the result is exact
+for any M.
 
 Beside the kernel stands its plain PyTorch version, `bt_plain`, the same
 subcycles on the whole periodic grid or tile by tile (`tile=(by, bx)`) as the
@@ -35,15 +39,12 @@ import torch
 from omega_tpu_torch.ops import _build, megastep, structured
 from omega_tpu_torch.ops.structured import apply_grid
 
-# launches of the subcycle kernel since the last reset (one per subcycle)
+# launches of the subcycle kernel since the last reset (one per call)
 launches = 0
 
-# slab arrays of the subcycle kernel (kBtSlots in csrc/barotropic.cu):
-# ub x3, ssh, ub_new x3, het * ub_new x3
-SLOTS = 10
-# tile of the subcycle kernel: 256 blocks of 256 threads at 256 x 256 (a
-# 16 x 32 tile gives 128, fewer than the SMs)
-TILE = (8, 32)
+# slab arrays of the subcycle kernel (kSlots in csrc/barotropic.cu): ub x3,
+# ssh, ub_new x3, het * ub_new x3, and the frozen g_slow x3, het x3
+SLOTS = 16
 _CONSTS = ("dt_bt", "ggrad", "f_e", "r")
 
 
@@ -54,7 +55,8 @@ def enabled(x) -> bool:
 
 def supported(mesh) -> bool:
     """Structured f-plane mesh with uniform geometry: uniform dc_edge and
-    f_edge, edge_mask 1, and the shift tables the kernels are compiled for."""
+    f_edge, edge_mask 1, and the shift tables and entry pattern the kernel
+    is compiled for (megastep.hex_pattern_fits)."""
     if not structured.enabled(mesh):
         return False
     if any(structured.uniform_scalar(mesh, a) is None
@@ -62,7 +64,7 @@ def supported(mesh) -> bool:
         return False
     if structured.uniform_scalar(mesh, "edge_mask") != 1.0:
         return False
-    return megastep.tables_fit(mesh)
+    return megastep.tables_fit(mesh) and megastep.hex_pattern_fits(mesh)
 
 
 def _subcycle(vols, p, even, tabs, c, pk):
@@ -121,36 +123,75 @@ def bt_plain(mesh, stack, *, gravity, dt_bt, n_subcycles, bt_drag=0.0,
 _PARAM_CACHE: dict = {}
 
 
-def _rec(mesh, dtype):
-    """(rec, threads): the FbParams record of the subcycle kernel (K = 1,
-    L = 0; the tables of the chain kernels, offsets for its own slab)."""
+def record(mesh, dtype):
+    """The FbParams record of the subcycle kernel (K = 1, L = 0; the tables
+    of the chain kernels, offsets for the compiled tile with the probed
+    ring: hex_plan), packed once per mesh shape and type."""
     ft, suffix = megastep._FLOAT[dtype]
     nx, ny = mesh.structured_nx, mesh.structured_ny
     key = (nx, ny, mesh.structured_dc, suffix)
-    hit = _PARAM_CACHE.get(key)
-    if hit is None:
+    rec = _PARAM_CACHE.get(key)
+    if rec is None:
         tabs = _tabs(mesh)
-        plan = megastep.plan_tile(ny, nx, np.dtype(ft).itemsize, ring(tabs),
-                                  TILE, SLOTS)
+        plan = megastep.hex_plan(np.dtype(ft).itemsize, ring(tabs), SLOTS)
         rec = megastep.pack_params(
             tabs, dict.fromkeys(megastep.CONST_FIELDS, 0.0), ft, plan)
         rec["L"], rec["K"], rec["ny"], rec["nx"] = 0, 1, ny, nx
-        hit = _PARAM_CACHE[key] = (rec, plan["threads"])
+        _PARAM_CACHE[key] = rec
+    return rec
+
+
+def _rec(mesh, dtype):
+    """`record`, checked against the loaded library's layout."""
+    rec = record(mesh, dtype)
     lib = _build.load()
-    if (getattr(lib, f"omega_fb_params_size_{suffix}")() != hit[0].dtype.itemsize
+    suffix = megastep._FLOAT[dtype][1]
+    if (getattr(lib, f"omega_fb_params_size_{suffix}")() != rec.dtype.itemsize
             or lib.omega_bt_slots() != SLOTS):
         raise RuntimeError("barotropic kernel: FbParams or slab layout "
                            "differs between kernel and host")
-    return hit
+    return rec
+
+
+def tiles(mesh):
+    """The kernel's tiles on `mesh` (a block each where the card holds
+    them)."""
+    by, bx, _ = megastep.HEX_TILE
+    return (-(-mesh.structured_ny // by)) * (-(-mesh.structured_nx // bx))
+
+
+def attrs(dtype, mesh=None):
+    """cudaFuncGetAttributes' numRegs, localSizeBytes (the spill) and
+    sharedSizeBytes of the kernel in `dtype`, the blocks an SM holds at its
+    block and shared memory and the co-resident grid (that times the SMs),
+    for the resident form (a block a tile) and the streamed one; with
+    `mesh`, the form and grid a call on it launches."""
+    lib = _build.load()
+    out = {}
+    for name, resident in (("resident", 1), ("streamed", 0)):
+        got = np.zeros(5, np.int32)
+        _build.check(getattr(lib, f"omega_barotropic_attrs_"
+                                  f"{megastep._FLOAT[dtype][1]}")(
+            resident, got.ctypes.data), "cudaFuncGetAttributes")
+        out[name] = dict(zip(("num_regs", "local_bytes", "shared_bytes",
+                              "blocks_per_sm"), map(int, got[:4])),
+                         co_resident_grid=int(got[3] * got[4]))
+    if mesh is not None:
+        n = tiles(mesh)
+        form = ("resident" if n <= out["resident"]["co_resident_grid"]
+                else "streamed")
+        out["call"] = dict(tiles=n, form=form, grid=min(
+            n, out[form]["co_resident_grid"]))
+    return out
 
 
 def bt_planes(mesh, stack, *, gravity, dt_bt, n_subcycles, bt_drag=0.0,
               out=None, work=None):
     """All M subcycles of the stacked planes `stack` (10, ny, nx) into
     `out` (7, ny, nx): ub_final x3, ssh_final, <ubar>. For a CUDA array one
-    C call launches the M subcycle kernels on PyTorch's current stream,
-    ping-ponging between `out` and `work` (4, ny, nx); for a CPU array the
-    plain version runs. dt_bt is rounded to the working type once."""
+    cooperative launch on PyTorch's current stream runs all M, ping-ponging
+    between `out` and `work` (4, ny, nx); for a CPU array the plain version
+    runs. dt_bt is rounded to the working type once."""
     global launches
     ny, nx = mesh.structured_ny, mesh.structured_nx
     out = stack.new_empty((7, ny, nx)) if out is None else out
@@ -170,7 +211,7 @@ def bt_planes(mesh, stack, *, gravity, dt_bt, n_subcycles, bt_drag=0.0,
                              f"{nx}) array of the stack's type and device")
     if int(n_subcycles) < 1:
         raise ValueError("n_subcycles must be at least 1")
-    rec, threads = _rec(mesh, stack.dtype)
+    rec = _rec(mesh, stack.dtype)
     c = _consts(mesh, gravity, dt_bt, bt_drag)
     lib = _build.load()
     with torch.cuda.device(stack.device):
@@ -178,9 +219,9 @@ def bt_planes(mesh, stack, *, gravity, dt_bt, n_subcycles, bt_drag=0.0,
         code = getattr(lib, f"omega_barotropic_{megastep._FLOAT[stack.dtype][1]}")(
             stack.data_ptr(), out.data_ptr(), work.data_ptr(),
             rec.ctypes.data, c["dt_bt"], c["ggrad"], c["f_e"], c["r"],
-            int(n_subcycles), threads, stream)
+            int(n_subcycles), 0, stream)
     _build.check(code, "barotropic subcycle launch")
-    launches += int(n_subcycles)
+    launches += 1
     return out
 
 

@@ -581,8 +581,9 @@ def guard_elems(slab_width):
 
 
 def plan_tile(ny, nx, itemsize, ring, tile=None, nslots=SLOTS):
-    """Pick a kernel's tile: dict(by, bx, ry, rx, threads, guard, smem);
-    the barotropic kernel's planner.
+    """Pick a kernel's tile: dict(by, bx, ry, rx, threads, guard, smem)
+    (every chain kernel is compiled for HEX_TILE, `hex_plan`; this plans
+    any other tile, which the launchers refuse).
 
     The slab (by+2ry) x (bx+2rx) times `nslots` arrays must fit one block's
     shared memory; the tile need not divide the domain (ragged tiles are
@@ -1438,9 +1439,9 @@ def split_post(mesh, cfg, stacked, du, planes, dt, out):
 def split_megastep_stacked(mesh, cfg, stacked, dt, n_subcycles=10,
                            bt_drag=0.0, out=None, work=None):
     """One split-explicit step on the stacked layout, out of place:
-    splitpre, the barotropic subcycles (barotropic_kernel.bt_planes: one C
-    call, one launch per subcycle) and splitpost, on the card for a CUDA
-    array (SPLIT_PRE_PASSES + M + 1 launches), with the plain versions for
+    splitpre, the barotropic subcycles (barotropic_kernel.bt_planes: one
+    cooperative launch for all M) and splitpost, on the card for a CUDA
+    array (SPLIT_PRE_PASSES + 1 + 1 launches), with the plain versions for
     a CPU array.
     `work` is `split_work(stacked)` (made here when None). dt_bt = dt / M
     is folded in float64 and rounded once, as the JAX code does."""

@@ -44,7 +44,8 @@ split_forward_backward_step) runs per step the splitpre kernel (the full 3-D
 velocity tendency with the column free surface, icos_mega.split_pre_chain;
 csrc/patch_split.cu, five passes; plain version `split_pre_plain`), the
 flat 2-D phase on the (E, K) / (C, K) arrays with the barotropic subcycles
-(ops/bt_gather.py: a gather-form kernel, two launches per subcycle), then
+(ops/bt_gather.py: a gather-form kernel, one cooperative launch for all M
+subcycles), then
 the splitpost kernel (the thickness and tracer advance with the transport
 velocity, icos_mega.split_post_chain; four passes; `split_post_plain`), the
 pole submesh's composed advance and the in-frame refresh.
@@ -1892,13 +1893,15 @@ def rk4_patch_megastep_framed(mesh, cfg, carry, t, dt, out=None, wind=None,
 
 def new_split_scratch(frames):
     """The buffers of the split steps for frames like `frames`, made once
-    per segment: splitpre's du_out (K, 3, P) and the split kernels' work
-    fields (both None on the CPU)."""
+    per segment: splitpre's du_out (K, 3, P), the split kernels' work
+    fields (both None on the CPU) and the subcycle kernel's outputs and
+    second buffers (`bt`, bt_gather.new_buffers, made at the first step)."""
     if not frames.is_cuda:
-        return dict(du=None, work=None)
+        return dict(du=None, work=None, bt=None)
     K, CH, P = frames.shape
     return dict(du=frames.new_empty((K, 3, P)),
-                work=frames.new_empty(split_work_fields(CH - 4) * K * P))
+                work=frames.new_empty(split_work_fields(CH - 4) * K * P),
+                bt=None)
 
 
 def split_du(mesh, cfg, p, du_fr, h, u, t):
@@ -1933,7 +1936,8 @@ def split_patch_megastep_framed(mesh, cfg, carry, t, dt, n_subcycles=10,
       2. the flat 2-D phase on the (E, K) / (C, K) arrays: the
          thickness-weighted mode split, the frozen slow forcing and the
          barotropic subcycles (ops/bt_gather.bt_subcycles: the gather-form
-         kernel on the card); the subcycles are global, so the pole rows
+         kernel on the card, one launch for all M, into the scratch's
+         buffers); the subcycles are global, so the pole rows
          need nothing of their own
       3. the transport velocity u' + <ubar> laid into the carry's u
          channels, splitpost (`split_post`): h_new and the tracers into
@@ -1969,9 +1973,13 @@ def split_patch_megastep_framed(mesh, cfg, carry, t, dt, n_subcycles=10,
            - trisk.col(mesh, "bottom_depth"))
     g_slow = du_bar - bt_gather.fast(mesh, ubar, ssh, cfg.gravity,
                                      bt_drag)
+    if frames.is_cuda and sc.get("bt") is None:
+        sc["bt"] = bt_gather.new_buffers(ubar, ssh)
+    out_bt, work_bt = sc.get("bt") or (None, None)
     ub_final, _, ubar_avg = bt_gather.bt_subcycles(
         mesh, ubar, ssh, g_slow, h_edge_tot, gravity=cfg.gravity,
-        dt_bt=dt / n_subcycles, n_subcycles=n_subcycles, bt_drag=bt_drag)
+        dt_bt=dt / n_subcycles, n_subcycles=n_subcycles, bt_drag=bt_drag,
+        out=out_bt, work=work_bt)
     u_new = (uprime + dt * (du - du_bar)) + ub_final
     u_trans = uprime + ubar_avg
 

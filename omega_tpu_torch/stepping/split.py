@@ -24,11 +24,14 @@ Per step of length dt with M subcycles:
 For a state on a CUDA device and the configuration the fused kernels take
 (`megastep.split_supported`) a step is three kernel calls: splitpre (mode
 split, column-ssh velocity tendency, slow forcing), the barotropic
-subcycles (ops/barotropic_kernel.py) and splitpost (ops/megastep.py). On the
-icosahedral sphere (`patch_megastep.split_patch_supported`) a step of a
-CUDA state runs the framed path of ops/patch_megastep.py: the splitpre and
-splitpost patch kernels around the flat 2-D phase, whose subcycles are the
-gather-form kernel of ops/bt_gather.py.
+subcycles (ops/barotropic_kernel.py, one cooperative launch) and splitpost
+(ops/megastep.py). On the icosahedral sphere
+(`patch_megastep.split_patch_supported`) a step of a CUDA state runs the
+framed path of ops/patch_megastep.py: the splitpre and splitpost patch
+kernels around the flat 2-D phase, whose subcycles are the gather-form
+kernel of ops/bt_gather.py (one cooperative launch). The composed stepper
+runs its subcycles on the card through one of the two kernels as well
+(`subcycle_route`).
 """
 
 from __future__ import annotations
@@ -49,6 +52,21 @@ def _depth_avg_edge(h_edge, x):
     """Thickness-weighted depth average of an edge field: (E, K) -> (E, 1)."""
     ht = torch.sum(h_edge, dim=-1, keepdim=True)
     return torch.sum(h_edge * x, dim=-1, keepdim=True) / ht
+
+
+def subcycle_route(mesh, ubar, halo, dt) -> str:
+    """Where the composed split stepper runs its subcycles, each way one
+    call for all M: "planar" (the planar kernel, ops/barotropic_kernel.py,
+    on a CUDA array and a mesh it takes), "gather" (the gather-form kernel,
+    ops/bt_gather.py, on a CUDA array and any other mesh: the gather
+    layout, carved meshes, the sphere's configurations the framed path
+    declines) or "plain" (the plain loop: a CPU array, a sharded halo's
+    per-subcycle exchanges, a traced dt)."""
+    if halo is not _identity or not isinstance(dt, (int, float)):
+        return "plain"
+    if btk.enabled(ubar) and btk.supported(mesh):
+        return "planar"
+    return "gather" if bt_gather.enabled(ubar) else "plain"
 
 
 def split_forward_backward_step(mesh: HorzMesh, cfg: ModelConfig,
@@ -116,10 +134,13 @@ def split_forward_backward_step(mesh: HorzMesh, cfg: ModelConfig,
     edge_ex = getattr(halo, "edge", None) or (lambda x: x)
     cell_ex = getattr(halo, "cell", None) or (lambda x: x)
 
-    if (halo is _identity and btk.enabled(ubar) and btk.supported(mesh)
-            and isinstance(dt, (int, float))):
-        # every subcycle in one call of the barotropic kernel
+    route = subcycle_route(mesh, ubar, halo, dt)
+    if route == "planar":
         ub_final, _, ubar_avg = btk.bt_subcycles(
+            mesh, ubar, ssh, g_slow, h_edge_tot, gravity=g, dt_bt=dt_bt,
+            n_subcycles=n_subcycles, bt_drag=bt_drag)
+    elif route == "gather":
+        ub_final, _, ubar_avg = bt_gather.bt_subcycles(
             mesh, ubar, ssh, g_slow, h_edge_tot, gravity=g, dt_bt=dt_bt,
             n_subcycles=n_subcycles, bt_drag=bt_drag)
     else:

@@ -40,7 +40,7 @@ stage and the in-frame refresh, then with vertical mixing the column
 kernels. So is the split-explicit stepper with the column free surface,
 center fluxes and no wind, drag or mixing (`split_patch_supported`): per
 step splitpre (five launches), the flat 2-D phase with the barotropic
-subcycles (ops/bt_gather.py, two launches per subcycle), splitpost (four
+subcycles (ops/bt_gather.py, one cooperative launch for all M), splitpost (four
 launches), the pole submesh's composed part and the refresh;
 `split_forward_backward_step` takes it step by step for a CUDA state. The
 Thomas method, column ssh with the unsplit steppers, FCT in the per-step

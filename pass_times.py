@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Device time of the planar splitpre's passes and splitpost, of the
 sphere's FCT stage B and its launches, of the two PP81 coefficient kernels,
-and host time per step of the sphere's forward-backward path, on one
-NVIDIA GPU.
+of the two barotropic subcycle kernels, and host time per step of the
+sphere's forward-backward path, on one NVIDIA GPU.
 
     python3 pass_times.py            # from the root of a checkout
     python3 pass_times.py fct_b      # only the parts named (split, fct_b,
-                                     # pp81, sphere); ptxas always
+                                     # pp81, bt, sphere); ptxas always
 
 Runs on the checkout it is started from, so that two checkouts (a commit
 and the one before it) can be read in turn on one card: it reads only
@@ -39,6 +39,22 @@ power limit first:
               ms per call by CUDA events (three reads of 20 calls), with
               the kernels' registers, spill and blocks per SM where the
               checkout reads them, and nvcc's report of them
+  bt          the barotropic subcycles, M = 10, dt_bt = 12 s, float32, on
+              random inputs from a seed: the plane's (csrc/barotropic.cu)
+              at 256 x 256 (ub 0.01 x noise, ssh noise, g_slow 1e-6 x
+              noise, het 1000 + noise), the sphere's (csrc/bt_gather.cu) at
+              icos48 (the same, masked by edge_mask; het 4000 + noise):
+              ms per call by CUDA events (three reads of 20 calls) through
+              the wrappers with the outputs and scratch made once, and, for
+              a checkout whose sphere wrapper converts the mesh every call
+              (no bt_gather.mesh_view), also its C entry called on arrays
+              converted once (the parent kernel with the cache alone); the
+              kernels' registers, spill, blocks per SM and grid where the
+              checkout reads them. With PASS_TIMES_SAVE=DIR both
+              kernels' outputs on these inputs at M = 1, 7, 10, 30 (bt_drag
+              1e-4 at M = 7), float32 and float64, go to DIR/bt_bits.pt;
+              with PASS_TIMES_COMPARE=DIR they are held bit for bit against
+              that file (another checkout's)
   sphere      host ms per step (three 10-step segments through run_steps,
               each ending in torch.cuda.synchronize()) of icos48 x 100 x 2
               float32: the flagship configuration and the science one
@@ -49,6 +65,7 @@ Needs a CUDA device; imports nothing of JAX.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -58,7 +75,7 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-PARTS = ("split", "fct_b", "pp81", "sphere")
+PARTS = ("split", "fct_b", "pp81", "bt", "sphere")
 
 
 def main(argv):
@@ -266,6 +283,81 @@ def main(argv):
             rec["attrs"] = pm.fct_b_attrs(cfg_f, torch.float32)
         emit({"fct_b": rec})
         del fr, mid, out, work, st_f
+
+    if "bt" in parts:
+        from omega_tpu_torch.ops import barotropic_kernel as btk
+        from omega_tpu_torch.ops import bt_gather
+        save = os.environ.get("PASS_TIMES_SAVE")
+        rb = np.random.default_rng(17)
+        kw = dict(gravity=9.80616, dt_bt=12.0, n_subcycles=10)
+        pm_np = planar_hex_mesh(256, 256, dc=5000.0, f0=1e-4,
+                                bottom_depth=1000.0)
+        pmesh = pm_np.to(dev, torch.float32)
+        stack = put(np.concatenate([
+            0.01 * rb.standard_normal((3, 256, 256)),
+            rb.standard_normal((1, 256, 256)),
+            1e-6 * rb.standard_normal((3, 256, 256)),
+            1000.0 + rb.standard_normal((3, 256, 256))])).contiguous()
+        out = torch.empty((7, 256, 256), dtype=torch.float32, device=dev)
+        work = torch.empty((4, 256, 256), dtype=torch.float32, device=dev)
+        fn = lambda: btk.bt_planes(pmesh, stack, out=out, work=work, **kw)
+        rec = {"ms": [cuda_ms(fn) for _ in range(3)]}
+        if hasattr(btk, "attrs"):
+            rec["attrs"] = btk.attrs(torch.float32, pmesh)
+        emit({"bt_plane": rec})
+        E, C = mnp.nedges, mnp.ncells
+        em = put(np.asarray(mnp.edge_mask)[:, None])
+        ins = (put(0.01 * rb.standard_normal((E, 1))) * em,
+               put(rb.standard_normal((C, 1))),
+               put(1e-6 * rb.standard_normal((E, 1))) * em,
+               put(4000.0 + rb.standard_normal((E, 1))))
+        rec = {}
+        if hasattr(bt_gather, "mesh_view"):
+            o, w = bt_gather.new_buffers(ins[0], ins[1])
+            fn = lambda: bt_gather.bt_subcycles(m, *ins, **kw, out=o,
+                                                work=w)
+            rec["attrs"] = bt_gather.attrs(torch.float32, m)
+        else:
+            fn = lambda: bt_gather.bt_subcycles(m, *ins, **kw)
+            ma = bt_gather._mesh_arrays(m, torch.float32, m.edge_mask.device)
+            o = tuple(torch.empty_like(a) for a in (ins[0], ins[1], ins[0]))
+            ub_work = torch.empty_like(ins[0])
+            lib = _build.load()
+            consts = np.array([12.0, -9.80616, 0.0], np.float64)
+            ints = np.array([E, C, ma["eoe"].shape[1], ma["eoc"].shape[1],
+                             10, 256], np.int32)
+            stream = torch.cuda.current_stream().cuda_stream
+            cached = lambda: lib.omega_bt_gather_f32(
+                *(a.data_ptr() for a in ins), o[0].data_ptr(),
+                ub_work.data_ptr(), o[1].data_ptr(), o[2].data_ptr(),
+                *(ma[k].data_ptr() for k in ("coe", "dc", "eoe", "woe",
+                                             "eoc", "wdiv", "f_e", "mask")),
+                consts.ctypes.data, ints.ctypes.data, stream)
+            rec["cached_ms"] = [cuda_ms(cached) for _ in range(3)]
+        rec["ms"] = [cuda_ms(fn) for _ in range(3)]
+        emit({"bt_sphere": rec})
+        compare = os.environ.get("PASS_TIMES_COMPARE")
+        if save or compare:
+            bits = {}
+            for dt in (torch.float32, torch.float64):
+                pm_, m_ = pm_np.to(dev, dt), mnp.to(dev, dt)
+                st_, in_ = stack.to(dt), tuple(a.to(dt) for a in ins)
+                for M, r in ((1, 0.0), (7, 1e-4), (10, 0.0), (30, 0.0)):
+                    k = dict(gravity=9.80616, dt_bt=120.0 / M, n_subcycles=M,
+                             bt_drag=r)
+                    bits[f"plane {dt} M={M} r={r}"] = [
+                        btk.bt_planes(pm_, st_, **k).cpu()]
+                    bits[f"sphere {dt} M={M} r={r}"] = [
+                        a.cpu() for a in bt_gather.bt_subcycles(m_, *in_,
+                                                                **k)]
+            if save:
+                torch.save(bits, os.path.join(save, "bt_bits.pt"))
+            if compare:
+                ref = torch.load(os.path.join(compare, "bt_bits.pt"))
+                emit({"bt_bits_equal": {
+                    k: all(torch.equal(a, b) for a, b in zip(v, ref[k]))
+                    for k, v in bits.items()}})
+        del stack, out, work, ins
 
     if "sphere" in parts:
         cfgs = {

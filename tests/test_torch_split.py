@@ -311,3 +311,48 @@ def test_split_wrappers_take_cpu_arrays_and_count_nothing():
         megastep.split_megastep_stacked(pm, cfg, s, DT, out=s)
     assert before == (megastep.split_pre_launches,
                       megastep.split_post_launches, btk.launches)
+
+
+def test_subcycle_route(monkeypatch):
+    """Where the composed split stepper runs its subcycles: on a CUDA array
+    (here the kernels' `enabled` made to say so) the planar kernel on a
+    mesh it takes and the gather-form kernel on any other (the sphere, a
+    carved sphere, a planar mesh off the compiled pattern); the plain loop
+    on a CPU array, with a sharded halo or a traced dt. A composed step on
+    the gather route makes one call of bt_gather.bt_subcycles."""
+    from omega_tpu_torch.mesh import carve_mesh, spherical_icos_mesh
+    from omega_tpu_torch.ops import bt_gather
+    from omega_tpu_torch.stepping import split as split_mod
+    from omega_tpu_torch.stepping.steppers import _identity
+    _, pm, _, cfg, fields = _setup()
+    sph = spherical_icos_mesh(4)
+    lat = np.asarray(sph.lat_cell)
+    carved = carve_mesh(sph, np.abs(lat) > 0.3)
+    ub = torch.zeros(1, 1, dtype=torch.float64)
+    route = split_mod.subcycle_route
+    assert route(pm, ub, _identity, DT) == "plain"
+    assert route(sph, ub, _identity, DT) == "plain"
+    monkeypatch.setattr(btk, "enabled", lambda x: True)
+    monkeypatch.setattr(bt_gather, "enabled", lambda x: True)
+    assert route(pm, ub, _identity, DT) == "planar"
+    assert route(sph, ub, _identity, DT) == "gather"
+    assert route(carved, ub, _identity, DT) == "gather"
+    assert route(pm, ub, lambda s: s, DT) == "plain"
+    assert route(pm, ub, _identity, torch.tensor(DT)) == "plain"
+    monkeypatch.setattr(megastep, "hex_pattern_fits", lambda m: False)
+    assert not btk.supported(pm)
+    assert route(pm, ub, _identity, DT) == "gather"
+    calls = []
+
+    def recorder(mesh, *args, **kw):
+        calls.append(kw["n_subcycles"])
+        return bt_gather.subcycles_plain(mesh, *args, **kw)
+    monkeypatch.setattr(bt_gather, "bt_subcycles", recorder)
+    got = split_forward_backward_step(pm, cfg, port_state(*fields), 0.0, DT,
+                                      n_subcycles=7)
+    assert calls == [7]
+    monkeypatch.undo()
+    ref = split_forward_backward_step(pm, cfg, port_state(*fields), 0.0, DT,
+                                      n_subcycles=7)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
