@@ -117,6 +117,15 @@ a user calls, and prints one JSON line per phase:
                   composed step with the plain loop
   rk_order        the manufactured solution in float64: the steppers'
                   temporal order and the spatial order
+  driver_path     main_path's configuration through the standalone driver
+                  (ocn_init / ocn_run / ocn_finalize, a dict Config): 60
+                  steps with and without History / Restart streams, one
+                  fb_step launch a step; the state bit for bit run_steps',
+                  a restart chain bit for bit the unbroken run; ms a step
+                  with and without writes, a history write's seconds
+  driver_sphere   the driver with Mesh.Generate PatchLayout: true at icos16
+                  x 100 x 2: six patch-step launches a step, the state bit
+                  for bit run_steps' on the driver's mesh
   profile         (only with --profile) device time by kernel, every path
   kernels         every kernel: launches, max error, times, bounds
 
@@ -3469,6 +3478,278 @@ def main(argv=None):
           "launches": order_launches,
           "seconds": time.perf_counter() - t_order})
 
+    # ----------------------------------------------------- 11. driver_path
+    # main_path's configuration through the standalone driver's entry
+    # points (ocn_init / ocn_run / ocn_finalize), built from a dict Config
+    # (no YAML): 30 minutes of 30 s steps (60), a History stream every 10
+    # minutes (single precision) and a Restart stream every 15 minutes
+    # (double precision, through a pointer file), in a temporary directory
+    # removed at the end. The driver reaches the fused FB kernel through
+    # run_steps, one segment per alarm: one fb_step launch a step and no
+    # other kernel
+    import shutil
+    import tempfile
+    import types
+
+    from omega_tpu_torch import driver as drv
+    from omega_tpu_torch.infra.config import Config
+    from omega_tpu_torch.infra.time_manager import Alarm, TimeInterval
+
+    T_START = "0001-01-01_00:00:00"
+    STEP_SECONDS = 30
+
+    def driver_config(generate, stop, streams, start=T_START):
+        return Config("Omega", {
+            "Timing": {"Level": 2, "AutoFence": True},
+            "TimeIntegration": {
+                "CalendarType": "No Leap", "TimeStepper": "Forward-Backward",
+                "TimeStep": f"0000_00:00:{STEP_SECONDS:02d}",
+                "StartTime": start, "StopTime": stop, "RunDuration": "none"},
+            "Mesh": {"Generate": generate},
+            "VertCoord": {"NVertLayers": NLAYERS},
+            "Tracers": {"Base": ["Temperature", "Salinity"]},
+            "Tendencies": {"ViscDel2": 1.0e3, "ViscDel4": 1.0e9,
+                           "EddyDiff2": 10.0, "EddyDiff4": 0.0},
+            "IOStreams": streams})
+
+    PLANE = {"Kind": "planar", "Nx": NX, "Ny": NY, "Dc": 5000.0,
+             "F0": 1.0e-4, "BottomDepth": 1000.0}
+    HISTORY = {"Filename": "ocn.hist.$SimTime", "Mode": "write",
+               "Precision": "single", "Freq": 10, "FreqUnits": "minutes",
+               "Contents": ["State", "SshCell", "Tracers"]}
+    RESTART_W = {"UsePointerFile": True, "PointerFilename": "ocn.pointer",
+                 "Filename": "ocn.restart.$Y-$M-$D_$h.$m.$s",
+                 "Mode": "write", "Precision": "double", "Freq": 15,
+                 "FreqUnits": "minutes", "Contents": ["Restart"]}
+    RESTART_R = {"UsePointerFile": True, "PointerFilename": "ocn.pointer",
+                 "Mode": "read", "FreqUnits": "OnStartup",
+                 "UseStartEnd": True, "StartTime": "0001-01-01_00:00:01",
+                 "EndTime": "9999-12-31_00:00:00", "Contents": ["Restart"]}
+    STREAMS = {"History": HISTORY, "RestartWrite": RESTART_W,
+               "RestartRead": RESTART_R}
+
+    def sphere_content_of(mesh_, st):
+        a = mesh_.area_cell.double()[:, None]
+        h64 = st.h.double()
+        return ((a * h64).sum().item(),
+                [(a * h64 * st.tracers[l].double()).sum().item()
+                 for l in range(NTRACERS)])
+
+    def same(a, b):
+        return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+    def max_diff(a, b):
+        return max((x.double() - y.double()).abs().max().item()
+                   for x, y in zip(a, b))
+
+    def drive_model(model, st):
+        """ocn_run + ocn_finalize from state `st`: (final state, seconds,
+        launches); the counts are zeroed just before ocn_run"""
+        model.state = st
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = drv.ocn_finalize(drv.ocn_run(model))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, counts()
+
+    FB_ONLY = {"fb_step": 0, "rk_stage": 0, "pp81_coeffs": 0,
+               "vmix_solve": 0, "stencil": 0, **NO_SPLIT}
+    t_drv = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="omega_driver_")
+    try:
+        nsteps = 60
+        stop30 = "0001-01-01_00:30:00"
+        # (a) no streams: one segment of 60 steps
+        m_a = drv.ocn_init(driver_config(PLANE, stop30, {}),
+                           directory=tmp)
+        if m_a.model_cfg != cfg or m_a.dtype != torch.float32 \
+                or m_a.mesh.structured_nx != NX:
+            fail(f"driver: config {m_a.model_cfg} is not main_path's")
+        if not megastep.supported(m_a.mesh, m_a.model_cfg):
+            fail("driver: the fused FB path declines the driver's mesh")
+        st_a, sec_a, la = drive_model(m_a, state0)
+        check_launches("driver_path (no streams)", la,
+                       {**FB_ONLY, "fb_step": nsteps})
+        # (b) the same with an alarm every 10 steps and nothing written:
+        # six segments, each stacking and unstacking the state once
+        m_b = drv.ocn_init(driver_config(PLANE, stop30, {}),
+                           directory=tmp)
+        m_b.clock.attach_alarm(Alarm(
+            "Segment", interval=TimeInterval.from_string("0000_00:05:00"),
+            start=m_b.clock.start_time))
+        st_b, sec_b, lb = drive_model(m_b, state0)
+        check_launches("driver_path (6 segments)", lb,
+                       {**FB_ONLY, "fb_step": nsteps})
+        # (c) History every 10 min, Restart at 15 and 30 min
+        run_dir = tmp + "/run"
+        shutil.os.makedirs(run_dir)
+        m_c = drv.ocn_init(driver_config(PLANE, stop30, STREAMS),
+                           directory=run_dir)
+        st_c, sec_c, lc = drive_model(m_c, state0)
+        check_launches("driver_path (streams)", lc,
+                       {**FB_ONLY, "fb_step": nsteps})
+        files = sorted(shutil.os.listdir(run_dir))
+        n_hist = sum(f.startswith("ocn.hist.") for f in files)
+        n_rst = sum(f.startswith("ocn.restart.") for f in files)
+        if (n_hist, n_rst) != (3, 2):
+            fail(f"driver_path: files {files}")
+        io_s = m_c.timers.totals["ocnRun/io"]
+        step_s = m_c.timers.totals["ocnRun/doStep"]
+        # one more history write of the final state, timed alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist_path = m_c.streams.write("History", force=True)
+        hist_write_s = time.perf_counter() - t0
+        hist_bytes = shutil.os.path.getsize(hist_path)
+        rst_bytes = max(shutil.os.path.getsize(run_dir + "/" + f)
+                        for f in files if f.startswith("ocn.restart."))
+        shutil.rmtree(run_dir)
+        # (d) run_steps called directly on the same initial state
+        reset_counts()
+        direct = run_steps(m_a.mesh, cfg, state0, 0.0, DT, nsteps)
+        if counts()["fb_step"] != nsteps:
+            fail("driver_path: the direct run_steps call did not fuse")
+        drv_vs_direct = max_diff(st_a, direct)
+        if not (same(st_a, direct) and same(st_b, direct)
+                and same(st_c, direct)):
+            fail(f"driver_path: the driver's state differs from run_steps "
+                 f"by {drv_vs_direct}, {max_diff(st_b, direct)}, "
+                 f"{max_diff(st_c, direct)} (6 segments, streams)")
+        # (e) a restart chain: 0-15 min writing the restart, then 15-30
+        # min from it, against the unbroken run bit for bit
+        chain_dir = tmp + "/chain"
+        shutil.os.makedirs(chain_dir)
+        m_1 = drv.ocn_init(driver_config(PLANE, "0001-01-01_00:15:00",
+                                         STREAMS), directory=chain_dir)
+        drive_model(m_1, state0)
+        m_2 = drv.ocn_init(driver_config(PLANE, stop30, STREAMS,
+                                         start="0001-01-01_00:15:00"),
+                           directory=chain_dir)
+        if str(m_2.clock.get_current_time()) != "0001-01-01_00:15:00" \
+                or str(m_2.sim_start) != T_START:
+            fail(f"driver_path: restart clock {m_2.clock.get_current_time()}"
+                 f", start {m_2.sim_start}")
+        st_2, _, l2 = drive_model(m_2, m_2.state)
+        check_launches("driver_path (restarted)", l2,
+                       {**FB_ONLY, "fb_step": nsteps // 2})
+        chain_diff = max_diff(st_2, st_c)
+        if not same(st_2, st_c):
+            fail(f"driver_path: the restart chain differs from the "
+                 f"unbroken run by {chain_diff}")
+        shutil.rmtree(chain_dir)
+        finite("driver path", st_c)
+        d_vol, d_trc = drifts(state0, st_c)
+        if d_vol > 1e-5 or d_trc > 1e-5:
+            fail(f"driver path: drift {d_vol} / {d_trc}")
+        stack_ms = cuda_ms(lambda: megastep.unstack_state(
+            m_a.mesh, megastep.stack_state(m_a.mesh, state0), NLAYERS,
+            NTRACERS, ModelState), 20)
+        emit({"phase": "driver_path",
+              "config": f"as main_path through ocn_init / ocn_run / "
+              f"ocn_finalize from a dict Config: planar {NX}x{NY} Dc 5000 "
+              f"F0 1e-4 BottomDepth 1000, {NLAYERS} layers, Temperature "
+              "and Salinity, ViscDel2 1e3 ViscDel4 1e9, float32, TimeStep "
+              "30 s, 30 minutes; History (State, SshCell, Tracers; "
+              "single) every 10 min, Restart (double, pointer file) every "
+              "15 min",
+              "steps": nsteps,
+              "ms_per_step_no_streams": sec_a / nsteps * 1e3,
+              "ms_per_step_6_segments_no_streams": sec_b / nsteps * 1e3,
+              "ms_per_step_with_streams": sec_c / nsteps * 1e3,
+              "main_path_ms_per_step": ms_step,
+              "stack_unstack_ms": stack_ms,
+              "with_streams_do_step_s": step_s, "with_streams_io_s": io_s,
+              "history_write_s": hist_write_s,
+              "history_file_bytes": hist_bytes,
+              "restart_file_bytes": rst_bytes,
+              "files": files, "launches": lc,
+              "launches_per_step": {k: v / nsteps for k, v in lc.items()},
+              "launches_restarted_run": l2,
+              "state_vs_run_steps_max_abs_diff": drv_vs_direct,
+              "bit_for_bit_vs_run_steps": True,
+              "restart_chain_max_abs_diff": chain_diff,
+              "restart_chain_bit_for_bit": True,
+              "volume_drift": d_vol, "tracer_drift": d_trc,
+              "seconds": time.perf_counter() - t_drv})
+        del m_a, m_b, m_c, m_1, m_2, st_a, st_b, st_c, st_2, direct
+
+        # --------------------------------------------- 12. driver_sphere
+        # PatchLayout: true on the icosahedral sphere (icos16 x 100 x 2,
+        # float32, dt = 30 s, 20 steps in two segments cut by a History
+        # stream of SshCell at 5 minutes): the driver's mesh carries its
+        # patch layout, run_steps takes the framed path, six patch-step
+        # launches a step and nothing else; the state bit for bit
+        # run_steps' on the driver's own mesh and segments
+        t_sph = time.perf_counter()
+        SPHERE = {"Kind": "sphere", "Subdivisions": 16,
+                  "BottomDepth": 4000.0, "PatchLayout": True}
+        sph_dir = tmp + "/sphere"
+        shutil.os.makedirs(sph_dir)
+        m_s = drv.ocn_init(driver_config(
+            SPHERE, "0001-01-01_00:10:00",
+            {"History": {**HISTORY, "Freq": 5, "Contents": ["SshCell"]}}),
+            directory=sph_dir)
+        build_s = time.perf_counter() - t_sph
+        if m_s.mesh.patch_info is None or not patch_megastep.supported(
+                m_s.mesh, m_s.model_cfg, framed=True):
+            fail("driver_sphere: the driver's sphere is not on the framed "
+                 "patch path")
+        host = types.SimpleNamespace(**{
+            n: getattr(m_s.mesh, n).cpu().numpy()
+            for n in ("lat_cell", "lon_cell", "bottom_depth", "edge_mask")},
+            ncells=m_s.mesh.ncells, nedges=m_s.mesh.nedges)
+        s0 = sphere_state(host, NLAYERS, NTRACERS, torch.float32, 0.01, 0.0)
+        run_steps(m_s.mesh, m_s.model_cfg, s0, 0.0, DT, 1)  # builds tables
+        st_s, sec_s, ls = drive_model(m_s, s0)
+        nsph = 20
+        check_launches("driver_sphere", ls,
+                       {**FB_ONLY, "patch_step": patch_megastep.PASSES * nsph})
+        if sorted(shutil.os.listdir(sph_dir)) != [
+                "ocn.hist.0001-01-01_00:05:00.nc",
+                "ocn.hist.0001-01-01_00:10:00.nc"]:
+            fail(f"driver_sphere: files {shutil.os.listdir(sph_dir)}")
+        # run_steps on the driver's two segments, and in one call: the
+        # framed carry is rebuilt from the flat state at a segment's start,
+        # so frame positions the kernels computed redundantly (within
+        # rounding of their owners) take their owners' values there
+        half = run_steps(m_s.mesh, m_s.model_cfg, s0, 0.0, DT, nsph // 2)
+        direct_s = run_steps(m_s.mesh, m_s.model_cfg, half, nsph // 2 * DT,
+                             DT, nsph // 2)
+        sph_diff = max_diff(st_s, direct_s)
+        if not same(st_s, direct_s):
+            fail(f"driver_sphere: the driver's state differs from run_steps "
+                 f"on the same segments by {sph_diff}")
+        one_call = run_steps(m_s.mesh, m_s.model_cfg, s0, 0.0, DT, nsph)
+        one_call_diff = max_diff(st_s, one_call)
+        del half, one_call
+        finite("driver sphere", st_s)
+        (v0, t0_), (v1, t1_) = (sphere_content_of(m_s.mesh, s)
+                                for s in (s0, st_s))
+        s_vol = abs(v1 - v0) / v0
+        s_trc = max(abs(b - a) / abs(a) for a, b in zip(t0_, t1_))
+        if s_vol > 1e-5 or s_trc > 1e-5:
+            fail(f"driver_sphere: drift {s_vol} / {s_trc}")
+        emit({"phase": "driver_sphere",
+              "config": f"Mesh.Generate sphere Subdivisions 16 PatchLayout "
+              f"true ({m_s.mesh.ncells} cells) BottomDepth 4000, {NLAYERS} "
+              "layers x 2 tracers, float32, as sphere_path otherwise; "
+              "History of SshCell every 5 min",
+              "init_seconds": build_s, "steps": nsph,
+              "ms_per_step_with_streams": sec_s / nsph * 1e3,
+              "launches": ls,
+              "launches_per_step": {k: v / nsph for k, v in ls.items()},
+              "state_vs_run_steps_max_abs_diff": sph_diff,
+              "bit_for_bit_vs_run_steps_same_segments": True,
+              "vs_run_steps_one_segment_max_abs_diff": one_call_diff,
+              "volume_drift": s_vol, "tracer_drift": s_trc,
+              "seconds": time.perf_counter() - t_sph})
+        driver_launches = {"fb_step": lc["fb_step"],
+                           "patch_step": ls["patch_step"]}
+        del m_s, st_s, direct_s
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
     # ------------------------------------------------- optional: profile
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -3547,6 +3828,7 @@ def main(argv=None):
          "shape": f"({CH}, {NLAYERS}, {NY}, {NX}) float32",
          "variant": "flagship: center fluxes, no tails",
          "path": "main_path",
+         "driver_path_launches": driver_launches["fb_step"],
          "variants_ms": {v: fbv[v]["ms"] for v in FULL_WIDTH}},
         {"name": "fb_step_upwind_tails", "route": "cuda",
          "source": "omega_tpu_torch/csrc/fb_step_uu.cu",
@@ -3705,7 +3987,8 @@ def main(argv=None):
          "bound_by": patv["bound_by"], "library_ms": None,
          "shape": f"frames {tuple(patv['frames'])} float32 (icos"
          f"{N_SPHERE}, S = {p48.S}), kind fb, flagship",
-         "passes_per_call": patch_megastep.PASSES, "path": "sphere_path"},
+         "passes_per_call": patch_megastep.PASSES, "path": "sphere_path",
+         "driver_sphere_launches": driver_launches["patch_step"]},
         {"name": "patch_step_science", "route": "cuda",
          "source": "omega_tpu_torch/csrc/patch_step_uu.cu",
          "template": "omega_tpu_torch/csrc/patch_step.cuh",

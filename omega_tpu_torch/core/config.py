@@ -96,3 +96,68 @@ class ModelConfig:
     tendencies: TendencyConfig = TendencyConfig()
     manufactured: ManufacturedConfig = ManufacturedConfig()
     gravity: float = constants.GRAVITY
+
+
+def model_config_from_yaml(cfg, nvertlayers: int, ntracers: int) -> ModelConfig:
+    """Build the static ModelConfig from a parsed omega.yml Config object
+    (the module-init config reads: ocn/Tendencies.cpp init, Advection and
+    WindStress groups of configs/Default.yml)."""
+    t = cfg.get_group("Tendencies")
+    tc = TendencyConfig(
+        thickness_flux_div=t.get_bool("ThicknessFluxTendencyEnable", True),
+        pv_advection=t.get_bool("PVTendencyEnable", True),
+        ke_gradient=t.get_bool("KETendencyEnable", True),
+        ssh_gradient=t.get_bool("SSHTendencyEnable", True),
+        velocity_diffusion=t.get_bool("VelDiffTendencyEnable", True),
+        visc_del2=t.get_float("ViscDel2", 0.0),
+        velocity_hyperdiff=t.get_bool("VelHyperDiffTendencyEnable", True),
+        visc_del4=t.get_float("ViscDel4", 0.0),
+        div_factor=t.get_float("DivFactor", 1.0),
+        wind_forcing=t.get_bool("WindForcingTendencyEnable", False),
+        density0=t.get_float("Density0", constants.RHO0_SEAWATER),
+        bottom_drag=t.get_bool("BottomDragTendencyEnable", False),
+        bottom_drag_coeff=t.get_float("BottomDragCoeff", 0.0),
+        tracer_horz_adv=t.get_bool("TracerHorzAdvTendencyEnable", True),
+        tracer_diffusion=t.get_bool("TracerDiffTendencyEnable", True),
+        eddy_diff2=t.get_float("EddyDiff2", 0.0),
+        tracer_hyperdiff=t.get_bool("TracerHyperDiffTendencyEnable", True),
+        eddy_diff4=t.get_float("EddyDiff4", 0.0),
+        use_custom_tendency=t.get_bool("UseCustomTendency", False),
+        manufactured_tendency=t.get_bool("ManufacturedSolutionTendency",
+                                         False),
+    )
+    adv = cfg.get_group("Advection") if cfg.exists("Advection") else None
+    ws = cfg.get_group("WindStress") if cfg.exists("WindStress") else None
+    man = cfg.get_group("ManufacturedSolution") \
+        if cfg.exists("ManufacturedSolution") else None
+    vm = VertMixConfig()
+    if cfg.exists("VertMix"):
+        v = cfg.get_group("VertMix")
+        vm = VertMixConfig(
+            enabled=v.get_bool("Enabled", False),
+            kappa_tracer=v.get_float("KappaTracer", 1.0e-5),
+            kappa_momentum=v.get_float("KappaMomentum", 1.0e-4),
+            method=v.get_str("Method", "pcr").lower(),
+            scheme=v.get_str("Scheme", "constant").lower(),
+            nu0=v.get_float("Nu0", 1.0e-2),
+            alpha=v.get_float("Alpha", 5.0),
+            n_exp=v.get_int("NExp", 2),
+            eos_alpha_t=v.get_float("EosAlphaT", 2.0e-4),
+            eos_beta_s=v.get_float("EosBetaS", 7.6e-4),
+        )
+    mc = ManufacturedConfig(
+        wavelength_x=man.get_float("WavelengthX", 5.0e6) if man else 5.0e6,
+        wavelength_y=man.get_float("WavelengthY", 4.33013e6) if man else 4.33013e6,
+        amplitude=man.get_float("Amplitude", 1.0) if man else 1.0,
+    )
+    return ModelConfig(
+        nvertlayers=nvertlayers, ntracers=ntracers,
+        flux_thickness_type=(adv.get_str("FluxThicknessType", "Center")
+                             if adv else "Center").lower(),
+        flux_tracer_type=(adv.get_str("FluxTracerType", "Center")
+                          if adv else "Center").lower(),
+        wind_interp_type=(ws.get_str("InterpType", "Isotropic")
+                          if ws else "Isotropic").lower(),
+        ssh_formulation=str(cfg.get("SshFormulation", "Stacked")).lower(),
+        vert_mix=vm, tendencies=tc, manufactured=mc,
+    )

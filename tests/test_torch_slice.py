@@ -269,3 +269,62 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                              omega_tpu_torch.__file__).parent.parent))
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("clean")
+
+
+def test_port_runs_without_pyyaml_and_h5py(tmp_path):
+    """The card's machine has neither PyYAML nor h5py: with both absent,
+    every module of the package imports, the defaults build, and the
+    driver writes a NetCDF3 history file from a dict Config; YAML text and
+    the HDF5 format raise errors that name what is missing."""
+    code = (
+        "import importlib, os, pkgutil, sys\n"
+        "sys.modules['yaml'] = sys.modules['h5py'] = None\n"
+        "import torch\n"
+        "import omega_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    omega_tpu_torch.__path__, 'omega_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "from omega_tpu_torch.infra import Config, default_config\n"
+        "from omega_tpu_torch.infra.errors import OmegaError\n"
+        "from omega_tpu_torch import driver\n"
+        "from omega_tpu_torch.io.netcdf import read_netcdf, write_netcdf\n"
+        "d = default_config().as_dict()\n"
+        "assert d['Tendencies']['ViscDel4'] == 1.2e11, d\n"
+        "doc = default_config().as_dict()\n"
+        "doc['TimeIntegration'].update(TimeStep='0000_00:01:00',\n"
+        "    StopTime='0001-01-01_00:02:00')\n"
+        "doc['Mesh'] = {'Generate': {'Kind': 'planar', 'Nx': 8, 'Ny': 8,\n"
+        "    'Dc': 25000.0, 'F0': 1e-4}}\n"
+        "doc['VertCoord']['NVertLayers'] = 2\n"
+        "doc['IOStreams'] = {'History': {'Filename': 'hist.$SimTime',\n"
+        "    'Mode': 'write', 'Freq': 1, 'FreqUnits': 'minutes',\n"
+        "    'Contents': ['State', 'SshCell', 'Tracers']}}\n"
+        "tmp = sys.argv[1]\n"
+        "m = driver.ocn_init(Config('Omega', doc), directory=tmp,\n"
+        "                    device='cpu', dtype=torch.float64)\n"
+        "driver.ocn_finalize(driver.ocn_run(m))\n"
+        "files = sorted(os.listdir(tmp))\n"
+        "assert len(files) == 2, files\n"
+        "nc = read_netcdf(os.path.join(tmp, files[-1]))\n"
+        "assert nc.get('LayerThickness').shape == (1, 64, 2)\n"
+        "for call in (lambda: Config.from_yaml('a: 1'),\n"
+        "             lambda: write_netcdf(os.path.join(tmp, 'x.nc'),\n"
+        "                 dims={'n': 1}, variables={}, var_dims={},\n"
+        "                 fmt='hdf5')):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except OmegaError as e:\n"
+        "        assert 'PyYAML' in str(e) or 'HDF5' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('no error without the package')\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'omega_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('clean', len(names))\n")
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         capture_output=True, text=True,
+                         cwd=str(__import__("pathlib").Path(
+                             omega_tpu_torch.__file__).parent.parent))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("clean")
