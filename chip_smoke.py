@@ -8,9 +8,10 @@ It builds the CUDA kernels from omega_tpu_torch/csrc, holds each kernel
 against its plain PyTorch version on the card, drives the port's main paths
 (256 x 256 cells x 100 layers x 2 tracers, float32; forward-backward, RK2,
 RK4 and split-explicit steppers; the icosahedral sphere icos48 x 100 x 2
-with the forward-backward, RK4, RK2 and split-explicit steppers, and its
-RCM-renumbered gather layout, global and with land) through the entry points
-a user calls, and prints one JSON line per phase:
+with the forward-backward, RK4, RK2 and split-explicit steppers, with land
+on the patch layout, and its RCM-renumbered gather layout, global and with
+land; the sharded runs of parallel/, every shard on this card) through the
+entry points a user calls, and prints one JSON line per phase:
 
   device          the card, and nvidia-smi's name / power-limit line
   build           nvcc build of the kernels, seconds
@@ -126,6 +127,34 @@ a user calls, and prints one JSON line per phase:
   driver_sphere   the driver with Mesh.Generate PatchLayout: true at icos16
                   x 100 x 2: six patch-step launches a step, the state bit
                   for bit run_steps' on the driver's mesh
+  kernel_patch_land  every patch kernel kind on a land-masked sphere
+                  (apply_land_mask, land above 55 deg) vs plain: icos16 x 8
+                  x 2 float64 (FB, science with PP81, FCT stages A and B,
+                  RK mid, splitpre / splitpost, the subcycles), icos48 x 100
+                  x 2 float32 (FB, science) by the increment; u = 0 on the
+                  masked edges after every launch that writes u
+  coastal_patch_path  sphere_path on the patch layout masked by
+                  coastal_gather_path's continent: six patch-step launches a
+                  step, u = 0 on the masked edges, land unchanged; icos16
+                  float64 against carve_mesh's gather layout, 1e-9
+  sharded_path    main_path's configuration on the structured decomposition,
+                  S = 2 and 4 shards on the card: one fused FB launch a shard
+                  a step, owned values against the unsharded run, ms a step,
+                  the exchange's share
+  sfc_path        the general (SFC) decomposition, 64 x 64 x 20 x 2 float64,
+                  S = 4, FB and RK4 against the unsharded run (1e-13), the
+                  native partitioner's route
+  patch_sharded_path  the patch layout sharded (S = 5 at icos48 float32;
+                  S = 2, 5, 10 and the science tails at icos16 float64):
+                  six patch-step launches a shard a step, against the
+                  single-device framed run
+  driver_sharded  driver_path's configuration with Decomp NShards 4
+                  (structured, ShardedIO): state and History files equal the
+                  unsharded driver's, the restart read shard by shard
+                  continues bit for bit
+  coupling_path   OmegaComponent on science_path's configuration with wind
+                  imports: 3 intervals against one run; S = 4 exports
+                  (state kept sharded) against S = 1
   profile         (only with --profile) device time by kernel, every path
   kernels         every kernel: launches, max error, times, bounds
 
@@ -3498,8 +3527,8 @@ def main(argv=None):
     T_START = "0001-01-01_00:00:00"
     STEP_SECONDS = 30
 
-    def driver_config(generate, stop, streams, start=T_START):
-        return Config("Omega", {
+    def driver_config(generate, stop, streams, start=T_START, **extra):
+        return Config("Omega", {**extra,
             "Timing": {"Level": 2, "AutoFence": True},
             "TimeIntegration": {
                 "CalendarType": "No Leap", "TimeStepper": "Forward-Backward",
@@ -3750,6 +3779,672 @@ def main(argv=None):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # ------------------------------------------------ 13. kernel_patch_land
+    # every patch kernel on a land-masked sphere (mesh/icos_patches.
+    # apply_land_mask: edge_mask 0 on edges touching land, the land cells'
+    # kite weights 0) against its plain version at the per-kind limits
+    # above: icos16 x 8 x 2 float64 with land above 55 deg (tests/
+    # test_boundary.py's) — the FB step, the science variant with PP81
+    # (coefficient and solve kernels), FCT's stages A and B, the RK stage
+    # (mode mid), splitpre / splitpost; icos48 x 100 x 2 float32, land
+    # above 55 deg, the FB step and the science variant by the increment
+    # (PATCH_INCR, SCI_INCR). After every launch that writes u, u is 0 on
+    # the masked edges' frame positions
+    from omega_tpu_torch.io.netcdf import read_netcdf
+    from omega_tpu_torch.mesh.carve import carve_mesh
+    from omega_tpu_torch.mesh.icos_patches import apply_land_mask
+    from omega_tpu_torch.mesh.reorder import reorder_mesh
+    from omega_tpu_torch.parallel import native, patch_shard
+    from omega_tpu_torch.parallel import decomp as pdecomp
+    from omega_tpu_torch.parallel import sharded as psharded
+    from omega_tpu_torch.parallel import structured_shard as sshard
+
+    t_land = time.perf_counter()
+
+    def masked_pos(p, mesh_np_):
+        """(3, P) frame positions of real edges whose mask is 0"""
+        cont = p.mg.content["edge"].reshape(3, p.P)
+        em = np.asarray(mesh_np_.edge_mask)
+        return torch.as_tensor((cont >= 0) & (em[np.maximum(cont, 0)] == 0),
+                               device=dev)
+
+    def u_on_masked(out, mpos):
+        """max |u| of a launch's output at the masked edges (channels 1-3)"""
+        return out[:, 1:4][:, mpos].abs().max().item()
+
+    lnd = {"tolerance": "as kernel_patch / _science / _fct / _rk / _split: "
+           "f64 per channel max|diff| <= 1e-12 max|ref| (FCT 1e-14, split "
+           "SPLIT_F64), f32 by the increment (PATCH_INCR, SCI_INCR); u == 0 "
+           "on masked edges after every launch that writes u",
+           "land": "lat > 55 deg"}
+    land16 = np.asarray(m16_np.lat_cell) > np.deg2rad(55.0)
+    l16_np = apply_land_mask(m16_np, land16)
+    l16 = l16_np.to(dev, torch.float64)
+    pl16 = patch_megastep.prep(l16, torch.float64, dev)
+    if isinstance(pl16.consts["edge_mask"], float):
+        fail("kernel_patch_land: the land mask is not a per-position plane")
+    mp16 = masked_pos(pl16, l16_np)
+    lnd["icos16_masked_edges"] = int((np.asarray(l16_np.edge_mask) == 0).sum())
+    umax16 = 0.0
+    # the FB step
+    st = sphere_state(l16_np, 8, NTRACERS, torch.float64, 0.1, 1.0)
+    fr, fix = patch_megastep.stack_frames(l16, cfg16, st)
+    got = patch_megastep.chain(pl16, cfg16, fr, DT)
+    ref = patch_megastep.chain_plain(pl16, cfg16, fr, DT)
+    torch.cuda.synchronize()
+    errs = {"fb": chan_err(got.transpose(0, 1), ref.transpose(0, 1))}
+    umax16 = max(umax16, u_on_masked(got, mp16))
+    # the science variant: upwind fluxes, wind, drag, PP81
+    cfg_ls = bench_cfg(8, NTRACERS, SCI_WIND_DRAG, vert_mix=PP81, **UPWIND)
+    st = sphere_strat(l16_np, 8, torch.float64, 0.1)
+    fr, _ = patch_megastep.stack_frames(l16, cfg_ls, st)
+    pw = patch_megastep.make_wind(l16, cfg_ls,
+                                  sphere_wind(l16_np, torch.float64),
+                                  torch.float64)
+    got = patch_megastep.chain(pl16, cfg_ls, fr, DT, wind=pw)
+    hz = patch_megastep.chain_plain(pl16, cfg_ls, fr, DT, wind=pw)
+    coef = patch_megastep.vmix_coeffs_plain(pl16, cfg_ls, hz)
+    kc = patch_megastep.vmix_coeffs(pl16, cfg_ls, hz)
+    sv = patch_megastep.vmix_solve(pl16, cfg_ls, hz.clone(), DT, coef)
+    sp = patch_megastep.vmix_solve_plain(pl16, cfg_ls, hz, DT, coef)
+    torch.cuda.synchronize()
+    errs["science_step"] = chan_err(got.transpose(0, 1), hz.transpose(0, 1))
+    errs["science_coeffs"] = max(nan_err(kc[:-1], coef[:-1]))
+    errs["science_solve"] = chan_err(sv.transpose(0, 1), sp.transpose(0, 1))
+    umax16 = max(umax16, u_on_masked(got, mp16), u_on_masked(sv, mp16))
+    # FCT's two stages
+    cfg_lf = bench_cfg(8, NTRACERS, dict(eddy_diff4=1e9),
+                       flux_tracer_type="fct")
+    pl16f = patch_megastep.prep(l16, torch.float64, dev, fct=True)
+    st = sphere_fct_state(l16_np, 8, torch.float64, 0.1)
+    fr, fix = patch_megastep.stack_frames(l16, cfg_lf, st)
+    got_a, ref_a, got_b, ref_b, _ = fct_stages(pl16f, cfg_lf, fr, fix)
+    fe = fct_errs(got_a, ref_a, got_b, ref_b)
+    errs["fct_a"] = max(fe["stage_a"].values())
+    errs["fct_b"] = max(fe["stage_b"].values())
+    umax16 = max(umax16, u_on_masked(got_a, mp16))
+    # the RK stage, mode mid
+    st = sphere_state(l16_np, 8, NTRACERS, torch.float64, 0.1, 1.0)
+    fr, _ = patch_megastep.stack_frames(l16, cfg16, st)
+    prov, acc, _, _ = rk_inputs(pl16, cfg16, fr, None)
+    out_r, acc_r = torch.empty_like(fr), torch.empty_like(fr)
+    ref_acc, ref_r = rk_call(pl16, cfg16, "mid", fr, prov, acc, None, out_r,
+                             acc_r, None)
+    torch.cuda.synchronize()
+    errs["rk_mid"] = max(chan_err(out_r.transpose(0, 1),
+                                  ref_r.transpose(0, 1)),
+                         chan_err(acc_r.transpose(0, 1),
+                                  ref_acc.transpose(0, 1)))
+    umax16 = max(umax16, u_on_masked(out_r, mp16))
+    # splitpre / splitpost (and the subcycles they feed)
+    rec, _ = split_checks(l16, pl16, cfg16p, st)
+    errs["split_pre"] = max(rec["split_pre"])
+    errs["split_post"] = max(rec["split_post"])
+    errs["bt_gather"] = max(max(rec[f"bt_drag_{r}"]["rel"])
+                            for r in (0.0, 1e-4))
+    lim = {"fct_a": 1e-14, "fct_b": 1e-14, "split_pre": SPLIT_F64,
+           "split_post": SPLIT_F64, "bt_gather": SPLIT_F64}
+    bad = {k: v for k, v in errs.items() if not v <= lim.get(k, 1e-12)}
+    if bad or umax16 != 0.0:
+        fail(f"kernel_patch_land at icos16 f64: {bad}, u on masked edges "
+             f"{umax16}")
+    lnd["f64_icos16x8x2"] = errs
+    lnd["f64_u_on_masked_edges"] = umax16
+    del fr, fix, got, ref, hz, sv, sp, got_a, ref_a, got_b, ref_b, out_r
+
+    # float32 at icos48 x 100 x 2
+    land48 = np.asarray(m48_np.lat_cell) > np.deg2rad(55.0)
+    l48_np = apply_land_mask(m48_np, land48)
+    l48 = l48_np.to(dev, torch.float32)
+    pl48 = patch_megastep.prep(l48, torch.float32, dev)
+    mp48 = masked_pos(pl48, l48_np)
+    st = sphere_state(l48_np, NLAYERS, NTRACERS, torch.float32, 0.01, 1.0)
+    fr, _ = patch_megastep.stack_frames(l48, cfg48, st)
+    got = patch_megastep.chain(pl48, cfg48, fr, DT)
+    ref = patch_megastep.chain_plain(pl48, cfg48, fr, DT)
+    torch.cuda.synchronize()
+    inc_fb = incr_err(got.transpose(0, 1), ref.transpose(0, 1),
+                      fr.transpose(0, 1))
+    umax48 = u_on_masked(got, mp48)
+    del ref
+    cfg_ls48 = bench_cfg(NLAYERS, NTRACERS, SCI_WIND_DRAG, vert_mix=PP81,
+                         **UPWIND)
+    st = sphere_strat(l48_np, NLAYERS, torch.float32, 0.01)
+    fr, _ = patch_megastep.stack_frames(l48, cfg_ls48, st)
+    pw = patch_megastep.make_wind(l48, cfg_ls48,
+                                  sphere_wind(l48_np, torch.float32),
+                                  torch.float32)
+    got = patch_megastep.chain(pl48, cfg_ls48, fr, DT, wind=pw)
+    ref = patch_megastep.chain_plain(pl48, cfg_ls48, fr, DT, wind=pw)
+    torch.cuda.synchronize()
+    inc_sci = incr_err(got.transpose(0, 1), ref.transpose(0, 1),
+                       fr.transpose(0, 1))
+    umax48 = max(umax48, u_on_masked(got, mp48))
+    if max(inc_fb) > PATCH_INCR or max(inc_sci) > SCI_INCR \
+            or umax48 != 0.0 or not bool(torch.isfinite(got).all()):
+        fail(f"kernel_patch_land at icos48 f32: FB {inc_fb}, science "
+             f"{inc_sci}, u on masked edges {umax48}")
+    lnd[f"f32_icos{N_SPHERE}x{NLAYERS}x{NTRACERS}"] = {
+        "fb_increments": dict(zip(names, inc_fb)),
+        "science_increments": dict(zip(names, inc_sci)),
+        "u_on_masked_edges": umax48,
+        "masked_edges": int((np.asarray(l48_np.edge_mask) == 0).sum())}
+    lnd["seconds"] = time.perf_counter() - t_land
+    emit({"phase": "kernel_patch_land", **lnd})
+    del fr, got, ref, pl48, l48, l48_np
+
+    # ----------------------------------------------- 14. coastal_patch_path
+    # sphere_path on the patch layout masked by coastal_gather_path's
+    # continent (|lat| < 60 deg, 0 <= lon < 40 deg): 20 FB steps through
+    # run_steps, six patch-step launches a step and nothing else, u = 0 on
+    # the masked edges, the land cells' h unchanged (their tracers within
+    # four ulps: (tr h + 0) / h rounds), volume and
+    # tracer content conserved; in float64 at icos16 the same continent
+    # masked on the patch layout against carve_mesh's gather layout
+    # (reorder_mesh) at every ocean cell, tests/test_boundary.py:229's 1e-9
+    def continent(mesh_np_):
+        lat = np.asarray(mesh_np_.lat_cell)
+        lon = np.mod(np.asarray(mesh_np_.lon_cell), 2 * np.pi)
+        return (np.abs(lat) < np.deg2rad(60.0)) & (lon < np.deg2rad(40.0))
+
+    t_cp = time.perf_counter()
+    land48 = continent(m48_np)
+    c48p_np = apply_land_mask(m48_np, land48)
+    c48p = c48p_np.to(dev, torch.float32)
+    cst0 = sphere_state(c48p_np, NLAYERS, NTRACERS, torch.float32, 0.01, 0.0)
+    run_steps(c48p, cfg48, cst0, 0.0, DT, 1)           # builds the tables
+    cp_build_s = time.perf_counter() - t_cp
+    reset_counts()
+    cst, cp_s = cst0, []
+    for i in range(nseg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cst = run_steps(c48p, cfg48, cst, i * seg * DT, DT, seg)
+        torch.cuda.synchronize()
+        cp_s.append(time.perf_counter() - t0)
+    cp_launches = counts()
+    check_launches("coastal patch path", cp_launches,
+                   {"fb_step": 0, "rk_stage": 0, "pp81_coeffs": 0,
+                    "vmix_solve": 0, "stencil": 0, **NO_SPLIT, **NO_PATCH,
+                    "patch_step": patch_megastep.PASSES * nseg * seg})
+    finite("coastal patch path", cst)
+    masked48 = torch.as_tensor(np.asarray(c48p_np.edge_mask) == 0,
+                               device=dev)
+    cp_umask = cst.u[masked48].abs().max().item()
+    lm = torch.as_tensor(land48, device=dev)
+    # land cells: h exactly, the tracers within rounding of (tr h + 0) /
+    # h, four ulps of their value
+    land_tr = ((cst.tracers[:, lm] - cst0.tracers[:, lm]).abs().max()
+               / cst0.tracers[:, lm].abs().max()).item()
+    land_same = bool(torch.equal(cst.h[lm], cst0.h[lm])) \
+        and land_tr <= 4 * torch.finfo(torch.float32).eps
+    (v0, t0_), (v1, t1_) = sphere_content(cst0), sphere_content(cst)
+    cp_vol = abs(v1 - v0) / v0
+    cp_trc = max(abs(b - a) / abs(a) for a, b in zip(t0_, t1_))
+    if cp_umask != 0.0 or not land_same or cp_vol > 1e-5 or cp_trc > 1e-5:
+        fail(f"coastal patch path: u on masked edges {cp_umask}, land "
+             f"unchanged {land_same}, drift {cp_vol} / {cp_trc}")
+    pc48 = patch_megastep.prep(c48p, torch.float32, dev)
+    frc, fixc = patch_megastep.stack_frames(c48p, cfg48, cst0)
+    outc = torch.empty_like(frc)
+    workc = patch_megastep.new_work(frc)
+    cp_chain_ms = cuda_ms(lambda: patch_megastep.chain(
+        pc48, cfg48, frc, DT, outc, workc), 20)
+    subc = patch_megastep._sub_state(pc48, frc, fixc)
+    cp_sub_ms = cuda_ms(lambda: forward_backward_step(
+        pc48.sub_mesh, cfg48, subc, 0.0, DT), 10)
+    nfixc = patch_megastep._fix_rows(pc48, *subc)
+    cp_refresh_ms = cuda_ms(lambda: patch_megastep._refresh_frames(
+        pc48, outc, nfixc, pc48.persist), 10)
+    del frc, outc, workc, subc, pc48
+    # float64 at icos16: masked patch layout against the carved gather one
+    land16 = continent(m16_np)
+    c16p = apply_land_mask(m16_np, land16).to(dev, torch.float64)
+    s16_np = spherical_icos_mesh(m16_np.patch_info.n)
+    c16g_np = reorder_mesh(carve_mesh(s16_np, ~continent(s16_np)))
+    c16g = c16g_np.to(dev, torch.float64)
+    cfg16c = bench_cfg(8, 1, dict(eddy_diff4=1e9))
+
+    def smooth(mesh_np_):
+        lat = np.asarray(mesh_np_.lat_cell)
+        lon = np.asarray(mesh_np_.lon_cell)
+        h = (4000.0 + 2.0 * np.sin(2 * lat) * np.cos(lon))[:, None] / 8 \
+            * np.ones((1, 8))
+        return ModelState(h=put(h, torch.float64),
+                          u=put(np.zeros((mesh_np_.nedges, 8)), torch.float64),
+                          tracers=put((10.0 + np.cos(lat))[None, :, None]
+                                      * np.ones((1, 1, 8)), torch.float64))
+    out_p = run_steps(c16p, cfg16c, smooth(m16_np), 0.0, DT, 10)
+    out_g = run_steps(c16g, cfg16c, smooth(c16g_np), 0.0, DT, 10)
+    kp = {(round(float(a), 9), round(float(b), 9)): i for i, (a, b) in
+          enumerate(zip(np.asarray(m16_np.lat_cell),
+                        np.asarray(m16_np.lon_cell)))}
+    rows_g = np.arange(c16g_np.ncells)
+    rows_p = np.array([kp[(round(float(a), 9), round(float(b), 9))]
+                       for a, b in zip(np.asarray(c16g_np.lat_cell),
+                                       np.asarray(c16g_np.lon_cell))])
+    cp_vs_carved = max(
+        (out_p.h[torch.as_tensor(rows_p, device=dev)]
+         - out_g.h[torch.as_tensor(rows_g, device=dev)]).abs().max().item(),
+        (out_p.tracers[:, torch.as_tensor(rows_p, device=dev)]
+         - out_g.tracers).abs().max().item())
+    if not cp_vs_carved <= 1e-9:
+        fail(f"coastal patch path: icos16 f64 masked vs carved "
+             f"{cp_vs_carved}")
+    cp_ms = cp_s[-1] / seg * 1e3
+    emit({"phase": "coastal_patch_path", "config": f"as sphere_path on "
+          f"apply_land_mask(patch_icos_mesh(icos{N_SPHERE})) with land "
+          "|lat| < 60 deg, 0 <= lon < 40 deg (coastal_gather_path's "
+          "continent); u = 0.01 x noise x edge_mask",
+          "land_cells": int(land48.sum()),
+          "masked_edges": int(masked48.sum().item()),
+          "host_build_s": cp_build_s, "steps": nseg * seg,
+          "segment_seconds": cp_s, "ms_per_step": cp_ms,
+          "sphere_path_ms_per_step": sph_ms,
+          "launches": cp_launches,
+          "launches_per_step": {k: v / (nseg * seg)
+                                for k, v in cp_launches.items()},
+          "u_on_masked_edges": cp_umask, "land_h_unchanged": land_same,
+          "land_tracers_max_rel_change": land_tr,
+          "volume_drift": cp_vol, "tracer_drift": cp_trc,
+          "breakdown_ms": {"patch_step": cp_chain_ms,
+                           "submesh_step": cp_sub_ms,
+                           "refresh": cp_refresh_ms},
+          "f64_icos16_vs_carved_gather_10_steps": cp_vs_carved,
+          "seconds": time.perf_counter() - t_cp})
+    del c48p, cst, cst0, c16p, c16g, out_p, out_g
+
+    # ----------------------------------------------------- 15. sharded_path
+    # main_path's configuration (256 x 256 x 100 x 2 float32, flagship FB)
+    # on the structured decomposition, S = 2 and 4 row bands of 256 x (256 /
+    # S + 8) local rows, every shard on this card: a step is one fused FB
+    # launch a shard (the 72-row local mesh of S = 4 has a ragged last row
+    # of the kernel's 16-row tiles) and the two-stage block exchange; no
+    # composed step. The owned values after 20 steps against run_steps'
+    # unsharded ones (bound 1e-6 of max|ref| a field; bit for bit
+    # reported); ms a step beside the unsharded step timed in this phase,
+    # and the exchange's share (CUDA events around the list-level exchange
+    # of the state)
+    t_sh = time.perf_counter()
+    nsh = nseg * seg
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_sh = run_steps(mesh, cfg, state0, 0.0, DT, nsh)
+    torch.cuda.synchronize()
+    unsharded_ms = (time.perf_counter() - t0) / nsh * 1e3
+    shr = {"config": "main_path's, Decomp structured row bands, every shard "
+           "on the card", "steps": nsh,
+           "unsharded_ms_per_step": unsharded_ms,
+           "main_path_ms_per_step": ms_step}
+    sharded_launches = {}
+    for S in (2, 4):
+        ss = sshard.decompose_structured(mesh_np, S)
+        devs = psharded.default_devices(S)
+        step = sshard.make_sharded_step(ss, cfg, forward_backward_step,
+                                        devs, dtype=torch.float32)
+        if not all(megastep.supported(m_, cfg) for m_ in step.meshes):
+            fail(f"sharded path S={S}: the fused path declines the local "
+                 "mesh")
+        sts = sshard.shard_state(ss, state0, devs)
+        sts = step(sts, 0.0, DT)                        # untimed
+        sts = sshard.shard_state(ss, state0, devs)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t_ = 0.0
+        for _ in range(nsh):
+            sts = step(sts, t_, DT)
+            t_ += DT
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        lc_ = counts()
+        check_launches(f"sharded path S={S}", lc_,
+                       {**FB_ONLY, **NO_PATCH, "fb_step": S * nsh})
+        out = sshard.gather_state(ss, sts)
+        finite(f"sharded path S={S}", out)
+        diffs = {f: (a - b).abs().max().item() / max(b.abs().max().item(), 1e-300)
+                 for f, a, b in zip(("h", "u", "tracers"), out, ref_sh)}
+        if max(diffs.values()) > 1e-6:
+            fail(f"sharded path S={S}: owned values vs unsharded {diffs}")
+        halo = sshard.make_halo_fn(ss)
+        ex_ms = cuda_ms(lambda: halo(sts), 20)
+        st_ms = sec / nsh * 1e3
+        # device time of a step, every kernel and copy (torch.profiler)
+        dev_ms = kernel_ms(lambda: step(sts, 0.0, DT), {"all": ""},
+                           reps=5)["all"]
+        shr[f"S{S}"] = {
+            "layout": [ss.sy, ss.sx], "local_mesh": [ss.nxl, ss.nyl],
+            "ms_per_step": st_ms, "launches": lc_,
+            "launches_per_step": {k: v / nsh for k, v in lc_.items()},
+            "exchange_ms": ex_ms, "exchange_share": ex_ms / st_ms,
+            "device_ms_per_step": dev_ms,
+            "device_idle_share": None if dev_ms is None
+            else 1.0 - dev_ms / st_ms,
+            "vs_unsharded_max_rel": diffs,
+            "bit_for_bit": all(bool(torch.equal(a, b))
+                               for a, b in zip(out, ref_sh))}
+        sharded_launches[S] = lc_["fb_step"]
+        del sts, out, step
+    shr["seconds"] = time.perf_counter() - t_sh
+    emit({"phase": "sharded_path", **shr})
+    del ref_sh
+
+    # --------------------------------------------------------- 16. sfc_path
+    # the general (SFC) decomposition: a planar 64 x 64 x 20 x 2 mesh in
+    # float64, Decomp.Method sfc, S = 4 on this card, FB and RK4, 10 steps,
+    # against the unsharded run on the same operator route at
+    # tests/test_parallel.py:88's 1e-13; the partition and the halo rings
+    # by the native (g++) route
+    t_sfc = time.perf_counter()
+    m64_np = planar_hex_mesh(64, 64, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
+    m64 = m64_np.to(dev, torch.float64)
+    m64_gather = dataclasses.replace(m64, structured_nx=0, structured_ny=0,
+                                     structured_scalars=())
+    # tests/test_model.py's inertia-gravity configuration (no momentum
+    # diffusion: RK4's mid-step exchange then keeps owned rows exact)
+    cfg64 = ModelConfig(nvertlayers=20, ntracers=NTRACERS,
+                        tendencies=TendencyConfig(
+                            visc_del2=0.0, velocity_diffusion=False,
+                            velocity_hyperdiff=False, tracer_diffusion=True,
+                            eddy_diff2=10.0, tracer_hyperdiff=False))
+    st64 = noisy_state(m64_np, 20, NTRACERS, torch.float64)
+    sm64 = pdecomp.decompose(m64_np, 4, method="hilbert")
+    routes = dict(native.ROUTE)
+    if not native.available() or set(routes.values()) != {"native"}:
+        fail(f"sfc path: the partition did not take the native route "
+             f"{routes}")
+    devs = psharded.default_devices(4)
+    sm64 = sm64.to(devs, torch.float64)
+    sfc = {"config": "planar 64 x 64 x 20 x 2 float64, Decomp.Method sfc, "
+           "S = 4 on the card", "native_routes": routes,
+           "halo_width": sm64.halo_width}
+    for name, stp in (("fb", forward_backward_step), ("rk4", rk4_step)):
+        step = psharded.make_sharded_step(sm64, cfg64, stp, devs)
+        sts = psharded.shard_state(sm64, st64)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(10):
+            sts = step(sts, i * DT, DT)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        out = psharded.gather_state(sm64, sts, m64.ncells, m64.nedges)
+        # the unsharded run on the local meshes' route: the global mesh
+        # without its structured tables (the index_select operators, as
+        # on the renumbered local meshes; the structured route's stencil
+        # kernel sums in another order, 3e-13 apart)
+        ref = st64
+        for i in range(10):
+            ref = stp(m64_gather, cfg64, ref, i * DT, DT)
+        d = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-300)
+                for a, b in zip(out, ref))
+        if not d <= 1e-13:
+            fail(f"sfc path {name}: sharded vs unsharded {d}")
+        sfc[name] = {"max_rel_diff": d, "ms_per_step": sec / 10 * 1e3,
+                     "bit_for_bit": all(bool(torch.equal(a, b))
+                                        for a, b in zip(out, ref)),
+                     "launches": counts()}
+    sfc["seconds"] = time.perf_counter() - t_sfc
+    emit({"phase": "sfc_path", **sfc})
+    del sm64, m64, st64
+
+    # ------------------------------------------------ 17. patch_sharded_path
+    # the sphere's patch layout sharded: whole patches a shard (S = 5 at
+    # icos48 x 100 x 2 float32, flagship FB, 20 steps), each shard's patch
+    # kernel on its own frames (six launches a shard a step), copies
+    # between shards for the refresh, the pole-fix substep once a card;
+    # against the single-device framed run; then icos16 x 8 x 2 float64 at
+    # S = 2, 5, 10 and the science tails (wind, drag, PP81), at
+    # tests/test_patch_shard.py's 1e-13 / 1e-12
+    t_ps = time.perf_counter()
+    psh = {"config": f"icos{N_SPHERE} x {NLAYERS} x {NTRACERS} float32 S = "
+           "5; icos16 x 8 x 2 float64 S = 2, 5, 10 and the science tails"}
+    devs = psharded.default_devices(5)
+    run5 = patch_shard.make_patch_sharded_run(m48, cfg48, 5, devs)
+    run5(sph0, 0.0, DT, 1)                                  # untimed
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run5(sph0, 0.0, DT, nsh)
+    torch.cuda.synchronize()
+    ps_sec = time.perf_counter() - t0
+    ps_launches = counts()
+    check_launches("patch sharded path", ps_launches,
+                   {**FB_ONLY, **NO_PATCH,
+                    "patch_step": 5 * patch_megastep.PASSES * nsh})
+    ref = run_steps(m48, cfg48, sph0, 0.0, DT, nsh)
+    d48 = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-300)
+              for a, b in zip(out, ref))
+    if not d48 <= 1e-13:
+        fail(f"patch sharded path S=5: vs single device {d48}")
+    ps_dev = kernel_ms(lambda: run5(sph0, 0.0, DT, 1), {"all": ""},
+                       reps=3)["all"]
+    psh["f32_S5"] = {"ms_per_step": ps_sec / nsh * 1e3,
+                     "device_ms_per_step_one_step_runs": ps_dev,
+                     "sphere_path_ms_per_step": sph_ms,
+                     "launches": ps_launches,
+                     "launches_per_step": {k: v / nsh for k, v in
+                                           ps_launches.items()},
+                     "vs_single_device_max_rel": d48,
+                     "bit_for_bit": all(bool(torch.equal(a, b))
+                                        for a, b in zip(out, ref))}
+    del out, ref
+    # the icos16 patch mesh anew (rk_order rebinds m16 to a planar mesh)
+    m16p = m16_np.to(dev, torch.float64)
+    st16 = sphere_state(m16_np, 8, NTRACERS, torch.float64, 0.1, 1.0)
+    cfg16s = bench_cfg(8, NTRACERS, SCI_WIND_DRAG, vert_mix=PP81)
+    w16s = sphere_wind(m16_np, torch.float64)
+    for cname, cfg_v, wind, tol in (("flagship", cfg16, None, 1e-13),
+                                    ("science", cfg16s, w16s, 1e-12)):
+        ref = run_steps(m16p, cfg_v, st16, 0.0, DT, 3, wind_stress=wind)
+        for S in (2, 5, 10):
+            reset_counts()
+            out = patch_shard.make_patch_sharded_run(
+                m16p, cfg_v, S, psharded.default_devices(S))(
+                    st16, 0.0, DT, 3, wind_stress=wind)
+            lc_ = counts()
+            if lc_["patch_step"] != S * patch_megastep.PASSES * 3:
+                fail(f"patch sharded {cname} S={S}: launches {lc_}")
+            d = max((a - b).abs().max().item() for a, b in zip(out, ref))
+            if not d <= tol:
+                fail(f"patch sharded {cname} S={S} f64: {d}")
+            psh[f"f64_icos16_{cname}_S{S}"] = {
+                "max_abs_diff": d, "launches": lc_}
+    psh["seconds"] = time.perf_counter() - t_ps
+    emit({"phase": "patch_sharded_path", **psh})
+
+    # ---------------------------------------------------- 18. driver_sharded
+    # driver_path's configuration with Decomp {NShards: 4, Method:
+    # structured, ShardedIO: true}, History every 10 minutes (20 steps),
+    # Restart at 10 minutes, 20 minutes: the state equals the unsharded
+    # driver's, the History files' variables equal its, and a restart from
+    # the sharded restart file (read shard by shard) continues bit for bit;
+    # then Method sfc and patch on an icos16 sphere through the driver
+    t_ds = time.perf_counter()
+    tmp2 = tempfile.mkdtemp(prefix="omega_driver_sharded_")
+    try:
+        HIST20 = {**HISTORY, "Precision": "double"}
+        RST10 = {**RESTART_W, "Freq": 10}
+        st_streams = {"History": HIST20, "RestartWrite": RST10,
+                      "RestartRead": RESTART_R}
+        stop20 = "0001-01-01_00:20:00"
+        DEC = {"NShards": 4, "Method": "structured", "ShardedIO": True}
+
+        d_one, d_four = tmp2 + "/one", tmp2 + "/four"
+        shutil.os.makedirs(d_one)
+        shutil.os.makedirs(d_four)
+        m_1 = drv.ocn_init(driver_config(PLANE, stop20, st_streams),
+                           directory=d_one)
+        st_1, sec_1, l_1 = drive_model(m_1, state0)
+        m_4 = drv.ocn_init(driver_config(PLANE, stop20, st_streams,
+                                         Decomp=DEC), directory=d_four)
+        if m_4.nshards != 4 or not m_4.sharded_io:
+            fail("driver_sharded: the Decomp group did not take")
+        st_4, sec_4, l_4 = drive_model(m_4, state0)
+        check_launches("driver_sharded", l_4,
+                       {**FB_ONLY, **NO_PATCH, "fb_step": 4 * 40})
+        ds_diff = max_diff(st_4, st_1)
+        if not same(st_4, st_1):
+            fail(f"driver_sharded: the sharded driver's state differs from "
+                 f"the unsharded one's by {ds_diff}")
+        files = sorted(f for f in shutil.os.listdir(d_one)
+                       if f.startswith("ocn.hist."))
+        if files != sorted(f for f in shutil.os.listdir(d_four)
+                           if f.startswith("ocn.hist.")) or len(files) != 2:
+            fail(f"driver_sharded: history files {files}")
+        for f in files:
+            a_, b_ = (read_netcdf(d + "/" + f) for d in (d_one, d_four))
+            for k in a_.variables:
+                if not np.array_equal(a_.variables[k], b_.variables[k]):
+                    fail(f"driver_sharded: {f} {k} differs")
+        # the restart chain: 10 -> 20 min from the sharded restart at 10
+        with open(d_four + "/ocn.pointer", "w") as fp:
+            fp.write("ocn.restart.0001-01-01_00.10.00.nc\n")
+        m_r = drv.ocn_init(driver_config(PLANE, stop20, st_streams,
+                                         start="0001-01-01_00:10:00",
+                                         Decomp=DEC), directory=d_four)
+        if m_r._deferred_state_stream != "RestartRead" \
+                or m_r.state is not None:
+            fail("driver_sharded: the restart was not read shard by shard")
+        out_r = drv.ocn_finalize(drv.ocn_run(m_r))
+        rs_diff = max_diff(out_r, st_4)
+        if not same(out_r, st_4):
+            fail(f"driver_sharded: the restart chain differs by {rs_diff}")
+        # Method sfc and Method patch through the driver: icos16 x 100 x 2
+        # (the general layout against the unsharded run on the same
+        # operators; PatchLayout on 2 patch shards, 2 x 6 patch launches a
+        # step, against the unsharded framed run), 10 steps each
+        SPH16 = {"Kind": "sphere", "Subdivisions": 16, "BottomDepth": 4000.0}
+        stop5 = "0001-01-01_00:05:00"
+        methods = {}
+        for mname, gen, dec in (
+                ("sfc", SPH16, {"NShards": 4, "Method": "sfc"}),
+                ("patch", {**SPH16, "PatchLayout": True},
+                 {"NShards": 2, "Method": "patch"})):
+            d_m = tmp2 + "/" + mname
+            shutil.os.makedirs(d_m)
+            m_u = drv.ocn_init(driver_config(gen, stop5, {}), directory=d_m)
+            host = types.SimpleNamespace(**{
+                n: getattr(m_u.mesh, n).cpu().numpy()
+                for n in ("lat_cell", "lon_cell", "bottom_depth",
+                          "edge_mask")},
+                ncells=m_u.mesh.ncells, nedges=m_u.mesh.nedges)
+            s0 = sphere_state(host, NLAYERS, NTRACERS, torch.float32, 0.01,
+                              0.0)
+            st_u, _, l_u = drive_model(m_u, s0)
+            m_s = drv.ocn_init(driver_config(gen, stop5, {}, Decomp=dec),
+                               directory=d_m)
+            st_s, sec_m, l_s = drive_model(m_s, s0)
+            if m_s._decomp[0] != mname:
+                fail(f"driver_sharded {mname}: ran {m_s._decomp[0]}")
+            rel = max((a_ - b_).abs().max().item()
+                      / max(b_.abs().max().item(), 1e-300)
+                      for a_, b_ in zip(st_s, st_u))
+            if mname == "patch" and (l_s["patch_step"] != 2 * 6 * 10
+                                     or not same(st_s, st_u)):
+                fail(f"driver_sharded patch: launches {l_s}, {rel} from "
+                     "the unsharded run")
+            if not rel <= 1e-5:
+                fail(f"driver_sharded {mname}: {rel} from the unsharded run")
+            methods[mname] = {"max_rel_diff": rel,
+                              "bit_for_bit": same(st_s, st_u),
+                              "ms_per_step": sec_m / 10 * 1e3,
+                              "launches": l_s}
+        emit({"phase": "driver_sharded",
+              "methods_icos16": methods,
+              "config": "driver_path's with Decomp NShards 4, structured, "
+              "ShardedIO (NetCDF3 region writes, region reads of the "
+              "restart); History (double) every 10 min, Restart every 10 "
+              "min, 20 minutes",
+              "steps": 40, "ms_per_step_with_streams": sec_4 / 40 * 1e3,
+              "unsharded_ms_per_step_with_streams": sec_1 / 40 * 1e3,
+              "launches": l_4, "state_vs_unsharded_max_abs_diff": ds_diff,
+              "history_files_equal": True, "restart_chain_bit_for_bit": True,
+              "io_s": m_4.timers.totals.get("ocnRun/io"),
+              "seconds": time.perf_counter() - t_ds})
+        del m_1, m_4, m_r, st_1, st_4, out_r
+    finally:
+        shutil.rmtree(tmp2, ignore_errors=True)
+
+    # ----------------------------------------------------- 19. coupling_path
+    # the coupled component (omega_tpu_torch.coupling.OmegaComponent) on
+    # science_path's configuration (upwind fluxes, wind, drag, PP81) with
+    # wind imports: three 10-step intervals against one 30-step run with
+    # the same constant wind (the fused science steps in both), and the
+    # exports of the same intervals at S = 4 (structured, the state kept
+    # sharded across intervals, exports from owned rows) against S = 1
+    from omega_tpu_torch.coupling import OmegaComponent
+    t_cpl = time.perf_counter()
+    tmp3 = tempfile.mkdtemp(prefix="omega_coupling_")
+    try:
+        sci_doc = {
+            "Timing": {"Level": 2, "AutoFence": True},
+            "TimeIntegration": {
+                "CalendarType": "No Leap",
+                "TimeStepper": "Forward-Backward",
+                "TimeStep": f"0000_00:00:{STEP_SECONDS:02d}",
+                "StartTime": T_START, "StopTime": "0001-01-01_00:15:00",
+                "RunDuration": "none"},
+            "Mesh": {"Generate": PLANE},
+            "VertCoord": {"NVertLayers": NLAYERS},
+            "Tracers": {"Base": ["Temperature", "Salinity"]},
+            "Tendencies": {"ViscDel2": 1.0e3, "ViscDel4": 1.0e9,
+                           "EddyDiff2": 10.0, "EddyDiff4": 0.0,
+                           "WindForcingTendencyEnable": True,
+                           "BottomDragTendencyEnable": True,
+                           "BottomDragCoeff": 3.0e-3},
+            "Advection": {"FluxThicknessType": "Upwind",
+                          "FluxTracerType": "Upwind"},
+            "VertMix": {"Enabled": True, "Scheme": "PP81"},
+            "IOStreams": {}}
+        imports = {"zonal_wind_stress": 0.05, "merid_wind_stress": 0.01}
+        sci_st = sci0
+
+        def component(decomp=None):
+            doc = dict(sci_doc, **({"Decomp": decomp} if decomp else {}))
+            c = OmegaComponent(config=Config("Omega", doc), directory=tmp3)
+            c.model.state = sci_st
+            return c
+        c1 = component()
+        if not megastep.supported(c1.model.mesh, c1.model.model_cfg):
+            fail("coupling path: the science configuration is not fused")
+        reset_counts()
+        ex1 = [c1.run(10 * STEP_SECONDS, imports) for _ in range(3)]
+        l_c1 = counts()
+        st_c1 = c1.finalize()
+        ref_doc = dict(sci_doc, WindStress={"ConstantZonal": 0.05,
+                                            "ConstantMeridional": 0.01})
+        m_ref = drv.ocn_init(Config("Omega", ref_doc), directory=tmp3)
+        st_ref, _, _ = drive_model(m_ref, sci_st)
+        cpl_diff = max_diff(st_c1, st_ref)
+        if not same(st_c1, st_ref):
+            fail(f"coupling path: 3 intervals differ from one 30-step run "
+                 f"by {cpl_diff}")
+        c4 = component({"NShards": 4, "Method": "structured"})
+        reset_counts()
+        ex4 = [c4.run(10 * STEP_SECONDS, imports) for _ in range(3)]
+        l_c4 = counts()
+        if not c4.model._state_is_sharded or len(c4.model.state) != 4:
+            fail("coupling path: the state was not kept sharded")
+        c4.finalize()
+        ex_diff = max(np.abs(a_[k] - b_[k]).max() / max(np.abs(b_[k]).max(),
+                                                      1e-300)
+                      for a_, b_ in zip(ex4, ex1) for k in b_)
+        if set(ex4[0]) != set(ex1[0]) or not ex_diff <= 1e-6:
+            fail(f"coupling path: S = 4 exports vs S = 1 {ex_diff}")
+        emit({"phase": "coupling_path",
+              "config": "science_path's through OmegaComponent, 3 intervals "
+              "of 10 steps with wind imports (0.05, 0.01 N m-2)",
+              "launches_S1": l_c1, "launches_S4": l_c4,
+              "intervals_vs_one_run_max_abs_diff": cpl_diff,
+              "intervals_bit_for_bit": True,
+              "exports_S4_vs_S1_max_rel": float(ex_diff),
+              "exports_bit_for_bit": bool(ex_diff == 0.0),
+              "exports": sorted(ex1[0]),
+              "seconds": time.perf_counter() - t_cpl})
+    finally:
+        shutil.rmtree(tmp3, ignore_errors=True)
+
     # ------------------------------------------------- optional: profile
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -3829,6 +4524,10 @@ def main(argv=None):
          "variant": "flagship: center fluxes, no tails",
          "path": "main_path",
          "driver_path_launches": driver_launches["fb_step"],
+         "sharded_path_launches": {f"S{k}": v
+                                   for k, v in sharded_launches.items()},
+         "sharded_path_launches_per_step": {
+             f"S{k}": v / nsh for k, v in sharded_launches.items()},
          "variants_ms": {v: fbv[v]["ms"] for v in FULL_WIDTH}},
         {"name": "fb_step_upwind_tails", "route": "cuda",
          "source": "omega_tpu_torch/csrc/fb_step_uu.cu",
@@ -3988,7 +4687,11 @@ def main(argv=None):
          "shape": f"frames {tuple(patv['frames'])} float32 (icos"
          f"{N_SPHERE}, S = {p48.S}), kind fb, flagship",
          "passes_per_call": patch_megastep.PASSES, "path": "sphere_path",
-         "driver_sphere_launches": driver_launches["patch_step"]},
+         "driver_sphere_launches": driver_launches["patch_step"],
+         "coastal_patch_path_launches": cp_launches["patch_step"],
+         "patch_sharded_path_launches": ps_launches["patch_step"],
+         "patch_sharded_path_launches_per_step_per_shard":
+             ps_launches["patch_step"] / nsh / 5},
         {"name": "patch_step_science", "route": "cuda",
          "source": "omega_tpu_torch/csrc/patch_step_uu.cu",
          "template": "omega_tpu_torch/csrc/patch_step.cuh",

@@ -31,7 +31,8 @@ from omega_tpu_torch.core.config import ModelConfig
 from omega_tpu_torch.core.state import ModelState
 from omega_tpu_torch.mesh.horz_mesh import HorzMesh
 from omega_tpu_torch.ops import trisk
-from omega_tpu_torch.parallel.reductions import global_sum
+from omega_tpu_torch.parallel.reductions import (global_max, global_min,
+                                                 global_sum)
 
 
 def energetics(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
@@ -75,6 +76,67 @@ def energetics(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
     # the total from the hosted parts (the JAX package's order)
     out["total_energy"] = out["kinetic_energy"] + out["potential_energy"]
     return out
+
+
+def _ssh(mesh, cfg, h):
+    if cfg.ssh_formulation == "column":
+        return (torch.sum(h, dim=-1, keepdim=True)
+                - trisk.col(mesh, "bottom_depth"))
+    return h - trisk.col(mesh, "bottom_depth")
+
+
+def energetics_local(meshes, cfg: ModelConfig, states, own_c, own_v,
+                     ssh_ref):
+    """The sharded counterpart of `energetics` (no global gather): each
+    shard computes its owned-masked partial terms on its local mesh, halos
+    fresh from the last exchange, and the cross-shard reductions of
+    parallel/reductions.py combine them — the per-rank norms plus MPI
+    reduction of the reference (test/ocn/OceanTestCommon.h:396-560).
+
+    meshes, states, own_c (Cl,) and own_v (Vl,) bool masks: one entry a
+    shard. Returns a dict of 0-d tensors (on the first shard's device)."""
+    area, mc, mv, ke, eta, ens, trs = [], [], [], [], [], [], []
+    for m, st, oc, ov in zip(meshes, states, own_c, own_v):
+        h, u = st.h, st.u
+        a = m.area_cell[:, None]
+        area.append(a)
+        mc.append(oc[:, None])
+        mv.append(ov[:, None])
+        ke.append(a * h * trisk.ke_cell(m, u))
+        e = _ssh(m, cfg, h) - ssh_ref
+        eta.append(a * e * e)
+        absv = trisk.curl_vertex(m, u) + m.f_vertex[:, None]
+        ens.append(m.area_triangle[:, None] * absv * absv
+                   / trisk.cell_to_vertex_kite(m, h))
+    gs = lambda v, mk: global_sum(v, mask=mk)
+    out = {
+        "volume": gs([a * st.h for a, st in zip(area, states)], mc),
+        "kinetic_energy": gs(ke, mc),
+        "potential_energy": 0.5 * cfg.gravity * gs(eta, mc),
+        "potential_enstrophy": 0.5 * gs(ens, mv),
+    }
+    for l in range(states[0].tracers.shape[0]):
+        tr = [st.tracers[l] for st in states]
+        out[f"tracer{l}_mass"] = gs([a * st.h * t for a, st, t in
+                                     zip(area, states, tr)], mc)
+        out[f"tracer{l}_min"] = global_min(tr, mask=mc)
+        out[f"tracer{l}_max"] = global_max(tr, mask=mc)
+    return out
+
+
+def mean_ssh_local(meshes, cfg: ModelConfig, states, own_c):
+    """Sharded area-mean ssh (see mean_ssh): one entry a shard in each
+    list; a 0-d tensor."""
+    num, den, mc = [], [], []
+    for m, st, oc in zip(meshes, states, own_c):
+        a = m.area_cell[:, None]
+        ssh = _ssh(m, cfg, st.h)
+        num.append(a * ssh)
+        # the area broadcast over ssh's lanes: the same total-area (x K in
+        # stacked form) factor as mean_ssh's
+        den.append(torch.broadcast_to(a, ssh.shape))
+        mc.append(oc[:, None])
+    return global_sum(num, mask=mc) / global_sum(den, mask=mc)
 
 
 def mean_ssh(mesh: HorzMesh, cfg: ModelConfig, state: ModelState) -> float:

@@ -29,7 +29,7 @@ from omega_tpu_torch.ops import structured, trisk
 
 __all__ = ["ARRAY_FIELDS", "META_FIELDS", "mesh_from_numpy",
            "config_from_dict", "state_from_numpy", "state_to_numpy",
-           "wind_from_numpy"]
+           "wind_from_numpy", "sharded_state_from_numpy"]
 
 
 def mesh_from_numpy(arrays: dict, meta: dict, device=None,
@@ -81,6 +81,14 @@ def state_from_numpy(h, u, tracers, device=None, dtype=None) -> ModelState:
     dev = resolve_device(device)
     return ModelState(h=_put(h, dev, dtype), u=_put(u, dev, dtype),
                       tracers=_put(tracers, dev, dtype))
+
+
+def sharded_state_from_numpy(h, u, tracers, devices, dtype=None) -> list:
+    """The sharded state of parallel/ (one ModelState a shard, on its
+    device) from stacked numpy arrays (S, Cl, K), (S, El, K), (S, L, Cl, K)
+    — the JAX package's sharded layout."""
+    return [state_from_numpy(h[s], u[s], tracers[s], d, dtype)
+            for s, d in enumerate(devices)]
 
 
 def wind_from_numpy(zonal, merid, device=None, dtype=None):

@@ -26,10 +26,20 @@ the state is copied to the host.
 
 The device and floating-point type are explicit: `device=None` means the
 CUDA device (omega_tpu_torch.default_device, which raises without one);
-the tests pass device="cpu" and dtype=torch.float64. Multi-device
-configuration (Decomp.NShards > 1, a Decomp.Method other than auto,
-Decomp.ShardedIO) raises ConfigError: the distributed layer is ROADMAP.md
-queue 1's `parallel/` item.
+the tests pass device="cpu" and dtype=torch.float64.
+
+The Decomp group (NShards, Method auto|structured|sfc|patch, ShardedIO,
+HaloWidth; the reference's Decomp.DecompMethod / HaloWidth,
+base/Decomp.h:19-30) runs the model on NShards shards held by one
+controller (parallel/sharded.py), each on a device of
+`parallel.sharded.default_devices` (the visible cards in turn; on one card
+every shard on it) or, for a CPU model, on the CPU: the structure-preserving
+row / column blocks of a planar hex mesh (the fused FB step a shard),
+the general SFC decomposition for any other mesh, or whole patches of a
+PatchLayout sphere (the patch kernels a shard). The state stays sharded
+across segments and is gathered only for IO and analysis — not even then
+with ShardedIO, where the streams write each shard's owned rows in place
+and the startup state is read shard by shard.
 """
 
 from __future__ import annotations
@@ -59,11 +69,6 @@ from omega_tpu_torch.io.netcdf import read_netcdf
 from omega_tpu_torch.io.stream import _TIME_UNIT_NAMES, StreamManager
 from omega_tpu_torch.mesh.horz_mesh import HorzMesh
 from omega_tpu_torch.stepping.steppers import make_stepper, run_steps
-
-_MULTI_DEVICE = ("runs on one device; the distributed layer (decomposition, "
-                 "halo exchange, sharded IO) is ROADMAP.md queue 1's "
-                 "`parallel/` item")
-
 
 @dataclasses.dataclass
 class OceanModel:
@@ -98,6 +103,11 @@ class OceanModel:
     analysis: object = None
     # active-layer bounds from the InitialVertCoord stream (LayerBounds)
     layer_bounds: object = None
+    nshards: int = 1                # Decomp: NShards
+    decomp_method: str = "auto"     # Decomp: Method (auto|structured|sfc|patch)
+    sharded_io: bool = False        # Decomp: ShardedIO (region reads/writes)
+    halo_width: int = 3             # Decomp: HaloWidth (base/Decomp.h:19-30)
+    mesh_host: HorzMesh = None      # the mesh as built (host numpy, float64)
 
 
 _CAL_KINDS = {
@@ -226,25 +236,58 @@ def _register_fields(fields: FieldRegistry, dims: DimensionRegistry,
         fields.create_meta("simulation")
 
 
-def _check_single_device(config: Config) -> None:
-    """The Decomp group on one device: anything that asks for more than
-    one device raises, never runs quietly on one."""
-    if not config.exists("Decomp"):
-        return
-    dc_ = config.get_group("Decomp")
-    nshards = dc_.get_int("NShards", 1)
-    method = dc_.get_str("Method", "auto").lower()
-    if nshards != 1:
-        raise ConfigError(f"Decomp.NShards = {nshards}: the port "
-                          + _MULTI_DEVICE)
-    if method != "auto":
-        raise ConfigError(f"Decomp.Method = {method!r}: the port "
-                          + _MULTI_DEVICE)
-    if bool(dc_.get("ShardedIO", False)):
-        raise ConfigError("Decomp.ShardedIO: the port " + _MULTI_DEVICE)
-    if dc_.get_int("HaloWidth", 3) < 1:
-        raise ConfigError(f"Decomp.HaloWidth must be >= 1, got "
-                          f"{dc_.get_int('HaloWidth', 3)}")
+def _decomp_group(config: Config):
+    """(nshards, method, sharded_io, halo_width) of the Decomp group, with
+    the reference's checks."""
+    nshards, method, sharded_io, halo_width = 1, "auto", False, 3
+    if config.exists("Decomp"):
+        dc_ = config.get_group("Decomp")
+        nshards = dc_.get_int("NShards", 1)
+        if nshards < 1:
+            raise ConfigError(f"Decomp.NShards must be >= 1, got {nshards}")
+        method = dc_.get_str("Method", "auto").lower()
+        if method not in ("auto", "structured", "sfc", "patch"):
+            raise ConfigError(f"Decomp.Method must be auto|structured|sfc|"
+                              f"patch, got {method!r}")
+        sharded_io = bool(dc_.get("ShardedIO", False)) and nshards > 1
+        halo_width = dc_.get_int("HaloWidth", 3)
+        if halo_width < 1:
+            raise ConfigError(f"Decomp.HaloWidth must be >= 1, got "
+                              f"{halo_width}")
+        # RK steppers evaluate del4 (stencil radius 2) twice between
+        # exchanges; warn like the reference's TODO (RK4 stepper keeps a
+        # mid-step refresh to stay within width 3)
+        if halo_width < 3:
+            get_logger().warning(
+                "Decomp.HaloWidth=%d < 3: multi-stage steppers with "
+                "biharmonic mixing may read stale fringe values",
+                halo_width)
+    return nshards, method, sharded_io, halo_width
+
+
+def _deferred_stream(streams, fields, tracers, sharded_io, method):
+    """With ShardedIO and an explicit sharded decomposition the startup
+    state stream is NOT read into a global host array at init; ocn_run
+    region-reads each shard's rows once the decomposition's maps exist
+    (read-side PIO decomps, base/IO.h:256,305). Restart takes precedence
+    over InitialState (ocn/OceanInit.cpp:160-165)."""
+    if not (sharded_io and method in ("structured", "sfc")):
+        return None
+    state_fields = {"LayerThickness", "NormalVelocity", *tracers.names}
+    for nm in ("RestartRead", "InitialState"):
+        if nm not in streams.streams:
+            continue
+        s_ = streams.streams[nm]
+        if s_.spec.mode != "read" or not s_.on_startup:
+            continue
+        if not state_fields & set(fields.resolve_contents(s_.spec.contents)):
+            continue
+        try:
+            if os.path.exists(s_.resolve_read_path()):
+                return nm
+        except OmegaError:
+            continue
+    return None
 
 
 def ocn_init(config: Optional[Config] = None, *, directory: str = ".",
@@ -258,7 +301,7 @@ def ocn_init(config: Optional[Config] = None, *, directory: str = ".",
     if config is None:
         config = (Config.read_all(config_file) if config_file
                   else default_config())
-    _check_single_device(config)
+    nshards, decomp_method, sharded_io, halo_width = _decomp_group(config)
 
     # --- Pacer-style timers from the Timing group (ocn/OceanInit.cpp:46-76)
     timing = config.get_group("Timing") if config.exists("Timing") else None
@@ -328,7 +371,26 @@ def ocn_init(config: Optional[Config] = None, *, directory: str = ".",
     for name in tracers.names:
         fields.attach(name, np.zeros((mesh_np.ncells, K)))
 
-    meta = streams.read_on_startup(missing_ok_streams=("InitialState",))
+    deferred_stream = _deferred_stream(streams, fields, tracers, sharded_io,
+                                       decomp_method)
+    if deferred_stream is not None:
+        # metadata still comes from the file (the clock reset needs it);
+        # the other startup streams read as usual
+        meta = {}
+        m = streams.read_meta(deferred_stream, force=True)
+        if m is not None:
+            meta[deferred_stream] = m
+        for nm, s_ in streams.streams.items():
+            if nm == deferred_stream or s_.spec.mode != "read":
+                continue
+            if s_.should_act(clock, "startup"):
+                m = streams.read(nm, force=True,
+                                 missing_ok=nm == "InitialState"
+                                 or s_.spec.use_pointer)
+                if m is not None:
+                    meta[nm] = m
+    else:
+        meta = streams.read_on_startup(missing_ok_streams=("InitialState",))
     sim_start = start
     if "RestartRead" in meta and "SimulationTime" in meta["RestartRead"]:
         # reset the model clock from restart metadata (OceanInit.cpp:163-177)
@@ -371,6 +433,9 @@ def ocn_init(config: Optional[Config] = None, *, directory: str = ".",
                                                    device=dev),
                 structured_scalars=scal,
                 patch_info=None if changed else mesh.patch_info)
+            mesh_np = dataclasses.replace(
+                mesh_np, bottom_depth=bd, structured_scalars=scal,
+                patch_info=mesh.patch_info)
             # refresh the default (rest) thickness if no state stream
             # replaced it
             if fields.get("LayerThickness").data is h0:
@@ -392,11 +457,13 @@ def ocn_init(config: Optional[Config] = None, *, directory: str = ".",
         return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
                                device=dev)
 
-    state = ModelState(
-        h=put(fields.get("LayerThickness").data),
-        u=put(fields.get("NormalVelocity").data),
-        tracers=put(np.stack([np.asarray(fields.get(n).data, np.float64)
-                              for n in tracers.names])))
+    state = None            # built sharded, by region reads, in ocn_run
+    if deferred_stream is None:
+        state = ModelState(
+            h=put(fields.get("LayerThickness").data),
+            u=put(fields.get("NormalVelocity").data),
+            tracers=put(np.stack([np.asarray(fields.get(n).data, np.float64)
+                                  for n in tracers.names])))
 
     stepper_name = ti.get_str("TimeStepper", "Forward-Backward")
     if stepper_name.lower().replace(" ", "").replace("-", "").replace(
@@ -413,7 +480,11 @@ def ocn_init(config: Optional[Config] = None, *, directory: str = ".",
     # and conservatively remap tracers/velocity (computeTargetThickness,
     # VertCoord.cpp:785-840; the remap is roadmap in the reference). The
     # wrapped stepper is not one run_steps fuses: a p-star run takes the
-    # composed steps, as in the JAX package.
+    # composed steps, as in the JAX package. Under sharding the phase runs
+    # per shard after the step on its local rows (parallel/sharded.py's
+    # post_phase); its edge radius of 1 consumes one halo ring, so the
+    # exchange keeps one extra.
+    pstar_info = None
     if (config.exists("VertCoord")
             and config.get_group("VertCoord").get_bool("PStarEnable",
                                                        False)):
@@ -421,18 +492,25 @@ def ocn_init(config: Optional[Config] = None, *, directory: str = ".",
             raise ConfigError(
                 "VertCoord.PStarEnable needs SshFormulation: column "
                 "(p-star redistributes true column mass)")
+        if state is None:
+            raise ConfigError("PStarEnable needs a host-read state")
         from omega_tpu_torch.core import vert_coord as _vc2
         _wts = _vc2.movement_weights(_vc2.VertCoordConfig.from_yaml(config,
                                                                     nvert))
         _amask = (layer_bounds_m.cell_mask(nvert, dtype)
                   if layer_bounds_m is not None else None)
-        _phase = _vc2.make_pstar_phase(mesh, state.h, _wts, _amask)
-        _base_step = stepper
+        if nshards > 1:
+            pstar_info = (state.h, _wts, _amask)
+            halo_width = max(halo_width, 4)
+        else:
+            _phase = _vc2.make_pstar_phase(mesh, state.h, _wts, _amask)
+            _base_step = stepper
 
-        def stepper(mesh_, cfg_, st, t, dt, halo, wind_stress=None, **kw):
-            out = _base_step(mesh_, cfg_, st, t, dt, halo,
-                             wind_stress=wind_stress, **kw)
-            return _phase(out)
+            def stepper(mesh_, cfg_, st, t, dt, halo, wind_stress=None,
+                        **kw):
+                out = _base_step(mesh_, cfg_, st, t, dt, halo,
+                                 wind_stress=wind_stress, **kw)
+                return _phase(out)
 
     # wind-stress forcing: constant from config (WindStress group), or
     # time-varying frames from a read stream carrying the stress fields
@@ -474,8 +552,13 @@ def ocn_init(config: Optional[Config] = None, *, directory: str = ".",
         dt=float(dt_iv.total_seconds()), state=state, device=dev,
         dtype=dtype, sim_start=sim_start, wind_stress=wind,
         wind_forcing=wind_forcing, timers=timers,
-        layer_bounds=layer_bounds_m, directory=directory, analysis=analysis)
-    _attach_state(model)
+        layer_bounds=layer_bounds_m, directory=directory, analysis=analysis,
+        nshards=nshards, decomp_method=decomp_method, sharded_io=sharded_io,
+        halo_width=halo_width, mesh_host=mesh_np)
+    model._deferred_state_stream = deferred_stream
+    model._pstar = pstar_info
+    if state is not None:
+        _attach_state(model)
     return model
 
 
@@ -584,13 +667,23 @@ def _attach_state(model: OceanModel, state: ModelState = None) -> None:
     state = model.state if state is None else state
     model.fields.attach("LayerThickness", state.h)
     model.fields.attach("NormalVelocity", state.u)
-    model.fields.attach("SshCell", state.h.sum(-1) - model.mesh.bottom_depth)
+    model.fields.attach("SshCell", column_ssh(state.h,
+                                              model.mesh.bottom_depth))
     for i, name in enumerate(model.tracers.names):
         model.fields.attach(name, state.tracers[i])
     if _wants_diagnostics(model):
         _attach_diagnostics(model, state)
     model.fields.update_meta("simulation",
                              SimulationTime=str(model.clock.get_current_time()))
+
+
+def column_ssh(h, depth):
+    """sum_k h - depth a column, summed in float64 and rounded once to h's
+    type: a float32 column of 100 layers sums exactly in float64, so the
+    value is the same whatever order the reduction takes (on the card the
+    order depends on the array's shape: a shard's rows against the whole
+    mesh's)."""
+    return (h.double().sum(-1) - depth.double()).to(h.dtype)
 
 
 def _steps_until_next_alarm(model: OceanModel, max_chunk: int = 512) -> int:
@@ -610,18 +703,249 @@ def _steps_until_next_alarm(model: OceanModel, max_chunk: int = 512) -> int:
     return max(1, horizon)
 
 
+def _read_state_sharded_region(model: OceanModel, devices) -> list:
+    """Region-read the deferred startup stream straight into the per-shard
+    state — the read-side PIO decomposition (base/IO.h:256,305): each
+    shard's local rows (owned + halo) come off disk individually, so no
+    global state array ever exists on the host. Fields absent from the
+    file fall back to the default initial state, built per shard."""
+    c_l2g, _, e_l2g, _, _ = model._sharded_io_maps
+    K = model.model_cfg.nvertlayers
+    depth = np.asarray(model.mesh_host.bottom_depth, np.float64)
+    put = lambda a, dev: torch.as_tensor(np.asarray(a, np.float64),
+                                         dtype=model.dtype, device=dev)
+    out = []
+    with model.streams.region_reader(model._deferred_state_stream) as r:
+        for s, dev in enumerate(devices):
+            crows = np.maximum(c_l2g[s], 0)
+            erows = np.maximum(e_l2g[s], 0)
+            if r.has("LayerThickness"):
+                h_s = r.read_rows("LayerThickness", crows)
+            else:
+                h_s = np.broadcast_to(depth[crows][:, None] / K,
+                                      (crows.size, K))
+            u_s = (r.read_rows("NormalVelocity", erows)
+                   if r.has("NormalVelocity") else np.zeros((erows.size, K)))
+            tr_s = np.stack([r.read_rows(nm, crows) if r.has(nm)
+                             else np.zeros((crows.size, K))
+                             for nm in model.tracers.names])
+            out.append(ModelState(h=put(h_s, dev), u=put(u_s, dev),
+                                  tracers=put(tr_s, dev)))
+    return out
+
+
+def _attach_state_sharded(model: OceanModel) -> None:
+    """Attach the sharded state as ShardedFieldData wrappers so streams
+    region-write each shard's owned rows at their global offsets without a
+    global gather (the PIO-decomp write path, base/IO.h:256,305)."""
+    from omega_tpu_torch.io.stream import ShardedFieldData
+
+    c_l2g, c_own, e_l2g, e_own, depth = model._sharded_io_maps
+    sts = model.state
+    C, E = model.mesh.ncells, model.mesh.nedges
+    f = model.fields
+    f.attach("LayerThickness",
+             ShardedFieldData([st.h for st in sts], c_l2g, c_own, C))
+    f.attach("NormalVelocity",
+             ShardedFieldData([st.u for st in sts], e_l2g, e_own, E))
+    f.attach("SshCell", ShardedFieldData(
+        [column_ssh(st.h, d) for st, d in zip(sts, depth)], c_l2g, c_own, C))
+    for i, name in enumerate(model.tracers.names):
+        f.attach(name, ShardedFieldData([st.tracers[i] for st in sts],
+                                        c_l2g, c_own, C))
+    if _wants_diagnostics(model):
+        get_logger().warning("ShardedIO: diagnostics fields are not "
+                             "computed on the sharded IO path")
+    model.fields.update_meta(
+        "simulation", SimulationTime=str(model.clock.get_current_time()))
+
+
+def _shard_devices(model: OceanModel) -> list:
+    """The shards' devices: the visible cards in turn for a model on the
+    card, the model's device for one on the CPU."""
+    if model.device is not None and model.device.type == "cuda":
+        from omega_tpu_torch.parallel.sharded import default_devices
+        return default_devices(model.nshards)
+    return [model.device] * model.nshards
+
+
+def _setup_sharded(model: OceanModel):
+    """Build the decomposition ocn_run runs on and its segment function,
+    segment(state, t0, nsteps, wind) -> state, kept in model._run_ctx."""
+    from omega_tpu_torch.parallel import patch_shard, sharded
+    from omega_tpu_torch.parallel import structured_shard as sshard
+    from omega_tpu_torch.stepping.steppers import forward_backward_step
+
+    mesh, cfg, dtype = model.mesh, model.model_cfg, model.dtype
+    devices = _shard_devices(model)
+    # the p-star post-phase is implemented on the general SFC
+    # decomposition; under 'auto' just route there, and only an EXPLICIT
+    # patch/structured request errors (below)
+    pstar_on = getattr(model, "_pstar", None) is not None
+    on_card = devices[0].type == "cuda"
+
+    use_patch = False
+    if not (pstar_on and model.decomp_method == "auto") and (
+            model.decomp_method == "patch"
+            or (model.decomp_method == "auto" and on_card)):
+        # the sphere's fast path: whole rhombi a shard, the patch kernels
+        # a shard, copies between shards for the frame refresh
+        eligible = (mesh.patch_info is not None
+                    and model.stepper is forward_backward_step
+                    and patch_shard.supported(mesh, cfg, model.nshards))
+        if eligible:
+            use_patch = True
+        elif model.decomp_method == "patch":
+            raise ConfigError(
+                "Decomp.Method: patch needs a PatchLayout sphere mesh, "
+                "NShards in (2, 5, 10), the forward-backward stepper "
+                "and the flagship tendency configuration")
+
+    use_structured = False
+    ss = None
+    if not use_patch and not (pstar_on and model.decomp_method == "auto") \
+            and model.decomp_method in ("auto", "structured"):
+        try:
+            ss = sshard.decompose_structured(
+                model.mesh_host, model.nshards,
+                hw=model.halo_width + model.halo_width % 2)
+            use_structured = True
+        except ValueError:
+            if model.decomp_method == "structured":
+                raise
+            get_logger().info(
+                "Decomp: mesh not structured-shardable, using the general "
+                "SFC decomposition")
+
+    if pstar_on and (use_patch or use_structured):
+        raise ConfigError(
+            "VertCoord.PStarEnable under sharding uses the general SFC "
+            "decomposition (set Decomp.Method: sfc)")
+
+    if use_patch:
+        run_p = patch_shard.make_patch_sharded_run(mesh, cfg, model.nshards,
+                                                   devices)
+        model._decomp = ("patch", None, devices)
+        model._gather = lambda st: st            # the state stays global
+        if model.sharded_io:
+            get_logger().info("ShardedIO: not needed on the patch path "
+                              "(IO sees the global state)")
+            model.sharded_io = False
+        model._scatter_wind = lambda w: w
+
+        def segment(state, t0, nsteps, wind=None):
+            return run_p(state, t0, model.dt, nsteps,
+                         wind_stress=model.wind_stress if wind is None
+                         else wind)
+        model._run_ctx = {"segment": segment, "scatter": None}
+        return
+
+    if use_structured:
+        sstep = sshard.make_sharded_step(ss, cfg, model.stepper, devices,
+                                         wind_stress=model.wind_stress,
+                                         dtype=dtype)
+        model._decomp = ("structured", ss, devices)
+        model._gather = lambda st: sshard.gather_state(ss, st)
+        scatter = lambda st: sshard.shard_state(ss, st, devices)
+        if model.analysis is not None:
+            model._sharded_energetics = sshard.make_sharded_energetics(
+                ss, cfg, devices, dtype)
+        if model.sharded_io:
+            c_l2g, c_own = sshard.element_maps(ss, "cell")
+            e_l2g, e_own = sshard.element_maps(ss, "edge")
+            depth = [m.bottom_depth for m in sstep.meshes]
+            model._sharded_io_maps = (c_l2g, c_own, e_l2g, e_own, depth)
+    else:
+        from omega_tpu_torch.parallel.decomp import decompose
+        sm_d = decompose(model.mesh_host, model.nshards,
+                         halo_width=model.halo_width).to(devices, dtype)
+        model._decomp = ("sfc", sm_d, devices)
+        post_phase = None
+        if pstar_on:
+            # p-star per shard: the reference thickness and active mask
+            # scattered to local rows; the phase is rebuilt on the local
+            # mesh each call
+            from omega_tpu_torch.core import vert_coord as _vc2
+            ref_g, wts_p, amask_g = model._pstar
+            c_l2g = np.maximum(sm_d.cell_local_to_global, 0)
+            aux = {"ref": ref_g.cpu().numpy()[c_l2g]}
+            if amask_g is not None:
+                aux["mask"] = amask_g.cpu().numpy()[c_l2g]
+
+            def pstar_fn(local_mesh, st, aux_l):
+                return _vc2.make_pstar_phase(local_mesh, aux_l["ref"], wts_p,
+                                             aux_l.get("mask"))(st)
+            post_phase = (pstar_fn, aux)
+        sstep = sharded.make_sharded_step(sm_d, cfg, model.stepper, devices,
+                                          wind_stress=model.wind_stress,
+                                          post_phase=post_phase, dtype=dtype)
+        model._gather = lambda st: sharded.gather_state(
+            sm_d, st, mesh.ncells, mesh.nedges)
+        scatter = lambda st: sharded.shard_state(sm_d, st, devices)
+        if model.analysis is not None:
+            model._sharded_energetics = sharded.make_sharded_energetics(
+                sm_d, cfg, devices, dtype)
+        if model.sharded_io:
+            model._sharded_io_maps = (
+                sm_d.cell_local_to_global, sm_d.owned_cell_mask > 0,
+                sm_d.edge_local_to_global, sm_d.owned_edge_mask > 0,
+                [m.bottom_depth for m in sm_d.meshes])
+    if getattr(model, "_deferred_state_stream", None):
+        model.state = _read_state_sharded_region(model, devices)
+        model._state_is_sharded = True
+    model._scatter_wind = sstep.scatter_wind
+
+    def segment(states, t0, nsteps, wind=None):
+        t = t0
+        for _ in range(nsteps):
+            states = sstep(states, t, model.dt, wind)
+            t = t + model.dt
+        return states
+    model._run_ctx = {"segment": segment, "scatter": scatter}
+
+
 def ocn_run(model: OceanModel, progress_every: int = 0) -> OceanModel:
-    """Time loop until EndAlarm rings (ocnRun, ocn/OceanRun.cpp:16-70)."""
-    return _run_loop(model, progress_every)
+    """Time loop until EndAlarm rings (ocnRun, ocn/OceanRun.cpp:16-70).
+
+    With Decomp.NShards > 1 the loop runs the decomposition `Decomp.Method`
+    selects (auto: the patch layout for a PatchLayout sphere on the card,
+    else the structured blocks of a planar hex mesh, else SFC) over the
+    shard list; the state stays sharded across segments and is gathered
+    only at IO boundaries. The run context (decomposition, sharded step)
+    is built once and kept on the model, so repeated calls — a restart
+    chain, or the coupled component advancing one coupling interval at a
+    time (omega_tpu_torch.coupling) — reuse it."""
+    sharded = model.nshards > 1
+    if sharded and getattr(model, "_run_ctx", None) is None:
+        _setup_sharded(model)
+    if (sharded and model._run_ctx["scatter"] is not None
+            and not getattr(model, "_state_is_sharded", False)):
+        model.state = model._run_ctx["scatter"](model.state)
+        model._state_is_sharded = True
+    return _run_loop(model, sharded, progress_every)
 
 
-def _run_loop(model: OceanModel, progress_every: int) -> OceanModel:
+def _run_loop(model: OceanModel, sharded: bool,
+              progress_every: int) -> OceanModel:
     log = get_logger()
     tm = model.timers
+    held = sharded and getattr(model, "_state_is_sharded", False)
+
+    def _fence():
+        st = model.state[0] if isinstance(model.state, list) else model.state
+        return st.h
 
     def _sample_analysis():
         mon, _ = model.analysis
-        mon.sample(model.state, str(model.clock.get_current_time()))
+        sfn = getattr(model, "_sharded_energetics", None)
+        if held and sfn is not None:
+            # owned-masked reductions over the shards — no global gather at
+            # the sample boundary (analysis.energetics_local)
+            row, mon.ssh_ref = sfn(model.state, mon.ssh_ref)
+            mon.write_row(row, str(model.clock.get_current_time()))
+            return
+        st = model._gather(model.state) if held else model.state
+        mon.sample(st, str(model.clock.get_current_time()))
 
     if model.analysis is not None and not model.analysis[0]._wrote_header:
         _sample_analysis()                     # t = 0 row (sets ssh_ref)
@@ -641,17 +965,33 @@ def _run_loop(model: OceanModel, progress_every: int) -> OceanModel:
             # the CURRENT stress: a coupler may replace model.wind_stress
             # between ocn_run calls
             wind_seg = tuple(model.wind_stress)
-        # one run_steps call a segment: the fused kernels wherever
-        # run_steps takes them, and the state stays on the device
-        with tm.scope("ocnRun/doStep", 1, fence_on=model.state.h):
-            model.state = run_steps(model.mesh, model.model_cfg, model.state,
-                                    t0, model.dt, n, stepper=model.stepper,
-                                    wind_stress=wind_seg)
+        with tm.scope("ocnRun/doStep", 1, fence_on=_fence()):
+            if sharded:
+                if wind_seg is not None:
+                    wind_seg = model._scatter_wind(wind_seg)
+                model.state = model._run_ctx["segment"](model.state, t0, n,
+                                                        wind_seg)
+            else:
+                # one run_steps call a segment: the fused kernels wherever
+                # run_steps takes them, and the state stays on the device
+                model.state = run_steps(model.mesh, model.model_cfg,
+                                        model.state, t0, model.dt, n,
+                                        stepper=model.stepper,
+                                        wind_stress=wind_seg)
         for _ in range(n):
             model.clock.advance()
         model.step_count += n
         with tm.scope("ocnRun/io", 1):
-            _attach_state(model)
+            if held and model.sharded_io:
+                _attach_state_sharded(model)
+            elif held:
+                # the gather only where a stream writes now
+                if any(s.spec.mode == "write"
+                       and s.should_act(model.clock, "step")
+                       for s in model.streams.streams.values()):
+                    _attach_state(model, model._gather(model.state))
+            else:
+                _attach_state(model)
             model.streams.write_all()
         if model.analysis is not None and model.analysis[1].is_ringing():
             with tm.scope("ocnRun/analysis", 1):
@@ -662,11 +1002,19 @@ def _run_loop(model: OceanModel, progress_every: int) -> OceanModel:
         if progress_every and model.step_count % progress_every < n:
             log.info("step %d complete, clock %s", model.step_count,
                      model.clock.get_current_time())
+    if held and not getattr(model, "_keep_sharded", False):
+        # coupled mode keeps the state sharded (exports are computed from
+        # the owned rows, omega_tpu_torch.coupling); otherwise gather here
+        model.state = model._gather(model.state)
+        model._state_is_sharded = False
     return model
 
 
 def ocn_finalize(model: OceanModel) -> ModelState:
     """Flush shutdown streams and return final state (ocnFinalize)."""
+    if getattr(model, "_state_is_sharded", False):
+        model.state = model._gather(model.state)
+        model._state_is_sharded = False
     if model.state.h.is_cuda:
         torch.cuda.synchronize(model.state.h.device)
     _attach_state(model)

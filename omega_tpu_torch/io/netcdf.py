@@ -2,9 +2,9 @@
 
 The analogue of base/IO.h:50's thin typed wrapper over SCORPIO/PIO parallel
 NetCDF: open/create/close, dims, vars, global metadata, array read/write.
-The port runs on one device, so this is plain whole-array file access on
-host numpy arrays; the PIO decomposition (per-shard region reads and
-writes) comes with the distributed layer.
+Whole-array file access on host numpy arrays, plus the PIO decomposition's
+per-shard region reads and writes (`RegionReader`, `write_sharded_frame`),
+in both formats.
 
 Backends (no netCDF4 library needed):
   * read:  NetCDF classic / 64-bit offset via scipy.io.netcdf_file,
@@ -163,6 +163,175 @@ def write_netcdf(path: str, *, dims: Dict[str, int],
                     unlimited)
     else:
         raise IOError_(f"unknown NetCDF write format {fmt!r}")
+
+
+def write_sharded_frame(path: str, svars: Dict[str, dict],
+                        unlimited: str = "Time") -> None:
+    """Region-write the latest frame of sharded variables — the
+    PIO-decomposition analogue (base/IO.h:256,305): each shard's owned rows
+    land at their global offsets, one shard at a time, without the global
+    array ever being assembled.
+
+    svars: {name: dict(vdims, shape (global, element axis first), dtype,
+    shards (iterable of (rows, values)), time_dependent, attrs)}.
+
+    hdf5: the dataset is created resizable on first use and grown one
+    record per call for time-dependent variables (h5py).
+    netcdf3: the variable must already be in the file — the stream writes
+    the frame with a zero record of it, since a classic file declares
+    every variable in its header and lays out each record whole — and its
+    latest record is overwritten in place through a memory map at the
+    variable's offset in the file."""
+    if _detect_format(path) == "hdf5":
+        _sharded_h5py(path, svars, unlimited)
+        return
+    from scipy.io import netcdf_file
+    place = {}
+    f = netcdf_file(path, "r", mmap=True)
+    try:
+        base = np.frombuffer(f._mm_buf, np.uint8).__array_interface__[
+            "data"][0]
+        for name in svars:
+            if name not in f.variables:
+                raise IOError_(f"{path}: sharded variable {name!r} has no "
+                               "record in the file")
+            d = f.variables[name].data
+            place[name] = (d.__array_interface__["data"][0] - base,
+                           d.shape, d.dtype, d.strides)
+            del d
+    finally:
+        f.close()
+    mm = np.memmap(path, dtype=np.uint8, mode="r+")
+    try:
+        for name, sv in svars.items():
+            off, shape, dt, strides = place[name]
+            arr = np.ndarray(shape, dt, buffer=mm, offset=off,
+                             strides=strides)
+            td = bool(sv.get("time_dependent", True))
+            dst = arr[shape[0] - 1] if td else arr
+            for rows, values in sv["shards"]:
+                dst[np.asarray(rows)] = np.asarray(values)
+            del arr, dst
+        mm.flush()
+    finally:
+        del mm
+
+
+def _sharded_h5py(path, svars, unlimited):
+    h5py = _h5py(path)
+    with h5py.File(path, "a") as f:
+        for name, sv in svars.items():
+            vdims = tuple(sv["vdims"])
+            gshape = tuple(int(n) for n in sv["shape"])
+            td = bool(sv.get("time_dependent", True))
+            if td:
+                vdims = (unlimited,) + vdims
+            if name not in f:
+                shape = ((1,) + gshape) if td else gshape
+                maxshape = ((None,) + gshape) if td else None
+                ds = f.create_dataset(name, shape=shape, dtype=sv["dtype"],
+                                      maxshape=maxshape,
+                                      chunks=True if td else None)
+                for k, a in (sv.get("attrs") or {}).items():
+                    ds.attrs[k] = a
+                # dimension scales, so readers (RegionReader, netCDF4)
+                # see the axis names, the leading Time record axis first
+                for ax, dn in enumerate(vdims):
+                    if dn in f and dn != name:
+                        ds.dims[ax].attach_scale(f[dn])
+                frame = 0
+            else:
+                ds = f[name]
+                if td:
+                    frame = ds.shape[0]
+                    ds.resize(frame + 1, axis=0)
+                else:
+                    frame = None
+            for rows, values in sv["shards"]:
+                rows = np.asarray(rows)
+                order = np.argsort(rows)   # h5py fancy idx must ascend
+                values = np.asarray(values)
+                if td:
+                    ds[frame, rows[order]] = values[order]
+                else:
+                    ds[rows[order]] = values[order]
+
+
+class RegionReader:
+    """Row-region reads without materializing the global array — the
+    read-side PIO-decomposition analogue (base/IO.h:256,305: distributed
+    array reads land each task's rows only).
+
+    hdf5: h5py dataset fancy-indexing reads just the requested rows.
+    netcdf3: scipy with mmap=True exposes variables as memory-mapped
+    views, so row indexing faults in only the touched pages. Either way
+    peak host memory per call is O(len(rows)), not O(global)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.fmt = _detect_format(path)
+        if self.fmt == "hdf5":
+            h5py = _h5py(path)
+            self._f = h5py.File(path, "r")
+            self.attrs = {k: _decode(v) for k, v in self._f.attrs.items()
+                          if not k.startswith(("_Netcdf",))}
+            self._vdims = {}
+            for name, ds in self._f.items():
+                if not isinstance(ds, h5py.Dataset):
+                    continue
+                vdims = []
+                if "DIMENSION_LIST" in ds.attrs:
+                    for ref_list in ds.attrs["DIMENSION_LIST"]:
+                        vdims.append(self._f[ref_list[0]].name.lstrip("/"))
+                self._vdims[name] = tuple(vdims)
+        else:
+            from scipy.io import netcdf_file
+            self._f = netcdf_file(path, "r", mmap=True)
+            self.attrs = {k: _decode(v)
+                          for k, v in self._f._attributes.items()}
+            self._vdims = {name: tuple(v.dimensions)
+                           for name, v in self._f.variables.items()}
+
+    def has(self, name: str) -> bool:
+        if self.fmt == "hdf5":
+            import h5py
+            return name in self._f and isinstance(self._f[name],
+                                                  h5py.Dataset)
+        return name in self._f.variables
+
+    def var_dims(self, name: str):
+        return self._vdims.get(name, ())
+
+    def read_rows(self, name: str, rows: np.ndarray) -> np.ndarray:
+        """rows of the element (first non-time) axis, latest time frame."""
+        rows = np.asarray(rows)
+        # h5py fancy indexing must be strictly increasing — read the
+        # unique sorted rows once and fan duplicates back out
+        uniq, inv = np.unique(rows, return_inverse=True)
+        v = self._f[name] if self.fmt == "hdf5" else \
+            self._f.variables[name].data
+        if self._vdims.get(name, ())[:1] == ("Time",):
+            out = np.array(v[v.shape[0] - 1][uniq])
+        else:
+            out = np.array(v[uniq])
+        del v
+        return out[inv.reshape(rows.shape)]
+
+    def close(self):
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def read_attrs(path: str) -> Dict[str, Any]:
+    """Global attributes only — no variable data is materialized (the
+    restart clock reset needs just SimulationTime/StartTime)."""
+    with RegionReader(path) as r:
+        return dict(r.attrs)
 
 
 def _write_scipy(path, dims, variables, var_dims, var_attrs, attrs,

@@ -23,8 +23,10 @@ Semantics preserved from the reference:
 
 Whole-array host IO: a field's attached data may be a tensor on the card;
 it is copied to the host here, when a stream writes it, and at no other
-time. Distributed (per-shard region) writes come with the distributed
-layer.
+time. A field attached as `ShardedFieldData` (the sharded driver's
+ShardedIO) is written shard by shard into its global rows (the PIO
+decomposition, base/IO.h:256,305), and `region_reader` reads each shard's
+rows of a file without the global array.
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ from omega_tpu_torch.infra.logging import get_logger
 from omega_tpu_torch.infra.time_manager import (Alarm, Calendar, Clock,
                                                 TimeInstant, TimeInterval,
                                                 TimeUnits)
-from omega_tpu_torch.io.netcdf import append_netcdf, read_netcdf, write_netcdf
+from omega_tpu_torch.io.netcdf import (RegionReader, append_netcdf,
+                                       read_attrs, read_netcdf, write_netcdf,
+                                       write_sharded_frame)
 
 _TIME_UNIT_NAMES = {u.value: u for u in TimeUnits}
 
@@ -57,6 +61,42 @@ def to_host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+class ShardedFieldData:
+    """Per-shard owned field data for distributed writes — the PIO
+    decomposition analogue (base/IO.h:256,305). A field attached with this
+    wrapper is written shard by shard into its global offsets (region
+    writes), so the global array is never assembled: peak host memory is
+    one shard's owned rows.
+
+    shards: per-shard (Nl,) or (Nl, K) tensors (each copied to the host on
+    its own), or a host (S, Nl[, K]) array; l2g: (S, Nl) global element
+    ids; owned: (S, Nl) nonzero on owned rows."""
+
+    def __init__(self, shards, l2g, owned, nglobal: Optional[int] = None):
+        self.shards = list(shards)
+        self.l2g = np.asarray(l2g)
+        self.owned = np.asarray(owned) > 0
+        self.nglobal = int(nglobal if nglobal is not None
+                           else self.l2g.max() + 1)
+
+    @property
+    def global_shape(self):
+        return (self.nglobal,) + tuple(self.shards[0].shape[1:])
+
+    @property
+    def dtype(self):
+        return to_host(self.shards[0][:0]).dtype
+
+    def iter_owned(self, cast=None):
+        """Yield (global_rows, owned_values) one shard at a time."""
+        for s, x in enumerate(self.shards):
+            m = self.owned[s]
+            vals = to_host(x)[m]
+            if cast is not None:
+                vals = vals.astype(cast)
+            yield self.l2g[s][m], vals
 
 
 # reference field name -> MPAS mesh-file variable names
@@ -290,6 +330,39 @@ class StreamManager:
             s.alarm.reset(self.clock.get_current_time())
         return dict(nc.attrs)
 
+    def read_meta(self, name: str, force: bool = False,
+                  missing_ok: bool = False) -> Optional[Dict[str, Any]]:
+        """Global attributes of a read stream's file WITHOUT materializing
+        any variable — the deferred (region-read) startup path still needs
+        SimulationTime/StartTime for the restart clock reset
+        (ocn/OceanInit.cpp:163-177)."""
+        s = self.get(name)
+        if s.spec.mode != "read":
+            raise IOError_(f"stream {name!r} is not a read stream")
+        if not force and not s.should_act(self.clock, "step"):
+            return None
+        try:
+            path = s.resolve_read_path()
+        except IOError_:
+            if missing_ok:
+                return None
+            raise
+        if not os.path.exists(path):
+            if missing_ok:
+                return None
+            raise IOError_(f"stream {name!r}: file {path} not found")
+        return read_attrs(path)
+
+    def region_reader(self, name: str) -> RegionReader:
+        """Open the stream's file for per-shard row-region reads (the
+        read-side PIO decomposition, base/IO.h:256,305): callers pull each
+        shard's global rows with reader.read_rows(field, rows), so the
+        global array never exists on the host."""
+        s = self.get(name)
+        if s.spec.mode != "read":
+            raise IOError_(f"stream {name!r} is not a read stream")
+        return RegionReader(s.resolve_read_path())
+
     # ---------------- write path ----------------
     def write(self, name: str, force: bool = False) -> Optional[str]:
         """Write a stream if its alarm rings (or forced). Returns path,
@@ -316,12 +389,31 @@ class StreamManager:
         var_attrs: Dict[str, Dict[str, Any]] = {}
 
         reduce_p = s.spec.precision == "single"
+        sharded_vars: Dict[str, dict] = {}
         for fname in fnames:
             f = self.fields.get(fname)
             if f.data is None:
                 raise IOError_(f"stream {name!r}: field {fname!r} has no "
                                f"attached data")
-            data = to_host(f.data)
+            if isinstance(f.data, ShardedFieldData):
+                sv = f.data
+                cast = (np.float32 if reduce_p else np.float64) \
+                    if sv.dtype.kind == "f" else None
+                dnames = tuple(f.dim_names) if f.dim_names else tuple(
+                    f"dim{fname}{i}" for i in range(len(sv.global_shape)))
+                for dn, ln in zip(dnames, sv.global_shape):
+                    dims.setdefault(dn, int(ln))
+                sharded_vars[fname] = dict(
+                    vdims=dnames, shape=sv.global_shape,
+                    dtype=cast or sv.dtype, shards=sv.iter_owned(cast),
+                    time_dependent=f.time_dependent, attrs=f.cf_attrs())
+                if s.spec.format == "hdf5":
+                    continue
+                # classic NetCDF: the frame carries a zero record of the
+                # variable, overwritten shard by shard in place below
+                data = np.zeros(sv.global_shape, cast or sv.dtype)
+            else:
+                data = to_host(f.data)
             if reduce_p and data.dtype == np.float64:
                 data = data.astype(np.float32)
             elif not reduce_p and data.dtype == np.float32:
@@ -360,6 +452,8 @@ class StreamManager:
             write_netcdf(path, dims=dims, variables=variables,
                          var_dims=var_dims, var_attrs=var_attrs,
                          attrs=attrs, unlimited="Time", fmt=s.spec.format)
+        if sharded_vars:
+            write_sharded_frame(path, sharded_vars)
         s.frame += 1
         s.update_pointer(path)
         if s.alarm is not None:

@@ -278,7 +278,7 @@ def _positions_of(content: Dict[str, np.ndarray]):
 
 
 def _build_mega_table(n, content, pos_of, name, idx, weights, dst_class,
-                      src_class, max_off, mh):
+                      src_class, max_off, mh, res_weights=None):
     """Geometric padded-domain factorization of one stencil.
 
     For every padded-frame position p with live destination element D,
@@ -286,12 +286,16 @@ def _build_mega_table(n, content, pos_of, name, idx, weights, dst_class,
     within the SAME patch frame; accumulate per-position planes.  Also
     returns the bool mask of positions that fully resolved with offsets
     <= max_off (offsets contribute to the chain creep radius, so each
-    table caps them: tang 4, everything else 2)."""
+    table caps them: tang 4, everything else 2). `res_weights` (default:
+    `weights`) decide which terms a position resolves and so which slots
+    gain support: a land mask's zero weights then take the slots the
+    parent mesh's table takes (`_resolution_weights`)."""
     S = n + 2 * mh
     idx = np.asarray(idx, np.int64)
     if idx.ndim == 1:
         idx = idx[:, None]
     w = None if weights is None else np.asarray(weights, np.float64)
+    wr = w if res_weights is None else np.asarray(res_weights, np.float64)
     dst_cont = content[dst_class]
     pos_src = pos_of[src_class]
     Td = dst_cont.shape[0]
@@ -318,7 +322,7 @@ def _build_mega_table(n, content, pos_of, name, idx, weights, dst_class,
         ok = True
         for s in range(idx.shape[1]):
             ws = 1.0 if w is None else float(w[D, s])
-            if ws == 0.0:
+            if wr is not None and float(wr[D, s]) == 0.0:
                 continue
             X = int(idx[D, s])
             best = None
@@ -391,6 +395,27 @@ def _table_specs(mesh):
         ("vgrad_floor", voe, "edge", "vertex", diff * inv_dvf[:, None]),
         ("vmean", voe, "edge", "vertex", np.full((E, 2), 0.5)),
     ]
+
+
+def _resolution_weights(mesh):
+    """{table: weights} resolving the tables a land mask changes
+    (icos_patches.apply_land_mask: edge_mask in the tracer laplacians'
+    geometry, the land cells' kite weights) as on the mesh without land:
+    the mask's zeros stay in the weights, but the slot each term takes is
+    the unmasked mesh's, so a group of tables keeps the slots its compact
+    table holds (patch_megastep.GROUPS). On a mesh without land these are
+    the weights themselves."""
+    a = lambda nm: np.asarray(getattr(mesh, nm))
+    eoc = np.maximum(a("edges_on_cell").astype(np.int64), 0)
+    w_signed = -a("edge_sign_on_cell") / a("area_cell")[:, None]
+    geo = a("dv_edge") / a("dc_edge")
+    kites = a("kite_areas_on_vertex")
+    out = {"sdiv_geo": w_signed * geo[eoc],
+           "sdiv_geo2": w_signed * (geo * a("mesh_scaling_del2"))[eoc],
+           "sdiv_geo4": w_signed * (geo * a("mesh_scaling_del4"))[eoc],
+           "kite": np.where(kites != 0.0,
+                            kites / a("area_triangle")[:, None], 0.0)}
+    return out
 
 
 def _fct_table_specs(mesh):
@@ -1197,10 +1222,12 @@ def _build(mesh, info: ip.PatchInfo, mh: int, tile, phys_masks: bool):
     pos_of = _positions_of(content)
 
     tables, resolved = {}, {}
+    res = _resolution_weights(mesh)
     for name, idx, dst, src, w in _table_specs(mesh):
         max_off = 4 if name == "tang" else 2
         tables[name], resolved[name] = _build_mega_table(
-            n, content, pos_of, name, idx, w, dst, src, max_off, mh)
+            n, content, pos_of, name, idx, w, dst, src, max_off, mh,
+            res.get(name))
 
     # exactness of every chain value at every frame position, INCLUDING
     # the tiled reference kernel's slab-creep (validity erodes from lattice

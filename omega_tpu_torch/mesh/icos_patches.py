@@ -42,6 +42,7 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from omega_tpu_torch.mesh.horz_mesh import HorzMesh, finalize_mesh, \
     unclamped_connectivity
@@ -655,3 +656,77 @@ def _resolve_slot(fr, adj, bi, ai, S) -> int:
             if len(cand) == 1:
                 return cand.pop()
     return -1
+
+
+def apply_land_mask(mesh: HorzMesh, land_cells) -> HorzMesh:
+    """A land-masked variant of a patch-renumbered icos mesh.
+
+    Land on the patch layout is expressed by MASKING, not by removing
+    elements (removal would puncture the 10 n x n lattice the patch
+    kernels depend on): the full lattice stays, and
+
+      - `edge_mask` is zeroed on every edge touching a land cell (so all
+        masked momentum/tracer-flux terms vanish there, exactly as the
+        reference's boundary EdgeMask does, ocn/HorzMesh.cpp:581-604);
+      - the kite interpolation weights of land cells are zeroed (what
+        carve_mesh gets from finalize zeroing removed-cell kites), so
+        vertex thickness h_v never reads land state. A vertex whose every
+        cell is land keeps its weights: zeroing them all gives h_v = 0 and
+        qv = f/0 = inf, which 0*inf = NaN's through the edge-mask gates;
+        its (finite, junk) qv only reaches land edges, where the mask
+        zeroes it exactly.
+
+    With zero initial velocity on masked edges, the ocean cells evolve
+    identically to the same ocean carved out with mesh/carve.py (land rows
+    stay frozen at their initial state). The fused patch kernels
+    (ops/patch_megastep.py) carry the mask gates of the composed chain, so
+    land meshes stay on the fast path.
+
+    `land_cells`: bool (ncells,) in the PATCH numbering. Returns a new
+    HorzMesh, on the device and in the type of `mesh`, with its OWN
+    PatchInfo: the masked host mesh, stencil tables rebuilt against the
+    masked weights, and an empty cache (the mega builds and preps of
+    icos_mega / patch_megastep are made for the land mesh on first use).
+    The parent mesh and its PatchInfo are left as they were."""
+    info = getattr(mesh, "patch_info", None)
+    if info is None:
+        raise ValueError("apply_land_mask needs a patch-renumbered mesh "
+                         "(mesh.patch_info set by patch_icos_mesh)")
+    land = np.asarray(land_cells, bool)
+    if land.shape != (mesh.ncells,):
+        raise ValueError(f"land_cells must be ({mesh.ncells},), "
+                         f"got {land.shape}")
+    parent = info.host_mesh
+
+    unc = unclamped_connectivity(parent)
+    coe = np.asarray(unc["cells_on_edge"], np.int64)
+    touch = np.zeros(parent.nedges, bool)
+    for s in range(coe.shape[1]):
+        ok = coe[:, s] >= 0
+        touch[ok] |= land[coe[ok, s]]
+    em = np.array(parent.edge_mask, copy=True)
+    em[touch] = 0.0
+
+    cov = np.asarray(unc["cells_on_vertex"], np.int64)
+    kite = np.array(parent.w_kite_frac, copy=True)
+    valid = cov >= 0
+    is_land = valid & land[np.maximum(cov, 0)]
+    all_land = valid.any(axis=1) & (is_land == valid).all(axis=1)
+    kite[is_land & ~all_land[:, None]] = 0.0
+
+    host = dataclasses.replace(parent, edge_mask=em, w_kite_frac=kite,
+                               patch_info=None)
+    new_info = PatchInfo(n=info.n, ncells=info.ncells, nedges=info.nedges,
+                         nvertices=info.nvertices, fills=info.fills,
+                         content=info.content, host_mesh=host)
+    _warm_tables(host, new_info)
+    if isinstance(mesh.edge_mask, np.ndarray):
+        return dataclasses.replace(host, patch_info=new_info)
+    dev = mesh.edge_mask.device
+    out = dataclasses.replace(
+        mesh,
+        edge_mask=torch.as_tensor(em).to(device=dev,
+                                         dtype=mesh.edge_mask.dtype),
+        w_kite_frac=torch.as_tensor(kite).to(device=dev,
+                                             dtype=mesh.w_kite_frac.dtype))
+    return dataclasses.replace(out, patch_info=new_info)

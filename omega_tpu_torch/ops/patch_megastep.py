@@ -477,6 +477,7 @@ def prep(mesh, dtype, device, fct: bool = False) -> Prep:
     p.fct = False
     p.tables = mg.tables
     p.n, p.S, p.mh = mg.n, mg.S, mg.mh
+    p.npatch = 10          # the patches the frames hold (parallel/patch_shard)
     p.P = 10 * p.S * p.S
     p.dtype, p.device = dtype, device
     put = lambda a, dt=dtype: torch.as_tensor(np.ascontiguousarray(a)).to(
@@ -677,7 +678,8 @@ def _column_mix(h, phi, kappa, dt):
 
 
 def _eval(p, cfg, ops, vals, dt, wind_planes=None):
-    """Run the chain ops on `vals` (name -> (K, T, 10, S, S)), each stencil
+    """Run the chain ops on `vals` (name -> (K, T, npatch, S, S); npatch = 10
+    except on a shard of parallel/patch_shard.py), each stencil
     a sum of roll-shifted sources times weight planes in the reference's
     entry order; returns `vals`."""
     tc, vm = cfg.tendencies, cfg.vert_mix
@@ -693,7 +695,7 @@ def _eval(p, cfg, ops, vals, dt, wind_planes=None):
             term = w * torch.roll(src[:, ts], shifts=(-db, -da),
                                   dims=(-2, -1))
             outs[td] = term if outs[td] is None else outs[td] + term
-        zero = src.new_zeros(src.shape[:1] + (10, S, S))
+        zero = src.new_zeros(src.shape[:1] + (p.npatch, S, S))
         return torch.stack([o if o is not None else zero for o in outs], 1)
 
     def c(name):
@@ -832,7 +834,7 @@ def _vals(p, frames, prefix=""):
     trn{l}), "0" (the RK stages' original state h0, u0, tr0{l}) or "_a"
     (their accumulator h_a, u_a, tra{l})."""
     K, CH, P = frames.shape
-    fr = frames.reshape(K, CH, 10, p.S, p.S)
+    fr = frames.reshape(K, CH, p.npatch, p.S, p.S)
     t = _TRACER_NAME[prefix]
     vals = {"h" + prefix: fr[:, 0:1], "u" + prefix: fr[:, 1:4]}
     for l in range(CH - 4):
@@ -853,7 +855,7 @@ def _frames_out(vals, K, CH, P, out, names=("h_new", "u_new", "trn")):
 
 def _wind_planes(p, wind):
     return None if wind is None else \
-        wind[0][WIND_ROW:WIND_ROW + 3].view(3, 10, p.S, p.S)
+        wind[0][WIND_ROW:WIND_ROW + 3].view(3, p.npatch, p.S, p.S)
 
 
 def chain_plain(p, cfg, frames, dt, out=None, wind=None):
@@ -885,7 +887,7 @@ def vmix_solve_plain(p, cfg, frames, dt, coef=None, out=None):
     K, CH, P = frames.shape
     vals = _vals(p, frames, "_new")
     if coef is not None:
-        cf = coef.reshape(K, 4, 10, p.S, p.S)
+        cf = coef.reshape(K, 4, p.npatch, p.S, p.S)
         vals.update(kapc=cf[:, 0:1], nue=cf[:, 1:4])
     vals = _eval(p, cfg, chain_ops(cfg, CH - 4, False)[2], vals, dt)
     return _frames_out(vals, K, CH, P, out)
@@ -922,7 +924,7 @@ def _mid_vals(p, mid, frames):
     the refreshed stage-A fields h_new, trtd{l}, facc{l} of `mid`."""
     K, CH, P = frames.shape
     vals = _vals(p, frames)
-    m = mid.reshape(K, mid.shape[1], 10, p.S, p.S)
+    m = mid.reshape(K, mid.shape[1], p.npatch, p.S, p.S)
     vals["h_new"] = m[:, 0:1]
     for l in range(CH - 4):
         vals[f"trtd{l}"] = m[:, 4 + 2 * l:5 + 2 * l]

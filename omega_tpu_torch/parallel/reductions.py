@@ -1,4 +1,4 @@
-"""Reproducible global reductions, single device.
+"""Reproducible global reductions, on one array or across a list of shards.
 
 Rewrite of base/Reductions.h: the reference guarantees reproducible R8
 global sums across partition counts by accumulating locally in
@@ -13,13 +13,21 @@ K-term combine). Exact sums are associative, so any summation order
 produces bit-identical doubles, and the results equal the JAX package's
 bit for bit.
 
-The port runs on one device: `axis_name` must be None. The cross-device
-combine (the partials summed over ranks) comes with the distributed layer.
-
-All functions take tensors (on any device) and accept an optional
-elementwise multiplier (the product variants) and an optional mask
-selecting the elements to count. float32 inputs use integer-digit bins
-(`reprod_sum_f32`); other dtypes the double-double pairwise tree.
+Every function takes a tensor (on any device) or a list of per-shard
+tensors (the single controller's sharded form, parallel/sharded.py; each
+shard on its own device), with an optional elementwise multiplier (the
+product variants) and an optional mask selecting the elements to count
+(owned rows, so halo rows are not counted twice), each of the same form.
+Across shards the global max that anchors the bins is the max of the
+shards' maxima, each shard's exact per-level partials are computed on its
+own device, and the partials are added in shard order on the first shard's
+device: the JAX package's `psum` of the same partials, exact and hence
+bit for bit the one-array sum whatever the shard count. float32 inputs use
+integer-digit bins (`reprod_sum_f32`); other dtypes the double-double
+pairwise tree, whose per-shard (hi, lo) pairs combine in shard order by the
+ddSum rule (reproducible per decomposition only, as in the reference).
+`axis_name` is the JAX package's collective axis; the port names shards by
+list position, so it must be None.
 """
 
 from __future__ import annotations
@@ -29,12 +37,24 @@ from typing import Optional
 import torch
 
 
-def _single_device(axis_name) -> None:
+def _no_axis(axis_name) -> None:
     if axis_name is not None:
-        raise NotImplementedError(
-            f"axis_name={axis_name!r}: cross-device reductions come with "
-            f"the distributed layer (ROADMAP.md queue 1's `parallel/` "
-            f"item); the port reduces on one device")
+        raise ValueError(
+            f"axis_name={axis_name!r}: the port has no collective axis; "
+            f"pass the shards as a list of tensors")
+
+
+def _shards(x, multiplier, mask):
+    """The masked, multiplied summands as a list (one entry per shard; one
+    entry for a plain tensor)."""
+    if isinstance(x, torch.Tensor):
+        return [_masked(x, multiplier, mask)]
+    n = len(x)
+    mult = [None] * n if multiplier is None else list(multiplier)
+    msk = [None] * n if mask is None else list(mask)
+    if len(mult) != n or len(msk) != n:
+        raise ValueError("multiplier and mask must list one entry a shard")
+    return [_masked(a, m, k) for a, m, k in zip(x, mult, msk)]
 
 
 def _masked(x, multiplier, mask):
@@ -43,6 +63,24 @@ def _masked(x, multiplier, mask):
         v = torch.where(mask, v, torch.zeros((), dtype=v.dtype,
                                              device=v.device))
     return v
+
+
+def _combine_max(vals):
+    """max over shards of per-shard scalars, on the first shard's device"""
+    dev = vals[0].device
+    out = vals[0]
+    for v in vals[1:]:
+        out = torch.maximum(out, v.to(dev))
+    return out
+
+
+def _psum(parts):
+    """per-shard exact partials added in shard order (the psum)"""
+    dev = parts[0].device
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(dev)
+    return total
 
 
 def _two_sum(a, b):
@@ -138,10 +176,11 @@ def _gmax(v):
 def reprod_sum(x, axis_name: Optional[str] = None, multiplier=None,
                mask=None):
     """Order-invariant f64 sum (the strengthened ddSum contract)."""
-    _single_device(axis_name)
-    v = _masked(x, multiplier, mask)
-    parts = reprod_partials(v, _reprod_sigma0(_gmax(v)))
-    return _reprod_combine(parts)
+    _no_axis(axis_name)
+    vs = _shards(x, multiplier, mask)
+    sigma0 = _reprod_sigma0(_combine_max([_gmax(v) for v in vs]))
+    parts = [reprod_partials(v, sigma0.to(v.device)) for v in vs]
+    return _reprod_combine(_psum(parts))
 
 
 # f32 variant: integer-bin extraction into int32 DIGITS. The f64 scheme's
@@ -213,14 +252,14 @@ def _reprod32_combine(parts, e1, dtype):
 def reprod_sum_f32(x, axis_name: Optional[str] = None, multiplier=None,
                    mask=None):
     """Order-invariant f32 sum (integer digit bins; see above)."""
-    _single_device(axis_name)
-    v = _masked(x, multiplier, mask)
-    gmax = _gmax(v)
+    _no_axis(axis_name)
+    vs = _shards(x, multiplier, mask)
+    gmax = _combine_max([_gmax(v) for v in vs])
     _, e = torch.frexp(gmax)                # gmax = m * 2^e, m in [.5,1)
     # sigma0 = 2^(e + 13) >= 2^12 * 2 * gmax (12-bit extraction window)
     e1 = torch.where(gmax > 0, e + 13, torch.full_like(e, 13))
-    parts = _reprod32_partials(v, e1)
-    return _reprod32_combine(parts, e1, v.dtype)
+    parts = [_reprod32_partials(v, e1.to(v.device)) for v in vs]
+    return _reprod32_combine(_psum(parts), e1, vs[0].dtype)
 
 
 def global_sum(x, axis_name: Optional[str] = None, multiplier=None,
@@ -229,28 +268,41 @@ def global_sum(x, axis_name: Optional[str] = None, multiplier=None,
 
     f64 inputs use the order-invariant binned extraction, f32 the
     order-invariant integer-bin extraction: results are bit-for-bit
-    identical across reduction orders and element permutations. Other
-    dtypes use the double-double pairwise tree."""
-    _single_device(axis_name)
-    if x.dtype == torch.float64:
+    identical across reduction orders, element permutations and shard
+    counts. Other dtypes use the double-double pairwise tree, the shards'
+    (hi, lo) pairs combined in shard order."""
+    _no_axis(axis_name)
+    dtype = (x if isinstance(x, torch.Tensor) else x[0]).dtype
+    if dtype == torch.float64:
         return reprod_sum(x, None, multiplier, mask)
-    if x.dtype == torch.float32:
+    if dtype == torch.float32:
         return reprod_sum_f32(x, None, multiplier, mask)
-    hi, lo = dd_sum(x, multiplier, mask)
+    pairs = [dd_sum(v) for v in _shards(x, multiplier, mask)]
+    hi, lo = pairs[0]
+    for h, l in pairs[1:]:
+        hi, lo = _dd_add((hi, lo), (h.to(hi.device), l.to(hi.device)))
     return hi + lo
 
 
 def global_min(x, axis_name: Optional[str] = None, mask=None):
     """globalMinVal (base/Reductions.h:637)."""
-    _single_device(axis_name)
-    v = (torch.where(mask, x, torch.full_like(x, float("inf")))
-         if mask is not None else x)
-    return torch.min(v)
+    _no_axis(axis_name)
+    vs = [torch.min(torch.where(k, v, torch.full_like(v, float("inf")))
+                    if k is not None else v)
+          for v, k in _pairs(x, mask)]
+    return -_combine_max([-v for v in vs])
 
 
 def global_max(x, axis_name: Optional[str] = None, mask=None):
     """globalMaxVal (base/Reductions.h:757)."""
-    _single_device(axis_name)
-    v = (torch.where(mask, x, torch.full_like(x, float("-inf")))
-         if mask is not None else x)
-    return torch.max(v)
+    _no_axis(axis_name)
+    vs = [torch.max(torch.where(k, v, torch.full_like(v, float("-inf")))
+                    if k is not None else v)
+          for v, k in _pairs(x, mask)]
+    return _combine_max(vs)
+
+
+def _pairs(x, mask):
+    if isinstance(x, torch.Tensor):
+        return [(x, mask)]
+    return list(zip(x, [None] * len(x) if mask is None else mask))

@@ -4,8 +4,8 @@ Counterpart of src/timeStepping/: ForwardBackwardStepper.cpp:27-82,
 RungeKutta2Stepper.cpp:25-75, RungeKutta4Stepper.cpp:68-137. The reference
 mutates circular time-level buffers and triggers MPI halo exchanges inside
 updateTimeLevels; here each stepper returns a new state and the halo
-exchange is an injectable `halo` callback (identity on a single device; the
-distributed exchanges arrive with parallel/). RK4 applies `halo` to the
+exchange is an injectable `halo` callback (identity on a single device; a
+shard's exchange over the shard list under parallel/sharded.py). RK4 applies `halo` to the
 provisional state at stage 2, matching the reference's width-3-halo
 amortization (RungeKutta4Stepper.cpp:107-114).
 
@@ -51,6 +51,7 @@ through the patch operators (ops/patch_stencil.py).
 
 from __future__ import annotations
 
+import os
 from typing import Callable
 
 import torch
@@ -64,6 +65,12 @@ from omega_tpu_torch.ops import megastep, patch_megastep, trisk
 
 Halo = Callable[[ModelState], ModelState]
 _identity: Halo = lambda s: s
+
+
+def _halo_overlap_enabled() -> bool:
+    """OMEGA_HALO_OVERLAP=0 restores the trailing full-state exchange
+    (A/B knob; the overlap is bit-identical and the default)."""
+    return os.environ.get("OMEGA_HALO_OVERLAP", "1") != "0"
 
 
 def _mix(mesh, cfg, state, dt):
@@ -110,10 +117,37 @@ def forward_backward_step(mesh: HorzMesh, cfg: ModelConfig, state: ModelState,
         flux_h_edge=thick_aux.flux_h_edge)
     tr_new = (tr * h[None] + dt * dtr) / h_new[None]
 
+    # Compute/comm overlap (the reference's MPI_Test poll-and-unpack loop,
+    # base/Halo.h:849-881): once h and the tracers are updated their owned
+    # boundary rows are final, so the cell-space exchange is STARTED here
+    # (on CUDA on a side stream, parallel/sharded.shard_halos) and its
+    # result read only after the velocity stage, which runs on the shard's
+    # own stream meanwhile. The velocity tendency reads the LOCAL
+    # pre-exchange h_new (identical values on the rings it touches:
+    # width-3 halos keep rings 1-2 of h_new exact after a radius-1
+    # update), so results are bit-identical to the trailing exchange.
+    # Implicit vertical mixing modifies u/tracers after this point, so
+    # with vmix enabled the step keeps the single trailing exchange.
+    cell_ex = getattr(halo, "cell", None)
+    overlap = (cell_ex is not None and _halo_overlap_enabled()
+               and not (cfg.vert_mix.enabled and cfg.nvertlayers >= 2))
+    if overlap:
+        bundle = torch.cat([h_new[None], tr_new], 0)
+        start = getattr(halo, "cell_async", None)
+        if start is not None:
+            fetch = start(bundle)
+        else:
+            done = cell_ex(bundle)
+            fetch = lambda: done
+
     du, _ = tend_mod.compute_velocity_tendency(
         mesh, cfg, h_new, u, t + dt, wind_stress)
     u_new = u + dt * du
 
+    if overlap:
+        bundle = fetch()
+        return ModelState(h=bundle[0], u=halo.edge(u_new),
+                          tracers=bundle[1:])
     out = _mix(mesh, cfg, ModelState(h=h_new, u=u_new, tracers=tr_new), dt)
     return halo(out)
 

@@ -6,7 +6,9 @@ history, multi-frame, windowed (UseStartEnd), diagnostics and restart files
 time-varying wind; the p-star phase; a restart chain bit for bit an unbroken
 port run. Then what only the port has to show: PatchLayout on icos8
 against the plain sphere, a changed BottomDepth dropping the patch layout,
-multi-device configuration refused, `main` with --device / --dtype, and
+the Decomp group (sharded runs bit for bit the unsharded ones on the
+structured and SFC decompositions and the patch layout, p-star on SFC, bad
+configurations refused), `main` with --device / --dtype, and
 the CUDA default.
 
 Each JAX reference runs once per module (module-scoped fixtures)."""
@@ -457,6 +459,20 @@ def test_patch_layout_matches_plain_sphere(tmp_path, flagship):
     assert np.abs(sa.u.numpy()).max() > 0
 
 
+def test_sharded_patch_layout_bit_for_bit(tmp_path):
+    """Decomp.Method patch with 2 and 5 shards on the PatchLayout icos8
+    (whole patches a shard, their kernels' plain versions on the CPU):
+    bit for bit the unsharded framed run."""
+    d = str(tmp_path)
+    _, _, ref = _sphere_run(_sphere_doc(True, True), d)
+    for n in (2, 5):
+        doc = dict(_sphere_doc(True, True),
+                   Decomp={"NShards": n, "Method": "patch"})
+        _, m, out = _sphere_run(doc, d)
+        assert m._decomp[0] == "patch"
+        assert_state_equal(out, ref)
+
+
 def test_framed_sphere_segments_equal_run_steps(tmp_path):
     """The driver's segments are run_steps calls: the same segments of
     run_steps give the driver's state bit for bit."""
@@ -507,14 +523,67 @@ def test_changed_bottom_depth_drops_patch_layout(tmp_path, changed):
 
 # ------------------------------------------------- refusals, entry points
 
-@pytest.mark.parametrize("decomp", [
-    {"NShards": 2}, {"NShards": 4, "Method": "auto"},
-    {"Method": "sfc"}, {"Method": "patch"}, {"Method": "structured"},
-    {"ShardedIO": True}, {"HaloWidth": 0}])
-def test_multi_device_configuration_raises(tmp_path, decomp):
-    with pytest.raises(ConfigError, match="`parallel/` item|HaloWidth"):
-        pdrv.ocn_init(PConfig("Omega", base_doc(Decomp=decomp)),
-                      directory=str(tmp_path), **F64)
+@pytest.mark.parametrize("decomp,at", [
+    ({"Method": "metis"}, "init"), ({"HaloWidth": 0}, "init"),
+    ({"NShards": 0}, "init"), ({"NShards": 2, "Method": "patch"}, "run"),
+    ({"NShards": 3, "Method": "structured"}, "run")])
+def test_multi_device_configuration_raises(tmp_path, decomp, at):
+    """The Decomp group's checks (the JAX driver's): an unknown method, a
+    halo width or shard count below 1 at init; at the first ocn_run the
+    patch method off a PatchLayout sphere, and a structured decomposition
+    with no valid block layout (3 row bands of the 8 x 8 mesh)."""
+    doc = base_doc(Decomp=decomp)
+    if at == "init":
+        with pytest.raises(ConfigError, match="Decomp"):
+            pdrv.ocn_init(PConfig("Omega", doc), directory=str(tmp_path),
+                          **F64)
+        return
+    m = pdrv.ocn_init(PConfig("Omega", doc), directory=str(tmp_path), **F64)
+    with pytest.raises((ConfigError, ValueError), match="patch|layout"):
+        pdrv.ocn_run(m)
+
+
+@pytest.mark.parametrize("method", ["structured", "sfc"])
+def test_sharded_run_bit_for_bit(tmp_path, method):
+    """Decomp.NShards 4 (every shard on the CPU): the state after the run
+    and the History files equal the unsharded run's bit for bit, for the
+    structured blocks and the SFC decomposition."""
+    d1, d2 = str(tmp_path / "one"), str(tmp_path / "four")
+    os.makedirs(d1)
+    os.makedirs(d2)
+    _, ref = run_port(base_doc(streams={"History": STREAMS["History"]}), d1)
+    m, out = run_port(base_doc(streams={"History": STREAMS["History"]},
+                               Decomp={"NShards": 4, "Method": method}), d2)
+    assert m._decomp[0] == method and not m._state_is_sharded
+    assert_state_equal(out, ref)
+    for f in sorted(os.listdir(d1)):
+        a, b = read_netcdf(os.path.join(d1, f)), read_netcdf(
+            os.path.join(d2, f))
+        for k in a.variables:
+            assert np.array_equal(a.variables[k], b.variables[k]), (f, k)
+
+
+def test_sharded_pstar_runs_on_sfc(tmp_path):
+    """p-star under sharding: the phase per shard on the SFC
+    decomposition (the halo widened to 4), against the unsharded p-star
+    run at 1e-12; an explicit structured method is refused."""
+    doc = base_doc(stop="0001-01-01_00:05:00", SshFormulation="Column")
+    doc["TimeIntegration"]["TimeStep"] = "0000_00:00:30"
+    doc["Mesh"]["Generate"].update(Nx=12, Ny=12, Dc=5000.0)
+    doc["VertCoord"] = {"NVertLayers": 4, "PStarEnable": True,
+                        "MovementWeightType": "Uniform"}
+    doc["Tendencies"] = {"ViscDel2": 1.0e3,
+                         "VelHyperDiffTendencyEnable": False,
+                         "TracerDiffTendencyEnable": False,
+                         "TracerHyperDiffTendencyEnable": False}
+    _, ref = run_port(doc, str(tmp_path))
+    m, out = run_port(dict(doc, Decomp={"NShards": 4}), str(tmp_path))
+    assert m._decomp[0] == "sfc" and m.halo_width == 4
+    assert_state_close(out, ref, rtol=1e-12, atol=1e-12)
+    m2 = port_init(dict(doc, Decomp={"NShards": 4, "Method": "structured"}),
+                   str(tmp_path))
+    with pytest.raises(ConfigError, match="PStarEnable"):
+        pdrv.ocn_run(m2)
 
 
 def test_single_device_decomp_group_accepted(tmp_path):

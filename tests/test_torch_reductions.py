@@ -149,7 +149,9 @@ def test_dd_sum_exactness_and_min_max():
 @pytest.mark.parametrize("fn", ["global_sum", "global_min", "global_max",
                                 "reprod_sum", "reprod_sum_f32"])
 def test_cross_device_axis_raises(fn):
-    with pytest.raises(NotImplementedError, match="`parallel/` item"):
+    # the port names shards by list position: a collective axis names
+    # nothing and is refused
+    with pytest.raises(ValueError, match="no collective axis"):
         getattr(P, fn)(torch.ones(4), axis_name="x")
 
 
