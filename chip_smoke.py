@@ -15,9 +15,11 @@ entry points a user calls, and prints one JSON line per phase:
 
   device          the card, and nvidia-smi's name / power-limit line
   build           nvcc build of the kernels, seconds
-  kernel_stencil  structured-stencil kernel vs plain, every table; cmean,
-                  div and tang timed beside torch.sparse.mm (the stencil
-                  as CSR: the library call)
+  kernel_stencil  structured-stencil kernel vs plain, every table (also
+                  a 4 x 4 domain and K = 1 at full width); cmean, div and
+                  tang timed beside torch.sparse.mm (the stencil as CSR:
+                  the library call), with the kernel's registers, spill
+                  and blocks per SM
   kernel_fb_step  fused FB step vs plain and vs the composed step, for the
                   flagship chain and its variants (upwind and FCT fluxes,
                   wind, drag), with each variant's registers, spill and
@@ -73,7 +75,8 @@ entry points a user calls, and prints one JSON line per phase:
                   slots; each case's time (median and spread of 5 x 50
                   launches) beside its bound and torch.sparse.mm's
   main_path       2 x 10 steps of the bench configuration; launch counts
-  composed_path   column ssh: the composed stepper + stencil kernel
+  composed_path   column ssh: the composed stepper + stencil kernel; host
+                  and device ms per step, the stencil kernel's share
   science_path    2 x 10 steps with wind, bottom drag, upwind fluxes and PP81
                   vertical mixing: three kernel launches per step
   fct_path        2 x 10 FB steps with FCT tracer fluxes: one launch per step
@@ -82,6 +85,11 @@ entry points a user calls, and prints one JSON line per phase:
                   launches and the two vertical-mixing kernels per step
   split_path      2 x 10 split-explicit steps (column ssh, dt = 120 s, ten
                   barotropic subcycles): 2 + 1 + 1 launches per step
+  split_science_path  2 x 10 split-explicit steps of the science
+                  configuration with column ssh (upwind fluxes, wind, drag,
+                  PP81): composed, its stencil passes through the stencil
+                  kernel and one barotropic launch per step, no fused
+                  kernel; host and device ms per step, drift, wind, drag
   sphere_path     2 x 10 FB steps of bench.py's sphere (icos48 x 100 x 2):
                   six patch-step launches per step, nothing else
   sphere_science_path  2 x 10 FB steps of the science configuration on the
@@ -165,6 +173,7 @@ is never printed. Needs a CUDA device; imports nothing of JAX.
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -257,6 +266,25 @@ def main(argv=None):
         return {lab: t / reps / 1e3 if t > 0 else None
                 for lab, t in us.items()}
 
+    def device_ms(fn, steps):
+        """Device milliseconds a step of fn(), which runs `steps` steps:
+        every kernel and copy torch.profiler records over one call after an
+        untimed one, in all and in the stencil kernel ({"all": ms,
+        "stencil": ms})."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = {"all": 0.0, "stencil": 0.0}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us["all"] += e.device_time_total
+                if re.search(r"stencil_(tiled_|direct_)?kernel<", e.key):
+                    us["stencil"] += e.device_time_total
+        return {k: v / steps / 1e3 for k, v in us.items()}
+
     def bound(nbytes, flops):
         tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS_F32 * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
@@ -299,12 +327,18 @@ def main(argv=None):
     # f32 at full width: the same, at 1e-5 of the largest output.
     tables = {}
     stencil_err_f32 = 0.0
-    # (K = 5 takes the kernel's one-element path, K = 4 and 100 its
-    # 16-byte path)
+    # (K = 5, 3 and 1 take the kernel's one-element path, K = 4 and 100
+    # its 16-byte path; 4 x 4 is a domain of fewer columns than a block's
+    # threads; K = 1 at full width is the column ssh gradient's shape. These two cases draw from a generator of their own, so that
+    # the phases after this one keep the inputs they had before them.)
+    rng_own = np.random.default_rng(args.seed + 1)
+    own_cases = ((4, 4, 3, torch.float64), (NX, NY, 1, torch.float32))
     for (nx, ny, K, dtype, tol) in ((16, 8, 5, torch.float64, 1e-12),
                                     (48, 20, 5, torch.float64, 1e-12),
                                     (24, 12, 4, torch.float64, 1e-12),
+                                    (4, 4, 3, torch.float64, 1e-12),
                                     (16, 8, 5, torch.float32, 1e-5),
+                                    (NX, NY, 1, torch.float32, 1e-5),
                                     (NX, NY, NLAYERS, torch.float32, 1e-5)):
         mesh = mesh_on_card(nx, ny, dtype)
         keys = [k for k in structured._TABLE_CACHE
@@ -316,7 +350,10 @@ def main(argv=None):
             ps, pd = structured._NPER[src], structured._NPER[dst]
             worst = 0.0
             for lead in ((), (2,)):
-                f = rand(lead + (ps * nx * ny, K), dtype)
+                f = rand(lead + (ps * nx * ny, K), dtype) \
+                    if (nx, ny, K, dtype) not in own_cases else \
+                    torch.as_tensor(rng_own.standard_normal(
+                        lead + (ps * nx * ny, K)), dtype=dtype, device=dev)
                 out = structured.apply_stencil(mesh, (tab, dst, src), f)
                 ref = stencil_kernel.apply_stencil_plain(tab, ps, pd, nx, ny,
                                                          f)
@@ -331,8 +368,9 @@ def main(argv=None):
                          f"{dtype}: max error {err} (scale {scale})")
                 worst = max(worst, err)
                 del f, out, ref
-            if dtype == torch.float32:
+            if dtype == torch.float32 and K == NLAYERS:
                 tables[key[3]] = {"max_abs_err": worst}
+            if dtype == torch.float32:
                 stencil_err_f32 = max(stencil_err_f32, worst)
     # times at the shapes the composed step gives them; the library call
     # is cuSPARSE's SpMM (torch.sparse.mm) with the stencil as a CSR matrix
@@ -367,7 +405,8 @@ def main(argv=None):
                            2 * len(tab) * nb * C * NLAYERS)
         timed[name] = {"lead": list(lead), "ms": ms, "plain_ms": plain,
                        "library_ms": lib_ms, "library_rel_err": lib_err,
-                       "bound_ms": b_ms, "bound_by": b_by}
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "attrs": stencil_kernel.attrs(torch.float32)}
         tables[name].update(timed[name])
         del f, f2, A
     emit({"phase": "kernel_stencil", "tables": tables,
@@ -2571,8 +2610,12 @@ def main(argv=None):
                      + [abs(b - a) / abs(a) for a, b in zip(trc1, trc2)])
     if comp_drift > 1e-5:
         fail(f"composed path: volume / tracer drift {comp_drift}")
+    comp_dev = device_ms(lambda: run_steps(mesh, cfg_col, state, 0.0, DT, 2,
+                                           stepper=forward_backward_step), 2)
     emit({"phase": "composed_path", "config": "as main_path with "
           "ssh_formulation=column", "steps": nup, "ms_per_step": up_ms,
+          "device_ms_per_step": comp_dev["all"],
+          "stencil_device_ms_per_step": comp_dev["stencil"],
           "stencil_launches_per_step": comp_launches["stencil"] / nup,
           "drift": comp_drift, "launches": comp_launches})
     del out
@@ -2881,6 +2924,77 @@ def main(argv=None):
           "volume_drift": spl_vol, "tracer_drift": spl_trc,
           "max_abs_u": spl_umax})
     del spl_st
+
+    # ------------------------------------------- 10b2. split_science_path
+    # the split-explicit stepper (M = 10, dt = 120 s) with the science
+    # configuration (upwind fluxes, wind, drag 3e-3, PP81 on stratified T
+    # and S) and the column free surface: the fused split kernels decline
+    # it (megastep.split_supported), so it runs composed, every stencil
+    # pass through the stencil kernel and the subcycles through the planar
+    # barotropic kernel (stepping/split.subcycle_route), no fused kernel
+    cfg_ssp = bench_cfg(NLAYERS, NTRACERS, WIND_DRAG, vert_mix=PP81,
+                        ssh_formulation="column", **UPWIND)
+    if megastep.split_supported(mesh, cfg_ssp):
+        fail("split science configuration taken by the fused split kernels")
+    ssp, ssp_s, ssp_launches = drive(cfg_ssp, sci0, split_stepper, nseg, seg,
+                                     wind_sci, dt=DT_SPLIT)
+    finite("split science path", ssp)
+    nst = nseg * seg
+    fused_zero = {k: 0 for k in ("fb_step", "rk_stage", "split_pre",
+                                 "split_post", *NO_PATCH)}
+    if {k: ssp_launches[k] for k in fused_zero} != fused_zero \
+            or ssp_launches["barotropic"] != nst \
+            or ssp_launches["stencil"] <= 0 \
+            or ssp_launches["stencil"] % nst:
+        fail(f"split science path: launches {ssp_launches} in {nst} steps")
+    ssp_vol, ssp_trc = drifts(sci0, ssp)
+    if ssp_vol > 1e-5 or ssp_trc > 1e-5:
+        fail(f"split science path: drift {ssp_vol} / {ssp_trc}")
+    # without the stress, and without drag: the wind moved the top layer
+    # (the layer below it by the barotropic share, about 1/K of it, and
+    # what the mixing carries down), the drag took energy out of the bottom
+    calm = run_steps(mesh, cfg_ssp, sci0, 0.0, DT_SPLIT, nst,
+                     stepper=split_stepper)
+    slip = run_steps(mesh, bench_cfg(NLAYERS, NTRACERS,
+                                     dict(wind_forcing=True), vert_mix=PP81,
+                                     ssh_formulation="column", **UPWIND),
+                     sci0, 0.0, DT_SPLIT, nst, stepper=split_stepper,
+                     wind_stress=wind_sci)
+    ssp_top = (ssp.u[:, 0] - calm.u[:, 0]).abs().max().item()
+    ssp_mid = (ssp.u[:, NLAYERS // 2]
+               - calm.u[:, NLAYERS // 2]).abs().max().item()
+    ssp_ke = ssp.u[:, -1].double().square().sum().item()
+    ssp_ke_slip = slip.u[:, -1].double().square().sum().item()
+    ssp_umax = ssp.u.abs().max().item()
+    ssp_dv = nst * DT_SPLIT * 0.1 / (1026.0 * 1000.0 / NLAYERS)
+    if not (ssp_top > 0.1 * ssp_dv and ssp_mid < 0.1 * ssp_top):
+        fail(f"split science path: wind moved the top layer by {ssp_top}, "
+             f"layer {NLAYERS // 2} by {ssp_mid}")
+    if not ssp_ke < ssp_ke_slip * (1.0 - 1e-5):
+        fail(f"split science path: bottom-layer sum u^2 {ssp_ke} with "
+             f"drag, {ssp_ke_slip} without")
+    if not 0.0 < ssp_umax < 1.0:
+        fail(f"split science path: max|u| = {ssp_umax}")
+    ssp_ms = ssp_s[-1] / seg * 1e3
+    ssp_dev = device_ms(lambda: run_steps(
+        mesh, cfg_ssp, ssp, 0.0, DT_SPLIT, 2, stepper=split_stepper,
+        wind_stress=wind_sci), 2)
+    emit({"phase": "split_science_path",
+          "config": "as science_path with ssh_formulation=column, stepper "
+          f"SplitExplicit (M = {M_SPLIT}, bt_drag = 0), dt = {DT_SPLIT}: "
+          "composed, subcycles in the barotropic kernel",
+          "steps": nst, "segment_seconds": ssp_s, "ms_per_step": ssp_ms,
+          "device_ms_per_step": ssp_dev["all"],
+          "stencil_device_ms_per_step": ssp_dev["stencil"],
+          "gridpoint_steps_per_s": C * NLAYERS / (ssp_ms * 1e-3),
+          "launches": ssp_launches,
+          "launches_per_step": {k: v / nst for k, v in ssp_launches.items()},
+          "volume_drift": ssp_vol, "tracer_drift": ssp_trc,
+          "max_abs_u": ssp_umax, "top_layer_u_moved_by_wind": ssp_top,
+          "mid_layer_u_moved_by_wind": ssp_mid,
+          "bottom_sum_u2_with_drag": ssp_ke,
+          "bottom_sum_u2_without_drag": ssp_ke_slip})
+    del ssp, calm, slip
 
     # ---------------------------------------------------- 10c. sphere_path
     # bench.py's sphere configuration (icos48 x 100 layers x 2 tracers,
@@ -4488,6 +4602,9 @@ def main(argv=None):
               "split_5_steps": traced(lambda: run_steps(
                   mesh, cfg_split, state0, 0.0, DT_SPLIT, 5,
                   stepper=split_stepper)),
+              "split_science_2_steps": traced(lambda: run_steps(
+                  mesh, cfg_ssp, sci0, 0.0, DT_SPLIT, 2,
+                  stepper=split_stepper, wind_stress=wind_sci)),
               "sphere_5_steps": traced(lambda: run_steps(
                   m48, cfg48, sph0, 0.0, DT, 5)),
               "sphere_science_5_steps": traced(lambda: run_steps(
@@ -4634,6 +4751,7 @@ def main(argv=None):
          "matrix (cuSPARSE SpMM)",
          "shape": f"tang on (2, {3 * C}, {NLAYERS}) float32",
          "path": "composed_path", "per_table": timed,
+         "split_science_launches": ssp_launches["stencil"],
          "rk_order_launches": order_launches["stencil"]},
         {"name": "split_pre", "route": "cuda",
          "source": "omega_tpu_torch/csrc/split.cu",

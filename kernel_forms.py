@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Forms of the two PP81 coefficient kernels and of the two barotropic
-subcycle kernels, timed on one NVIDIA GPU.
+"""Forms of the two PP81 coefficient kernels, of the two barotropic
+subcycle kernels and of the structured stencil kernel, timed on one NVIDIA
+GPU.
 
     python3 kernel_forms.py kernel_forms_pp81.json   # from a checkout's root
     python3 kernel_forms.py kernel_forms_bt.json
+    python3 kernel_forms.py kernel_forms_stencil.json
 
 Each form in the JSON list is one of the checkout's kernel sources
 (`file`: vmix.cu for the plane's coefficient kernel, patch_vmix.cu for the
@@ -21,7 +23,12 @@ g_slow 1e-6 x noise, het 1000 + noise on the plane at 256 x 256, 4000 +
 noise on the sphere at icos48, masked by edge_mask), dt_bt = 12 s, at each
 of the form's `M` (default 10); a plane form at each of its `grid` (0: the
 launcher's choice), a sphere form at each of its `threads` and `groups`
-(cell groups; 0 for either: the package's choice). Prints one JSON line per form and
+(cell groups; 0 for either: the package's choice). The stencil kernel
+(stencil.cu): tang with two leading indices, cmean and div with one, at
+256 x 256 x 100 on random inputs from a seed (the two tiled designs tried
+against it: kernel_forms_stencil_chunked.cu, kernel_forms_stencil_segment.cu);
+a form whose record ends in a grid size (the K-chunked design) runs at each
+of its `blocks`. Prints one JSON line per form and
 setting: ms per call by CUDA events (three reads of 20 calls), whether its
 output is the checkout's own kernel's bit for bit (a form that skips work
 is not), and nvcc's registers and spill for it; first the card's name and
@@ -31,7 +38,8 @@ power limit and the checkout's own kernels' times. Imports nothing of JAX.
 # the kernels whose nvcc report a form prints, by file
 PTXAS = {"vmix.cu": ("pp81", "If"), "patch_vmix.cu": ("pp81", "If"),
          "barotropic.cu": ("bt_kernel", "If"),
-         "bt_gather.cu": ("bt_gather_kernel", "If")}
+         "bt_gather.cu": ("bt_gather_kernel", "If"),
+         "stencil.cu": ("stencil_", "If")}
 
 import ctypes
 import json
@@ -222,6 +230,49 @@ def main(argv):
                                 view["max_list"]), "groups": g or ng,
                              "max_list": view["max_list"]})
         del ins, o, w, refs
+    # ---- the structured stencil kernel
+    if "stencil.cu" in files:
+        from omega_tpu_torch.ops import stencil_kernel, structured
+        rs = np.random.default_rng(23)
+        N = 256
+        mesh = planar_hex_mesh(N, N, dc=5000.0, f0=1e-4,
+                               bottom_depth=1000.0).to(dev, torch.float32)
+        cases, own = {}, {}
+        for t, lead in (("tang", 2), ("cmean", 1), ("div", 1)):
+            tab, dst, src = structured._TABLE_CACHE[
+                (N, N, mesh.structured_dc, t)]
+            ps, pd = structured._NPER[src], structured._NPER[dst]
+            fld = put(rs.standard_normal((lead, ps * N * N, 100)))
+            call = lambda: structured.apply_stencil(mesh, (tab, dst, src),
+                                                    fld)
+            own[t] = [cuda_ms(call) for _ in range(3)]
+            cases[t] = (tab, ps, pd, lead, fld, torch.empty(
+                (lead, pd * N * N, 100), dtype=torch.float32, device=dev),
+                call().clone())
+        emit({"stencil": {"ms": own}})
+        for f in forms:
+            if f["file"] != "stencil.cu" or not built[f["name"]]:
+                continue
+            fn = ctypes.CDLL(str(tmp / f["name"] / "lib.so")).omega_stencil_f32
+            fn.argtypes = [ctypes.c_void_p] * 4
+            fn.restype = ctypes.c_int
+            for blocks in f.get("blocks", [None]):
+                for t, (tab, ps, pd, lead, fld, out, ref) in cases.items():
+                    rec = stencil_kernel.launch_record(
+                        tab, ps, pd, N, N, lead, 100, np.float32)
+                    if blocks is not None:
+                        # the record with the grid size appended
+                        big = np.zeros((), np.dtype(
+                            rec.dtype.descr + [("blocks", "i4")], align=True))
+                        for name in rec.dtype.names:
+                            big[name] = rec[name]
+                        big["blocks"] = blocks
+                        rec = big
+                    run(f["name"], lambda: fn(fld.data_ptr(), out.data_ptr(),
+                                              rec.ctypes.data, stream),
+                        (out,), (ref,), {"table": t, "lead": lead,
+                                         "blocks": blocks})
+        del cases
     if not files & {"vmix.cu", "patch_vmix.cu"}:
         return 0
 

@@ -83,15 +83,39 @@ int launch_stencil_v(const T* in, T* out, const StencilParams<T>& p,
   const long long plane = static_cast<long long>(p.nx) * p.K / V;
   const long long by = (plane + threads - 1) / threads;
   if (rows <= 0 || plane <= 0) return 0;
+  // out of place: neighbours read the input
+  if (in == out) return cudaErrorInvalidValue;
   if (rows > 2147483647LL || by > 65535LL) return cudaErrorInvalidConfiguration;
   dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(by), 1);
   stencil_kernel<T, V><<<grid, threads, 0, stream>>>(in, out, p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// a record the kernels take: 1-3 classes each side, entries grouped by
+// destination class within the cap, source classes in range, shifts
+// within the domain
+template <typename T>
+bool stencil_record_ok(const StencilParams<T>& p) {
+  if (p.ps < 1 || p.ps > 3 || p.pd < 1 || p.pd > 3 || p.nb < 0 ||
+      p.ny < 1 || p.nx < 1 || p.K < 0 || p.start[0] != 0)
+    return false;
+  for (int t = 0; t < p.pd; ++t)
+    if (p.start[t + 1] < p.start[t]) return false;
+  if (p.start[p.pd] > kStencilMaxEntries) return false;
+  for (int i = 0; i < p.start[p.pd]; ++i) {
+    const Entry<T>& e = p.e[i];
+    if (e.ts < 0 || e.ts >= p.ps || e.dj <= -p.ny || e.dj >= p.ny ||
+        e.di_e <= -p.nx || e.di_e >= p.nx || e.di_o <= -p.nx ||
+        e.di_o >= p.nx)
+      return false;
+  }
+  return true;
+}
+
 template <typename T>
 int launch_stencil(const void* in_, void* out_, const StencilParams<T>* hp,
                    cudaStream_t stream) {
+  if (hp == nullptr || !stencil_record_ok(*hp)) return cudaErrorInvalidValue;
   const StencilParams<T>& p = *hp;
   const T* in = static_cast<const T*>(in_);
   T* out = static_cast<T*>(out_);
@@ -101,6 +125,27 @@ int launch_stencil(const void* in_, void* out_, const StencilParams<T>* hp,
                        reinterpret_cast<size_t>(out) % 16 == 0;
   if (aligned && p.K % V == 0) return launch_stencil_v<T, V>(in, out, p, stream);
   return launch_stencil_v<T, 1>(in, out, p, stream);
+}
+
+// cudaFuncGetAttributes of the kernel (numRegs, localSizeBytes,
+// sharedSizeBytes into out[0..2]) and the blocks of 256 threads an SM holds
+// (out[3]); `vec` picks the 16-byte instance
+template <typename T>
+int stencil_attrs(int vec, int* out) {
+  if (out == nullptr) return cudaErrorInvalidValue;
+  constexpr int V = 16 / sizeof(T);
+  auto* const k = vec ? &stencil_kernel<T, V> : &stencil_kernel<T, 1>;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, k);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, 256, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.localSizeBytes);
+  out[2] = static_cast<int>(fa.sharedSizeBytes);
+  out[3] = blocks;
+  return 0;
 }
 
 }  // namespace omega
@@ -126,6 +171,13 @@ int omega_stencil_f64(const void* in, void* out, const void* params,
   return omega::launch_stencil<double>(
       in, out, static_cast<const omega::StencilParams<double>*>(params),
       static_cast<cudaStream_t>(stream));
+}
+
+int omega_stencil_attrs_f32(int vec, int* out) {
+  return omega::stencil_attrs<float>(vec, out);
+}
+int omega_stencil_attrs_f64(int vec, int* out) {
+  return omega::stencil_attrs<double>(vec, out);
 }
 
 const char* omega_error_string(int code) {

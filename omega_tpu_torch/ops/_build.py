@@ -109,6 +109,10 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp, vp, vp]       # in, out, params, stream
         fn.restype = ci
+    for name in ("omega_stencil_attrs_f32", "omega_stencil_attrs_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ci, vp]               # vector, out[4]
+        fn.restype = ci
     cd = ctypes.c_double
     for tails in ("plain", "tails"):
         for suffix in ("f32", "f64"):

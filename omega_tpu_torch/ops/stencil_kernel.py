@@ -11,6 +11,8 @@ JAX package's two Pallas stencil kernels (`pallas_stencil_dma._kernel` and
 `apply` is what `structured.apply_stencil` calls: a CUDA field goes to the
 kernel, a CPU field to the plain roll form. A field on the card never takes
 the plain version, and a kernel that fails to build or launch raises.
+
+`attrs` reads the compiled kernel's registers, spill and blocks per SM.
 """
 
 from __future__ import annotations
@@ -79,6 +81,28 @@ def _params(tab, ps, pd, nx, ny, ft):
     return rec.copy()
 
 
+def launch_record(tab, ps: int, pd: int, nx: int, ny: int, nb: int, K: int,
+                  ft):
+    """The record one launch takes (`omega::StencilParams<T>`). Raises for a
+    table of more than MAX_ENTRIES entries or a shift that exceeds the
+    domain."""
+    rec = _params(tab, ps, pd, nx, ny, ft)
+    rec["nb"], rec["K"] = nb, K
+    return rec
+
+
+def attrs(dtype=torch.float32, vector: bool = True) -> dict:
+    """cudaFuncGetAttributes' numRegs, localSizeBytes (the spill) and
+    sharedSizeBytes of the kernel (its 16-byte instance, or its
+    one-element one), and the blocks of 256 threads an SM holds."""
+    lib = _build.load()
+    got = np.zeros(4, np.int32)
+    _build.check(getattr(lib, f"omega_stencil_attrs_{_FLOAT[dtype][1]}")(
+        int(vector), got.ctypes.data), "stencil attributes")
+    return dict(zip(("num_regs", "local_bytes", "shared_bytes",
+                     "blocks_per_sm"), map(int, got)))
+
+
 def apply_stencil_plain(tab, ps: int, pd: int, nx: int, ny: int, field):
     """The plain PyTorch version: periodic rolls of the (ny, nx) grid with
     a row-parity select for the staggered column shifts.
@@ -117,8 +141,7 @@ def apply_stencil_cuda(tab, ps: int, pd: int, nx: int, ny: int, field):
     if out.numel() == 0:
         return out
     lib = _build.load()
-    rec = _params(tab, ps, pd, nx, ny, ft)
-    rec["nb"], rec["K"] = nb, K
+    rec = launch_record(tab, ps, pd, nx, ny, nb, K, ft)
     size = getattr(lib, f"omega_stencil_params_size_{suffix}")()
     if size != rec.dtype.itemsize:
         raise RuntimeError(f"StencilParams layout mismatch: kernel {size} "

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Device time of the planar splitpre's passes and splitpost, of the
 sphere's FCT stage B and its launches, of the two PP81 coefficient kernels,
-of the two barotropic subcycle kernels, and host time per step of the
-sphere's forward-backward path, on one NVIDIA GPU.
+of the two barotropic subcycle kernels, of the structured stencil kernel's
+passes, and host time per step of the sphere's forward-backward path, on
+one NVIDIA GPU.
 
     python3 pass_times.py            # from the root of a checkout
     python3 pass_times.py fct_b      # only the parts named (split, fct_b,
-                                     # pp81, bt, sphere); ptxas always
+                                     # pp81, bt, stencil, sphere); ptxas
+                                     # always
 
 Runs on the checkout it is started from, so that two checkouts (a commit
 and the one before it) can be read in turn on one card: it reads only
@@ -55,6 +57,25 @@ power limit first:
               1e-4 at M = 7), float32 and float64, go to DIR/bt_bits.pt;
               with PASS_TIMES_COMPARE=DIR they are held bit for bit against
               that file (another checkout's)
+  stencil     the structured stencil kernel (csrc/stencil.cu) at 256 x
+              256 x 100 float32 on random inputs from a seed: each of the
+              ten tables of the composed FB step at each leading count it
+              takes there (port_bounds.FB_STEP_GATHERS) and cdiff on one
+              plane (the column ssh gradient), ms a call by CUDA events
+              (three reads of 20 calls) beside the call's byte bound, with
+              the kernel's registers, spill and blocks per SM where the
+              checkout reads them (stencil_kernel.attrs); and each pass's
+              device ms in one
+              composed FB step (column ssh, chip_smoke.py's composed_path
+              state; torch.profiler, the kernel's records in launch order
+              matched to the passes the step made, three steps, a step
+              whose records do not match left out) beside its bound
+              (port_bounds.composed_planar_passes). With
+              PASS_TIMES_SAVE=DIR the SHA-256 of the float32 output of
+              every table (22, at leading counts 1 and 2, inputs from a
+              seed of their own) goes to DIR/stencil_bits.json; with
+              PASS_TIMES_COMPARE=DIR they are held against that file
+              (another checkout's), bit for bit
   sphere      host ms per step (three 10-step segments through run_steps,
               each ending in torch.cuda.synchronize()) of icos48 x 100 x 2
               float32: the flagship configuration and the science one
@@ -75,7 +96,7 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-PARTS = ("split", "fct_b", "pp81", "bt", "sphere")
+PARTS = ("split", "fct_b", "pp81", "bt", "stencil", "sphere")
 
 
 def main(argv):
@@ -359,6 +380,9 @@ def main(argv):
                     for k, v in bits.items()}})
         del stack, out, work, ins
 
+    if "stencil" in parts:
+        stencil_part(np, torch, dev, cuda_ms)
+
     if "sphere" in parts:
         cfgs = {
             "flagship": (ModelConfig(nvertlayers=K, ntracers=L,
@@ -378,6 +402,130 @@ def main(argv):
             host[name] = segs
         emit({"sphere": {"host_ms_per_step": host}})
     return 0
+
+
+def stencil_part(np, torch, dev, cuda_ms, N=256, K=100):
+    import hashlib
+    import importlib.util
+    import re
+
+    # this script's port_bounds, also when run from another checkout
+    spec = importlib.util.spec_from_file_location(
+        "port_bounds", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "port_bounds.py"))
+    port_bounds = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(port_bounds)
+    from omega_tpu_torch.core import ModelConfig, ModelState, TendencyConfig
+    from omega_tpu_torch.mesh import planar_hex_mesh
+    from omega_tpu_torch.ops import stencil_kernel, structured
+    from omega_tpu_torch.stepping import forward_backward_step, run_steps
+    from torch.profiler import ProfilerActivity, profile
+
+    L = 2
+    rs = np.random.default_rng(23)
+    mesh_np = planar_hex_mesh(N, N, dc=5000.0, f0=1e-4, bottom_depth=1000.0)
+    mesh = mesh_np.to(dev, torch.float32)
+    tabs = {k[3]: v for k, v in structured._TABLE_CACHE.items()
+            if k[:3] == (N, N, mesh.structured_dc)}
+    calls = sorted(set((t, lead, k if k == 1 else K) for t, lead, k
+                       in port_bounds.COMPOSED_FB_PASSES))
+    rec, bits = {}, {}
+    for t, lead, k in calls:
+        tab, dst, src = tabs[t]
+        ps = structured._NPER[src]
+        f = torch.as_tensor(rs.standard_normal((lead, ps * N * N, k)),
+                            dtype=torch.float32, device=dev)
+        fn = lambda: structured.apply_stencil(mesh, (tab, dst, src), f)
+        b = port_bounds.bound(
+            sum(port_bounds.HEX_CLASSES[t]) * lead * N * N * k * 4, 0)
+        r = {"ms": [cuda_ms(fn) for _ in range(3)],
+             "bound_ms": b["bound_ms"]}
+        if hasattr(stencil_kernel, "attrs"):
+            r["attrs"] = stencil_kernel.attrs(torch.float32,
+                                              k % 4 == 0)
+        rec[f"{t} x{lead} K={k}"] = r
+        del f
+    print(json.dumps({"stencil": rec}), flush=True)
+    # every table's output at leading counts 1 and 2, on inputs of its own
+    # seed (the same in every checkout)
+    for i, (t, (tab, dst, src)) in enumerate(sorted(tabs.items())):
+        for lead in (1, 2):
+            f = torch.as_tensor(np.random.default_rng(100 * i + lead)
+                                .standard_normal((lead, structured._NPER[src]
+                                                  * N * N, K)),
+                                dtype=torch.float32, device=dev)
+            bits[f"{t} x{lead}"] = hashlib.sha256(structured.apply_stencil(
+                mesh, (tab, dst, src), f).cpu().numpy().tobytes()).hexdigest()
+            del f
+
+    # each pass of one composed FB step with column ssh
+    cfg = ModelConfig(nvertlayers=K, ntracers=L, ssh_formulation="column",
+                      tendencies=TendencyConfig(visc_del2=1.0e3,
+                                                visc_del4=1.0e9))
+    kx = 2 * np.pi / mesh_np.x_period
+    ky = 2 * np.pi / mesh_np.y_period
+    ssh = np.sin(kx * mesh_np.x_cell) * np.sin(ky * mesh_np.y_cell)
+    put = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    st = ModelState(put((1000.0 + ssh[:, None]) / K * np.ones((1, K))),
+                    put(np.zeros((mesh_np.nedges, K))),
+                    put(10.0 + np.zeros((L, mesh_np.ncells, K))))
+    names = {id(v[0]): k for k, v in tabs.items()}
+    made, real = [], stencil_kernel.apply
+
+    def spy(tab, ps, pd, nx, ny, field):
+        made.append((names[id(tab)], int(np.prod(field.shape[:-2])),
+                     field.shape[-1]))
+        return real(tab, ps, pd, nx, ny, field)
+    step = lambda: run_steps(mesh, cfg, st, 0.0, 30.0, 1,
+                             stepper=forward_backward_step)
+    step()
+    torch.cuda.synchronize()
+    kern = re.compile(r"stencil_(tiled_|direct_)?kernel")
+    reads, dropped = [], 0
+    stencil_kernel.apply = spy
+    try:
+        for _ in range(3):
+            made.clear()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                step()
+                torch.cuda.synchronize()
+            evs = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and kern.search(e.name)),
+                         key=lambda e: e.time_range.start)
+            if len(evs) != len(made):
+                dropped += 1
+                continue
+            reads.append([(m, e.time_range.elapsed_us() / 1e3)
+                          for m, e in zip(made, evs)])
+    finally:
+        stencil_kernel.apply = real
+    bounds = port_bounds.composed_planar_passes(N, N)
+    out = {"steps_read": len(reads), "steps_left_out": dropped}
+    if reads:
+        order = [m for m, _ in reads[0]]
+        want = [(p["table"], p["lead"], p["K"]) for p in bounds["passes"]]
+        out["order_as_port_bounds"] = order == want
+        out["passes"] = [
+            {"table": m[0], "lead": m[1], "K": m[2],
+             "ms": sorted(r[i][1] for r in reads)[len(reads) // 2],
+             "bound_ms": bounds["passes"][i]["bound_ms"]
+             if order == want else None}
+            for i, m in enumerate(order)]
+        out["sum_ms"] = sum(p["ms"] for p in out["passes"])
+        out["sum_bound_ms"] = bounds["sum"]["bound_ms"]
+    print(json.dumps({"stencil_passes": out}), flush=True)
+
+    save = os.environ.get("PASS_TIMES_SAVE")
+    compare = os.environ.get("PASS_TIMES_COMPARE")
+    if save:
+        with open(os.path.join(save, "stencil_bits.json"), "w") as fh:
+            json.dump(bits, fh)
+    if compare:
+        with open(os.path.join(compare, "stencil_bits.json")) as fh:
+            ref = json.load(fh)
+        print(json.dumps({"stencil_bits_equal": {
+            k: v == ref.get(k) for k, v in bits.items()}}), flush=True)
 
 
 if __name__ == "__main__":

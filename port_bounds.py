@@ -97,6 +97,11 @@ being the bound. Float32 throughout, K = 100 layers, 2 tracers.
           each pass's input read and output written once; with column ssh
           (chip_smoke.py's composed_path) the ssh gradient is one pass on
           a single plane
+  composed_planar_passes  the same 27 passes one by one, in the order
+          the composed planar FB step with column ssh runs them
+          (COMPOSED_FB_PASSES: table, leading indices, layers), each a
+          function of its own (its input read and its output written once)
+          and their sum, for pass_times.py's per-pass table
   split   the TPU split kernels' own I/O (megastep.py:1136 kinds splitpre /
           splitpost; barotropic_kernel.py:97) at 256 x 256, for comparison
           with the port's (chip_smoke.py computes the port's bounds)
@@ -467,6 +472,30 @@ def composed_planar(ny=256, nx=256):
             "column_ssh": bound(int(column), 0)}
 
 
+# the composed planar FB step's stencil passes with column ssh, in the
+# order it runs them: (table, leading indices, layers); the ssh gradient is
+# the one cdiff pass on a single plane
+COMPOSED_FB_PASSES = (
+    ("cmean", 1, K), ("div", 1, K), ("cmean", 2, K), ("cdiff", 2, K),
+    ("signed_div", 2, K), ("div", 2, K), ("cdiff", 2, K),
+    ("signed_div", 2, K), ("cdiff", 2, K), ("signed_div", 2, K),
+    ("curl", 1, K), ("kite", 1, K), ("vmean", 2, K), ("ke", 1, K),
+    ("div", 1, K), ("cmean", 1, K), ("cdiff", 1, K), ("vdiff", 1, K),
+    ("div", 1, K), ("curl", 1, K), ("tang", 2, K), ("cdiff", 1, K),
+    ("cdiff", 1, 1), ("cdiff", 1, K), ("vdiff", 1, K), ("cdiff", 1, K),
+    ("vdiff", 1, K))
+
+
+def composed_planar_passes(ny=256, nx=256):
+    """Each pass of COMPOSED_FB_PASSES as a function of its own at ny x nx
+    float32: (ps + pd) x leading indices x layers planes moved once."""
+    passes = [{"table": t, "lead": lead, "K": k,
+               **bound(sum(HEX_CLASSES[t]) * lead * ny * nx * k * F32, 0)}
+              for t, lead, k in COMPOSED_FB_PASSES]
+    return {"passes": passes,
+            "sum": bound(sum(p["bytes"] for p in passes), 0)}
+
+
 def split_pre_passes(nx=256, ny=256, k=K):
     """The planar splitpre's passes as functions of their own at nx x ny x
     k float32, each input read once and each output written once: this
@@ -535,6 +564,7 @@ if __name__ == "__main__":
     print(json.dumps({"sphere_bt": sphere_bt()}))
     print(json.dumps({"gather": gather()}))
     print(json.dumps({"composed_planar": composed_planar()}))
+    print(json.dumps({"composed_planar_passes": composed_planar_passes()}))
     print(json.dumps({"split": tpu_split_io()}))
     print(json.dumps({"split_pre_passes": split_pre_passes()}))
     print(json.dumps({"split_post_pass": split_post_pass()}))
